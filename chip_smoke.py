@@ -151,8 +151,7 @@ def serve(gen: torch.Generator) -> dict:
     """Phase 4: the serving path through ddim_sample."""
     cfg = DanceDecoderConfig(dancer_num=3)
     dcfg = DiffusionConfig()
-    model = DanceDecoder(cfg, dtype=torch.bfloat16)
-    model.init_random(torch.Generator().manual_seed(0)).cuda().eval()
+    model = DanceDecoder(cfg, dtype=torch.bfloat16).init_random(torch.Generator().manual_seed(0))
     diff = GaussianDiffusion(model, dcfg)
     shape = (REQ_BATCH, cfg.tokens, cfg.nfeats)
     reqs = [

@@ -3,7 +3,7 @@
 Layout mirrors `tcdiff_tpu/`: `models/` (rotary, DanceDecoder),
 `diffusion/` (schedules, DDIM sampler), `ops/` (the block kernels, their
 plain versions and the nvcc build), `csrc/` (CUDA sources) and `interop/`
-(flax weights in). Configuration types are `tcdiff_tpu.config`'s.
+(flax weights in). Configuration types are in `config.py`.
 """
 
-from tcdiff_tpu.config import DanceDecoderConfig, DiffusionConfig  # noqa: F401
+from tcdiff_torch.config import DanceDecoderConfig, DiffusionConfig  # noqa: F401

@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tcdiff_tpu.config import DiffusionConfig
+from tcdiff_torch.config import DiffusionConfig
 from tcdiff_torch.diffusion.schedules import DiffusionBuffers, ddim_times
 from tcdiff_torch.models.dance_decoder import CondCache, DanceDecoder
 
@@ -30,9 +30,15 @@ def impose_traj(x: torch.Tensor, x_0: torch.Tensor) -> torch.Tensor:
 
 
 class GaussianDiffusion:
-    """Sampler bound to a DanceDecoder; holds the f32 coefficient tables."""
+    """Sampler bound to a DanceDecoder; holds the f32 coefficient tables.
+    `device` (the GPU unless the caller asks for the CPU) is where the
+    model must live."""
 
-    def __init__(self, model: DanceDecoder, cfg: DiffusionConfig):
+    def __init__(self, model: DanceDecoder, cfg: DiffusionConfig, device="cuda"):
+        self.device = torch.empty(0, device=device).device  # raises where the device does not exist
+        for name, p in model.named_parameters():
+            if p.device != self.device:
+                raise ValueError(f"model parameter {name} is on {p.device}, the diffusion on {self.device}")
         self.model = model
         self.cfg = cfg
         self.buffers = DiffusionBuffers.create(cfg.schedule, cfg.n_timestep)

@@ -13,11 +13,13 @@ by default:
     x-only prefix (input, fusion and trajectory projections and layer 0's
     self-attention block) runs once before it is tiled to the doubled batch.
 
-Module and parameter names follow the reference state-dict layout that
-`tcdiff_tpu.interop.torch_convert.dance_decoder_params_to_torch` emits, so
-`load_state_dict(..., strict=True)` takes its output. Parameters are
-float32; activations run in `dtype` (float32 or bfloat16), with weights
-cast per use and LayerNorm statistics in f32, as the flax modules do.
+Module and parameter names follow the reference state-dict layout
+(`tcdiff_torch.interop.from_jax.params_to_state_dict` maps a flax tree onto
+it), so `load_state_dict(..., strict=True)` takes a reference checkpoint.
+Parameters are float32 and live on `device` (the GPU unless the caller asks
+for the CPU); activations run in `dtype` (float32 or bfloat16), with
+weights cast per use and LayerNorm statistics in f32, as the flax modules
+do.
 
 Each decoder layer's self-attention block and FF block + tail run through
 `tcdiff_torch.ops` (CUDA kernels for CUDA tensors). Cross-attention stays
@@ -33,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tcdiff_tpu.config import DanceDecoderConfig
+from tcdiff_torch.config import DanceDecoderConfig
 from tcdiff_torch.models.rotary import RotaryEmbedding, angle_table, apply_rotary
 from tcdiff_torch.ops import ff_block, sa_block
 
@@ -280,7 +282,7 @@ class DanceDecoder(nn.Module):
     """
 
     def __init__(self, cfg: DanceDecoderConfig, dtype: torch.dtype = torch.float32,
-                 use_traj_modulation: bool = False):
+                 use_traj_modulation: bool = False, device="cuda"):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
@@ -312,6 +314,7 @@ class DanceDecoder(nn.Module):
             FiLMTransformerDecoderLayer(d, cfg.num_heads, cfg.ff_size, cfg.head_dim, use_traj_modulation)
             for _ in range(cfg.num_layers)
         ])
+        self.to(device)  # raises where the device does not exist: no quiet CPU fallback
 
     @property
     def layers(self):

@@ -14,7 +14,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from tcdiff_tpu.interop.torch_convert import _rotary_freqs as inv_freq_buffer
+
+
+def inv_freq_buffer(dim: int) -> np.ndarray:
+    """The reference RotaryEmbedding's `freqs` buffer: 1 / 10000^(2i/dim),
+    computed in float32 throughout so that it matches the reference's
+    buffer bit for bit."""
+    exponent = np.arange(0, dim, 2, dtype=np.float32) / np.float32(dim)
+    return (np.float32(1.0) / np.float32(10000.0) ** exponent).astype(np.float32)
 
 
 def rotary_freqs(seq_len: int, dim: int, theta: float = 10000.0) -> np.ndarray:

@@ -47,7 +47,7 @@ def models():
     # leaf so that each one shows in the comparison
     rng = np.random.default_rng(9)
     params = jax.tree.map(lambda p: p + 0.05 * rng.normal(size=p.shape).astype(np.float32), params)
-    tmodel = load_jax_params(DanceDecoder(CFG), jax.tree.map(np.asarray, params))
+    tmodel = load_jax_params(DanceDecoder(CFG, device="cpu"), jax.tree.map(np.asarray, params))
     return jmodel, params, tmodel.eval()
 
 
@@ -104,7 +104,7 @@ def test_cond_cache_and_guided_match_jax_kernels(models, monkeypatch):
     jcache = jd.encode_cond_cfg(params, jnp.asarray(cond))
     ref = jd.guided(params, jnp.asarray(x), None, jnp.asarray(t), 2.0, cond_cache=jcache)
 
-    td = GaussianDiffusion(tmodel, DiffusionConfig())
+    td = GaussianDiffusion(tmodel, DiffusionConfig(), device="cpu")
     with torch.no_grad():
         cache = td.encode_cond_cfg(torch.from_numpy(cond))
         out = td.guided(torch.from_numpy(x), None, torch.from_numpy(t), 2.0, cond_cache=cache)

@@ -62,8 +62,8 @@ def test_ddim_sample_matches_jax_on_injected_noise():
     ref = JaxDiffusion(jmodel, dcfg).ddim_sample(
         params, shape, jnp.asarray(cond), jax.random.key(1), jnp.asarray(x_0), noise
     )
-    model = load_jax_params(DanceDecoder(CFG), jax.tree.map(np.asarray, params)).eval()
-    out = GaussianDiffusion(model, dcfg).ddim_sample(
+    model = load_jax_params(DanceDecoder(CFG, device="cpu"), jax.tree.map(np.asarray, params)).eval()
+    out = GaussianDiffusion(model, dcfg, device="cpu").ddim_sample(
         shape, torch.from_numpy(cond), x_0=torch.from_numpy(x_0), noise=noise
     )
     ref = np.asarray(ref)
