@@ -1,0 +1,120 @@
+// Cross-attention block of the FiLM decoder layer in training, forward and
+// backward, for Hopper (sm_90a).
+//
+// Replaces tcdiff_tpu/ops/fused_ca_block_train.py::fused_ca_block_train
+// (forward _ca_train_fwd_kernel; backward _ca_bwd_qkv_kernel,
+// _ca_bwd_projx_kernel, _ca_bwd_projm_kernel and the self-attention
+// block's head and chain-top kernels):
+//
+//   r = rotary_x(LN(x; eps1))   rm = rotary_m(mem)
+//   q = r.Wq   k = rm.Wk   v = mem.Wv
+//   o = per head drop_ATTN(softmax(q.k^T / sqrt(dk))) . v       (L x Lm)
+//   out = x + (fs+1) * drop_OUT(LN(drop_FC(o.Wfc); eps2)) + fb
+//
+// and its gradients, including the memory cotangent
+//   d mem = rot_m^T(dk.Wk) + dv.Wv
+// through which the cond encoder trains.
+//
+// What bounds it on the H100: at the train shape (b=64, L=450, Lm=152,
+// d=512, 8x64 heads) the forward is 49 GFLOP (of which the attention is
+// 9), the backward about twice that: compute-bound.
+//
+// Design: the self-attention block's (sa_block_train.cu) with the
+// attention generic in Lk (train_common.cuh); the memory side gets its own
+// rotary kernel forward and a rotary-transpose row pass (no LayerNorm)
+// backward.
+#include "train_common.cuh"
+
+namespace tcd {
+
+struct CaTrainArgs {
+  // inputs
+  const void *x, *mem, *cosx, *ssinx, *cosm, *ssinm, *wq, *wk, *wv, *wfc;
+  const float *sx, *bx, *ss, *sb, *fs, *fb;  // norm2 affine, the block's LN affine, FiLM rows
+  const void* seeds;
+  // saved by the forward
+  void *r, *rm, *q, *k, *v, *o;
+  float *lse, *z;
+  void* out;
+  // backward
+  const void* g;
+  void *dz, *dO, *dq, *dk, *dv, *dx, *dmem, *dwq, *dwk, *dwv, *dwfc;
+  float *dr, *drm, *dvm, *part, *wpart, *Dsum, *vec;
+  int B, L, Lm, d, hd, nhead, nsplit, drop_on;
+  float eps1, eps2, dscale;
+  uint32_t thresh;
+};
+
+template <typename T>
+int ca_fwd(const CaTrainArgs& a, cudaStream_t st) {
+  const int M = a.B * a.L, Mm = a.B * a.Lm;
+  const Drop dr = make_drop(a.seeds, a.thresh, a.dscale, a.drop_on);
+  const T *x = (const T*)a.x, *mem = (const T*)a.mem;
+  T *r = (T*)a.r, *rm = (T*)a.rm, *q = (T*)a.q, *k = (T*)a.k, *v = (T*)a.v, *o = (T*)a.o;
+  ln_rows_kernel<T, T><<<M, 256, 0, st>>>(x, a.sx, a.bx, a.eps1, a.d, a.L, (const T*)a.cosx,
+                                          (const T*)a.ssinx, nullptr, nullptr, nullptr, nullptr, r);
+  rot_rows_kernel<T><<<Mm, 256, 0, st>>>(mem, (const T*)a.cosm, (const T*)a.ssinm, a.d, a.Lm, rm);
+  gemm<T, EPI_STORE>(r, (const T*)a.wq, M, a.hd, a.d, epi(q), st);
+  gemm<T, EPI_STORE>(rm, (const T*)a.wk, Mm, a.hd, a.d, epi(k), st);
+  gemm<T, EPI_STORE>(mem, (const T*)a.wv, Mm, a.hd, a.d, epi(v), st);
+  attention_fwd<T>(q, k, v, a.B, a.nhead, a.L, a.Lm, a.hd, dr, o, a.lse, st);
+  gemm<T, EPI_STORE_F32>(o, (const T*)a.wfc, M, a.d, a.hd, epi(a.z), st);
+  chain_top_fwd_kernel<T><<<M, RT, 0, st>>>(a.z, x, a.ss, a.sb, a.fs, a.fb, a.eps2, a.L, a.d, dr,
+                                            (T*)a.out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int ca_bwd(const CaTrainArgs& a, cudaStream_t st) {
+  const int M = a.B * a.L, Mm = a.B * a.Lm, d = a.d, hd = a.hd, nch = cdiv(a.L, RCH);
+  const size_t P = (size_t)a.B * nch * d, V = (size_t)a.B * d;
+  const Drop dr = make_drop(a.seeds, a.thresh, a.dscale, a.drop_on);
+  const T *x = (const T*)a.x, *mem = (const T*)a.mem, *g = (const T*)a.g;
+  const T *wq = (const T*)a.wq, *wk = (const T*)a.wk, *wv = (const T*)a.wv, *wfc = (const T*)a.wfc;
+  const T *r = (const T*)a.r, *rm = (const T*)a.rm, *q = (const T*)a.q, *k = (const T*)a.k,
+          *v = (const T*)a.v, *o = (const T*)a.o;
+  T *dz = (T*)a.dz, *dO = (T*)a.dO, *dq = (T*)a.dq, *dk = (T*)a.dk, *dv = (T*)a.dv;
+
+  // chain top: partials 0 fs, 1 fb, 2 ss, 3 sb
+  chain_top_bwd_kernel<T><<<dim3(nch, a.B), RT, 0, st>>>(g, a.z, a.ss, a.sb, a.fs, a.eps2, a.L, d,
+                                                         dr, dz, a.part, a.part + P,
+                                                         a.part + 2 * P, a.part + 3 * P);
+  wgrad<T>(dz, o, M, d, hd, a.wpart, a.nsplit, (T*)a.dwfc, st);
+  gemm_t<T, false, false, EPI_STORE>(dz, wfc, M, hd, d, epi(dO), st);
+  attention_bwd<T>(q, k, v, o, dO, a.lse, a.B, a.nhead, a.L, a.Lm, hd, dr, a.Dsum, dq, dk, dv, st);
+  wgrad<T>(dq, r, M, hd, d, a.wpart, a.nsplit, (T*)a.dwq, st);
+  wgrad<T>(dk, rm, Mm, hd, d, a.wpart, a.nsplit, (T*)a.dwk, st);
+  wgrad<T>(dv, mem, Mm, hd, d, a.wpart, a.nsplit, (T*)a.dwv, st);
+  // x side: dx = g + LN2_bwd(rot_x^T(dq.Wq)): partials 4 sx, 5 bx
+  gemm_t<T, false, false, EPI_STORE_F32>(dq, wq, M, d, hd, epi(a.dr), st);
+  rows_bwd_kernel<T><<<dim3(nch, a.B), RT, 0, st>>>(a.dr, (const T*)a.cosx, (const T*)a.ssinx,
+                                                    nullptr, x, a.sx, a.eps1, g, nullptr, a.L, d,
+                                                    (T*)a.dx, a.part + 4 * P, a.part + 5 * P);
+  // memory side: dmem = rot_m^T(dk.Wk) + dv.Wv
+  gemm_t<T, false, false, EPI_STORE_F32>(dk, wk, Mm, d, hd, epi(a.drm), st);
+  gemm_t<T, false, false, EPI_STORE_F32>(dv, wv, Mm, d, hd, epi(a.dvm), st);
+  rows_bwd_kernel<T><<<dim3(cdiv(a.Lm, RCH), a.B), RT, 0, st>>>(
+      a.drm, (const T*)a.cosm, (const T*)a.ssinm, a.dvm, nullptr, nullptr, 0.f, nullptr, nullptr,
+      a.Lm, d, (T*)a.dmem, nullptr, nullptr);
+  reduce_per_batch(a.part, a.B, nch, d, a.vec, st);
+  reduce_per_batch(a.part + P, a.B, nch, d, a.vec + V, st);
+  for (int i = 2; i < 6; ++i) reduce_all(a.part + i * P, a.B, nch, d, a.vec + i * V, st);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tcd
+
+// dtype: 0 = float32, 1 = bfloat16. Return cudaGetLastError() after the launches.
+extern "C" int tcd_ca_train_fwd(int dtype, const tcd::CaTrainArgs* a, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return tcd::ca_fwd<float>(*a, st);
+  if (dtype == 1) return tcd::ca_fwd<__nv_bfloat16>(*a, st);
+  return -1;
+}
+
+extern "C" int tcd_ca_train_bwd(int dtype, const tcd::CaTrainArgs* a, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return tcd::ca_bwd<float>(*a, st);
+  if (dtype == 1) return tcd::ca_bwd<__nv_bfloat16>(*a, st);
+  return -1;
+}

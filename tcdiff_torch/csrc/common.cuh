@@ -1,9 +1,11 @@
-// Building blocks shared by the block kernels (sa_block.cu, ff_tail.cu).
+// Building blocks shared by the block kernels (sa_block.cu, ff_tail.cu and
+// the train kernels through train_common.cuh).
 //
 // Everything is templated on the element type T (float or __nv_bfloat16):
 // tensors are loaded and stored in T, and LayerNorm statistics, products
 // and sums are taken in f32. Weights arrive in nn.Linear layout (out, in),
-// so a projection is C[M, N] = A[M, K] . W[N, K]^T.
+// so a projection is C[M, N] = A[M, K] . W[N, K]^T; the backward's
+// products use the same tiles with the other operand layouts.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -26,6 +28,37 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 template <typename T> __device__ __forceinline__ float round_t(float v) { return to_f(from_f<T>(v)); }
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// ------------------------------------------------------------- dropout
+// The hash dropout of the train path, bit for bit the TPU kernels'
+// _keep_mask: element idx of a site with salt `salt` is kept iff
+// hash(seed, salt, idx) >= thresh, and kept values are scaled by `scale`.
+// idx = row * ncols + col over the per-batch-element (rows, ncols) array.
+__device__ __forceinline__ uint32_t drop_hash(uint32_t seed, uint32_t salt, uint32_t idx) {
+  uint32_t h = idx ^ (seed + 0x9E3779B9u * salt);
+  h = (h ^ (h >> 16)) * 0x7FEB352Du;
+  h = (h ^ (h >> 15)) * 0x846CA68Bu;
+  return h ^ (h >> 16);
+}
+
+struct Drop {
+  const uint32_t* seeds;  // (B,) one seed per batch element
+  uint32_t thresh;
+  float scale;            // 1 / (1 - rate) in f32
+  int on;                 // 0: rate == 0, the site is skipped
+};
+
+__device__ __forceinline__ bool keep(const Drop& d, int b, uint32_t salt, uint32_t idx) {
+  return !d.on || drop_hash(d.seeds[b], salt, idx) >= d.thresh;
+}
+
+__device__ __forceinline__ float dropv(float v, const Drop& d, int b, uint32_t salt, uint32_t idx) {
+  return !d.on ? v : (drop_hash(d.seeds[b], salt, idx) >= d.thresh ? v * d.scale : 0.f);
+}
+
+// dropout-site salts (ops/train_common.py)
+constexpr uint32_t SALT_ATTN = 0x100, SALT_FC = 0x200, SALT_OUT = 0x300, SALT_FF1 = 0x400,
+                   SALT_FF2 = 0x500;
 
 // Sum of two values over the block (blockDim.x a multiple of 32, <= 1024).
 __device__ __forceinline__ void block_sum2(float& a, float& b) {
@@ -72,7 +105,7 @@ __global__ void ln_rows_kernel(const TI* __restrict__ in, const float* __restric
   const float mu = s / d;
   const float rs = rsqrtf(ss / d - mu * mu + eps);
   const int l = m % L, b = m / L;
-  for (int p = threadIdx.x; p < d / 2; p += blockDim.x) {
+  for (int p = threadIdx.x; p < d / 2; p += blockDim.x) {  // out may be null: rotated output only
     const int c0 = 2 * p, c1 = c0 + 1;
     float y0 = (to_f(row[c0]) - mu) * rs * scale[c0] + bias[c0];
     float y1 = (to_f(row[c1]) - mu) * rs * scale[c1] + bias[c1];
@@ -88,21 +121,45 @@ __global__ void ln_rows_kernel(const TI* __restrict__ in, const float* __restric
       y0 = to_f(resid[(size_t)m * d + c0]) + (fs[f + c0] + 1.f) * y0 + fb[f + c0];
       y1 = to_f(resid[(size_t)m * d + c1]) + (fs[f + c1] + 1.f) * y1 + fb[f + c1];
     }
-    out[(size_t)m * d + c0] = from_f<T>(y0);
-    out[(size_t)m * d + c1] = from_f<T>(y1);
+    if (out) {
+      out[(size_t)m * d + c0] = from_f<T>(y0);
+      out[(size_t)m * d + c1] = from_f<T>(y1);
+    }
+  }
+}
+
+// Rotary only (the cross-attention memory side): out = T(in*cos + swap(in)*ssin).
+template <typename T>
+__global__ void rot_rows_kernel(const T* __restrict__ in, const T* __restrict__ cos_t,
+                                const T* __restrict__ ssin_t, int d, int L, T* __restrict__ out) {
+  const int m = blockIdx.x, l = m % L;
+  const T* row = in + (size_t)m * d;
+  const size_t t = (size_t)l * d;
+  for (int p = threadIdx.x; p < d / 2; p += blockDim.x) {
+    const int c0 = 2 * p, c1 = c0 + 1;
+    const float y0 = to_f(row[c0]), y1 = to_f(row[c1]);
+    out[(size_t)m * d + c0] = from_f<T>(y0 * to_f(cos_t[t + c0]) + y1 * to_f(ssin_t[t + c0]));
+    out[(size_t)m * d + c1] = from_f<T>(y1 * to_f(cos_t[t + c1]) + y0 * to_f(ssin_t[t + c1]));
   }
 }
 
 // ---------------------------------------------------------------- GEMM
-// C = A . W^T with an epilogue, FMA tiles: a 64x64 output tile per block
-// of 256 threads, 4x4 outputs per thread, K in steps of 16 through shared
-// memory (operands widened to f32 on the way in).
+// C[M, N] = opA[M, K] . opB[K, N] with an epilogue, FMA tiles: a 64x64
+// output tile per block of 256 threads, 4x4 outputs per thread, K in steps
+// of 16 through shared memory (operands widened to f32 on the way in).
+// TA: A is stored (K, M) (else (M, K)); TB: B is stored (N, K) (else
+// (K, N)); both row-major. The projections are TB (a weight in nn.Linear
+// layout), the input gradients plain, the weight gradients TA with the
+// rows as K, split over blockIdx.z into chunks of `kchunk` (EPI_PARTIAL).
 enum Epi {
   EPI_STORE = 0,       // C(T)   = acc
   EPI_STORE_F32 = 1,   // C(f32) = acc
   EPI_BIAS = 2,        // C(T)   = acc + bias
-  EPI_BIAS_GELU = 3,   // C(T)   = gelu_erf(acc + bias)
-  EPI_BIAS_FILM = 4,   // C(f32) = resid + (fs[b] + 1) * (acc + bias) + fb[b]
+  EPI_BIAS_GELU = 3,   // u = acc + bias; C(T) = drop(gelu_erf(u)); c2(f32) = u if c2
+  EPI_BIAS_FILM = 4,   // zd = drop(acc + bias); C(f32) = resid + (fs[b] + 1) * zd + fb[b];
+                       // c2(f32) = zd if c2
+  EPI_ACC_F32 = 5,     // C(f32) += acc
+  EPI_PARTIAL = 6,     // C(f32)[blockIdx.z][m][n] = acc over this block's K chunk
 };
 
 struct EpiArgs {
@@ -112,32 +169,41 @@ struct EpiArgs {
   const float* fs;    // (M / L, N)
   const float* fb;
   int L;
+  float* c2;          // second output of EPI_BIAS_GELU / EPI_BIAS_FILM
+  Drop dr;            // dropout of EPI_BIAS_GELU / EPI_BIAS_FILM; off unless set
+  uint32_t salt;
 };
 
 constexpr int GBM = 64, GBN = 64, GBK = 16;
 
-template <typename T, int EPI>
+template <typename T, bool TA, bool TB, int EPI>
 __global__ void __launch_bounds__(256)
-gemm_kernel(const T* __restrict__ A, const T* __restrict__ W, int M, int N, int K, EpiArgs ep) {
+gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, int M, int N, int K, int kchunk,
+            EpiArgs ep) {
   __shared__ float As[GBK][GBM + 4];
-  __shared__ float Ws[GBK][GBN + 4];
+  __shared__ float Bs[GBK][GBN + 4];
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
+  const int kb = blockIdx.z * kchunk, ke = min(K, kb + kchunk);
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < K; k0 += GBK) {
+  for (int k0 = kb; k0 < ke; k0 += GBK) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int idx = tid + i * 256;
-      const int r = idx / GBK, c = idx % GBK;
-      const int gk = k0 + c;
-      const int gm = m0 + r, gn = n0 + r;
-      As[c][r] = (gm < M && gk < K) ? to_f(A[(size_t)gm * K + gk]) : 0.f;
-      Ws[c][r] = (gn < N && gk < K) ? to_f(W[(size_t)gn * K + gk]) : 0.f;
+      // neighbouring threads read neighbouring addresses in either layout
+      const int ar = TA ? idx % GBM : idx / GBK, ac = TA ? idx / GBM : idx % GBK;
+      const int gm = m0 + ar, gka = k0 + ac;
+      As[ac][ar] = (gm < M && gka < ke)
+                       ? to_f(TA ? A[(size_t)gka * M + gm] : A[(size_t)gm * K + gka]) : 0.f;
+      const int bn = TB ? idx / GBK : idx % GBN, bk = TB ? idx % GBK : idx / GBN;
+      const int gn = n0 + bn, gkb = k0 + bk;
+      Bs[bk][bn] = (gn < N && gkb < ke)
+                       ? to_f(TB ? B[(size_t)gn * K + gkb] : B[(size_t)gkb * N + gn]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -146,7 +212,7 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ W, int M, int N, int 
 #pragma unroll
       for (int i = 0; i < 4; ++i) a[i] = As[k][ty * 4 + i];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = Ws[k][tx * 4 + j];
+      for (int j = 0; j < 4; ++j) w[j] = Bs[k][tx * 4 + j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -173,19 +239,36 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ W, int M, int N, int 
         static_cast<T*>(ep.c)[o] = from_f<T>(v + ep.bias[n]);
       } else if (EPI == EPI_BIAS_GELU) {
         v += ep.bias[n];
-        static_cast<T*>(ep.c)[o] = from_f<T>(0.5f * v * (1.f + erff(v * 0.70710678118654752f)));
-      } else {  // EPI_BIAS_FILM
+        if (ep.c2) ep.c2[o] = v;
+        const float g = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+        static_cast<T*>(ep.c)[o] =
+            from_f<T>(dropv(g, ep.dr, m / ep.L, ep.salt, (uint32_t)((m % ep.L) * N + n)));
+      } else if (EPI == EPI_BIAS_FILM) {
         const size_t f = (size_t)(m / ep.L) * N + n;
-        v = to_f(static_cast<const T*>(ep.resid)[o]) + (ep.fs[f] + 1.f) * (v + ep.bias[n]) + ep.fb[f];
-        static_cast<float*>(ep.c)[o] = v;
+        const float zd = dropv(v + ep.bias[n], ep.dr, m / ep.L, ep.salt, (uint32_t)((m % ep.L) * N + n));
+        if (ep.c2) ep.c2[o] = zd;
+        static_cast<float*>(ep.c)[o] = to_f(static_cast<const T*>(ep.resid)[o]) + (ep.fs[f] + 1.f) * zd + ep.fb[f];
+      } else if (EPI == EPI_ACC_F32) {
+        static_cast<float*>(ep.c)[o] += v;
+      } else {  // EPI_PARTIAL
+        static_cast<float*>(ep.c)[(size_t)blockIdx.z * M * N + o] = v;
       }
     }
   }
 }
 
+template <typename T, bool TA, bool TB, int EPI>
+inline void gemm_t(const T* A, const T* B, int M, int N, int K, EpiArgs ep, cudaStream_t st,
+                   int kchunk = 0) {
+  if (kchunk <= 0) kchunk = K;
+  gemm_kernel<T, TA, TB, EPI><<<dim3(cdiv(N, GBN), cdiv(M, GBM), cdiv(K, kchunk)), 256, 0, st>>>(
+      A, B, M, N, K, kchunk, ep);
+}
+
+// C = A . W^T, W in nn.Linear layout (N, K): the forward projections.
 template <typename T, int EPI>
 inline void gemm(const T* A, const T* W, int M, int N, int K, EpiArgs ep, cudaStream_t st) {
-  gemm_kernel<T, EPI><<<dim3(cdiv(N, GBN), cdiv(M, GBM)), 256, 0, st>>>(A, W, M, N, K, ep);
+  gemm_t<T, false, true, EPI>(A, W, M, N, K, ep, st);
 }
 
 inline EpiArgs epi(void* c, const float* bias = nullptr, const void* resid = nullptr,
@@ -197,6 +280,12 @@ inline EpiArgs epi(void* c, const float* bias = nullptr, const void* resid = nul
   e.fs = fs;
   e.fb = fb;
   e.L = L;
+  e.c2 = nullptr;
+  e.dr.seeds = nullptr;
+  e.dr.thresh = 0;
+  e.dr.scale = 1.f;
+  e.dr.on = 0;
+  e.salt = 0;
   return e;
 }
 

@@ -1,0 +1,568 @@
+// Building blocks of the train-block kernels (sa_block_train.cu,
+// ca_block_train.cu, ff_tail_train.cu): row kernels for the LayerNorm /
+// dropout / FiLM chains forward and backward, the reductions of parameter
+// gradients, and a flash-style attention forward and backward with the
+// hash dropout on the probabilities, generic in Lq and Lk.
+//
+// Parameter gradients are sums over the b*L rows. Hopper blocks run in no
+// set order, so nothing is accumulated across blocks: each block writes
+// the partial sum of its rows, and a second pass (reduce_kernel) adds the
+// partials in a fixed order. A run repeats bit for bit; no atomics.
+#pragma once
+
+#include "common.cuh"
+
+namespace tcd {
+
+// ------------------------------------------------------------- row kernels
+// A row kernel's block of RT threads walks RCH consecutive rows of one
+// batch element (grid (cdiv(L, RCH), B)); thread t owns columns
+// t, t + RT, ... (at most CPT of them, so d <= RT * CPT = 1024) and keeps
+// its columns' partial gradient sums in registers across the rows.
+constexpr int RT = 128, CPT = 8, RCH = 16;
+
+// out[g * cols + j] = sum_{i < n} part[(g * n + i) * cols + j], in f32, i in order.
+template <typename TO>
+__global__ void reduce_kernel(const float* __restrict__ part, int n, size_t cols, TO* __restrict__ out) {
+  const size_t j = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= cols) return;
+  const float* p = part + (size_t)blockIdx.y * n * cols + j;
+  float s = 0.f;
+  for (int i = 0; i < n; ++i) s += p[(size_t)i * cols];
+  out[(size_t)blockIdx.y * cols + j] = from_f<TO>(s);
+}
+
+// Sum `groups` stacks of n partial rows of `cols` values each.
+template <typename TO>
+inline void reduce(const float* part, int groups, int n, size_t cols, TO* out, cudaStream_t st) {
+  reduce_kernel<TO><<<dim3((unsigned)((cols + 255) / 256), groups), 256, 0, st>>>(part, n, cols, out);
+}
+
+// Column sums of the row-chunk partials: per batch element (dfs, dfb) or
+// over everything (LayerNorm affines, biases); `part` is (B * nch, cols).
+inline void reduce_per_batch(const float* part, int B, int nch, int cols, float* out, cudaStream_t st) {
+  reduce<float>(part, B, nch, cols, out, st);
+}
+inline void reduce_all(const float* part, int B, int nch, int cols, float* out, cudaStream_t st) {
+  reduce<float>(part, 1, B * nch, cols, out, st);
+}
+
+// dW (N, K) = sum_r G[r, n] * X[r, k] for G (R, N), X (R, K): the weight
+// gradient of an nn.Linear layer, y = x W^T. The R rows are split into at
+// most `nsplit` chunks whose f32 partials (`part`, >= nsplit * N * K
+// floats) are then added in order and cast to T.
+template <typename T>
+inline void wgrad(const T* G, const T* X, int R, int N, int K, float* part, int nsplit, T* out,
+                  cudaStream_t st) {
+  const int rchunk = cdiv(cdiv(R, nsplit), GBK) * GBK;
+  gemm_t<T, true, false, EPI_PARTIAL>(G, X, N, K, R, epi(part), st, rchunk);
+  reduce<T>(part, 1, cdiv(R, rchunk), (size_t)N * K, out, st);
+}
+
+// Writes a thread's column partials to row `row` of each given (rows, d) array.
+__device__ __forceinline__ void store_partial(float* p, size_t row, int d, const float (&a)[CPT]) {
+  if (!p) return;
+#pragma unroll
+  for (int k = 0; k < CPT; ++k) {
+    const int c = threadIdx.x + k * RT;
+    if (c < d) p[row * d + c] = a[k];
+  }
+}
+
+// Chain top of an attention block, forward, one row per block (grid M):
+//   out = x + (fs+1) * drop_OUT(LN(drop_FC(z); eps) * s + b) + fb
+template <typename T>
+__global__ void __launch_bounds__(RT)
+chain_top_fwd_kernel(const float* __restrict__ z, const T* __restrict__ x, const float* __restrict__ s,
+                     const float* __restrict__ bb, const float* __restrict__ fs,
+                     const float* __restrict__ fb, float eps, int L, int d, Drop dr, T* __restrict__ out) {
+  const int m = blockIdx.x, b = m / L, l = m % L;
+  float v[CPT];
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int k = 0; k < CPT; ++k) {
+    const int c = threadIdx.x + k * RT;
+    v[k] = c < d ? dropv(z[(size_t)m * d + c], dr, b, SALT_FC, (uint32_t)(l * d + c)) : 0.f;
+    s1 += v[k];
+    s2 += v[k] * v[k];
+  }
+  block_sum2(s1, s2);
+  const float mu = s1 / d, rs = rsqrtf(s2 / d - mu * mu + eps);
+#pragma unroll
+  for (int k = 0; k < CPT; ++k) {
+    const int c = threadIdx.x + k * RT;
+    if (c >= d) continue;
+    const uint32_t idx = (uint32_t)(l * d + c);
+    const float sa = dropv((v[k] - mu) * rs * s[c] + bb[c], dr, b, SALT_OUT, idx);
+    const size_t o = (size_t)m * d + c;
+    out[o] = from_f<T>(to_f(x[o]) + (fs[(size_t)b * d + c] + 1.f) * sa + fb[(size_t)b * d + c]);
+  }
+}
+
+// Chain top backward (grid (cdiv(L, RCH), B)): given g = d out, recompute
+// z2 = drop_FC(z), its LN and sa_d = drop_OUT(LN * s + b); then
+//   d fs += g * sa_d, d fb += g                       (per batch element)
+//   gsa = drop_OUT(g * (fs+1));  d s += gsa * xhat, d b += gsa
+//   dz = drop_FC(LN_bwd(gsa))                         -> T
+template <typename T>
+__global__ void __launch_bounds__(RT)
+chain_top_bwd_kernel(const T* __restrict__ g, const float* __restrict__ z, const float* __restrict__ s,
+                     const float* __restrict__ bb, const float* __restrict__ fs, float eps, int L,
+                     int d, Drop dr, T* __restrict__ dz, float* p_fs, float* p_fb, float* p_s,
+                     float* p_b) {
+  const int chunk = blockIdx.x, b = blockIdx.y;
+  float afs[CPT], afb[CPT], as[CPT], ab[CPT];
+#pragma unroll
+  for (int k = 0; k < CPT; ++k) afs[k] = afb[k] = as[k] = ab[k] = 0.f;
+  const int l1 = min(L, (chunk + 1) * RCH);
+  for (int l = chunk * RCH; l < l1; ++l) {
+    const size_t m = (size_t)b * L + l;
+    float xh[CPT], gx[CPT];
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) {
+      const int c = threadIdx.x + k * RT;
+      xh[k] = c < d ? dropv(z[m * d + c], dr, b, SALT_FC, (uint32_t)(l * d + c)) : 0.f;
+      s1 += xh[k];
+      s2 += xh[k] * xh[k];
+    }
+    block_sum2(s1, s2);
+    const float mu = s1 / d, rs = rsqrtf(s2 / d - mu * mu + eps);
+    float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) {
+      const int c = threadIdx.x + k * RT;
+      gx[k] = 0.f;
+      if (c >= d) continue;
+      const uint32_t idx = (uint32_t)(l * d + c);
+      xh[k] = (xh[k] - mu) * rs;
+      const float sad = dropv(xh[k] * s[c] + bb[c], dr, b, SALT_OUT, idx);
+      const float gg = to_f(g[m * d + c]);
+      afs[k] += gg * sad;
+      afb[k] += gg;
+      const float gsa = dropv(gg * (fs[(size_t)b * d + c] + 1.f), dr, b, SALT_OUT, idx);
+      as[k] += gsa * xh[k];
+      ab[k] += gsa;
+      gx[k] = gsa * s[c];
+      m1 += gx[k];
+      m2 += gx[k] * xh[k];
+    }
+    block_sum2(m1, m2);
+    m1 /= d;
+    m2 /= d;
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) {
+      const int c = threadIdx.x + k * RT;
+      if (c >= d) continue;
+      const float dz2 = rs * (gx[k] - m1 - xh[k] * m2);
+      dz[m * d + c] = from_f<T>(dropv(dz2, dr, b, SALT_FC, (uint32_t)(l * d + c)));
+    }
+  }
+  const size_t row = (size_t)b * gridDim.x + chunk;
+  store_partial(p_fs, row, d, afs);
+  store_partial(p_fb, row, d, afb);
+  store_partial(p_s, row, d, as);
+  store_partial(p_b, row, d, ab);
+}
+
+// The bottom of a block's backward (grid (cdiv(L, RCH), B)):
+//   dy  = (cos ? rot^T(dr) : dr) + (dadd ? dadd : 0)       rot^T(g) = g*cos + swap(g*ssin)
+//   dxl = x ? LN_bwd(dy; stats of x, scale s) : dy           d s += dy * xhat, d b += dy
+//   out = T(dxl + resT + res32)                              (residuals where given)
+// d must be even (rotary pairs (2i, 2i+1) sit in neighbouring lanes).
+template <typename T>
+__global__ void __launch_bounds__(RT)
+rows_bwd_kernel(const float* __restrict__ dr, const T* __restrict__ cos_t, const T* __restrict__ ssin_t,
+                const float* __restrict__ dadd, const T* __restrict__ x, const float* __restrict__ s,
+                float eps, const T* __restrict__ resT, const float* __restrict__ res32, int L, int d,
+                T* __restrict__ out, float* p_s, float* p_b) {
+  const int chunk = blockIdx.x, b = blockIdx.y;
+  float as[CPT], ab[CPT];
+#pragma unroll
+  for (int k = 0; k < CPT; ++k) as[k] = ab[k] = 0.f;
+  const int l1 = min(L, (chunk + 1) * RCH);
+  for (int l = chunk * RCH; l < l1; ++l) {
+    const size_t m = (size_t)b * L + l;
+    float dy[CPT], xh[CPT];
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) {
+      const int c = threadIdx.x + k * RT;
+      const bool ok = c < d;
+      const float g = ok ? dr[m * d + c] : 0.f;
+      if (cos_t) {  // every lane takes part in the shuffle
+        const float w = ok ? g * to_f(ssin_t[(size_t)l * d + c]) : 0.f;
+        const float partner = __shfl_xor_sync(0xffffffffu, w, 1);
+        dy[k] = ok ? g * to_f(cos_t[(size_t)l * d + c]) + partner : 0.f;
+      } else {
+        dy[k] = g;
+      }
+      if (ok && dadd) dy[k] += dadd[m * d + c];
+      xh[k] = (ok && x) ? to_f(x[m * d + c]) : 0.f;
+      s1 += xh[k];
+      s2 += xh[k] * xh[k];
+    }
+    float m1 = 0.f, m2 = 0.f, rs = 1.f;
+    if (x) {
+      block_sum2(s1, s2);
+      const float mu = s1 / d;
+      rs = rsqrtf(s2 / d - mu * mu + eps);
+#pragma unroll
+      for (int k = 0; k < CPT; ++k) {
+        const int c = threadIdx.x + k * RT;
+        if (c >= d) continue;
+        xh[k] = (xh[k] - mu) * rs;
+        as[k] += dy[k] * xh[k];
+        ab[k] += dy[k];
+        const float gx = dy[k] * s[c];
+        m1 += gx;
+        m2 += gx * xh[k];
+      }
+      block_sum2(m1, m2);
+      m1 /= d;
+      m2 /= d;
+    }
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) {
+      const int c = threadIdx.x + k * RT;
+      if (c >= d) continue;
+      float v = x ? rs * (dy[k] * s[c] - m1 - xh[k] * m2) : dy[k];
+      if (resT) v += to_f(resT[m * d + c]);
+      if (res32) v += res32[m * d + c];
+      out[m * d + c] = from_f<T>(v);
+    }
+  }
+  const size_t row = (size_t)b * gridDim.x + chunk;
+  store_partial(p_s, row, d, as);
+  store_partial(p_b, row, d, ab);
+}
+
+// ---------------------------------------------------------------- attention
+// q (B, Lq, hd), k/v (B, Lk, hd), o (B, Lq, hd): head h in columns
+// [h*dk, (h+1)*dk). The probabilities are dropped with the seed of their
+// batch element and salt SALT_ATTN + h at index i * Lk + j. Logits are
+// (T(q * T(scale))) . k, as the TPU kernel rounds the scaled q. lse
+// (B, H, Lq) = the log of each row's softmax normaliser, saved for the
+// backward.
+constexpr int AQ = 64;     // forward: queries per block (4 threads per query)
+constexpr int AK = 32;     // keys per tile
+constexpr int BQ = 32;     // backward: rows per block / tile (8 threads per row)
+constexpr int DKMAX = 64;  // largest head dim
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, int Lq,
+                int Lk, int hd, int dk, float scale, Drop dr, T* __restrict__ o,
+                float* __restrict__ lse) {
+  __shared__ float Qs[AQ][DKMAX + 1];
+  __shared__ float Ks[AK][DKMAX + 1];
+  __shared__ float Vs[AK][DKMAX];
+  __shared__ float Ps[AQ][AK + 1];
+
+  const int b = blockIdx.z, h = blockIdx.y, H = gridDim.y, q0 = blockIdx.x * AQ;
+  const int tid = threadIdx.x, r = tid >> 2, cg = tid & 3;
+  const size_t qbase = (size_t)b * Lq * hd + (size_t)h * dk;
+  const size_t kbase = (size_t)b * Lk * hd + (size_t)h * dk;
+  const uint32_t salt = SALT_ATTN + h;
+  const float sc = round_t<T>(scale);
+
+  for (int idx = tid; idx < AQ * dk; idx += 256) {
+    const int rr = idx / dk, c = idx % dk, gq = q0 + rr;
+    Qs[rr][c] = gq < Lq ? round_t<T>(to_f(q[qbase + (size_t)gq * hd + c]) * sc) : 0.f;
+  }
+
+  const int gq = q0 + r;
+  const int dpt = dk / 4;
+  float m_i = -INFINITY, l_i = 0.f;
+  float acc[DKMAX / 4];
+#pragma unroll
+  for (int i = 0; i < DKMAX / 4; ++i) acc[i] = 0.f;
+
+  for (int k0 = 0; k0 < Lk; k0 += AK) {
+    __syncthreads();
+    for (int idx = tid; idx < AK * dk; idx += 256) {
+      const int kk = idx / dk, c = idx % dk, gk = k0 + kk;
+      const bool ok = gk < Lk;
+      Ks[kk][c] = ok ? to_f(k[kbase + (size_t)gk * hd + c]) : 0.f;
+      Vs[kk][c] = ok ? to_f(v[kbase + (size_t)gk * hd + c]) : 0.f;
+    }
+    __syncthreads();
+
+    float s[AK / 4];
+    float tmax = -INFINITY;
+#pragma unroll
+    for (int jj = 0; jj < AK / 4; ++jj) {
+      const int j = cg * (AK / 4) + jj, gk = k0 + j;
+      float a = 0.f;
+      for (int c = 0; c < dk; ++c) a = fmaf(Qs[r][c], Ks[j][c], a);
+      s[jj] = gk < Lk ? a : -INFINITY;
+      tmax = fmaxf(tmax, s[jj]);
+    }
+    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+    const float m_new = fmaxf(m_i, tmax);  // finite: key k0 is always valid
+    const float corr = expf(m_i - m_new);
+    float psum = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < AK / 4; ++jj) {
+      const int j = cg * (AK / 4) + jj, gk = k0 + j;
+      const float p = expf(s[jj] - m_new);
+      psum += p;
+      const bool kept = gq < Lq && gk < Lk && keep(dr, b, salt, (uint32_t)gq * Lk + gk);
+      // the dropped probability enters the PV product in T
+      Ps[r][j] = round_t<T>(dr.on ? (kept ? p * dr.scale : 0.f) : p);
+    }
+    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+    l_i = l_i * corr + psum;
+    m_i = m_new;
+    __syncthreads();
+
+#pragma unroll
+    for (int i = 0; i < DKMAX / 4; ++i) {
+      if (i < dpt) {
+        const int c = cg * dpt + i;
+        float a = acc[i] * corr;
+        for (int j = 0; j < AK; ++j) a = fmaf(Ps[r][j], Vs[j][c], a);
+        acc[i] = a;
+      }
+    }
+  }
+
+  if (gq < Lq) {
+    const float inv = 1.f / l_i;
+#pragma unroll
+    for (int i = 0; i < DKMAX / 4; ++i)
+      if (i < dpt) o[qbase + (size_t)gq * hd + cg * dpt + i] = from_f<T>(acc[i] * inv);
+    if (cg == 0) lse[((size_t)b * H + h) * Lq + gq] = m_i + logf(l_i);
+  }
+}
+
+// Dsum (B, H, Lq) = rowsum(dO * O) per head: one warp per (row, head).
+template <typename T>
+__global__ void attn_dsum_kernel(const T* __restrict__ dO, const T* __restrict__ o, int Lq, int H,
+                                 int hd, int dk, float* __restrict__ Dsum) {
+  const int w = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31, b = blockIdx.y;
+  if (w >= Lq * H) return;
+  const int i = w / H, h = w % H;
+  const size_t base = ((size_t)b * Lq + i) * hd + (size_t)h * dk;
+  float s = 0.f;
+  for (int c = lane; c < dk; c += 32) s += to_f(dO[base + c]) * to_f(o[base + c]);
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) Dsum[((size_t)b * H + h) * Lq + i] = s;
+}
+
+// dS_ij = P_ij (dP_ij - D_i) with P = exp(s - lse), dP = drop(dO . v); the
+// probability and gradient of one (query, key) pair.
+struct PairGrad {
+  float pd;  // dropped probability (enters dV)
+  float ds;  // logit gradient
+};
+
+__device__ __forceinline__ PairGrad pair_grad(float s, float dpd, float lse_i, float D_i, bool valid,
+                                              const Drop& dr, int b, uint32_t salt, uint32_t idx) {
+  PairGrad r{0.f, 0.f};
+  if (!valid) return r;
+  const float p = expf(s - lse_i);
+  const bool kept = keep(dr, b, salt, idx);
+  const float sc = dr.on ? (kept ? dr.scale : 0.f) : 1.f;
+  r.pd = p * sc;
+  r.ds = p * (dpd * sc - D_i);
+  return r;
+}
+
+// dQ (grid (cdiv(Lq, BQ), H, B)): each block keeps 32 query rows and walks
+// the key tiles; dq = scale * sum_j T(dS_ij) k_j.
+template <typename T>
+__global__ void __launch_bounds__(256)
+attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   const T* __restrict__ dO, const float* __restrict__ lse,
+                   const float* __restrict__ Dsum, int Lq, int Lk, int hd, int dk, float scale,
+                   Drop dr, T* __restrict__ dq) {
+  __shared__ float Qs[BQ][DKMAX + 1];
+  __shared__ float dOs[BQ][DKMAX + 1];
+  __shared__ float Ks[AK][DKMAX + 1];
+  __shared__ float Vs[AK][DKMAX + 1];
+  __shared__ float dSs[BQ][AK + 1];
+
+  const int b = blockIdx.z, h = blockIdx.y, H = gridDim.y, q0 = blockIdx.x * BQ;
+  const int tid = threadIdx.x, r = tid >> 3, cg = tid & 7;
+  const size_t qbase = (size_t)b * Lq * hd + (size_t)h * dk;
+  const size_t kbase = (size_t)b * Lk * hd + (size_t)h * dk;
+  const uint32_t salt = SALT_ATTN + h;
+  const float sc = round_t<T>(scale);
+  for (int idx = tid; idx < BQ * dk; idx += 256) {
+    const int rr = idx / dk, c = idx % dk, gq = q0 + rr;
+    const bool ok = gq < Lq;
+    Qs[rr][c] = ok ? round_t<T>(to_f(q[qbase + (size_t)gq * hd + c]) * sc) : 0.f;
+    dOs[rr][c] = ok ? to_f(dO[qbase + (size_t)gq * hd + c]) : 0.f;
+  }
+  const int gq = q0 + r;
+  const size_t row = ((size_t)b * H + h) * Lq + gq;
+  const float lse_r = gq < Lq ? lse[row] : 0.f, D_r = gq < Lq ? Dsum[row] : 0.f;
+  const int dpt = dk / 8;
+  float acc[DKMAX / 8];
+#pragma unroll
+  for (int i = 0; i < DKMAX / 8; ++i) acc[i] = 0.f;
+
+  for (int k0 = 0; k0 < Lk; k0 += AK) {
+    __syncthreads();
+    for (int idx = tid; idx < AK * dk; idx += 256) {
+      const int kk = idx / dk, c = idx % dk, gk = k0 + kk;
+      const bool ok = gk < Lk;
+      Ks[kk][c] = ok ? to_f(k[kbase + (size_t)gk * hd + c]) : 0.f;
+      Vs[kk][c] = ok ? to_f(v[kbase + (size_t)gk * hd + c]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int jj = 0; jj < AK / 8; ++jj) {
+      const int j = cg * (AK / 8) + jj, gk = k0 + j;
+      float s = 0.f, dpd = 0.f;
+      for (int c = 0; c < dk; ++c) {
+        s = fmaf(Qs[r][c], Ks[j][c], s);
+        dpd = fmaf(dOs[r][c], Vs[j][c], dpd);
+      }
+      const PairGrad pg = pair_grad(s, dpd, lse_r, D_r, gq < Lq && gk < Lk, dr, b, salt,
+                                    (uint32_t)gq * Lk + gk);
+      dSs[r][j] = round_t<T>(pg.ds);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < DKMAX / 8; ++i) {
+      if (i < dpt) {
+        const int c = cg * dpt + i;
+        float a = acc[i];
+        for (int j = 0; j < AK; ++j) a = fmaf(dSs[r][j], Ks[j][c], a);
+        acc[i] = a;
+      }
+    }
+  }
+  if (gq < Lq) {
+#pragma unroll
+    for (int i = 0; i < DKMAX / 8; ++i)
+      if (i < dpt) dq[qbase + (size_t)gq * hd + cg * dpt + i] = from_f<T>(acc[i] * scale);
+  }
+}
+
+// dK, dV (grid (cdiv(Lk, AK), H, B)): each block keeps 32 keys and walks
+// the query tiles; dv = sum_i T(drop(P_ij)) dO_i, dk = sum_i T(dS_ij)
+// T(scale * q_i) (= scale * sum_i dS_ij q_i up to rounding).
+template <typename T>
+__global__ void __launch_bounds__(256)
+attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ dO, const float* __restrict__ lse,
+                     const float* __restrict__ Dsum, int Lq, int Lk, int hd, int dk, float scale,
+                     Drop dr, T* __restrict__ dk_out, T* __restrict__ dv_out) {
+  __shared__ float Ks[AK][DKMAX + 1];
+  __shared__ float Vs[AK][DKMAX + 1];
+  __shared__ float Qs[BQ][DKMAX + 1];
+  __shared__ float dOs[BQ][DKMAX + 1];
+  __shared__ float Pd[BQ][AK + 1];
+  __shared__ float dSs[BQ][AK + 1];
+  __shared__ float lse_s[BQ], D_s[BQ];
+
+  const int b = blockIdx.z, h = blockIdx.y, H = gridDim.y, k0 = blockIdx.x * AK;
+  const int tid = threadIdx.x, j = tid >> 3, cg = tid & 7;
+  const size_t qbase = (size_t)b * Lq * hd + (size_t)h * dk;
+  const size_t kbase = (size_t)b * Lk * hd + (size_t)h * dk;
+  const uint32_t salt = SALT_ATTN + h;
+  const float sc = round_t<T>(scale);
+  for (int idx = tid; idx < AK * dk; idx += 256) {
+    const int kk = idx / dk, c = idx % dk, gk = k0 + kk;
+    const bool ok = gk < Lk;
+    Ks[kk][c] = ok ? to_f(k[kbase + (size_t)gk * hd + c]) : 0.f;
+    Vs[kk][c] = ok ? to_f(v[kbase + (size_t)gk * hd + c]) : 0.f;
+  }
+  const int gk = k0 + j;
+  const int dpt = dk / 8;
+  float acc_k[DKMAX / 8], acc_v[DKMAX / 8];
+#pragma unroll
+  for (int i = 0; i < DKMAX / 8; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+  for (int q0 = 0; q0 < Lq; q0 += BQ) {
+    __syncthreads();
+    for (int idx = tid; idx < BQ * dk; idx += 256) {
+      const int rr = idx / dk, c = idx % dk, gq = q0 + rr;
+      const bool ok = gq < Lq;
+      Qs[rr][c] = ok ? round_t<T>(to_f(q[qbase + (size_t)gq * hd + c]) * sc) : 0.f;
+      dOs[rr][c] = ok ? to_f(dO[qbase + (size_t)gq * hd + c]) : 0.f;
+    }
+    if (tid < BQ) {
+      const int gq = q0 + tid;
+      const size_t row = ((size_t)b * H + h) * Lq + gq;
+      lse_s[tid] = gq < Lq ? lse[row] : 0.f;
+      D_s[tid] = gq < Lq ? Dsum[row] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ii = 0; ii < BQ / 8; ++ii) {
+      const int i = cg * (BQ / 8) + ii, gq = q0 + i;
+      float s = 0.f, dpd = 0.f;
+      for (int c = 0; c < dk; ++c) {
+        s = fmaf(Qs[i][c], Ks[j][c], s);
+        dpd = fmaf(dOs[i][c], Vs[j][c], dpd);
+      }
+      const PairGrad pg = pair_grad(s, dpd, lse_s[i], D_s[i], gq < Lq && gk < Lk, dr, b, salt,
+                                    (uint32_t)gq * Lk + gk);
+      Pd[i][j] = round_t<T>(pg.pd);
+      dSs[i][j] = round_t<T>(pg.ds);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int t = 0; t < DKMAX / 8; ++t) {
+      if (t < dpt) {
+        const int c = cg * dpt + t;
+        float ak = acc_k[t], av = acc_v[t];
+        for (int i = 0; i < BQ; ++i) {
+          av = fmaf(Pd[i][j], dOs[i][c], av);
+          ak = fmaf(dSs[i][j], Qs[i][c], ak);
+        }
+        acc_k[t] = ak;
+        acc_v[t] = av;
+      }
+    }
+  }
+  if (gk < Lk) {
+#pragma unroll
+    for (int t = 0; t < DKMAX / 8; ++t) {
+      if (t < dpt) {
+        const size_t o = kbase + (size_t)gk * hd + cg * dpt + t;
+        dk_out[o] = from_f<T>(acc_k[t]);
+        dv_out[o] = from_f<T>(acc_v[t]);
+      }
+    }
+  }
+}
+
+// The whole attention forward / backward of one block.
+template <typename T>
+inline void attention_fwd(const T* q, const T* k, const T* v, int B, int H, int Lq, int Lk, int hd,
+                          const Drop& dr, T* o, float* lse, cudaStream_t st) {
+  const int dk = hd / H;
+  attn_fwd_kernel<T><<<dim3(cdiv(Lq, AQ), H, B), 256, 0, st>>>(q, k, v, Lq, Lk, hd, dk,
+                                                                1.f / sqrtf((float)dk), dr, o, lse);
+}
+
+template <typename T>
+inline void attention_bwd(const T* q, const T* k, const T* v, const T* o, const T* dO,
+                          const float* lse, int B, int H, int Lq, int Lk, int hd, const Drop& dr,
+                          float* Dsum, T* dq, T* dk, T* dv, cudaStream_t st) {
+  const int dkh = hd / H;
+  const float scale = 1.f / sqrtf((float)dkh);
+  attn_dsum_kernel<T><<<dim3(cdiv(Lq * H, 8), B), 256, 0, st>>>(dO, o, Lq, H, hd, dkh, Dsum);
+  attn_bwd_dq_kernel<T><<<dim3(cdiv(Lq, BQ), H, B), 256, 0, st>>>(q, k, v, dO, lse, Dsum, Lq, Lk,
+                                                                  hd, dkh, scale, dr, dq);
+  attn_bwd_dkdv_kernel<T><<<dim3(cdiv(Lk, AK), H, B), 256, 0, st>>>(q, k, v, dO, lse, Dsum, Lq,
+                                                                    Lk, hd, dkh, scale, dr, dk, dv);
+}
+
+inline Drop make_drop(const void* seeds, uint32_t thresh, float scale, int on) {
+  Drop d;
+  d.seeds = static_cast<const uint32_t*>(seeds);
+  d.thresh = thresh;
+  d.scale = scale;
+  d.on = on;
+  return d;
+}
+
+}  // namespace tcd

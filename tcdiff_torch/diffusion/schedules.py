@@ -39,24 +39,32 @@ def make_beta_schedule(
 
 @dataclasses.dataclass(frozen=True)
 class DiffusionBuffers:
-    """The per-timestep coefficient tables the sampler reads (float32, (T,))."""
+    """The per-timestep coefficient tables the sampler and the loss read
+    (float32, (T,))."""
 
     betas: np.ndarray
     alphas_cumprod: np.ndarray
+    sqrt_alphas_cumprod: np.ndarray
+    sqrt_one_minus_alphas_cumprod: np.ndarray
     sqrt_recip_alphas_cumprod: np.ndarray
     sqrt_recipm1_alphas_cumprod: np.ndarray
+    p2_loss_weight: np.ndarray
 
     @classmethod
-    def create(cls, schedule: str = "cosine", n_timestep: int = 1000) -> "DiffusionBuffers":
+    def create(cls, schedule: str = "cosine", n_timestep: int = 1000, use_p2: bool = False) -> "DiffusionBuffers":
         # float32 betas first, then float32 products (as the JAX tables)
         betas = make_beta_schedule(schedule, n_timestep).astype(np.float32)
         alphas_cumprod = np.cumprod(1.0 - betas, axis=0)
+        p2_gamma = 0.5 if use_p2 else 0.0
         f32 = lambda a: np.asarray(a, dtype=np.float32)
         return cls(
             betas=f32(betas),
             alphas_cumprod=f32(alphas_cumprod),
+            sqrt_alphas_cumprod=f32(np.sqrt(alphas_cumprod)),
+            sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - alphas_cumprod)),
             sqrt_recip_alphas_cumprod=f32(np.sqrt(1.0 / alphas_cumprod)),
             sqrt_recipm1_alphas_cumprod=f32(np.sqrt(1.0 / alphas_cumprod - 1)),
+            p2_loss_weight=f32((1.0 + alphas_cumprod / (1 - alphas_cumprod)) ** -p2_gamma),
         )
 
 

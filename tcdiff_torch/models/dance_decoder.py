@@ -1,8 +1,8 @@
-"""DanceDecoder — the multi-dancer diffusion denoiser, deterministic path.
+"""DanceDecoder — the multi-dancer diffusion denoiser.
 
-PyTorch counterpart of `tcdiff_tpu/models/dance_decoder.py` for serving:
-the eval-mode forward, with the exact-math hoists the JAX package turns on
-by default:
+PyTorch counterpart of `tcdiff_tpu/models/dance_decoder.py`. `forward` is
+the deterministic (serving) path, with the exact-math hoists the JAX
+package turns on by default:
 
   * the cond cache: the music encoding is independent of x and t, so it is
     computed once per request (`cond_cache`);
@@ -13,6 +13,11 @@ by default:
     x-only prefix (input, fusion and trajectory projections and layer 0's
     self-attention block) runs once before it is tiled to the doubled batch.
 
+`forward_train` is the train path (the JAX package's deterministic=False):
+dropout at every reference site, drawn from an explicit torch.Generator;
+no cond cache and no CFG dedup, the cross-attention memory is
+norm_cond(cat(music tokens, time tokens)).
+
 Module and parameter names follow the reference state-dict layout
 (`tcdiff_torch.interop.from_jax.params_to_state_dict` maps a flax tree onto
 it), so `load_state_dict(..., strict=True)` takes a reference checkpoint.
@@ -21,9 +26,12 @@ for the CPU); activations run in `dtype` (float32 or bfloat16), with
 weights cast per use and LayerNorm statistics in f32, as the flax modules
 do.
 
-Each decoder layer's self-attention block and FF block + tail run through
-`tcdiff_torch.ops` (CUDA kernels for CUDA tensors). Cross-attention stays
-plain tensor math over the hoisted k/v, as on the TPU.
+Each decoder layer's blocks run through `tcdiff_torch.ops` (CUDA kernels
+for CUDA tensors, plain versions for CPU tensors): on serving the
+self-attention block (K1) and the FF block + tail (K2), with
+cross-attention plain tensor math over the hoisted k/v, as on the TPU; in
+training the self-attention (K3), cross-attention (K4) and FF + tail (K5)
+blocks, forward and backward.
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ from torch import nn
 
 from tcdiff_torch.config import DanceDecoderConfig
 from tcdiff_torch.models.rotary import RotaryEmbedding, angle_table, apply_rotary
-from tcdiff_torch.ops import ff_block, sa_block
+from tcdiff_torch.ops import ca_block_train, ff_block, ff_block_train, sa_block, sa_block_train
 
 
 class CondCache(NamedTuple):
@@ -60,14 +68,42 @@ def _ln(mod: nn.LayerNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
     return F.layer_norm(x.float(), mod.normalized_shape, mod.weight.float(), mod.bias.float(), eps).to(x.dtype)
 
 
-def _attend(q, k, v, nhead: int, scale: float) -> torch.Tensor:
-    """Plain softmax attention over (b, L, h*dk) projections."""
+def _identity(t):
+    return t
+
+
+def dropout_fn(rate: float, generator: Optional[torch.Generator]):
+    """flax-style dropout (keep with probability 1-rate, kept values scaled
+    by 1/(1-rate)) drawing its masks from `generator`; identity at rate 0."""
+    if rate == 0.0:
+        return _identity
+    if generator is None:
+        raise ValueError("dropout > 0 in training needs a torch.Generator")
+
+    def drop(t):
+        keep = torch.rand(t.shape, generator=generator, device=t.device) >= rate
+        return torch.where(keep, t / (1.0 - rate), torch.zeros((), dtype=t.dtype, device=t.device))
+
+    return drop
+
+
+def block_seeds(generator: Optional[torch.Generator], b: int, device, rate: float) -> torch.Tensor:
+    """One uint32 dropout seed per batch element for a train-block op
+    (int64 (b,)); zeros at rate 0, as the JAX package passes."""
+    if rate == 0.0:
+        return torch.zeros(b, dtype=torch.int64, device=device)
+    return torch.randint(0, 2**32, (b,), generator=generator, device=device, dtype=torch.int64)
+
+
+def _attend(q, k, v, nhead: int, scale: float, drop=_identity) -> torch.Tensor:
+    """Plain softmax attention over (b, L, h*dk) projections; `drop` acts
+    on the attention probabilities."""
     b, lq, hd = q.shape
     dk = hd // nhead
     split = lambda t: t.reshape(b, t.shape[1], nhead, dk).transpose(1, 2)
     q, k, v = split(q), split(k), split(v)
     logits = torch.matmul(q * scale, k.transpose(-1, -2))
-    attn = torch.softmax(logits, dim=-1)
+    attn = drop(torch.softmax(logits, dim=-1))
     return torch.matmul(attn, v).transpose(1, 2).reshape(b, lq, hd)
 
 
@@ -130,14 +166,14 @@ class TorchMHA(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = nn.Linear(d_model, d_model)
 
-    def forward(self, q_in, k_in, v_in):
+    def forward(self, q_in, k_in, v_in, drop=_identity):
         dt = q_in.dtype
         w, b = self.in_proj_weight.to(dt), self.in_proj_bias.to(dt)
         wq, wk, wv = w.chunk(3)
         bq, bk, bv = b.chunk(3)
         d = q_in.shape[-1]
         out = _attend(F.linear(q_in, wq, bq), F.linear(k_in, wk, bk), F.linear(v_in, wv, bv),
-                      self.n_head, 1.0 / math.sqrt(d // self.n_head))
+                      self.n_head, 1.0 / math.sqrt(d // self.n_head), drop)
         return _lin(self.out_proj, out)
 
 
@@ -153,12 +189,15 @@ class TransformerEncoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(d_model)
         self.norm2 = nn.LayerNorm(d_model)
 
-    def forward(self, x):
+    def forward(self, x, drop=_identity):
+        """`drop`: the dropout of the train path, at the reference's four
+        sites (attention probabilities, after attention, after the GELU,
+        after linear2)."""
         h = _ln(self.norm1, x, 1e-5)
         qk = apply_rotary(h, angle_table(x.shape[-2], x.shape[-1], x.device))
-        x = x + self.self_attn(qk, qk, h)
-        h = F.gelu(_lin(self.linear1, _ln(self.norm2, x, 1e-5)), approximate="none")
-        return x + _lin(self.linear2, h)
+        x = x + drop(self.self_attn(qk, qk, h, drop))
+        h = drop(F.gelu(_lin(self.linear1, _ln(self.norm2, x, 1e-5)), approximate="none"))
+        return x + drop(_lin(self.linear2, h))
 
 
 class SBIMSA(nn.Module):
@@ -187,9 +226,11 @@ class SBIMSA(nn.Module):
 
 
 class FiLMTransformerDecoderLayer(nn.Module):
-    """FiLM-conditioned decoder layer, deterministic path.
+    """FiLM-conditioned decoder layer: `forward` (deterministic) and
+    `forward_train`.
 
-    `sa_block_fn` / `ff_tail_fn` are the block functions this layer calls;
+    `sa_block_fn` / `ff_tail_fn` (serving) and `sa_train_fn` / `ca_train_fn`
+    / `ff_train_fn` (training) are the block functions this layer calls;
     they default to the dispatching wrappers of `tcdiff_torch.ops`.
     """
 
@@ -215,6 +256,9 @@ class FiLMTransformerDecoderLayer(nn.Module):
         ])
         self.sa_block_fn = sa_block.sa_block
         self.ff_tail_fn = ff_block.ff_tail
+        self.sa_train_fn = sa_block_train.sa_block_train
+        self.ca_train_fn = ca_block_train.ca_block_train
+        self.ff_train_fn = ff_block_train.ff_tail_train
 
     def forward(self, x, memory, t, traj_emb, shared_emb, trj_dist=None, *,
                 kv=None, tile_sa=False):
@@ -257,6 +301,9 @@ class FiLMTransformerDecoderLayer(nn.Module):
             fs3, fb3, self.norm4.weight, self.norm4.bias, w(self.linear3), self.linear3.bias,
         )
 
+        return self._traj_modulation(x, t, traj_emb)
+
+    def _traj_modulation(self, x, t, traj_emb):
         if self.use_traj_modulation:
             # ConcatSquash trajectory modulation; the reference computes it
             # and drops it, so it runs only when asked for
@@ -265,6 +312,38 @@ class FiLMTransformerDecoderLayer(nn.Module):
             out = F.leaky_relu(self.traj_Modulation[1](ctx, out))
             x = self.traj_Modulation[2](ctx, out)
         return x
+
+    def forward_train(self, x, memory, t, traj_emb, generator, rate: float):
+        """The train path: x (b, L, d); memory (b, Lm, d); t (b, d). Each
+        block op draws its own (b,) dropout seeds from `generator`, in the
+        order self-attention, cross-attention, FF."""
+        dt, dev = x.dtype, x.device
+        b, L, d = x.shape
+        w = lambda m: m.weight.to(dt)
+        seeds = lambda: block_seeds(generator, b, dev, rate)
+        angles = angle_table(L, d, dev)
+
+        sa = self.self_attn
+        fs, fb = self.film1(t)
+        x = self.sa_train_fn(
+            x, self.norm1.weight, self.norm1.bias, angles, w(sa.w_qs), w(sa.w_ks), w(sa.w_vs),
+            w(sa.fc), sa.layer_norm.weight, sa.layer_norm.bias, fs, fb, seeds(),
+            nhead=self.n_head, rate=rate,
+        )
+        ca = self.multihead_attn
+        fs, fb = self.film2(t)
+        x = self.ca_train_fn(
+            x, memory, self.norm2.weight, self.norm2.bias, angles,
+            angle_table(memory.shape[1], d, dev), w(ca.w_qs), w(ca.w_ks), w(ca.w_vs), w(ca.fc),
+            ca.layer_norm.weight, ca.layer_norm.bias, fs, fb, seeds(), nhead=self.n_head, rate=rate,
+        )
+        fs, fb = self.film3(t)
+        x = self.ff_train_fn(
+            x, self.norm3.weight, self.norm3.bias, w(self.linear1), self.linear1.bias,
+            w(self.linear2), self.linear2.bias, fs, fb, self.norm4.weight, self.norm4.bias,
+            w(self.linear3), self.linear3.bias, seeds(), rate=rate,
+        )
+        return self._traj_modulation(x, t, traj_emb)
 
 
 class _DecoderStack(nn.Module):
@@ -340,8 +419,9 @@ class DanceDecoder(nn.Module):
         return self
 
     # ------------------------------------------------------------ cond side
-    def encode_cond(self, cond, keep_mask):
-        """Music condition -> (ct (B, Lc, d), cond_hidden (B, d))."""
+    def encode_cond(self, cond, keep_mask, drop=_identity):
+        """Music condition -> (ct (B, Lc, d), cond_hidden (B, d)); `drop`
+        is the cond encoder's dropout on the train path."""
         dt = self.dtype
         cond = cond.to(dt)
         b = cond.shape[0]
@@ -351,7 +431,7 @@ class DanceDecoder(nn.Module):
         cp = self.cond_projection
         ct = _lin(cp[2], F.relu(_lin(cp[0], cond2)))
         for layer in self.cond_encoder:
-            ct = layer(ct)
+            ct = layer(ct, drop)
         km = keep_mask.to(torch.bool)
         ct = torch.where(km[:, None, None], ct, self.null_cond_embed.to(dt))
         na = self.non_attn_cond_projection
@@ -375,16 +455,11 @@ class DanceDecoder(nn.Module):
         return CondCache(ct, cond_hidden, kv, (wk, wv))
 
     # --------------------------------------------------------------- forward
-    def forward(self, x, cond, times, keep_mask=None, trj_dist=None, *,
-                cond_cache: Optional[CondCache] = None, cfg_pair: bool = False):
+    def _embed(self, x, times, cond_hidden):
+        """The x and t side before the decoder layers: token embeddings h
+        (b, tokens, d), the trajectory embedding (b, tokens-1, d), the
+        FiLM condition t (B, d) and the 2 time tokens (B, 2, d)."""
         cfg, dt = self.cfg, self.dtype
-        if keep_mask is None:
-            keep_mask = torch.ones(times.shape[0], dtype=torch.bool, device=times.device)
-        if cond_cache is None:
-            ct, cond_hidden = self.encode_cond(cond, keep_mask)
-        else:
-            ct, cond_hidden = cond_cache.ct.to(dt), cond_cache.cond_hidden.to(dt)
-
         b, tokens, nfeats = x.shape
         dn = tokens // cfg.seq_len
         d = cfg.latent_dim
@@ -406,6 +481,35 @@ class DanceDecoder(nn.Module):
         t_hidden = F.mish(_lin(self.time_mlp[1], sinusoidal_pos_emb(times, d).to(dt)))
         t = _lin(self.to_time_cond[0], t_hidden) + cond_hidden
         t_tokens = _lin(self.to_time_tokens[0], t_hidden).reshape(times.shape[0], 2, d)
+        return h, traj_emb, t, t_tokens
+
+    def forward_train(self, x, cond, times, keep_mask=None, generator: Optional[torch.Generator] = None):
+        """The train path (the JAX package's deterministic=False), with
+        dropout cfg.dropout drawn from `generator`: x (b, tokens, nfeats),
+        cond (b, 301, cond_dim), times (b,), keep_mask (b,) bool. Returns
+        (b, tokens, nfeats) float32."""
+        rate = self.cfg.dropout
+        if keep_mask is None:
+            keep_mask = torch.ones(times.shape[0], dtype=torch.bool, device=times.device)
+        ct, cond_hidden = self.encode_cond(cond, keep_mask, dropout_fn(rate, generator))
+        h, traj_emb, t, t_tokens = self._embed(x, times, cond_hidden)
+        memory = _ln(self.norm_cond, torch.cat([ct, t_tokens], dim=-2), 1e-6)
+        for layer in self.layers:
+            h = layer.forward_train(h, memory, t, traj_emb, generator, rate)
+        return _lin(self.final_layer, h).float()
+
+    def forward(self, x, cond, times, keep_mask=None, trj_dist=None, *,
+                cond_cache: Optional[CondCache] = None, cfg_pair: bool = False):
+        cfg, dt = self.cfg, self.dtype
+        if keep_mask is None:
+            keep_mask = torch.ones(times.shape[0], dtype=torch.bool, device=times.device)
+        if cond_cache is None:
+            ct, cond_hidden = self.encode_cond(cond, keep_mask)
+        else:
+            ct, cond_hidden = cond_cache.ct.to(dt), cond_cache.cond_hidden.to(dt)
+
+        d = cfg.latent_dim
+        h, traj_emb, t, t_tokens = self._embed(x, times, cond_hidden)
 
         memory = kt_all = vt_all = None
         if cond_cache is not None:

@@ -5,12 +5,13 @@ Each `tcdiff_torch/csrc/<name>.cu` compiles on first use into
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 
-and is loaded with ctypes. The file name carries a hash of the source and of
-the shared headers (`csrc/*.cuh`), so an edited source is rebuilt and a
-stale library is never loaded. The
-sources in the repository are the only inputs; the libraries expose a
-plain C interface (pointers, ints, the stream) and include no PyTorch
-header, which keeps a build to seconds.
+and is loaded with ctypes; `build_all` starts one nvcc process per source,
+all at once. The file name carries a hash of the source and of the shared
+headers (`csrc/*.cuh`), so an edited source is rebuilt and a stale library
+is never loaded. The sources in the repository are the only inputs; the
+libraries expose a plain C interface (pointers, ints or an argument
+struct, the stream) and include no PyTorch header, which keeps a build to
+seconds.
 """
 
 from __future__ import annotations
@@ -42,25 +43,40 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
 
 
-def build(name: str, verbose: bool = False) -> Path:
-    """Compile csrc/<name>.cu if its library is missing; return the path."""
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+def _target(name: str) -> Path:
+    """csrc/<name>.cu's library path, named by a hash of its sources."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    digest = h.hexdigest()[:16]
-    out = BUILD / f"lib{name}-{digest}.so"
-    if out.exists():
+    return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names, verbose: bool = False) -> dict:
+    """Compile every csrc/<name>.cu whose library is missing, one nvcc
+    process per source, all started together; return {name: path}."""
+    out = {name: _target(name) for name in names}
+    todo = {name: path for name, path in out.items() if not path.exists()}
+    if not todo:
         return out
     BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", str(tmp), str(src)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src.name}:\n{res.stderr}")
-    if verbose:
-        print(res.stderr, end="")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    procs = {}
+    for name, path in todo.items():
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), tmp)
+    failed = []
+    for name, (proc, tmp) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{err}")
+            continue
+        if verbose:
+            print(err, end="")
+        os.replace(tmp, todo[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return out
 
 
@@ -69,6 +85,6 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
+            lib = ctypes.CDLL(str(build_all([name])[name]))
             _libs[name] = lib
         return lib

@@ -7,6 +7,8 @@ import ctypes
 
 import torch
 
+from tcdiff_torch.ops import _build
+
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -55,3 +57,23 @@ def stream_ptr(device) -> ctypes.c_void_p:
 def raise_on(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+
+
+def args_struct(name: str, ptrs, ints, floats):
+    """A ctypes mirror of a C argument struct laid out as: the pointers, the
+    ints, the floats, then `uint32_t thresh` (the train kernels' structs)."""
+    fields = ([(n, ctypes.c_void_p) for n in ptrs] + [(n, ctypes.c_int) for n in ints]
+              + [(n, ctypes.c_float) for n in floats] + [("thresh", ctypes.c_uint32)])
+    return type(name, (ctypes.Structure,), {"_fields_": fields})
+
+
+def launch(lib: str, fn_name: str, struct, tensors: dict, dims: dict, x: torch.Tensor, what: str) -> None:
+    """Call `extern "C" int fn_name(int dtype, const Struct*, void* stream)`
+    of csrc/<lib>.cu with the tensors' pointers and the dims filled in by
+    name (fields not given are null or 0); raise if the launch failed."""
+    fn = getattr(_build.load(lib), fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(struct), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    args = struct(**{k: t.data_ptr() for k, t in tensors.items()}, **dims)
+    raise_on(fn(DTYPE_CODE[x.dtype], ctypes.byref(args), stream_ptr(x.device)), what)

@@ -81,3 +81,118 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         sa_block.sa_block(x.half(), v, v, angle_table(8, 256, dev), w, w, w, w, v, v, nhead=4)
     with pytest.raises(ValueError):
         ff_block.ff_tail(x, v, v, w, v, w, v, v[None], v[None], v, v, w[:, :128], v)
+
+
+# ------------------------------------------------------------- train blocks
+# K3, K4, K5 against their plain versions on the same CUDA tensors: the
+# output and every gradient under one cotangent, at rate 0 and 0.1 with the
+# same seeds (the hash masks are the same bits). dk = 64 as on the main
+# path. Tolerances, of the largest reference value of each tensor: f32
+# 1e-4 for the output and the gradients (sums in another order); bf16 2^-5
+# for the output, as above, and 2^-4 for the gradients, since the plain
+# version's autograd rounds dP, dO and the operands of the weight
+# gradients to bf16 at other points than the kernels do.
+TB, TL, TLM, TD, TH, TFF = 2, 100, 40, 128, 2, 256
+THD = TH * 64
+
+
+def _train_tol(dtype, ref, grad):
+    scale = max(ref.abs().max().item(), 1e-6)
+    if dtype == torch.float32:
+        return 1e-4 * scale
+    return (2.0**-4 if grad else 2.0**-5) * scale
+
+
+def _check_train_op(fn, plain, counter, args, diff_idx, kw, dtype, gen):
+    """Run the kernel and the plain version on the same leaves; compare the
+    output and the gradients of the inputs at diff_idx."""
+    leaves = [a.detach().clone().requires_grad_(i in diff_idx) if torch.is_tensor(a) and a.is_floating_point()
+              else a for i, a in enumerate(args)]
+    leaves_p = [a.detach().clone().requires_grad_(i in diff_idx) if torch.is_tensor(a) and a.is_floating_point()
+                else a for i, a in enumerate(args)]
+    before, before_b = counter.launches, counter.bwd_launches
+    out = fn(*leaves, **kw)
+    ref = plain(*leaves_p, **kw)
+    cot = torch.randn(out.shape, generator=gen, device=out.device).to(out.dtype)
+    grads = torch.autograd.grad(out, [leaves[i] for i in diff_idx], cot)
+    grads_p = torch.autograd.grad(ref, [leaves_p[i] for i in diff_idx], cot)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1 and counter.bwd_launches == before_b + 1
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert (out.float() - ref.float()).abs().max().item() <= _train_tol(dtype, ref.float(), False)
+    for i, g, gp in zip(diff_idx, grads, grads_p):
+        assert g.dtype == gp.dtype and g.shape == gp.shape, i
+        err = (g.float() - gp.float()).abs().max().item()
+        assert err <= _train_tol(dtype, gp.float(), True), (i, err)
+
+
+def _train_inputs(gen, dev, dtype):
+    r = lambda *s, std=1.0: _rnd(gen, dev, *s, std=std)
+    w = lambda o, i: r(o, i, std=i**-0.5).to(dtype)
+    ln = lambda: (1 + r(TD, std=0.1), r(TD, std=0.1))
+    seeds = torch.randint(0, 2**32, (TB,), generator=gen, device=dev, dtype=torch.int64)
+    return r, w, ln, seeds
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_sa_block_train_kernels_match_plain(dev, dtype, rate):
+    from tcdiff_torch.ops import sa_block_train as m
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    r, w, ln, seeds = _train_inputs(g, dev, dtype)
+    (s1, b1), (s2, b2) = ln(), ln()
+    args = (r(TB, TL, TD).to(dtype), s1, b1, angle_table(TL, TD, dev), w(THD, TD), w(THD, TD),
+            w(THD, TD), w(TD, THD), s2, b2, r(TB, TD, std=0.1).to(dtype), r(TB, TD, std=0.1).to(dtype), seeds)
+    _check_train_op(m.sa_block_train, m.sa_block_train_plain, m.sa_block_train, args,
+                    (0, 1, 2, 4, 5, 6, 7, 8, 9, 10, 11), dict(nhead=TH, rate=rate), dtype, g)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_ca_block_train_kernels_match_plain(dev, dtype, rate):
+    from tcdiff_torch.ops import ca_block_train as m
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    r, w, ln, seeds = _train_inputs(g, dev, dtype)
+    (s2, b2), (ss, sb) = ln(), ln()
+    args = (r(TB, TL, TD).to(dtype), r(TB, TLM, TD).to(dtype), s2, b2, angle_table(TL, TD, dev),
+            angle_table(TLM, TD, dev), w(THD, TD), w(THD, TD), w(THD, TD), w(TD, THD), ss, sb,
+            r(TB, TD, std=0.1).to(dtype), r(TB, TD, std=0.1).to(dtype), seeds)
+    _check_train_op(m.ca_block_train, m.ca_block_train_plain, m.ca_block_train, args,
+                    (0, 1, 2, 3, 6, 7, 8, 9, 10, 11, 12, 13), dict(nhead=TH, rate=rate), dtype, g)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_ff_tail_train_kernels_match_plain(dev, dtype, rate):
+    from tcdiff_torch.ops import ff_block_train as m
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    r, w, ln, seeds = _train_inputs(g, dev, dtype)
+    (s3, b3), (s4, b4) = ln(), ln()
+    args = (r(TB, TL, TD).to(dtype), s3, b3, w(TFF, TD), r(TFF, std=0.1), w(TD, TFF), r(TD, std=0.1),
+            r(TB, TD, std=0.1).to(dtype), r(TB, TD, std=0.1).to(dtype), s4, b4, w(TD, TD), r(TD, std=0.1), seeds)
+    _check_train_op(m.ff_tail_train, m.ff_tail_train_plain, m.ff_tail_train, args,
+                    tuple(range(13)), dict(rate=rate), dtype, g)
+
+
+def test_train_kernels_refuse_what_they_do_not_take(dev):
+    from tcdiff_torch.ops.ca_block_train import ca_block_train
+    from tcdiff_torch.ops.ff_block_train import ff_tail_train
+    from tcdiff_torch.ops.sa_block_train import sa_block_train
+
+    x = torch.zeros(2, 8, 256, device=dev)
+    w = torch.zeros(256, 256, device=dev)
+    v = torch.ones(256, device=dev)
+    f = torch.zeros(2, 256, device=dev)
+    s = torch.zeros(2, dtype=torch.int64, device=dev)
+    a = angle_table(8, 256, dev)
+    with pytest.raises(ValueError):  # dk = 128 > 64
+        sa_block_train(x, v, v, a, w, w, w, w, v, v, f, f, s, nhead=2, rate=0.1)
+    with pytest.raises(TypeError):
+        sa_block_train(x.half(), v, v, a, w, w, w, w, v, v, f, f, s, nhead=4, rate=0.1)
+    with pytest.raises(ValueError):  # memory of another batch
+        ca_block_train(x, x[:1], v, v, a, a, w, w, w, w, v, v, f, f, s, nhead=4, rate=0.1)
+    with pytest.raises(ValueError):  # film rows of another batch
+        ff_tail_train(x, v, v, w, v, w, v, f[:1], f[:1], v, v, w, v, s, rate=0.1)

@@ -34,4 +34,6 @@ def test_no_jax_and_only_numpy_modules_of_tcdiff_tpu(path):
 def test_scan_sees_the_port():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     assert {"models/dance_decoder.py", "ops/sa_block.py", "ops/ff_block.py",
-            "diffusion/gaussian.py", "config.py"} <= names
+            "diffusion/gaussian.py", "ops/sa_block_train.py", "ops/ca_block_train.py",
+            "ops/ff_block_train.py", "train/train_step.py", "optim/adan.py",
+            "geometry/skeleton.py", "config.py"} <= names
