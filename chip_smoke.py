@@ -11,9 +11,9 @@ last line:
      at the serving shapes (b=8 doubled CFG batch, L=450, d=512), in bf16
      and f32, and time both;
   4. hold each train kernel (K3, K4, K5) against its plain version at the
-     train shapes (b=8, L=450, Lm=152, d=512), in bf16 and f32, dropout
-     0.1 with the same seeds: the output and every gradient under one
-     cotangent; time the forward and forward+backward of both;
+     main path's train shapes (b=64, L=450, Lm=152, d=512), in bf16 and
+     f32, dropout 0.1 with the same seeds: the output and every gradient
+     under one cotangent; time the forward and forward+backward of both;
   5. serve 3 requests (batch 4 each: 3 dancers x 5 s of motion) through
      GaussianDiffusion.ddim_sample on a full-width bf16 DanceDecoder with
      seeded random weights, check the outputs and the kernels' launch
@@ -23,8 +23,9 @@ last line:
      full-width bf16 DanceDecoder at batch 64, dropout 0.1, on seeded
      synthetic motion and music; check a finite loss, finite parameters
      and the train kernels' launch counts (8 layers x 4 steps, forward and
-     backward); then one f32 step at batch 4 through the kernels and one
-     through the plain versions on the same weights and draws, compared;
+     backward); then two f32 steps at batch 4 through the kernels and two
+     through the plain versions on the same weights and draws: each step's
+     loss and gradients, and the parameters after the second Adan step;
   7. a line of JSON with every kernel's figures, the card's line, and the
      last line: {"ok": true, "device": {...}}.
 """
@@ -195,19 +196,20 @@ def compare_kernels(gen: torch.Generator) -> dict:
 
 def train_cases(gen: torch.Generator, dtype):
     """{name: (kernel, plain, args, indices of the differentiable args,
-    keywords, fwd+bwd FLOPs)} at the train shapes, b=8."""
-    dev = "cuda"
+    keywords, fwd+bwd FLOPs)} at the main path's train shapes: b=64,
+    L=450, Lm=152, d=512, so also its grids and split-row partials."""
+    dev, b = "cuda", TRAIN_BATCH
     rnd = lambda *shape, std=1.0: torch.randn(shape, generator=gen, device=dev) * std
     w = lambda o, i: rnd(o, i, std=i**-0.5).to(dtype)
     ln = lambda: (1.0 + rnd(D, std=0.1), rnd(D, std=0.1))
-    film = lambda: (rnd(B, D, std=0.1).to(dtype), rnd(B, D, std=0.1).to(dtype))
-    seeds = lambda: torch.randint(0, 2**32, (B,), generator=gen, device=dev, dtype=torch.int64)
-    M, Mm = B * L, B * LM
-    sab = (rnd(B, L, D).to(dtype), *ln(), angle_table(L, D, dev), w(HD, D), w(HD, D), w(HD, D),
+    film = lambda: (rnd(b, D, std=0.1).to(dtype), rnd(b, D, std=0.1).to(dtype))
+    seeds = lambda: torch.randint(0, 2**32, (b,), generator=gen, device=dev, dtype=torch.int64)
+    M, Mm = b * L, b * LM
+    sab = (rnd(b, L, D).to(dtype), *ln(), angle_table(L, D, dev), w(HD, D), w(HD, D), w(HD, D),
            w(D, HD), *ln(), *film(), seeds())
-    cab = (rnd(B, L, D).to(dtype), rnd(B, LM, D).to(dtype), *ln(), angle_table(L, D, dev),
+    cab = (rnd(b, L, D).to(dtype), rnd(b, LM, D).to(dtype), *ln(), angle_table(L, D, dev),
            angle_table(LM, D, dev), w(HD, D), w(HD, D), w(HD, D), w(D, HD), *ln(), *film(), seeds())
-    ffb = (rnd(B, L, D).to(dtype), *ln(), w(FF, D), rnd(FF, std=0.1), w(D, FF), rnd(D, std=0.1),
+    ffb = (rnd(b, L, D).to(dtype), *ln(), w(FF, D), rnd(FF, std=0.1), w(D, FF), rnd(D, std=0.1),
            *film(), *ln(), w(D, D), rnd(D, std=0.1), seeds())
     attn = dict(nhead=H, rate=RATE)
     return {
@@ -215,10 +217,10 @@ def train_cases(gen: torch.Generator, dtype):
         # backward twice both (input and weight gradients; dV, dP, dQ, dK)
         "sa_block_train": (sa_block_train.sa_block_train, sa_block_train.sa_block_train_plain, sab,
                            (0, 1, 2, 4, 5, 6, 7, 8, 9, 10, 11), attn,
-                           24 * M * D * HD + 12 * B * L * L * HD),
+                           24 * M * D * HD + 12 * b * L * L * HD),
         "ca_block_train": (ca_block_train.ca_block_train, ca_block_train.ca_block_train_plain, cab,
                            (0, 1, 2, 3, 6, 7, 8, 9, 10, 11, 12, 13), attn,
-                           12 * M * D * HD + 12 * Mm * D * HD + 12 * B * L * LM * HD),
+                           12 * M * D * HD + 12 * Mm * D * HD + 12 * b * L * LM * HD),
         "ff_tail_train": (ff_block_train.ff_tail_train, ff_block_train.ff_tail_train_plain, ffb,
                           tuple(range(13)), dict(rate=RATE), 3 * (4 * M * D * FF + 2 * M * D * D)),
     }
@@ -276,7 +278,7 @@ def check_output(out: torch.Tensor, x_0: torch.Tensor, shape) -> None:
 
 
 def serve(gen: torch.Generator) -> dict:
-    """Phase 4: the serving path through ddim_sample."""
+    """Phase 5: the serving path through ddim_sample."""
     cfg = DanceDecoderConfig(dancer_num=3)
     dcfg = DiffusionConfig()
     model = DanceDecoder(cfg, dtype=torch.bfloat16).init_random(torch.Generator().manual_seed(0))
@@ -394,38 +396,62 @@ def train(card: str) -> dict:
     del model, state, step
     torch.cuda.empty_cache()
 
-    # f32, one step through the kernels and one through the plain versions:
+    # f32, two steps through the kernels and two through the plain versions:
     # same weights, inputs and generator seed, so the same t, noise, keep
-    # mask and dropout seeds (and so the same hash masks)
+    # mask and dropout seeds (and so the same hash masks). Adan's first step
+    # only shrinks the weights; the second moves them by the moments, so
+    # the parameters after it depend on both steps' gradients.
     model_k, state_k, step_k = make_trainer(cfg, torch.float32)
     model_p, state_p, step_p = make_trainer(cfg, torch.float32)
+    start = {name: p.detach().clone() for name, p in model_p.named_parameters()}
     x, cond = train_inputs(cfg, F32_STEP_BATCH, 3)
-    _, m_k = step_k(state_k, x, cond, torch.Generator(device="cuda").manual_seed(4))
-    with plain_blocks(model_p):
-        _, m_p = step_p(state_p, x, cond, torch.Generator(device="cuda").manual_seed(4))
-    torch.cuda.synchronize()
-    loss_err = abs(m_k["total"].item() - m_p["total"].item()) / abs(m_p["total"].item())
-    # loss: 1e-4 relative; each gradient: 1e-3 of its largest value (8 layers
-    # of f32 sums in another order, forward and back); parameters after the
-    # first Adan step (the decay shrink only): 1e-6 absolute
-    worst_grad, worst_name, param_err = 0.0, "", 0.0
+    gen_k, gen_p = (torch.Generator(device="cuda").manual_seed(4) for _ in range(2))
     named_p = dict(model_p.named_parameters())
+    for i in (1, 2):
+        _, m_k = step_k(state_k, x, cond, gen_k)
+        with plain_blocks(model_p):
+            _, m_p = step_p(state_p, x, cond, gen_p)
+        torch.cuda.synchronize()
+        # loss: 1e-4 relative; each gradient: 1e-3 of its largest value (8
+        # layers of f32 sums in another order, forward and back)
+        loss_err = abs(m_k["total"].item() - m_p["total"].item()) / abs(m_p["total"].item())
+        worst_grad, worst_name = 0.0, ""
+        for name, pk in model_k.named_parameters():
+            pp = named_p[name]
+            if pp.grad is None:
+                check(pk.grad is None, f"{name} has a gradient through the kernels only")
+                continue
+            share = (pk.grad - pp.grad).abs().max().item() / (1e-3 * max(pp.grad.abs().max().item(), 1e-12))
+            if share > worst_grad:
+                worst_grad, worst_name = share, name
+        print(f"train f32 batch {F32_STEP_BATCH}, kernels vs plain, step {i}: loss {m_k['total'].item():.6f} "
+              f"vs {m_p['total'].item():.6f} (rel diff {loss_err:.2e}, tol 1e-4); largest gradient "
+              f"difference {worst_grad:.3f} of its tolerance ({worst_name})")
+        check(loss_err <= 1e-4, f"f32 train loss of step {i} disagrees: {loss_err}")
+        check(worst_grad <= 1.0, f"f32 train gradient of {worst_name} in step {i} disagrees "
+                                 f"({worst_grad} of tolerance)")
+    # Parameters after the second Adan step. Adan divides each moment by the
+    # root of its second moment, so it moves an element by about lr whatever
+    # the size of its gradient: where a gradient is small against its
+    # tensor's largest, or its two steps' terms nearly cancel, the rounding
+    # differences of f32 sums taken in another order become differences of
+    # the order of lr. A wrong gradient moves most elements of its tensor
+    # so, rounding few. Check: in each tensor at most 5% of the elements
+    # differ by more than lr/10. This is the coarse check at the end of the
+    # step; the gradients' own (1e-3 of the largest) is the fine one.
+    lr = TrainConfig().learning_rate
+    worst, worst_name, n_off, n_all, max_diff = 0.0, "", 0, 0, 0.0
     for name, pk in model_k.named_parameters():
-        pp = named_p[name]
-        if pp.grad is None:
-            check(pk.grad is None, f"{name} has a gradient through the kernels only")
-            continue
-        share = (pk.grad - pp.grad).abs().max().item() / (1e-3 * max(pp.grad.abs().max().item(), 1e-12))
-        if share > worst_grad:
-            worst_grad, worst_name = share, name
-        param_err = max(param_err, (pk.detach() - pp.detach()).abs().max().item())
-    print(f"train f32 batch {F32_STEP_BATCH}, kernels vs plain, one step: loss {m_k['total'].item():.6f} vs "
-          f"{m_p['total'].item():.6f} (rel diff {loss_err:.2e}, tol 1e-4); largest gradient difference "
-          f"{worst_grad:.3f} of its tolerance ({worst_name}); parameters after Adan max diff "
-          f"{param_err:.2e} (tol 1e-6)")
-    check(loss_err <= 1e-4, f"f32 train loss disagrees: {loss_err}")
-    check(worst_grad <= 1.0, f"f32 train gradient of {worst_name} disagrees ({worst_grad} of tolerance)")
-    check(param_err <= 1e-6, f"f32 parameters after Adan disagree: {param_err}")
+        diff = (pk.detach() - named_p[name].detach()).abs()
+        off = int((diff > 0.1 * lr).sum().item())
+        n_off, n_all, max_diff = n_off + off, n_all + diff.numel(), max(max_diff, diff.max().item())
+        if off / diff.numel() > worst:
+            worst, worst_name = off / diff.numel(), name
+    moved = max((p.detach() - start[n]).abs().max().item() for n, p in model_p.named_parameters())
+    print(f"train f32: parameters after two Adan steps: {n_off} of {n_all} elements differ by more than "
+          f"lr/10; largest share in a tensor {worst:.3e} (tol 5e-2; {worst_name}); largest difference "
+          f"{max_diff / lr:.3e} x lr; largest move from the start {moved / lr:.3e} x lr")
+    check(worst <= 5e-2, f"f32 parameters after two Adan steps disagree: {worst_name} {worst}")
     return launches
 
 

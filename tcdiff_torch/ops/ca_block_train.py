@@ -23,11 +23,11 @@ from __future__ import annotations
 
 import torch
 
-from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, launch, mm_f32
+from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, launch, ln_f32, mm_f32
 from tcdiff_torch.ops.sa_block import rotary_tables
 from tcdiff_torch.ops.sa_block_train import attention_plain, chain_top_plain, rot
 from tcdiff_torch.ops.train_common import (
-    RCH, as_uint32_int32, count_kernel, ln_hat, threshold, weight_splits,
+    RCH, as_uint32_int32, count_kernel, save_tensors, saved_tensors, threshold, weight_splits,
 )
 
 
@@ -38,7 +38,7 @@ def ca_block_train_plain(x, mem, s2, b2, angles_x, angles_m, wq, wk, wv, wfc, sa
     dt = x.dtype
     cosx, ssinx = rotary_tables(angles_x, dt)
     cosm, ssinm = rotary_tables(angles_m, dt)
-    r = rot(ln_hat(x, eps1) * s2.float() + b2.float(), cosx, ssinx).to(dt)
+    r = rot(ln_f32(x, s2, b2, eps1), cosx, ssinx).to(dt)
     rm = rot(mem.float(), cosm, ssinm).to(dt)
     q, k, v = mm_f32(r, wq).to(dt), mm_f32(rm, wk).to(dt), mm_f32(mem.to(dt), wv).to(dt)
     o = attention_plain(q, k, v, seeds, nhead, rate)
@@ -97,13 +97,14 @@ class _CaBlockTrain(torch.autograd.Function):
                     thresh=threshold(rate))
         launch("ca_block_train", "tcd_ca_train_fwd", _Args, ten, dims, x, "ca_block_train")
         ca_block_train.launches += 1
-        ctx.ten, ctx.dims = ten, dims
+        save_tensors(ctx, ten)
+        ctx.dims = dims
         ctx.in_dtypes = tuple(t.dtype for t in (mem, s2, b2, wq, wk, wv, wfc, sa_s, sa_b, fs, fb))
         return ten["out"]
 
     @staticmethod
     def backward(ctx, g):
-        ten, dims = dict(ctx.ten), ctx.dims
+        ten, dims = saved_tensors(ctx), ctx.dims
         B, L, Lm, d, hd = dims["B"], dims["L"], dims["Lm"], dims["d"], dims["hd"]
         x = ten["x"]
         dt, dev = x.dtype, x.device

@@ -23,10 +23,10 @@ from __future__ import annotations
 
 import torch
 
-from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, launch, mm_f32
+from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, launch, ln_f32, mm_f32
 from tcdiff_torch.ops.train_common import (
-    RCH, SALT_FF1, SALT_FF2, as_uint32_int32, count_kernel, drop, film_residual, ln_hat, threshold,
-    weight_splits,
+    RCH, SALT_FF1, SALT_FF2, as_uint32_int32, count_kernel, drop, film_residual, save_tensors,
+    saved_tensors, threshold, weight_splits,
 )
 
 
@@ -34,12 +34,12 @@ def ff_tail_train_plain(x, s3, b3, w1, bb1, w2, bb2, film_scale, film_shift, s4,
                         *, rate: float, eps: float = 1e-5):
     """Plain PyTorch version of the block; the oracle of the kernels."""
     dt = x.dtype
-    y = (ln_hat(x, eps) * s3.float() + b3.float()).to(dt)
+    y = ln_f32(x, s3, b3, eps).to(dt)
     u = mm_f32(y, w1) + bb1.float()
     ad = drop(torch.nn.functional.gelu(u, approximate="none"), seeds, SALT_FF1, rate).to(dt)
     zd = drop(mm_f32(ad, w2) + bb2.float(), seeds, SALT_FF2, rate)
     x2 = film_residual(x, zd, film_scale, film_shift)
-    y4 = (ln_hat(x2, eps) * s4.float() + b4.float()).to(dt)
+    y4 = ln_f32(x2, s4, b4, eps).to(dt)
     return (mm_f32(y4, w3) + bb3.float()).to(dt)
 
 
@@ -86,13 +86,14 @@ class _FfTailTrain(torch.autograd.Function):
                     dscale=1.0 / (1.0 - rate), thresh=threshold(rate))
         launch("ff_tail_train", "tcd_ff_train_fwd", _Args, ten, dims, x, "ff_tail_train")
         ff_tail_train.launches += 1
-        ctx.ten, ctx.dims = ten, dims
+        save_tensors(ctx, ten)
+        ctx.dims = dims
         ctx.in_dtypes = tuple(t.dtype for t in (s3, b3, w1, bb1, w2, bb2, fs, fb, s4, b4, w3, bb3))
         return ten["out"]
 
     @staticmethod
     def backward(ctx, g):
-        ten, dims = dict(ctx.ten), ctx.dims
+        ten, dims = saved_tensors(ctx), ctx.dims
         B, L, d, ff = dims["B"], dims["L"], dims["d"], dims["ff"]
         x = ten["x"]
         dt, dev = x.dtype, x.device
@@ -104,7 +105,8 @@ class _FfTailTrain(torch.autograd.Function):
             dad=e(B, L, ff, t=f), du=e(B, L, ff), dy=e(B, L, d, t=f), dx=torch.empty_like(x),
             dw1=e(ff, d), dw2=e(d, ff), dw3=e(d, d),
             part=e(N_VEC, B * nch, d, t=f), part_ff=e(B * nch, ff, t=f),
-            wpart=e(dims["nsplit"], ff, d, t=f), vec=e(N_VEC, B, d, t=f), vec_ff=e(ff, t=f),
+            # split-row partials of dW1 (ff, d), dW2 (d, ff) and dW3 (d, d) in turn
+            wpart=e(dims["nsplit"], max(ff, d), d, t=f), vec=e(N_VEC, B, d, t=f), vec_ff=e(ff, t=f),
         )
         launch("ff_tail_train", "tcd_ff_train_bwd", _Args, ten, dims, x, "ff_tail_train backward")
         ff_tail_train.bwd_launches += 1

@@ -26,11 +26,11 @@ from __future__ import annotations
 import torch
 
 from tcdiff_torch.models.rotary import swap_pairs
-from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, launch, mm_f32
+from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, launch, ln_f32, mm_f32
 from tcdiff_torch.ops.sa_block import rotary_tables
 from tcdiff_torch.ops.train_common import (
-    RCH, SALT_ATTN, SALT_FC, SALT_OUT, as_uint32_int32, count_kernel, drop, film_residual, ln_hat,
-    threshold, weight_splits,
+    RCH, SALT_ATTN, SALT_FC, SALT_OUT, as_uint32_int32, count_kernel, drop, film_residual, save_tensors,
+    saved_tensors, threshold, weight_splits,
 )
 
 
@@ -57,7 +57,7 @@ def attention_plain(q, k, v, seeds, nhead: int, rate: float):
 def chain_top_plain(o, x, wfc, s2, b2, film_scale, film_shift, seeds, rate: float, eps2: float):
     """out projection -> drop_FC -> LN(eps2) -> drop_OUT -> FiLM residual."""
     z2 = drop(mm_f32(o, wfc), seeds, SALT_FC, rate)
-    sa = drop(ln_hat(z2, eps2) * s2.float() + b2.float(), seeds, SALT_OUT, rate)
+    sa = drop(ln_f32(z2, s2, b2, eps2), seeds, SALT_OUT, rate)
     return film_residual(x, sa, film_scale, film_shift).to(x.dtype)
 
 
@@ -66,7 +66,7 @@ def sa_block_train_plain(x, s1, b1, angles, wq, wk, wv, wfc, s2, b2, film_scale,
     """Plain PyTorch version of the block; the oracle of the kernels."""
     dt = x.dtype
     cos, ssin = rotary_tables(angles, dt)
-    y = ln_hat(x, eps1) * s1.float() + b1.float()
+    y = ln_f32(x, s1, b1, eps1)
     rc, yc = rot(y, cos, ssin).to(dt), y.to(dt)
     q, k, v = mm_f32(rc, wq).to(dt), mm_f32(rc, wk).to(dt), mm_f32(yc, wv).to(dt)
     o = attention_plain(q, k, v, seeds, nhead, rate)
@@ -118,13 +118,14 @@ class _SaBlockTrain(torch.autograd.Function):
                     eps1=eps1, eps2=eps2, dscale=1.0 / (1.0 - rate), thresh=threshold(rate))
         launch("sa_block_train", "tcd_sa_train_fwd", _Args, ten, dims, x, "sa_block_train")
         sa_block_train.launches += 1
-        ctx.ten, ctx.dims, ctx.in_dtypes = ten, dims, (s1.dtype, b1.dtype, wq.dtype, wk.dtype, wv.dtype,
-                                                         wfc.dtype, s2.dtype, b2.dtype, fs.dtype, fb.dtype)
+        save_tensors(ctx, ten)
+        ctx.dims, ctx.in_dtypes = dims, (s1.dtype, b1.dtype, wq.dtype, wk.dtype, wv.dtype,
+                                         wfc.dtype, s2.dtype, b2.dtype, fs.dtype, fb.dtype)
         return ten["out"]
 
     @staticmethod
     def backward(ctx, g):
-        ten, dims = dict(ctx.ten), ctx.dims
+        ten, dims = saved_tensors(ctx), ctx.dims
         B, L, d, hd = dims["B"], dims["L"], dims["d"], dims["hd"]
         x = ten["x"]
         dt, dev = x.dtype, x.device

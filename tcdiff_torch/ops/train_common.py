@@ -1,5 +1,5 @@
 """What the three train-block ops share: the dropout hash, the dropout
-sites' salts, and the f32 LayerNorm the plain versions differentiate.
+sites' salts, and the bookkeeping of their autograd Functions.
 
 The dropout mask is a function of (seed, salt, element index), the same
 murmur3-finalizer hash as `tcdiff_tpu/ops/fused_sa_block_train.py::
@@ -75,14 +75,6 @@ def drop(x: torch.Tensor, seeds: torch.Tensor, salt, rate: float, row0: int = 0)
     return torch.where(keep, x * torch.tensor(1.0 / (1.0 - rate), dtype=x.dtype), torch.zeros((), dtype=x.dtype))
 
 
-def ln_hat(x: torch.Tensor, eps: float) -> torch.Tensor:
-    """f32 normalised x with var = E[x^2] - mu^2, as the TPU kernels'."""
-    x = x.float()
-    mu = x.mean(-1, keepdim=True)
-    var = (x * x).mean(-1, keepdim=True) - mu * mu
-    return (x - mu) * torch.rsqrt(var + eps)
-
-
 def film_residual(x, sa, film_scale, film_shift):
     """x + (fs+1) * sa + fb in f32, FiLM rows (b, d)."""
     return x.float() + (film_scale.float()[:, None, :] + 1.0) * sa + film_shift.float()[:, None, :]
@@ -102,6 +94,20 @@ def weight_splits(rows: int) -> int:
     """Row splits of a CUDA weight-gradient sum: enough blocks to fill the
     card, each summing at least 512 rows."""
     return max(1, min(64, rows // 512))
+
+
+def save_tensors(ctx, ten: dict) -> None:
+    """Keep a forward's tensors for its backward through save_for_backward,
+    so that autograd frees them once the backward has run (a dict on ctx
+    that held the output would be a reference cycle, freed only by the
+    cycle collector). The output is left out: no backward kernel reads it."""
+    ctx.names = tuple(k for k in ten if k != "out")
+    ctx.save_for_backward(*(ten[k] for k in ctx.names))
+
+
+def saved_tensors(ctx) -> dict:
+    """The tensors `save_tensors` kept, by name."""
+    return dict(zip(ctx.names, ctx.saved_tensors))
 
 
 def count_kernel(fn):

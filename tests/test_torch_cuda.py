@@ -165,13 +165,14 @@ def test_ca_block_train_kernels_match_plain(dev, dtype, rate):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_ff_tail_train_kernels_match_plain(dev, dtype, rate):
+@pytest.mark.parametrize("ff", [TFF, TD // 2])  # ff < d too: dW3 is then the largest partial
+def test_ff_tail_train_kernels_match_plain(dev, dtype, rate, ff):
     from tcdiff_torch.ops import ff_block_train as m
 
     g = torch.Generator(device=dev).manual_seed(4)
     r, w, ln, seeds = _train_inputs(g, dev, dtype)
     (s3, b3), (s4, b4) = ln(), ln()
-    args = (r(TB, TL, TD).to(dtype), s3, b3, w(TFF, TD), r(TFF, std=0.1), w(TD, TFF), r(TD, std=0.1),
+    args = (r(TB, TL, TD).to(dtype), s3, b3, w(ff, TD), r(ff, std=0.1), w(TD, ff), r(TD, std=0.1),
             r(TB, TD, std=0.1).to(dtype), r(TB, TD, std=0.1).to(dtype), s4, b4, w(TD, TD), r(TD, std=0.1), seeds)
     _check_train_op(m.ff_tail_train, m.ff_tail_train_plain, m.ff_tail_train, args,
                     tuple(range(13)), dict(rate=rate), dtype, g)
