@@ -10,41 +10,62 @@ last line:
   3. hold each serving kernel (K1, K2) against its plain PyTorch version
      at the serving shapes (b=8 doubled CFG batch, L=450, d=512), in bf16
      and f32, and time both;
-  4. hold each train kernel (K3, K4, K5) against its plain version at the
+  4. the same for the per-op kernels K8 (both forms), K9, K10 and K11
+     (450x450 self-attention with and without TRPE, 450x152
+     cross-attention, the cond encoder's 150x150), with the one PyTorch
+     call that computes the same function where there is one (F.layer_norm
+     for K10, F.scaled_dot_product_attention for K11 without TRPE);
+  5. hold each train kernel (K3, K4, K5) against its plain version at the
      main path's train shapes (b=64, L=450, Lm=152, d=512), in bf16 and
      f32, dropout 0.1 with the same seeds: the output and every gradient
      under one cotangent; time the forward and forward+backward of both;
-  5. serve 3 requests (batch 4 each: 3 dancers x 5 s of motion) through
+  6. serve 3 requests (batch 4 each: 3 dancers x 5 s of motion) through
      GaussianDiffusion.ddim_sample on a full-width bf16 DanceDecoder with
      seeded random weights, check the outputs and the kernels' launch
      counts, then run one request in f32 through the kernels and through
      the plain versions on the same noise and compare;
-  6. train: 1 warm-up and 3 timed steps (loss, backward, Adan, EMA) of the
+  7. the per-op serving configuration (ServingKernels.per_op: K8-K11 on,
+     K1/K2 off): one long_ddim_sample request over 4 slices of one song
+     after a warm-up, with the launch counts of K8-K11; then f32 requests
+     through the kernels and the plain versions on the same noise: one with
+     a trj_dist (K11's TRPE form), one with the k/v cache off (K8's
+     rot-only form);
+  8. the other samplers once each in the default configuration:
+     ddim_sample_footwork, ddim_sample_stream over two slices,
+     ddim_sample(forecast_every=2) with its K1/K2 launch counts, and
+     partial_denoise (the DDPM loop) from t=100;
+  9. train: 1 warm-up and 3 timed steps (loss, backward, Adan, EMA) of the
      full-width bf16 DanceDecoder at batch 64, dropout 0.1, on seeded
      synthetic motion and music; check a finite loss, finite parameters
      and the train kernels' launch counts (8 layers x 4 steps, forward and
      backward); then two f32 steps at batch 4 through the kernels and two
      through the plain versions on the same weights and draws: each step's
      loss and gradients, and the parameters after the second Adan step;
-  7. a line of JSON with every kernel's figures, the card's line, and the
+ 10. a line of JSON with every kernel's figures, the card's line, and the
      last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import collections
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
-from tcdiff_torch import DanceDecoderConfig, DiffusionConfig, TrainConfig
+from tcdiff_torch import DanceDecoderConfig, DiffusionConfig, ServingKernels, TrainConfig
 from tcdiff_torch.diffusion.gaussian import GaussianDiffusion
 from tcdiff_torch.models.dance_decoder import DanceDecoder
 from tcdiff_torch.models.rotary import angle_table
-from tcdiff_torch.ops import _build, ca_block_train, ff_block, ff_block_train, sa_block, sa_block_train
+from tcdiff_torch.ops import (
+    _build, attention, ca_block_train, ff_block, ff_block_train, layernorm, ln_matmul, ln_rotary_matmul, sa_block,
+    sa_block_train,
+)
 from tcdiff_torch.ops.plain import plain_blocks
 from tcdiff_torch.optim.adan import Adan
 from tcdiff_torch.train.state import create_train_state
@@ -58,16 +79,27 @@ F32_PATH_TOL = 1e-3  # f32 whole 50-step path, kernels vs plain (sums in another
 TRAIN_BATCH, TRAIN_STEPS = 64, 3  # bench.py's train default; + 1 warm-up step
 F32_STEP_BATCH = 4
 RATE = 0.1  # the config's dropout
-KERNELS = ("sa_block", "ff_tail", "sa_block_train", "ca_block_train", "ff_tail_train")
+LC = 150  # cond encoder tokens: 301 music frames packed in pairs
+KERNELS = ("sa_block", "ff_tail", "ln_rotary_matmul", "ln_matmul", "layernorm", "attention",
+           "sa_block_train", "ca_block_train", "ff_tail_train")
+SERVING_OPS = {  # the per-op kernels' wrappers, by kernel name
+    "ln_rotary_matmul": ln_rotary_matmul.ln_rotary_matmul, "ln_matmul": ln_matmul.ln_matmul,
+    "layernorm": layernorm.layernorm, "attention": attention.attention,
+}
 REPLACES = {
     "sa_block": "tcdiff_tpu/ops/fused_sa_block.py:75",
     "ff_tail": "tcdiff_tpu/ops/fused_ff_block.py:88",
+    "ln_rotary_matmul": "tcdiff_tpu/ops/fused_ln_rotary_matmul.py:55",
+    "ln_matmul": "tcdiff_tpu/ops/fused_ln_matmul.py:30",
+    "layernorm": "tcdiff_tpu/ops/fused_layernorm.py:26",
+    "attention": "tcdiff_tpu/ops/fused_attention.py:38",
     "sa_block_train": "tcdiff_tpu/ops/fused_sa_block_train.py:474",
     "ca_block_train": "tcdiff_tpu/ops/fused_ca_block_train.py:244",
     "ff_tail_train": "tcdiff_tpu/ops/fused_ff_block_train.py:261",
 }
-# H100 SXM data-sheet peaks at 700 W: dense bf16 tensor cores, HBM3
-PEAK_BF16, HBM_RATE = 989e12, 3.35e12
+# H100 SXM data-sheet peaks at 700 W: dense bf16 tensor cores, f32 outside
+# the tensor cores, HBM3
+PEAK_BF16, PEAK_F32, HBM_RATE = 989e12, 67e12, 3.35e12
 
 
 class SmokeFailure(Exception):
@@ -112,16 +144,45 @@ def grad_tolerance(dtype, ref: torch.Tensor) -> float:
     return (2.0**-4 if dtype == torch.bfloat16 else 1e-4) * scale
 
 
-def bound(flops: float, nbytes: float) -> dict:
-    """The least time the card could take: the larger of the bf16 tensor
-    core time of the work and the HBM time of reading each input and
-    writing each output once."""
-    t_ops, t_bytes = flops / PEAK_BF16, nbytes / HBM_RATE
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16) -> dict:
+    """The least time the card could take: the larger of the time of the
+    work at `peak` (the bf16 tensor cores unless given) and the HBM time of
+    reading each input and writing each output once."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_RATE
     return dict(bound_ms=1e3 * max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if torch.is_tensor(t))
+
+
+def device_profile(fn):
+    """Run fn() once under torch.profiler. Returns the wall seconds, the
+    device's busy seconds (the union of kernel intervals) and [(kernel
+    name without arguments, ms, calls)], the most time first."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False) and "#" not in e.name]
+    check(bool(kernels), "the profiler saw no device events")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, (cur_s, cur_e) = 0.0, spans[0]
+    for s0, e0 in spans[1:]:
+        if s0 > cur_e:
+            busy, cur_s, cur_e = busy + cur_e - cur_s, s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    busy = (busy + cur_e - cur_s) / 1e6
+    by = collections.defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        name = re.sub(r"\(.*\)$", "", e.name.replace("void ", "")).replace("__nv_bfloat16", "bf16")
+        by[name][0] += e.time_range.elapsed_us() / 1e3
+        by[name][1] += 1
+    return wall, busy, sorted(((k, ms, n) for k, (ms, n) in by.items()), key=lambda r: -r[1])
 
 
 def card_line() -> str:
@@ -191,6 +252,91 @@ def compare_kernels(gen: torch.Generator) -> dict:
             flops = 4 * B * L * D * FF + 2 * B * L * D * D
             figures["ff_tail"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                       **bound(flops, nbytes(*args, out)), library_ms=None)
+    return figures
+
+
+def measure(figures: dict, name: str, label: str, dtype, kernel, plain, flops: float, io_bytes: int,
+            library=None, peak: float = PEAK_BF16, main: bool = False) -> None:
+    """Hold kernel() against plain() (the same inputs), time both (and
+    library(), the one PyTorch call of the same function, where given);
+    record the figures of the main-path bf16 variant under `name`."""
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+    err = max((o.float() - r.float()).abs().max().item() for o, r in zip(outs, refs))
+    tol = min(tolerance(dtype, r.float()) for r in refs)
+    check(all(torch.isfinite(o).all().item() for o in outs), f"{name} {label} output not finite")
+    ms, plain_ms = time_ms(kernel), time_ms(plain)
+    lib_ms = None if library is None else time_ms(library)
+    dname = "bf16" if dtype == torch.bfloat16 else "f32"
+    lib = "" if lib_ms is None else f" library {lib_ms:.3f} ms"
+    print(f"{name} {label} {dname}: max_abs_err {err:.3e} (tol {tol:.3e}) kernel {ms:.3f} ms "
+          f"plain {plain_ms:.3f} ms{lib}")
+    check(err <= tol, f"{name} {label} {dname} disagrees: {err} > {tol}")
+    if main and dtype == torch.bfloat16:
+        figures[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound(flops, io_bytes, peak),
+                             library_ms=lib_ms)
+
+
+def compare_serving_ops(gen: torch.Generator) -> dict:
+    """Phase 4: K8-K11 at the per-op path's shapes (b=8, L=450, d=512, 8x64
+    heads, ff=1024). Returns the main-path (bf16) figures of each."""
+    dev = "cuda"
+    rnd = lambda *shape, std=1.0: torch.randn(shape, generator=gen, device=dev) * std
+    ln = lambda: (1.0 + rnd(D, std=0.1), rnd(D, std=0.1))
+    angles = angle_table(L, D, dev)
+    M = B * L
+    figures = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = rnd(B, L, D).to(dtype)
+        w = lambda o, i: rnd(o, i, std=i**-0.5).to(dtype)
+        s, b = ln()
+
+        # K10: the SBI-MSA post-attention LayerNorm (eps 1e-6); ~7 f32
+        # operations an element
+        measure(figures, "layernorm", "post-attention LN", dtype,
+                lambda: layernorm.layernorm(x, s, b, 1e-6), lambda: layernorm.layernorm_plain(x, s, b, 1e-6),
+                7 * M * D, nbytes(x, s, b, x),
+                library=lambda: F.layer_norm(x, (D,), s.to(dtype), b.to(dtype), 1e-6), peak=PEAK_F32, main=True)
+
+        # K9: norm3 -> linear1 (the main variant) and norm4 -> linear3
+        for n, label in ((FF, "norm3->linear1"), (D, "norm4->linear3")):
+            wn, bn = w(n, D), rnd(n, std=0.1)
+            out_bytes = M * n * x.element_size()
+            measure(figures, "ln_matmul", label, dtype,
+                    lambda: ln_matmul.ln_matmul(x, s, b, wn, bn), lambda: ln_matmul.ln_matmul_plain(x, s, b, wn, bn),
+                    2 * M * D * n, nbytes(x, s, b, wn, bn) + out_bytes, main=n == FF)
+
+        # K8: self-attention q/k (rotated) and v (the main variant); the
+        # cross-attention query's rot-only form
+        wr, wp, wq = w(2 * HD, D), w(HD, D), w(HD, D)
+        cos_sin = 2 * L * D * x.element_size()
+        measure(figures, "ln_rotary_matmul", "self q/k/v", dtype,
+                lambda: ln_rotary_matmul.ln_rotary_matmul(x, s, b, angles, wr, wp),
+                lambda: ln_rotary_matmul.ln_rotary_matmul_plain(x, s, b, angles, wr, wp),
+                2 * M * D * 3 * HD, nbytes(x, s, b, wr, wp) + cos_sin + 3 * M * HD * x.element_size(), main=True)
+        measure(figures, "ln_rotary_matmul", "rot-only cross q", dtype,
+                lambda: ln_rotary_matmul.ln_rotary_matmul(x, s, b, angles, wq),
+                lambda: ln_rotary_matmul.ln_rotary_matmul_plain(x, s, b, angles, wq),
+                2 * M * D * HD, nbytes(x, s, b, wq) + cos_sin + M * HD * x.element_size())
+
+        # K11 on (b, h, L, dk) views of (b, L, h*dk) projections, as the path
+        # passes them; the all-heads entry is the same kernel
+        heads = lambda n: rnd(B, n, HD).to(dtype).view(B, n, H, HD // H).transpose(1, 2)
+        table = rnd(H, 10, HD // H).to(dtype)
+        dist = torch.randint(0, 10, (B, L, L), generator=gen, device=dev, dtype=torch.int32)
+        scale = (HD // H) ** -0.5
+        for lq, lk, label, trpe in ((L, L, "self 450x450", False), (L, L, "self 450x450 TRPE", True),
+                                    (L, LM, "cross 450x152", False), (LC, LC, "cond encoder 150x150", False)):
+            q, k, v = heads(lq), heads(lk), heads(lk)
+            tab, dd = (table, dist) if trpe else (None, None)
+            flops = 4 * B * H * lq * lk * (HD // H) + (2 * B * H * lq * (HD // H) * 10 if trpe else 0)
+            sdpa = None if trpe else (lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v, scale=scale))
+            measure(figures, "attention", label, dtype,
+                    lambda q=q, k=k, v=v, tab=tab, dd=dd: attention.attention(q, k, v, scale, tab, dd),
+                    lambda q=q, k=k, v=v, tab=tab, dd=dd: attention.attention_plain(q, k, v, scale, tab, dd),
+                    flops, nbytes(q, k, v, tab, dd) + q.numel() * q.element_size(), library=sdpa,
+                    main=label == "self 450x450")
     return figures
 
 
@@ -292,8 +438,7 @@ def serve(gen: torch.Generator) -> dict:
     diff.ddim_sample(shape, reqs[0][0], generator=gen, x_0=reqs[0][1])  # warm-up
     torch.cuda.synchronize()
 
-    sa_block.sa_block.launches = 0
-    ff_block.ff_tail.launches = 0
+    reset_serving_launches()
     t0 = time.perf_counter()
     outs = [diff.ddim_sample(shape, cond, generator=gen, x_0=x_0) for cond, x_0 in reqs]
     torch.cuda.synchronize()
@@ -332,6 +477,125 @@ def serve(gen: torch.Generator) -> dict:
     print(f"f32 path, kernels vs plain on the same noise: max_abs_diff {err:.3e} (tol {F32_PATH_TOL:.0e})")
     check(err <= F32_PATH_TOL, f"f32 path disagrees: {err} > {F32_PATH_TOL}")
     return launches
+
+
+def reset_serving_launches() -> None:
+    for fn in (sa_block.sa_block, ff_block.ff_tail, *SERVING_OPS.values()):
+        fn.launches = 0
+
+
+def serve_per_op(gen: torch.Generator) -> dict:
+    """Phase 7: the per-op serving configuration. Returns the launches of
+    K8-K11 in the long-form request."""
+    cfg = DanceDecoderConfig(dancer_num=3)
+    dcfg = DiffusionConfig()
+    steps, layers = dcfg.sampling_timesteps, cfg.num_layers
+    model = DanceDecoder(cfg, dtype=torch.bfloat16, kernels=ServingKernels.per_op(attention=1))
+    model.init_random(torch.Generator().manual_seed(0))
+    diff = GaussianDiffusion(model, dcfg)
+    shape = (REQ_BATCH, cfg.tokens, cfg.nfeats)  # 4 consecutive slices of one song
+    cond = torch.randn((REQ_BATCH, 2 * cfg.seq_len + 1, cfg.cond_feature_dim), generator=gen, device="cuda")
+    x_0 = 0.1 * torch.randn((REQ_BATCH, cfg.tokens, 3), generator=gen, device="cuda")
+    diff.long_ddim_sample(shape, cond, generator=gen, x_0=x_0)  # warm-up
+    torch.cuda.synchronize()
+
+    reset_serving_launches()
+    t0 = time.perf_counter()
+    out = diff.long_ddim_sample(shape, cond, generator=gen, x_0=x_0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in SERVING_OPS.items()}
+    check_output(out, x_0, shape)
+    # per step: K8 once a layer (self-attention; the cached cross-attention
+    # query is plain), K9 twice, K10 twice (self and cross post-LN), K11
+    # twice; K11 also in the cond encoder's 2 layers, once a request
+    want = {"ln_rotary_matmul": layers * steps, "ln_matmul": 2 * layers * steps,
+            "layernorm": 2 * layers * steps, "attention": 2 * layers * steps + 2}
+    print(f"per-op path: long_ddim_sample over {REQ_BATCH} slices, bf16: launches {launches} (expected {want}); "
+          f"K1/K2 {sa_block.sa_block.launches}/{ff_block.ff_tail.launches} (expected 0)")
+    check(launches == want, f"per-op launches {launches}, expected {want}")
+    check(sa_block.sa_block.launches == 0 and ff_block.ff_tail.launches == 0, "a block kernel ran in the per-op path")
+    print(f"per-op path: {seconds:.3f} s per request, {REQ_BATCH * CLIP_S / seconds:.2f} s-motion/s "
+          f"(slices x 5 s; bf16, kernels)")
+    wall, busy, table = device_profile(lambda: diff.long_ddim_sample(shape, cond, generator=gen, x_0=x_0))
+    total = sum(ms for _, ms, _ in table)
+    print(f"per-op path under torch.profiler: {wall:.3f} s wall, device busy {busy:.3f} s (idle share "
+          f"{1 - busy / wall:.3f}), kernel time {total / 1e3:.3f} s; by kernel (ms, calls, share of kernel time):")
+    for name, ms, calls in table[:12]:
+        print(f"  {name[:100]}: {ms:.1f} ms, {calls}, {ms / total:.3f}")
+
+    # f32, kernels against plain versions on the same noise: with a
+    # trj_dist (K11's TRPE form), then with the k/v cache off (K8's rot-only
+    # form on the cross-attention query, all-heads attention)
+    model.dtype = torch.float32
+    noise = {"init": torch.randn(shape, generator=gen, device="cuda"),
+             "steps": torch.randn((steps,) + shape, generator=gen, device="cuda")}
+    dist = torch.randint(0, 10, (REQ_BATCH, cfg.tokens, cfg.tokens), generator=gen, device="cuda")
+    for label, kernels, trj_dist, k8 in (
+            ("TRPE, k/v cache", ServingKernels.per_op(attention=1), dist, layers * steps),
+            ("k/v cache off, all heads", ServingKernels.per_op(attention=2, kv_cache=False), None, 2 * layers * steps)):
+        model.kernels = kernels
+        reset_serving_launches()
+        out_k = diff.ddim_sample(shape, cond, x_0=x_0, noise=noise, trj_dist=trj_dist)
+        n8 = ln_rotary_matmul.ln_rotary_matmul.launches
+        with plain_blocks(model):
+            out_p = diff.ddim_sample(shape, cond, x_0=x_0, noise=noise, trj_dist=trj_dist)
+        check_output(out_k, x_0, shape)
+        err = (out_k - out_p).abs().max().item()
+        print(f"per-op f32 path ({label}), kernels vs plain on the same noise: max_abs_diff {err:.3e} "
+              f"(tol {F32_PATH_TOL:.0e}); K8 launches {n8} (expected {k8})")
+        check(err <= F32_PATH_TOL, f"per-op f32 path ({label}) disagrees: {err} > {F32_PATH_TOL}")
+        check(n8 == k8, f"K8 launched {n8} times in the f32 request ({label}), expected {k8}")
+    del model, diff
+    torch.cuda.empty_cache()
+    return launches
+
+
+def other_samplers(gen: torch.Generator) -> None:
+    """Phase 8: the other samplers once each, default configuration, bf16."""
+    cfg = DanceDecoderConfig(dancer_num=3)
+    dcfg = DiffusionConfig()
+    model = DanceDecoder(cfg, dtype=torch.bfloat16).init_random(torch.Generator().manual_seed(0))
+    diff = GaussianDiffusion(model, dcfg)
+    shape = (REQ_BATCH, cfg.tokens, cfg.nfeats)
+    half = cfg.seq_len // 2
+    conds = torch.randn((2, REQ_BATCH, 2 * cfg.seq_len + 1, cfg.cond_feature_dim), generator=gen, device="cuda")
+    x_0 = 0.1 * torch.randn((REQ_BATCH, cfg.tokens, 3), generator=gen, device="cuda")
+    t0 = time.perf_counter()
+
+    # footwork: a reference motion (XY trajectory in its channels 0, 1)
+    ref = (0.5 * torch.randn(shape, generator=gen, device="cuda")).clamp(-1, 1)
+    check_output(diff.ddim_sample_footwork(shape, conds[0], generator=gen, x_0=ref), ref, shape)
+
+    # streaming, two slices: the second's first half-window is the first's tail
+    first = diff.ddim_sample_stream(shape, conds[0], generator=gen, x_0=x_0)
+    tail = first.reshape(REQ_BATCH, cfg.seq_len, -1, cfg.nfeats)[:, half:].reshape(REQ_BATCH, -1, cfg.nfeats)
+    second = diff.ddim_sample_stream(shape, conds[1], generator=gen, x_0=x_0, prev_tail=tail)
+    for out in (first, second):
+        check_output(out, x_0, shape)
+    head = second.reshape(REQ_BATCH, cfg.seq_len, -1, cfg.nfeats)[:, :half, :, 6:]
+    check(torch.equal(head, tail.reshape(REQ_BATCH, half, -1, cfg.nfeats)[..., 6:]),
+          "the second stream slice does not start with the first one's tail")
+
+    # forecast: the model runs at steps 0, 1, every 2nd and the last (27 of 50)
+    reset_serving_launches()
+    fc = diff.ddim_sample(shape, conds[0], generator=gen, x_0=x_0, forecast_every=2)
+    steps = dcfg.sampling_timesteps
+    runs = len(set(range(0, steps, 2)) | {1, steps - 1}) * cfg.num_layers
+    counts = (sa_block.sa_block.launches, ff_block.ff_tail.launches)
+    check_output(fc, x_0, shape)
+    print(f"forecast_every=2: K1/K2 launches {counts} (expected {runs} each)")
+    check(counts == (runs, runs), f"forecast launches {counts}, expected {runs} each")
+
+    # partial denoise: noise the forecast's motion to t=100, 100 DDPM steps back
+    pd = diff.partial_denoise(fc, conds[0], 100, generator=gen)
+    check(tuple(pd.shape) == shape and torch.isfinite(pd).all().item(), "partial_denoise output not finite")
+    check(pd.abs().max().item() <= 1.0, "partial_denoise left [-1, 1]")
+    torch.cuda.synchronize()
+    print(f"other samplers (footwork, 2 stream slices, forecast, partial denoise from t=100), bf16 batch "
+          f"{REQ_BATCH}: {time.perf_counter() - t0:.1f} s")
+    del model, diff
+    torch.cuda.empty_cache()
 
 
 def train_launches() -> dict:
@@ -474,8 +738,13 @@ def main() -> int:
 
         gen = torch.Generator(device="cuda").manual_seed(0)
         figures = compare_kernels(gen)
+        figures.update(compare_serving_ops(gen))
         figures.update(compare_train_kernels(gen))
         launches = serve(gen)
+        t0 = time.perf_counter()
+        launches.update(serve_per_op(gen))
+        other_samplers(gen)
+        print(f"per-op path and other samplers took {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         train_counts = train(card)
         print(f"train phase took {time.perf_counter() - t0:.1f} s")

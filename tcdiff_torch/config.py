@@ -2,12 +2,14 @@
 
 A copy of the dataclasses and constants `tcdiff_tpu/config.py` defines for
 the denoiser, the diffusion and the trainer (same defaults), so that the
-port runs where JAX is not installed.
+port runs where JAX is not installed; and `ServingKernels`, the port's
+form of the environment flags that choose the JAX package's serving path.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Tuple
 
 
@@ -30,6 +32,74 @@ class DanceDecoderConfig:
     @property
     def tokens(self) -> int:
         return self.seq_len * self.dancer_num
+
+
+def _env_flag(environ, name: str, default: bool) -> bool:
+    v = environ.get(name)
+    return default if v is None else v == "1"
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingKernels:
+    """Which kernels the deterministic (serving) forward runs: one field
+    per flag of the JAX package's serving path. The defaults are that
+    package's TPU defaults: the self-attention block (K1) and the FF block
+    with its tail (K2) on, the per-op kernels off, the cross-attention k/v
+    hoisted. A site whose kernel is off runs as plain PyTorch math, the
+    counterpart of the JAX package's XLA code there.
+
+    A combination whose kernel the port does not have yet raises
+    NotImplementedError (ROADMAP.md, queue 2); none falls back to another
+    path.
+    """
+
+    sa_block: bool = True  # TCDIFF_PALLAS_SAB: K1
+    ff_block: bool = True  # TCDIFF_PALLAS_FFB: K2 with ff_tail, K2b without
+    ff_tail: bool = True  # TCDIFF_PALLAS_FFT
+    layernorm: bool = False  # TCDIFF_PALLAS_LN: K10, the SBI-MSA post-LayerNorms
+    ln_matmul: bool = False  # TCDIFF_PALLAS_LNMM: K9, norm3->linear1 and norm4->linear3
+    ln_rotary: bool = False  # TCDIFF_PALLAS_LNROT: K8, norm->rotary->projections
+    attention: int = 0  # TCDIFF_PALLAS_ATTENTION: K11; 1 per head, 2 all heads
+    kv_cache: bool = True  # TCDIFF_KV_CACHE: the hoisted cross-attention k/v
+    layer_fuse: bool = False  # TCDIFF_LAYER_FUSE: K6
+    ca_block: bool = False  # TCDIFF_PALLAS_XAB: K7 (shadowed by the k/v cache)
+
+    def __post_init__(self):
+        if self.attention not in (0, 1, 2):
+            raise ValueError(f"attention must be 0, 1 or 2, got {self.attention}")
+        if self.ff_block and not self.ff_tail:
+            raise NotImplementedError(
+                "the FF block without its tail (K2b, fused_ff_block) is not ported yet: ROADMAP.md queue 2, K2b")
+        if self.layer_fuse:
+            raise NotImplementedError(
+                "the whole-layer kernel (K6, fused_layer) is not ported yet: ROADMAP.md queue 2, K6")
+        if self.ca_block and not self.kv_cache:
+            raise NotImplementedError(
+                "the cross-attention block kernel (K7, fused_ca_block) is not ported yet: ROADMAP.md queue 2, K7")
+
+    @classmethod
+    def per_op(cls, attention: int = 1, kv_cache: bool = True) -> "ServingKernels":
+        """The block kernels off and the per-op kernels K8-K11 on."""
+        return cls(sa_block=False, ff_block=False, layernorm=True, ln_matmul=True, ln_rotary=True,
+                   attention=attention, kv_cache=kv_cache)
+
+    @classmethod
+    def from_env(cls, environ=None) -> "ServingKernels":
+        """Read the JAX package's flags (TCDIFF_PALLAS_SAB=1, ...) from
+        `environ` (os.environ by default); an unset flag keeps its default."""
+        env = os.environ if environ is None else environ
+        return cls(
+            sa_block=_env_flag(env, "TCDIFF_PALLAS_SAB", True),
+            ff_block=_env_flag(env, "TCDIFF_PALLAS_FFB", True),
+            ff_tail=_env_flag(env, "TCDIFF_PALLAS_FFT", True),
+            layernorm=_env_flag(env, "TCDIFF_PALLAS_LN", False),
+            ln_matmul=_env_flag(env, "TCDIFF_PALLAS_LNMM", False),
+            ln_rotary=_env_flag(env, "TCDIFF_PALLAS_LNROT", False),
+            attention=int(env.get("TCDIFF_PALLAS_ATTENTION", "0")),
+            kv_cache=_env_flag(env, "TCDIFF_KV_CACHE", True),
+            layer_fuse=_env_flag(env, "TCDIFF_LAYER_FUSE", False),
+            ca_block=_env_flag(env, "TCDIFF_PALLAS_XAB", False),
+        )
 
 
 @dataclasses.dataclass(frozen=True)

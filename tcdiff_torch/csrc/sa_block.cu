@@ -20,124 +20,16 @@
 // Design: a short pipeline of hand-written launches on one stream.
 //   1. ln_rows_kernel: LN + rotary per row (f32 stats), y and r stored in T;
 //   2. three FMA-tiled projections (common.cuh);
-//   3. attn_kernel: flash-style attention, one block per (64 queries, head,
-//      batch), streaming 32-key tiles with an online softmax, so no logit
-//      row ever leaves the block and shared memory stays under 48 KB;
+//   3. attn_kernel (attention.cuh, shared with K11): flash-style attention,
+//      one block per (64 queries, head, batch), streaming 32-key tiles with
+//      an online softmax, so no logit row ever leaves the block and shared
+//      memory stays under 48 KB;
 //   4. out projection into an f32 scratch, then ln_rows_kernel for the
 //      post-attention LN with the FiLM residual as its epilogue.
 // A correct first kernel: the tiles run on FMA units, not the tensor cores.
-#include "common.cuh"
+#include "attention.cuh"
 
 namespace tcd {
-
-constexpr int AQ = 64;     // queries per block
-constexpr int AK = 32;     // keys per tile
-constexpr int DKMAX = 64;  // largest head dim
-constexpr int NB = 10;     // TRPE buckets
-
-// q/k/v/o: (B, L, hd) with head h in columns [h*dk, (h+1)*dk).
-template <typename T>
-__global__ void __launch_bounds__(256)
-attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, int L,
-            int hd, int dk, float scale, const T* __restrict__ table,
-            const int32_t* __restrict__ dist, T* __restrict__ o) {
-  __shared__ float Qs[AQ][DKMAX + 1];
-  __shared__ float Ks[AK][DKMAX + 1];
-  __shared__ float Vs[AK][DKMAX];
-  __shared__ float Ps[AQ][AK + 1];
-  __shared__ float Ix[AQ][NB];
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * AQ;
-  const int tid = threadIdx.x, r = tid >> 2, cg = tid & 3;  // 4 threads per query row
-  const size_t base = (size_t)b * L * hd + (size_t)h * dk;
-
-  for (int idx = tid; idx < AQ * dk; idx += 256) {
-    const int rr = idx / dk, c = idx % dk, gq = q0 + rr;
-    Qs[rr][c] = gq < L ? to_f(q[base + (size_t)gq * hd + c]) : 0.f;
-  }
-  __syncthreads();
-  if (table) {  // (rows, buckets) of UNSCALED q against this head's table slice
-    for (int idx = tid; idx < AQ * NB; idx += 256) {
-      const int rr = idx / NB, n = idx % NB;
-      float s = 0.f;
-      for (int c = 0; c < dk; ++c) s = fmaf(Qs[rr][c], to_f(table[(size_t)n * hd + h * dk + c]), s);
-      Ix[rr][n] = s;
-    }
-  }
-  __syncthreads();
-  const float sc = round_t<T>(scale);
-  for (int idx = tid; idx < AQ * dk; idx += 256) {
-    const int rr = idx / dk, c = idx % dk;
-    Qs[rr][c] = round_t<T>(Qs[rr][c] * sc);  // q * scale, rounded like the TPU kernel's
-  }
-  __syncthreads();
-
-  const int gq = q0 + r;
-  const int dpt = dk / 4;  // output columns per thread
-  float m_i = -INFINITY, l_i = 0.f;
-  float acc[DKMAX / 4];
-#pragma unroll
-  for (int i = 0; i < DKMAX / 4; ++i) acc[i] = 0.f;
-
-  for (int k0 = 0; k0 < L; k0 += AK) {
-    for (int idx = tid; idx < AK * dk; idx += 256) {
-      const int kk = idx / dk, c = idx % dk, gk = k0 + kk;
-      const bool ok = gk < L;
-      Ks[kk][c] = ok ? to_f(k[base + (size_t)gk * hd + c]) : 0.f;
-      Vs[kk][c] = ok ? to_f(v[base + (size_t)gk * hd + c]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[AK / 4];
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int jj = 0; jj < AK / 4; ++jj) {
-      const int j = cg * (AK / 4) + jj, gk = k0 + j;
-      float a = 0.f;
-      for (int c = 0; c < dk; ++c) a = fmaf(Qs[r][c], Ks[j][c], a);
-      if (table && gq < L && gk < L) {
-        const int n = dist[((size_t)b * L + gq) * L + gk];
-        if (n >= 0 && n < NB) a += Ix[r][n];
-      }
-      s[jj] = gk < L ? a : -INFINITY;
-      tmax = fmaxf(tmax, s[jj]);
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-    const float m_new = fmaxf(m_i, tmax);  // finite: key k0 is always valid
-    const float corr = expf(m_i - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < AK / 4; ++jj) {
-      const float p = expf(s[jj] - m_new);
-      psum += p;
-      Ps[r][cg * (AK / 4) + jj] = round_t<T>(p);  // p enters the PV product in T
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l_i = l_i * corr + psum;
-    m_i = m_new;
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < DKMAX / 4; ++i) {
-      if (i < dpt) {
-        const int c = cg * dpt + i;
-        float a = acc[i] * corr;
-        for (int j = 0; j < AK; ++j) a = fmaf(Ps[r][j], Vs[j][c], a);
-        acc[i] = a;
-      }
-    }
-    __syncthreads();
-  }
-
-  if (gq < L) {
-    const float inv = 1.f / l_i;
-#pragma unroll
-    for (int i = 0; i < DKMAX / 4; ++i)
-      if (i < dpt) o[base + (size_t)gq * hd + cg * dpt + i] = from_f<T>(acc[i] * inv);
-  }
-}
 
 template <typename T>
 int sa_block(const T* x, const float* s1, const float* b1, const T* cos_t, const T* ssin_t,
@@ -151,8 +43,18 @@ int sa_block(const T* x, const float* s1, const float* b1, const T* cos_t, const
   gemm<T, EPI_STORE>(r, wq, M, hd, d, epi(q), st);
   gemm<T, EPI_STORE>(r, wk, M, hd, d, epi(k), st);
   gemm<T, EPI_STORE>(y, wv, M, hd, d, epi(v), st);
-  attn_kernel<T><<<dim3(cdiv(L, AQ), nhead, B), 256, 0, st>>>(
-      q, k, v, L, hd, dk, 1.f / sqrtf((float)dk), table, dist, o);
+  // q/k/v/o (B, L, hd) with head h in columns [h*dk, (h+1)*dk); table (10, hd)
+  AttnArgs a;
+  a.q = q; a.k = k; a.v = v; a.o = o;
+  a.qs = a.ks = a.vs = a.os = Strides{(long long)L * hd, dk, hd};
+  a.Lq = a.Lk = L;
+  a.dk = dk;
+  a.scale = 1.f / sqrtf((float)dk);
+  a.table = table;
+  a.tn = hd;
+  a.th = dk;
+  a.dist = dist;
+  attention<T>(a, B, nhead, st);
   gemm<T, EPI_STORE_F32>(o, wfc, M, d, hd, epi(z), st);
   ln_rows_kernel<float, T><<<M, 256, 0, st>>>(z, s2, b2, eps2, d, L, nullptr, nullptr,
                                               fs ? x : nullptr, fs, fb, out, nullptr);

@@ -1,20 +1,32 @@
-"""Trajectory-clamped DDIM sampling with classifier-free guidance, and the
-4-term training loss.
+"""Trajectory-clamped diffusion sampling with classifier-free guidance,
+and the 4-term training loss.
 
 PyTorch counterpart of `tcdiff_tpu/diffusion/gaussian.py`:
 - serving: `encode_cond_cfg`, `guided` (one doubled-batch forward,
-  unconditional half first, with CFG-prefix dedup) and `ddim_sample`
-  (DDIM, eta from the config, clipped x0 prediction, XY trajectory clamped
-  before the loop, after every step and at the end), the steps as a
-  Python loop;
+  unconditional half first, with CFG-prefix dedup) and the samplers, each
+  step loop a Python loop:
+  - the DDIM family over one loop, `_ddim_loop` (eta from the config,
+    clipped x0 prediction, XY trajectory clamped before the loop, after
+    every step and at the end): `ddim_sample` (optionally with `forecast_every`,
+    AB2 extrapolation of x0 on skipped steps), `long_ddim_sample` (slices of
+    one song on the batch axis, half-window coupling, a guidance ramp),
+    `ddim_sample_footwork` (leg-chain channels driven by a reference
+    motion) and `ddim_sample_stream` (one slice, its first half-window
+    inpainted from the previous slice's tail);
+  - the DDPM family: `p_sample_loop` (normal, inpaint, long) and
+    `partial_denoise`;
 - training: `q_sample`, `p_losses` (predict-x0 with p2 weights: the
   reconstruction, velocity, root-relative FK and foot-skate terms) and
   `loss` (t drawn uniformly, then `p_losses`).
 
-Randomness comes from an explicit `torch.Generator`, or is injected
-(`noise={"init": (b, tokens, c), "steps": (S, b, tokens, c)}` for the
-sampler; `t`, `noise` and `keep_mask` for the loss) so that the JAX package
-and this one can be fed the same numbers.
+Randomness comes from an explicit `torch.Generator`, or is injected so that
+the JAX package and this one can be fed the same numbers: the samplers take
+`noise={"init": (b, tokens, c), "steps": (S, b, tokens, c)}`, and the draws
+the JAX samplers make inside their loop even when noise is given as
+`"prev"` (S, b, (seq_len//2)*dn, c) for the stream inpaint and `"value"`
+(S, b, tokens, c) for the DDPM inpaint constraint; `partial_denoise` takes
+`"q"` (b, tokens, c) for its forward noising. The loss takes `t`, `noise`
+and `keep_mask`.
 """
 
 from __future__ import annotations
@@ -33,6 +45,16 @@ def impose_traj(x: torch.Tensor, x_0: torch.Tensor) -> torch.Tensor:
     x = x.clone()
     x[..., 4:6] = x_0[..., 0:2].to(x.dtype)
     return x
+
+
+def _footwork_channels(joints) -> list:
+    """rot6d channel slices (lo, hi) of the leg-chain joints."""
+    return [(4 + 3 + (i - 1) * 6, 4 + 3 + i * 6) for i in joints]
+
+
+def _injected(noise, key: str, dev):
+    return None if noise is None or key not in noise else torch.as_tensor(
+        noise[key], dtype=torch.float32, device=dev)
 
 
 def _per_sample_mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -138,32 +160,92 @@ class GaussianDiffusion:
         unc, con = out[:b], out[b:]
         return unc + (con - unc) * weight
 
-    @torch.no_grad()
-    def ddim_sample(self, shape, cond, generator=None, x_0=None, noise=None, trj_dist=None):
-        """DDIM over `cfg.sampling_timesteps` steps. shape: (b, tokens, c);
-        cond: (b, 301, cond_dim); x_0: optional (b, tokens, >=2) trajectory
-        (XY in channels 0,1). Runs on cond's device; returns float32."""
-        cfg, buf = self.cfg, self.buffers
-        dev = cond.device
+    # ------------------------------------------------------------ sampling
+    def _start(self, shape, dev, generator, noise):
+        """x_T: noise["init"] when injected, else drawn."""
         if noise is None:
-            draw = lambda: torch.randn(shape, generator=generator, device=dev)
-            x = draw()
-        else:
-            steps = torch.as_tensor(noise["steps"], dtype=torch.float32, device=dev)
-            x = torch.as_tensor(noise["init"], dtype=torch.float32, device=dev)
+            return torch.randn(shape, generator=generator, device=dev)
+        return torch.as_tensor(noise["init"], dtype=torch.float32, device=dev)
+
+    def _splice_footwork(self, x, x_0, hard: bool):
+        """Frames [lo, hi) of the leg-chain rot6d channels from the
+        reference motion x_0 (hard), or the final soft blend, with the JAX
+        package's quirks: the middle hard copy spans lo+w .. seq_len-w (not
+        hi-w), and the blend-out then reads the just-copied values."""
+        cfg = self.cfg
+        b, seq = x.shape[0], self.model.cfg.seq_len
+        lo_f, hi_f = cfg.footwork_frames
+        x4 = x.reshape(b, seq, -1, x.shape[-1]).clone()
+        ref4 = x_0.reshape(b, seq, -1, x_0.shape[-1]).to(x.dtype)
+        w = cfg.footwork_blend_width
+        ramp = torch.linspace(0.0, 1.0, w, device=x.device)[None, :, None, None]
+        for lo, hi in _footwork_channels(cfg.footwork_joints):
+            if hard:
+                x4[:, lo_f:hi_f, :, lo:hi] = ref4[:, lo_f:hi_f, :, lo:hi]
+                continue
+            win = slice(lo_f, lo_f + w)
+            x4[:, win, :, lo:hi] = ramp * ref4[:, win, :, lo:hi] + (1 - ramp) * x4[:, win, :, lo:hi]
+            x4[:, lo_f + w:seq - w, :, lo:hi] = ref4[:, lo_f + w:seq - w, :, lo:hi]
+            win = slice(hi_f - w, hi_f)
+            x4[:, win, :, lo:hi] = (1 - ramp) * ref4[:, win, :, lo:hi] + ramp * x4[:, win, :, lo:hi]
+        return x4.reshape(x.shape)
+
+    @staticmethod
+    def _half_copy(x, rows: int, half: int):
+        """Slice coupling: the first `half` of each slice (batch element)'s
+        `rows` := the second half of the slice before it; slice 0 keeps
+        its own."""
+        x4 = x.reshape(x.shape[0], rows, -1, x.shape[-1])
+        shifted = torch.cat([x4[:1, :half], x4[:-1, half:]], dim=0)
+        return torch.cat([shifted, x4[:, half:]], dim=1).reshape(x.shape)
+
+    @torch.no_grad()
+    def _ddim_loop(self, x, cond, weights: np.ndarray, *, generator=None, noise=None, x_0=None,
+                   trj_dist=None, footwork: bool = False, long_mode: bool = False, stream_prev=None,
+                   forecast_every: int = 0):
+        """The DDIM step loop of every DDIM sampler (the JAX package's
+        `_ddim_scan`): x (b, tokens, c) at x_T; weights (S,) the guidance
+        weight of each step. Options: the footwork splice, long-form
+        half-window coupling, the stream inpaint of the first half-window
+        from `stream_prev`, and `forecast_every` >= 2: on skipped steps the
+        x0 prediction is extrapolated (AB2) from the previous two instead
+        of running the model; the first two and the last step always run
+        it."""
+        cfg, buf = self.cfg, self.buffers
+        dev = x.device
+        b = x.shape[0]
+        seq_len = self.model.cfg.seq_len
+        half = seq_len // 2
+        steps = _injected(noise, "steps", dev)
+        prev_noise = _injected(noise, "prev", dev)
+        times = ddim_times(cfg.n_timestep, cfg.sampling_timesteps)
+        use_model = np.ones(len(times) - 1, dtype=bool)
+        if forecast_every >= 2:
+            use_model[:] = False
+            use_model[::forecast_every] = True
+            use_model[:2] = True
+            use_model[-1] = True
         if x_0 is not None:
             x_0 = x_0.to(dev)
             x = impose_traj(x, x_0)
+            if footwork:
+                x = self._splice_footwork(x, x_0, hard=True)
+        if stream_prev is not None:
+            prev4 = torch.as_tensor(stream_prev, dtype=torch.float32, device=dev).reshape(b, half, -1, x.shape[-1])
 
         cond_cache = self.encode_cond_cfg(cond)
-        times = ddim_times(cfg.n_timestep, cfg.sampling_timesteps)
         ac = buf.alphas_cumprod
         one = np.float32(1.0)
+        s1 = s2 = None  # the last two x0 predictions
         for i, (time, time_next) in enumerate(zip(times[:-1], times[1:])):
-            t_vec = torch.full((shape[0],), int(time), dtype=torch.int32, device=dev)
-            x_start = self.guided(x, cond, t_vec, cfg.guidance_weight, trj_dist, cond_cache)
+            if use_model[i]:
+                t_vec = torch.full((b,), int(time), dtype=torch.int32, device=dev)
+                x_start = self.guided(x, cond, t_vec, float(weights[i]), trj_dist, cond_cache)
+            else:
+                x_start = 2.0 * s1 - s2
             if cfg.clip_denoised:
                 x_start = x_start.clamp(-1.0, 1.0)
+            s1, s2 = x_start, s1
             pred_noise = (float(buf.sqrt_recip_alphas_cumprod[time]) * x - x_start) / float(
                 buf.sqrt_recipm1_alphas_cumprod[time]
             )
@@ -172,11 +254,147 @@ class GaussianDiffusion:
                 max((one - alpha / alpha_next) * (one - alpha_next) / (one - alpha), np.float32(0))
             )
             coef = np.sqrt(max(one - alpha_next - sigma * sigma, np.float32(0)))
-            eps = draw() if noise is None else steps[i]
+            eps = torch.randn(x.shape, generator=generator, device=dev) if steps is None else steps[i]
             if time_next < 0:
                 x = x_start
             else:
                 x = x_start * float(np.sqrt(alpha_next)) + float(coef) * pred_noise + float(sigma) * eps
             if x_0 is not None:
                 x = impose_traj(x, x_0)
+                if footwork and time_next >= 0:  # the last step's splice is the soft blend below
+                    x = self._splice_footwork(x, x_0, hard=True)
+            if long_mode and time > 0 and time_next >= 0:
+                x = self._half_copy(x, seq_len, half)
+            if stream_prev is not None:
+                # RePaint-style: the first half-window is the previous
+                # slice's tail, re-noised to the next step's level
+                pn = (torch.randn(prev4.shape, generator=generator, device=dev) if prev_noise is None
+                      else prev_noise[i].reshape(prev4.shape))
+                tn = max(int(time_next), 0)
+                prev_t = prev4
+                if time_next > 0:
+                    prev_t = float(np.sqrt(ac[tn])) * prev4 + float(np.sqrt(one - ac[tn])) * pn
+                x4 = x.reshape(b, seq_len, -1, x.shape[-1])
+                x = torch.cat([prev_t, x4[:, half:]], dim=1).reshape(x.shape)
+
+        if x_0 is not None:
+            x = impose_traj(x, x_0)
+            if footwork:
+                x = self._splice_footwork(x, x_0, hard=False)
         return x
+
+    def _ddim_weights(self) -> np.ndarray:
+        return np.full(self.cfg.sampling_timesteps, self.cfg.guidance_weight, np.float32)
+
+    @torch.no_grad()
+    def ddim_sample(self, shape, cond, generator=None, x_0=None, noise=None, trj_dist=None,
+                    forecast_every: int = 0):
+        """DDIM over `cfg.sampling_timesteps` steps. shape: (b, tokens, c);
+        cond: (b, 301, cond_dim); x_0: optional (b, tokens, >=2) trajectory
+        (XY in channels 0,1); forecast_every >= 2: the opt-in x0 forecast
+        (see `_ddim_loop`), 0 the exact sampler. Runs on cond's device;
+        returns float32."""
+        x = self._start(shape, cond.device, generator, noise)
+        return self._ddim_loop(x, cond, self._ddim_weights(), generator=generator, noise=noise, x_0=x_0,
+                               trj_dist=trj_dist, forecast_every=forecast_every)
+
+    @torch.no_grad()
+    def long_ddim_sample(self, shape, cond, generator=None, x_0=None, noise=None):
+        """Long-form DDIM: the batch holds consecutive slices of one song;
+        after every step but the last, each slice's first half-window
+        becomes the previous slice's second half. Guidance ramps from 0 to
+        the config's weight over the first half of the steps. One slice is
+        plain `ddim_sample`, without the trajectory (as the JAX package)."""
+        if shape[0] == 1:
+            return self.ddim_sample(shape, cond, generator, x_0=None, noise=noise)
+        s, gw = self.cfg.sampling_timesteps, self.cfg.guidance_weight
+        weights = np.clip(np.linspace(0, gw * 2, s), None, gw).astype(np.float32)
+        x = self._start(shape, cond.device, generator, noise)
+        return self._ddim_loop(x, cond, weights, generator=generator, noise=noise, x_0=x_0, long_mode=True)
+
+    @torch.no_grad()
+    def ddim_sample_footwork(self, shape, cond, generator=None, x_0=None, noise=None):
+        """Footwork-adaptor DDIM: the leg-chain rot6d channels of frames
+        `cfg.footwork_frames` follow the reference motion x_0
+        (b, tokens, nfeats; XY trajectory in its channels 0,1), spliced
+        after every step and blended in and out at the end."""
+        if x_0 is None:
+            raise ValueError("ddim_sample_footwork needs the reference motion x_0")
+        x = self._start(shape, cond.device, generator, noise)
+        return self._ddim_loop(x, cond, self._ddim_weights(), generator=generator, noise=noise, x_0=x_0,
+                               footwork=True)
+
+    @torch.no_grad()
+    def ddim_sample_stream(self, shape, cond, generator=None, x_0=None, prev_tail=None, noise=None):
+        """Causal single-slice DDIM for streaming: the slice's first
+        half-window is inpainted from `prev_tail`, the previous slice's
+        generated second half ((b, (seq_len//2)*dn, nfeats); None for the
+        first slice), re-noised to each step's level."""
+        x = self._start(shape, cond.device, generator, noise)
+        return self._ddim_loop(x, cond, self._ddim_weights(), generator=generator, noise=noise, x_0=x_0,
+                               stream_prev=prev_tail)
+
+    def _ddpm_weights(self, n: int) -> np.ndarray:
+        """Per-timestep guidance, clipped to at most 1 below 0.1 T."""
+        w = np.full(n, self.cfg.guidance_weight, np.float32)
+        w[np.arange(n) < 0.1 * self.cfg.n_timestep] = min(self.cfg.guidance_weight, 1.0)
+        return w
+
+    @torch.no_grad()
+    def p_sample_loop(self, shape, cond, generator=None, noise=None, start_point=None, mode: str = "normal",
+                      constraint=None, x_init=None):
+        """Ancestral DDPM from `start_point` (default T) down to 0; mode
+        "normal", "inpaint" (constraint={"mask", "value"}, each (b, tokens,
+        c): value noised to each step's level replaces x where mask is 1)
+        or "long" (the batch holds slices of one song; after every step but
+        the last each slice's first half of the tokens becomes the previous
+        slice's second half). x_init replaces the drawn x_T."""
+        cfg, buf = self.cfg, self.buffers
+        if mode not in ("normal", "inpaint", "long"):
+            raise ValueError(f"unknown mode {mode!r}")
+        dev = cond.device
+        b = shape[0]
+        start = cfg.n_timestep if start_point is None else int(start_point)
+        half = shape[1] // 2
+        if x_init is not None:
+            x = torch.as_tensor(x_init, dtype=torch.float32, device=dev)
+        else:
+            x = self._start(shape, dev, generator, noise)
+        steps, values = _injected(noise, "steps", dev), _injected(noise, "value", dev)
+        if mode == "inpaint":
+            mask = torch.as_tensor(constraint["mask"], dtype=torch.float32, device=dev)
+            value = torch.as_tensor(constraint["value"], dtype=torch.float32, device=dev)
+        w_tab = self._ddpm_weights(cfg.n_timestep)
+        pm1, pm2, plv = buf.posterior_mean_coef1, buf.posterior_mean_coef2, buf.posterior_log_variance_clipped
+
+        cond_cache = self.encode_cond_cfg(cond)
+        for i in range(start):
+            t = start - 1 - i
+            t_vec = torch.full((b,), t, dtype=torch.int32, device=dev)
+            x_recon = self.guided(x, cond, t_vec, float(w_tab[t]), cond_cache=cond_cache)
+            if cfg.clip_denoised:
+                x_recon = x_recon.clamp(-1.0, 1.0)
+            mean = float(pm1[t]) * x_recon + float(pm2[t]) * x
+            z = torch.randn(x.shape, generator=generator, device=dev) if steps is None else steps[i]
+            x = mean + float(np.exp(np.float32(0.5) * plv[t])) * z if t != 0 else mean
+            if mode == "inpaint":
+                vnoise = torch.randn(value.shape, generator=generator, device=dev) if values is None else values[i]
+                if t > 0:
+                    value_t = self.q_sample(value, (t_vec - 1).clamp(min=0).long(), vnoise)
+                    x = value_t * mask + (1.0 - mask) * x
+            elif mode == "long" and t > 0:
+                x = self._half_copy(x, shape[1], half)
+        return x
+
+    @torch.no_grad()
+    def partial_denoise(self, x, cond, t: int, generator=None, noise=None):
+        """Noise x (b, tokens, c) to level t, then run the DDPM loop from t
+        back to 0 (refinement of a given motion)."""
+        x = torch.as_tensor(x, dtype=torch.float32, device=cond.device)
+        x_noisy = x
+        if t > 0:
+            q = _injected(noise, "q", x.device)
+            if q is None:
+                q = torch.randn(x.shape, generator=generator, device=x.device)
+            x_noisy = self.q_sample(x, torch.full((x.shape[0],), t, dtype=torch.long, device=x.device), q)
+        return self.p_sample_loop(tuple(x.shape), cond, generator, noise, start_point=t, x_init=x_noisy)

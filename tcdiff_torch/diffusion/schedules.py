@@ -39,7 +39,7 @@ def make_beta_schedule(
 
 @dataclasses.dataclass(frozen=True)
 class DiffusionBuffers:
-    """The per-timestep coefficient tables the sampler and the loss read
+    """The per-timestep coefficient tables the samplers and the loss read
     (float32, (T,))."""
 
     betas: np.ndarray
@@ -48,13 +48,19 @@ class DiffusionBuffers:
     sqrt_one_minus_alphas_cumprod: np.ndarray
     sqrt_recip_alphas_cumprod: np.ndarray
     sqrt_recipm1_alphas_cumprod: np.ndarray
+    posterior_log_variance_clipped: np.ndarray  # the DDPM step's
+    posterior_mean_coef1: np.ndarray
+    posterior_mean_coef2: np.ndarray
     p2_loss_weight: np.ndarray
 
     @classmethod
     def create(cls, schedule: str = "cosine", n_timestep: int = 1000, use_p2: bool = False) -> "DiffusionBuffers":
         # float32 betas first, then float32 products (as the JAX tables)
         betas = make_beta_schedule(schedule, n_timestep).astype(np.float32)
-        alphas_cumprod = np.cumprod(1.0 - betas, axis=0)
+        alphas = 1.0 - betas
+        alphas_cumprod = np.cumprod(alphas, axis=0)
+        alphas_cumprod_prev = np.concatenate([np.ones(1, np.float32), alphas_cumprod[:-1]])
+        posterior_variance = betas * (1.0 - alphas_cumprod_prev) / (1.0 - alphas_cumprod)
         p2_gamma = 0.5 if use_p2 else 0.0
         f32 = lambda a: np.asarray(a, dtype=np.float32)
         return cls(
@@ -64,6 +70,9 @@ class DiffusionBuffers:
             sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - alphas_cumprod)),
             sqrt_recip_alphas_cumprod=f32(np.sqrt(1.0 / alphas_cumprod)),
             sqrt_recipm1_alphas_cumprod=f32(np.sqrt(1.0 / alphas_cumprod - 1)),
+            posterior_log_variance_clipped=f32(np.log(np.clip(posterior_variance, 1e-20, None))),
+            posterior_mean_coef1=f32(betas * np.sqrt(alphas_cumprod_prev) / (1.0 - alphas_cumprod)),
+            posterior_mean_coef2=f32((1.0 - alphas_cumprod_prev) * np.sqrt(alphas) / (1.0 - alphas_cumprod)),
             p2_loss_weight=f32((1.0 + alphas_cumprod / (1 - alphas_cumprod)) ** -p2_gamma),
         )
 

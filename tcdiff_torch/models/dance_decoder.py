@@ -27,11 +27,16 @@ weights cast per use and LayerNorm statistics in f32, as the flax modules
 do.
 
 Each decoder layer's blocks run through `tcdiff_torch.ops` (CUDA kernels
-for CUDA tensors, plain versions for CPU tensors): on serving the
-self-attention block (K1) and the FF block + tail (K2), with
-cross-attention plain tensor math over the hoisted k/v, as on the TPU; in
+for CUDA tensors, plain versions for CPU tensors). On serving,
+`ServingKernels` (the model's `kernels`) chooses per site, as the JAX
+package's flags do: by default the self-attention block (K1) and the FF
+block + tail (K2), with cross-attention plain tensor math over the hoisted
+k/v; in the per-op configuration LN -> rotary -> q/k/v (K8), attention
+(K11, also in the cond encoder), the post-attention LayerNorms (K10) and
+the LN -> projections of the FF chain (K9). A site whose kernel is off runs
+as plain PyTorch math, the counterpart of the JAX package's XLA code. In
 training the self-attention (K3), cross-attention (K4) and FF + tail (K5)
-blocks, forward and backward.
+blocks run, forward and backward.
 """
 
 from __future__ import annotations
@@ -43,9 +48,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tcdiff_torch.config import DanceDecoderConfig
+from tcdiff_torch.config import DanceDecoderConfig, ServingKernels
 from tcdiff_torch.models.rotary import RotaryEmbedding, angle_table, apply_rotary
-from tcdiff_torch.ops import ca_block_train, ff_block, ff_block_train, sa_block, sa_block_train
+from tcdiff_torch.ops import (
+    attention, ca_block_train, ff_block, ff_block_train, layernorm, ln_matmul, ln_rotary_matmul, sa_block,
+    sa_block_train,
+)
+from tcdiff_torch.ops.attention import N_TRJ_BUCKETS, trpe_bias
 
 
 class CondCache(NamedTuple):
@@ -53,8 +62,10 @@ class CondCache(NamedTuple):
 
     ct: torch.Tensor  # (B, Lc, d) encoded music tokens
     cond_hidden: torch.Tensor  # (B, d)
-    kv: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]  # per layer (kct, vct), (B, Lc, hd)
-    w_stack: Tuple[torch.Tensor, torch.Tensor]  # (layers, hd, d) k and v weights in dtype
+    # per layer (kct, vct), (B, Lc, hd), and the (layers, hd, d) k and v
+    # weights in dtype; None with the k/v cache off
+    kv: Optional[Tuple[Tuple[torch.Tensor, torch.Tensor], ...]]
+    w_stack: Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 
 def _lin(mod: nn.Linear, x: torch.Tensor) -> torch.Tensor:
@@ -95,16 +106,24 @@ def block_seeds(generator: Optional[torch.Generator], b: int, device, rate: floa
     return torch.randint(0, 2**32, (b,), generator=generator, device=device, dtype=torch.int64)
 
 
-def _attend(q, k, v, nhead: int, scale: float, drop=_identity) -> torch.Tensor:
-    """Plain softmax attention over (b, L, h*dk) projections; `drop` acts
-    on the attention probabilities."""
-    b, lq, hd = q.shape
-    dk = hd // nhead
-    split = lambda t: t.reshape(b, t.shape[1], nhead, dk).transpose(1, 2)
-    q, k, v = split(q), split(k), split(v)
+def _heads(t: torch.Tensor, nhead: int) -> torch.Tensor:
+    """(b, L, h*dk) -> (b, h, L, dk), a view."""
+    return t.unflatten(-1, (nhead, -1)).transpose(1, 2)
+
+
+def _merge(o: torch.Tensor) -> torch.Tensor:
+    """(b, h, L, dk) -> (b, L, h*dk)."""
+    return o.transpose(1, 2).flatten(2)
+
+
+def _attend(q, k, v, scale: float, table=None, trj_dist=None, drop=_identity) -> torch.Tensor:
+    """Plain softmax attention over (b, h, L, dk) heads in their dtype, as
+    the JAX package's XLA path, with the optional TRPE bias (table (h, 10,
+    dk), UNSCALED q); `drop` acts on the attention probabilities."""
     logits = torch.matmul(q * scale, k.transpose(-1, -2))
-    attn = drop(torch.softmax(logits, dim=-1))
-    return torch.matmul(attn, v).transpose(1, 2).reshape(b, lq, hd)
+    if table is not None and trj_dist is not None:
+        logits = logits + trpe_bias(torch.einsum("bhqd,hnd->bhqn", q, table.to(q.dtype)), trj_dist)
+    return torch.matmul(drop(torch.softmax(logits, dim=-1)), v)
 
 
 def sinusoidal_pos_emb(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -157,7 +176,8 @@ class ConcatSquashLinear(nn.Module):
 
 class TorchMHA(nn.Module):
     """Explicit matmul+softmax attention with nn.MultiheadAttention's
-    parameter names (packed in_proj, out_proj)."""
+    parameter names (packed in_proj, out_proj). `attention_fn` is K11's
+    wrapper, called where `kernels.attention` is on (serving only)."""
 
     def __init__(self, d_model: int, n_head: int):
         super().__init__()
@@ -165,16 +185,21 @@ class TorchMHA(nn.Module):
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = nn.Linear(d_model, d_model)
+        self.attention_fn = attention.attention
 
-    def forward(self, q_in, k_in, v_in, drop=_identity):
+    def forward(self, q_in, k_in, v_in, drop=_identity, kernels: Optional[ServingKernels] = None):
         dt = q_in.dtype
         w, b = self.in_proj_weight.to(dt), self.in_proj_bias.to(dt)
         wq, wk, wv = w.chunk(3)
         bq, bk, bv = b.chunk(3)
-        d = q_in.shape[-1]
-        out = _attend(F.linear(q_in, wq, bq), F.linear(k_in, wk, bk), F.linear(v_in, wv, bv),
-                      self.n_head, 1.0 / math.sqrt(d // self.n_head), drop)
-        return _lin(self.out_proj, out)
+        q, k, v = (_heads(F.linear(t, wi, bi), self.n_head)
+                   for t, wi, bi in ((q_in, wq, bq), (k_in, wk, bk), (v_in, wv, bv)))
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        if kernels is not None and kernels.attention:
+            o = self.attention_fn(q, k, v, scale)  # per head (1) or all heads (2): one kernel
+        else:
+            o = _attend(q, k, v, scale, drop=drop)
+        return _lin(self.out_proj, _merge(o))
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -189,21 +214,26 @@ class TransformerEncoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(d_model)
         self.norm2 = nn.LayerNorm(d_model)
 
-    def forward(self, x, drop=_identity):
+    def forward(self, x, drop=_identity, kernels: Optional[ServingKernels] = None):
         """`drop`: the dropout of the train path, at the reference's four
         sites (attention probabilities, after attention, after the GELU,
-        after linear2)."""
+        after linear2). `kernels`: the serving configuration (None on the
+        train path)."""
         h = _ln(self.norm1, x, 1e-5)
         qk = apply_rotary(h, angle_table(x.shape[-2], x.shape[-1], x.device))
-        x = x + drop(self.self_attn(qk, qk, h, drop))
+        x = x + drop(self.self_attn(qk, qk, h, drop, kernels))
         h = drop(F.gelu(_lin(self.linear1, _ln(self.norm2, x, 1e-5)), approximate="none"))
         return x + drop(_lin(self.linear2, h))
 
 
 class SBIMSA(nn.Module):
     """Trajectory-aware multi-head attention: bias-free q/k/v/fc projections
-    and a post-attention LayerNorm (eps 1e-6). Here only its cross-attention
-    form runs as plain math; the self-attention form is `ops.sa_block`."""
+    and a post-attention LayerNorm (eps 1e-6). With the self-attention block
+    kernel on, the layer runs the whole self-attention form as
+    `ops.sa_block` instead.
+
+    `ln_rotary_fn` (K8), `attention_fn` (K11) and `layernorm_fn` (K10) are
+    the kernel wrappers this module calls where `kernels` turns them on."""
 
     def __init__(self, d_model: int, n_head: int, head_dim: int):
         super().__init__()
@@ -215,23 +245,60 @@ class SBIMSA(nn.Module):
         self.w_vs = nn.Linear(d_model, hd, bias=False)
         self.fc = nn.Linear(hd, d_model, bias=False)
         self.layer_norm = nn.LayerNorm(d_model, eps=1e-6)
+        self.ln_rotary_fn = ln_rotary_matmul.ln_rotary_matmul
+        self.attention_fn = attention.attention
+        self.layernorm_fn = layernorm.layernorm
 
-    def cross(self, q_in, k_in=None, v_in=None, kv=None):
-        """q from q_in; k/v projected from full memory (k_in, v_in), or
-        given already projected as kv = (k, v)."""
-        q = _lin(self.w_qs, q_in)
-        k, v = kv if kv is not None else (_lin(self.w_ks, k_in), _lin(self.w_vs, v_in))
-        o = _attend(q, k.to(q.dtype), v.to(q.dtype), self.n_head, 1.0 / math.sqrt(self.head_dim))
-        return _ln(self.layer_norm, _lin(self.fc, o), 1e-6)
+    def self_qkv(self, x, norm: nn.LayerNorm, angles, kernels: ServingKernels):
+        """Self-attention q, k, v from the raw residual x: q/k from the
+        rotated norm(x), v from norm(x); one K8 launch where
+        `kernels.ln_rotary`."""
+        if kernels.ln_rotary:
+            w = lambda m: m.weight.to(x.dtype)
+            qk, v = self.ln_rotary_fn(x, norm.weight, norm.bias, angles,
+                                      torch.cat([w(self.w_qs), w(self.w_ks)]), w(self.w_vs), 1e-5)
+            q, k = qk.chunk(2, dim=-1)
+            return q, k, v
+        h = _ln(norm, x, 1e-5)
+        r = apply_rotary(h, angles)
+        return _lin(self.w_qs, r), _lin(self.w_ks, r), _lin(self.w_vs, h)
+
+    def cross_q(self, x, norm: nn.LayerNorm, angles, kernels: ServingKernels, fused: bool):
+        """Cross-attention q from the raw residual x: rotated norm(x)
+        projected; K8's rot-only form where `fused` and `kernels.ln_rotary`
+        (the JAX package fuses it only without the k/v cache)."""
+        if fused and kernels.ln_rotary:
+            return self.ln_rotary_fn(x, norm.weight, norm.bias, angles, self.w_qs.weight.to(x.dtype), None, 1e-5)
+        return _lin(self.w_qs, apply_rotary(_ln(norm, x, 1e-5), angles))
+
+    def attend(self, q, k, v, kernels: ServingKernels, shared_emb=None, trj_dist=None):
+        """softmax attention of (b, L, h*dk) projections [+ TRPE], fc, then
+        the post-attention LayerNorm; K11 and K10 where `kernels` turns
+        them on."""
+        h, dk = self.n_head, self.head_dim
+        q, k, v = _heads(q, h), _heads(k.to(q.dtype), h), _heads(v.to(q.dtype), h)
+        scale = 1.0 / math.sqrt(dk)
+        table = None if trj_dist is None else shared_emb.reshape(N_TRJ_BUCKETS, h, dk).transpose(0, 1)
+        if kernels.attention:
+            # the JAX package's per-head program (always with TRPE) and its
+            # all-heads one (attention=2) are one kernel here
+            o = self.attention_fn(q, k, v, scale, table, trj_dist)
+        else:
+            o = _attend(q, k, v, scale, table, trj_dist)
+        o = _lin(self.fc, _merge(o))
+        if kernels.layernorm:
+            return self.layernorm_fn(o, self.layer_norm.weight, self.layer_norm.bias, 1e-6)
+        return _ln(self.layer_norm, o, 1e-6)
 
 
 class FiLMTransformerDecoderLayer(nn.Module):
     """FiLM-conditioned decoder layer: `forward` (deterministic) and
     `forward_train`.
 
-    `sa_block_fn` / `ff_tail_fn` (serving) and `sa_train_fn` / `ca_train_fn`
-    / `ff_train_fn` (training) are the block functions this layer calls;
-    they default to the dispatching wrappers of `tcdiff_torch.ops`.
+    `sa_block_fn` / `ff_tail_fn` / `ln_matmul_fn` (serving) and
+    `sa_train_fn` / `ca_train_fn` / `ff_train_fn` (training) are the kernel
+    functions this layer calls; they default to the dispatching wrappers of
+    `tcdiff_torch.ops`.
     """
 
     def __init__(self, d_model: int, n_head: int, ff_size: int, head_dim: int = 64,
@@ -256,50 +323,77 @@ class FiLMTransformerDecoderLayer(nn.Module):
         ])
         self.sa_block_fn = sa_block.sa_block
         self.ff_tail_fn = ff_block.ff_tail
+        self.ln_matmul_fn = ln_matmul.ln_matmul
         self.sa_train_fn = sa_block_train.sa_block_train
         self.ca_train_fn = ca_block_train.ca_block_train
         self.ff_train_fn = ff_block_train.ff_tail_train
 
     def forward(self, x, memory, t, traj_emb, shared_emb, trj_dist=None, *,
-                kv=None, tile_sa=False):
+                kv=None, tile_sa=False, kernels: ServingKernels = ServingKernels()):
         """x (b, L, d); t (B, d); memory (B, Lm, d) or None with kv = (k, v)
         per-layer cross-attention projections (B, Lm, h*dk). tile_sa: x,
-        traj_emb and trj_dist arrive at half batch (CFG dedup)."""
+        traj_emb and trj_dist arrive at half batch (CFG dedup). `kernels`
+        chooses the kernel or the plain math at each site, as the JAX
+        package's layer does (`tcdiff_tpu/models/dance_decoder.py:795-1062`)."""
         dt = x.dtype
         sa = self.self_attn
         angles = angle_table(x.shape[-2], x.shape[-1], x.device)
-        fs, fb = self.film1(t)
         w = lambda m: m.weight.to(dt)
+
+        # self-attention + FiLM(t)
+        fs, fb = self.film1(t)
         sa_args = (
             x, self.norm1.weight, self.norm1.bias, angles,
             w(sa.w_qs), w(sa.w_ks), w(sa.w_vs), w(sa.fc),
             sa.layer_norm.weight, sa.layer_norm.bias,
             shared_emb if trj_dist is not None else None, trj_dist,
         )
-        if tile_sa:
-            # the two CFG halves share x: one block at half batch, then tile
-            s = self.sa_block_fn(*sa_args, nhead=self.n_head)
-            s, x, traj_emb = (torch.cat([a, a], dim=0) for a in (s, x, traj_emb))
+        if kernels.sa_block and not tile_sa:
+            x = self.sa_block_fn(*sa_args, fs, fb, nhead=self.n_head)  # FiLM residual in the kernel
+        else:
+            if kernels.sa_block:
+                s = self.sa_block_fn(*sa_args, nhead=self.n_head)
+            else:
+                s = sa.attend(*sa.self_qkv(x, self.norm1, angles, kernels), kernels, shared_emb, trj_dist)
+            if tile_sa:
+                # the two CFG halves share x: the block ran at half batch; tile
+                s, x, traj_emb = (torch.cat([a, a], dim=0) for a in (s, x, traj_emb))
             x = x + featurewise_affine(s, (fs, fb))
-        else:
-            x = self.sa_block_fn(*sa_args, fs, fb, nhead=self.n_head)
 
-        # cross-attention to the music/time tokens
-        q_in = apply_rotary(_ln(self.norm2, x, 1e-5), angles)
+        # cross-attention to the music/time tokens + FiLM(t)
+        ca = self.multihead_attn
         if kv is not None:
-            ca = self.multihead_attn.cross(q_in, kv=kv)
+            k, v = kv
+        elif kernels.ca_block:
+            raise NotImplementedError(
+                "the cross-attention block kernel (K7, fused_ca_block) is not ported yet: ROADMAP.md queue 2, K7")
         else:
-            k_in = apply_rotary(memory, angle_table(memory.shape[-2], memory.shape[-1], x.device))
-            ca = self.multihead_attn.cross(q_in, k_in, memory)
-        x = x + featurewise_affine(ca, self.film2(t))
+            k = _lin(ca.w_ks, apply_rotary(memory, angle_table(memory.shape[-2], memory.shape[-1], x.device)))
+            v = _lin(ca.w_vs, memory)
+        q = ca.cross_q(x, self.norm2, angles, kernels, fused=kv is None)
+        x = x + featurewise_affine(ca.attend(q, k, v, kernels), self.film2(t))
 
         # FF block + layer tail: linear3(norm4(x + FiLM(FF(norm3(x)))))
         fs3, fb3 = self.film3(t)
-        x = self.ff_tail_fn(
-            x, self.norm3.weight, self.norm3.bias,
-            w(self.linear1), self.linear1.bias, w(self.linear2), self.linear2.bias,
-            fs3, fb3, self.norm4.weight, self.norm4.bias, w(self.linear3), self.linear3.bias,
-        )
+        if kernels.ff_block:  # with its tail: ServingKernels refuses the block alone
+            x = self.ff_tail_fn(
+                x, self.norm3.weight, self.norm3.bias,
+                w(self.linear1), self.linear1.bias, w(self.linear2), self.linear2.bias,
+                fs3, fb3, self.norm4.weight, self.norm4.bias, w(self.linear3), self.linear3.bias,
+            )
+        else:
+            if kernels.ln_matmul:
+                h = self.ln_matmul_fn(x, self.norm3.weight, self.norm3.bias, w(self.linear1),
+                                      self.linear1.bias, 1e-5)
+            else:
+                h = _lin(self.linear1, _ln(self.norm3, x, 1e-5))
+            h = _lin(self.linear2, F.gelu(h, approximate="none"))
+            x = x + featurewise_affine(h, (fs3, fb3))
+            if kernels.ln_matmul:
+                x = self.ln_matmul_fn(x, self.norm4.weight, self.norm4.bias, w(self.linear3),
+                                      self.linear3.bias, 1e-5)
+            else:
+                x = _lin(self.linear3, _ln(self.norm4, x, 1e-5))
 
         return self._traj_modulation(x, t, traj_emb)
 
@@ -358,13 +452,17 @@ class DanceDecoder(nn.Module):
       cond: (B, 301, cond_feature_dim) music features (unused with cond_cache);
       times: (B,) timesteps; keep_mask: (B,) bool, True = real condition.
     Returns (B, tokens, nfeats) float32. B == b, or 2b with cfg_pair.
+    `kernels` (a ServingKernels; may be replaced between calls) chooses the
+    serving path's kernels.
     """
 
     def __init__(self, cfg: DanceDecoderConfig, dtype: torch.dtype = torch.float32,
-                 use_traj_modulation: bool = False, device="cuda"):
+                 use_traj_modulation: bool = False, device="cuda",
+                 kernels: ServingKernels = ServingKernels()):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
+        self.kernels = kernels
         d, dn, cf = cfg.latent_dim, cfg.dancer_num, cfg.cond_feature_dim
         hd = cfg.num_heads * cfg.head_dim
         self.rotary = RotaryEmbedding(d)
@@ -419,9 +517,10 @@ class DanceDecoder(nn.Module):
         return self
 
     # ------------------------------------------------------------ cond side
-    def encode_cond(self, cond, keep_mask, drop=_identity):
+    def encode_cond(self, cond, keep_mask, drop=_identity, kernels: Optional[ServingKernels] = None):
         """Music condition -> (ct (B, Lc, d), cond_hidden (B, d)); `drop`
-        is the cond encoder's dropout on the train path."""
+        is the cond encoder's dropout on the train path, `kernels` the
+        serving configuration (None: plain math, as on the train path)."""
         dt = self.dtype
         cond = cond.to(dt)
         b = cond.shape[0]
@@ -431,7 +530,7 @@ class DanceDecoder(nn.Module):
         cp = self.cond_projection
         ct = _lin(cp[2], F.relu(_lin(cp[0], cond2)))
         for layer in self.cond_encoder:
-            ct = layer(ct, drop)
+            ct = layer(ct, drop, kernels)
         km = keep_mask.to(torch.bool)
         ct = torch.where(km[:, None, None], ct, self.null_cond_embed.to(dt))
         na = self.non_attn_cond_projection
@@ -441,11 +540,14 @@ class DanceDecoder(nn.Module):
         return ct, cond_hidden
 
     def cond_cache(self, cond, keep_mask) -> CondCache:
-        """encode_cond plus the hoisted cross-attention k/v of the music
-        rows of every layer: row-wise norm_cond, rotary and projections are
-        independent of the timestep."""
+        """encode_cond plus, with `kernels.kv_cache`, the hoisted
+        cross-attention k/v of the music rows of every layer: row-wise
+        norm_cond, rotary and projections are independent of the
+        timestep."""
         dt = self.dtype
-        ct, cond_hidden = self.encode_cond(cond, keep_mask)
+        ct, cond_hidden = self.encode_cond(cond, keep_mask, kernels=self.kernels)
+        if not self.kernels.kv_cache:
+            return CondCache(ct, cond_hidden, None, None)
         d = ct.shape[-1]
         norm_ct = _ln(self.norm_cond, ct, 1e-6)
         rot_ct = apply_rotary(norm_ct, angle_table(ct.shape[1] + 2, d, ct.device)[: ct.shape[1]])
@@ -504,7 +606,7 @@ class DanceDecoder(nn.Module):
         if keep_mask is None:
             keep_mask = torch.ones(times.shape[0], dtype=torch.bool, device=times.device)
         if cond_cache is None:
-            ct, cond_hidden = self.encode_cond(cond, keep_mask)
+            ct, cond_hidden = self.encode_cond(cond, keep_mask, kernels=self.kernels)
         else:
             ct, cond_hidden = cond_cache.ct.to(dt), cond_cache.cond_hidden.to(dt)
 
@@ -512,7 +614,8 @@ class DanceDecoder(nn.Module):
         h, traj_emb, t, t_tokens = self._embed(x, times, cond_hidden)
 
         memory = kt_all = vt_all = None
-        if cond_cache is not None:
+        hoisted = cond_cache is not None and cond_cache.kv is not None
+        if hoisted:
             # only the 2 time-token rows need norm + rotary + k/v per step,
             # projected for all layers at once
             norm_t = _ln(self.norm_cond, t_tokens, 1e-6)
@@ -526,11 +629,11 @@ class DanceDecoder(nn.Module):
         shared_emb = self.embeddings_table.weight
         for i, layer in enumerate(self.layers):
             kv = None
-            if cond_cache is not None:
+            if hoisted:
                 kct, vct = cond_cache.kv[i]
                 kv = (torch.cat([kct.to(dt), kt_all[i]], dim=1), torch.cat([vct.to(dt), vt_all[i]], dim=1))
             tile = cfg_pair and i == 0
-            h = layer(h, memory, t, traj_emb, shared_emb, trj_dist, kv=kv, tile_sa=tile)
+            h = layer(h, memory, t, traj_emb, shared_emb, trj_dist, kv=kv, tile_sa=tile, kernels=self.kernels)
             if tile:
                 traj_emb = torch.cat([traj_emb, traj_emb], dim=0)
                 if trj_dist is not None:

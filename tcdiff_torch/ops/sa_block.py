@@ -26,8 +26,7 @@ from tcdiff_torch.ops import _build
 from tcdiff_torch.ops._common import (
     as_t, check_cuda, ln_f32, mm_f32, ptr, raise_on, stream_ptr,
 )
-
-N_TRJ_BUCKETS = 10
+from tcdiff_torch.ops.attention import N_TRJ_BUCKETS, trpe_bias
 
 
 def rotary_tables(angles: torch.Tensor, dtype: torch.dtype):
@@ -57,11 +56,7 @@ def sa_block_plain(
     if table is not None and trj_dist is not None:
         # UNSCALED q against every bucket of this head: (b, h, L, 10)
         tab = table.to(dt).float().reshape(N_TRJ_BUCKETS, nhead, dk).transpose(0, 1)
-        indexed = torch.einsum("bhqd,hnd->bhqn", q.float(), tab)
-        dist = trj_dist.long()[:, None].expand(b, nhead, L, L)
-        valid = (dist >= 0) & (dist < N_TRJ_BUCKETS)
-        bias = torch.gather(indexed, 3, dist.clamp(0, N_TRJ_BUCKETS - 1))
-        logits = logits + bias.masked_fill(~valid, 0.0)
+        logits = logits + trpe_bias(torch.einsum("bhqd,hnd->bhqn", q.float(), tab), trj_dist)
     p = torch.softmax(logits, dim=-1).to(dt)
     o = torch.matmul(p.float(), v.float()).transpose(1, 2).reshape(b, L, hd)
     sa = ln_f32(mm_f32(o.to(dt), wfc), s2, b2, eps2)

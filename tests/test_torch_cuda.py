@@ -83,6 +83,110 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         ff_block.ff_tail(x, v, v, w, v, w, v, v[None], v[None], v, v, w[:, :128], v)
 
 
+# ------------------------------------------------------------ per-op kernels
+# K8-K11 against their plain versions: row counts and lengths that are not
+# multiples of a tile (GEMM 64, attention 64 queries x 32 keys), Lq != Lk,
+# a narrow d = 64, head dims 16 and 64, and K8's rot-only form.
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows, d", [(2 * 37, 64), (3 * 100, 512)])
+def test_layernorm_kernel_matches_plain(dev, dtype, rows, d):
+    from tcdiff_torch.ops import layernorm as m
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = (3.0 * _rnd(g, dev, rows // 2, 2, d) + 1.0).to(dtype)
+    s, b = 1 + _rnd(g, dev, d, std=0.1), _rnd(g, dev, d, std=0.1)
+    before = m.layernorm.launches
+    out = m.layernorm(x, s, b, 1e-6)
+    ref = m.layernorm_plain(x, s, b, 1e-6)
+    assert m.layernorm.launches == before + 1 and out.dtype == dtype and out.shape == x.shape
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(dtype, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d, n", [(64, 48), (D, FF), (D, D)])
+def test_ln_matmul_kernel_matches_plain(dev, dtype, d, n):
+    from tcdiff_torch.ops import ln_matmul as m
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = _rnd(g, dev, B, 77, d).to(dtype)
+    s, b = 1 + _rnd(g, dev, d, std=0.1), _rnd(g, dev, d, std=0.1)
+    w, bias = _rnd(g, dev, n, d, std=d**-0.5).to(dtype), _rnd(g, dev, n)
+    before = m.ln_matmul.launches
+    out = m.ln_matmul(x, s, b, w, bias)
+    ref = m.ln_matmul_plain(x, s, b, w, bias)
+    assert m.ln_matmul.launches == before + 1 and out.shape == (B, 77, n)
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(dtype, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, D])
+@pytest.mark.parametrize("rot_only", [False, True])
+def test_ln_rotary_matmul_kernel_matches_plain(dev, dtype, d, rot_only):
+    from tcdiff_torch.ops import ln_rotary_matmul as m
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    lx = 45
+    x = _rnd(g, dev, B, lx, d).to(dtype)
+    s, b = 1 + _rnd(g, dev, d, std=0.1), _rnd(g, dev, d, std=0.1)
+    wr = _rnd(g, dev, 96 if rot_only else 192, d, std=d**-0.5).to(dtype)
+    wp = None if rot_only else _rnd(g, dev, 96, d, std=d**-0.5).to(dtype)
+    before = m.ln_rotary_matmul.launches
+    out = m.ln_rotary_matmul(x, s, b, angle_table(lx, d, dev), wr, wp)
+    ref = m.ln_rotary_matmul_plain(x, s, b, angle_table(lx, d, dev), wr, wp)
+    assert m.ln_rotary_matmul.launches == before + 1
+    outs, refs = (out, ref) if wp is not None else ((out,), (ref,))
+    for o, r in zip(outs, refs):
+        assert o.dtype == dtype and o.shape == r.shape
+        assert (o.float() - r.float()).abs().max().item() <= _tol(dtype, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lq, lk, dk", [(100, 100, 64), (100, 38, 64), (37, 70, 16), (150, 150, 64)])
+@pytest.mark.parametrize("trpe", [False, True])
+def test_attention_kernel_matches_plain(dev, dtype, lq, lk, dk, trpe):
+    from tcdiff_torch.ops import attention as m
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    h = 3
+    # (b, h, L, dk) views of (b, L, h*dk) projections, as the decoder passes them
+    heads = lambda n: _rnd(g, dev, B, n, h * dk).to(dtype).view(B, n, h, dk).transpose(1, 2)
+    q, k, v = heads(lq), heads(lk), heads(lk)
+    table = _rnd(g, dev, h, 10, dk) if trpe else None
+    dist = torch.randint(-1, 12, (B, lq, lk), generator=g, device=dev) if trpe else None
+    scale = dk**-0.5
+    before = m.attention.launches
+    out = m.attention(q, k, v, scale, table, dist)
+    ref = m.attention_plain(q, k, v, scale, table, dist)
+    assert m.attention.launches == before + 1 and out.dtype == dtype and out.shape == (B, h, lq, dk)
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(dtype, ref)
+    # contiguous (b, h, L, dk) inputs give the same result
+    again = m.attention(q.contiguous(), k.contiguous(), v.contiguous(), scale, table, dist)
+    assert torch.equal(again, out)
+
+
+def test_per_op_kernels_refuse_what_they_do_not_take(dev):
+    from tcdiff_torch.ops.attention import attention
+    from tcdiff_torch.ops.layernorm import layernorm
+    from tcdiff_torch.ops.ln_matmul import ln_matmul
+    from tcdiff_torch.ops.ln_rotary_matmul import ln_rotary_matmul
+
+    x = torch.zeros(1, 8, 64, device=dev)
+    v = torch.ones(64, device=dev)
+    with pytest.raises(ValueError):  # odd d
+        layernorm(torch.zeros(1, 8, 63, device=dev), v[:63], v[:63])
+    with pytest.raises(ValueError):  # a weight of another width
+        ln_matmul(x, v, v, torch.zeros(32, 48, device=dev), v[:32])
+    with pytest.raises(ValueError):  # an angle table of another length
+        ln_rotary_matmul(x, v, v, angle_table(9, 64, dev), torch.zeros(32, 64, device=dev))
+    q = torch.zeros(1, 2, 8, 128, device=dev)
+    with pytest.raises(ValueError):  # dk = 128 > 64
+        attention(q, q, q, 0.1)
+    with pytest.raises(TypeError):
+        attention(q[..., :64].half(), q[..., :64].half(), q[..., :64].half(), 0.1)
+
+
 # ------------------------------------------------------------- train blocks
 # K3, K4, K5 against their plain versions on the same CUDA tensors: the
 # output and every gradient under one cotangent, at rate 0 and 0.1 with the

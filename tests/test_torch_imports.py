@@ -36,4 +36,5 @@ def test_scan_sees_the_port():
     assert {"models/dance_decoder.py", "ops/sa_block.py", "ops/ff_block.py",
             "diffusion/gaussian.py", "ops/sa_block_train.py", "ops/ca_block_train.py",
             "ops/ff_block_train.py", "train/train_step.py", "optim/adan.py",
-            "geometry/skeleton.py", "config.py"} <= names
+            "geometry/skeleton.py", "config.py", "ops/attention.py", "ops/layernorm.py", "ops/ln_matmul.py",
+            "ops/ln_rotary_matmul.py", "diffusion/masks.py"} <= names
