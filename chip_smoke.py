@@ -15,33 +15,42 @@ last line:
      cross-attention, the cond encoder's 150x150), with the one PyTorch
      call that computes the same function where there is one (F.layer_norm
      for K10, F.scaled_dot_product_attention for K11 without TRPE);
-  5. hold each train kernel (K3, K4, K5) against its plain version at the
+  5. the same for the block kernels K2b and K7 (each with and without the
+     FiLM rows) and K6 (with and without its FF section), Lm=152;
+  6. hold each train kernel (K3, K4, K5) against its plain version at the
      main path's train shapes (b=64, L=450, Lm=152, d=512), in bf16 and
      f32, dropout 0.1 with the same seeds: the output and every gradient
      under one cotangent; time the forward and forward+backward of both;
-  6. serve 3 requests (batch 4 each: 3 dancers x 5 s of motion) through
+  7. serve 3 requests (batch 4 each: 3 dancers x 5 s of motion) through
      GaussianDiffusion.ddim_sample on a full-width bf16 DanceDecoder with
      seeded random weights, check the outputs and the kernels' launch
-     counts, then run one request in f32 through the kernels and through
-     the plain versions on the same noise and compare;
-  7. the per-op serving configuration (ServingKernels.per_op: K8-K11 on,
+     counts; time the FiLM residual outside and inside K1 in turns; then
+     run one request in f32 through the kernels and through the plain
+     versions on the same noise and compare;
+  8. the per-op serving configuration (ServingKernels.per_op: K8-K11 on,
      K1/K2 off): one long_ddim_sample request over 4 slices of one song
      after a warm-up, with the launch counts of K8-K11; then f32 requests
      through the kernels and the plain versions on the same noise: one with
      a trj_dist (K11's TRPE form), one with the k/v cache off (K8's
      rot-only form);
-  8. the other samplers once each in the default configuration:
+  9. the other samplers once each in the default configuration:
      ddim_sample_footwork, ddim_sample_stream over two slices,
      ddim_sample(forecast_every=2) with its K1/K2 launch counts, and
      partial_denoise (the DDPM loop) from t=100;
-  9. train: 1 warm-up and 3 timed steps (loss, backward, Adan, EMA) of the
+ 10. the block kernels' configurations (layer_fuse with and without its FF
+     section: K6; ff_tail off, with fuse_film and with ln_matmul: K2b; the
+     k/v cache off with ca_block: K7): one bf16 ddim_sample request of
+     batch 4 each with its launch counts, the layer_fuse request once more
+     under torch.profiler, and an f32 request through the kernels and the
+     plain versions on the same noise;
+ 11. train: 1 warm-up and 3 timed steps (loss, backward, Adan, EMA) of the
      full-width bf16 DanceDecoder at batch 64, dropout 0.1, on seeded
      synthetic motion and music; check a finite loss, finite parameters
      and the train kernels' launch counts (8 layers x 4 steps, forward and
      backward); then two f32 steps at batch 4 through the kernels and two
      through the plain versions on the same weights and draws: each step's
      loss and gradients, and the parameters after the second Adan step;
- 10. a line of JSON with every kernel's figures, the card's line, and the
+ 12. a line of JSON with every kernel's figures, the card's line, and the
      last line: {"ok": true, "device": {...}}.
 """
 
@@ -61,10 +70,10 @@ import torch.nn.functional as F
 from tcdiff_torch import DanceDecoderConfig, DiffusionConfig, ServingKernels, TrainConfig
 from tcdiff_torch.diffusion.gaussian import GaussianDiffusion
 from tcdiff_torch.models.dance_decoder import DanceDecoder
-from tcdiff_torch.models.rotary import angle_table
+from tcdiff_torch.models.rotary import angle_table, apply_rotary
 from tcdiff_torch.ops import (
-    _build, attention, ca_block_train, ff_block, ff_block_train, layernorm, ln_matmul, ln_rotary_matmul, sa_block,
-    sa_block_train,
+    _build, attention, ca_block, ca_block_train, ff_block, ff_block_train, layer, layernorm, ln_matmul,
+    ln_rotary_matmul, sa_block, sa_block_train,
 )
 from tcdiff_torch.ops.plain import plain_blocks
 from tcdiff_torch.optim.adan import Adan
@@ -80,15 +89,22 @@ TRAIN_BATCH, TRAIN_STEPS = 64, 3  # bench.py's train default; + 1 warm-up step
 F32_STEP_BATCH = 4
 RATE = 0.1  # the config's dropout
 LC = 150  # cond encoder tokens: 301 music frames packed in pairs
-KERNELS = ("sa_block", "ff_tail", "ln_rotary_matmul", "ln_matmul", "layernorm", "attention",
-           "sa_block_train", "ca_block_train", "ff_tail_train")
+KERNELS = ("sa_block", "ff_tail", "ff_block", "ca_block", "layer", "ln_rotary_matmul", "ln_matmul", "layernorm",
+           "attention", "sa_block_train", "ca_block_train", "ff_tail_train")
 SERVING_OPS = {  # the per-op kernels' wrappers, by kernel name
     "ln_rotary_matmul": ln_rotary_matmul.ln_rotary_matmul, "ln_matmul": ln_matmul.ln_matmul,
     "layernorm": layernorm.layernorm, "attention": attention.attention,
 }
+SERVING_BLOCKS = {  # the block kernels' wrappers, by kernel name
+    "sa_block": sa_block.sa_block, "ff_tail": ff_block.ff_tail, "ff_block": ff_block.ff_block,
+    "ca_block": ca_block.ca_block, "layer": layer.layer,
+}
 REPLACES = {
     "sa_block": "tcdiff_tpu/ops/fused_sa_block.py:75",
     "ff_tail": "tcdiff_tpu/ops/fused_ff_block.py:88",
+    "ff_block": "tcdiff_tpu/ops/fused_ff_block.py:67",
+    "ca_block": "tcdiff_tpu/ops/fused_ca_block.py:41",
+    "layer": "tcdiff_tpu/ops/fused_layer.py:78",
     "ln_rotary_matmul": "tcdiff_tpu/ops/fused_ln_rotary_matmul.py:55",
     "ln_matmul": "tcdiff_tpu/ops/fused_ln_matmul.py:30",
     "layernorm": "tcdiff_tpu/ops/fused_layernorm.py:26",
@@ -340,6 +356,143 @@ def compare_serving_ops(gen: torch.Generator) -> dict:
     return figures
 
 
+def compare_block_kernels(gen: torch.Generator) -> dict:
+    """Phase 5: K2b (with and without the FiLM rows), K7 (the same) and K6
+    (with and without its FF section) at the serving shapes (b=8, L=450,
+    Lm=152, d=512, 8x64 heads, ff=1024). Returns the figures of the
+    variant each configuration's main phase runs: K2b and K7 without FiLM
+    (fuse_film's default), K6 with its FF section."""
+    dev = "cuda"
+    rnd = lambda *shape, std=1.0: torch.randn(shape, generator=gen, device=dev) * std
+    ln = lambda: (1.0 + rnd(D, std=0.1), rnd(D, std=0.1))
+    angles = angle_table(L, D, dev)
+    M, Mm = B * L, B * LM
+    figures = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = rnd(B, L, D).to(dtype)
+        w = lambda o, i: rnd(o, i, std=i**-0.5).to(dtype)
+        film = lambda: (rnd(B, D, std=0.1).to(dtype), rnd(B, D, std=0.1).to(dtype))
+        fs, fb = film()
+
+        # K2b: 4 M d ff of products
+        ffa = (x, *ln(), w(FF, D), rnd(FF, std=0.1), w(D, FF), rnd(D, std=0.1))
+        for with_film in (False, True):
+            args = ffa + ((fs, fb) if with_film else (None, None))
+            measure(figures, "ff_block", f"film={with_film}", dtype,
+                    lambda args=args: ff_block.ff_block(*args), lambda args=args: ff_block.ff_block_plain(*args),
+                    4 * M * D * FF, nbytes(*args) + nbytes(x), main=not with_film)
+
+        # K7: q and fc 4 M d hd, k and v 4 Mm d hd, attention 4 b L Lm hd
+        mem = rnd(B, LM, D).to(dtype)
+        cab = (x, *ln(), angles, mem, apply_rotary(mem, angle_table(LM, D, dev)), w(HD, D), w(HD, D), w(HD, D),
+               w(D, HD), *ln())
+        cos_sin = 2 * L * D * x.element_size()
+        for with_film in (False, True):
+            args = cab + ((fs, fb) if with_film else (None, None))
+            measure(figures, "ca_block", f"film={with_film}", dtype,
+                    lambda args=args: ca_block.ca_block(*args, nhead=H),
+                    lambda args=args: ca_block.ca_block_plain(*args, nhead=H),
+                    4 * M * D * HD + 4 * Mm * D * HD + 4 * B * L * LM * HD,
+                    nbytes(*args[:3], *args[4:]) + cos_sin + nbytes(x), main=not with_film)
+
+        # K6 over k/v as the cache gives them: SA 8 M d hd + 4 b L^2 hd,
+        # CA 4 M d hd + 4 b L Lm hd, FF and tail 4 M d ff + 2 M d d
+        head = (x, angles, *ln(), w(HD, D), w(HD, D), w(HD, D), w(D, HD), *ln(), *film(),
+                *ln(), w(HD, D), w(D, HD), *ln(), rnd(B, LM, HD).to(dtype), rnd(B, LM, HD).to(dtype), *film())
+        ff = (*ln(), w(FF, D), rnd(FF, std=0.1), w(D, FF), rnd(D, std=0.1), *film(), *ln(), w(D, D), rnd(D, std=0.1))
+        for include_ff in (True, False):
+            args = head + (ff if include_ff else ())
+            flops = 12 * M * D * HD + 4 * B * L * L * HD + 4 * B * L * LM * HD
+            flops += (4 * M * D * FF + 2 * M * D * D) if include_ff else 0
+            measure(figures, "layer", f"include_ff={include_ff}", dtype,
+                    lambda args=args, i=include_ff: layer.layer(*args, nhead=H, include_ff=i),
+                    lambda args=args, i=include_ff: layer.layer_plain(*args, nhead=H, include_ff=i),
+                    flops, nbytes(args[0], *args[2:]) + cos_sin + nbytes(x), main=include_ff)
+    return figures
+
+
+# The block kernels' configurations: (label, ServingKernels, the expected
+# launches of one 50-step request over 8 layers). K6 runs on every layer but
+# the CFG-dedup layer 0, which keeps K1 and K2; K2b and K7 run on every
+# layer, K7 only where the k/v cache is off.
+STEPS, LAYERS = DiffusionConfig().sampling_timesteps, DanceDecoderConfig().num_layers
+BLOCK_CONFIGS = (
+    ("layer_fuse", ServingKernels(layer_fuse=True),
+     dict(layer=(LAYERS - 1) * STEPS, sa_block=STEPS, ff_tail=STEPS)),
+    ("layer_fuse, layer_fuse_ff off", ServingKernels(layer_fuse=True, layer_fuse_ff=False),
+     dict(layer=(LAYERS - 1) * STEPS, sa_block=STEPS, ff_tail=LAYERS * STEPS)),
+    ("ff_tail off", ServingKernels(ff_tail=False), dict(sa_block=LAYERS * STEPS, ff_block=LAYERS * STEPS)),
+    ("ff_tail off, fuse_film", ServingKernels(ff_tail=False, fuse_film=True),
+     dict(sa_block=LAYERS * STEPS, ff_block=LAYERS * STEPS)),
+    ("ff_tail off, ln_matmul", ServingKernels(ff_tail=False, ln_matmul=True),
+     dict(sa_block=LAYERS * STEPS, ff_block=LAYERS * STEPS, ln_matmul=LAYERS * STEPS)),
+    ("ca_block, k/v cache off", ServingKernels(ca_block=True, kv_cache=False),
+     dict(sa_block=LAYERS * STEPS, ff_tail=LAYERS * STEPS, ca_block=LAYERS * STEPS)),
+)
+
+
+def serving_launches() -> dict:
+    return {name: fn.launches for name, fn in {**SERVING_BLOCKS, **SERVING_OPS}.items()}
+
+
+def serve_block_configs(gen: torch.Generator, card: str) -> dict:
+    """Phase 10: one bf16 ddim_sample request of batch 4 through each of
+    BLOCK_CONFIGS on the full-width model (a warm-up request first), with
+    its launch counts; the layer_fuse request once more under
+    torch.profiler; then one f32 request through the kernels and the plain
+    versions on the same noise. Returns the launches of K6 (layer_fuse),
+    K2b (ff_tail off) and K7 (ca_block, k/v cache off)."""
+    cfg = DanceDecoderConfig(dancer_num=3)
+    dcfg = DiffusionConfig()
+    model = DanceDecoder(cfg, dtype=torch.bfloat16).init_random(torch.Generator().manual_seed(0))
+    diff = GaussianDiffusion(model, dcfg)
+    shape = (REQ_BATCH, cfg.tokens, cfg.nfeats)
+    cond = torch.randn((REQ_BATCH, 2 * cfg.seq_len + 1, cfg.cond_feature_dim), generator=gen, device="cuda")
+    x_0 = 0.1 * torch.randn((REQ_BATCH, cfg.tokens, 3), generator=gen, device="cuda")
+    noise = {"init": torch.randn(shape, generator=gen, device="cuda"),
+             "steps": torch.randn((dcfg.sampling_timesteps,) + shape, generator=gen, device="cuda")}
+    launches = {}
+    for label, kernels, want in BLOCK_CONFIGS:
+        model.kernels, model.dtype = kernels, torch.bfloat16
+        diff.ddim_sample(shape, cond, generator=gen, x_0=x_0)  # warm-up
+        torch.cuda.synchronize()
+        reset_serving_launches()
+        t0 = time.perf_counter()
+        out = diff.ddim_sample(shape, cond, generator=gen, x_0=x_0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k: n for k, n in serving_launches().items() if n}
+        check_output(out, x_0, shape)
+        print(f"{label}: launches {counts} (expected {want})")
+        check(counts == want, f"{label}: launches {counts}, expected {want}")
+        print(f"{label}: {seconds:.3f} s per request, {REQ_BATCH * CLIP_S / seconds:.2f} s-motion/s "
+              f"(bf16 batch {REQ_BATCH}, kernels; {card})")
+        if label == "layer_fuse":
+            launches["layer"] = counts["layer"]
+            wall, busy, table = device_profile(lambda: diff.ddim_sample(shape, cond, generator=gen, x_0=x_0))
+            total = sum(ms for _, ms, _ in table)
+            print(f"{label} under torch.profiler: {wall:.3f} s wall, device busy {busy:.3f} s (idle share "
+                  f"{1 - busy / wall:.3f}), kernel time {total / 1e3:.3f} s; by kernel (ms, calls, share):")
+            for name, ms, calls in table[:12]:
+                print(f"  {name[:100]}: {ms:.1f} ms, {calls}, {ms / total:.3f}")
+        elif label == "ff_tail off":
+            launches["ff_block"] = counts["ff_block"]
+        elif label == "ca_block, k/v cache off":
+            launches["ca_block"] = counts["ca_block"]
+
+        model.dtype = torch.float32
+        out_k = diff.ddim_sample(shape, cond, x_0=x_0, noise=noise)
+        with plain_blocks(model):
+            out_p = diff.ddim_sample(shape, cond, x_0=x_0, noise=noise)
+        check_output(out_k, x_0, shape)
+        err = (out_k - out_p).abs().max().item()
+        print(f"{label}, f32, kernels vs plain on the same noise: max_abs_diff {err:.3e} (tol {F32_PATH_TOL:.0e})")
+        check(err <= F32_PATH_TOL, f"{label}: f32 path disagrees: {err} > {F32_PATH_TOL}")
+    del model, diff
+    torch.cuda.empty_cache()
+    return launches
+
+
 def train_cases(gen: torch.Generator, dtype):
     """{name: (kernel, plain, args, indices of the differentiable args,
     keywords, fwd+bwd FLOPs)} at the main path's train shapes: b=64,
@@ -373,7 +526,7 @@ def train_cases(gen: torch.Generator, dtype):
 
 
 def compare_train_kernels(gen: torch.Generator) -> dict:
-    """Phase 4. Returns the bf16 figures of each train kernel."""
+    """Phase 6. Returns the bf16 figures of each train kernel."""
     figures = {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = "bf16" if dtype == torch.bfloat16 else "f32"
@@ -424,7 +577,7 @@ def check_output(out: torch.Tensor, x_0: torch.Tensor, shape) -> None:
 
 
 def serve(gen: torch.Generator) -> dict:
-    """Phase 5: the serving path through ddim_sample."""
+    """Phase 7: the serving path through ddim_sample."""
     cfg = DanceDecoderConfig(dancer_num=3)
     dcfg = DiffusionConfig()
     model = DanceDecoder(cfg, dtype=torch.bfloat16).init_random(torch.Generator().manual_seed(0))
@@ -456,6 +609,22 @@ def serve(gen: torch.Generator) -> dict:
     motion = REQUESTS * REQ_BATCH * CLIP_S
     print(f"main path: {per_req:.3f} s per request, {motion / seconds:.2f} s-motion/s (bf16, kernels)")
 
+    # the FiLM residual outside K1 (fuse_film off, the JAX package's
+    # default) against inside (as every request ran before the flag
+    # existed), in turns: off, on, on, off
+    film_s = {False: [], True: []}
+    for fuse in (False, True, True, False):
+        model.kernels = ServingKernels(fuse_film=fuse)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        diff.ddim_sample(shape, reqs[0][0], generator=gen, x_0=reqs[0][1])
+        torch.cuda.synchronize()
+        film_s[fuse].append(time.perf_counter() - t0)
+    model.kernels = ServingKernels()
+    print(f"default path, s per request in turns off/on/on/off: FiLM outside K1 (fuse_film off) "
+          f"{film_s[False][0]:.3f} / {film_s[False][1]:.3f}, inside (fuse_film on) "
+          f"{film_s[True][0]:.3f} / {film_s[True][1]:.3f} (bf16 batch {REQ_BATCH})")
+
     with plain_blocks(model):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -480,12 +649,12 @@ def serve(gen: torch.Generator) -> dict:
 
 
 def reset_serving_launches() -> None:
-    for fn in (sa_block.sa_block, ff_block.ff_tail, *SERVING_OPS.values()):
+    for fn in (*SERVING_BLOCKS.values(), *SERVING_OPS.values()):
         fn.launches = 0
 
 
 def serve_per_op(gen: torch.Generator) -> dict:
-    """Phase 7: the per-op serving configuration. Returns the launches of
+    """Phase 8: the per-op serving configuration. Returns the launches of
     K8-K11 in the long-form request."""
     cfg = DanceDecoderConfig(dancer_num=3)
     dcfg = DiffusionConfig()
@@ -552,7 +721,7 @@ def serve_per_op(gen: torch.Generator) -> dict:
 
 
 def other_samplers(gen: torch.Generator) -> None:
-    """Phase 8: the other samplers once each, default configuration, bf16."""
+    """Phase 9: the other samplers once each, default configuration, bf16."""
     cfg = DanceDecoderConfig(dancer_num=3)
     dcfg = DiffusionConfig()
     model = DanceDecoder(cfg, dtype=torch.bfloat16).init_random(torch.Generator().manual_seed(0))
@@ -631,7 +800,7 @@ def train_inputs(cfg, batch: int, seed: int):
 
 
 def train(card: str) -> dict:
-    """Phase 6: the train path. Returns the train kernels' launch counts."""
+    """Phase 11: the train path. Returns the train kernels' launch counts."""
     cfg = DanceDecoderConfig(dancer_num=3)
     model, state, step = make_trainer(cfg, torch.bfloat16)
     x, cond = train_inputs(cfg, TRAIN_BATCH, 1)
@@ -739,12 +908,16 @@ def main() -> int:
         gen = torch.Generator(device="cuda").manual_seed(0)
         figures = compare_kernels(gen)
         figures.update(compare_serving_ops(gen))
+        figures.update(compare_block_kernels(gen))
         figures.update(compare_train_kernels(gen))
         launches = serve(gen)
         t0 = time.perf_counter()
         launches.update(serve_per_op(gen))
         other_samplers(gen)
         print(f"per-op path and other samplers took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        launches.update(serve_block_configs(gen, card))
+        print(f"block-kernel configurations took {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         train_counts = train(card)
         print(f"train phase took {time.perf_counter() - t0:.1f} s")

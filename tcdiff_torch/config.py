@@ -44,38 +44,32 @@ class ServingKernels:
     """Which kernels the deterministic (serving) forward runs: one field
     per flag of the JAX package's serving path. The defaults are that
     package's TPU defaults: the self-attention block (K1) and the FF block
-    with its tail (K2) on, the per-op kernels off, the cross-attention k/v
-    hoisted. A site whose kernel is off runs as plain PyTorch math, the
-    counterpart of the JAX package's XLA code there.
+    with its tail (K2) on, FiLM outside the block kernels, the per-op
+    kernels off, the cross-attention k/v hoisted. A site whose kernel is
+    off runs as plain PyTorch math, the counterpart of the JAX package's
+    XLA code there.
 
-    A combination whose kernel the port does not have yet raises
-    NotImplementedError (ROADMAP.md, queue 2); none falls back to another
-    path.
+    Every combination runs: the port has each kernel a combination selects.
+    The rule stays that a combination whose kernel were missing would raise,
+    never fall back to another path; none is left.
     """
 
     sa_block: bool = True  # TCDIFF_PALLAS_SAB: K1
     ff_block: bool = True  # TCDIFF_PALLAS_FFB: K2 with ff_tail, K2b without
     ff_tail: bool = True  # TCDIFF_PALLAS_FFT
+    fuse_film: bool = False  # TCDIFF_FUSE_FILM: the FiLM residual inside K1, K2b and K7
     layernorm: bool = False  # TCDIFF_PALLAS_LN: K10, the SBI-MSA post-LayerNorms
     ln_matmul: bool = False  # TCDIFF_PALLAS_LNMM: K9, norm3->linear1 and norm4->linear3
     ln_rotary: bool = False  # TCDIFF_PALLAS_LNROT: K8, norm->rotary->projections
     attention: int = 0  # TCDIFF_PALLAS_ATTENTION: K11; 1 per head, 2 all heads
     kv_cache: bool = True  # TCDIFF_KV_CACHE: the hoisted cross-attention k/v
-    layer_fuse: bool = False  # TCDIFF_LAYER_FUSE: K6
+    layer_fuse: bool = False  # TCDIFF_LAYER_FUSE: K6, where the k/v are hoisted and no trj_dist is given
+    layer_fuse_ff: bool = True  # TCDIFF_LAYER_FUSE_FF: K6 through the FF tail; off, K2 finishes the layer
     ca_block: bool = False  # TCDIFF_PALLAS_XAB: K7 (shadowed by the k/v cache)
 
     def __post_init__(self):
         if self.attention not in (0, 1, 2):
             raise ValueError(f"attention must be 0, 1 or 2, got {self.attention}")
-        if self.ff_block and not self.ff_tail:
-            raise NotImplementedError(
-                "the FF block without its tail (K2b, fused_ff_block) is not ported yet: ROADMAP.md queue 2, K2b")
-        if self.layer_fuse:
-            raise NotImplementedError(
-                "the whole-layer kernel (K6, fused_layer) is not ported yet: ROADMAP.md queue 2, K6")
-        if self.ca_block and not self.kv_cache:
-            raise NotImplementedError(
-                "the cross-attention block kernel (K7, fused_ca_block) is not ported yet: ROADMAP.md queue 2, K7")
 
     @classmethod
     def per_op(cls, attention: int = 1, kv_cache: bool = True) -> "ServingKernels":
@@ -92,12 +86,14 @@ class ServingKernels:
             sa_block=_env_flag(env, "TCDIFF_PALLAS_SAB", True),
             ff_block=_env_flag(env, "TCDIFF_PALLAS_FFB", True),
             ff_tail=_env_flag(env, "TCDIFF_PALLAS_FFT", True),
+            fuse_film=_env_flag(env, "TCDIFF_FUSE_FILM", False),
             layernorm=_env_flag(env, "TCDIFF_PALLAS_LN", False),
             ln_matmul=_env_flag(env, "TCDIFF_PALLAS_LNMM", False),
             ln_rotary=_env_flag(env, "TCDIFF_PALLAS_LNROT", False),
             attention=int(env.get("TCDIFF_PALLAS_ATTENTION", "0")),
             kv_cache=_env_flag(env, "TCDIFF_KV_CACHE", True),
             layer_fuse=_env_flag(env, "TCDIFF_LAYER_FUSE", False),
+            layer_fuse_ff=_env_flag(env, "TCDIFF_LAYER_FUSE_FF", True),
             ca_block=_env_flag(env, "TCDIFF_PALLAS_XAB", False),
         )
 

@@ -1,5 +1,6 @@
-// Building blocks shared by the kernels (sa_block.cu, ff_tail.cu, the
-// per-op kernels and the train kernels through train_common.cuh).
+// Building blocks shared by the kernels (the serving blocks through
+// blocks.cuh, the per-op kernels and the train kernels through
+// train_common.cuh).
 //
 // Everything is templated on the element type T (float or __nv_bfloat16):
 // tensors are loaded and stored in T, and LayerNorm statistics, products
@@ -161,6 +162,7 @@ enum Epi {
   EPI_ACC_F32 = 5,     // C(f32) += acc
   EPI_PARTIAL = 6,     // C(f32)[blockIdx.z][m][n] = acc over this block's K chunk
   EPI_BIAS_ROUNDED = 7,  // C(T) = T(T(acc) + T(bias)): the product rounded before the bias
+  EPI_BIAS_FILM_T = 8,   // C(T) = T(resid + (fs[b] + 1) * (acc + bias) + fb[b]), in f32 before the rounding
 };
 
 struct EpiArgs {
@@ -249,6 +251,10 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, int M, int N, int 
         const float zd = dropv(v + ep.bias[n], ep.dr, m / ep.L, ep.salt, (uint32_t)((m % ep.L) * N + n));
         if (ep.c2) ep.c2[o] = zd;
         static_cast<float*>(ep.c)[o] = to_f(static_cast<const T*>(ep.resid)[o]) + (ep.fs[f] + 1.f) * zd + ep.fb[f];
+      } else if (EPI == EPI_BIAS_FILM_T) {
+        const size_t f = (size_t)(m / ep.L) * N + n;
+        static_cast<T*>(ep.c)[o] = from_f<T>(to_f(static_cast<const T*>(ep.resid)[o]) +
+                                             (ep.fs[f] + 1.f) * (v + ep.bias[n]) + ep.fb[f]);
       } else if (EPI == EPI_BIAS_ROUNDED) {
         static_cast<T*>(ep.c)[o] = from_f<T>(round_t<T>(v) + round_t<T>(ep.bias[n]));
       } else if (EPI == EPI_ACC_F32) {

@@ -21,27 +21,8 @@
 // tiles (common.cuh) whose epilogues apply bias+GELU, bias+FiLM residual
 // (kept in f32, as the TPU kernel feeds LN4 its f32 value) and bias.
 // A correct first kernel: the tiles run on FMA units, not the tensor cores.
-#include "common.cuh"
-
-namespace tcd {
-
-template <typename T>
-int ff_tail(const T* x, const float* s3, const float* b3, const T* w1, const float* bb1,
-            const T* w2, const float* bb2, const float* fs, const float* fb, const float* s4,
-            const float* b4, const T* w3, const float* bb3, int B, int L, int d, int ff,
-            float eps, T* y, T* h, float* o32, T* z, T* out, cudaStream_t st) {
-  const int M = B * L;
-  ln_rows_kernel<T, T><<<M, 256, 0, st>>>(x, s3, b3, eps, d, L, nullptr, nullptr, nullptr,
-                                          nullptr, nullptr, y, nullptr);
-  gemm<T, EPI_BIAS_GELU>(y, w1, M, ff, d, epi(h, bb1), st);
-  gemm<T, EPI_BIAS_FILM>(h, w2, M, d, ff, epi(o32, bb2, x, fs, fb, L), st);
-  ln_rows_kernel<float, T><<<M, 256, 0, st>>>(o32, s4, b4, eps, d, L, nullptr, nullptr,
-                                              nullptr, nullptr, nullptr, z, nullptr);
-  gemm<T, EPI_BIAS>(z, w3, M, d, d, epi(out, bb3), st);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace tcd
+// The sequence is tcd::ff_tail of blocks.cuh, which K6 (layer.cu) reuses.
+#include "blocks.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
 // launches.
@@ -54,15 +35,15 @@ extern "C" int tcd_ff_tail(int dtype, const void* x, const float* s3, const floa
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     using T = float;
-    return tcd::ff_tail<T>((const T*)x, s3, b3, (const T*)w1, bb1, (const T*)w2, bb2, fs, fb,
-                           s4, b4, (const T*)w3, bb3, B, L, d, ff, eps, (T*)y, (T*)h, o32,
-                           (T*)z, (T*)out, st);
+    tcd::ff_tail<T>((const T*)x, s3, b3, (const T*)w1, bb1, (const T*)w2, bb2, fs, fb, s4, b4,
+                    (const T*)w3, bb3, B, L, d, ff, eps, (T*)y, (T*)h, o32, (T*)z, (T*)out, st);
+    return (int)cudaGetLastError();
   }
   if (dtype == 1) {
     using T = __nv_bfloat16;
-    return tcd::ff_tail<T>((const T*)x, s3, b3, (const T*)w1, bb1, (const T*)w2, bb2, fs, fb,
-                           s4, b4, (const T*)w3, bb3, B, L, d, ff, eps, (T*)y, (T*)h, o32,
-                           (T*)z, (T*)out, st);
+    tcd::ff_tail<T>((const T*)x, s3, b3, (const T*)w1, bb1, (const T*)w2, bb2, fs, fb, s4, b4,
+                    (const T*)w3, bb3, B, L, d, ff, eps, (T*)y, (T*)h, o32, (T*)z, (T*)out, st);
+    return (int)cudaGetLastError();
   }
   return -1;
 }

@@ -26,42 +26,9 @@
 //      memory stays under 48 KB;
 //   4. out projection into an f32 scratch, then ln_rows_kernel for the
 //      post-attention LN with the FiLM residual as its epilogue.
+// The sequence is tcd::sa_block of blocks.cuh, which K6 (layer.cu) reuses.
 // A correct first kernel: the tiles run on FMA units, not the tensor cores.
-#include "attention.cuh"
-
-namespace tcd {
-
-template <typename T>
-int sa_block(const T* x, const float* s1, const float* b1, const T* cos_t, const T* ssin_t,
-             const T* wq, const T* wk, const T* wv, const T* wfc, const float* s2,
-             const float* b2, const T* table, const int32_t* dist, const float* fs,
-             const float* fb, int B, int L, int d, int hd, int nhead, float eps1, float eps2,
-             T* y, T* r, T* q, T* k, T* v, T* o, float* z, T* out, cudaStream_t st) {
-  const int M = B * L, dk = hd / nhead;
-  ln_rows_kernel<T, T><<<M, 256, 0, st>>>(x, s1, b1, eps1, d, L, cos_t, ssin_t, nullptr,
-                                          nullptr, nullptr, y, r);
-  gemm<T, EPI_STORE>(r, wq, M, hd, d, epi(q), st);
-  gemm<T, EPI_STORE>(r, wk, M, hd, d, epi(k), st);
-  gemm<T, EPI_STORE>(y, wv, M, hd, d, epi(v), st);
-  // q/k/v/o (B, L, hd) with head h in columns [h*dk, (h+1)*dk); table (10, hd)
-  AttnArgs a;
-  a.q = q; a.k = k; a.v = v; a.o = o;
-  a.qs = a.ks = a.vs = a.os = Strides{(long long)L * hd, dk, hd};
-  a.Lq = a.Lk = L;
-  a.dk = dk;
-  a.scale = 1.f / sqrtf((float)dk);
-  a.table = table;
-  a.tn = hd;
-  a.th = dk;
-  a.dist = dist;
-  attention<T>(a, B, nhead, st);
-  gemm<T, EPI_STORE_F32>(o, wfc, M, d, hd, epi(z), st);
-  ln_rows_kernel<float, T><<<M, 256, 0, st>>>(z, s2, b2, eps2, d, L, nullptr, nullptr,
-                                              fs ? x : nullptr, fs, fb, out, nullptr);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace tcd
+#include "blocks.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16. table/dist and fs/fb may be null.
 // Returns cudaGetLastError() after the launches.
@@ -75,17 +42,19 @@ extern "C" int tcd_sa_block(int dtype, const void* x, const float* s1, const flo
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     using T = float;
-    return tcd::sa_block<T>((const T*)x, s1, b1, (const T*)cos_t, (const T*)ssin_t,
-                            (const T*)wq, (const T*)wk, (const T*)wv, (const T*)wfc, s2, b2,
-                            (const T*)table, dist, fs, fb, B, L, d, hd, nhead, eps1, eps2,
-                            (T*)y, (T*)r, (T*)q, (T*)k, (T*)v, (T*)o, z, (T*)out, st);
+    tcd::sa_block<T>((const T*)x, s1, b1, (const T*)cos_t, (const T*)ssin_t, (const T*)wq,
+                     (const T*)wk, (const T*)wv, (const T*)wfc, s2, b2, (const T*)table, dist, fs,
+                     fb, B, L, d, hd, nhead, eps1, eps2, (T*)y, (T*)r, (T*)q, (T*)k, (T*)v, (T*)o,
+                     z, (T*)out, st);
+    return (int)cudaGetLastError();
   }
   if (dtype == 1) {
     using T = __nv_bfloat16;
-    return tcd::sa_block<T>((const T*)x, s1, b1, (const T*)cos_t, (const T*)ssin_t,
-                            (const T*)wq, (const T*)wk, (const T*)wv, (const T*)wfc, s2, b2,
-                            (const T*)table, dist, fs, fb, B, L, d, hd, nhead, eps1, eps2,
-                            (T*)y, (T*)r, (T*)q, (T*)k, (T*)v, (T*)o, z, (T*)out, st);
+    tcd::sa_block<T>((const T*)x, s1, b1, (const T*)cos_t, (const T*)ssin_t, (const T*)wq,
+                     (const T*)wk, (const T*)wv, (const T*)wfc, s2, b2, (const T*)table, dist, fs,
+                     fb, B, L, d, hd, nhead, eps1, eps2, (T*)y, (T*)r, (T*)q, (T*)k, (T*)v, (T*)o,
+                     z, (T*)out, st);
+    return (int)cudaGetLastError();
   }
   return -1;
 }

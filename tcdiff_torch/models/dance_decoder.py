@@ -31,9 +31,11 @@ for CUDA tensors, plain versions for CPU tensors). On serving,
 `ServingKernels` (the model's `kernels`) chooses per site, as the JAX
 package's flags do: by default the self-attention block (K1) and the FF
 block + tail (K2), with cross-attention plain tensor math over the hoisted
-k/v; in the per-op configuration LN -> rotary -> q/k/v (K8), attention
-(K11, also in the cond encoder), the post-attention LayerNorms (K10) and
-the LN -> projections of the FF chain (K9). A site whose kernel is off runs
+k/v; the FF block without its tail (K2b); the cross-attention block (K7)
+where the k/v are not hoisted; the whole layer (K6) over the hoisted k/v;
+in the per-op configuration LN -> rotary -> q/k/v (K8), attention (K11,
+also in the cond encoder), the post-attention LayerNorms (K10) and the
+LN -> projections of the FF chain (K9). A site whose kernel is off runs
 as plain PyTorch math, the counterpart of the JAX package's XLA code. In
 training the self-attention (K3), cross-attention (K4) and FF + tail (K5)
 blocks run, forward and backward.
@@ -51,10 +53,11 @@ from torch import nn
 from tcdiff_torch.config import DanceDecoderConfig, ServingKernels
 from tcdiff_torch.models.rotary import RotaryEmbedding, angle_table, apply_rotary
 from tcdiff_torch.ops import (
-    attention, ca_block_train, ff_block, ff_block_train, layernorm, ln_matmul, ln_rotary_matmul, sa_block,
+    attention, ca_block, ca_block_train, ff_block, ff_block_train, layernorm, ln_matmul, ln_rotary_matmul, sa_block,
     sa_block_train,
 )
 from tcdiff_torch.ops.attention import N_TRJ_BUCKETS, trpe_bias
+from tcdiff_torch.ops.layer import layer as fused_layer
 
 
 class CondCache(NamedTuple):
@@ -295,7 +298,8 @@ class FiLMTransformerDecoderLayer(nn.Module):
     """FiLM-conditioned decoder layer: `forward` (deterministic) and
     `forward_train`.
 
-    `sa_block_fn` / `ff_tail_fn` / `ln_matmul_fn` (serving) and
+    `sa_block_fn` / `ff_tail_fn` / `ff_block_fn` / `ca_block_fn` /
+    `layer_fn` / `ln_matmul_fn` (serving) and
     `sa_train_fn` / `ca_train_fn` / `ff_train_fn` (training) are the kernel
     functions this layer calls; they default to the dispatching wrappers of
     `tcdiff_torch.ops`.
@@ -323,6 +327,9 @@ class FiLMTransformerDecoderLayer(nn.Module):
         ])
         self.sa_block_fn = sa_block.sa_block
         self.ff_tail_fn = ff_block.ff_tail
+        self.ff_block_fn = ff_block.ff_block
+        self.ca_block_fn = ca_block.ca_block
+        self.layer_fn = fused_layer
         self.ln_matmul_fn = ln_matmul.ln_matmul
         self.sa_train_fn = sa_block_train.sa_block_train
         self.ca_train_fn = ca_block_train.ca_block_train
@@ -334,53 +341,98 @@ class FiLMTransformerDecoderLayer(nn.Module):
         per-layer cross-attention projections (B, Lm, h*dk). tile_sa: x,
         traj_emb and trj_dist arrive at half batch (CFG dedup). `kernels`
         chooses the kernel or the plain math at each site, as the JAX
-        package's layer does (`tcdiff_tpu/models/dance_decoder.py:795-1062`)."""
-        dt = x.dtype
-        sa = self.self_attn
+        package's layer does (`tcdiff_tpu/models/dance_decoder.py:715-1062`)."""
         angles = angle_table(x.shape[-2], x.shape[-1], x.device)
-        w = lambda m: m.weight.to(dt)
+        if kernels.layer_fuse and kv is not None and trj_dist is None and not tile_sa:
+            x = self._fused_layer(x, t, kv, angles, kernels)
+        else:
+            # a block kernel takes the FiLM rows only at the doubled batch:
+            # the CFG-dedup layer adds them outside
+            fuse_film = kernels.fuse_film and not tile_sa
+            x, traj_emb = self._self_attention(x, t, traj_emb, shared_emb, trj_dist, angles, tile_sa,
+                                               fuse_film, kernels)
+            x = self._cross_attention(x, memory, t, kv, angles, fuse_film, kernels)
+            x = self._feed_forward(x, t, fuse_film, kernels)
+        return self._traj_modulation(x, t, traj_emb)
 
-        # self-attention + FiLM(t)
+    def _fused_layer(self, x, t, kv, angles, kernels: ServingKernels):
+        """The whole layer as K6 over the hoisted k/v, every FiLM residual
+        inside; with `layer_fuse_ff` off K6 stops after cross-attention and
+        K2 finishes the layer."""
+        sa, ca = self.self_attn, self.multihead_attn
+        w = lambda m: m.weight.to(x.dtype)
+        head = (x, angles, self.norm1.weight, self.norm1.bias, w(sa.w_qs), w(sa.w_ks), w(sa.w_vs), w(sa.fc),
+                sa.layer_norm.weight, sa.layer_norm.bias, *self.film1(t),
+                self.norm2.weight, self.norm2.bias, w(ca.w_qs), w(ca.fc), ca.layer_norm.weight,
+                ca.layer_norm.bias, *kv, *self.film2(t))
+        ff = (self.norm3.weight, self.norm3.bias, w(self.linear1), self.linear1.bias, w(self.linear2),
+              self.linear2.bias, *self.film3(t), self.norm4.weight, self.norm4.bias, w(self.linear3),
+              self.linear3.bias)
+        if kernels.layer_fuse_ff:
+            return self.layer_fn(*head, *ff, nhead=self.n_head)
+        return self.ff_tail_fn(self.layer_fn(*head, nhead=self.n_head, include_ff=False), *ff)
+
+    def _self_attention(self, x, t, traj_emb, shared_emb, trj_dist, angles, tile_sa, fuse_film,
+                        kernels: ServingKernels):
+        """x + FiLM(self-attention block): K1, with the FiLM residual
+        inside where `fuse_film`, or the per-op / plain math. With tile_sa
+        the block runs at half batch, then x and traj_emb are tiled."""
+        sa = self.self_attn
         fs, fb = self.film1(t)
+        w = lambda m: m.weight.to(x.dtype)
         sa_args = (
-            x, self.norm1.weight, self.norm1.bias, angles,
-            w(sa.w_qs), w(sa.w_ks), w(sa.w_vs), w(sa.fc),
-            sa.layer_norm.weight, sa.layer_norm.bias,
-            shared_emb if trj_dist is not None else None, trj_dist,
+            x, self.norm1.weight, self.norm1.bias, angles, w(sa.w_qs), w(sa.w_ks), w(sa.w_vs), w(sa.fc),
+            sa.layer_norm.weight, sa.layer_norm.bias, shared_emb if trj_dist is not None else None, trj_dist,
         )
-        if kernels.sa_block and not tile_sa:
-            x = self.sa_block_fn(*sa_args, fs, fb, nhead=self.n_head)  # FiLM residual in the kernel
+        if kernels.sa_block and fuse_film:
+            return self.sa_block_fn(*sa_args, fs, fb, nhead=self.n_head), traj_emb
+        if kernels.sa_block:
+            s = self.sa_block_fn(*sa_args, nhead=self.n_head)
         else:
-            if kernels.sa_block:
-                s = self.sa_block_fn(*sa_args, nhead=self.n_head)
-            else:
-                s = sa.attend(*sa.self_qkv(x, self.norm1, angles, kernels), kernels, shared_emb, trj_dist)
-            if tile_sa:
-                # the two CFG halves share x: the block ran at half batch; tile
-                s, x, traj_emb = (torch.cat([a, a], dim=0) for a in (s, x, traj_emb))
-            x = x + featurewise_affine(s, (fs, fb))
+            s = sa.attend(*sa.self_qkv(x, self.norm1, angles, kernels), kernels, shared_emb, trj_dist)
+        if tile_sa:
+            # the two CFG halves share x: the block ran at half batch; tile
+            s, x, traj_emb = (torch.cat([a, a], dim=0) for a in (s, x, traj_emb))
+        return x + featurewise_affine(s, (fs, fb)), traj_emb
 
-        # cross-attention to the music/time tokens + FiLM(t)
+    def _cross_attention(self, x, memory, t, kv, angles, fuse_film, kernels: ServingKernels):
+        """x + FiLM(cross-attention to the music/time tokens): over the
+        hoisted k/v where given, else K7 where `kernels.ca_block`, else the
+        plain math with K8's rot-only query where `kernels.ln_rotary`."""
         ca = self.multihead_attn
-        if kv is not None:
-            k, v = kv
-        elif kernels.ca_block:
-            raise NotImplementedError(
-                "the cross-attention block kernel (K7, fused_ca_block) is not ported yet: ROADMAP.md queue 2, K7")
+        fs, fb = self.film2(t)
+        if kv is None:
+            rot_mem = apply_rotary(memory, angle_table(memory.shape[-2], memory.shape[-1], x.device))
+            if kernels.ca_block:
+                w = lambda m: m.weight.to(x.dtype)
+                args = (x, self.norm2.weight, self.norm2.bias, angles, memory, rot_mem,
+                        w(ca.w_qs), w(ca.w_ks), w(ca.w_vs), w(ca.fc), ca.layer_norm.weight, ca.layer_norm.bias)
+                if fuse_film:
+                    return self.ca_block_fn(*args, fs, fb, nhead=self.n_head)
+                return x + featurewise_affine(self.ca_block_fn(*args, nhead=self.n_head), (fs, fb))
+            k, v = _lin(ca.w_ks, rot_mem), _lin(ca.w_vs, memory)
         else:
-            k = _lin(ca.w_ks, apply_rotary(memory, angle_table(memory.shape[-2], memory.shape[-1], x.device)))
-            v = _lin(ca.w_vs, memory)
+            k, v = kv
         q = ca.cross_q(x, self.norm2, angles, kernels, fused=kv is None)
-        x = x + featurewise_affine(ca.attend(q, k, v, kernels), self.film2(t))
+        return x + featurewise_affine(ca.attend(q, k, v, kernels), (fs, fb))
 
-        # FF block + layer tail: linear3(norm4(x + FiLM(FF(norm3(x)))))
-        fs3, fb3 = self.film3(t)
-        if kernels.ff_block:  # with its tail: ServingKernels refuses the block alone
-            x = self.ff_tail_fn(
-                x, self.norm3.weight, self.norm3.bias,
-                w(self.linear1), self.linear1.bias, w(self.linear2), self.linear2.bias,
-                fs3, fb3, self.norm4.weight, self.norm4.bias, w(self.linear3), self.linear3.bias,
-            )
+    def _feed_forward(self, x, t, fuse_film, kernels: ServingKernels):
+        """The FF block + FiLM and the layer tail linear3(norm4(.)): K2 for
+        both; or K2b (FiLM inside where `fuse_film`), or the plain math
+        with K9 where `kernels.ln_matmul`, then the tail, through K9 where
+        `kernels.ln_matmul`."""
+        fs, fb = self.film3(t)
+        w = lambda m: m.weight.to(x.dtype)
+        if kernels.ff_block:
+            ff_args = (x, self.norm3.weight, self.norm3.bias, w(self.linear1), self.linear1.bias,
+                       w(self.linear2), self.linear2.bias)
+            if kernels.ff_tail:
+                return self.ff_tail_fn(*ff_args, fs, fb, self.norm4.weight, self.norm4.bias, w(self.linear3),
+                                       self.linear3.bias)
+            if fuse_film:
+                x = self.ff_block_fn(*ff_args, fs, fb)
+            else:
+                x = x + featurewise_affine(self.ff_block_fn(*ff_args), (fs, fb))
         else:
             if kernels.ln_matmul:
                 h = self.ln_matmul_fn(x, self.norm3.weight, self.norm3.bias, w(self.linear1),
@@ -388,14 +440,10 @@ class FiLMTransformerDecoderLayer(nn.Module):
             else:
                 h = _lin(self.linear1, _ln(self.norm3, x, 1e-5))
             h = _lin(self.linear2, F.gelu(h, approximate="none"))
-            x = x + featurewise_affine(h, (fs3, fb3))
-            if kernels.ln_matmul:
-                x = self.ln_matmul_fn(x, self.norm4.weight, self.norm4.bias, w(self.linear3),
-                                      self.linear3.bias, 1e-5)
-            else:
-                x = _lin(self.linear3, _ln(self.norm4, x, 1e-5))
-
-        return self._traj_modulation(x, t, traj_emb)
+            x = x + featurewise_affine(h, (fs, fb))
+        if kernels.ln_matmul:
+            return self.ln_matmul_fn(x, self.norm4.weight, self.norm4.bias, w(self.linear3), self.linear3.bias, 1e-5)
+        return _lin(self.linear3, _ln(self.norm4, x, 1e-5))
 
     def _traj_modulation(self, x, t, traj_emb):
         if self.use_traj_modulation:

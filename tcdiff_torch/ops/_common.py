@@ -59,11 +59,11 @@ def raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
 
 
-def args_struct(name: str, ptrs, ints, floats):
+def args_struct(name: str, ptrs, ints, floats, uints=()):
     """A ctypes mirror of a C argument struct laid out as: the pointers, the
-    ints, the floats, then `uint32_t thresh` (the train kernels' structs)."""
+    ints, the floats, then the uint32s (the train kernels' `thresh`)."""
     fields = ([(n, ctypes.c_void_p) for n in ptrs] + [(n, ctypes.c_int) for n in ints]
-              + [(n, ctypes.c_float) for n in floats] + [("thresh", ctypes.c_uint32)])
+              + [(n, ctypes.c_float) for n in floats] + [(n, ctypes.c_uint32) for n in uints])
     return type(name, (ctypes.Structure,), {"_fields_": fields})
 
 

@@ -1,0 +1,117 @@
+"""The decoder layer's cross-attention block on the serving path: K7 of the
+port.
+
+Counterpart of `tcdiff_tpu/ops/fused_ca_block.py::fused_ca_block`:
+
+    q  = rot(LN(x; eps1)).Wq   k = memory_rot.Wk   v = memory.Wv   (bias-free)
+    o  = per-head softmax(q.k^T/sqrt(dk)) . v                      (L x Lm)
+    ca = LN(o.Wfc; eps2)  [-> x + (fs+1)*ca + fb]
+
+x (b, L, d); memory (b, Lm, d) and memory_rot, the memory rotated with
+the angle table of its own length (the caller's apply_rotary); angles
+(L, d) for the query side. Weights in nn.Linear layout: wq/wk/wv (h*dk, d),
+wfc (d, h*dk); LN affines (d,); film rows (b, d). LN statistics, rotary,
+logits, softmax and every product sum in f32; q, k, v, the probabilities
+and the attention output rounded to the compute dtype (x.dtype) where the
+TPU kernel rounds them. `ca_block` runs the hand-written CUDA kernel
+(`csrc/ca_block.cu`) for a CUDA x and `ca_block_plain` for a CPU x.
+
+`cross_plain` is the query side against projected k/v, which the
+whole-layer kernel's plain version (`ops/layer.py`) shares.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, launch, ln_f32, mm_f32
+from tcdiff_torch.ops.attention import attention_plain
+from tcdiff_torch.ops.sa_block import rotary_tables
+from tcdiff_torch.ops.sa_block_train import rot
+from tcdiff_torch.ops.train_common import film_residual
+
+
+def cross_plain(x, s1, b1, angles, k, v, wq, wfc, s2, b2, film_scale=None, film_shift=None,
+                *, nhead: int, eps1: float = 1e-5, eps2: float = 1e-6):
+    """The cross-attention block from projected k, v (b, Lm, h*dk), which
+    are rounded to x.dtype per head as the TPU kernels do."""
+    dt = x.dtype
+    cos, ssin = rotary_tables(angles, dt)
+    q = mm_f32(rot(ln_f32(x, s1, b1, eps1), cos, ssin).to(dt), wq)
+    heads = lambda t: t.to(dt).unflatten(-1, (nhead, -1)).transpose(1, 2)  # (b, h, L, dk)
+    dk = wq.shape[0] // nhead
+    o = attention_plain(heads(q), heads(k), heads(v), dk**-0.5).transpose(1, 2).flatten(2)
+    ca = ln_f32(mm_f32(o, wfc), s2, b2, eps2)
+    if film_scale is not None:
+        ca = film_residual(x, ca, film_scale, film_shift)
+    return ca.to(dt)
+
+
+def ca_block_plain(x, s1, b1, angles, memory, memory_rot, wq, wk, wv, wfc, s2, b2,
+                   film_scale=None, film_shift=None, *, nhead: int, eps1: float = 1e-5, eps2: float = 1e-6):
+    """Plain PyTorch version of the block; the oracle of the kernel."""
+    dt = x.dtype
+    k, v = mm_f32(memory_rot.to(dt), wk), mm_f32(memory.to(dt), wv)
+    return cross_plain(x, s1, b1, angles, k, v, wq, wfc, s2, b2, film_scale, film_shift,
+                       nhead=nhead, eps1=eps1, eps2=eps2)
+
+
+_Args = args_struct(  # CaBlockArgs in csrc/ca_block.cu
+    "CaBlockArgs",
+    ("x", "s1", "b1", "cos", "ssin", "mem", "mrot", "wq", "wk", "wv", "wfc", "s2", "b2", "fs", "fb",
+     "r", "q", "k", "v", "o", "z", "out"),
+    ("B", "L", "Lm", "d", "hd", "nhead"),
+    ("eps1", "eps2"),
+)
+
+
+def _ca_block_cuda(x, s1, b1, angles, memory, memory_rot, wq, wk, wv, wfc, s2, b2, film_scale, film_shift,
+                   *, nhead, eps1, eps2):
+    check_cuda(x, s1=s1, b1=b1, angles=angles, memory=memory, memory_rot=memory_rot, wq=wq, wk=wk, wv=wv,
+               wfc=wfc, s2=s2, b2=b2, film_scale=film_scale, film_shift=film_shift)
+    B, L, d = x.shape
+    Lm = memory.shape[1]
+    hd = wq.shape[0]
+    dk = hd // nhead
+    if d % 2 or hd % nhead or dk > 64 or dk % 4:
+        raise ValueError(f"unsupported widths d={d}, h*dk={hd}, nhead={nhead}")
+    film = film_scale is not None
+    if film != (film_shift is not None):
+        raise ValueError("give both film rows or neither")
+    shapes = [("memory", memory, (B, Lm, d)), ("memory_rot", memory_rot, (B, Lm, d)), ("wq", wq, (hd, d)),
+              ("wk", wk, (hd, d)), ("wv", wv, (hd, d)), ("wfc", wfc, (d, hd)), ("angles", angles, (L, d)),
+              ("film_scale", film_scale, (B, d)), ("film_shift", film_shift, (B, d))]
+    for name, t, shape in shapes:
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+
+    dt, dev = x.dtype, x.device
+    f32 = lambda t: t.float().contiguous()
+    cos, ssin = rotary_tables(angles, dt)
+    empty = lambda n, rows=L, t=dt: torch.empty((B, rows, n), dtype=t, device=dev)
+    out = torch.empty_like(x)
+    ten = dict(x=x, s1=f32(s1), b1=f32(b1), cos=cos, ssin=ssin, mem=as_t(memory, dt), mrot=as_t(memory_rot, dt),
+               wq=as_t(wq, dt), wk=as_t(wk, dt), wv=as_t(wv, dt), wfc=as_t(wfc, dt), s2=f32(s2), b2=f32(b2),
+               r=empty(d), q=empty(hd), k=empty(hd, Lm), v=empty(hd, Lm), o=empty(hd),
+               z=empty(d, t=torch.float32), out=out)
+    if film:
+        ten.update(fs=f32(film_scale), fb=f32(film_shift))
+    dims = dict(B=B, L=L, Lm=Lm, d=d, hd=hd, nhead=nhead, eps1=eps1, eps2=eps2)
+    launch("ca_block", "tcd_ca_block", _Args, ten, dims, x, "ca_block")
+    ca_block.launches += 1
+    return out
+
+
+def ca_block(x, s1, b1, angles, memory, memory_rot, wq, wk, wv, wfc, s2, b2,
+             film_scale=None, film_shift=None, *, nhead: int, eps1: float = 1e-5, eps2: float = 1e-6):
+    """The serving cross-attention block: CUDA kernel for a CUDA x, plain
+    version for a CPU x. See the module docstring for shapes."""
+    args = (x, s1, b1, angles, memory, memory_rot, wq, wk, wv, wfc, s2, b2, film_scale, film_shift)
+    if x.device.type == "cpu":
+        return ca_block_plain(*args, nhead=nhead, eps1=eps1, eps2=eps2)
+    if x.device.type != "cuda":
+        raise ValueError(f"ca_block runs on CPU or CUDA tensors, got {x.device}")
+    return _ca_block_cuda(*args, nhead=nhead, eps1=eps1, eps2=eps2)
+
+
+ca_block.launches = 0  # kernel launches; the plain path does not count

@@ -55,6 +55,7 @@ _Args = args_struct(  # CaTrainArgs in csrc/ca_block_train.cu
      "dr", "drm", "dvm", "part", "wpart", "Dsum", "vec"),
     ("B", "L", "Lm", "d", "hd", "nhead", "nsplit", "drop_on"),
     ("eps1", "eps2", "dscale"),
+    ("thresh",),
 )
 N_VEC = 6  # reduced vectors: dfs, dfb (per batch element), dss, dsb, ds2, db2
 

@@ -52,6 +52,7 @@ _Args = args_struct(  # FfTrainArgs in csrc/ff_tail_train.cu
      "part", "part_ff", "wpart", "vec", "vec_ff"),
     ("B", "L", "d", "ff", "nsplit", "drop_on"),
     ("eps", "dscale"),
+    ("thresh",),
 )
 # reduced (d,) vectors: dfs, dfb (per batch element), dbb3, ds4, db4, dbb2, ds3, db3;
 # and the (ff,) vector dbb1

@@ -13,9 +13,11 @@ from __future__ import annotations
 import contextlib
 
 from tcdiff_torch.ops.attention import attention_plain
+from tcdiff_torch.ops.ca_block import ca_block_plain
 from tcdiff_torch.ops.ca_block_train import ca_block_train_plain
-from tcdiff_torch.ops.ff_block import ff_tail_plain
+from tcdiff_torch.ops.ff_block import ff_block_plain, ff_tail_plain
 from tcdiff_torch.ops.ff_block_train import ff_tail_train_plain
+from tcdiff_torch.ops.layer import layer_plain
 from tcdiff_torch.ops.layernorm import layernorm_plain
 from tcdiff_torch.ops.ln_matmul import ln_matmul_plain
 from tcdiff_torch.ops.ln_rotary_matmul import ln_rotary_matmul_plain
@@ -25,6 +27,9 @@ from tcdiff_torch.ops.sa_block_train import sa_block_train_plain
 _PLAIN = {
     "sa_block_fn": sa_block_plain,
     "ff_tail_fn": ff_tail_plain,
+    "ff_block_fn": ff_block_plain,
+    "ca_block_fn": ca_block_plain,
+    "layer_fn": layer_plain,
     "ln_matmul_fn": ln_matmul_plain,
     "ln_rotary_fn": ln_rotary_matmul_plain,
     "layernorm_fn": layernorm_plain,

@@ -82,6 +82,7 @@ _Args = args_struct(  # SaTrainArgs in csrc/sa_block_train.cu
      "dr", "dyv", "part", "wpart", "Dsum", "vec"),
     ("B", "L", "d", "hd", "nhead", "nsplit", "drop_on"),
     ("eps1", "eps2", "dscale"),
+    ("thresh",),
 )
 N_VEC = 6  # reduced vectors: dfs, dfb (per batch element), ds2, db2, ds1, db1
 

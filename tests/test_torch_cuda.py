@@ -301,3 +301,102 @@ def test_train_kernels_refuse_what_they_do_not_take(dev):
         ca_block_train(x, x[:1], v, v, a, a, w, w, w, w, v, v, f, f, s, nhead=4, rate=0.1)
     with pytest.raises(ValueError):  # film rows of another batch
         ff_tail_train(x, v, v, w, v, w, v, f[:1], f[:1], v, v, w, v, s, rate=0.1)
+
+
+# ------------------------------------------------------- K2b, K7, K6 (serving)
+# The FF block without its tail, the serving cross-attention block and the
+# whole layer against their plain versions on the same CUDA tensors, with
+# and without the FiLM rows / the FF section: L and Lm off the tiles
+# (GEMM 64 rows, attention 64 queries x 32 keys), dk = 64 as on the main
+# path. Tolerances as above.
+SL, SLM = 100, 38
+
+
+def _serving_inputs(gen, dev, dtype):
+    r = lambda *s, std=1.0: _rnd(gen, dev, *s, std=std)
+    w = lambda o, i: r(o, i, std=i**-0.5).to(dtype)
+    ln = lambda: (1 + r(D, std=0.1), r(D, std=0.1))
+    film = lambda: (r(B, D, std=0.1).to(dtype), r(B, D, std=0.1).to(dtype))
+    return r, w, ln, film
+
+
+def _check_serving(fn, plain, args, kw, dtype):
+    before = fn.launches
+    out = fn(*args, **kw)
+    ref = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert torch.isfinite(out).all().item()
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(dtype, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("film", [False, True])
+def test_ff_block_kernel_matches_plain(dev, dtype, film):
+    g = torch.Generator(device=dev).manual_seed(9)
+    r, w, ln, fl = _serving_inputs(g, dev, dtype)
+    args = (r(B, SL, D).to(dtype), *ln(), w(FF, D), r(FF, std=0.1), w(D, FF), r(D, std=0.1),
+            *(fl() if film else (None, None)))
+    _check_serving(ff_block.ff_block, ff_block.ff_block_plain, args, {}, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("film", [False, True])
+def test_ca_block_kernel_matches_plain(dev, dtype, film):
+    from tcdiff_torch.models.rotary import apply_rotary
+    from tcdiff_torch.ops import ca_block as m
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    r, w, ln, fl = _serving_inputs(g, dev, dtype)
+    mem = r(B, SLM, D).to(dtype)
+    args = (r(B, SL, D).to(dtype), *ln(), angle_table(SL, D, dev), mem, apply_rotary(mem, angle_table(SLM, D, dev)),
+            w(128, D), w(128, D), w(128, D), w(D, 128), *ln(), *(fl() if film else (None, None)))
+    _check_serving(m.ca_block, m.ca_block_plain, args, dict(nhead=H), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("include_ff", [False, True])
+def test_layer_kernel_matches_plain(dev, dtype, include_ff):
+    from tcdiff_torch.ops import layer as m
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    r, w, ln, fl = _serving_inputs(g, dev, dtype)
+    head = (r(B, SL, D).to(dtype), angle_table(SL, D, dev), *ln(), w(128, D), w(128, D), w(128, D), w(D, 128),
+            *ln(), *fl(), *ln(), w(128, D), w(D, 128), *ln(), r(B, SLM, 128).to(dtype), r(B, SLM, 128).to(dtype),
+            *fl())
+    ff = (*ln(), w(FF, D), r(FF, std=0.1), w(D, FF), r(D, std=0.1), *fl(), *ln(), w(D, D), r(D, std=0.1))
+    _check_serving(m.layer, m.layer_plain, head + (ff if include_ff else ()), dict(nhead=H, include_ff=include_ff),
+                   dtype)
+
+
+def test_serving_block_kernels_refuse_what_they_do_not_take(dev):
+    from tcdiff_torch.ops.ca_block import ca_block
+    from tcdiff_torch.ops.layer import layer
+
+    x = torch.zeros(2, 8, 256, device=dev)
+    w = torch.zeros(256, 256, device=dev)
+    v = torch.ones(256, device=dev)
+    f = torch.zeros(2, 256, device=dev)
+    a = angle_table(8, 256, dev)
+    mem = torch.zeros(2, 5, 256, device=dev)
+    kv = torch.zeros(2, 5, 256, device=dev)
+    with pytest.raises(ValueError):  # film rows of another batch
+        ff_block.ff_block(x, v, v, w, v, w, v, f[:1], f[:1])
+    with pytest.raises(ValueError):  # one film row without the other
+        ff_block.ff_block(x, v, v, w, v, w, v, f, None)
+    with pytest.raises(TypeError):
+        ff_block.ff_block(x.half(), v, v, w, v, w, v)
+    with pytest.raises(ValueError):  # dk = 128 > 64
+        ca_block(x, v, v, a, mem, mem, w, w, w, w, v, v, nhead=2)
+    with pytest.raises(ValueError):  # memory of another batch
+        ca_block(x, v, v, a, mem[:1], mem[:1], w, w, w, w, v, v, nhead=4)
+    with pytest.raises(TypeError):
+        ca_block(x.half(), v, v, a, mem, mem, w, w, w, w, v, v, nhead=4)
+    head = lambda x, kv: (x, a, v, v, w, w, w, w, v, v, f, f, v, v, w, w, v, v, kv, kv, f, f)
+    with pytest.raises(ValueError):  # k/v of another width
+        layer(*head(x, kv[..., :128]), nhead=4, include_ff=False)
+    with pytest.raises(ValueError):  # include_ff without the FF section
+        layer(*head(x, kv), nhead=4)
+    with pytest.raises(TypeError):
+        layer(*head(x.half(), kv), nhead=4, include_ff=False)

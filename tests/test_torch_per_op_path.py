@@ -73,25 +73,74 @@ def test_per_op_config_and_flags():
     assert not (k.sa_block or k.ff_block or k.kv_cache) and k.ln_rotary and k.attention == 2
 
 
+def test_serving_flags_of_the_block_kernels():
+    """from_env reads TCDIFF_FUSE_FILM and TCDIFF_LAYER_FUSE_FF too."""
+    env = {"TCDIFF_FUSE_FILM": "1", "TCDIFF_LAYER_FUSE": "1", "TCDIFF_LAYER_FUSE_FF": "0"}
+    assert ServingKernels.from_env(env) == ServingKernels(fuse_film=True, layer_fuse=True, layer_fuse_ff=False)
+    assert not ServingKernels().fuse_film and ServingKernels().layer_fuse_ff
+
+
+def _counted(tmodel, site: str):
+    """Count the calls of every layer's `site` kernel function; returns the
+    list the calls append to and a function that restores the layers."""
+    calls, saved = [], [(layer, getattr(layer, site)) for layer in tmodel.layers]
+    for layer, fn in saved:
+        setattr(layer, site, lambda *a, _fn=fn, **kw: calls.append(1) or _fn(*a, **kw))
+    return calls, lambda: [setattr(layer, site, fn) for layer, fn in saved]
+
+
+def _guided(tmodel, kernels, x, cond, t):
+    tmodel.kernels = kernels
+    d = GaussianDiffusion(tmodel, DiffusionConfig(), device="cpu")
+    with torch.no_grad():
+        return d.guided(torch.from_numpy(x), None, torch.from_numpy(t), 2.0,
+                        cond_cache=d.encode_cond_cfg(torch.from_numpy(cond)))
+
+
 @pytest.mark.parametrize("kw, item", [
     (dict(ff_tail=False), "K2b"), (dict(layer_fuse=True), "K6"), (dict(ca_block=True, kv_cache=False), "K7"),
 ])
-def test_unported_combinations_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ServingKernels(**kw)
+def test_unported_combinations_raise(models, kw, item):
+    """The combinations that raised NotImplementedError while K2b, K6 and
+    K7 were unported now construct, and a guided step runs through the
+    kernel, on every layer but the CFG-dedup one for K6, and agrees with
+    the default configuration: no combination is left to raise."""
+    _, _, tmodel = models
+    x, cond, t, _ = _inputs(1, 1)
+    ref = _guided(tmodel, ServingKernels(), x, cond, t)
+    site = {"K2b": "ff_block_fn", "K6": "layer_fn", "K7": "ca_block_fn"}[item]
+    calls, restore = _counted(tmodel, site)
+    try:
+        out = _guided(tmodel, ServingKernels(**kw), x, cond, t)
+    finally:
+        restore()
+        tmodel.kernels = ServingKernels()
+    assert len(calls) == CFG.num_layers - (item == "K6")
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **TOL)
 
 
 def test_xab_with_the_cache_on_raises_where_k7_would_run(models):
     """With the k/v cache on, the cross-attention block kernel is shadowed
-    on the cached path; the uncached forward would run it, and raises."""
+    on the cached path, and the uncached forward, which once raised there,
+    runs it on every layer."""
     _, _, tmodel = models
     x, cond, t, _ = _inputs(1, 1)
-    tmodel.kernels = ServingKernels(ca_block=True)
+    kernels = ServingKernels(ca_block=True)
+    calls, restore = _counted(tmodel, "ca_block_fn")
     try:
-        with pytest.raises(NotImplementedError, match="K7"), torch.no_grad():
-            tmodel(torch.from_numpy(x), torch.from_numpy(cond), torch.from_numpy(t))
-    finally:
+        _guided(tmodel, kernels, x, cond, t)
+        assert not calls
+        tmodel.kernels = kernels
+        with torch.no_grad():
+            out = tmodel(torch.from_numpy(x), torch.from_numpy(cond), torch.from_numpy(t))
         tmodel.kernels = ServingKernels()
+        with torch.no_grad():
+            ref = tmodel(torch.from_numpy(x), torch.from_numpy(cond), torch.from_numpy(t))
+    finally:
+        restore()
+        tmodel.kernels = ServingKernels()
+    assert len(calls) == CFG.num_layers
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **TOL)
 
 
 @pytest.mark.parametrize("attention", [1, 2])
