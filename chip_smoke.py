@@ -21,12 +21,16 @@ last line:
      main path's train shapes (b=64, L=450, Lm=152, d=512), in bf16 and
      f32, dropout 0.1 with the same seeds: the output and every gradient
      under one cotangent; time the forward and forward+backward of both;
+     then the train attention alone (K3's 450x450, K4's 450x152), bf16,
+     forward + backward against the plain chain, its backward twice bit for
+     bit, timed beside F.scaled_dot_product_attention (a yardstick only);
   7. serve 3 requests (batch 4 each: 3 dancers x 5 s of motion) through
      GaussianDiffusion.ddim_sample on a full-width bf16 DanceDecoder with
      seeded random weights, check the outputs and the kernels' launch
-     counts; time the FiLM residual outside and inside K1 in turns; then
-     run one request in f32 through the kernels and through the plain
-     versions on the same noise and compare;
+     counts; profile one more request; time the FiLM residual outside and
+     inside K1 in turns; run one request in f32 through the kernels and
+     through the plain versions on the same noise and compare; hold one
+     bf16 CFG denoiser forward against the plain versions;
   8. the per-op serving configuration (ServingKernels.per_op: K8-K11 on,
      K1/K2 off): one long_ddim_sample request over 4 slices of one song
      after a warm-up, with the launch counts of K8-K11; then f32 requests
@@ -201,6 +205,17 @@ def device_profile(fn):
     return wall, busy, sorted(((k, ms, n) for k, (ms, n) in by.items()), key=lambda r: -r[1])
 
 
+def print_profile(label: str, fn) -> None:
+    """Profile fn() (one request) and print its device busy time, idle
+    share and the 12 largest kernels by device time."""
+    wall, busy, table = device_profile(fn)
+    total = sum(ms for _, ms, _ in table)
+    print(f"{label} under torch.profiler: {wall:.3f} s wall, device busy {busy:.3f} s (idle share "
+          f"{1 - busy / wall:.3f}), kernel time {total / 1e3:.3f} s; by kernel (ms, calls, share of kernel time):")
+    for name, ms, calls in table[:12]:
+        print(f"  {name[:100]}: {ms:.1f} ms, {calls}, {ms / total:.3f}")
+
+
 def card_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -285,9 +300,9 @@ def measure(figures: dict, name: str, label: str, dtype, kernel, plain, flops: f
     ms, plain_ms = time_ms(kernel), time_ms(plain)
     lib_ms = None if library is None else time_ms(library)
     dname = "bf16" if dtype == torch.bfloat16 else "f32"
-    lib = "" if lib_ms is None else f" library {lib_ms:.3f} ms"
+    lib = "" if lib_ms is None else f" library {lib_ms:.3f} ms (kernel / library {ms / lib_ms:.2f})"
     print(f"{name} {label} {dname}: max_abs_err {err:.3e} (tol {tol:.3e}) kernel {ms:.3f} ms "
-          f"plain {plain_ms:.3f} ms{lib}")
+          f"({flops / ms / 1e9:.1f} TFLOP/s) plain {plain_ms:.3f} ms{lib}")
     check(err <= tol, f"{name} {label} {dname} disagrees: {err} > {tol}")
     if main and dtype == torch.bfloat16:
         figures[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound(flops, io_bytes, peak),
@@ -469,12 +484,7 @@ def serve_block_configs(gen: torch.Generator, card: str) -> dict:
               f"(bf16 batch {REQ_BATCH}, kernels; {card})")
         if label == "layer_fuse":
             launches["layer"] = counts["layer"]
-            wall, busy, table = device_profile(lambda: diff.ddim_sample(shape, cond, generator=gen, x_0=x_0))
-            total = sum(ms for _, ms, _ in table)
-            print(f"{label} under torch.profiler: {wall:.3f} s wall, device busy {busy:.3f} s (idle share "
-                  f"{1 - busy / wall:.3f}), kernel time {total / 1e3:.3f} s; by kernel (ms, calls, share):")
-            for name, ms, calls in table[:12]:
-                print(f"  {name[:100]}: {ms:.1f} ms, {calls}, {ms / total:.3f}")
+            print_profile(label, lambda: diff.ddim_sample(shape, cond, generator=gen, x_0=x_0))
         elif label == "ff_tail off":
             launches["ff_block"] = counts["ff_block"]
         elif label == "ca_block, k/v cache off":
@@ -568,6 +578,59 @@ def compare_train_kernels(gen: torch.Generator) -> dict:
     return figures
 
 
+def compare_train_attention(gen: torch.Generator) -> dict:
+    """Phase 6b: the train blocks' attention alone, forward + backward, at
+    the train shapes (b=64, 8x64 heads; K3's 450x450, K4's 450x152), bf16,
+    dropout 0.1: held against the plain chain (the output and the gradients
+    of q, k and v, each within 2^-5 of its largest value), a second
+    backward on the same inputs bit for bit, and timed beside
+    F.scaled_dot_product_attention forward + backward at rate 0 (a
+    yardstick only: the port never calls it). Returns extra figures for
+    K3 and K4."""
+    dev, b, dk = "cuda", TRAIN_BATCH, HD // H
+    bf16 = torch.bfloat16
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(bf16)
+    figures = {}
+    for name, lk in (("sa_block_train", L), ("ca_block_train", LM)):
+        q, k, v, cot = rnd(b, L, HD), rnd(b, lk, HD), rnd(b, lk, HD), rnd(b, L, HD)
+        seeds = torch.randint(0, 2**32, (b,), generator=gen, device=dev, dtype=torch.int64)
+        leaves, leaves_p = ([t.clone().requires_grad_() for t in (q, k, v)] for _ in range(2))
+        fn = lambda: sa_block_train.attention_train(*leaves, seeds, nhead=H, rate=RATE)
+        plain = lambda: sa_block_train.attention_plain(*leaves_p, seeds, H, RATE)
+        out, ref = fn(), plain()
+        grads = torch.autograd.grad(out, leaves, cot)
+        grads_p = torch.autograd.grad(ref, leaves_p, cot)
+        again = torch.autograd.grad(fn(), leaves, cot)
+        torch.cuda.synchronize()
+        label = f"train attention {L}x{lk} bf16 rate {RATE}"
+        errs = []
+        for what, x, r in (("output", out, ref), *((f"d{c}", g, gp) for c, g, gp in zip("qkv", grads, grads_p))):
+            err, tol = (x.float() - r.float()).abs().max().item(), 2.0**-5 * r.float().abs().max().item()
+            check(torch.isfinite(x).all().item(), f"{label}: {what} not finite")
+            check(err <= tol, f"{label}: {what} disagrees: {err} > {tol}")
+            errs.append(f"{what} {err:.3e} (tol {tol:.3e})")
+        check(all(torch.equal(g, g2) for g, g2 in zip(grads, again)), f"{label}: two backward runs differ")
+        fwd_ms = time_ms(fn)
+        ms = time_ms(lambda: torch.autograd.grad(fn(), leaves, cot))
+        plain_ms = time_ms(lambda: torch.autograd.grad(plain(), leaves_p, cot))
+        heads = lambda t: t.view(b, t.shape[1], H, dk).transpose(1, 2)
+        ls = [t.clone().requires_grad_() for t in (q, k, v)]
+        sdpa = lambda: F.scaled_dot_product_attention(*(heads(t) for t in ls))
+        sdpa_fwd_ms = time_ms(sdpa)
+        sdpa_ms = time_ms(lambda: torch.autograd.grad(sdpa(), ls, heads(cot)))
+        flops = 12 * b * L * lk * HD  # forward q.k, p.v; backward dv, dp, dq, dk
+        print(f"{label}: max_abs_err {', '.join(errs)}; backward repeats bit for bit; fwd {fwd_ms:.3f} ms "
+              f"(SDPA rate 0 {sdpa_fwd_ms:.3f}); fwd+bwd {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+              f"{plain_ms:.3f} ms, SDPA rate 0 {sdpa_ms:.3f} ms ({flops / sdpa_ms / 1e9:.1f} TFLOP/s; "
+              f"kernel / SDPA {ms / sdpa_ms:.2f})")
+        figures[name] = dict(attention_fwd_ms=fwd_ms, attention_ms=ms, attention_plain_ms=plain_ms,
+                             attention_sdpa_fwd_ms=sdpa_fwd_ms, attention_sdpa_ms=sdpa_ms,
+                             **{f"attention_{key}": val for key, val in bound(flops, nbytes(q, k, v, cot, out, *grads)).items()})
+        del out, ref, grads, grads_p, again, leaves, leaves_p, ls
+        torch.cuda.empty_cache()
+    return figures
+
+
 def check_output(out: torch.Tensor, x_0: torch.Tensor, shape) -> None:
     check(tuple(out.shape) == tuple(shape), f"output shape {tuple(out.shape)} != {shape}")
     check(torch.isfinite(out).all().item(), "output not finite")
@@ -608,6 +671,7 @@ def serve(gen: torch.Generator) -> dict:
     per_req = seconds / REQUESTS
     motion = REQUESTS * REQ_BATCH * CLIP_S
     print(f"main path: {per_req:.3f} s per request, {motion / seconds:.2f} s-motion/s (bf16, kernels)")
+    print_profile("default path, one request", lambda: diff.ddim_sample(shape, reqs[0][0], generator=gen, x_0=reqs[0][1]))
 
     # the FiLM residual outside K1 (fuse_film off, the JAX package's
     # default) against inside (as every request ran before the flag
@@ -645,6 +709,20 @@ def serve(gen: torch.Generator) -> dict:
     err = (out_k - out_p).abs().max().item()
     print(f"f32 path, kernels vs plain on the same noise: max_abs_diff {err:.3e} (tol {F32_PATH_TOL:.0e})")
     check(err <= F32_PATH_TOL, f"f32 path disagrees: {err} > {F32_PATH_TOL}")
+
+    # one bf16 CFG denoiser forward (one doubled-batch call, as every
+    # sampling step makes it): kernels against plain versions
+    model.dtype = torch.bfloat16
+    x = torch.randn(shape, generator=gen, device="cuda")
+    t_vec = torch.full((REQ_BATCH,), 500, device="cuda", dtype=torch.int32)
+    out_k = diff.guided(x, cond, t_vec, 2.0, cond_cache=diff.encode_cond_cfg(cond))
+    with plain_blocks(model):
+        out_p = diff.guided(x, cond, t_vec, 2.0, cond_cache=diff.encode_cond_cfg(cond))
+    err, tol = (out_k - out_p).abs().max().item(), 2.0**-5 * out_p.abs().max().item()
+    print(f"bf16 CFG denoiser forward (batch {REQ_BATCH}, doubled to {2 * REQ_BATCH}), kernels vs plain: "
+          f"max_abs_diff {err:.3e} (tol {tol:.3e}, 2^-5 of the largest output {out_p.abs().max().item():.3f})")
+    check(torch.isfinite(out_k).all().item() and tuple(out_k.shape) == shape, "CFG forward output malformed")
+    check(err <= tol, f"bf16 CFG denoiser forward disagrees: {err} > {tol}")
     return launches
 
 
@@ -686,12 +764,7 @@ def serve_per_op(gen: torch.Generator) -> dict:
     check(sa_block.sa_block.launches == 0 and ff_block.ff_tail.launches == 0, "a block kernel ran in the per-op path")
     print(f"per-op path: {seconds:.3f} s per request, {REQ_BATCH * CLIP_S / seconds:.2f} s-motion/s "
           f"(slices x 5 s; bf16, kernels)")
-    wall, busy, table = device_profile(lambda: diff.long_ddim_sample(shape, cond, generator=gen, x_0=x_0))
-    total = sum(ms for _, ms, _ in table)
-    print(f"per-op path under torch.profiler: {wall:.3f} s wall, device busy {busy:.3f} s (idle share "
-          f"{1 - busy / wall:.3f}), kernel time {total / 1e3:.3f} s; by kernel (ms, calls, share of kernel time):")
-    for name, ms, calls in table[:12]:
-        print(f"  {name[:100]}: {ms:.1f} ms, {calls}, {ms / total:.3f}")
+    print_profile("per-op path", lambda: diff.long_ddim_sample(shape, cond, generator=gen, x_0=x_0))
 
     # f32, kernels against plain versions on the same noise: with a
     # trj_dist (K11's TRPE form), then with the k/v cache off (K8's rot-only
@@ -910,6 +983,8 @@ def main() -> int:
         figures.update(compare_serving_ops(gen))
         figures.update(compare_block_kernels(gen))
         figures.update(compare_train_kernels(gen))
+        for name, extra in compare_train_attention(gen).items():
+            figures[name].update(extra)
         launches = serve(gen)
         t0 = time.perf_counter()
         launches.update(serve_per_op(gen))

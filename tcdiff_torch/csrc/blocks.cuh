@@ -5,9 +5,10 @@
 //
 // Each sequence is a few hand-written launches on the stream it is given:
 // LayerNorm row kernels (f32 statistics), FMA-tiled GEMMs with fused
-// epilogues and the flash attention of attention.cuh. Buffers are
-// row-major (B * L rows); projections are (rows, h*dk) with head h in
-// columns [h*dk, (h+1)*dk); weights in nn.Linear layout (out, in).
+// epilogues and heads_attention (attention.cuh: the tensor cores in bf16,
+// the FMA units in f32). Buffers are row-major (B * L rows); projections
+// are (rows, h*dk) with head h in columns [h*dk, (h+1)*dk); weights in
+// nn.Linear layout (out, in).
 // Intermediates land in T where the TPU kernels round them to the compute
 // dtype, in f32 where they keep f32 (the fc output before its LayerNorm,
 // the FF block's FiLM residual before LN4).
@@ -16,28 +17,6 @@
 #include "attention.cuh"
 
 namespace tcd {
-
-// softmax(T(q * T(1/sqrt(dk))) . k^T [+ TRPE bias]) . v per head, with
-// q, o (B, Lq, hd) and k, v (B, Lk, hd); table (10, hd) and dist
-// (B, Lq, Lk), or null for no bias.
-template <typename T>
-inline void heads_attention(const T* q, const T* k, const T* v, T* o, int B, int Lq, int Lk, int hd,
-                            int nhead, const T* table, const int32_t* dist, cudaStream_t st) {
-  const int dk = hd / nhead;
-  AttnArgs a;
-  a.q = q; a.k = k; a.v = v; a.o = o;
-  a.qs = a.os = Strides{(long long)Lq * hd, dk, hd};
-  a.ks = a.vs = Strides{(long long)Lk * hd, dk, hd};
-  a.Lq = Lq;
-  a.Lk = Lk;
-  a.dk = dk;
-  a.scale = 1.f / sqrtf((float)dk);
-  a.table = table;
-  a.tn = hd;
-  a.th = dk;
-  a.dist = dist;
-  attention<T>(a, B, nhead, st);
-}
 
 // The attention blocks' last two steps: z = o . Wfc^T in f32, then
 // out = T(LN(z; eps2)), or T(resid + (fs+1) * LN(z) + fb) with FiLM rows.

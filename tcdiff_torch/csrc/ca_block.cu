@@ -25,8 +25,8 @@
 // LN + rotary rows, the q GEMM, the flash attention of attention.cuh with
 // Lq != Lk (as K11 runs it), the fc GEMM into f32 and the post-LN row
 // kernel with the FiLM residual as its epilogue. K6 (layer.cu) runs the
-// same sequence against the cached k/v. A correct first kernel: FMA tiles,
-// not the tensor cores.
+// same sequence against the cached k/v. The GEMMs are FMA tiles; the
+// attention runs on the tensor cores in bf16.
 #include "blocks.cuh"
 
 // Pointers, then the ints, then the floats: the layout of the ctypes

@@ -35,11 +35,13 @@ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 // _keep_mask: element idx of a site with salt `salt` is kept iff
 // hash(seed, salt, idx) >= thresh, and kept values are scaled by `scale`.
 // idx = row * ncols + col over the per-batch-element (rows, ncols) array.
-__device__ __forceinline__ uint32_t drop_hash(uint32_t seed, uint32_t salt, uint32_t idx) {
-  uint32_t h = idx ^ (seed + 0x9E3779B9u * salt);
+__device__ __forceinline__ uint32_t drop_mix(uint32_t h) {
   h = (h ^ (h >> 16)) * 0x7FEB352Du;
   h = (h ^ (h >> 15)) * 0x846CA68Bu;
   return h ^ (h >> 16);
+}
+__device__ __forceinline__ uint32_t drop_hash(uint32_t seed, uint32_t salt, uint32_t idx) {
+  return drop_mix(idx ^ (seed + 0x9E3779B9u * salt));
 }
 
 struct Drop {
@@ -49,8 +51,14 @@ struct Drop {
   int on;                 // 0: rate == 0, the site is skipped
 };
 
-__device__ __forceinline__ bool keep(const Drop& d, int b, uint32_t salt, uint32_t idx) {
-  return !d.on || drop_hash(d.seeds[b], salt, idx) >= d.thresh;
+// Whether element idx is kept, with the (seed, salt) part taken once out
+// of a loop: key = drop_key(d, b, salt), then keep_key(d, key, idx) is
+// drop_hash(d.seeds[b], salt, idx) >= d.thresh (always true with d.on == 0).
+__device__ __forceinline__ uint32_t drop_key(const Drop& d, int b, uint32_t salt) {
+  return d.on ? d.seeds[b] + 0x9E3779B9u * salt : 0u;
+}
+__device__ __forceinline__ bool keep_key(const Drop& d, uint32_t key, uint32_t idx) {
+  return !d.on || drop_mix(idx ^ key) >= d.thresh;
 }
 
 __device__ __forceinline__ float dropv(float v, const Drop& d, int b, uint32_t salt, uint32_t idx) {

@@ -20,14 +20,14 @@
 // Design: a short pipeline of hand-written launches on one stream.
 //   1. ln_rows_kernel: LN + rotary per row (f32 stats), y and r stored in T;
 //   2. three FMA-tiled projections (common.cuh);
-//   3. attn_kernel (attention.cuh, shared with K11): flash-style attention,
-//      one block per (64 queries, head, batch), streaming 32-key tiles with
-//      an online softmax, so no logit row ever leaves the block and shared
-//      memory stays under 48 KB;
+//   3. heads_attention (attention.cuh, shared with K11): flash attention,
+//      one block per (64 queries, head, batch), streaming key tiles with an
+//      online softmax, so no logit row ever leaves the block; in bf16 on
+//      the tensor cores (mma.sync), in f32 on the FMA units;
 //   4. out projection into an f32 scratch, then ln_rows_kernel for the
 //      post-attention LN with the FiLM residual as its epilogue.
 // The sequence is tcd::sa_block of blocks.cuh, which K6 (layer.cu) reuses.
-// A correct first kernel: the tiles run on FMA units, not the tensor cores.
+// The GEMM tiles run on the FMA units, not the tensor cores.
 #include "blocks.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16. table/dist and fs/fb may be null.

@@ -28,8 +28,8 @@
 // one for dk/dv over query tiles, so no gradient is accumulated across
 // blocks), FMA-tile GEMMs for the input gradients, split-row GEMMs plus an
 // ordered reduction for the weight gradients, and the rotary-transpose /
-// LN1 backward row kernel. A correct first kernel: FMA units, not tensor
-// cores.
+// LN1 backward row kernel. The attention, forward and backward, runs on
+// the tensor cores in bf16 (train_common.cuh); the GEMMs are FMA tiles.
 #include "train_common.cuh"
 
 namespace tcd {
@@ -105,6 +105,34 @@ int sa_bwd(const SaTrainArgs& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// The attention alone, forward and backward, as K3 and K4 run it: q
+// (B, Lq, hd), k/v (B, Lk, hd), nhead heads of hd / nhead. Not on the
+// train path (K3 and K4 launch it inside their sequences); it lets the
+// attention be held against its plain version and timed by itself.
+struct AttnTrainArgs {
+  const void *q, *k, *v, *seeds;
+  void *o, *dO, *dq, *dk, *dv;
+  float *lse, *Dsum;
+  int B, Lq, Lk, hd, nhead, drop_on;
+  float dscale;
+  uint32_t thresh;
+};
+
+template <typename T>
+int attn_train_fwd(const AttnTrainArgs& a, cudaStream_t st) {
+  attention_fwd<T>((const T*)a.q, (const T*)a.k, (const T*)a.v, a.B, a.nhead, a.Lq, a.Lk, a.hd,
+                   make_drop(a.seeds, a.thresh, a.dscale, a.drop_on), (T*)a.o, a.lse, st);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int attn_train_bwd(const AttnTrainArgs& a, cudaStream_t st) {
+  attention_bwd<T>((const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.o, (const T*)a.dO, a.lse,
+                   a.B, a.nhead, a.Lq, a.Lk, a.hd, make_drop(a.seeds, a.thresh, a.dscale, a.drop_on),
+                   a.Dsum, (T*)a.dq, (T*)a.dk, (T*)a.dv, st);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace tcd
 
 // dtype: 0 = float32, 1 = bfloat16. Return cudaGetLastError() after the launches.
@@ -119,5 +147,19 @@ extern "C" int tcd_sa_train_bwd(int dtype, const tcd::SaTrainArgs* a, void* stre
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return tcd::sa_bwd<float>(*a, st);
   if (dtype == 1) return tcd::sa_bwd<__nv_bfloat16>(*a, st);
+  return -1;
+}
+
+extern "C" int tcd_attn_train_fwd(int dtype, const tcd::AttnTrainArgs* a, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return tcd::attn_train_fwd<float>(*a, st);
+  if (dtype == 1) return tcd::attn_train_fwd<__nv_bfloat16>(*a, st);
+  return -1;
+}
+
+extern "C" int tcd_attn_train_bwd(int dtype, const tcd::AttnTrainArgs* a, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return tcd::attn_train_bwd<float>(*a, st);
+  if (dtype == 1) return tcd::attn_train_bwd<__nv_bfloat16>(*a, st);
   return -1;
 }

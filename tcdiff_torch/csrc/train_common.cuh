@@ -10,7 +10,7 @@
 // partials in a fixed order. A run repeats bit for bit; no atomics.
 #pragma once
 
-#include "common.cuh"
+#include "attention.cuh"
 
 namespace tcd {
 
@@ -244,99 +244,30 @@ rows_bwd_kernel(const float* __restrict__ dr, const T* __restrict__ cos_t, const
 // (T(q * T(scale))) . k, as the TPU kernel rounds the scaled q. lse
 // (B, H, Lq) = the log of each row's softmax normaliser, saved for the
 // backward.
-constexpr int AQ = 64;     // forward: queries per block (4 threads per query)
-constexpr int AK = 32;     // keys per tile
-constexpr int BQ = 32;     // backward: rows per block / tile (8 threads per row)
-constexpr int DKMAX = 64;  // largest head dim
-
-template <typename T>
-__global__ void __launch_bounds__(256)
-attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, int Lq,
-                int Lk, int hd, int dk, float scale, Drop dr, T* __restrict__ o,
-                float* __restrict__ lse) {
-  __shared__ float Qs[AQ][DKMAX + 1];
-  __shared__ float Ks[AK][DKMAX + 1];
-  __shared__ float Vs[AK][DKMAX];
-  __shared__ float Ps[AQ][AK + 1];
-
-  const int b = blockIdx.z, h = blockIdx.y, H = gridDim.y, q0 = blockIdx.x * AQ;
-  const int tid = threadIdx.x, r = tid >> 2, cg = tid & 3;
-  const size_t qbase = (size_t)b * Lq * hd + (size_t)h * dk;
-  const size_t kbase = (size_t)b * Lk * hd + (size_t)h * dk;
-  const uint32_t salt = SALT_ATTN + h;
-  const float sc = round_t<T>(scale);
-
-  for (int idx = tid; idx < AQ * dk; idx += 256) {
-    const int rr = idx / dk, c = idx % dk, gq = q0 + rr;
-    Qs[rr][c] = gq < Lq ? round_t<T>(to_f(q[qbase + (size_t)gq * hd + c]) * sc) : 0.f;
-  }
-
-  const int gq = q0 + r;
-  const int dpt = dk / 4;
-  float m_i = -INFINITY, l_i = 0.f;
-  float acc[DKMAX / 4];
-#pragma unroll
-  for (int i = 0; i < DKMAX / 4; ++i) acc[i] = 0.f;
-
-  for (int k0 = 0; k0 < Lk; k0 += AK) {
-    __syncthreads();
-    for (int idx = tid; idx < AK * dk; idx += 256) {
-      const int kk = idx / dk, c = idx % dk, gk = k0 + kk;
-      const bool ok = gk < Lk;
-      Ks[kk][c] = ok ? to_f(k[kbase + (size_t)gk * hd + c]) : 0.f;
-      Vs[kk][c] = ok ? to_f(v[kbase + (size_t)gk * hd + c]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[AK / 4];
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int jj = 0; jj < AK / 4; ++jj) {
-      const int j = cg * (AK / 4) + jj, gk = k0 + j;
-      float a = 0.f;
-      for (int c = 0; c < dk; ++c) a = fmaf(Qs[r][c], Ks[j][c], a);
-      s[jj] = gk < Lk ? a : -INFINITY;
-      tmax = fmaxf(tmax, s[jj]);
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-    const float m_new = fmaxf(m_i, tmax);  // finite: key k0 is always valid
-    const float corr = expf(m_i - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < AK / 4; ++jj) {
-      const int j = cg * (AK / 4) + jj, gk = k0 + j;
-      const float p = expf(s[jj] - m_new);
-      psum += p;
-      const bool kept = gq < Lq && gk < Lk && keep(dr, b, salt, (uint32_t)gq * Lk + gk);
-      // the dropped probability enters the PV product in T
-      Ps[r][j] = round_t<T>(dr.on ? (kept ? p * dr.scale : 0.f) : p);
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l_i = l_i * corr + psum;
-    m_i = m_new;
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < DKMAX / 4; ++i) {
-      if (i < dpt) {
-        const int c = cg * dpt + i;
-        float a = acc[i] * corr;
-        for (int j = 0; j < AK; ++j) a = fmaf(Ps[r][j], Vs[j][c], a);
-        acc[i] = a;
-      }
-    }
-  }
-
-  if (gq < Lq) {
-    const float inv = 1.f / l_i;
-#pragma unroll
-    for (int i = 0; i < DKMAX / 4; ++i)
-      if (i < dpt) o[qbase + (size_t)gq * hd + cg * dpt + i] = from_f<T>(acc[i] * inv);
-    if (cg == 0) lse[((size_t)b * H + h) * Lq + gq] = m_i + logf(l_i);
-  }
-}
+//
+// The forward is the serving attention's (attention.cuh) with its train
+// options: dropout on the probabilities and lse out. The backward keeps
+// two kernels, one for dq (a block per query tile walking the key tiles)
+// and one for dk and dv (a block per key tile walking the query tiles), so
+// no gradient is summed across blocks and a run repeats bit for bit. Each
+// recomputes S = q.k^T and dP = dO.v^T; P = exp(S - lse), dropped;
+// dS = P (dP * keep / (1 - rate) - D) with D = rowsum(dO * o).
+//
+// What bounds it on the H100: at the train shapes (b = 64, 8 heads of 64,
+// 450 x 450 and 450 x 152) the backward is 5 products of 13.3 (4.5) GFLOP,
+// 7 with S and dP in both kernels, against ~0.2 GB of operands:
+// operations, so they run on the tensor cores.
+// bf16 (attn_bwd_dq_mma_kernel, attn_bwd_dkdv_mma_kernel): FlashAttention-2's
+// backward on mma.sync, 64-row tiles per block of 4 warps (16 rows a warp),
+// the streamed tiles double-buffered by 16-byte cp.async. The dk/dv kernel
+// computes S^T = k.q^T and dP^T = v.dO^T with its keys as rows, so that
+// T(drop(P))^T and T(dS)^T leave their C fragments as the A fragments of
+// dv += T(drop(P))^T . dO and dk += T(dS)^T . T(q * scale), with dO and q
+// through ldmatrix.trans; the dq kernel keeps q and dO as A fragments and
+// takes dq += T(dS) . k straight from its registers. f32 keeps the FMA
+// kernels below, since the tensor cores would take it only as TF32.
+constexpr int AK = 32;     // f32 kernels: keys per tile
+constexpr int BQ = 32;     // f32 backward: rows per block / tile (8 threads per row)
 
 // Dsum (B, H, Lq) = rowsum(dO * O) per head: one warp per (row, head).
 template <typename T>
@@ -353,19 +284,19 @@ __global__ void attn_dsum_kernel(const T* __restrict__ dO, const T* __restrict__
 }
 
 // dS_ij = P_ij (dP_ij - D_i) with P = exp(s - lse), dP = drop(dO . v); the
-// probability and gradient of one (query, key) pair.
+// probability and gradient of one (query, key) pair; key = drop_key(dr, b,
+// SALT_ATTN + h).
 struct PairGrad {
   float pd;  // dropped probability (enters dV)
   float ds;  // logit gradient
 };
 
 __device__ __forceinline__ PairGrad pair_grad(float s, float dpd, float lse_i, float D_i, bool valid,
-                                              const Drop& dr, int b, uint32_t salt, uint32_t idx) {
+                                              const Drop& dr, uint32_t key, uint32_t idx) {
   PairGrad r{0.f, 0.f};
   if (!valid) return r;
   const float p = expf(s - lse_i);
-  const bool kept = keep(dr, b, salt, idx);
-  const float sc = dr.on ? (kept ? dr.scale : 0.f) : 1.f;
+  const float sc = dr.on ? (keep_key(dr, key, idx) ? dr.scale : 0.f) : 1.f;
   r.pd = p * sc;
   r.ds = p * (dpd * sc - D_i);
   return r;
@@ -379,17 +310,17 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
                    const T* __restrict__ dO, const float* __restrict__ lse,
                    const float* __restrict__ Dsum, int Lq, int Lk, int hd, int dk, float scale,
                    Drop dr, T* __restrict__ dq) {
-  __shared__ float Qs[BQ][DKMAX + 1];
-  __shared__ float dOs[BQ][DKMAX + 1];
-  __shared__ float Ks[AK][DKMAX + 1];
-  __shared__ float Vs[AK][DKMAX + 1];
+  __shared__ float Qs[BQ][FDK + 1];
+  __shared__ float dOs[BQ][FDK + 1];
+  __shared__ float Ks[AK][FDK + 1];
+  __shared__ float Vs[AK][FDK + 1];
   __shared__ float dSs[BQ][AK + 1];
 
   const int b = blockIdx.z, h = blockIdx.y, H = gridDim.y, q0 = blockIdx.x * BQ;
   const int tid = threadIdx.x, r = tid >> 3, cg = tid & 7;
   const size_t qbase = (size_t)b * Lq * hd + (size_t)h * dk;
   const size_t kbase = (size_t)b * Lk * hd + (size_t)h * dk;
-  const uint32_t salt = SALT_ATTN + h;
+  const uint32_t dkey = drop_key(dr, b, SALT_ATTN + h);
   const float sc = round_t<T>(scale);
   for (int idx = tid; idx < BQ * dk; idx += 256) {
     const int rr = idx / dk, c = idx % dk, gq = q0 + rr;
@@ -401,9 +332,9 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   const size_t row = ((size_t)b * H + h) * Lq + gq;
   const float lse_r = gq < Lq ? lse[row] : 0.f, D_r = gq < Lq ? Dsum[row] : 0.f;
   const int dpt = dk / 8;
-  float acc[DKMAX / 8];
+  float acc[FDK / 8];
 #pragma unroll
-  for (int i = 0; i < DKMAX / 8; ++i) acc[i] = 0.f;
+  for (int i = 0; i < FDK / 8; ++i) acc[i] = 0.f;
 
   for (int k0 = 0; k0 < Lk; k0 += AK) {
     __syncthreads();
@@ -422,13 +353,13 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
         s = fmaf(Qs[r][c], Ks[j][c], s);
         dpd = fmaf(dOs[r][c], Vs[j][c], dpd);
       }
-      const PairGrad pg = pair_grad(s, dpd, lse_r, D_r, gq < Lq && gk < Lk, dr, b, salt,
+      const PairGrad pg = pair_grad(s, dpd, lse_r, D_r, gq < Lq && gk < Lk, dr, dkey,
                                     (uint32_t)gq * Lk + gk);
       dSs[r][j] = round_t<T>(pg.ds);
     }
     __syncthreads();
 #pragma unroll
-    for (int i = 0; i < DKMAX / 8; ++i) {
+    for (int i = 0; i < FDK / 8; ++i) {
       if (i < dpt) {
         const int c = cg * dpt + i;
         float a = acc[i];
@@ -439,7 +370,7 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   }
   if (gq < Lq) {
 #pragma unroll
-    for (int i = 0; i < DKMAX / 8; ++i)
+    for (int i = 0; i < FDK / 8; ++i)
       if (i < dpt) dq[qbase + (size_t)gq * hd + cg * dpt + i] = from_f<T>(acc[i] * scale);
   }
 }
@@ -453,10 +384,10 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      const T* __restrict__ dO, const float* __restrict__ lse,
                      const float* __restrict__ Dsum, int Lq, int Lk, int hd, int dk, float scale,
                      Drop dr, T* __restrict__ dk_out, T* __restrict__ dv_out) {
-  __shared__ float Ks[AK][DKMAX + 1];
-  __shared__ float Vs[AK][DKMAX + 1];
-  __shared__ float Qs[BQ][DKMAX + 1];
-  __shared__ float dOs[BQ][DKMAX + 1];
+  __shared__ float Ks[AK][FDK + 1];
+  __shared__ float Vs[AK][FDK + 1];
+  __shared__ float Qs[BQ][FDK + 1];
+  __shared__ float dOs[BQ][FDK + 1];
   __shared__ float Pd[BQ][AK + 1];
   __shared__ float dSs[BQ][AK + 1];
   __shared__ float lse_s[BQ], D_s[BQ];
@@ -465,7 +396,7 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const int tid = threadIdx.x, j = tid >> 3, cg = tid & 7;
   const size_t qbase = (size_t)b * Lq * hd + (size_t)h * dk;
   const size_t kbase = (size_t)b * Lk * hd + (size_t)h * dk;
-  const uint32_t salt = SALT_ATTN + h;
+  const uint32_t dkey = drop_key(dr, b, SALT_ATTN + h);
   const float sc = round_t<T>(scale);
   for (int idx = tid; idx < AK * dk; idx += 256) {
     const int kk = idx / dk, c = idx % dk, gk = k0 + kk;
@@ -475,9 +406,9 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
   const int gk = k0 + j;
   const int dpt = dk / 8;
-  float acc_k[DKMAX / 8], acc_v[DKMAX / 8];
+  float acc_k[FDK / 8], acc_v[FDK / 8];
 #pragma unroll
-  for (int i = 0; i < DKMAX / 8; ++i) acc_k[i] = acc_v[i] = 0.f;
+  for (int i = 0; i < FDK / 8; ++i) acc_k[i] = acc_v[i] = 0.f;
 
   for (int q0 = 0; q0 < Lq; q0 += BQ) {
     __syncthreads();
@@ -502,14 +433,14 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         s = fmaf(Qs[i][c], Ks[j][c], s);
         dpd = fmaf(dOs[i][c], Vs[j][c], dpd);
       }
-      const PairGrad pg = pair_grad(s, dpd, lse_s[i], D_s[i], gq < Lq && gk < Lk, dr, b, salt,
+      const PairGrad pg = pair_grad(s, dpd, lse_s[i], D_s[i], gq < Lq && gk < Lk, dr, dkey,
                                     (uint32_t)gq * Lk + gk);
       Pd[i][j] = round_t<T>(pg.pd);
       dSs[i][j] = round_t<T>(pg.ds);
     }
     __syncthreads();
 #pragma unroll
-    for (int t = 0; t < DKMAX / 8; ++t) {
+    for (int t = 0; t < FDK / 8; ++t) {
       if (t < dpt) {
         const int c = cg * dpt + t;
         float ak = acc_k[t], av = acc_v[t];
@@ -524,7 +455,7 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
   if (gk < Lk) {
 #pragma unroll
-    for (int t = 0; t < DKMAX / 8; ++t) {
+    for (int t = 0; t < FDK / 8; ++t) {
       if (t < dpt) {
         const size_t o = kbase + (size_t)gk * hd + cg * dpt + t;
         dk_out[o] = from_f<T>(acc_k[t]);
@@ -534,13 +465,265 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
+// ------------------------------------------ attention backward, tensor cores
+struct AttnBwd {
+  const bf16 *q, *k, *v, *dO;
+  const float *lse, *Dsum;
+  bf16 *dq, *dk, *dv;
+  int Lq, Lk, hd, dh;  // dh: the head dim
+  float scale;
+  Drop dr;
+};
+
+// Dynamic shared memory of both kernels: two single tiles and two 2-stage
+// rings of 64 rows (+ the dk/dv kernel's 2 x 2 x 64 f32 of lse and D).
+template <int DKP>
+constexpr int attn_bwd_smem() {
+  return 6 * 64 * (DKP + 8) * 2 + 4 * MQ * 4;
+}
+
+// dq: one block per (64 queries, head, batch), 16 queries a warp.
+template <int DKP>
+__global__ void __launch_bounds__(MT) attn_bwd_dq_mma_kernel(AttnBwd a, bool vec) {
+  constexpr int LD = DKP + 8, KS = DKP / 16, NT = DKP / 8;
+  extern __shared__ __align__(16) unsigned char tcd_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(tcd_smem);  // dq is staged here at the end
+  bf16* dOs = Qs + MQ * LD;
+  bf16* Ks = dOs + MQ * LD;  // 2 stages
+  bf16* Vs = Ks + 2 * MK * LD;
+
+  const int b = blockIdx.z, h = blockIdx.y, H = gridDim.y, q0 = blockIdx.x * MQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int Lq = a.Lq, Lk = a.Lk, dk = a.dh;
+  const size_t qbase = (size_t)b * Lq * a.hd + (size_t)h * dk;
+  const size_t kbase = (size_t)b * Lk * a.hd + (size_t)h * dk;
+  const bf16* k = a.k + kbase;
+  const bf16* v = a.v + kbase;
+  const FragOff f = frag_off(lane);
+
+  load_tile<MQ, DKP>(Qs, a.q + qbase, a.hd, q0, Lq, dk, vec);
+  load_tile<MQ, DKP>(dOs, a.dO + qbase, a.hd, q0, Lq, dk, vec);
+  load_tile<MK, DKP>(Ks, k, a.hd, 0, Lk, dk, vec);
+  load_tile<MK, DKP>(Vs, v, a.hd, 0, Lk, dk, vec);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  const float sc = __bfloat162float(__float2bfloat16(a.scale));
+  uint32_t qf[KS][4], of[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    ldsm_x4(qf[kk], Qs + (warp * 16 + f.ra) * LD + kk * 16 + f.ca);
+    ldsm_x4(of[kk], dOs + (warp * 16 + f.ra) * LD + kk * 16 + f.ca);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qf[kk][i] = scale_pair(qf[kk][i], sc);
+  }
+  int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  float lse[2], D[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const size_t r = ((size_t)b * H + h) * Lq + row[i];
+    lse[i] = row[i] < Lq ? a.lse[r] : 0.f;
+    D[i] = row[i] < Lq ? a.Dsum[r] : 0.f;
+  }
+  const uint32_t dkey = drop_key(a.dr, b, SALT_ATTN + h);
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+
+  const int nk = (Lk + MK - 1) / MK;
+  for (int it = 0; it < nk; ++it) {
+    const bf16* Kst = Ks + (it & 1) * MK * LD;
+    const bf16* Vst = Vs + (it & 1) * MK * LD;
+    cp_async_wait_all();
+    __syncthreads();  // tile it has landed; every warp is done with tile it - 1
+    if (it + 1 < nk) {
+      load_tile<MK, DKP>(Ks + ((it + 1) & 1) * MK * LD, k, a.hd, (it + 1) * MK, Lk, dk, vec);
+      load_tile<MK, DKP>(Vs + ((it + 1) & 1) * MK * LD, v, a.hd, (it + 1) * MK, Lk, dk, vec);
+    }
+    cp_async_commit();
+
+    float s[MK / 8][4], dp[MK / 8][4];
+#pragma unroll
+    for (int j = 0; j < MK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int np = 0; np < MK / 16; ++np) {
+        uint32_t kb[4], vb[4];
+        ldsm_x4(kb, Kst + (np * 16 + f.rb) * LD + kk * 16 + f.cb);
+        mma16816(s[2 * np], qf[kk], kb[0], kb[1]);
+        mma16816(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+        ldsm_x4(vb, Vst + (np * 16 + f.rb) * LD + kk * 16 + f.cb);
+        mma16816(dp[2 * np], of[kk], vb[0], vb[1]);
+        mma16816(dp[2 * np + 1], of[kk], vb[2], vb[3]);
+      }
+    const int k0 = it * MK;
+#pragma unroll
+    for (int j = 0; j < MK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * j + 2 * t + (e & 1), i = e >> 1;
+        s[j][e] = pair_grad(s[j][e], dp[j][e], lse[i], D[i], row[i] < Lq && key < Lk, a.dr, dkey,
+                            (uint32_t)row[i] * Lk + key).ds;
+      }
+#pragma unroll
+    for (int kk = 0; kk < MK / 16; ++kk) {
+      uint32_t da[4];
+      c_to_a(da, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int dn = 0; dn < KS; ++dn) {
+        uint32_t kb[4];
+        ldsm_x4_t(kb, Kst + (kk * 16 + f.ra) * LD + dn * 16 + f.ca);
+        mma16816(acc[2 * dn], da, kb[0], kb[1]);
+        mma16816(acc[2 * dn + 1], da, kb[2], kb[3]);
+      }
+    }
+  }
+  bf16* stg = Qs + warp * 16 * LD;  // this warp's q rows, read only before the loop
+  stage_rows16<DKP>(stg, acc, a.scale, a.scale, lane);
+  __syncwarp();
+  store_rows16<DKP>(stg, a.dq + qbase, a.hd, q0 + warp * 16, Lq, dk, vec, lane);
+}
+
+// dk, dv: one block per (64 keys, head, batch), 16 keys a warp.
+template <int DKP>
+__global__ void __launch_bounds__(MT) attn_bwd_dkdv_mma_kernel(AttnBwd a, bool vec) {
+  constexpr int LD = DKP + 8, KS = DKP / 16, NT = DKP / 8;
+  extern __shared__ __align__(16) unsigned char tcd_smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(tcd_smem);  // dk is staged here at the end
+  bf16* Vs = Ks + MK * LD;                       // dv likewise
+  bf16* Qs = Vs + MK * LD;                       // 2 stages, scaled in place
+  bf16* dOs = Qs + 2 * MQ * LD;                  // 2 stages
+  float* ls = reinterpret_cast<float*>(dOs + 2 * MQ * LD);  // lse, 2 stages
+  float* Ds = ls + 2 * MQ;                                   // D, 2 stages
+
+  const int b = blockIdx.z, h = blockIdx.y, H = gridDim.y, k0 = blockIdx.x * MK;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int Lq = a.Lq, Lk = a.Lk, dk = a.dh;
+  const size_t qbase = (size_t)b * Lq * a.hd + (size_t)h * dk;
+  const size_t kbase = (size_t)b * Lk * a.hd + (size_t)h * dk;
+  const bf16* q = a.q + qbase;
+  const bf16* dO = a.dO + qbase;
+  const size_t rows = ((size_t)b * H + h) * Lq;
+  const FragOff f = frag_off(lane);
+
+  load_tile<MK, DKP>(Ks, a.k + kbase, a.hd, k0, Lk, dk, vec);
+  load_tile<MK, DKP>(Vs, a.v + kbase, a.hd, k0, Lk, dk, vec);
+  load_tile<MQ, DKP>(Qs, q, a.hd, 0, Lq, dk, vec);
+  load_tile<MQ, DKP>(dOs, dO, a.hd, 0, Lq, dk, vec);
+  cp_async_commit();
+  if (tid < MQ) {
+    ls[tid] = tid < Lq ? a.lse[rows + tid] : 0.f;
+    Ds[tid] = tid < Lq ? a.Dsum[rows + tid] : 0.f;
+  }
+
+  const float sc = __bfloat162float(__float2bfloat16(a.scale));
+  int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+  const uint32_t dkey = drop_key(a.dr, b, SALT_ATTN + h);
+  float dka[NT][4], dva[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dka[n][i] = dva[n][i] = 0.f;
+
+  const int nq = (Lq + MQ - 1) / MQ;
+  for (int it = 0; it < nq; ++it) {
+    const int st = it & 1;
+    bf16* Qst = Qs + st * MQ * LD;
+    const bf16* dOst = dOs + st * MQ * LD;
+    const float* lst = ls + st * MQ;
+    const float* Dst = Ds + st * MQ;
+    cp_async_wait_all();
+    __syncthreads();  // tile it has landed; every warp is done with tile it - 1
+    if (it + 1 < nq) {
+      const int n0 = (it + 1) * MQ;
+      load_tile<MQ, DKP>(Qs + (st ^ 1) * MQ * LD, q, a.hd, n0, Lq, dk, vec);
+      load_tile<MQ, DKP>(dOs + (st ^ 1) * MQ * LD, dO, a.hd, n0, Lq, dk, vec);
+      if (tid < MQ) {
+        ls[(st ^ 1) * MQ + tid] = n0 + tid < Lq ? a.lse[rows + n0 + tid] : 0.f;
+        Ds[(st ^ 1) * MQ + tid] = n0 + tid < Lq ? a.Dsum[rows + n0 + tid] : 0.f;
+      }
+    }
+    cp_async_commit();
+    for (int idx = tid; idx < MQ * DKP / 2; idx += MT) {  // T(q * T(scale)), padding stays 0
+      uint32_t* p = reinterpret_cast<uint32_t*>(Qst + (idx / (DKP / 2)) * LD) + idx % (DKP / 2);
+      *p = scale_pair(*p, sc);
+    }
+    __syncthreads();
+
+    float s[MQ / 8][4], dp[MQ / 8][4];  // S^T, dP^T: this warp's 16 keys x 64 queries
+#pragma unroll
+    for (int j = 0; j < MQ / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ka[4], va[4];
+      ldsm_x4(ka, Ks + (warp * 16 + f.ra) * LD + kk * 16 + f.ca);
+      ldsm_x4(va, Vs + (warp * 16 + f.ra) * LD + kk * 16 + f.ca);
+#pragma unroll
+      for (int np = 0; np < MQ / 16; ++np) {
+        uint32_t qb[4], ob[4];
+        ldsm_x4(qb, Qst + (np * 16 + f.rb) * LD + kk * 16 + f.cb);
+        mma16816(s[2 * np], ka, qb[0], qb[1]);
+        mma16816(s[2 * np + 1], ka, qb[2], qb[3]);
+        ldsm_x4(ob, dOst + (np * 16 + f.rb) * LD + kk * 16 + f.cb);
+        mma16816(dp[2 * np], va, ob[0], ob[1]);
+        mma16816(dp[2 * np + 1], va, ob[2], ob[3]);
+      }
+    }
+    const int q0 = it * MQ;
+#pragma unroll
+    for (int j = 0; j < MQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * t + (e & 1), qr = q0 + c, i = e >> 1;
+        const PairGrad pg = pair_grad(s[j][e], dp[j][e], lst[c], Dst[c], qr < Lq && key[i] < Lk, a.dr,
+                                      dkey, (uint32_t)qr * Lk + key[i]);
+        s[j][e] = pg.pd;
+        dp[j][e] = pg.ds;
+      }
+#pragma unroll
+    for (int kq = 0; kq < MQ / 16; ++kq) {
+      uint32_t pa[4], da[4];
+      c_to_a(pa, s[2 * kq], s[2 * kq + 1]);
+      c_to_a(da, dp[2 * kq], dp[2 * kq + 1]);
+#pragma unroll
+      for (int dn = 0; dn < KS; ++dn) {
+        uint32_t ob[4], qb[4];
+        ldsm_x4_t(ob, dOst + (kq * 16 + f.ra) * LD + dn * 16 + f.ca);
+        mma16816(dva[2 * dn], pa, ob[0], ob[1]);
+        mma16816(dva[2 * dn + 1], pa, ob[2], ob[3]);
+        ldsm_x4_t(qb, Qst + (kq * 16 + f.ra) * LD + dn * 16 + f.ca);
+        mma16816(dka[2 * dn], da, qb[0], qb[1]);
+        mma16816(dka[2 * dn + 1], da, qb[2], qb[3]);
+      }
+    }
+  }
+  __syncwarp();  // this warp's k and v rows are read by no other warp
+  stage_rows16<DKP>(Ks + warp * 16 * LD, dka, 1.f, 1.f, lane);
+  stage_rows16<DKP>(Vs + warp * 16 * LD, dva, 1.f, 1.f, lane);
+  __syncwarp();
+  store_rows16<DKP>(Ks + warp * 16 * LD, a.dk + kbase, a.hd, k0 + warp * 16, Lk, dk, vec, lane);
+  store_rows16<DKP>(Vs + warp * 16 * LD, a.dv + kbase, a.hd, k0 + warp * 16, Lk, dk, vec, lane);
+}
+
+template <int DKP>
+inline void attention_bwd_mma(const AttnBwd& a, int B, int H, bool vec, cudaStream_t st) {
+  launch_mma(attn_bwd_dq_mma_kernel<DKP>, dim3(cdiv(a.Lq, MQ), H, B), attn_bwd_smem<DKP>(), st, a, vec);
+  launch_mma(attn_bwd_dkdv_mma_kernel<DKP>, dim3(cdiv(a.Lk, MK), H, B), attn_bwd_smem<DKP>(), st, a, vec);
+}
+
 // The whole attention forward / backward of one block.
 template <typename T>
 inline void attention_fwd(const T* q, const T* k, const T* v, int B, int H, int Lq, int Lk, int hd,
                           const Drop& dr, T* o, float* lse, cudaStream_t st) {
-  const int dk = hd / H;
-  attn_fwd_kernel<T><<<dim3(cdiv(Lq, AQ), H, B), 256, 0, st>>>(q, k, v, Lq, Lk, hd, dk,
-                                                                1.f / sqrtf((float)dk), dr, o, lse);
+  heads_attention<T>(q, k, v, o, B, Lq, Lk, hd, H, nullptr, nullptr, st, AttnTrain{dr, lse});
 }
 
 template <typename T>
@@ -550,10 +733,23 @@ inline void attention_bwd(const T* q, const T* k, const T* v, const T* o, const 
   const int dkh = hd / H;
   const float scale = 1.f / sqrtf((float)dkh);
   attn_dsum_kernel<T><<<dim3(cdiv(Lq * H, 8), B), 256, 0, st>>>(dO, o, Lq, H, hd, dkh, Dsum);
-  attn_bwd_dq_kernel<T><<<dim3(cdiv(Lq, BQ), H, B), 256, 0, st>>>(q, k, v, dO, lse, Dsum, Lq, Lk,
-                                                                  hd, dkh, scale, dr, dq);
-  attn_bwd_dkdv_kernel<T><<<dim3(cdiv(Lk, AK), H, B), 256, 0, st>>>(q, k, v, dO, lse, Dsum, Lq,
-                                                                    Lk, hd, dkh, scale, dr, dk, dv);
+  if constexpr (std::is_same<T, float>::value) {
+    attn_bwd_dq_kernel<T><<<dim3(cdiv(Lq, BQ), H, B), 256, 0, st>>>(q, k, v, dO, lse, Dsum, Lq, Lk,
+                                                                    hd, dkh, scale, dr, dq);
+    attn_bwd_dkdv_kernel<T><<<dim3(cdiv(Lk, AK), H, B), 256, 0, st>>>(q, k, v, dO, lse, Dsum, Lq,
+                                                                      Lk, hd, dkh, scale, dr, dk, dv);
+  } else {
+    const AttnBwd a{q, k, v, dO, lse, Dsum, dq, dk, dv, Lq, Lk, hd, dkh, scale, dr};
+    const bool vec = rows16(q, 0, 0, hd, dkh) && rows16(k, 0, 0, hd, dkh) && rows16(v, 0, 0, hd, dkh) &&
+                     rows16(dO, 0, 0, hd, dkh) && rows16(dq, 0, 0, hd, dkh) &&
+                     rows16(dk, 0, 0, hd, dkh) && rows16(dv, 0, 0, hd, dkh);
+    switch ((dkh + 15) / 16) {
+      case 1: attention_bwd_mma<16>(a, B, H, vec, st); break;
+      case 2: attention_bwd_mma<32>(a, B, H, vec, st); break;
+      case 3: attention_bwd_mma<48>(a, B, H, vec, st); break;
+      default: attention_bwd_mma<64>(a, B, H, vec, st); break;
+    }
+  }
 }
 
 inline Drop make_drop(const void* seeds, uint32_t thresh, float scale, int on) {

@@ -166,3 +166,63 @@ def sa_block_train(x, s1, b1, angles, wq, wk, wv, wfc, s2, b2, film_scale, film_
 
 
 count_kernel(sa_block_train)
+
+
+# ------------------------------------------------------ the attention alone
+_AttnArgs = args_struct(  # AttnTrainArgs in csrc/sa_block_train.cu
+    "AttnTrainArgs",
+    ("q", "k", "v", "seeds", "o", "dO", "dq", "dk", "dv", "lse", "Dsum"),
+    ("B", "Lq", "Lk", "hd", "nhead", "drop_on"),
+    ("dscale",),
+    ("thresh",),
+)
+
+
+class _AttentionTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, seeds, nhead, rate):
+        check_cuda(q, k=k, v=v, seeds=seeds)
+        b, lq, hd = q.shape
+        lk = k.shape[1]
+        if hd % nhead or hd // nhead > 64 or (hd // nhead) % 8:
+            raise ValueError(f"unsupported widths h*dk={hd}, nhead={nhead}")
+        for name, t in (("k", k), ("v", v)):
+            if tuple(t.shape) != (b, lk, hd) or t.dtype != q.dtype:
+                raise ValueError(f"{name} is {t.dtype} {tuple(t.shape)}; expected {q.dtype} {(b, lk, hd)}")
+        if tuple(seeds.shape) != (b,):
+            raise ValueError(f"seeds has shape {tuple(seeds.shape)}, expected {(b,)}")
+        ten = dict(q=q, k=k.contiguous(), v=v.contiguous(), seeds=as_uint32_int32(seeds), o=torch.empty_like(q),
+                   lse=torch.empty((b, nhead, lq), dtype=torch.float32, device=q.device))
+        dims = dict(B=b, Lq=lq, Lk=lk, hd=hd, nhead=nhead, drop_on=int(rate > 0), dscale=1.0 / (1.0 - rate),
+                    thresh=threshold(rate))
+        launch("sa_block_train", "tcd_attn_train_fwd", _AttnArgs, ten, dims, q, "attention_train")
+        attention_train.launches += 1
+        save_tensors(ctx, ten)
+        ctx.dims = dims
+        return ten["o"]
+
+    @staticmethod
+    def backward(ctx, do):
+        ten, dims = saved_tensors(ctx), ctx.dims
+        q, k = ten["q"], ten["k"]
+        ten.update(dO=do.to(q.dtype).contiguous(), dq=torch.empty_like(q), dk=torch.empty_like(k),
+                   dv=torch.empty_like(k),
+                   Dsum=torch.empty((dims["B"], dims["nhead"], dims["Lq"]), dtype=torch.float32, device=q.device))
+        launch("sa_block_train", "tcd_attn_train_bwd", _AttnArgs, ten, dims, q, "attention_train backward")
+        attention_train.bwd_launches += 1
+        return ten["dq"], ten["dk"], ten["dv"], None, None, None
+
+
+def attention_train(q, k, v, seeds, *, nhead: int, rate: float):
+    """The train blocks' attention alone (the kernels K3 and K4 launch
+    inside their sequences), forward and backward: q (b, Lq, h*dk), k/v
+    (b, Lk, h*dk), seeds int64 (b,). CUDA kernels for CUDA tensors,
+    `attention_plain` (differentiated by autograd) for CPU tensors."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, seeds, nhead, rate)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_train runs on CPU or CUDA tensors, got {q.device}")
+    return _AttentionTrain.apply(q, k, v, seeds, nhead, rate)
+
+
+count_kernel(attention_train)

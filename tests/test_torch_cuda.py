@@ -85,8 +85,10 @@ def test_kernels_refuse_what_they_do_not_take(dev):
 
 # ------------------------------------------------------------ per-op kernels
 # K8-K11 against their plain versions: row counts and lengths that are not
-# multiples of a tile (GEMM 64, attention 64 queries x 32 keys), Lq != Lk,
-# a narrow d = 64, head dims 16 and 64, and K8's rot-only form.
+# multiples of a tile (GEMM 64; attention 64 queries x 64 keys in bf16,
+# 64 x 32 in f32), Lq != Lk, a narrow d = 64, head dims 16, 20, 32 and 64
+# (20 is padded to the mma's 32 and copied in 2-byte pieces), and K8's
+# rot-only form.
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -143,7 +145,8 @@ def test_ln_rotary_matmul_kernel_matches_plain(dev, dtype, d, rot_only):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("lq, lk, dk", [(100, 100, 64), (100, 38, 64), (37, 70, 16), (150, 150, 64)])
+@pytest.mark.parametrize("lq, lk, dk", [(100, 100, 64), (100, 38, 64), (37, 70, 16), (150, 150, 64),
+                                       (450, 450, 64), (450, 152, 64), (37, 53, 32), (1, 70, 64), (53, 37, 20)])
 @pytest.mark.parametrize("trpe", [False, True])
 def test_attention_kernel_matches_plain(dev, dtype, lq, lk, dk, trpe):
     from tcdiff_torch.ops import attention as m
@@ -280,6 +283,41 @@ def test_ff_tail_train_kernels_match_plain(dev, dtype, rate, ff):
             r(TB, TD, std=0.1).to(dtype), r(TB, TD, std=0.1).to(dtype), s4, b4, w(TD, TD), r(TD, std=0.1), seeds)
     _check_train_op(m.ff_tail_train, m.ff_tail_train_plain, m.ff_tail_train, args,
                     tuple(range(13)), dict(rate=rate), dtype, g)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("lq, lk, dk", [(450, 450, 64), (450, 152, 64), (150, 150, 64), (37, 53, 32), (1, 70, 16)])
+def test_attention_train_kernels_match_plain(dev, dtype, rate, lq, lk, dk):
+    """The train attention alone (K3's and K4's) against the plain chain:
+    the output and the gradients of q, k and v, each within 2^-5 (bf16) or
+    1e-4 (f32) of its largest value; a second backward on the same inputs
+    gives the same bits (no atomics: each gradient row is one block's)."""
+    from tcdiff_torch.ops import sa_block_train as m
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    h = 3
+    q, k, v = (_rnd(g, dev, TB, n, h * dk).to(dtype) for n in (lq, lk, lk))
+    seeds = torch.randint(0, 2**32, (TB,), generator=g, device=dev, dtype=torch.int64)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    leaves_p = [t.clone().requires_grad_() for t in (q, k, v)]
+    before, before_b = m.attention_train.launches, m.attention_train.bwd_launches
+    out = m.attention_train(*leaves, seeds, nhead=h, rate=rate)
+    ref = m.attention_plain(*leaves_p, seeds, h, rate)
+    cot = _rnd(g, dev, *out.shape).to(dtype)
+    grads = torch.autograd.grad(out, leaves, cot, retain_graph=True)
+    again = torch.autograd.grad(out, leaves, cot)
+    grads_p = torch.autograd.grad(ref, leaves_p, cot)
+    torch.cuda.synchronize()
+    assert m.attention_train.launches == before + 1 and m.attention_train.bwd_launches == before_b + 2
+    tol = lambda r: (2.0**-5 if dtype == torch.bfloat16 else 1e-4) * max(r.float().abs().max().item(), 1e-6)
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert (out.float() - ref.float()).abs().max().item() <= tol(ref)
+    for name, gk, ga, gp in zip("qkv", grads, again, grads_p):
+        assert gk.dtype == dtype and gk.shape == gp.shape, name
+        err = (gk.float() - gp.float()).abs().max().item()
+        assert err <= tol(gp), (name, err, tol(gp))
+        assert torch.equal(gk, ga), f"d{name} differs between two backward runs"
 
 
 def test_train_kernels_refuse_what_they_do_not_take(dev):

@@ -23,10 +23,12 @@ import jax.numpy as jnp  # noqa: E402
 from tcdiff_tpu.models.rotary import rotary_freqs  # noqa: E402
 from tcdiff_tpu.ops.fused_ca_block_train import fused_ca_block_train  # noqa: E402
 from tcdiff_tpu.ops.fused_ff_block_train import fused_ff_tail_train  # noqa: E402
-from tcdiff_tpu.ops.fused_sa_block_train import _keep_mask, fused_sa_block_train, sa_train_tables  # noqa: E402
+from tcdiff_tpu.ops.fused_sa_block_train import (  # noqa: E402
+    _SALT_ATTN, _head_probs_sliced, _keep_mask, fused_sa_block_train, sa_train_tables,
+)
 from tcdiff_torch.ops.ca_block_train import ca_block_train  # noqa: E402
 from tcdiff_torch.ops.ff_block_train import ff_tail_train  # noqa: E402
-from tcdiff_torch.ops.sa_block_train import sa_block_train  # noqa: E402
+from tcdiff_torch.ops.sa_block_train import attention_train, sa_block_train  # noqa: E402
 from tcdiff_torch.ops.train_common import keep_mask  # noqa: E402
 
 B, L, LM, D, H, DK, FF = 2, 16, 6, 64, 4, 16, 64
@@ -151,6 +153,32 @@ def test_ff_tail_train_matches_jax_kernel(rate):
              _rand(rng, B, L, D))
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("lq, lk", [(L, L), (L, LM)])
+def test_attention_train_matches_jax_heads(rate, lq, lk):
+    """The train attention alone (what K3 and K4 run inside; CPU: its plain
+    version) against the JAX package's per-head math of the Pallas
+    attention kernels (`_head_probs_sliced`, then pd . v), value and vjp."""
+    rng = np.random.default_rng(4)
+    q, k, v = _rand(rng, B, lq, HD), _rand(rng, B, lk, HD), _rand(rng, B, lk, HD)
+    seeds_t = torch.from_numpy(SEEDS.astype(np.int64))
+
+    def jfn(q, k, v):
+        outs = []
+        for b in range(B):
+            heads = []
+            for i in range(H):
+                sl = slice(i * DK, (i + 1) * DK)
+                _, pd = _head_probs_sliced(q[b, :, sl], k[b, :, sl], DK**-0.5, jnp.asarray(SEEDS[b]),
+                                           _SALT_ATTN + i, rate, jnp.float32)
+                heads.append(jnp.dot(pd, v[b, :, sl], preferred_element_type=jnp.float32))
+            outs.append(jnp.concatenate(heads, axis=-1))
+        return jnp.stack(outs)
+
+    _compare(jfn, lambda q, k, v: attention_train(q, k, v, seeds_t, nhead=H, rate=rate), [q, k, v], set(),
+             _rand(rng, B, lq, HD))
+
+
 def test_train_ops_refuse_a_device_that_is_neither_cpu_nor_cuda():
     """A tensor on another device never falls back to the plain version."""
     meta = lambda *s: torch.empty(s, device="meta")
@@ -162,3 +190,5 @@ def test_train_ops_refuse_a_device_that_is_neither_cpu_nor_cuda():
                        nhead=H, rate=0.1)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         ff_tail_train(x, v, v, meta(FF, D), meta(FF), meta(D, FF), v, f, f, v, v, meta(D, D), v, s, rate=0.1)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        attention_train(meta(B, L, HD), meta(B, LM, HD), meta(B, LM, HD), s, nhead=H, rate=0.1)
