@@ -9,7 +9,13 @@ last line:
      all at once;
   3. hold each serving kernel (K1, K2) against its plain PyTorch version
      at the serving shapes (b=8 doubled CFG batch, L=450, d=512), in bf16
-     and f32, and time both;
+     and f32, and time both; count the launches of one bf16 K1 call under
+     torch.profiler (5: the q/k/v projections are one grouped launch);
+     then K1's and K2's products alone through the projection's entry
+     point (ops/gemm.py), bf16: q/k/v grouped 3600x1536x512, fc
+     3600x512x512, W1 3600x1024x512, W2 3600x512x1024, W3 3600x512x512,
+     each held against its plain version, its device time and TFLOP/s
+     beside its bound and torch.matmul's time (a yardstick only);
   4. the same for the per-op kernels K8 (both forms), K9, K10 and K11
      (450x450 self-attention with and without TRPE, 450x152
      cross-attention, the cond encoder's 150x150), with the one PyTorch
@@ -27,8 +33,9 @@ last line:
   7. serve 3 requests (batch 4 each: 3 dancers x 5 s of motion) through
      GaussianDiffusion.ddim_sample on a full-width bf16 DanceDecoder with
      seeded random weights, check the outputs and the kernels' launch
-     counts; profile one more request; time the FiLM residual outside and
-     inside K1 in turns; run one request in f32 through the kernels and
+     counts; profile one more request (its bf16 projections must be the
+     tensor-core kernel, never the FMA body); time the FiLM residual
+     outside and inside K1 in turns; run one request in f32 through the kernels and
      through the plain versions on the same noise and compare; hold one
      bf16 CFG denoiser forward against the plain versions;
   8. the per-op serving configuration (ServingKernels.per_op: K8-K11 on,
@@ -76,7 +83,7 @@ from tcdiff_torch.diffusion.gaussian import GaussianDiffusion
 from tcdiff_torch.models.dance_decoder import DanceDecoder
 from tcdiff_torch.models.rotary import angle_table, apply_rotary
 from tcdiff_torch.ops import (
-    _build, attention, ca_block, ca_block_train, ff_block, ff_block_train, layer, layernorm, ln_matmul,
+    _build, attention, ca_block, ca_block_train, ff_block, ff_block_train, gemm, layer, layernorm, ln_matmul,
     ln_rotary_matmul, sa_block, sa_block_train,
 )
 from tcdiff_torch.ops.plain import plain_blocks
@@ -95,6 +102,7 @@ RATE = 0.1  # the config's dropout
 LC = 150  # cond encoder tokens: 301 music frames packed in pairs
 KERNELS = ("sa_block", "ff_tail", "ff_block", "ca_block", "layer", "ln_rotary_matmul", "ln_matmul", "layernorm",
            "attention", "sa_block_train", "ca_block_train", "ff_tail_train")
+BUILD = KERNELS + ("gemm",)  # and the projection's entry point of the GEMM phase
 SERVING_OPS = {  # the per-op kernels' wrappers, by kernel name
     "ln_rotary_matmul": ln_rotary_matmul.ln_rotary_matmul, "ln_matmul": ln_matmul.ln_matmul,
     "layernorm": layernorm.layernorm, "attention": attention.attention,
@@ -156,6 +164,28 @@ def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 50) -> float:
+    """Device time of one fn() in ms: reps calls queued behind a spin
+    kernel, so that the device runs them back to back, between two CUDA
+    events; the spin doubles until it outlasts the host's enqueueing."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 50_000_000
+    while True:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = not start.query()  # the spin still ran when the last call was queued
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / reps
+        check(cycles < 2**31, "device_ms: the host never got ahead of the device")
+        cycles *= 2
+
+
 def grad_tolerance(dtype, ref: torch.Tensor) -> float:
     """A gradient: f32 1e-4 of its largest value (sums in another order);
     bf16 2^-4 of it, since the plain version's autograd rounds dP, dO and
@@ -207,13 +237,15 @@ def device_profile(fn):
 
 def print_profile(label: str, fn) -> None:
     """Profile fn() (one request) and print its device busy time, idle
-    share and the 12 largest kernels by device time."""
+    share and the 12 largest kernels by device time; return the table of
+    device_profile."""
     wall, busy, table = device_profile(fn)
     total = sum(ms for _, ms, _ in table)
     print(f"{label} under torch.profiler: {wall:.3f} s wall, device busy {busy:.3f} s (idle share "
           f"{1 - busy / wall:.3f}), kernel time {total / 1e3:.3f} s; by kernel (ms, calls, share of kernel time):")
     for name, ms, calls in table[:12]:
         print(f"  {name[:100]}: {ms:.1f} ms, {calls}, {ms / total:.3f}")
+    return table
 
 
 def card_line() -> str:
@@ -260,8 +292,18 @@ def compare_kernels(gen: torch.Generator) -> dict:
                 check(err <= tol, f"K1 {name} film={film} trpe={trpe} disagrees: {err} > {tol}")
                 if dtype == torch.bfloat16 and film and not trpe:  # the serving variant
                     flops = 8 * B * L * D * HD + 4 * B * L * L * HD
+                    dev_ms = device_ms(lambda: sa_block.sa_block(*args, nhead=H))
+                    ours = {n: c for n, _, c in device_profile(lambda: sa_block.sa_block(*args, nhead=H))[2]
+                            if "tcd::" in n}  # the hand-written kernels of one call, not the wrapper's casts
+                    n_launch = sum(ours.values())
+                    print(f"K1 sa_block bf16 film=True: device {dev_ms:.4f} ms a call (calls queued back to "
+                          f"back), {flops / dev_ms / 1e9:.1f} TFLOP/s; {n_launch} launches a call: {ours}")
+                    check(n_launch == 5, f"K1 made {n_launch} launches, expected 5")
+                    check(sum(c for n, c in ours.items() if "gemm_mma_kernel" in n) == 2,
+                          "K1's projections are not 2 launches of the tensor-core kernel")
                     figures["sa_block"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                               **bound(flops, nbytes(*args, out)), library_ms=None)
+                                               **bound(flops, nbytes(*args, out)), library_ms=None,
+                                               device_ms=dev_ms, launches_per_call=n_launch)
 
         s3, b3 = ln()
         s4, b4 = ln()
@@ -281,8 +323,63 @@ def compare_kernels(gen: torch.Generator) -> dict:
         check(err <= tol, f"K2 {name} disagrees: {err} > {tol}")
         if dtype == torch.bfloat16:
             flops = 4 * B * L * D * FF + 2 * B * L * D * D
+            dev_ms = device_ms(lambda: ff_block.ff_tail(*args))
+            print(f"K2 ff_tail bf16: device {dev_ms:.4f} ms a call (calls queued back to back), "
+                  f"{flops / dev_ms / 1e9:.1f} TFLOP/s")
             figures["ff_tail"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                      **bound(flops, nbytes(*args, out)), library_ms=None)
+                                      **bound(flops, nbytes(*args, out)), library_ms=None, device_ms=dev_ms)
+    return figures
+
+
+def compare_gemms(gen: torch.Generator) -> dict:
+    """Phase 3b: K1's and K2's products alone at the serving shapes (M = b L
+    = 3600 rows, d=512, ff=1024), bf16, through the projection's entry point
+    (ops/gemm.py, the code K1 and K2 run): each held against its plain
+    version, its device time (calls queued back to back, operands warm in
+    L2 as on the path) and TFLOP/s beside its bound and torch.matmul's
+    time on the same operands (a yardstick only). Returns {kernel:
+    {product: figures}}."""
+    dev, M = "cuda", B * L
+    bf16 = torch.bfloat16
+    rnd = lambda *shape, std=1.0: torch.randn(shape, generator=gen, device=dev) * std
+    w = lambda o, i: rnd(o, i, std=i**-0.5).to(bf16)
+    r, y, o, y3, y4 = (rnd(M, D).to(bf16) for _ in range(5))
+    h = rnd(M, FF).to(bf16)
+    x = rnd(M, D).to(bf16)
+    fs, fb = rnd(B, D, std=0.1), rnd(B, D, std=0.1)
+    wq, wk, wv, wfc, w1, w2, w3 = w(HD, D), w(HD, D), w(HD, D), w(D, HD), w(FF, D), w(D, FF), w(D, D)
+    b1, b2, b3 = rnd(FF, std=0.1), rnd(D, std=0.1), rnd(D, std=0.1)
+    rry, wqkv = torch.stack((r, r, y)), torch.stack((wq, wk, wv)).transpose(1, 2)  # the library's operands
+    f32, bf = 4, 2  # output bytes per element
+    # (kernel, product, args of gemm, N, K, bytes of the inputs read once, output bytes per element,
+    #  the library's call: the product alone, bf16 out)
+    cases = (
+        ("sa_block", "q/k/v grouped", ([r, r, y], [wq, wk, wv]), 3 * HD, D, nbytes(r, y, wq, wk, wv), bf,
+         lambda: torch.matmul(rry, wqkv)),
+        ("sa_block", "fc", (o, wfc, "store_f32"), D, HD, nbytes(o, wfc), f32, lambda: torch.matmul(o, wfc.t())),
+        ("ff_tail", "W1 bias+GELU", (y3, w1, "bias_gelu", b1), FF, D, nbytes(y3, w1, b1), bf,
+         lambda: torch.matmul(y3, w1.t())),
+        ("ff_tail", "W2 bias+FiLM", (h, w2, "bias_film", b2, x, fs, fb, L), D, FF, nbytes(h, w2, b2, x, fs, fb),
+         f32, lambda: torch.matmul(h, w2.t())),
+        ("ff_tail", "W3 bias", (y4, w3, "bias", b3), D, D, nbytes(y4, w3, b3), bf, lambda: torch.matmul(y4, w3.t())),
+    )
+    figures = collections.defaultdict(dict)
+    for kernel, label, args, N, K, in_bytes, out_el, library in cases:
+        out, ref = gemm.gemm(*args), gemm.gemm_plain(*args)
+        torch.cuda.synchronize()
+        outs, refs = (out, ref) if isinstance(out, list) else ([out], [ref])
+        err = max((a.float() - b.float()).abs().max().item() for a, b in zip(outs, refs))
+        tol = min(tolerance(bf16, b.float()) for b in refs)
+        check(all(torch.isfinite(a).all().item() for a in outs), f"GEMM {label} output not finite")
+        check(err <= tol, f"GEMM {label} disagrees: {err} > {tol}")
+        flops = 2 * M * N * K
+        ms, lib_ms = device_ms(lambda: gemm.gemm(*args)), device_ms(library)
+        b = bound(flops, in_bytes + M * N * out_el)
+        print(f"GEMM {label} {M}x{N}x{K} bf16: max_abs_err {err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
+              f"torch.matmul {lib_ms:.4f} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s)")
+        figures[kernel][label] = dict(shape=[M, N, K], max_abs_err=err, ms=ms, tflops=flops / ms / 1e9,
+                                      library_ms=lib_ms, **b)
     return figures
 
 
@@ -671,7 +768,11 @@ def serve(gen: torch.Generator) -> dict:
     per_req = seconds / REQUESTS
     motion = REQUESTS * REQ_BATCH * CLIP_S
     print(f"main path: {per_req:.3f} s per request, {motion / seconds:.2f} s-motion/s (bf16, kernels)")
-    print_profile("default path, one request", lambda: diff.ddim_sample(shape, reqs[0][0], generator=gen, x_0=reqs[0][1]))
+    table = print_profile("default path, one request",
+                          lambda: diff.ddim_sample(shape, reqs[0][0], generator=gen, x_0=reqs[0][1]))
+    check(any("gemm_mma_kernel" in name for name, _, _ in table), "no tensor-core projection in the request")
+    fma_nt = [name for name, _, _ in table if "gemm_kernel<bf16, false, true" in name]
+    check(not fma_nt, f"bf16 projections ran on the FMA body: {fma_nt}")
 
     # the FiLM residual outside K1 (fuse_film off, the JAX package's
     # default) against inside (as every request ran before the flag
@@ -973,13 +1074,15 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
 
         t0 = time.perf_counter()
-        _build.build_all(KERNELS)
-        for name in KERNELS:
+        _build.build_all(BUILD)
+        for name in BUILD:
             _build.load(name)
         print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
 
         gen = torch.Generator(device="cuda").manual_seed(0)
         figures = compare_kernels(gen)
+        for name, products in compare_gemms(gen).items():
+            figures[name]["products"] = products
         figures.update(compare_serving_ops(gen))
         figures.update(compare_block_kernels(gen))
         figures.update(compare_train_kernels(gen))

@@ -378,7 +378,7 @@ inline void attention_mma(const AttnArgs& a, const AttnTrain& tr, int B, int H, 
                        (rows16(a.v, a.vs.sb, a.vs.sh, a.vs.sl, a.dk) ? 4u : 0u) |
                        (rows16(a.o, a.os.sb, a.os.sh, a.os.sl, a.dk) ? 8u : 0u) |
                        (a.table && rows16(a.table, 0, a.th, a.tn, a.dk) ? 16u : 0u);
-  launch_mma(attn_mma_kernel<DKP>, dim3(cdiv(a.Lq, MQ), H, B), attn_mma_smem<DKP>(), st, a, tr, vec);
+  launch_mma(attn_mma_kernel<DKP>, dim3(cdiv(a.Lq, MQ), H, B), MT, attn_mma_smem<DKP>(), st, a, tr, vec);
 }
 
 // B batch elements x H heads; the caller has checked dk (<= 64, a multiple

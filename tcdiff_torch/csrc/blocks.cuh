@@ -4,17 +4,18 @@
 // and K2's sequences back to back on one stream.
 //
 // Each sequence is a few hand-written launches on the stream it is given:
-// LayerNorm row kernels (f32 statistics), FMA-tiled GEMMs with fused
-// epilogues and heads_attention (attention.cuh: the tensor cores in bf16,
-// the FMA units in f32). Buffers are row-major (B * L rows); projections
-// are (rows, h*dk) with head h in columns [h*dk, (h+1)*dk); weights in
-// nn.Linear layout (out, in).
+// LayerNorm row kernels (f32 statistics), projections with fused
+// epilogues (gemm_mma.cuh) and heads_attention (attention.cuh), both on
+// the tensor cores in bf16 and on the FMA units in f32. Buffers are
+// row-major (B * L rows); projections are (rows, h*dk) with head h in
+// columns [h*dk, (h+1)*dk); weights in nn.Linear layout (out, in).
 // Intermediates land in T where the TPU kernels round them to the compute
 // dtype, in f32 where they keep f32 (the fc output before its LayerNorm,
 // the FF block's FiLM residual before LN4).
 #pragma once
 
 #include "attention.cuh"
+#include "gemm_mma.cuh"
 
 namespace tcd {
 
@@ -31,7 +32,8 @@ inline void fc_post_ln(const T* o, const T* wfc, const float* s2, const float* b
 }
 
 // K1, the self-attention block: y = LN(x; eps1), r = rot(y); q = r.Wq,
-// k = r.Wk, v = y.Wv; attention [+ TRPE]; fc; LN(eps2) [+ FiLM residual].
+// k = r.Wk, v = y.Wv in one grouped launch; attention [+ TRPE]; fc;
+// LN(eps2) [+ FiLM residual]: 5 launches.
 template <typename T>
 void sa_block(const T* x, const float* s1, const float* b1, const T* cos_t, const T* ssin_t,
               const T* wq, const T* wk, const T* wv, const T* wfc, const float* s2, const float* b2,
@@ -41,9 +43,10 @@ void sa_block(const T* x, const float* s1, const float* b1, const T* cos_t, cons
   const int M = B * L;
   ln_rows_kernel<T, T><<<M, 256, 0, st>>>(x, s1, b1, eps1, d, L, cos_t, ssin_t, nullptr,
                                           nullptr, nullptr, y, r);
-  gemm<T, EPI_STORE>(r, wq, M, hd, d, epi(q), st);
-  gemm<T, EPI_STORE>(r, wk, M, hd, d, epi(k), st);
-  gemm<T, EPI_STORE>(y, wv, M, hd, d, epi(v), st);
+  const T* as[3] = {r, r, y};
+  const T* ws[3] = {wq, wk, wv};
+  void* cs[3] = {q, k, v};
+  gemm_group<T, EPI_STORE>(3, as, ws, cs, M, hd, d, epi(nullptr), st);
   heads_attention<T>(q, k, v, o, B, L, L, hd, nhead, table, dist, st);
   fc_post_ln<T>(o, wfc, s2, b2, x, fs, fb, B, L, d, hd, eps2, z, out, st);
 }

@@ -19,14 +19,14 @@
 // GFLOP of attention against ~10 MB: operations, ~6.2 us at the bf16
 // tensor-core peak.
 //
-// Design: two FMA-tiled GEMMs project the memory's k and v over its
-// B * Lm rows into T (the TPU kernel rounds each head's k and v to the
-// compute dtype), then the shared cross-attention sequence of blocks.cuh:
+// Design: one grouped launch of the projection (gemm_mma.cuh) takes the
+// memory's k and v over its B * Lm rows into T (the TPU kernel rounds each
+// head's k and v to the compute dtype), then the shared cross-attention sequence of blocks.cuh:
 // LN + rotary rows, the q GEMM, the flash attention of attention.cuh with
 // Lq != Lk (as K11 runs it), the fc GEMM into f32 and the post-LN row
 // kernel with the FiLM residual as its epilogue. K6 (layer.cu) runs the
-// same sequence against the cached k/v. The GEMMs are FMA tiles; the
-// attention runs on the tensor cores in bf16.
+// same sequence against the cached k/v. The projections and the attention
+// run on the tensor cores in bf16, on the FMA units in f32.
 #include "blocks.cuh"
 
 // Pointers, then the ints, then the floats: the layout of the ctypes
@@ -48,8 +48,10 @@ namespace tcd {
 template <typename T>
 void ca_block(const CaBlockArgs& a, cudaStream_t st) {
   const int Mm = a.B * a.Lm;
-  gemm<T, EPI_STORE>((const T*)a.mrot, (const T*)a.wk, Mm, a.hd, a.d, epi(a.k), st);
-  gemm<T, EPI_STORE>((const T*)a.mem, (const T*)a.wv, Mm, a.hd, a.d, epi(a.v), st);
+  const T* as[2] = {(const T*)a.mrot, (const T*)a.mem};
+  const T* ws[2] = {(const T*)a.wk, (const T*)a.wv};
+  void* cs[2] = {a.k, a.v};
+  gemm_group<T, EPI_STORE>(2, as, ws, cs, Mm, a.hd, a.d, epi(nullptr), st);
   cross_attention<T>((const T*)a.x, a.s1, a.b1, (const T*)a.cos, (const T*)a.ssin,
                      (const T*)a.k, (const T*)a.v, a.Lm, (const T*)a.wq, (const T*)a.wfc, a.s2,
                      a.b2, a.fs, a.fb, a.B, a.L, a.d, a.hd, a.nhead, a.eps1, a.eps2, (T*)a.r,

@@ -14,6 +14,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace tcd {
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -160,6 +162,9 @@ __global__ void rot_rows_kernel(const T* __restrict__ in, const T* __restrict__ 
 // (K, N)); both row-major. The projections are TB (a weight in nn.Linear
 // layout), the input gradients plain, the weight gradients TA with the
 // rows as K, split over blockIdx.z into chunks of `kchunk` (EPI_PARTIAL).
+// This body serves f32 and the backward's layouts; the forward projections
+// enter through gemm<T, EPI> (gemm_mma.cuh), which takes bf16 to the
+// tensor cores.
 enum Epi {
   EPI_STORE = 0,       // C(T)   = acc
   EPI_STORE_F32 = 1,   // C(f32) = acc
@@ -184,6 +189,84 @@ struct EpiArgs {
   Drop dr;            // dropout of EPI_BIAS_GELU / EPI_BIAS_FILM; off unless set
   uint32_t salt;
 };
+
+// The epilogues in phases, shared by the FMA body below and the
+// tensor-core body (gemm_mma.cuh). epi_load: what output element (m, n)
+// reads besides its f32 sum (the bias, and the residual and FiLM rows of
+// EPI_BIAS_FILM(_T)); epi_math: from the sum and those, the values it
+// stores (c, and c2 for EPI_BIAS_GELU and EPI_BIAS_FILM); epi_store: the
+// stores. A body can so issue the loads of many elements before any store
+// (a store between them would hold them back, as it might alias them), and
+// load or store two neighbouring elements at once. The rounding points are
+// the TPU kernels': EPI_BIAS_ROUNDED rounds the product and the bias to T
+// before adding them, EPI_BIAS_FILM keeps its output in f32, and the
+// dropout index is (m % L) * N + n.
+struct EpiIn {
+  float bias, resid, fs, fb;
+};
+struct EpiVal {
+  float c, c2;
+};
+
+template <int EPI>
+__host__ __device__ constexpr bool epi_bias() {
+  return EPI == EPI_BIAS || EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_FILM || EPI == EPI_BIAS_FILM_T ||
+         EPI == EPI_BIAS_ROUNDED;
+}
+template <int EPI>
+__host__ __device__ constexpr bool epi_film() {
+  return EPI == EPI_BIAS_FILM || EPI == EPI_BIAS_FILM_T;
+}
+
+template <typename T, int EPI>
+__device__ __forceinline__ EpiIn epi_load(const EpiArgs& ep, int N, int m, int n) {
+  EpiIn in{0.f, 0.f, 0.f, 0.f};
+  if (epi_bias<EPI>()) in.bias = ep.bias[n];
+  if (epi_film<EPI>()) {
+    const size_t f = (size_t)(m / ep.L) * N + n;
+    in.resid = to_f(static_cast<const T*>(ep.resid)[(size_t)m * N + n]);
+    in.fs = ep.fs[f];
+    in.fb = ep.fb[f];
+  }
+  return in;
+}
+
+template <typename T, int EPI>
+__device__ __forceinline__ EpiVal epi_math(const EpiArgs& ep, int N, int m, int n, float v, const EpiIn& in) {
+  if (EPI == EPI_BIAS) return {v + in.bias, 0.f};
+  if (EPI == EPI_BIAS_GELU) {
+    const float u = v + in.bias;
+    const float g = 0.5f * u * (1.f + erff(u * 0.70710678118654752f));
+    return {dropv(g, ep.dr, m / ep.L, ep.salt, (uint32_t)((m % ep.L) * N + n)), u};
+  }
+  if (EPI == EPI_BIAS_FILM) {
+    const float zd = dropv(v + in.bias, ep.dr, m / ep.L, ep.salt, (uint32_t)((m % ep.L) * N + n));
+    return {in.resid + (in.fs + 1.f) * zd + in.fb, zd};
+  }
+  if (EPI == EPI_BIAS_FILM_T) return {in.resid + (in.fs + 1.f) * (v + in.bias) + in.fb, 0.f};
+  if (EPI == EPI_BIAS_ROUNDED) return {round_t<T>(v) + round_t<T>(in.bias), 0.f};
+  return {v, 0.f};  // EPI_STORE, EPI_STORE_F32, EPI_ACC_F32, EPI_PARTIAL
+}
+
+// The element type of an epilogue's output C.
+template <typename T, int EPI>
+using EpiOut = typename std::conditional<EPI == EPI_STORE_F32 || EPI == EPI_BIAS_FILM || EPI == EPI_ACC_F32 ||
+                                             EPI == EPI_PARTIAL, float, T>::type;
+
+// z is the K chunk of EPI_PARTIAL.
+template <typename T, int EPI>
+__device__ __forceinline__ void epi_store(const EpiArgs& ep, int M, int N, int m, int n, int z, EpiVal r) {
+  const size_t o = (size_t)m * N + n;
+  using TC = EpiOut<T, EPI>;
+  if ((EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_FILM) && ep.c2) ep.c2[o] = r.c2;
+  if (EPI == EPI_ACC_F32) {
+    static_cast<float*>(ep.c)[o] += r.c;
+  } else if (EPI == EPI_PARTIAL) {
+    static_cast<float*>(ep.c)[(size_t)z * M * N + o] = r.c;
+  } else {
+    static_cast<TC*>(ep.c)[o] = from_f<TC>(r.c);
+  }
+}
 
 constexpr int GBM = 64, GBN = 64, GBK = 16;
 
@@ -239,53 +322,23 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, int M, int N, int 
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx * 4 + j;
-      if (n >= N) continue;
-      const size_t o = (size_t)m * N + n;
-      float v = acc[i][j];
-      if (EPI == EPI_STORE) {
-        static_cast<T*>(ep.c)[o] = from_f<T>(v);
-      } else if (EPI == EPI_STORE_F32) {
-        static_cast<float*>(ep.c)[o] = v;
-      } else if (EPI == EPI_BIAS) {
-        static_cast<T*>(ep.c)[o] = from_f<T>(v + ep.bias[n]);
-      } else if (EPI == EPI_BIAS_GELU) {
-        v += ep.bias[n];
-        if (ep.c2) ep.c2[o] = v;
-        const float g = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-        static_cast<T*>(ep.c)[o] =
-            from_f<T>(dropv(g, ep.dr, m / ep.L, ep.salt, (uint32_t)((m % ep.L) * N + n)));
-      } else if (EPI == EPI_BIAS_FILM) {
-        const size_t f = (size_t)(m / ep.L) * N + n;
-        const float zd = dropv(v + ep.bias[n], ep.dr, m / ep.L, ep.salt, (uint32_t)((m % ep.L) * N + n));
-        if (ep.c2) ep.c2[o] = zd;
-        static_cast<float*>(ep.c)[o] = to_f(static_cast<const T*>(ep.resid)[o]) + (ep.fs[f] + 1.f) * zd + ep.fb[f];
-      } else if (EPI == EPI_BIAS_FILM_T) {
-        const size_t f = (size_t)(m / ep.L) * N + n;
-        static_cast<T*>(ep.c)[o] = from_f<T>(to_f(static_cast<const T*>(ep.resid)[o]) +
-                                             (ep.fs[f] + 1.f) * (v + ep.bias[n]) + ep.fb[f]);
-      } else if (EPI == EPI_BIAS_ROUNDED) {
-        static_cast<T*>(ep.c)[o] = from_f<T>(round_t<T>(v) + round_t<T>(ep.bias[n]));
-      } else if (EPI == EPI_ACC_F32) {
-        static_cast<float*>(ep.c)[o] += v;
-      } else {  // EPI_PARTIAL
-        static_cast<float*>(ep.c)[(size_t)blockIdx.z * M * N + o] = v;
-      }
+      if (n < N)
+        epi_store<T, EPI>(ep, M, N, m, n, blockIdx.z,
+                          epi_math<T, EPI>(ep, N, m, n, acc[i][j], epi_load<T, EPI>(ep, N, m, n)));
     }
   }
 }
 
+// The FMA body. A bf16 product in the projections' layout (not TA, TB)
+// runs on the tensor cores instead: gemm<T, EPI> of gemm_mma.cuh.
 template <typename T, bool TA, bool TB, int EPI>
 inline void gemm_t(const T* A, const T* B, int M, int N, int K, EpiArgs ep, cudaStream_t st,
                    int kchunk = 0) {
+  static_assert(!(std::is_same<T, __nv_bfloat16>::value && !TA && TB),
+                "bf16 forward projections run on the tensor cores: gemm<T, EPI> of gemm_mma.cuh");
   if (kchunk <= 0) kchunk = K;
   gemm_kernel<T, TA, TB, EPI><<<dim3(cdiv(N, GBN), cdiv(M, GBM), cdiv(K, kchunk)), 256, 0, st>>>(
       A, B, M, N, K, kchunk, ep);
-}
-
-// C = A . W^T, W in nn.Linear layout (N, K): the forward projections.
-template <typename T, int EPI>
-inline void gemm(const T* A, const T* W, int M, int N, int K, EpiArgs ep, cudaStream_t st) {
-  gemm_t<T, false, true, EPI>(A, W, M, N, K, ep, st);
 }
 
 inline EpiArgs epi(void* c, const float* bias = nullptr, const void* resid = nullptr,

@@ -21,8 +21,8 @@
 // ff_hidden is the LN row kernel and the bias+GELU GEMM; the second GEMM's
 // epilogue adds the bias (EPI_BIAS) or the bias and the FiLM residual
 // (EPI_BIAS_FILM_T, which writes T where K2's EPI_BIAS_FILM keeps f32 for
-// LN4). A correct first kernel: FMA tiles, not the tensor cores, and the
-// (M, ff) hidden activation makes one round trip through device memory
+// LN4). The projections run on the tensor cores in bf16 (gemm_mma.cuh);
+// the (M, ff) hidden activation makes one round trip through device memory
 // that the TPU kernel keeps in VMEM.
 #include "blocks.cuh"
 

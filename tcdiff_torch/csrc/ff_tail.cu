@@ -17,10 +17,11 @@
 // large intermediate.
 //
 // Design: five hand-written launches on one stream. The LayerNorms are
-// row kernels (f32 stats, result in T); the three projections are FMA
-// tiles (common.cuh) whose epilogues apply bias+GELU, bias+FiLM residual
-// (kept in f32, as the TPU kernel feeds LN4 its f32 value) and bias.
-// A correct first kernel: the tiles run on FMA units, not the tensor cores.
+// row kernels (f32 stats, result in T); the three projections
+// (gemm_mma.cuh: mma.sync on the tensor cores in bf16, FMA tiles in f32)
+// apply bias+GELU, bias+FiLM residual (kept in f32, as the TPU kernel
+// feeds LN4 its f32 value) and bias to their sums in registers. LN4 could
+// fold into W2's epilogue only with whole 512-wide rows per block.
 // The sequence is tcd::ff_tail of blocks.cuh, which K6 (layer.cu) reuses.
 #include "blocks.cuh"
 

@@ -28,8 +28,8 @@
 // sequence shared with K7 (cross_attention, with FiLM) and K2's (ff_tail).
 // The TPU kernel keeps the residual stream in VMEM between its sections;
 // here x1 and x2 make one round trip each through device memory, in T, so
-// the roundings are those of the TPU kernel. The GEMMs are FMA tiles; the
-// flash attention of attention.cuh runs on the tensor cores in bf16.
+// the roundings are those of the TPU kernel. The projections (gemm_mma.cuh)
+// and the flash attention (attention.cuh) run on the tensor cores in bf16.
 #include "blocks.cuh"
 
 // Pointers, then the ints, then the floats: the layout of the ctypes

@@ -16,11 +16,11 @@
 // ~3.8 us at the bf16 tensor-core peak.
 //
 // Design: two launches on one stream, ln_rows_kernel into a (M, d) scratch
-// y in T, then the FMA-tiled GEMM of common.cuh with the rounded-bias
-// epilogue. A correct first kernel: FMA units, not the tensor cores, and y
+// y in T, then the projection of gemm_mma.cuh (the tensor cores in bf16)
+// with the rounded-bias epilogue. y
 // makes one round trip through device memory that the TPU kernel keeps in
 // VMEM.
-#include "common.cuh"
+#include "gemm_mma.cuh"
 
 namespace tcd {
 

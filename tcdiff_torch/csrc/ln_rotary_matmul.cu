@@ -17,10 +17,10 @@
 // operations, ~5.7 us at the bf16 tensor-core peak.
 //
 // Design: K1's first stage alone. ln_rows_kernel writes y and rot(y) in T
-// to scratch, then one FMA-tiled GEMM per weight (common.cuh). A correct
-// first kernel: FMA units, not the tensor cores, and y and rot(y) make one
-// round trip through device memory that the TPU kernel keeps in VMEM.
-#include "common.cuh"
+// to scratch, then one projection per weight (gemm_mma.cuh: the tensor
+// cores in bf16); y and rot(y) make one round trip through device memory
+// that the TPU kernel keeps in VMEM.
+#include "gemm_mma.cuh"
 
 namespace tcd {
 

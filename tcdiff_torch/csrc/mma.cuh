@@ -1,6 +1,7 @@
 // Tensor-core building blocks of the bf16 attention kernels (attention.cuh,
-// train_common.cuh): 16-byte cp.async copies into shared tiles, ldmatrix
-// fragment loads and the m16n8k16 bf16 mma with f32 accumulators.
+// train_common.cuh) and of the bf16 forward projections (gemm_mma.cuh):
+// 16-byte cp.async copies into shared tiles, ldmatrix fragment loads and
+// the m16n8k16 bf16 mma with f32 accumulators.
 //
 // Fragment layout of mma.sync.m16n8k16.row.col (lane = 4 * g + t):
 //   A (16 x 16, row-major): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..), a3 = (g+8, 2t+8..)
@@ -14,6 +15,10 @@
 // (DKP, the head dim padded to the mma's 16): the 16 bytes of padding put
 // the 8 rows an ldmatrix reads in 8 different bank quads.
 #pragma once
+
+#include <map>
+#include <mutex>
+#include <utility>
 
 #include "common.cuh"
 
@@ -35,6 +40,9 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+// Wait until at most N of this thread's committed copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
 
 // Four 8x8 b16 matrices; lane i gives the address of row i % 8 of matrix i / 8.
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
@@ -94,12 +102,13 @@ __device__ __forceinline__ FragOff frag_off(int lane) {
 // Rows l0 .. l0+ROWS-1 of an (L, dk) bf16 operand with row stride sl into
 // a shared tile of row stride DKP + 8; rows past L and columns past dk are
 // zero. vec: 16-byte cp.async (the caller has checked that every row start
-// is 16-byte aligned and dk % 8 == 0); else 2-byte loads.
-template <int ROWS, int DKP>
+// is 16-byte aligned and dk % 8 == 0); else 2-byte loads. THREADS: the
+// block's threads, which share the copy.
+template <int ROWS, int DKP, int THREADS = MT>
 __device__ __forceinline__ void load_tile(bf16* sm, const bf16* gp, long long sl, int l0, int L, int dk,
                                           bool vec) {
   constexpr int LD = DKP + 8, CH = DKP / 8;
-  for (int idx = threadIdx.x; idx < ROWS * CH; idx += MT) {
+  for (int idx = threadIdx.x; idx < ROWS * CH; idx += THREADS) {
     const int r = idx / CH, c = (idx % CH) * 8, gl = l0 + r;
     bf16* dst = sm + r * LD + c;
     if (vec) {
@@ -151,12 +160,28 @@ inline bool rows16(const void* p, long long sb, long long sh, long long sl, int 
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % 8 == 0 && sh % 8 == 0 && sl % 8 == 0 && dk % 8 == 0;
 }
 
-// Launch kernel<<<grid, MT, bytes>>> with its dynamic shared memory allowed
-// past 48 KB; the caller checks cudaGetLastError().
+// Allow kernel `fn` `bytes` of dynamic shared memory (past 48 KB) on the
+// current device; the attribute is set once per kernel, device and size,
+// not at every launch.
+inline void allow_smem(const void* fn, int bytes) {
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, int> allowed;  // (kernel, device) -> bytes
+  int dev = 0;
+  cudaGetDevice(&dev);
+  std::lock_guard<std::mutex> lock(mu);
+  int& have = allowed[{fn, dev}];
+  if (have != bytes) {
+    cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    have = bytes;
+  }
+}
+
+// Launch kernel<<<grid, threads, bytes>>> with its dynamic shared memory
+// allowed; the caller checks cudaGetLastError().
 template <typename Kernel, typename... Args>
-inline void launch_mma(Kernel kernel, dim3 grid, int bytes, cudaStream_t st, Args... args) {
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  kernel<<<grid, MT, bytes, st>>>(args...);
+inline void launch_mma(Kernel kernel, dim3 grid, int threads, int bytes, cudaStream_t st, Args... args) {
+  allow_smem(reinterpret_cast<const void*>(kernel), bytes);
+  kernel<<<grid, threads, bytes, st>>>(args...);
 }
 
 }  // namespace tcd

@@ -19,15 +19,17 @@
 //
 // Design: a short pipeline of hand-written launches on one stream.
 //   1. ln_rows_kernel: LN + rotary per row (f32 stats), y and r stored in T;
-//   2. three FMA-tiled projections (common.cuh);
+//   2. q, k and v in one grouped launch of the projection (gemm_mma.cuh);
 //   3. heads_attention (attention.cuh, shared with K11): flash attention,
 //      one block per (64 queries, head, batch), streaming key tiles with an
 //      online softmax, so no logit row ever leaves the block; in bf16 on
 //      the tensor cores (mma.sync), in f32 on the FMA units;
 //   4. out projection into an f32 scratch, then ln_rows_kernel for the
 //      post-attention LN with the FiLM residual as its epilogue.
-// The sequence is tcd::sa_block of blocks.cuh, which K6 (layer.cu) reuses.
-// The GEMM tiles run on the FMA units, not the tensor cores.
+// Five launches. In bf16 the projections run on the tensor cores
+// (mma.sync, a cp.async ring; gemm_mma.cuh says why that design), in f32
+// on the FMA units. The sequence is tcd::sa_block of blocks.cuh, which K6
+// (layer.cu) reuses.
 #include "blocks.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16. table/dist and fs/fb may be null.

@@ -29,7 +29,9 @@
 // blocks), FMA-tile GEMMs for the input gradients, split-row GEMMs plus an
 // ordered reduction for the weight gradients, and the rotary-transpose /
 // LN1 backward row kernel. The attention, forward and backward, runs on
-// the tensor cores in bf16 (train_common.cuh); the GEMMs are FMA tiles.
+// the tensor cores in bf16 (train_common.cuh), and so do the forward's
+// projections (gemm_mma.cuh, q/k/v in one launch); the backward's GEMMs
+// are FMA tiles.
 #include "train_common.cuh"
 
 namespace tcd {
@@ -60,9 +62,10 @@ int sa_fwd(const SaTrainArgs& a, cudaStream_t st) {
   T *y = (T*)a.y, *r = (T*)a.r, *q = (T*)a.q, *k = (T*)a.k, *v = (T*)a.v, *o = (T*)a.o;
   ln_rows_kernel<T, T><<<M, 256, 0, st>>>(x, a.s1, a.b1, a.eps1, a.d, a.L, cs, sn, nullptr,
                                           nullptr, nullptr, y, r);
-  gemm<T, EPI_STORE>(r, (const T*)a.wq, M, a.hd, a.d, epi(q), st);
-  gemm<T, EPI_STORE>(r, (const T*)a.wk, M, a.hd, a.d, epi(k), st);
-  gemm<T, EPI_STORE>(y, (const T*)a.wv, M, a.hd, a.d, epi(v), st);
+  const T* ins[3] = {r, r, y};
+  const T* wts[3] = {(const T*)a.wq, (const T*)a.wk, (const T*)a.wv};
+  void* outs[3] = {q, k, v};
+  gemm_group<T, EPI_STORE>(3, ins, wts, outs, M, a.hd, a.d, epi(nullptr), st);
   attention_fwd<T>(q, k, v, a.B, a.nhead, a.L, a.L, a.hd, dr, o, a.lse, st);
   gemm<T, EPI_STORE_F32>(o, (const T*)a.wfc, M, a.d, a.hd, epi(a.z), st);
   chain_top_fwd_kernel<T><<<M, RT, 0, st>>>(a.z, x, a.s2, a.b2, a.fs, a.fb, a.eps2, a.L, a.d, dr,

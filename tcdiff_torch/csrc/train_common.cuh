@@ -11,6 +11,7 @@
 #pragma once
 
 #include "attention.cuh"
+#include "gemm_mma.cuh"
 
 namespace tcd {
 
@@ -715,8 +716,8 @@ __global__ void __launch_bounds__(MT) attn_bwd_dkdv_mma_kernel(AttnBwd a, bool v
 
 template <int DKP>
 inline void attention_bwd_mma(const AttnBwd& a, int B, int H, bool vec, cudaStream_t st) {
-  launch_mma(attn_bwd_dq_mma_kernel<DKP>, dim3(cdiv(a.Lq, MQ), H, B), attn_bwd_smem<DKP>(), st, a, vec);
-  launch_mma(attn_bwd_dkdv_mma_kernel<DKP>, dim3(cdiv(a.Lk, MK), H, B), attn_bwd_smem<DKP>(), st, a, vec);
+  launch_mma(attn_bwd_dq_mma_kernel<DKP>, dim3(cdiv(a.Lq, MQ), H, B), MT, attn_bwd_smem<DKP>(), st, a, vec);
+  launch_mma(attn_bwd_dkdv_mma_kernel<DKP>, dim3(cdiv(a.Lk, MK), H, B), MT, attn_bwd_smem<DKP>(), st, a, vec);
 }
 
 // The whole attention forward / backward of one block.

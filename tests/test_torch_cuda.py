@@ -71,6 +71,72 @@ def test_ff_tail_kernel_matches_plain(dev, dtype):
     assert (out.float() - ref.float()).abs().max().item() <= _tol(dtype, ref)
 
 
+# ---------------------------------------------------------------- projection
+# The projection of csrc/gemm_mma.cuh through its entry point (ops/gemm.py):
+# bf16 on the tensor cores, f32 on the FMA tiles. Ragged M (1, 154, 3600
+# against 128-row tiles), an odd N (the epilogue element by element, not
+# in pairs), K not a multiple of 8 (2-byte loads), each epilogue, and the
+# grouped form, also with an operand that starts 2 bytes past a 16-byte
+# boundary.
+
+GEMM_L = {1: 1, 154: 77, 3600: 450}  # M -> L, the rows of one FiLM row
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("epilogue", ["store", "store_f32", "bias", "bias_gelu", "bias_film"])
+@pytest.mark.parametrize("M", [1, 154, 3600])
+@pytest.mark.parametrize("N, K", [(48, 64), (49, 64), (64, 100)])
+def test_gemm_kernel_matches_plain(dev, dtype, epilogue, M, N, K):
+    from tcdiff_torch.ops import gemm as m
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    L = GEMM_L[M]
+    a, w = _rnd(g, dev, M, K).to(dtype), _rnd(g, dev, N, K, std=K**-0.5).to(dtype)
+    extra = (_rnd(g, dev, N, std=0.1), _rnd(g, dev, M, N).to(dtype), _rnd(g, dev, M // L, N, std=0.1),
+             _rnd(g, dev, M // L, N, std=0.1), L)
+    before = m.gemm.launches
+    out = m.gemm(a, w, epilogue, *extra)
+    ref = m.gemm_plain(a, w, epilogue, *extra)
+    assert m.gemm.launches == before + 1
+    assert out.dtype == ref.dtype and out.shape == (M, N)
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(dtype, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups", [1, 2, 3])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_grouped_gemm_kernel_matches_plain(dev, dtype, groups, offset):
+    from tcdiff_torch.ops import gemm as m
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    M, N, K = 154, 96, 64
+    buf = _rnd(g, dev, groups * M * K + offset).to(dtype)
+    a = [buf[offset + i * M * K: offset + (i + 1) * M * K].view(M, K) for i in range(groups)]
+    w = [_rnd(g, dev, N, K, std=K**-0.5).to(dtype) for _ in range(groups)]
+    before = m.gemm.launches
+    outs = m.gemm(a, w)
+    assert m.gemm.launches == before + 1 and len(outs) == groups
+    for out, ref in zip(outs, m.gemm_plain(a, w)):
+        assert out.dtype == dtype and out.shape == (M, N)
+        assert (out.float() - ref.float()).abs().max().item() <= _tol(dtype, ref)
+
+
+def test_gemm_refuses_what_it_does_not_take(dev):
+    from tcdiff_torch.ops import gemm as m
+
+    a, w = torch.zeros(8, 16, device=dev), torch.zeros(4, 16, device=dev)
+    with pytest.raises(ValueError):
+        m.gemm(a, w, "relu")
+    with pytest.raises(ValueError):  # more than three triples
+        m.gemm([a] * 4, [w] * 4)
+    with pytest.raises(ValueError):  # the group does not share K
+        m.gemm([a, a[:, :8].contiguous()], [w, w[:, :8].contiguous()])
+    with pytest.raises(ValueError):  # bias missing
+        m.gemm(a, w, "bias")
+    with pytest.raises(TypeError):
+        m.gemm(a.half(), w.half())
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
     x = torch.zeros(1, 8, 256, device=dev)
     w = torch.zeros(256, 256, device=dev)
