@@ -30,6 +30,13 @@ last line:
      then the train attention alone (K3's 450x450, K4's 450x152), bf16,
      forward + backward against the plain chain, its backward twice bit for
      bit, timed beside F.scaled_dot_product_attention (a yardstick only);
+     then K5's and K3's backward products alone at M = b L = 28800 through
+     ops/gemm.py, bf16: the input gradients dy4, dad, dy, dO, dr (the
+     joined form), dyv and the weight gradients dW3, dW2, dW1, dWfc, dWq,
+     dWk, dWv, each held against its plain version, its device time (the
+     ordered reduction included, and the reduction's own from
+     torch.profiler) and TFLOP/s beside its bound and torch.matmul's time
+     (a yardstick only); each weight gradient twice, bit for bit;
   7. serve 3 requests (batch 4 each: 3 dancers x 5 s of motion) through
      GaussianDiffusion.ddim_sample on a full-width bf16 DanceDecoder with
      seeded random weights, check the outputs and the kernels' launch
@@ -58,8 +65,9 @@ last line:
      full-width bf16 DanceDecoder at batch 64, dropout 0.1, on seeded
      synthetic motion and music; check a finite loss, finite parameters
      and the train kernels' launch counts (8 layers x 4 steps, forward and
-     backward); then two f32 steps at batch 4 through the kernels and two
-     through the plain versions on the same weights and draws: each step's
+     backward); profile one more step (no bf16 product may run on the FMA
+     body, gemm_kernel); then two f32 steps at batch 4 through the kernels
+     and two through the plain versions on the same weights and draws: each step's
      loss and gradients, and the parameters after the second Adan step;
  12. a line of JSON with every kernel's figures, the card's line, and the
      last line: {"ok": true, "device": {...}}.
@@ -87,6 +95,7 @@ from tcdiff_torch.ops import (
     ln_rotary_matmul, sa_block, sa_block_train,
 )
 from tcdiff_torch.ops.plain import plain_blocks
+from tcdiff_torch.ops.train_common import weight_splits
 from tcdiff_torch.optim.adan import Adan
 from tcdiff_torch.train.state import create_train_state
 from tcdiff_torch.train.train_step import make_train_step
@@ -206,31 +215,43 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if torch.is_tensor(t))
 
 
+def device_kernels(fn):
+    """Run fn() once under torch.profiler. Returns the wall seconds and the
+    device kernels it ran, [(name without arguments, start us, end us)] in
+    order of start. Now and then the profiler hands back no device events
+    (seen on the card); fn() then runs again, three times at most."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = sorted(((re.sub(r"\(.*\)$", "", e.name.replace("void ", "")).replace("__nv_bfloat16", "bf16"),
+                           e.time_range.start, e.time_range.end) for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and not getattr(e, "is_user_annotation", False) and "#" not in e.name),
+                         key=lambda k: k[1])
+        if kernels:
+            return wall, kernels
+    raise SmokeFailure("the profiler saw no device events")
+
+
 def device_profile(fn):
     """Run fn() once under torch.profiler. Returns the wall seconds, the
     device's busy seconds (the union of kernel intervals) and [(kernel
     name without arguments, ms, calls)], the most time first."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False) and "#" not in e.name]
-    check(bool(kernels), "the profiler saw no device events")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, (cur_s, cur_e) = 0.0, spans[0]
-    for s0, e0 in spans[1:]:
+    wall, kernels = device_kernels(fn)
+    busy, (_, cur_s, cur_e) = 0.0, kernels[0]
+    for _, s0, e0 in kernels[1:]:
         if s0 > cur_e:
             busy, cur_s, cur_e = busy + cur_e - cur_s, s0, e0
         else:
             cur_e = max(cur_e, e0)
     busy = (busy + cur_e - cur_s) / 1e6
     by = collections.defaultdict(lambda: [0.0, 0])
-    for e in kernels:
-        name = re.sub(r"\(.*\)$", "", e.name.replace("void ", "")).replace("__nv_bfloat16", "bf16")
-        by[name][0] += e.time_range.elapsed_us() / 1e3
+    for name, s0, e0 in kernels:
+        by[name][0] += (e0 - s0) / 1e3
         by[name][1] += 1
     return wall, busy, sorted(((k, ms, n) for k, (ms, n) in by.items()), key=lambda r: -r[1])
 
@@ -728,6 +749,84 @@ def compare_train_attention(gen: torch.Generator) -> dict:
     return figures
 
 
+def compare_backward_gemms(gen: torch.Generator) -> dict:
+    """Phase 6c: K5's and K3's backward products alone at the train shape
+    (M = b L = 28800 rows, d = hd = 512, ff = 1024), bf16, through
+    ops/gemm.py (the code K3-K5 run): each held against its plain version,
+    its device time (calls queued back to back; a weight gradient with its
+    ordered reduction, whose own device time comes from torch.profiler) and
+    TFLOP/s beside its bound and torch.matmul's time on the same operands
+    (a yardstick only); each weight gradient run twice, bit for bit.
+    Returns {kernel: {product: figures}}."""
+    dev, M = "cuda", TRAIN_BATCH * L
+    bf16 = torch.bfloat16
+    rnd = lambda *shape, std=1.0: (torch.randn(shape, generator=gen, device=dev) * std).to(bf16)
+    w = lambda o, i: rnd(o, i, std=i**-0.5)
+    g, dz, y4, y, dq, dk, dv, o, r = (rnd(M, D) for _ in range(9))
+    du, ad = rnd(M, FF), rnd(M, FF)
+    w1, w2, w3, wq, wk, wv, wfc = w(FF, D), w(D, FF), w(D, D), w(HD, D), w(HD, D), w(HD, D), w(D, HD)
+    f32, bf = 4, 2  # output bytes per element
+
+    def nn(a, b, epi, out_el):
+        """An input gradient a . b: (the port's call, its plain version,
+        (M, N, K), input bytes, output bytes, the library's call)."""
+        joined = isinstance(a, list)
+        a_cat, b_cat = (torch.cat(a, 1), torch.cat(b, 0)) if joined else (a, b)  # the library's operands
+        return (lambda: gemm.gemm_nn(a, b, epi), lambda: gemm.gemm_nn_plain(a, b, epi),
+                (M, b_cat.shape[1], a_cat.shape[1]), nbytes(*(a if joined else [a]), *(b if joined else [b])),
+                M * b_cat.shape[1] * out_el, lambda: torch.matmul(a_cat, b_cat))
+
+    def wg(a, x):
+        """A weight gradient a^T . x over the M rows, as nn gives its parts."""
+        return (lambda: gemm.wgrad(a, x), lambda: gemm.wgrad_plain(a, x), (a.shape[1], x.shape[1], M),
+                nbytes(a, x), a.shape[1] * x.shape[1] * bf, lambda: torch.matmul(a.t(), x))
+
+    cases = (
+        ("ff_tail_train", "dy4 = g.W3", nn(g, w3, "store_f32", f32)),
+        ("ff_tail_train", "dad = dz.W2", nn(dz, w2, "store_f32", f32)),
+        ("ff_tail_train", "dy = du.W1", nn(du, w1, "store_f32", f32)),
+        ("ff_tail_train", "dW3", wg(g, y4)),
+        ("ff_tail_train", "dW2", wg(dz, ad)),
+        ("ff_tail_train", "dW1", wg(du, y)),
+        ("sa_block_train", "dO = dz.Wfc", nn(dz, wfc, "store", bf)),
+        ("sa_block_train", "dr = dq.Wq + dk.Wk", nn([dq, dk], [wq, wk], "store_f32", f32)),
+        ("sa_block_train", "dyv = dv.Wv", nn(dv, wv, "store_f32", f32)),
+        ("sa_block_train", "dWfc", wg(dz, o)),
+        ("sa_block_train", "dWq", wg(dq, r)),
+        ("sa_block_train", "dWk", wg(dk, r)),
+        ("sa_block_train", "dWv", wg(dv, y)),
+    )
+    figures = collections.defaultdict(dict)
+    for kernel, label, (fn, plain, (m, n, k), in_bytes, out_bytes, library) in cases:
+        is_wgrad = label.startswith("dW")
+        out, ref = fn(), plain()
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = tolerance(bf16, ref.float())
+        check(torch.isfinite(out).all().item(), f"backward GEMM {label} output not finite")
+        check(err <= tol, f"backward GEMM {label} disagrees: {err} > {tol}")
+        check(not is_wgrad or torch.equal(out, fn()), f"backward GEMM {label}: two runs differ")
+        flops = 2 * m * n * k
+        ms, lib_ms = device_ms(fn), device_ms(library)
+        b = bound(flops, in_bytes + out_bytes)
+        chunks = f", {weight_splits(k, m, n)} row chunks and their ordered reduction" if is_wgrad else ""
+        print(f"backward GEMM {label} {m}x{n}x{k} bf16{chunks}: max_abs_err {err:.3e} (tol {tol:.3e}) kernel "
+              f"{1e3 * ms:.1f} us ({flops / ms / 1e9:.1f} TFLOP/s), bound {1e3 * b['bound_ms']:.1f} us "
+              f"({b['bound_by']}), torch.matmul {1e3 * lib_ms:.1f} us ({flops / lib_ms / 1e9:.1f} TFLOP/s)")
+        figures[kernel][label] = dict(shape=[m, n, k], max_abs_err=err, ms=ms, tflops=flops / ms / 1e9,
+                                      library_ms=lib_ms, **b)
+    # the reductions alone: one wgrad call each under the profiler, in order
+    wgrads = [(kernel, label, parts[0]) for kernel, label, parts in cases if label.startswith("dW")]
+    _, events = device_kernels(lambda: [fn() for _, _, fn in wgrads])
+    reds = [(end - start) / 1e3 for name, start, end in events if "reduce_kernel" in name]
+    check(len(reds) == len(wgrads), f"expected {len(wgrads)} reductions in the profile, saw {len(reds)}")
+    for (kernel, label, _), red_ms in zip(wgrads, reds):
+        figures[kernel][label]["reduce_ms"] = red_ms
+    print("the ordered reductions alone (torch.profiler, one call each): "
+          + ", ".join(f"{label} {1e3 * red_ms:.1f} us" for (_, label, _), red_ms in zip(wgrads, reds)))
+    return figures
+
+
 def check_output(out: torch.Tensor, x_0: torch.Tensor, shape) -> None:
     check(tuple(out.shape) == tuple(shape), f"output shape {tuple(out.shape)} != {shape}")
     check(torch.isfinite(out).all().item(), "output not finite")
@@ -1000,6 +1099,10 @@ def train(card: str) -> dict:
     check(all(torch.isfinite(p).all().item() for p in model.parameters()), "parameters not finite")
     for name, (fwd, bwd) in launches.items():
         check(fwd == want and bwd == want, f"{name} launched ({fwd}, {bwd}) times, expected {want}")
+    table = print_profile(f"one batch-{TRAIN_BATCH} bf16 train step", lambda: step(state, x, cond, gen))
+    fma = [name for name, _, _ in table if "gemm_kernel<bf16" in name]
+    check(not fma, f"bf16 products ran on the FMA body in a train step: {fma}")
+    print("train step profile: every bf16 product on the tensor cores (no gemm_kernel<bf16>)")
     del model, state, step
     torch.cuda.empty_cache()
 
@@ -1088,6 +1191,8 @@ def main() -> int:
         figures.update(compare_train_kernels(gen))
         for name, extra in compare_train_attention(gen).items():
             figures[name].update(extra)
+        for name, products in compare_backward_gemms(gen).items():
+            figures[name]["bwd_products"] = products
         launches = serve(gen)
         t0 = time.perf_counter()
         launches.update(serve_per_op(gen))

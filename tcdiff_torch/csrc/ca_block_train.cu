@@ -40,7 +40,7 @@ struct CaTrainArgs {
   const void* g;
   void *dz, *dO, *dq, *dk, *dv, *dx, *dmem, *dwq, *dwk, *dwv, *dwfc;
   float *dr, *drm, *dvm, *part, *wpart, *Dsum, *vec;
-  int B, L, Lm, d, hd, nhead, nsplit, drop_on;
+  int B, L, Lm, d, hd, nhead, wcap, drop_on;
   float eps1, eps2, dscale;
   uint32_t thresh;
 };
@@ -79,20 +79,20 @@ int ca_bwd(const CaTrainArgs& a, cudaStream_t st) {
   chain_top_bwd_kernel<T><<<dim3(nch, a.B), RT, 0, st>>>(g, a.z, a.ss, a.sb, a.fs, a.eps2, a.L, d,
                                                          dr, dz, a.part, a.part + P,
                                                          a.part + 2 * P, a.part + 3 * P);
-  wgrad<T>(dz, o, M, d, hd, a.wpart, a.nsplit, (T*)a.dwfc, st);
-  gemm_t<T, false, false, EPI_STORE>(dz, wfc, M, hd, d, epi(dO), st);
+  wgrad<T>(dz, o, M, d, hd, a.wpart, a.wcap, (T*)a.dwfc, st);
+  gemm_nn<T, EPI_STORE>(dz, wfc, dO, M, hd, d, st);
   attention_bwd<T>(q, k, v, o, dO, a.lse, a.B, a.nhead, a.L, a.Lm, hd, dr, a.Dsum, dq, dk, dv, st);
-  wgrad<T>(dq, r, M, hd, d, a.wpart, a.nsplit, (T*)a.dwq, st);
-  wgrad<T>(dk, rm, Mm, hd, d, a.wpart, a.nsplit, (T*)a.dwk, st);
-  wgrad<T>(dv, mem, Mm, hd, d, a.wpart, a.nsplit, (T*)a.dwv, st);
+  wgrad<T>(dq, r, M, hd, d, a.wpart, a.wcap, (T*)a.dwq, st);
+  wgrad<T>(dk, rm, Mm, hd, d, a.wpart, a.wcap, (T*)a.dwk, st);
+  wgrad<T>(dv, mem, Mm, hd, d, a.wpart, a.wcap, (T*)a.dwv, st);
   // x side: dx = g + LN2_bwd(rot_x^T(dq.Wq)): partials 4 sx, 5 bx
-  gemm_t<T, false, false, EPI_STORE_F32>(dq, wq, M, d, hd, epi(a.dr), st);
+  gemm_nn<T, EPI_STORE_F32>(dq, wq, a.dr, M, d, hd, st);
   rows_bwd_kernel<T><<<dim3(nch, a.B), RT, 0, st>>>(a.dr, (const T*)a.cosx, (const T*)a.ssinx,
                                                     nullptr, x, a.sx, a.eps1, g, nullptr, a.L, d,
                                                     (T*)a.dx, a.part + 4 * P, a.part + 5 * P);
   // memory side: dmem = rot_m^T(dk.Wk) + dv.Wv
-  gemm_t<T, false, false, EPI_STORE_F32>(dk, wk, Mm, d, hd, epi(a.drm), st);
-  gemm_t<T, false, false, EPI_STORE_F32>(dv, wv, Mm, d, hd, epi(a.dvm), st);
+  gemm_nn<T, EPI_STORE_F32>(dk, wk, a.drm, Mm, d, hd, st);
+  gemm_nn<T, EPI_STORE_F32>(dv, wv, a.dvm, Mm, d, hd, st);
   rows_bwd_kernel<T><<<dim3(cdiv(a.Lm, RCH), a.B), RT, 0, st>>>(
       a.drm, (const T*)a.cosm, (const T*)a.ssinm, a.dvm, nullptr, nullptr, 0.f, nullptr, nullptr,
       a.Lm, d, (T*)a.dmem, nullptr, nullptr);

@@ -162,9 +162,10 @@ __global__ void rot_rows_kernel(const T* __restrict__ in, const T* __restrict__ 
 // (K, N)); both row-major. The projections are TB (a weight in nn.Linear
 // layout), the input gradients plain, the weight gradients TA with the
 // rows as K, split over blockIdx.z into chunks of `kchunk` (EPI_PARTIAL).
-// This body serves f32 and the backward's layouts; the forward projections
-// enter through gemm<T, EPI> (gemm_mma.cuh), which takes bf16 to the
-// tensor cores.
+// This body serves f32 only: every bf16 product, in each of the three
+// layouts, runs on the tensor cores (gemm_mma.cuh: gemm<T, EPI>,
+// gemm_group, gemm_nn, wgrad), and a bf16 instance of gemm_kernel does not
+// compile.
 enum Epi {
   EPI_STORE = 0,       // C(T)   = acc
   EPI_STORE_F32 = 1,   // C(f32) = acc
@@ -274,6 +275,8 @@ template <typename T, bool TA, bool TB, int EPI>
 __global__ void __launch_bounds__(256)
 gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, int M, int N, int K, int kchunk,
             EpiArgs ep) {
+  static_assert(std::is_same<T, float>::value,
+                "bf16 products run on the tensor cores (gemm_mma.cuh), never on the FMA body");
   __shared__ float As[GBK][GBM + 4];
   __shared__ float Bs[GBK][GBN + 4];
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -329,13 +332,12 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, int M, int N, int 
   }
 }
 
-// The FMA body. A bf16 product in the projections' layout (not TA, TB)
-// runs on the tensor cores instead: gemm<T, EPI> of gemm_mma.cuh.
+// The FMA body, f32 only; gemm_mma.cuh dispatches to it by dtype.
 template <typename T, bool TA, bool TB, int EPI>
 inline void gemm_t(const T* A, const T* B, int M, int N, int K, EpiArgs ep, cudaStream_t st,
                    int kchunk = 0) {
-  static_assert(!(std::is_same<T, __nv_bfloat16>::value && !TA && TB),
-                "bf16 forward projections run on the tensor cores: gemm<T, EPI> of gemm_mma.cuh");
+  static_assert(std::is_same<T, float>::value,
+                "bf16 products run on the tensor cores: gemm, gemm_group, gemm_nn or wgrad of gemm_mma.cuh");
   if (kchunk <= 0) kchunk = K;
   gemm_kernel<T, TA, TB, EPI><<<dim3(cdiv(N, GBN), cdiv(M, GBM), cdiv(K, kchunk)), 256, 0, st>>>(
       A, B, M, N, K, kchunk, ep);

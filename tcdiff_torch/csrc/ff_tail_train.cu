@@ -18,7 +18,9 @@
 // Design: the forward is K2's five launches with the dropout folded into
 // the GEMM epilogues; it saves y, ad, LN4's output (T) and u, zd, x2 (f32)
 // for the backward, which is GEMMs for the input gradients, split-row
-// GEMMs plus an ordered reduction for the weight gradients, and three row
+// GEMMs plus an ordered reduction for the weight gradients (one wave of
+// row chunks; in bf16 all six products on the tensor cores, gemm_mma.cuh:
+// gemm_nn and wgrad), and three row
 // kernels (LN4 + FiLM + dropout backward, dropout + GELU backward, LN3
 // backward with the residual), each writing per-block partial sums of its
 // bias / affine / FiLM gradients. The TPU kernel's row blocking and
@@ -53,7 +55,7 @@ struct FfTrainArgs {
   float* dy;
   void *dx, *dw1, *dw2, *dw3;
   float *part, *part_ff, *wpart, *vec, *vec_ff;
-  int B, L, d, ff, nsplit, drop_on;
+  int B, L, d, ff, wcap, drop_on;
   float eps, dscale;
   uint32_t thresh;
 };
@@ -189,15 +191,15 @@ int ff_bwd(const FfTrainArgs& a, cudaStream_t st) {
   T *dz = (T*)a.dz, *du = (T*)a.du;
   const dim3 rows(nch, a.B);
 
-  wgrad<T>(g, (const T*)a.y4, M, d, d, a.wpart, a.nsplit, (T*)a.dw3, st);
-  gemm_t<T, false, false, EPI_STORE_F32>(g, w3, M, d, d, epi(a.dy4), st);  // dy4 = g . W3
+  wgrad<T>(g, (const T*)a.y4, M, d, d, a.wpart, a.wcap, (T*)a.dw3, st);
+  gemm_nn<T, EPI_STORE_F32>(g, w3, a.dy4, M, d, d, st);  // dy4 = g . W3
   ff_tail_bwd_rows_kernel<T><<<rows, RT, 0, st>>>(g, a.dy4, a.x2, a.zd, a.s4, a.fs, a.eps, a.L, d,
                                                   dr, a.dx2, dz, a.part, P);
-  wgrad<T>(dz, (const T*)a.ad, M, d, ff, a.wpart, a.nsplit, (T*)a.dw2, st);
-  gemm_t<T, false, false, EPI_STORE_F32>(dz, w2, M, ff, d, epi(a.dad), st);  // dad = dz . W2
+  wgrad<T>(dz, (const T*)a.ad, M, d, ff, a.wpart, a.wcap, (T*)a.dw2, st);
+  gemm_nn<T, EPI_STORE_F32>(dz, w2, a.dad, M, ff, d, st);  // dad = dz . W2
   gelu_bwd_rows_kernel<T><<<rows, RT, 0, st>>>(a.dad, a.u, a.L, ff, dr, du, a.part_ff);
-  wgrad<T>(du, (const T*)a.y, M, ff, d, a.wpart, a.nsplit, (T*)a.dw1, st);
-  gemm_t<T, false, false, EPI_STORE_F32>(du, w1, M, d, ff, epi(a.dy), st);  // dy = du . W1
+  wgrad<T>(du, (const T*)a.y, M, ff, d, a.wpart, a.wcap, (T*)a.dw1, st);
+  gemm_nn<T, EPI_STORE_F32>(du, w1, a.dy, M, d, ff, st);  // dy = du . W1
   // dx = dx2 + LN3_bwd(dy): partials 6 s3, 7 b3
   rows_bwd_kernel<T><<<rows, RT, 0, st>>>(a.dy, nullptr, nullptr, nullptr, x, a.s3, a.eps, nullptr,
                                           a.dx2, a.L, d, (T*)a.dx, a.part + 6 * P, a.part + 7 * P);

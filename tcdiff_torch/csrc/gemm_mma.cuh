@@ -1,24 +1,31 @@
-// The forward projections C[M, N] = A[M, K] . W[N, K]^T (W in nn.Linear
-// layout) with the epilogues of common.cuh: bf16 on the tensor cores,
-// f32 on the FMA body of common.cuh (the tensor cores take f32 only as
-// TF32, which would break the f32 agreement with the plain versions).
+// The bf16 products of every kernel on the tensor cores, in the three
+// layouts of a linear layer y = x . W^T (W in nn.Linear layout (N, K)),
+// with the epilogues of common.cuh; f32 runs the FMA body of common.cuh
+// (the tensor cores take f32 only as TF32, which would break the f32
+// agreement with the plain versions):
+//   forward          C[M, N] = A[M, K] . W[N, K]^T      gemm, gemm_group
+//   input gradient   C[M, N] = A[M, K] . B[K, N]        gemm_nn
+//   weight gradient  dW[N, K] = sum_r G[r, n] . X[r, k]  wgrad
 //
-// Replaces the FMA tiles of gemm_kernel in every bf16 forward projection:
-// inside K1 (tcdiff_tpu/ops/fused_sa_block.py::fused_sa_block: q, k, v and
-// fc) and K2 (tcdiff_tpu/ops/fused_ff_block.py::fused_ff_tail: W1, W2, W3),
-// and so also in K2b, K6, K7, K8, K9 and the forward of K3-K5, whose TPU
-// kernels run these products on the MXU.
+// Replaces the FMA tiles of gemm_kernel in every bf16 product: the forward
+// projections inside K1 (tcdiff_tpu/ops/fused_sa_block.py::fused_sa_block:
+// q, k, v and fc) and K2 (tcdiff_tpu/ops/fused_ff_block.py::fused_ff_tail:
+// W1, W2, W3), and so also in K2b, K6, K7, K8, K9 and the forward of
+// K3-K5; and the backward's products of K5
+// (tcdiff_tpu/ops/fused_ff_block_train.py::_ff_train_bwd_kernel: dy4, dad,
+// dy and dW3, dW2, dW1) and K3 (fused_sa_block_train.py: dO, dr, dyv and
+// dWfc, dWq, dWk, dWv), and so of K4. The TPU kernels run all of them on
+// the MXU, bf16 operands with f32 sums (preferred_element_type=f32).
 //
 // What bounds it on the H100: one 3600 x 512 x 512 product is 1.9 GFLOP
 // against ~3.7 MB of operands and output in bf16, 1.9 us at the 989
 // TFLOP/s bf16 peak against 1.1 us of HBM traffic: operations, and so the
-// tensor cores (the FMA tiles reached ~24 TFLOP/s).
+// tensor cores (the FMA tiles reached ~24 TFLOP/s). The train shapes (M =
+// b L = 28800) are 8x larger, further on the side of operations.
 //
 // Design: mma.sync.m16n8k16 (bf16 operands, f32 sums) with the building
 // blocks of mma.cuh that the attention proved on this card. wgmma with TMA
-// is the way to the full rate; these products are small (<= 3.8 GFLOP, a
-// few waves of tiles) and the serving path around them is host-bound, so
-// the simpler mma.sync body comes first.
+// is the way to the full rate; the simpler mma.sync body comes first.
 // - A block of 8 warps owns a 128 x 128 tile of C, each warp 64 x 32 of
 //   it: 16 mma per 6 ldmatrix.x4 per k16 step, 64 f32 sums a thread. The
 //   tile was chosen by measurement (tools/torch_gemm_tiles.py): the
@@ -31,26 +38,50 @@
 //   M = 28800) is not measured: no profiler of the SM's pipes runs on the
 //   card here.
 // - K in steps of 64 through a ring of 3 stages in dynamic shared memory
-//   (108 KB, 2 blocks an SM), filled by 16-byte cp.async: two tiles are in
-//   flight while one is multiplied, and a step of 64 halves the barriers
-//   of a step of 32. Both operands stay bf16; rows are padded by 8
-//   elements (144 bytes), so the 8 rows an ldmatrix reads fall in 8
-//   different bank quads.
-// - W stored (N, K) is already the mma's "col" operand: its tiles load
-//   n-major like A's and feed frag_b with no transpose.
-// - Ragged edges: rows past M or N and columns past K are zero-filled
-//   copies (src_bytes = 0); where K % 8 != 0 or an operand is not 16-byte
-//   aligned, the tiles are filled by 2-byte loads (load_tile of mma.cuh).
+//   (102-108 KB, 2 blocks an SM), filled by 16-byte cp.async: two tiles
+//   are in flight while one is multiplied, and a step of 64 halves the
+//   barriers of a step of 32. Both operands stay bf16; rows are padded by
+//   8 elements, so the 8 rows an ldmatrix reads fall in 8 different bank
+//   quads.
+// - One body for the three layouts. Each operand's tile is stored as the
+//   operand lies in memory: "m-major" (rows along M or N, K contiguous:
+//   the forward's A and W, the input gradient's A) or "k-major" (rows
+//   along K: the input gradient's B = W read as (K, N), both operands of
+//   the weight gradient, whose K is the b L rows). An m-major tile gives
+//   its fragments through ldmatrix, a k-major one through ldmatrix.trans
+//   (as the attention's p.v reads V), so no operand is transposed in
+//   memory. W stored (N, K) is already the forward's "col" operand.
+// - Ragged edges: rows past M, N or K and columns past them are
+//   zero-filled copies (src_bytes = 0); where a row of an operand is not a
+//   multiple of 8 elements or an operand is not 16-byte aligned, the tiles
+//   are filled by 2-byte loads (load_tile of mma.cuh).
 // - The epilogue runs on the C fragments in registers (rows g and g+8,
 //   columns 2t and 2t+1 of each 16 x 8 tile) through epi_math of
 //   common.cuh, so every rounding point is the FMA body's; a 16-row slice
 //   at a time, its loads (bias, FiLM rows, residual) before its stores,
 //   and the two columns of a thread loaded and stored together.
-// - Grouped form: up to 3 (A, W, C) triples that share M, N, K and the
-//   epilogue's other arguments run in one launch whose grid covers the
-//   joined N, each block picking its triple from blockIdx.x (K1's q, k and
-//   v: 3 x 4 x 29 = 348 blocks instead of three launches of 116).
+// - Grouped form (forward): up to 3 (A, W, C) triples that share M, N, K
+//   and the epilogue's other arguments run in one launch whose grid covers
+//   the joined N, each block picking its triple from blockIdx.x (K1's q, k
+//   and v: 3 x 4 x 29 = 348 blocks instead of three launches of 116).
+// - Joined form (input gradient): C = A0 . B0 + A1 . B1 in one launch,
+//   the K loop running over both pairs into the same f32 sums (K3's
+//   dr = dq . Wq + dk . Wk). This was chosen over a second launch that
+//   adds into C: it saves an f32 (M, N) read and write (59 MB at M =
+//   28800, N = 512), and the sum keeps one rounding, at the end.
+// - Weight gradient: the b L rows are the K of the product, cut into
+//   `splits` chunks (blockIdx.z) whose f32 partials (EPI_PARTIAL) a second
+//   pass adds in chunk order, so a run repeats bit for bit (no atomics, no
+//   sum across blocks in flight). The split count is chosen for one wave
+//   of 2 blocks an SM: tiles x splits ~ WGRAD_BLOCKS = 264 (wgrad_splits);
+//   at 512 x 512 that is 16 tiles x 16 chunks of 1800 rows at M = 28800,
+//   where one split per 512 rows made 56 and wrote and read 56 MB of
+//   partials per gradient. Measured (tools/torch_gemm_tiles.py, M =
+//   28800): 512 x 512 in 67.6 us with 16 chunks, 79.0 with 8 (one block an
+//   SM), 97.2 with 56; 1024 x 512 in 119 us with 8 chunks, 146 with 4.
 #pragma once
+
+#include <algorithm>
 
 #include "mma.cuh"
 
@@ -60,15 +91,34 @@ constexpr int PBM = 128, PBN = 128, PBK = 64;  // block tile and K step
 constexpr int PWN = 4;                         // warps along N (2 along M): 64 x 32 each
 constexpr int PT = 32 * 2 * PWN;               // threads of a block
 constexpr int PSTAGES = 3;                     // cp.async ring depth
-constexpr int PLD = PBK + 8;                   // shared row stride, elements
 constexpr int PGROUP = 3;                      // most triples of one launch
-constexpr int PROJ_SMEM = PSTAGES * (PBM + PBN) * PLD * (int)sizeof(bf16);
+constexpr int WGRAD_BLOCKS = 264;              // blocks of a weight gradient: one wave, 2 an SM of the H100
 
+// Elements of an operand's shared tile: ROWS (M or N) rows of the K step
+// (m-major) or PBK rows of ROWS (k-major), each padded by 8.
+template <bool KMAJOR, int ROWS>
+__host__ __device__ constexpr int tile_elems() {
+  return KMAJOR ? PBK * (ROWS + 8) : ROWS * (PBK + 8);
+}
+template <bool KA, bool KB>
+__host__ __device__ constexpr int mma_smem() {
+  return PSTAGES * (tile_elems<KA, PBM>() + tile_elems<KB, PBN>()) * (int)sizeof(bf16);
+}
+
+// Up to PGROUP operand pairs and outputs: a grouped launch's triples, or
+// the joined pairs of one output.
 struct ProjGroup {
   const bf16* a[PGROUP];
   const bf16* w[PGROUP];
   void* c[PGROUP];
 };
+
+// p[i] for a runtime i < PGROUP, without indexing the kernel's parameters
+// (which would copy them to local memory).
+template <typename P>
+__device__ __forceinline__ P pick(const P (&p)[PGROUP], int i) {
+  return i == 0 ? p[0] : i == 1 ? p[1] : p[2];
+}
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
@@ -99,36 +149,56 @@ __device__ __forceinline__ void epi_load2(const EpiArgs& ep, int N, int m, int n
   }
 }
 
-// epi_store of elements o and o + 1 of one row, o even and every output
-// 8-byte aligned: the same roundings, one store per output.
+// epi_store of elements o and o + 1 of one output, o even and every output
+// 8-byte aligned: the same roundings, one store per output (EPI_ACC_F32:
+// one pair load and one pair store).
 template <int EPI>
 __device__ __forceinline__ void epi_store2(const EpiArgs& ep, size_t o, EpiVal r0, EpiVal r1) {
   if ((EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_FILM) && ep.c2) store2(ep.c2 + o, r0.c2, r1.c2);
-  store2(static_cast<EpiOut<bf16, EPI>*>(ep.c) + o, r0.c, r1.c);
+  EpiOut<bf16, EPI>* c = static_cast<EpiOut<bf16, EPI>*>(ep.c) + o;
+  if constexpr (EPI == EPI_ACC_F32) {
+    const float2 v = *reinterpret_cast<const float2*>(c);
+    store2(c, v.x + r0.c, v.y + r1.c);
+  } else {
+    store2(c, r0.c, r1.c);
+  }
 }
 
-// Grid (G * ntn, cdiv(M, PBM)): block x of triple x / ntn, columns
-// (x % ntn) * PBN onwards; ep.c is replaced by the triple's C.
-template <int EPI>
+// C[M, N] = sum over the K chunk of A . B, tiles of PBM x PBN, grid
+// (G * ntn, cdiv(M, PBM), splits). KA: A is stored (K, M), else (M, K);
+// KB: B is stored (K, N), else (N, K); both row-major. Block x belongs to
+// triple g = x / ntn, columns (x % ntn) * PBN onwards, and writes p.c[g];
+// with join > 1 (and G = 1) the K loop runs over the pairs 0 .. join-1 in
+// turn. Block z sums K rows [z kchunk, (z + 1) kchunk) (EPI_PARTIAL writes
+// slice z of C). vec: every operand row can be copied in 16-byte pieces.
+template <int EPI, bool KA, bool KB>
 __global__ void __launch_bounds__(PT, 2)
-gemm_mma_kernel(ProjGroup p, EpiArgs ep, int M, int N, int K, int ntn, bool vec) {
+gemm_mma_kernel(ProjGroup p, EpiArgs ep, int M, int N, int K, int ntn, int kchunk, int join, bool vec) {
+  constexpr int A_ELEMS = tile_elems<KA, PBM>(), STAGE = A_ELEMS + tile_elems<KB, PBN>();
+  constexpr int LDA = KA ? PBM + 8 : PBK + 8, LDB = KB ? PBN + 8 : PBK + 8;
   extern __shared__ __align__(16) unsigned char tcd_smem[];
   bf16* sm = reinterpret_cast<bf16*>(tcd_smem);
   const int g = blockIdx.x / ntn, n0 = (blockIdx.x % ntn) * PBN, m0 = blockIdx.y * PBM;
-  const bf16* A = g == 0 ? p.a[0] : g == 1 ? p.a[1] : p.a[2];
-  const bf16* W = g == 0 ? p.w[0] : g == 1 ? p.w[1] : p.w[2];
-  ep.c = g == 0 ? p.c[0] : g == 1 ? p.c[1] : p.c[2];
+  const int kb = blockIdx.z * kchunk, ke = min(K, kb + kchunk);
+  ep.c = pick(p.c, g);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = (warp / PWN) * 64, wn = (warp % PWN) * 32;
   const FragOff f = frag_off(lane);
-  const int nk = (K + PBK - 1) / PBK;
+  const int nk = (ke - kb + PBK - 1) / PBK, steps = join * nk;
 
-  // K step kt into ring slot kt % PSTAGES: A's rows, then W's
+  // K step kt into ring slot kt % PSTAGES: A's tile, then B's
   auto load = [&](int kt) {
-    bf16* s = sm + (kt % PSTAGES) * (PBM + PBN) * PLD;
-    const int k0 = kt * PBK;
-    load_tile<PBM, PBK, PT>(s, A + k0, K, m0, M, K - k0, vec);
-    load_tile<PBN, PBK, PT>(s + PBM * PLD, W + k0, K, n0, N, K - k0, vec);
+    bf16* s = sm + (kt % PSTAGES) * STAGE;
+    const int j = join > 1 ? kt / nk : g, k0 = kb + (kt - (join > 1 ? j : 0) * nk) * PBK;
+    const bf16 *A = pick(p.a, j), *B = pick(p.w, j);
+    if constexpr (KA)
+      load_tile<PBK, PBM, PT>(s, A + m0, M, k0, ke, M - m0, vec);
+    else
+      load_tile<PBM, PBK, PT>(s, A + k0, K, m0, M, ke - k0, vec);
+    if constexpr (KB)
+      load_tile<PBK, PBN, PT>(s + A_ELEMS, B + n0, N, k0, ke, N - n0, vec);
+    else
+      load_tile<PBN, PBK, PT>(s + A_ELEMS, B + k0, K, n0, N, ke - k0, vec);
   };
 
   float acc[4][4][4];
@@ -141,23 +211,33 @@ gemm_mma_kernel(ProjGroup p, EpiArgs ep, int M, int N, int K, int ntn, bool vec)
 
 #pragma unroll
   for (int s = 0; s < PSTAGES - 1; ++s) {
-    if (s < nk) load(s);
+    if (s < steps) load(s);
     cp_async_commit();  // one group per step, empty or not, so the wait counts steps
   }
-  for (int kt = 0; kt < nk; ++kt) {
+  for (int kt = 0; kt < steps; ++kt) {
     cp_async_wait<PSTAGES - 2>();  // step kt has landed
     __syncthreads();               // ... for every thread, and slot (kt - 1) % PSTAGES is free
-    if (kt + PSTAGES - 1 < nk) load(kt + PSTAGES - 1);
+    if (kt + PSTAGES - 1 < steps) load(kt + PSTAGES - 1);
     cp_async_commit();
-    const bf16* As = sm + (kt % PSTAGES) * (PBM + PBN) * PLD;
-    const bf16* Ws = As + PBM * PLD;
+    const bf16* As = sm + (kt % PSTAGES) * STAGE;
+    const bf16* Bs = As + A_ELEMS;
 #pragma unroll
     for (int kk = 0; kk < PBK; kk += 16) {
       uint32_t af[4][4], bw[2][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) ldsm_x4(af[i], As + (wm + 16 * i + f.ra) * PLD + kk + f.ca);
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (KA)  // k-major: the A fragment's four 8 x 8 pieces, transposed
+          ldsm_x4_t(af[i], As + (kk + f.rb) * LDA + wm + 16 * i + f.cb);
+        else
+          ldsm_x4(af[i], As + (wm + 16 * i + f.ra) * LDA + kk + f.ca);
+      }
 #pragma unroll
-      for (int j = 0; j < 2; ++j) ldsm_x4(bw[j], Ws + (wn + 16 * j + f.rb) * PLD + kk + f.cb);
+      for (int j = 0; j < 2; ++j) {
+        if constexpr (KB)  // k-major: the B fragments of two n-tiles, transposed
+          ldsm_x4_t(bw[j], Bs + (kk + f.ra) * LDB + wn + 16 * j + f.ca);
+        else
+          ldsm_x4(bw[j], Bs + (wn + 16 * j + f.rb) * LDB + kk + f.cb);
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -174,6 +254,7 @@ gemm_mma_kernel(ProjGroup p, EpiArgs ep, int M, int N, int K, int ntn, bool vec)
   // columns 2t and 2t+1 of a row load and store as pairs, and the bias
   // pairs load once; else element by element.
   const int gr = lane >> 2, t = lane & 3;
+  const size_t zo = EPI == EPI_PARTIAL ? (size_t)blockIdx.z * M * N : 0;  // this chunk's slice
   auto al = [](const void* q, int b) { return reinterpret_cast<uintptr_t>(q) % b == 0; };
   const bool pairs = N % 2 == 0 && al(ep.c, 8) && al(ep.c2, 8) && al(ep.bias, 8) && al(ep.fs, 8) &&
                      al(ep.fb, 8) && al(ep.resid, 4);
@@ -211,13 +292,28 @@ gemm_mma_kernel(ProjGroup p, EpiArgs ep, int M, int N, int K, int ntn, bool vec)
         const int m = m0 + wm + 16 * i + gr + 8 * h, n = n0 + wn + 8 * j + 2 * t;
         if (m >= M || n >= N) continue;
         if (pairs) {
-          epi_store2<EPI>(ep, (size_t)m * N + n, r[j][2 * h], r[j][2 * h + 1]);
+          epi_store2<EPI>(ep, zo + (size_t)m * N + n, r[j][2 * h], r[j][2 * h + 1]);
         } else {
-          epi_store<bf16, EPI>(ep, M, N, m, n, 0, r[j][2 * h]);
-          if (n + 1 < N) epi_store<bf16, EPI>(ep, M, N, m, n + 1, 0, r[j][2 * h + 1]);
+          epi_store<bf16, EPI>(ep, M, N, m, n, blockIdx.z, r[j][2 * h]);
+          if (n + 1 < N) epi_store<bf16, EPI>(ep, M, N, m, n + 1, blockIdx.z, r[j][2 * h + 1]);
         }
       }
   }
+}
+
+// Whether a pointer is 16-byte aligned.
+inline bool al16(const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; }
+
+// One launch of the tensor-core body: G triples (or one output over `join`
+// pairs) of the layout <KA, KB>, `splits` chunks of `kchunk` along K.
+template <int EPI, bool KA, bool KB>
+inline void launch_gemm_mma(const ProjGroup& p, int G, int join, EpiArgs ep, int M, int N, int K, int kchunk,
+                            int splits, cudaStream_t st) {
+  bool vec = (KA ? M : K) % 8 == 0 && (KB ? N : K) % 8 == 0;
+  for (int i = 0; i < std::max(G, join); ++i) vec = vec && al16(p.a[i]) && al16(p.w[i]);
+  const int ntn = cdiv(N, PBN);
+  launch_mma(gemm_mma_kernel<EPI, KA, KB>, dim3(G * ntn, cdiv(M, PBM), splits), PT, mma_smem<KA, KB>(), st,
+             p, ep, M, N, K, ntn, kchunk, join, vec);
 }
 
 // C[g] = A[g] . W[g]^T for g < G (<= PGROUP), one launch in bf16 (the
@@ -225,19 +321,15 @@ gemm_mma_kernel(ProjGroup p, EpiArgs ep, int M, int N, int K, int ntn, bool vec)
 template <typename T, int EPI>
 inline void gemm_group(int G, const T* const* A, const T* const* W, void* const* C, int M, int N, int K,
                        EpiArgs ep, cudaStream_t st) {
-  static_assert(EPI != EPI_PARTIAL && EPI != EPI_ACC_F32,
-                "the backward's epilogues run on the FMA body (gemm_t)");
+  static_assert(EPI != EPI_PARTIAL && EPI != EPI_ACC_F32, "the backward's epilogues: gemm_nn and wgrad");
   if constexpr (std::is_same<T, bf16>::value) {
     ProjGroup p{};
-    bool vec = K % 8 == 0;
     for (int g = 0; g < G; ++g) {
       p.a[g] = A[g];
       p.w[g] = W[g];
       p.c[g] = C[g];
-      vec = vec && reinterpret_cast<uintptr_t>(A[g]) % 16 == 0 && reinterpret_cast<uintptr_t>(W[g]) % 16 == 0;
     }
-    const int ntn = cdiv(N, PBN);
-    launch_mma(gemm_mma_kernel<EPI>, dim3(G * ntn, cdiv(M, PBM)), PT, PROJ_SMEM, st, p, ep, M, N, K, ntn, vec);
+    launch_gemm_mma<EPI, false, false>(p, G, 1, ep, M, N, K, K, 1, st);
   } else {
     for (int g = 0; g < G; ++g) {
       ep.c = C[g];
@@ -250,6 +342,111 @@ inline void gemm_group(int G, const T* const* A, const T* const* W, void* const*
 template <typename T, int EPI>
 inline void gemm(const T* A, const T* W, int M, int N, int K, EpiArgs ep, cudaStream_t st) {
   gemm_group<T, EPI>(1, &A, &W, &ep.c, M, N, K, ep, st);
+}
+
+// C[M, N] = sum_{j < J} A[j] . B[j], A[j] (M, K) and B[j] (K, N) row-major
+// (B a weight in nn.Linear layout: the input gradient of y = x B^T), J <=
+// 2, with EPI_STORE, EPI_STORE_F32 or EPI_ACC_F32 (C += the sum). bf16:
+// one launch, the K loop over the J pairs (the joined form); f32: one FMA
+// launch per pair, the later ones adding into C (so J > 1 needs an f32 C).
+template <typename T, int EPI>
+inline void gemm_nn(int J, const T* const* A, const T* const* B, void* C, int M, int N, int K, cudaStream_t st) {
+  static_assert(EPI == EPI_STORE || EPI == EPI_STORE_F32 || EPI == EPI_ACC_F32,
+                "the input gradient stores or adds its product");
+  if constexpr (std::is_same<T, bf16>::value) {
+    ProjGroup p{};
+    for (int j = 0; j < J; ++j) {
+      p.a[j] = A[j];
+      p.w[j] = B[j];
+    }
+    p.c[0] = C;
+    launch_gemm_mma<EPI, false, true>(p, 1, J, epi(C), M, N, K, K, 1, st);
+  } else {
+    gemm_t<T, false, false, EPI>(A[0], B[0], M, N, K, epi(C), st);
+    for (int j = 1; j < J; ++j) gemm_t<T, false, false, EPI_ACC_F32>(A[j], B[j], M, N, K, epi(C), st);
+  }
+}
+template <typename T, int EPI>
+inline void gemm_nn(const T* A, const T* B, void* C, int M, int N, int K, cudaStream_t st) {
+  gemm_nn<T, EPI>(1, &A, &B, C, M, N, K, st);
+}
+
+// out[g * cols + j] = sum_{i < n} part[(g * n + i) * cols + j] in f32, in a
+// fixed order. A block of C columns x W row walkers (blockDim (C, W), C W
+// >= 256): walker w adds rows w, w + W, w + 2W, ... into four running sums
+// in turn (four loads in flight), the sums are added as (s0 + s1) + (s2 +
+// s3), and then the W walkers' sums in order of w. W depends on n alone,
+// so a run repeats bit for bit. With one walker per column each load
+// waits on the last: the train step's reductions of b L / 16 row-chunk
+// partials (2 blocks of 512 columns each) took 11 ms a step so.
+template <typename TO>
+__global__ void reduce_kernel(const float* __restrict__ part, int n, size_t cols, TO* __restrict__ out) {
+  __shared__ float sums[32 * 33];  // W rows of C + 1: at most 32 x 33 or 1 x 257
+  const int c = threadIdx.x, w = threadIdx.y, C = blockDim.x, W = blockDim.y;
+  const size_t j = (size_t)blockIdx.x * C + c;
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+  if (j < cols) {
+    const float* p = part + (size_t)blockIdx.y * n * cols + j;
+    int i = w;
+    for (; i + 3 * W < n; i += 4 * W) {
+      a0 += p[(size_t)i * cols];
+      a1 += p[(size_t)(i + W) * cols];
+      a2 += p[(size_t)(i + 2 * W) * cols];
+      a3 += p[(size_t)(i + 3 * W) * cols];
+    }
+    for (; i < n; i += W) a0 += p[(size_t)i * cols];
+  }
+  sums[w * (C + 1) + c] = (a0 + a1) + (a2 + a3);
+  __syncthreads();
+  if (w == 0 && j < cols) {
+    float t = 0.f;
+    for (int v = 0; v < W; ++v) t += sums[v * (C + 1) + c];
+    out[(size_t)blockIdx.y * cols + j] = from_f<TO>(t);
+  }
+}
+
+// Sum `groups` stacks of n partial rows of `cols` values each: W walkers
+// of about 16 rows each (at most 32), over 256 / W columns rounded down to
+// a multiple of a warp (at least 32).
+template <typename TO>
+inline void reduce(const float* part, int groups, int n, size_t cols, TO* out, cudaStream_t st) {
+  const int W = std::min(32, std::max(1, n / 16)), C = std::max(32, 256 / W / 32 * 32);
+  reduce_kernel<TO><<<dim3((unsigned)((cols + C - 1) / C), groups), dim3(C, W), 0, st>>>(part, n, cols, out);
+}
+
+// The row chunks a weight gradient over R rows aims at: about one wave
+// of WGRAD_BLOCKS blocks (2 an SM) over the (N, K) gradient's 128 x 128
+// tiles.
+// ops/train_common.py::weight_splits computes the same (and the chunking
+// of wgrad) to size the partials; a shape alone fixes the count, so a run
+// repeats bit for bit.
+inline int wgrad_splits(int R, int N, int K) {
+  return std::max(1, std::min(WGRAD_BLOCKS / (cdiv(N, PBM) * cdiv(K, PBN)), cdiv(R, PBK)));
+}
+
+// dW (N, K) = sum_r G[r, n] * X[r, k] for G (R, N), X (R, K): the weight
+// gradient of an nn.Linear layer, y = x W^T. The R rows are cut into
+// chunks of a multiple of the K step (about wgrad_splits of them, or
+// `splits` where given > 0) whose f32 partials go to `part`, then are
+// added in order and cast to T. `cap`: the floats `part` holds; the chunks
+// grow if they would not fit.
+template <typename T>
+inline void wgrad(const T* G, const T* X, int R, int N, int K, float* part, size_t cap, T* out, cudaStream_t st,
+                  int splits = 0) {
+  int n = splits > 0 ? splits : wgrad_splits(R, N, K);
+  n = (int)std::max<size_t>(1, std::min<size_t>(n, cap / ((size_t)N * K)));  // what `part` holds
+  const int rchunk = cdiv(cdiv(R, n), PBK) * PBK;
+  n = cdiv(R, rchunk);
+  if constexpr (std::is_same<T, bf16>::value) {
+    ProjGroup p{};
+    p.a[0] = G;
+    p.w[0] = X;
+    p.c[0] = part;
+    launch_gemm_mma<EPI_PARTIAL, true, true>(p, 1, 1, epi(part), N, K, R, rchunk, n, st);
+  } else {
+    gemm_t<T, true, false, EPI_PARTIAL>(G, X, N, K, R, epi(part), st, rchunk);
+  }
+  reduce<T>(part, 1, n, (size_t)N * K, out, st);
 }
 
 }  // namespace tcd

@@ -26,12 +26,13 @@
 // of launches on one stream: the chain-top row kernel, the flash-style
 // attention backward (D = rowsum(dO*O); one kernel for dq over key tiles,
 // one for dk/dv over query tiles, so no gradient is accumulated across
-// blocks), FMA-tile GEMMs for the input gradients, split-row GEMMs plus an
-// ordered reduction for the weight gradients, and the rotary-transpose /
-// LN1 backward row kernel. The attention, forward and backward, runs on
-// the tensor cores in bf16 (train_common.cuh), and so do the forward's
-// projections (gemm_mma.cuh, q/k/v in one launch); the backward's GEMMs
-// are FMA tiles.
+// blocks), the input gradients' GEMMs (dO, dyv, and dr = dq.Wq + dk.Wk as
+// one launch over the joined 2 hd), split-row GEMMs plus an ordered
+// reduction for the weight gradients (one wave of row chunks), and the
+// rotary-transpose / LN1 backward row kernel. In bf16 every product runs
+// on the tensor cores: the attention forward and backward
+// (train_common.cuh), the forward's projections (q/k/v in one launch) and
+// the backward's products (gemm_mma.cuh); f32 runs FMA bodies.
 #include "train_common.cuh"
 
 namespace tcd {
@@ -49,7 +50,7 @@ struct SaTrainArgs {
   const void* g;
   void *dz, *dO, *dq, *dk, *dv, *dx, *dwq, *dwk, *dwv, *dwfc;
   float *dr, *dyv, *part, *wpart, *Dsum, *vec;
-  int B, L, d, hd, nhead, nsplit, drop_on;
+  int B, L, d, hd, nhead, wcap, drop_on;
   float eps1, eps2, dscale;
   uint32_t thresh;
 };
@@ -89,15 +90,16 @@ int sa_bwd(const SaTrainArgs& a, cudaStream_t st) {
   // chain top: partials 0 fs, 1 fb, 2 s2, 3 b2
   chain_top_bwd_kernel<T><<<rows, RT, 0, st>>>(g, a.z, a.s2, a.b2, a.fs, a.eps2, a.L, d, dr, dz,
                                                a.part, a.part + P, a.part + 2 * P, a.part + 3 * P);
-  wgrad<T>(dz, o, M, d, hd, a.wpart, a.nsplit, (T*)a.dwfc, st);
-  gemm_t<T, false, false, EPI_STORE>(dz, wfc, M, hd, d, epi(dO), st);  // dO = dz . Wfc
+  wgrad<T>(dz, o, M, d, hd, a.wpart, a.wcap, (T*)a.dwfc, st);
+  gemm_nn<T, EPI_STORE>(dz, wfc, dO, M, hd, d, st);  // dO = dz . Wfc
   attention_bwd<T>(q, k, v, o, dO, a.lse, a.B, a.nhead, a.L, a.L, hd, dr, a.Dsum, dq, dk, dv, st);
-  wgrad<T>(dq, r, M, hd, d, a.wpart, a.nsplit, (T*)a.dwq, st);
-  wgrad<T>(dk, r, M, hd, d, a.wpart, a.nsplit, (T*)a.dwk, st);
-  wgrad<T>(dv, y, M, hd, d, a.wpart, a.nsplit, (T*)a.dwv, st);
-  gemm_t<T, false, false, EPI_STORE_F32>(dq, wq, M, d, hd, epi(a.dr), st);  // dr = dq.Wq + dk.Wk
-  gemm_t<T, false, false, EPI_ACC_F32>(dk, wk, M, d, hd, epi(a.dr), st);
-  gemm_t<T, false, false, EPI_STORE_F32>(dv, wv, M, d, hd, epi(a.dyv), st);
+  wgrad<T>(dq, r, M, hd, d, a.wpart, a.wcap, (T*)a.dwq, st);
+  wgrad<T>(dk, r, M, hd, d, a.wpart, a.wcap, (T*)a.dwk, st);
+  wgrad<T>(dv, y, M, hd, d, a.wpart, a.wcap, (T*)a.dwv, st);
+  const T* dqk[2] = {dq, dk};
+  const T* wqk[2] = {wq, wk};
+  gemm_nn<T, EPI_STORE_F32>(2, dqk, wqk, a.dr, M, d, hd, st);  // dr = dq.Wq + dk.Wk, the joined form
+  gemm_nn<T, EPI_STORE_F32>(dv, wv, a.dyv, M, d, hd, st);
   // dx = g + LN1_bwd(rot^T(dr) + dyv): partials 4 s1, 5 b1
   rows_bwd_kernel<T><<<rows, RT, 0, st>>>(a.dr, (const T*)a.cos_t, (const T*)a.ssin_t, a.dyv, x,
                                           a.s1, a.eps1, g, nullptr, a.L, d, (T*)a.dx,

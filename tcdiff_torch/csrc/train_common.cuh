@@ -22,23 +22,6 @@ namespace tcd {
 // its columns' partial gradient sums in registers across the rows.
 constexpr int RT = 128, CPT = 8, RCH = 16;
 
-// out[g * cols + j] = sum_{i < n} part[(g * n + i) * cols + j], in f32, i in order.
-template <typename TO>
-__global__ void reduce_kernel(const float* __restrict__ part, int n, size_t cols, TO* __restrict__ out) {
-  const size_t j = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= cols) return;
-  const float* p = part + (size_t)blockIdx.y * n * cols + j;
-  float s = 0.f;
-  for (int i = 0; i < n; ++i) s += p[(size_t)i * cols];
-  out[(size_t)blockIdx.y * cols + j] = from_f<TO>(s);
-}
-
-// Sum `groups` stacks of n partial rows of `cols` values each.
-template <typename TO>
-inline void reduce(const float* part, int groups, int n, size_t cols, TO* out, cudaStream_t st) {
-  reduce_kernel<TO><<<dim3((unsigned)((cols + 255) / 256), groups), 256, 0, st>>>(part, n, cols, out);
-}
-
 // Column sums of the row-chunk partials: per batch element (dfs, dfb) or
 // over everything (LayerNorm affines, biases); `part` is (B * nch, cols).
 inline void reduce_per_batch(const float* part, int B, int nch, int cols, float* out, cudaStream_t st) {
@@ -46,18 +29,6 @@ inline void reduce_per_batch(const float* part, int B, int nch, int cols, float*
 }
 inline void reduce_all(const float* part, int B, int nch, int cols, float* out, cudaStream_t st) {
   reduce<float>(part, 1, B * nch, cols, out, st);
-}
-
-// dW (N, K) = sum_r G[r, n] * X[r, k] for G (R, N), X (R, K): the weight
-// gradient of an nn.Linear layer, y = x W^T. The R rows are split into at
-// most `nsplit` chunks whose f32 partials (`part`, >= nsplit * N * K
-// floats) are then added in order and cast to T.
-template <typename T>
-inline void wgrad(const T* G, const T* X, int R, int N, int K, float* part, int nsplit, T* out,
-                  cudaStream_t st) {
-  const int rchunk = cdiv(cdiv(R, nsplit), GBK) * GBK;
-  gemm_t<T, true, false, EPI_PARTIAL>(G, X, N, K, R, epi(part), st, rchunk);
-  reduce<T>(part, 1, cdiv(R, rchunk), (size_t)N * K, out, st);
 }
 
 // Writes a thread's column partials to row `row` of each given (rows, d) array.

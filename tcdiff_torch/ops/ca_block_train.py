@@ -27,7 +27,7 @@ from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, launch, ln_f
 from tcdiff_torch.ops.sa_block import rotary_tables
 from tcdiff_torch.ops.sa_block_train import attention_plain, chain_top_plain, rot
 from tcdiff_torch.ops.train_common import (
-    RCH, as_uint32_int32, count_kernel, save_tensors, saved_tensors, threshold, weight_splits,
+    RCH, as_uint32_int32, count_kernel, save_tensors, saved_tensors, threshold, weight_scratch,
 )
 
 
@@ -53,7 +53,7 @@ _Args = args_struct(  # CaTrainArgs in csrc/ca_block_train.cu
      "r", "rm", "q", "k", "v", "o", "lse", "z", "out",
      "g", "dz", "dO", "dq", "dk", "dv", "dx", "dmem", "dwq", "dwk", "dwv", "dwfc",
      "dr", "drm", "dvm", "part", "wpart", "Dsum", "vec"),
-    ("B", "L", "Lm", "d", "hd", "nhead", "nsplit", "drop_on"),
+    ("B", "L", "Lm", "d", "hd", "nhead", "wcap", "drop_on"),
     ("eps1", "eps2", "dscale"),
     ("thresh",),
 )
@@ -93,7 +93,8 @@ class _CaBlockTrain(torch.autograd.Function):
         ten.update(r=e(B, L, d), rm=e(B, Lm, d), q=e(B, L, hd), k=e(B, Lm, hd), v=e(B, Lm, hd),
                    o=e(B, L, hd), lse=e(B, nhead, L, t=torch.float32), z=e(B, L, d, t=torch.float32),
                    out=torch.empty_like(x))
-        dims = dict(B=B, L=L, Lm=Lm, d=d, hd=hd, nhead=nhead, nsplit=weight_splits(B * L),
+        wcap = weight_scratch((B * L, d, hd), (B * L, hd, d), (B * Lm, hd, d))  # dWfc, dWq; dWk, dWv
+        dims = dict(B=B, L=L, Lm=Lm, d=d, hd=hd, nhead=nhead, wcap=wcap,
                     drop_on=int(rate > 0), eps1=eps1, eps2=eps2, dscale=1.0 / (1.0 - rate),
                     thresh=threshold(rate))
         launch("ca_block_train", "tcd_ca_train_fwd", _Args, ten, dims, x, "ca_block_train")
@@ -117,7 +118,7 @@ class _CaBlockTrain(torch.autograd.Function):
             dwq=e(hd, d), dwk=e(hd, d), dwv=e(hd, d), dwfc=e(d, hd),
             dr=e(B, L, d, t=torch.float32), drm=e(B, Lm, d, t=torch.float32),
             dvm=e(B, Lm, d, t=torch.float32), part=e(N_VEC, B * nch, d, t=torch.float32),
-            wpart=e(dims["nsplit"], hd, d, t=torch.float32), Dsum=e(B, dims["nhead"], L, t=torch.float32),
+            wpart=e(dims["wcap"], t=torch.float32), Dsum=e(B, dims["nhead"], L, t=torch.float32),
             vec=e(N_VEC, B, d, t=torch.float32),
         )
         launch("ca_block_train", "tcd_ca_train_bwd", _Args, ten, dims, x, "ca_block_train backward")

@@ -26,7 +26,7 @@ import torch
 from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, launch, ln_f32, mm_f32
 from tcdiff_torch.ops.train_common import (
     RCH, SALT_FF1, SALT_FF2, as_uint32_int32, count_kernel, drop, film_residual, save_tensors,
-    saved_tensors, threshold, weight_splits,
+    saved_tensors, threshold, weight_scratch,
 )
 
 
@@ -50,7 +50,7 @@ _Args = args_struct(  # FfTrainArgs in csrc/ff_tail_train.cu
      "y", "u", "ad", "zd", "x2", "y4", "out",
      "g", "dy4", "dx2", "dz", "dad", "du", "dy", "dx", "dw1", "dw2", "dw3",
      "part", "part_ff", "wpart", "vec", "vec_ff"),
-    ("B", "L", "d", "ff", "nsplit", "drop_on"),
+    ("B", "L", "d", "ff", "wcap", "drop_on"),
     ("eps", "dscale"),
     ("thresh",),
 )
@@ -83,7 +83,8 @@ class _FfTailTrain(torch.autograd.Function):
         f = torch.float32
         ten.update(y=e(B, L, d), u=e(B, L, ff, t=f), ad=e(B, L, ff), zd=e(B, L, d, t=f),
                    x2=e(B, L, d, t=f), y4=e(B, L, d), out=torch.empty_like(x))
-        dims = dict(B=B, L=L, d=d, ff=ff, nsplit=weight_splits(B * L), drop_on=int(rate > 0), eps=eps,
+        wcap = weight_scratch((B * L, d, d), (B * L, d, ff), (B * L, ff, d))  # dW3, dW2, dW1
+        dims = dict(B=B, L=L, d=d, ff=ff, wcap=wcap, drop_on=int(rate > 0), eps=eps,
                     dscale=1.0 / (1.0 - rate), thresh=threshold(rate))
         launch("ff_tail_train", "tcd_ff_train_fwd", _Args, ten, dims, x, "ff_tail_train")
         ff_tail_train.launches += 1
@@ -106,8 +107,8 @@ class _FfTailTrain(torch.autograd.Function):
             dad=e(B, L, ff, t=f), du=e(B, L, ff), dy=e(B, L, d, t=f), dx=torch.empty_like(x),
             dw1=e(ff, d), dw2=e(d, ff), dw3=e(d, d),
             part=e(N_VEC, B * nch, d, t=f), part_ff=e(B * nch, ff, t=f),
-            # split-row partials of dW1 (ff, d), dW2 (d, ff) and dW3 (d, d) in turn
-            wpart=e(dims["nsplit"], max(ff, d), d, t=f), vec=e(N_VEC, B, d, t=f), vec_ff=e(ff, t=f),
+            # split-row partials of dW3, dW2 and dW1 in turn
+            wpart=e(dims["wcap"], t=f), vec=e(N_VEC, B, d, t=f), vec_ff=e(ff, t=f),
         )
         launch("ff_tail_train", "tcd_ff_train_bwd", _Args, ten, dims, x, "ff_tail_train backward")
         ff_tail_train.bwd_launches += 1

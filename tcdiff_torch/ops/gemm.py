@@ -1,13 +1,18 @@
-"""The forward projection of the hand-written kernels alone, for tests and
-measurement: C = A . W^T (W in nn.Linear layout) with a fused epilogue.
+"""The products of the hand-written kernels alone, for tests and
+measurement, in the three layouts of a linear layer y = x . W^T (W in
+nn.Linear layout (N, K)):
 
-`csrc/gemm.cu` exposes the projection of `csrc/gemm_mma.cuh` that K1, K2
-and every other kernel's forward projections run: bf16 on the tensor
-cores (mma.sync), f32 on the FMA tiles. No path of the model calls this
-module; `chip_smoke.py` times K1's and K2's products through it and
-`tests/test_torch_cuda.py` holds it against `gemm_plain`.
+    gemm     C = A . W^T with a fused epilogue       the forward projection
+    gemm_nn  C = A . B, B (K, N) (W read as (K, N))  the input gradient
+    wgrad    dW = G^T . X over the rows              the weight gradient
 
-Epilogues, with acc the f32 sum and T the dtype of a:
+`csrc/gemm.cu` exposes the products of `csrc/gemm_mma.cuh` that every
+kernel runs: bf16 on the tensor cores (mma.sync), f32 on the FMA tiles.
+No path of the model calls this module; `chip_smoke.py` times K1's, K2's,
+K3's and K5's products through it and `tests/test_torch_cuda.py` holds it
+against the plain versions.
+
+Epilogues of `gemm`, with acc the f32 sum and T the dtype of a:
 
     store      T(acc)
     store_f32  acc
@@ -19,6 +24,13 @@ a (M, K), w (N, K), bias (N,) f32, resid (M, N) in T, film rows
 (M / L, N). A list of up to three a and as many w that share M, N and K
 is the grouped form (K1's q/k/v): one launch, a list of outputs; bias and
 the FiLM arguments are shared by the group.
+
+`gemm_nn` takes store, store_f32 or acc_f32 (out += acc, out an f32
+(M, N) given), and a list of two a and two b of one shape for the joined
+form: one launch, C = a0 . b0 + a1 . b1 in one f32 sum (K3's dr).
+`wgrad` (g (R, N), x (R, K)) sums f32 partials of row chunks in chunk
+order and rounds to T; `splits` chunks where given, else as the train
+kernels cut them (`train_common.weight_splits`).
 """
 
 from __future__ import annotations
@@ -27,8 +39,11 @@ import torch
 import torch.nn.functional as F
 
 from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, launch, mm_f32
+from tcdiff_torch.ops.train_common import weight_splits
 
 EPILOGUES = {"store": 0, "store_f32": 1, "bias": 2, "bias_gelu": 3, "bias_film": 4}  # tcd::Epi
+NN_EPILOGUES = {"store": 0, "store_f32": 1, "acc_f32": 5}
+LAYOUT_FWD, LAYOUT_NN, LAYOUT_WGRAD = 0, 1, 2  # GemmArgs.layout
 F32_OUT = ("store_f32", "bias_film")
 GROUP_MAX = 3
 
@@ -57,8 +72,8 @@ def gemm_plain(a, w, epilogue: str = "store", bias=None, resid=None, film_scale=
 
 _Args = args_struct(  # GemmArgs in csrc/gemm.cu
     "GemmArgs",
-    ("a0", "a1", "a2", "w0", "w1", "w2", "c0", "c1", "c2", "bias", "resid", "fs", "fb"),
-    ("M", "N", "K", "L", "epi", "groups"),
+    ("a0", "a1", "a2", "w0", "w1", "w2", "c0", "c1", "c2", "bias", "resid", "fs", "fb", "part"),
+    ("M", "N", "K", "L", "epi", "groups", "layout", "splits", "cap"),
     (),
 )
 
@@ -97,7 +112,7 @@ def _gemm_cuda(a, w, epilogue, bias, resid, film_scale, film_shift, L):
         ten["bias"] = bias.float().contiguous()
     if epilogue == "bias_film":
         ten.update(resid=as_t(resid, dt), fs=film_scale.float().contiguous(), fb=film_shift.float().contiguous())
-    dims = dict(M=M, N=N, K=K, L=L, epi=EPILOGUES[epilogue], groups=len(a))
+    dims = dict(M=M, N=N, K=K, L=L, epi=EPILOGUES[epilogue], groups=len(a), layout=LAYOUT_FWD)
     launch("gemm", "tcd_gemm", _Args, ten, dims, x, "gemm")
     gemm.launches += 1
     return outs
@@ -119,3 +134,92 @@ def gemm(a, w, epilogue: str = "store", bias=None, resid=None, film_scale=None, 
 
 
 gemm.launches = 0  # kernel launches; the plain path does not count
+
+
+# ------------------------------------------------------------ input gradient
+def gemm_nn_plain(a, b, epilogue: str = "store", out=None):
+    """Plain version of gemm_nn: f32 products and sums (b rounded to a's
+    dtype first), the joined pairs added in f32, cast as the kernel casts."""
+    a, b = (a, b) if isinstance(a, (list, tuple)) else ([a], [b])
+    acc = sum(ai.float() @ bi.to(ai.dtype).float() for ai, bi in zip(a, b))
+    if epilogue == "acc_f32":
+        return out.add_(acc)
+    return acc if epilogue == "store_f32" else acc.to(a[0].dtype)
+
+
+def _gemm_nn_cuda(a, b, epilogue, out):
+    x = a[0]
+    check_cuda(x, out=out)
+    if epilogue not in NN_EPILOGUES:
+        raise ValueError(f"unknown epilogue {epilogue!r}; one of {sorted(NN_EPILOGUES)}")
+    if not 1 <= len(a) <= 2 or len(b) != len(a):
+        raise ValueError(f"give 1 or 2 a and as many b, got {len(a)} and {len(b)}")
+    if x.dim() != 2:
+        raise ValueError(f"a must be (M, K), got {tuple(x.shape)}")
+    M, K = x.shape
+    N = b[0].shape[1]
+    for ai, bi in zip(a, b):
+        check_cuda(ai, b=bi)
+        if ai.dtype != x.dtype or tuple(ai.shape) != (M, K) or tuple(bi.shape) != (K, N):
+            raise ValueError(f"the pairs share dtype, a (M, K) = {(M, K)} and b (K, N) = {(K, N)}")
+    if epilogue == "acc_f32":
+        if out is None or out.dtype != torch.float32 or tuple(out.shape) != (M, N) or not out.is_contiguous():
+            raise ValueError(f"acc_f32 adds into a contiguous f32 out of shape {(M, N)}")
+    else:
+        out = torch.empty((M, N), dtype=torch.float32 if epilogue == "store_f32" else x.dtype, device=x.device)
+    ten = {"c0": out}
+    for i, (ai, bi) in enumerate(zip(a, b)):
+        ten.update({f"a{i}": ai, f"w{i}": as_t(bi, x.dtype)})
+    dims = dict(M=M, N=N, K=K, L=1, epi=NN_EPILOGUES[epilogue], groups=len(a), layout=LAYOUT_NN)
+    launch("gemm", "tcd_gemm", _Args, ten, dims, x, "gemm_nn")
+    gemm_nn.launches += 1
+    return out
+
+
+def gemm_nn(a, b, epilogue: str = "store", out=None):
+    """C = a . b (a (M, K), b (K, N)), the input gradient's product: the
+    CUDA kernel for a CUDA a, the plain version for a CPU a. Lists of two a
+    and two b: the joined form. acc_f32 adds into `out` and returns it."""
+    first = a[0] if isinstance(a, (list, tuple)) else a
+    if first.device.type == "cpu":
+        return gemm_nn_plain(a, b, epilogue, out)
+    if first.device.type != "cuda":
+        raise ValueError(f"gemm_nn runs on CPU or CUDA tensors, got {first.device}")
+    grouped = isinstance(a, (list, tuple))
+    return _gemm_nn_cuda(list(a) if grouped else [a], list(b) if grouped else [b], epilogue, out)
+
+
+gemm_nn.launches = 0
+
+
+# ----------------------------------------------------------- weight gradient
+def wgrad_plain(g, x):
+    """Plain version of wgrad: g^T . x in f32, rounded to g's dtype."""
+    return (g.float().t() @ x.float()).to(g.dtype)
+
+
+def wgrad(g, x, splits: int | None = None):
+    """dW (N, K) = g^T . x for g (R, N), x (R, K): the CUDA kernel (split
+    rows, f32 partials added in chunk order, then rounded) for a CUDA g,
+    the plain version for a CPU g."""
+    if g.device.type == "cpu":
+        return wgrad_plain(g, x)
+    if g.device.type != "cuda":
+        raise ValueError(f"wgrad runs on CPU or CUDA tensors, got {g.device}")
+    check_cuda(g, operand=x)
+    if g.dim() != 2 or x.dim() != 2 or x.shape[0] != g.shape[0] or x.dtype != g.dtype or not x.is_contiguous():
+        raise ValueError(f"g (R, N) and x (R, K) share R and dtype, got {tuple(g.shape)} and {tuple(x.shape)}")
+    R, N = g.shape
+    K = x.shape[1]
+    n = weight_splits(R, N, K) if splits is None else splits
+    if n < 1:
+        raise ValueError(f"splits must be at least 1, got {n}")
+    part = torch.empty(n * N * K, dtype=torch.float32, device=g.device)
+    out = torch.empty((N, K), dtype=g.dtype, device=g.device)
+    dims = dict(M=R, N=N, K=K, L=1, epi=0, groups=1, layout=LAYOUT_WGRAD, splits=n, cap=part.numel())
+    launch("gemm", "tcd_gemm", _Args, dict(a0=g, w0=x, c0=out, part=part), dims, g, "wgrad")
+    wgrad.launches += 1
+    return out
+
+
+wgrad.launches = 0

@@ -30,7 +30,7 @@ from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, launch, ln_f
 from tcdiff_torch.ops.sa_block import rotary_tables
 from tcdiff_torch.ops.train_common import (
     RCH, SALT_ATTN, SALT_FC, SALT_OUT, as_uint32_int32, count_kernel, drop, film_residual, save_tensors,
-    saved_tensors, threshold, weight_splits,
+    saved_tensors, threshold, weight_scratch,
 )
 
 
@@ -80,7 +80,7 @@ _Args = args_struct(  # SaTrainArgs in csrc/sa_block_train.cu
      "y", "r", "q", "k", "v", "o", "lse", "z", "out",
      "g", "dz", "dO", "dq", "dk", "dv", "dx", "dwq", "dwk", "dwv", "dwfc",
      "dr", "dyv", "part", "wpart", "Dsum", "vec"),
-    ("B", "L", "d", "hd", "nhead", "nsplit", "drop_on"),
+    ("B", "L", "d", "hd", "nhead", "wcap", "drop_on"),
     ("eps1", "eps2", "dscale"),
     ("thresh",),
 )
@@ -115,7 +115,8 @@ class _SaBlockTrain(torch.autograd.Function):
         ten.update(y=e(B, L, d), r=e(B, L, d), q=e(B, L, hd), k=e(B, L, hd), v=e(B, L, hd),
                    o=e(B, L, hd), lse=e(B, nhead, L, t=torch.float32), z=e(B, L, d, t=torch.float32),
                    out=torch.empty_like(x))
-        dims = dict(B=B, L=L, d=d, hd=hd, nhead=nhead, nsplit=weight_splits(B * L), drop_on=int(rate > 0),
+        wcap = weight_scratch((B * L, d, hd), (B * L, hd, d))  # dWfc; dWq, dWk, dWv
+        dims = dict(B=B, L=L, d=d, hd=hd, nhead=nhead, wcap=wcap, drop_on=int(rate > 0),
                     eps1=eps1, eps2=eps2, dscale=1.0 / (1.0 - rate), thresh=threshold(rate))
         launch("sa_block_train", "tcd_sa_train_fwd", _Args, ten, dims, x, "sa_block_train")
         sa_block_train.launches += 1
@@ -137,7 +138,7 @@ class _SaBlockTrain(torch.autograd.Function):
             dv=e(B, L, hd), dx=torch.empty_like(x), dwq=e(hd, d), dwk=e(hd, d), dwv=e(hd, d),
             dwfc=e(d, hd), dr=e(B, L, d, t=torch.float32), dyv=e(B, L, d, t=torch.float32),
             part=e(N_VEC, B * nch, d, t=torch.float32),
-            wpart=e(dims["nsplit"], hd, d, t=torch.float32),
+            wpart=e(dims["wcap"], t=torch.float32),
             Dsum=e(B, dims["nhead"], L, t=torch.float32),
             vec=e(N_VEC, B, d, t=torch.float32),
         )

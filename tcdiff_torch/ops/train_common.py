@@ -90,10 +90,26 @@ def as_uint32_int32(seeds: torch.Tensor) -> torch.Tensor:
 RCH = 16  # rows per block of the CUDA row kernels (csrc/train_common.cuh)
 
 
-def weight_splits(rows: int) -> int:
-    """Row splits of a CUDA weight-gradient sum: enough blocks to fill the
-    card, each summing at least 512 rows."""
-    return max(1, min(64, rows // 512))
+# csrc/gemm_mma.cuh: the weight gradient's 128 x 128 tiles, its chunks a
+# multiple of the 64-row K step, about one wave of 264 blocks (2 an SM of
+# the H100's 132) in all
+WGRAD_TILE, WGRAD_STEP, WGRAD_BLOCKS = 128, 64, 264
+
+
+def weight_splits(rows: int, n: int, k: int) -> int:
+    """Row chunks of a CUDA weight gradient (n, k) over `rows` rows, as
+    `wgrad` in csrc/gemm_mma.cuh cuts them: about one wave of blocks over
+    the gradient's tiles, each chunk a multiple of the K step."""
+    cdiv = lambda a, b: -(-a // b)
+    tiles = cdiv(n, WGRAD_TILE) * cdiv(k, WGRAD_TILE)
+    target = max(1, min(WGRAD_BLOCKS // tiles, cdiv(rows, WGRAD_STEP)))
+    return cdiv(rows, cdiv(cdiv(rows, target), WGRAD_STEP) * WGRAD_STEP)
+
+
+def weight_scratch(*products) -> int:
+    """f32 elements of split-row partials enough for each (rows, n, k)
+    weight gradient of a kernel in turn."""
+    return max(weight_splits(r, n, k) * n * k for r, n, k in products)
 
 
 def save_tensors(ctx, ten: dict) -> None:

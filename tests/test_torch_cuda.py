@@ -137,6 +137,129 @@ def test_gemm_refuses_what_it_does_not_take(dev):
         m.gemm(a.half(), w.half())
 
 
+# ------------------------------------------------------- backward products
+# The input gradient (gemm_nn, also joined over two pairs) and the split-row
+# weight gradient (wgrad) of csrc/gemm_mma.cuh through ops/gemm.py: bf16 on
+# the tensor cores, f32 on the FMA tiles. Rows M or R = 1, 200 and 1000
+# (not multiples of the 64-row K step) and 28800 (the train rows); an odd N
+# (the epilogue element by element), K % 8 != 0 (2-byte loads), operands
+# 2 bytes past a 16-byte boundary, split counts given; each weight gradient
+# twice, bit for bit.
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("epilogue", ["store", "store_f32", "acc_f32"])
+@pytest.mark.parametrize("M", [1, 200, 28800])
+@pytest.mark.parametrize("N, K", [(48, 64), (49, 64), (64, 100), (512, 512)])
+def test_gemm_nn_kernel_matches_plain(dev, dtype, epilogue, M, N, K):
+    from tcdiff_torch.ops import gemm as m
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    a, b = _rnd(g, dev, M, K).to(dtype), _rnd(g, dev, K, N, std=K**-0.5).to(dtype)
+    acc = _rnd(g, dev, M, N)
+    before = m.gemm_nn.launches
+    out = m.gemm_nn(a, b, epilogue, acc.clone())
+    ref = m.gemm_nn_plain(a, b, epilogue, acc.clone())
+    assert m.gemm_nn.launches == before + 1
+    assert out.dtype == ref.dtype and out.shape == (M, N)
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(dtype, ref)
+
+
+def _offset_views(gen, dev, dtype, n, shape, offset, std=1.0):
+    """n contiguous views of one buffer, the first `offset` elements past its start."""
+    size = shape[0] * shape[1]
+    buf = _rnd(gen, dev, n * size + offset, std=std).to(dtype)
+    return [buf[offset + i * size: offset + (i + 1) * size].view(*shape) for i in range(n)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pairs", [1, 2])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_gemm_nn_joined_kernel_matches_plain(dev, dtype, pairs, offset):
+    from tcdiff_torch.ops import gemm as m
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    M, N, K = 200, 96, 64
+    a = _offset_views(g, dev, dtype, pairs, (M, K), offset)
+    b = _offset_views(g, dev, dtype, pairs, (K, N), offset, std=K**-0.5)
+    before = m.gemm_nn.launches
+    out = m.gemm_nn(a, b, "store_f32")
+    ref = m.gemm_nn_plain(a, b, "store_f32")
+    assert m.gemm_nn.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (M, N)
+    assert (out - ref).abs().max().item() <= _tol(dtype, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R", [1, 200, 1000, 28800])
+@pytest.mark.parametrize("N, K", [(48, 64), (49, 64), (64, 100), (512, 512), (1024, 512)])
+def test_wgrad_kernel_matches_plain(dev, dtype, R, N, K):
+    from tcdiff_torch.ops import gemm as m
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    gr, x = _rnd(g, dev, R, N).to(dtype), _rnd(g, dev, R, K).to(dtype)
+    before = m.wgrad.launches
+    out, again = m.wgrad(gr, x), m.wgrad(gr, x)
+    ref = m.wgrad_plain(gr, x)
+    assert m.wgrad.launches == before + 2
+    assert out.dtype == dtype and out.shape == (N, K)
+    assert torch.equal(out, again), "two runs of a weight gradient differ"
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(dtype, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits", [1, 3, 8, 64])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_wgrad_kernel_splits_match_plain(dev, dtype, splits, offset):
+    from tcdiff_torch.ops import gemm as m
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    R, N, K = 1000, 96, 72
+    (gr,), (x,) = _offset_views(g, dev, dtype, 1, (R, N), offset), _offset_views(g, dev, dtype, 1, (R, K), offset)
+    out, again = m.wgrad(gr, x, splits), m.wgrad(gr, x, splits)
+    ref = m.wgrad_plain(gr, x)
+    assert torch.equal(out, again), "two runs of a weight gradient differ"
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(dtype, ref)
+
+
+def test_fma_body_refuses_bf16(dev, tmp_path):
+    """No bf16 product can fall back to the FMA body: an instance of
+    gemm_t (and so gemm_kernel) in bf16 does not compile; in f32 it does."""
+    import subprocess
+
+    from tcdiff_torch.ops import _build
+
+    for dtype, compiles in (("float", True), ("__nv_bfloat16", False)):
+        src = tmp_path / f"fma_{dtype}.cu"
+        src.write_text(f'#include "{_build.CSRC / "common.cuh"}"\n'
+                       f"template void tcd::gemm_t<{dtype}, false, false, tcd::EPI_STORE>(const {dtype}*, "
+                       f"const {dtype}*, int, int, int, tcd::EpiArgs, cudaStream_t, int);\n")
+        res = subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-c",
+                              "-o", str(tmp_path / "fma.o"), str(src)], capture_output=True, text=True)
+        assert (res.returncode == 0) == compiles, res.stderr
+        assert compiles or "run on the tensor cores" in res.stderr, res.stderr
+
+
+def test_backward_gemms_refuse_what_they_do_not_take(dev):
+    from tcdiff_torch.ops import gemm as m
+
+    a, b = torch.zeros(8, 16, device=dev), torch.zeros(16, 4, device=dev)
+    with pytest.raises(ValueError):  # the forward's epilogue
+        m.gemm_nn(a, b, "bias")
+    with pytest.raises(ValueError):  # b is not (K, N)
+        m.gemm_nn(a, b[:8].contiguous())
+    with pytest.raises(ValueError):  # more than two joined pairs
+        m.gemm_nn([a] * 3, [b] * 3, "store_f32")
+    with pytest.raises(ValueError):  # acc_f32 without an f32 out
+        m.gemm_nn(a, b, "acc_f32")
+    with pytest.raises(ValueError):  # g and x of other row counts
+        m.wgrad(a, a[:4].contiguous())
+    with pytest.raises(ValueError):
+        m.wgrad(a, a, splits=0)
+    with pytest.raises(TypeError):
+        m.wgrad(a.half(), a.half())
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
     x = torch.zeros(1, 8, 256, device=dev)
     w = torch.zeros(256, 256, device=dev)
@@ -278,7 +401,8 @@ def _train_tol(dtype, ref, grad):
 
 def _check_train_op(fn, plain, counter, args, diff_idx, kw, dtype, gen):
     """Run the kernel and the plain version on the same leaves; compare the
-    output and the gradients of the inputs at diff_idx."""
+    output and the gradients of the inputs at diff_idx; run the kernel's
+    backward twice: the same bits (every sum in a fixed order)."""
     leaves = [a.detach().clone().requires_grad_(i in diff_idx) if torch.is_tensor(a) and a.is_floating_point()
               else a for i, a in enumerate(args)]
     leaves_p = [a.detach().clone().requires_grad_(i in diff_idx) if torch.is_tensor(a) and a.is_floating_point()
@@ -287,10 +411,13 @@ def _check_train_op(fn, plain, counter, args, diff_idx, kw, dtype, gen):
     out = fn(*leaves, **kw)
     ref = plain(*leaves_p, **kw)
     cot = torch.randn(out.shape, generator=gen, device=out.device).to(out.dtype)
-    grads = torch.autograd.grad(out, [leaves[i] for i in diff_idx], cot)
+    grads = torch.autograd.grad(out, [leaves[i] for i in diff_idx], cot, retain_graph=True)
+    again = torch.autograd.grad(out, [leaves[i] for i in diff_idx], cot)
     grads_p = torch.autograd.grad(ref, [leaves_p[i] for i in diff_idx], cot)
     torch.cuda.synchronize()
-    assert counter.launches == before + 1 and counter.bwd_launches == before_b + 1
+    assert counter.launches == before + 1 and counter.bwd_launches == before_b + 2
+    for i, g, g2 in zip(diff_idx, grads, again):
+        assert torch.equal(g, g2), f"the gradient of input {i} differs between two backward runs"
     assert out.dtype == ref.dtype and out.shape == ref.shape
     assert (out.float() - ref.float()).abs().max().item() <= _train_tol(dtype, ref.float(), False)
     for i, g, gp in zip(diff_idx, grads, grads_p):
@@ -299,24 +426,30 @@ def _check_train_op(fn, plain, counter, args, diff_idx, kw, dtype, gen):
         assert err <= _train_tol(dtype, gp.float(), True), (i, err)
 
 
-def _train_inputs(gen, dev, dtype):
+def _train_inputs(gen, dev, dtype, b=TB):
     r = lambda *s, std=1.0: _rnd(gen, dev, *s, std=std)
     w = lambda o, i: r(o, i, std=i**-0.5).to(dtype)
     ln = lambda: (1 + r(TD, std=0.1), r(TD, std=0.1))
-    seeds = torch.randint(0, 2**32, (TB,), generator=gen, device=dev, dtype=torch.int64)
+    seeds = torch.randint(0, 2**32, (b,), generator=gen, device=dev, dtype=torch.int64)
     return r, w, ln, seeds
+
+
+# (b, L): the small shape, and one whose b L = 1200 rows the weight
+# gradients cut into 19 chunks (ops/train_common.py::weight_splits)
+TRAIN_SIZES = [(TB, TL), (8, 150)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_sa_block_train_kernels_match_plain(dev, dtype, rate):
+@pytest.mark.parametrize("b, l", TRAIN_SIZES)
+def test_sa_block_train_kernels_match_plain(dev, dtype, rate, b, l):
     from tcdiff_torch.ops import sa_block_train as m
 
     g = torch.Generator(device=dev).manual_seed(2)
-    r, w, ln, seeds = _train_inputs(g, dev, dtype)
+    r, w, ln, seeds = _train_inputs(g, dev, dtype, b)
     (s1, b1), (s2, b2) = ln(), ln()
-    args = (r(TB, TL, TD).to(dtype), s1, b1, angle_table(TL, TD, dev), w(THD, TD), w(THD, TD),
-            w(THD, TD), w(TD, THD), s2, b2, r(TB, TD, std=0.1).to(dtype), r(TB, TD, std=0.1).to(dtype), seeds)
+    args = (r(b, l, TD).to(dtype), s1, b1, angle_table(l, TD, dev), w(THD, TD), w(THD, TD),
+            w(THD, TD), w(TD, THD), s2, b2, r(b, TD, std=0.1).to(dtype), r(b, TD, std=0.1).to(dtype), seeds)
     _check_train_op(m.sa_block_train, m.sa_block_train_plain, m.sa_block_train, args,
                     (0, 1, 2, 4, 5, 6, 7, 8, 9, 10, 11), dict(nhead=TH, rate=rate), dtype, g)
 
@@ -339,14 +472,15 @@ def test_ca_block_train_kernels_match_plain(dev, dtype, rate):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("ff", [TFF, TD // 2])  # ff < d too: dW3 is then the largest partial
-def test_ff_tail_train_kernels_match_plain(dev, dtype, rate, ff):
+@pytest.mark.parametrize("b, l", TRAIN_SIZES)
+def test_ff_tail_train_kernels_match_plain(dev, dtype, rate, ff, b, l):
     from tcdiff_torch.ops import ff_block_train as m
 
     g = torch.Generator(device=dev).manual_seed(4)
-    r, w, ln, seeds = _train_inputs(g, dev, dtype)
+    r, w, ln, seeds = _train_inputs(g, dev, dtype, b)
     (s3, b3), (s4, b4) = ln(), ln()
-    args = (r(TB, TL, TD).to(dtype), s3, b3, w(ff, TD), r(ff, std=0.1), w(TD, ff), r(TD, std=0.1),
-            r(TB, TD, std=0.1).to(dtype), r(TB, TD, std=0.1).to(dtype), s4, b4, w(TD, TD), r(TD, std=0.1), seeds)
+    args = (r(b, l, TD).to(dtype), s3, b3, w(ff, TD), r(ff, std=0.1), w(TD, ff), r(TD, std=0.1),
+            r(b, TD, std=0.1).to(dtype), r(b, TD, std=0.1).to(dtype), s4, b4, w(TD, TD), r(TD, std=0.1), seeds)
     _check_train_op(m.ff_tail_train, m.ff_tail_train_plain, m.ff_tail_train, args,
                     tuple(range(13)), dict(rate=rate), dtype, g)
 

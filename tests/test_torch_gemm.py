@@ -1,8 +1,10 @@
-"""The projection entry point of the port (`tcdiff_torch/ops/gemm.py`, the
-product K1, K2 and the other kernels run) against the products and
+"""The products of the port's kernels alone (`tcdiff_torch/ops/gemm.py`:
+the forward projection K1, K2 and the other kernels run, and the
+backward's input and weight gradients of K3-K5) against the products and
 epilogues of the JAX package's Pallas kernels, written as those kernels
 write them: `jnp.dot(..., preferred_element_type=f32)`, the bias in f32,
-`_gelu_exact`, the FiLM residual of `_ff_tail_kernel`.
+`_gelu_exact`, the FiLM residual of `_ff_tail_kernel`, the backward's
+`dot_general`s of `_ff_train_bwd_kernel`.
 
 On the CPU the port's wrapper runs its plain version. Same seeded numpy
 inputs into both; ragged shapes (M = 1, 154; N = 50 and K = 100, not
@@ -15,10 +17,12 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from tcdiff_tpu.ops.fused_ff_block import _gelu_exact  # noqa: E402
 from tcdiff_torch.ops import gemm as g  # noqa: E402
+from tcdiff_torch.ops.train_common import weight_splits  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 SHAPES = [(154, 48, 64, 77), (1, 50, 100, 1), (154, 50, 100, 2)]  # (M, N, K, L)
@@ -86,3 +90,78 @@ def test_grouped_gemm_matches_jax(dtype, groups):
     assert len(outs) == groups
     for out, ai, wi in zip(outs, a, w):
         _check(out, _jax_ref(ai, wi, "store", None, None, None, None, 1, jd), dtype)
+
+
+# ------------------------------------------------------------------ backward
+# The backward's products as `_ff_train_bwd_kernel`
+# (tcdiff_tpu/ops/fused_ff_block_train.py) writes them, with the JAX
+# package's weights stored (in, out): the input gradient
+# dot_general(gc, w, (((1,), (1,)), ((), ()))) and the weight gradient
+# dot_general(xc, gc, (((0,), (0,)), ((), ()))), f32 sums of operands in the
+# compute dtype. The port's weight (out, in) is w^T, its weight gradient
+# the transpose of the JAX one. Ragged shapes: R = 1, 200 (not a multiple
+# of the 64-row K step), N = 49, K = 100.
+BWD_SHAPES = [(200, 48, 64), (1, 49, 100), (200, 49, 100)]  # (M or R, N, K)
+
+
+def _dg(x, y, dims, jd):
+    return jax.lax.dot_general(jnp.asarray(x).astype(jd), jnp.asarray(y).astype(jd), (dims, ((), ())),
+                               preferred_element_type=jnp.float32)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("epilogue", list(g.NN_EPILOGUES))
+@pytest.mark.parametrize("M, N, K", BWD_SHAPES)
+def test_gemm_nn_matches_jax(dtype, epilogue, M, N, K):
+    """dy = g . W (W (out=K, in=N), nn.Linear layout) as dot_general(gc, w)."""
+    jd, td = DTYPES[dtype]
+    gc, w = _normal(30, M, K), _normal(31, N, K, scale=K**-0.5)  # w: the JAX weight (in, out)
+    acc = _normal(32, M, N)
+    before = g.gemm_nn.launches
+    out = g.gemm_nn(torch.from_numpy(gc).to(td), torch.from_numpy(w.T.copy()).to(td), epilogue,
+                    torch.from_numpy(acc.copy()))
+    assert g.gemm_nn.launches == before
+    ref = _dg(gc, w, ((1,), (1,)), jd)
+    if epilogue == "acc_f32":
+        ref = ref + acc
+    assert out.dtype == (td if epilogue == "store" else torch.float32)
+    _check(out, ref.astype(jd) if epilogue == "store" else ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_gemm_nn_joined_matches_jax(dtype):
+    """The joined form, K3's dr = dq . Wq + dk . Wk: one f32 sum."""
+    jd, td = DTYPES[dtype]
+    M, N, K = 154, 48, 64
+    a = [_normal(40 + i, M, K) for i in range(2)]
+    w = [_normal(42 + i, N, K, scale=K**-0.5) for i in range(2)]
+    out = g.gemm_nn([torch.from_numpy(x).to(td) for x in a], [torch.from_numpy(x.T.copy()).to(td) for x in w],
+                    "store_f32")
+    _check(out, _dg(a[0], w[0], ((1,), (1,)), jd) + _dg(a[1], w[1], ((1,), (1,)), jd), dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("R, N, K", BWD_SHAPES)
+def test_wgrad_matches_jax(dtype, R, N, K):
+    """dW = g^T . x (out, in) as the transpose of dot_general(xc, gc) over
+    the rows, rounded to the compute dtype after the f32 sum."""
+    jd, td = DTYPES[dtype]
+    gc, x = _normal(50, R, N), _normal(51, R, K)
+    before = g.wgrad.launches
+    out = g.wgrad(torch.from_numpy(gc).to(td), torch.from_numpy(x).to(td))
+    assert g.wgrad.launches == before
+    assert out.dtype == td and tuple(out.shape) == (N, K)
+    _check(out, _dg(x, gc, ((0,), (0,)), jd).T.astype(jd), dtype)
+
+
+@pytest.mark.parametrize("rows, n, k, splits", [(28800, 512, 512, 16), (28800, 512, 1024, 8), (28800, 1024, 512, 8),
+                                                 (9728, 512, 512, 16), (200, 512, 512, 4), (1, 49, 100, 1),
+                                                 (1200, 128, 128, 19)])
+def test_weight_splits(rows, n, k, splits):
+    """The train kernels' row chunks: about one wave of 264 blocks (2 an
+    SM) over the gradient's 128 x 128 tiles, each chunk a multiple of 64
+    rows that together cover the rows."""
+    assert weight_splits(rows, n, k) == splits
+    chunk = -(-rows // splits)
+    chunk = -(-chunk // 64) * 64
+    assert (splits - 1) * chunk < rows <= splits * chunk

@@ -13,7 +13,10 @@ an SM holds, and the rate at which the tiles move operands from L2 into
 the SMs, M N K 2 (1/BM + 1/BN) bytes over the time. Then the projection
 itself (ops/gemm.py) with each of K1's and K2's epilogues at their
 shapes, so that the cost of an epilogue is its time less the loop's (v4).
-Prints the card's name and power limit first.
+Then the backward's bodies (ops/gemm.py) at the train rows (M = 28800):
+the input gradient by shape and epilogue, and the split-row weight
+gradient by split count (the count the train kernels use marked), each
+with its ordered reduction. Prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
 from tcdiff_torch.ops import _build, gemm  # noqa: E402
+from tcdiff_torch.ops.train_common import weight_splits  # noqa: E402
 
 # variant: (BM, BN, BK, warps along M x N, ring stages, fragments first), as in gemm_tiles.cu
 VARIANTS = {
@@ -96,7 +100,30 @@ def main() -> int:
         for epi in epilogues:
             ms = chip_smoke.device_ms(lambda: gemm.gemm(a, w, epi, *film))
             print(f"  {M}x{N}x{K} {epi}: {1e3 * ms:.1f} us, {2 * M * N * K / ms / 1e9:.0f} TFLOP/s")
+    backward(gen)
     return 0
+
+
+def backward(gen) -> None:
+    """The input gradient and the weight gradient at the train rows."""
+    M = 28800
+    rnd = lambda *shape, std=1.0: (torch.randn(shape, generator=gen, device="cuda") * std).bfloat16()
+    print(f"the input gradient (gemm_nn) at M = {M}:")
+    for N, K in ((512, 512), (1024, 512), (512, 1024)):
+        a, b = rnd(M, K), rnd(K, N, std=K**-0.5)
+        lib_ms = chip_smoke.device_ms(lambda: torch.matmul(a, b))
+        for epi in ("store", "store_f32"):
+            ms = chip_smoke.device_ms(lambda: gemm.gemm_nn(a, b, epi))
+            print(f"  {M}x{N}x{K} {epi}: {1e3 * ms:.1f} us, {2 * M * N * K / ms / 1e9:.0f} TFLOP/s "
+                  f"(torch.matmul {1e3 * lib_ms:.1f} us)")
+    print(f"the weight gradient (wgrad) over R = {M} rows, by split count:")
+    for N, K in ((512, 512), (512, 1024), (1024, 512)):
+        g, x = rnd(M, N), rnd(M, K)
+        path = weight_splits(M, N, K)
+        for splits in sorted({2, 4, 8, 16, 32, 56, path}):
+            ms = chip_smoke.device_ms(lambda: gemm.wgrad(g, x, splits))
+            print(f"  {N}x{K} x {M} rows, {splits} chunks{' (the path)' if splits == path else ''}: "
+                  f"{1e3 * ms:.1f} us, {2 * M * N * K / ms / 1e9:.0f} TFLOP/s")
 
 
 if __name__ == "__main__":
