@@ -9,8 +9,10 @@ last line:
      all at once;
   3. hold each serving kernel (K1, K2) against its plain PyTorch version
      at the serving shapes (b=8 doubled CFG batch, L=450, d=512), in bf16
-     and f32, and time both; count the launches of one bf16 K1 call under
-     torch.profiler (5: the q/k/v projections are one grouped launch);
+     and f32, and time both; count the launches of one bf16 K1 call and
+     one K2 call under torch.profiler (4 each: K1's q/k/v projections are
+     one grouped launch; the LayerNorm after K1's fc and after K2's W2 runs
+     in that product's epilogue, so each makes one row-kernel launch);
      then K1's and K2's products alone through the projection's entry
      point (ops/gemm.py), bf16: q/k/v grouped 3600x1536x512, fc
      3600x512x512, W1 3600x1024x512, W2 3600x512x1024, W3 3600x512x512,
@@ -20,9 +22,15 @@ last line:
      (450x450 self-attention with and without TRPE, 450x152
      cross-attention, the cond encoder's 150x150), with the one PyTorch
      call that computes the same function where there is one (F.layer_norm
-     for K10, F.scaled_dot_product_attention for K11 without TRPE);
+     for K10, F.scaled_dot_product_attention for K11 without TRPE); then
+     K10's row body alone at 3600x512 in bf16, with an f32 input, and at
+     the train's 28800 rows: device time beside F.layer_norm's, GB/s and
+     the share of the bound, and the body templated on d=512 by name;
   5. the same for the block kernels K2b and K7 (each with and without the
-     FiLM rows) and K6 (with and without its FF section), Lm=152;
+     FiLM rows) and K6 (with and without its FF section), Lm=152; K6's
+     bf16 device time, and one call under torch.profiler: 10 device
+     kernels with the FF section (7 without), one LayerNorm row kernel,
+     the folds of the LayerNorms into the fc and W2 epilogues by name;
   6. hold each train kernel (K3, K4, K5) against its plain version at the
      main path's train shapes (b=64, L=450, Lm=152, d=512), in bf16 and
      f32, dropout 0.1 with the same seeds: the output and every gradient
@@ -215,12 +223,15 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if torch.is_tensor(t))
 
 
-def device_kernels(fn):
+def device_kernels(fn, accept=None):
     """Run fn() once under torch.profiler. Returns the wall seconds and the
     device kernels it ran, [(name without arguments, start us, end us)] in
-    order of start. Now and then the profiler hands back no device events
-    (seen on the card); fn() then runs again, three times at most."""
+    order of start. Now and then the profiler hands back no device events,
+    or misses one (both seen on the card): fn() then runs again, three
+    times at most, until `accept(kernels)` holds where given; the last
+    reading is returned either way, for the caller's check to judge."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    last = None
     for _ in range(3):
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
@@ -233,8 +244,12 @@ def device_kernels(fn):
                           and not getattr(e, "is_user_annotation", False) and "#" not in e.name),
                          key=lambda k: k[1])
         if kernels:
-            return wall, kernels
-    raise SmokeFailure("the profiler saw no device events")
+            last = wall, kernels
+            if accept is None or accept(kernels):
+                break
+    if last is None:
+        raise SmokeFailure("the profiler saw no device events")
+    return last
 
 
 def device_profile(fn):
@@ -254,6 +269,19 @@ def device_profile(fn):
         by[name][0] += (e0 - s0) / 1e3
         by[name][1] += 1
     return wall, busy, sorted(((k, ms, n) for k, (ms, n) in by.items()), key=lambda r: -r[1])
+
+
+def our_kernels(fn, expect: int) -> dict:
+    """{name: calls} of the hand-written kernels (namespace tcd) that one
+    fn() runs, from torch.profiler (profiled again, three times at most,
+    while a reading holds other than `expect` of them)."""
+    _, kernels = device_kernels(fn, accept=lambda ks: sum("tcd::" in n for n, _, _ in ks) == expect)
+    return dict(collections.Counter(n for n, _, _ in kernels if "tcd::" in n))
+
+
+def calls(kernels: dict, part: str) -> int:
+    """The calls of the kernels whose name holds `part`."""
+    return sum(c for n, c in kernels.items() if part in n)
 
 
 def print_profile(label: str, fn) -> None:
@@ -314,14 +342,14 @@ def compare_kernels(gen: torch.Generator) -> dict:
                 if dtype == torch.bfloat16 and film and not trpe:  # the serving variant
                     flops = 8 * B * L * D * HD + 4 * B * L * L * HD
                     dev_ms = device_ms(lambda: sa_block.sa_block(*args, nhead=H))
-                    ours = {n: c for n, _, c in device_profile(lambda: sa_block.sa_block(*args, nhead=H))[2]
-                            if "tcd::" in n}  # the hand-written kernels of one call, not the wrapper's casts
+                    ours = our_kernels(lambda: sa_block.sa_block(*args, nhead=H), 4)
                     n_launch = sum(ours.values())
                     print(f"K1 sa_block bf16 film=True: device {dev_ms:.4f} ms a call (calls queued back to "
                           f"back), {flops / dev_ms / 1e9:.1f} TFLOP/s; {n_launch} launches a call: {ours}")
-                    check(n_launch == 5, f"K1 made {n_launch} launches, expected 5")
-                    check(sum(c for n, c in ours.items() if "gemm_mma_kernel" in n) == 2,
-                          "K1's projections are not 2 launches of the tensor-core kernel")
+                    check(n_launch == 4, f"K1 made {n_launch} launches, expected 4")
+                    check(calls(ours, "gemm_mma_kernel") == 1 and calls(ours, "gemm_ln_kernel") == 1,
+                          "K1's projections are not the grouped q/k/v launch and fc with its LayerNorm fold")
+                    check(calls(ours, "ln_rows_kernel") == 1, "K1 launches a row kernel after its fc")
                     figures["sa_block"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                                **bound(flops, nbytes(*args, out)), library_ms=None,
                                                device_ms=dev_ms, launches_per_call=n_launch)
@@ -345,8 +373,12 @@ def compare_kernels(gen: torch.Generator) -> dict:
         if dtype == torch.bfloat16:
             flops = 4 * B * L * D * FF + 2 * B * L * D * D
             dev_ms = device_ms(lambda: ff_block.ff_tail(*args))
+            ours = our_kernels(lambda: ff_block.ff_tail(*args), 4)
             print(f"K2 ff_tail bf16: device {dev_ms:.4f} ms a call (calls queued back to back), "
-                  f"{flops / dev_ms / 1e9:.1f} TFLOP/s")
+                  f"{flops / dev_ms / 1e9:.1f} TFLOP/s; {sum(ours.values())} launches a call: {ours}")
+            check(sum(ours.values()) == 4 and calls(ours, "gemm_ln_kernel") == 1,
+                  "K2 is not LN3, W1, W2 with its LayerNorm fold and W3")
+            check(calls(ours, "ln_rows_kernel") == 1, "K2 launches a row kernel after its W2")
             figures["ff_tail"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                       **bound(flops, nbytes(*args, out)), library_ms=None, device_ms=dev_ms)
     return figures
@@ -408,7 +440,9 @@ def measure(figures: dict, name: str, label: str, dtype, kernel, plain, flops: f
             library=None, peak: float = PEAK_BF16, main: bool = False) -> None:
     """Hold kernel() against plain() (the same inputs), time both (and
     library(), the one PyTorch call of the same function, where given);
-    record the figures of the main-path bf16 variant under `name`."""
+    record the figures of the main-path bf16 variant under `name`, with
+    the device times of kernel() and library() (20 calls queued back to
+    back)."""
     out, ref = kernel(), plain()
     torch.cuda.synchronize()
     outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
@@ -423,8 +457,12 @@ def measure(figures: dict, name: str, label: str, dtype, kernel, plain, flops: f
           f"({flops / ms / 1e9:.1f} TFLOP/s) plain {plain_ms:.3f} ms{lib}")
     check(err <= tol, f"{name} {label} {dname} disagrees: {err} > {tol}")
     if main and dtype == torch.bfloat16:
+        dev_ms = device_ms(kernel, reps=20)
+        lib_dev_ms = None if library is None else device_ms(library, reps=20)
+        lib = "" if lib_dev_ms is None else f", library {1e3 * lib_dev_ms:.1f} us"
+        print(f"{name} {label} {dname}: device {1e3 * dev_ms:.1f} us a call (calls queued back to back){lib}")
         figures[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound(flops, io_bytes, peak),
-                             library_ms=lib_ms)
+                             library_ms=lib_ms, device_ms=dev_ms, library_device_ms=lib_dev_ms)
 
 
 def compare_serving_ops(gen: torch.Generator) -> dict:
@@ -442,11 +480,13 @@ def compare_serving_ops(gen: torch.Generator) -> dict:
         s, b = ln()
 
         # K10: the SBI-MSA post-attention LayerNorm (eps 1e-6); ~7 f32
-        # operations an element
+        # operations an element; F.layer_norm takes its affine in x's dtype,
+        # cast once outside the timed call
+        sx, bx = s.to(dtype), b.to(dtype)
         measure(figures, "layernorm", "post-attention LN", dtype,
                 lambda: layernorm.layernorm(x, s, b, 1e-6), lambda: layernorm.layernorm_plain(x, s, b, 1e-6),
                 7 * M * D, nbytes(x, s, b, x),
-                library=lambda: F.layer_norm(x, (D,), s.to(dtype), b.to(dtype), 1e-6), peak=PEAK_F32, main=True)
+                library=lambda: F.layer_norm(x, (D,), sx, bx, 1e-6), peak=PEAK_F32, main=True)
 
         # K9: norm3 -> linear1 (the main variant) and norm4 -> linear3
         for n, label in ((FF, "norm3->linear1"), (D, "norm4->linear3")):
@@ -487,6 +527,53 @@ def compare_serving_ops(gen: torch.Generator) -> dict:
                     flops, nbytes(q, k, v, tab, dd) + q.numel() * q.element_size(), library=sdpa,
                     main=label == "self 450x450")
     return figures
+
+
+def compare_ln_rows(gen: torch.Generator) -> dict:
+    """Phase 4b: K10's row body (the LayerNorm stage of every kernel) at the
+    rows the paths give it, d=512: 3600 rows in bf16 (K10 itself), 3600
+    rows of f32 input with a bf16 output (the f32 fc output or FiLM
+    residual of the unfused blocks, through ops/layernorm.ln_rows) and
+    28800 rows in bf16 (the train forwards' rows). Each held against its
+    plain version; its device time (calls queued back to back) beside
+    F.layer_norm's on the same input, the bytes it must move over that
+    time, and the share of the bound it reaches; then one call under
+    torch.profiler, which must show the body templated on d = 512 (16
+    elements a lane). Returns K10's extra figures."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    rnd = lambda *shape, std=1.0: torch.randn(shape, generator=gen, device="cuda") * std
+    s, b = 1.0 + rnd(D, std=0.1), rnd(D, std=0.1)
+    extra = {}
+    for label, rows, xdt in (("3600x512 bf16", B * L, bf16), ("3600x512 f32 in, bf16 out", B * L, f32),
+                             ("28800x512 bf16 (train rows)", TRAIN_BATCH * L, bf16)):
+        x = (2.0 * rnd(rows // L, L, D) + 0.5).to(xdt)
+        if xdt == bf16:
+            fn, plain = (lambda x=x: layernorm.layernorm(x, s, b, 1e-6)), (lambda x=x: layernorm.layernorm_plain(x, s, b, 1e-6))
+        else:
+            fn = lambda x=x: layernorm.ln_rows(x, s, b, 1e-6, dtype=bf16)[0]
+            plain = lambda x=x: layernorm.ln_rows_plain(x, s, b, 1e-6, dtype=bf16)[0]
+        out, ref = fn(), plain()
+        torch.cuda.synchronize()
+        err, tol = (out.float() - ref.float()).abs().max().item(), tolerance(bf16, ref.float())
+        check(torch.isfinite(out).all().item(), f"K10 rows {label}: output not finite")
+        check(err <= tol, f"K10 rows {label} disagrees: {err} > {tol}")
+        sx, bx = s.to(xdt), b.to(xdt)
+        ms = device_ms(fn)
+        lib_ms = device_ms(lambda x=x: F.layer_norm(x, (D,), sx, bx, 1e-6))
+        io = nbytes(x, s, b, out)
+        bnd = bound(7 * rows * D, io, PEAK_F32)
+        print(f"K10 rows {label}: max_abs_err {err:.3e} (tol {tol:.3e}); device {1e3 * ms:.2f} us "
+              f"({io / ms / 1e6:.0f} GB/s, {bnd['bound_ms'] / ms:.3f} of the bound {1e3 * bnd['bound_ms']:.2f} us, "
+              f"{bnd['bound_by']}); F.layer_norm {1e3 * lib_ms:.2f} us (kernel / library {ms / lib_ms:.2f})")
+        extra[label] = dict(device_ms=ms, library_device_ms=lib_ms, gb_s=io / ms / 1e6,
+                            bound_share=bnd["bound_ms"] / ms, **bnd)
+        if label == "3600x512 bf16":
+            names = our_kernels(fn, 1)
+            print(f"K10 at d={D}: {names}")
+            check(calls(names, f"ln_rows_kernel<bf16, bf16, {D // 32}>") == 1,
+                  f"K10 at d={D} did not run the body templated on {D // 32} elements a lane: {names}")
+    return {"rows": extra, "device_ms": extra["3600x512 bf16"]["device_ms"],
+            "library_device_ms": extra["3600x512 bf16"]["library_device_ms"]}
 
 
 def compare_block_kernels(gen: torch.Generator) -> dict:
@@ -541,7 +628,32 @@ def compare_block_kernels(gen: torch.Generator) -> dict:
                     lambda args=args, i=include_ff: layer.layer(*args, nhead=H, include_ff=i),
                     lambda args=args, i=include_ff: layer.layer_plain(*args, nhead=H, include_ff=i),
                     flops, nbytes(args[0], *args[2:]) + cos_sin + nbytes(x), main=include_ff)
+            if dtype == torch.bfloat16:
+                figures["layer"].update(layer_launches(args, include_ff, flops))
     return figures
+
+
+def layer_launches(args, include_ff: bool, flops: float) -> dict:
+    """K6 in bf16: its device time (calls queued back to back) beside the
+    per-call time `measure` took, and one call under torch.profiler (FiLM
+    rows in f32, as the kernel takes them, so that the wrapper launches no
+    cast): with its FF section it must run 10 device kernels, exactly one
+    of them a LayerNorm row kernel and three the LayerNorm folds
+    (gemm_ln_kernel); without, 7, one row kernel and two folds."""
+    args = tuple(a.float() if a.dim() == 2 and a.shape[0] == B else a for a in args)  # the FiLM rows
+    fn = lambda: layer.layer(*args, nhead=H, include_ff=include_ff)
+    dev_ms = device_ms(fn)
+    want, folds = (10, 3) if include_ff else (7, 2)
+    _, kernels = device_kernels(fn, accept=lambda ks: len(ks) == want)
+    names = collections.Counter(name for name, _, _ in kernels)
+    print(f"K6 layer bf16 include_ff={include_ff}: device {dev_ms:.4f} ms a call (calls queued back to back), "
+          f"{flops / dev_ms / 1e9:.1f} TFLOP/s; {len(kernels)} device kernels a call: {dict(names)}")
+    check(len(kernels) == want, f"K6 include_ff={include_ff} ran {len(kernels)} device kernels, expected {want}")
+    check(calls(names, "ln_rows_kernel") == 1, f"K6 ran {calls(names, 'ln_rows_kernel')} row kernels, expected 1")
+    check(calls(names, "gemm_ln_kernel") == folds, f"K6 ran {calls(names, 'gemm_ln_kernel')} LayerNorm folds, "
+          f"expected {folds}")
+    key = "" if include_ff else "_no_ff"
+    return {f"device_ms{key}": dev_ms, f"device_kernels{key}": len(kernels)}
 
 
 # The block kernels' configurations: (label, ServingKernels, the expected
@@ -690,9 +802,11 @@ def compare_train_kernels(gen: torch.Generator) -> dict:
                   f"fwd+bwd kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
             if dtype == torch.bfloat16:
                 io = nbytes(*args, out, cot, *grads)  # inputs + cotangent read, output + gradients written
+                dev_ms = device_ms(lambda: torch.autograd.grad(fn(*lk, **kw), diff_leaves(lk), cot), reps=5)
+                print(f"{name} bf16: fwd+bwd device {dev_ms:.3f} ms a call (5 calls queued back to back)")
                 figures[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound(flops, io),
                                      library_ms=None, fwd_ms=fwd_ms, plain_fwd_ms=plain_fwd_ms,
-                                     grad_err_share_of_tol=worst)
+                                     grad_err_share_of_tol=worst, device_ms=dev_ms)
     return figures
 
 
@@ -817,7 +931,8 @@ def compare_backward_gemms(gen: torch.Generator) -> dict:
                                       library_ms=lib_ms, **b)
     # the reductions alone: one wgrad call each under the profiler, in order
     wgrads = [(kernel, label, parts[0]) for kernel, label, parts in cases if label.startswith("dW")]
-    _, events = device_kernels(lambda: [fn() for _, _, fn in wgrads])
+    _, events = device_kernels(lambda: [fn() for _, _, fn in wgrads],
+                               accept=lambda ks: sum("reduce_kernel" in n for n, _, _ in ks) == len(wgrads))
     reds = [(end - start) / 1e3 for name, start, end in events if "reduce_kernel" in name]
     check(len(reds) == len(wgrads), f"expected {len(wgrads)} reductions in the profile, saw {len(reds)}")
     for (kernel, label, _), red_ms in zip(wgrads, reds):
@@ -1187,6 +1302,7 @@ def main() -> int:
         for name, products in compare_gemms(gen).items():
             figures[name]["products"] = products
         figures.update(compare_serving_ops(gen))
+        figures["layernorm"].update(compare_ln_rows(gen))
         figures.update(compare_block_kernels(gen))
         figures.update(compare_train_kernels(gen))
         for name, extra in compare_train_attention(gen).items():

@@ -21,12 +21,14 @@
 //
 // Design: one grouped launch of the projection (gemm_mma.cuh) takes the
 // memory's k and v over its B * Lm rows into T (the TPU kernel rounds each
-// head's k and v to the compute dtype), then the shared cross-attention sequence of blocks.cuh:
-// LN + rotary rows, the q GEMM, the flash attention of attention.cuh with
-// Lq != Lk (as K11 runs it), the fc GEMM into f32 and the post-LN row
-// kernel with the FiLM residual as its epilogue. K6 (layer.cu) runs the
-// same sequence against the cached k/v. The projections and the attention
-// run on the tensor cores in bf16, on the FMA units in f32.
+// head's k and v to the compute dtype), then the shared cross-attention
+// sequence of blocks.cuh: the LN + rotary row kernel, the q GEMM, the
+// flash attention of attention.cuh with Lq != Lk (as K11 runs it), and the
+// fc GEMM with the post-LN and the FiLM residual in its epilogue (bf16: a
+// cluster along N holds whole rows, gemm_ln; f32: an f32 scratch and a row
+// kernel). K6 (layer.cu) runs the same steps against the cached k/v. The
+// projections and the attention run on the tensor cores in bf16, on the
+// FMA units in f32.
 #include "blocks.cuh"
 
 // Pointers, then the ints, then the floats: the layout of the ctypes
@@ -63,8 +65,8 @@ void ca_block(const CaBlockArgs& a, cudaStream_t st) {
 // x (B, L, d), mem and mrot (B, Lm, d), d even; cos/ssin (L, d) in T;
 // wq/wk/wv (hd, d), wfc (d, hd) in T; LN affines and FiLM rows f32;
 // scratch r (B*L, d), q and o (B*L, hd), k and v (B*Lm, hd) in T, z
-// (B*L, d) f32. dtype: 0 = float32, 1 = bfloat16. Returns
-// cudaGetLastError() after the launches.
+// (B*L, d) f32, used in f32 only. dtype: 0 = float32, 1 = bfloat16.
+// Returns the launches' status (launch_status).
 extern "C" int tcd_ca_block(int dtype, const CaBlockArgs* a, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
@@ -74,5 +76,5 @@ extern "C" int tcd_ca_block(int dtype, const CaBlockArgs* a, void* stream) {
   } else {
     return -1;
   }
-  return (int)cudaGetLastError();
+  return tcd::launch_status();
 }

@@ -51,8 +51,8 @@ int ca_fwd(const CaTrainArgs& a, cudaStream_t st) {
   const Drop dr = make_drop(a.seeds, a.thresh, a.dscale, a.drop_on);
   const T *x = (const T*)a.x, *mem = (const T*)a.mem;
   T *r = (T*)a.r, *rm = (T*)a.rm, *q = (T*)a.q, *k = (T*)a.k, *v = (T*)a.v, *o = (T*)a.o;
-  ln_rows_kernel<T, T><<<M, 256, 0, st>>>(x, a.sx, a.bx, a.eps1, a.d, a.L, (const T*)a.cosx,
-                                          (const T*)a.ssinx, nullptr, nullptr, nullptr, nullptr, r);
+  ln_rows<T, T>(x, a.sx, a.bx, a.eps1, M, a.d, a.L, (const T*)a.cosx, (const T*)a.ssinx, nullptr, nullptr,
+                nullptr, nullptr, r, st);
   rot_rows_kernel<T><<<Mm, 256, 0, st>>>(mem, (const T*)a.cosm, (const T*)a.ssinm, a.d, a.Lm, rm);
   gemm<T, EPI_STORE>(r, (const T*)a.wq, M, a.hd, a.d, epi(q), st);
   gemm<T, EPI_STORE>(rm, (const T*)a.wk, Mm, a.hd, a.d, epi(k), st);

@@ -14,6 +14,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 namespace tcd {
@@ -31,6 +32,24 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 template <typename T> __device__ __forceinline__ float round_t(float v) { return to_f(from_f<T>(v)); }
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// A launch refused on the host (a shape or an alignment its kernel does not
+// take), recorded by refuse() and reported by the entry point's
+// launch_status() as a failed launch is: the wrapper raises. No launch
+// falls back to another kernel.
+inline cudaError_t& refused() {
+  static thread_local cudaError_t e = cudaSuccess;
+  return e;
+}
+inline void refuse(cudaError_t e = cudaErrorInvalidValue) {
+  if (refused() == cudaSuccess) refused() = e;
+}
+// cudaGetLastError(), or else the first refusal since the last call.
+inline int launch_status() {
+  const cudaError_t r = refused(), l = cudaGetLastError();
+  refused() = cudaSuccess;
+  return (int)(l != cudaSuccess ? l : r);
+}
 
 // ------------------------------------------------------------- dropout
 // The hash dropout of the train path, bit for bit the TPU kernels'
@@ -90,53 +109,260 @@ __device__ __forceinline__ void block_sum2(float& a, float& b) {
   }
 }
 
-// One row per block: y = LN(in) in f32 (var = E[x^2] - mu^2, as the TPU
-// kernels), then
+// Sum of two values over a warp, by xor shuffles: every lane ends with
+// the same sums, added in the same order.
+__device__ __forceinline__ void warp_sum2(float& a, float& b) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, o);
+    b += __shfl_xor_sync(0xffffffffu, b, o);
+  }
+}
+
+// Whether a pointer is aligned to `bytes` (a null pointer is).
+inline bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
+
+// NW 32-bit words at p (4 NW bytes, aligned to that size or to 16).
+template <int NW>
+__device__ __forceinline__ void ld_words(const void* p, uint32_t (&w)[NW]) {
+  if constexpr (NW % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < NW / 4; ++q) {
+      const uint4 u = reinterpret_cast<const uint4*>(p)[q];
+      w[4 * q] = u.x;
+      w[4 * q + 1] = u.y;
+      w[4 * q + 2] = u.z;
+      w[4 * q + 3] = u.w;
+    }
+  } else if constexpr (NW == 2) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    w[0] = u.x;
+    w[1] = u.y;
+  } else {
+    static_assert(NW == 1, "1, 2 or a multiple of 4 words");
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+}
+template <int NW>
+__device__ __forceinline__ void st_words(void* p, const uint32_t (&w)[NW]) {
+  if constexpr (NW % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < NW / 4; ++q)
+      reinterpret_cast<uint4*>(p)[q] = make_uint4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
+  } else if constexpr (NW == 2) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  } else {
+    static_assert(NW == 1, "1, 2 or a multiple of 4 words");
+    *reinterpret_cast<uint32_t*>(p) = w[0];
+  }
+}
+
+// W contiguous elements at p widened to f32 (ld_vec), or W f32 values
+// rounded to the element type and stored at p (st_vec), in as few vector
+// accesses as the alignment of p allows (16 bytes of bf16 at W = 8).
+template <int W>
+__device__ __forceinline__ void ld_vec(const float* p, float (&v)[W]) {
+  uint32_t w[W];
+  ld_words<W>(p, w);
+#pragma unroll
+  for (int e = 0; e < W; ++e) v[e] = __uint_as_float(w[e]);
+}
+template <int W>
+__device__ __forceinline__ void ld_vec(const __nv_bfloat16* p, float (&v)[W]) {
+  uint32_t w[W / 2];
+  ld_words<W / 2>(p, w);
+#pragma unroll
+  for (int e = 0; e < W / 2; ++e) {  // element 2e in the low half of word e
+    v[2 * e] = __uint_as_float(w[e] << 16);
+    v[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+  }
+}
+template <int W>
+__device__ __forceinline__ void st_vec(float* p, const float (&v)[W]) {
+  uint32_t w[W];
+#pragma unroll
+  for (int e = 0; e < W; ++e) w[e] = __float_as_uint(v[e]);
+  st_words<W>(p, w);
+}
+template <int W>
+__device__ __forceinline__ void st_vec(__nv_bfloat16* p, const float (&v)[W]) {
+  uint32_t w[W / 2];
+#pragma unroll
+  for (int e = 0; e < W / 2; ++e) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+    w[e] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  st_words<W / 2>(p, w);
+}
+
+// ------------------------------------------------------ LayerNorm rows
+// The LayerNorm row body of every kernel (K10, and the row stages of K1,
+// K2, K2b, K6-K9 and K3-K5's forwards): y = LN(in) in f32 (var = E[x^2] -
+// mu^2, as the TPU kernels), then
 //   out     = T(y)                                      (resid == nullptr)
 //   out     = T(resid + (fs[b] + 1) * y + fb[b])        (FiLM residual)
 //   out_rot = T(y * cos + swap_pairs(y) * ssin)         (cos != nullptr)
 // Rows are m = b * L + l; cos/ssin are (L, d) tables in T with the
-// rotate-half signs folded into ssin. d must be even.
+// rotate-half signs folded into ssin; out may be null (the rotated output
+// only). d must be even.
+//
+// What bounds it on the H100: ~8 operations an element against 2-4 bytes
+// in and 2-4 out: the bytes (3,600 rows of 512 in bf16: 3.7 MB, 1.1 us at
+// 3.35 TB/s; 2.2 us with an f32 input or the rotated output beside).
+//
+// Design: one warp per row, LN_WARPS warps a block, each warp walking the
+// rows m, m + (the grid's warps), ...; the grid is what the card holds at
+// once. The statistics are xor shuffles within the warp (no shared
+// memory, no barrier), in a fixed order. EPL = d / 32 elements a lane for
+// d = 64, 128, 256, 512, 1024: the row is read once into registers, in
+// chunks of W = min(EPL, 8) contiguous elements (16 bytes of bf16); chunk c
+// of a lane starts at column (c * 32 + lane) * W, so a warp's loads of one
+// chunk are one contiguous span. scale and bias stay in registers across
+// the warp's rows; the rotary tables, the residual and the FiLM rows are
+// read in the same vectors, and a rotary pair (c, c + 1) lies within one
+// chunk. EPL = 0 is the body for any other even d, or an operand not
+// 16-byte aligned: pairs of columns, element loads, the row read twice
+// (the second time from L1).
+constexpr int LN_WARPS = 8;
+
+template <typename TI, typename T, int EPL>
+__global__ void __launch_bounds__(32 * LN_WARPS)
+ln_rows_kernel(const TI* __restrict__ in, const float* __restrict__ scale, const float* __restrict__ bias,
+               float eps, int M, int d, int L, const T* __restrict__ cos_t, const T* __restrict__ ssin_t,
+               const T* __restrict__ resid, const float* __restrict__ fs, const float* __restrict__ fb,
+               T* __restrict__ out, T* __restrict__ out_rot) {
+  const int lane = threadIdx.x & 31, stride = gridDim.x * LN_WARPS;
+  const int first = blockIdx.x * LN_WARPS + (threadIdx.x >> 5);
+  if constexpr (EPL > 0) {
+    constexpr int W = EPL < 8 ? EPL : 8, NC = EPL / W;
+    float sc[NC][W], bi[NC][W];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      ld_vec<W>(scale + (c * 32 + lane) * W, sc[c]);
+      ld_vec<W>(bias + (c * 32 + lane) * W, bi[c]);
+    }
+    for (int m = first; m < M; m += stride) {
+      const size_t row = (size_t)m * d;
+      float x[NC][W];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) ld_vec<W>(in + row + (c * 32 + lane) * W, x[c]);
+      float s = 0.f, ss = 0.f;
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int e = 0; e < W; ++e) {
+          s += x[c][e];
+          ss += x[c][e] * x[c][e];
+        }
+      warp_sum2(s, ss);
+      const float mu = s / d;
+      const float rs = rsqrtf(ss / d - mu * mu + eps);
+      const int l = m % L, b = m / L;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int col = (c * 32 + lane) * W;
+        float y[W];
+#pragma unroll
+        for (int e = 0; e < W; ++e) y[e] = (x[c][e] - mu) * rs * sc[c][e] + bi[c][e];
+        if (out_rot) {
+          float cs[W], sn[W], r[W];
+          ld_vec<W>(cos_t + (size_t)l * d + col, cs);
+          ld_vec<W>(ssin_t + (size_t)l * d + col, sn);
+#pragma unroll
+          for (int e = 0; e < W; e += 2) {
+            r[e] = y[e] * cs[e] + y[e + 1] * sn[e];
+            r[e + 1] = y[e + 1] * cs[e + 1] + y[e] * sn[e + 1];
+          }
+          st_vec<W>(out_rot + row + col, r);
+        }
+        if (out) {
+          if (resid) {
+            float rr[W], f1[W], f2[W];
+            ld_vec<W>(resid + row + col, rr);
+            ld_vec<W>(fs + (size_t)b * d + col, f1);
+            ld_vec<W>(fb + (size_t)b * d + col, f2);
+#pragma unroll
+            for (int e = 0; e < W; ++e) y[e] = rr[e] + (f1[e] + 1.f) * y[e] + f2[e];
+          }
+          st_vec<W>(out + row + col, y);
+        }
+      }
+    }
+  } else {
+    for (int m = first; m < M; m += stride) {
+      const TI* x = in + (size_t)m * d;
+      float s = 0.f, ss = 0.f;
+      for (int c = lane; c < d; c += 32) {
+        const float v = to_f(x[c]);
+        s += v;
+        ss += v * v;
+      }
+      warp_sum2(s, ss);
+      const float mu = s / d;
+      const float rs = rsqrtf(ss / d - mu * mu + eps);
+      const int l = m % L, b = m / L;
+      for (int p = lane; p < d / 2; p += 32) {
+        const int c0 = 2 * p, c1 = c0 + 1;
+        float y0 = (to_f(x[c0]) - mu) * rs * scale[c0] + bias[c0];
+        float y1 = (to_f(x[c1]) - mu) * rs * scale[c1] + bias[c1];
+        if (out_rot) {
+          const size_t t = (size_t)l * d;
+          const float r0 = y0 * to_f(cos_t[t + c0]) + y1 * to_f(ssin_t[t + c0]);
+          const float r1 = y1 * to_f(cos_t[t + c1]) + y0 * to_f(ssin_t[t + c1]);
+          out_rot[(size_t)m * d + c0] = from_f<T>(r0);
+          out_rot[(size_t)m * d + c1] = from_f<T>(r1);
+        }
+        if (out) {
+          if (resid) {
+            const size_t f = (size_t)b * d;
+            y0 = to_f(resid[(size_t)m * d + c0]) + (fs[f + c0] + 1.f) * y0 + fb[f + c0];
+            y1 = to_f(resid[(size_t)m * d + c1]) + (fs[f + c1] + 1.f) * y1 + fb[f + c1];
+          }
+          out[(size_t)m * d + c0] = from_f<T>(y0);
+          out[(size_t)m * d + c1] = from_f<T>(y1);
+        }
+      }
+    }
+  }
+}
+
+// One launch of ln_rows_kernel<TI, T, EPL>: min(rows / LN_WARPS, the
+// blocks the card holds at once) blocks, found once per instance.
+template <typename TI, typename T, int EPL, typename... Args>
+inline void launch_ln_rows(int M, cudaStream_t st, Args... args) {
+  static const int resident = [] {
+    int dev = 0, sms = 1, per = 1;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, ln_rows_kernel<TI, T, EPL>, 32 * LN_WARPS, 0);
+    return sms * (per > 0 ? per : 1);
+  }();
+  const int blocks = std::max(1, std::min(cdiv(M, LN_WARPS), resident));
+  ln_rows_kernel<TI, T, EPL><<<blocks, 32 * LN_WARPS, 0, st>>>(args...);
+}
+
+// The LayerNorm rows above over M rows of d: the body templated on d / 32
+// where d is one of the widths the paths use and every operand is 16-byte
+// aligned, else the general body.
 template <typename TI, typename T>
-__global__ void ln_rows_kernel(const TI* __restrict__ in, const float* __restrict__ scale,
-                               const float* __restrict__ bias, float eps, int d, int L,
-                               const T* __restrict__ cos_t, const T* __restrict__ ssin_t,
-                               const T* __restrict__ resid, const float* __restrict__ fs,
-                               const float* __restrict__ fb, T* __restrict__ out,
-                               T* __restrict__ out_rot) {
-  const int m = blockIdx.x;
-  const TI* row = in + (size_t)m * d;
-  float s = 0.f, ss = 0.f;
-  for (int c = threadIdx.x; c < d; c += blockDim.x) {
-    const float v = to_f(row[c]);
-    s += v;
-    ss += v * v;
+inline void ln_rows(const TI* in, const float* scale, const float* bias, float eps, int M, int d, int L,
+                    const T* cos_t, const T* ssin_t, const T* resid, const float* fs, const float* fb, T* out,
+                    T* out_rot, cudaStream_t st) {
+  const bool vec = aligned(in, 16) && aligned(scale, 16) && aligned(bias, 16) && aligned(cos_t, 16) &&
+                   aligned(ssin_t, 16) && aligned(resid, 16) && aligned(fs, 16) && aligned(fb, 16) &&
+                   aligned(out, 16) && aligned(out_rot, 16);
+#define TCD_LN_ROWS(EPL)                                                                                      \
+  return launch_ln_rows<TI, T, EPL>(M, st, in, scale, bias, eps, M, d, L, cos_t, ssin_t, resid, fs, fb, out, \
+                                    out_rot)
+  switch (vec ? d : 0) {
+    case 64: TCD_LN_ROWS(2);
+    case 128: TCD_LN_ROWS(4);
+    case 256: TCD_LN_ROWS(8);
+    case 512: TCD_LN_ROWS(16);
+    case 1024: TCD_LN_ROWS(32);
+    default: TCD_LN_ROWS(0);
   }
-  block_sum2(s, ss);
-  const float mu = s / d;
-  const float rs = rsqrtf(ss / d - mu * mu + eps);
-  const int l = m % L, b = m / L;
-  for (int p = threadIdx.x; p < d / 2; p += blockDim.x) {  // out may be null: rotated output only
-    const int c0 = 2 * p, c1 = c0 + 1;
-    float y0 = (to_f(row[c0]) - mu) * rs * scale[c0] + bias[c0];
-    float y1 = (to_f(row[c1]) - mu) * rs * scale[c1] + bias[c1];
-    if (out_rot) {
-      const size_t t = (size_t)l * d;
-      const float r0 = y0 * to_f(cos_t[t + c0]) + y1 * to_f(ssin_t[t + c0]);
-      const float r1 = y1 * to_f(cos_t[t + c1]) + y0 * to_f(ssin_t[t + c1]);
-      out_rot[(size_t)m * d + c0] = from_f<T>(r0);
-      out_rot[(size_t)m * d + c1] = from_f<T>(r1);
-    }
-    if (resid) {
-      const size_t f = (size_t)b * d;
-      y0 = to_f(resid[(size_t)m * d + c0]) + (fs[f + c0] + 1.f) * y0 + fb[f + c0];
-      y1 = to_f(resid[(size_t)m * d + c1]) + (fs[f + c1] + 1.f) * y1 + fb[f + c1];
-    }
-    if (out) {
-      out[(size_t)m * d + c0] = from_f<T>(y0);
-      out[(size_t)m * d + c1] = from_f<T>(y1);
-    }
-  }
+#undef TCD_LN_ROWS
 }
 
 // Rotary only (the cross-attention memory side): out = T(in*cos + swap(in)*ssin).

@@ -16,17 +16,20 @@
 // activations: compute-bound, with the (M, ff) hidden activation the one
 // large intermediate.
 //
-// Design: five hand-written launches on one stream. The LayerNorms are
-// row kernels (f32 stats, result in T); the three projections
+// Design: hand-written launches on one stream. LN3 is a row kernel (f32
+// stats, one warp a row, result in T); the three projections
 // (gemm_mma.cuh: mma.sync on the tensor cores in bf16, FMA tiles in f32)
-// apply bias+GELU, bias+FiLM residual (kept in f32, as the TPU kernel
-// feeds LN4 its f32 value) and bias to their sums in registers. LN4 could
-// fold into W2's epilogue only with whole 512-wide rows per block.
-// The sequence is tcd::ff_tail of blocks.cuh, which K6 (layer.cu) reuses.
+// apply bias+GELU, bias+FiLM residual and bias to their sums in
+// registers. In bf16 LN4 runs in W2's epilogue: W2 launches as clusters of
+// d/128 blocks along N, which hold whole rows and reduce their statistics
+// through distributed shared memory (gemm_ln), so the f32 FiLM residual
+// the TPU kernel feeds LN4 never leaves the SMs: four launches. In f32 it
+// lands in an f32 scratch that a row kernel reads back: five. The sequence
+// is tcd::ff_tail of blocks.cuh, whose steps K6 (layer.cu) reuses.
 #include "blocks.cuh"
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launches.
+// dtype: 0 = float32, 1 = bfloat16; o32 is used in f32 only. Returns the
+// launches' status (launch_status).
 extern "C" int tcd_ff_tail(int dtype, const void* x, const float* s3, const float* b3,
                            const void* w1, const float* bb1, const void* w2, const float* bb2,
                            const float* fs, const float* fb, const float* s4, const float* b4,
@@ -38,13 +41,13 @@ extern "C" int tcd_ff_tail(int dtype, const void* x, const float* s3, const floa
     using T = float;
     tcd::ff_tail<T>((const T*)x, s3, b3, (const T*)w1, bb1, (const T*)w2, bb2, fs, fb, s4, b4,
                     (const T*)w3, bb3, B, L, d, ff, eps, (T*)y, (T*)h, o32, (T*)z, (T*)out, st);
-    return (int)cudaGetLastError();
+    return tcd::launch_status();
   }
   if (dtype == 1) {
     using T = __nv_bfloat16;
     tcd::ff_tail<T>((const T*)x, s3, b3, (const T*)w1, bb1, (const T*)w2, bb2, fs, fb, s4, b4,
                     (const T*)w3, bb3, B, L, d, ff, eps, (T*)y, (T*)h, o32, (T*)z, (T*)out, st);
-    return (int)cudaGetLastError();
+    return tcd::launch_status();
   }
   return -1;
 }

@@ -171,12 +171,12 @@ int ff_fwd(const FfTrainArgs& a, cudaStream_t st) {
   e2.c2 = a.zd;
   e2.dr = e1.dr;
   e2.salt = SALT_FF2;
-  ln_rows_kernel<T, T><<<M, 256, 0, st>>>(x, a.s3, a.b3, a.eps, a.d, a.L, nullptr, nullptr,
-                                          nullptr, nullptr, nullptr, (T*)a.y, nullptr);
+  ln_rows<T, T>(x, a.s3, a.b3, a.eps, M, a.d, a.L, nullptr, nullptr, nullptr, nullptr, nullptr, (T*)a.y,
+                nullptr, st);
   gemm<T, EPI_BIAS_GELU>((const T*)a.y, (const T*)a.w1, M, a.ff, a.d, e1, st);
   gemm<T, EPI_BIAS_FILM>((const T*)a.ad, (const T*)a.w2, M, a.d, a.ff, e2, st);
-  ln_rows_kernel<float, T><<<M, 256, 0, st>>>(a.x2, a.s4, a.b4, a.eps, a.d, a.L, nullptr, nullptr,
-                                              nullptr, nullptr, nullptr, (T*)a.y4, nullptr);
+  ln_rows<float, T>(a.x2, a.s4, a.b4, a.eps, M, a.d, a.L, nullptr, nullptr, nullptr, nullptr, nullptr,
+                    (T*)a.y4, nullptr, st);
   gemm<T, EPI_BIAS>((const T*)a.y4, (const T*)a.w3, M, a.d, a.d, epi(a.out, a.bb3), st);
   return (int)cudaGetLastError();
 }

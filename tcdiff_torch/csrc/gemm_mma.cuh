@@ -81,6 +81,8 @@
 //   SM), 97.2 with 56; 1024 x 512 in 119 us with 8 chunks, 146 with 4.
 #pragma once
 
+#include <cooperative_groups.h>
+
 #include <algorithm>
 
 #include "mma.cuh"
@@ -164,23 +166,15 @@ __device__ __forceinline__ void epi_store2(const EpiArgs& ep, size_t o, EpiVal r
   }
 }
 
-// C[M, N] = sum over the K chunk of A . B, tiles of PBM x PBN, grid
-// (G * ntn, cdiv(M, PBM), splits). KA: A is stored (K, M), else (M, K);
-// KB: B is stored (K, N), else (N, K); both row-major. Block x belongs to
-// triple g = x / ntn, columns (x % ntn) * PBN onwards, and writes p.c[g];
-// with join > 1 (and G = 1) the K loop runs over the pairs 0 .. join-1 in
-// turn. Block z sums K rows [z kchunk, (z + 1) kchunk) (EPI_PARTIAL writes
-// slice z of C). vec: every operand row can be copied in 16-byte pieces.
-template <int EPI, bool KA, bool KB>
-__global__ void __launch_bounds__(PT, 2)
-gemm_mma_kernel(ProjGroup p, EpiArgs ep, int M, int N, int K, int ntn, int kchunk, int join, bool vec) {
+// acc = the warp's 64 x 32 piece of this block's tile of A . B over the K
+// rows [kb, ke), through the ring of PSTAGES stages at sm (layouts as
+// gemm_mma_kernel's; g: the triple whose A and B the block reads; join >
+// 1 runs the pairs 0 .. join-1 in turn into the same sums).
+template <bool KA, bool KB>
+__device__ __forceinline__ void mma_loop(bf16* sm, const ProjGroup& p, int g, int M, int N, int K, int m0, int n0,
+                                         int kb, int ke, int join, bool vec, float (&acc)[4][4][4]) {
   constexpr int A_ELEMS = tile_elems<KA, PBM>(), STAGE = A_ELEMS + tile_elems<KB, PBN>();
   constexpr int LDA = KA ? PBM + 8 : PBK + 8, LDB = KB ? PBN + 8 : PBK + 8;
-  extern __shared__ __align__(16) unsigned char tcd_smem[];
-  bf16* sm = reinterpret_cast<bf16*>(tcd_smem);
-  const int g = blockIdx.x / ntn, n0 = (blockIdx.x % ntn) * PBN, m0 = blockIdx.y * PBM;
-  const int kb = blockIdx.z * kchunk, ke = min(K, kb + kchunk);
-  ep.c = pick(p.c, g);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = (warp / PWN) * 64, wn = (warp % PWN) * 32;
   const FragOff f = frag_off(lane);
@@ -201,7 +195,6 @@ gemm_mma_kernel(ProjGroup p, EpiArgs ep, int M, int N, int K, int ntn, int kchun
       load_tile<PBN, PBK, PT>(s + A_ELEMS, B + k0, K, n0, N, ke - k0, vec);
   };
 
-  float acc[4][4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -247,6 +240,26 @@ gemm_mma_kernel(ProjGroup p, EpiArgs ep, int M, int N, int K, int ntn, int kchun
         }
     }
   }
+}
+
+// C[M, N] = sum over the K chunk of A . B, tiles of PBM x PBN, grid
+// (G * ntn, cdiv(M, PBM), splits). KA: A is stored (K, M), else (M, K);
+// KB: B is stored (K, N), else (N, K); both row-major. Block x belongs to
+// triple g = x / ntn, columns (x % ntn) * PBN onwards, and writes p.c[g];
+// with join > 1 (and G = 1) the K loop runs over the pairs 0 .. join-1 in
+// turn. Block z sums K rows [z kchunk, (z + 1) kchunk) (EPI_PARTIAL writes
+// slice z of C). vec: every operand row can be copied in 16-byte pieces.
+template <int EPI, bool KA, bool KB>
+__global__ void __launch_bounds__(PT, 2)
+gemm_mma_kernel(ProjGroup p, EpiArgs ep, int M, int N, int K, int ntn, int kchunk, int join, bool vec) {
+  extern __shared__ __align__(16) unsigned char tcd_smem[];
+  const int g = blockIdx.x / ntn, n0 = (blockIdx.x % ntn) * PBN, m0 = blockIdx.y * PBM;
+  const int kb = blockIdx.z * kchunk, ke = min(K, kb + kchunk);
+  ep.c = pick(p.c, g);
+  float acc[4][4][4];
+  mma_loop<KA, KB>(reinterpret_cast<bf16*>(tcd_smem), p, g, M, N, K, m0, n0, kb, ke, join, vec, acc);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = (warp / PWN) * 64, wn = (warp % PWN) * 32;
 
   // Epilogue, one 16-row slice at a time: the slice's loads first (all in
   // flight together), its arithmetic, then its stores. Where every array
@@ -342,6 +355,299 @@ inline void gemm_group(int G, const T* const* A, const T* const* W, void* const*
 template <typename T, int EPI>
 inline void gemm(const T* A, const T* W, int M, int N, int K, EpiArgs ep, cudaStream_t st) {
   gemm_group<T, EPI>(1, &A, &W, &ep.c, M, N, K, ep, st);
+}
+
+// --------------------------------------- LayerNorm in the epilogue (bf16)
+// A LayerNorm after a product whose N output columns are the LayerNorm's
+// row (the attention blocks' fc, K2's W2) needs whole rows, and a block
+// holds PBN columns of one. gemm_ln launches the product as clusters of
+// cdiv(N, PBN) <= LN_CLUSTER blocks along N (4 at d = 512, so the grid of
+// 29 x 4 blocks at M = 3600 stays), so a cluster holds PBM whole rows, and
+// each block's epilogue:
+//   1. sums its columns' (x, x^2) per row, within a quad by shuffles and
+//      over the 4 warps along N in shared memory, in a fixed order;
+//   2. cluster.sync(), then adds the cluster's partials of the row, read
+//      through distributed shared memory in rank order, so every block of
+//      the cluster gets the same statistics, and a run repeats bit for bit;
+//   3. applies the LayerNorm (and the FiLM residual) to the C fragments in
+//      registers and stores the result in T (bf16);
+//   4. where a second LayerNorm follows on that rounded result (K6's LN2
+//      with the rotary, its LN3), repeats 1-3 on it;
+//   5. runs a last cluster.sync(), so that no block leaves while a peer
+//      still reads its shared memory.
+// The ring's shared memory is free after the K loop and holds the
+// statistics. The rounding points are the unfused sequence's: the product
+// (and FiLM before LN4) in f32, T after the LayerNorm, LN2 on the rounded
+// output; the rotary pair (n, n + 1) lies within one thread's C fragment
+// (columns 2t and 2t + 1), so the rotation needs no shuffle. What it
+// saves: the f32 (M, N) store and reload of the product (z, zc, o32:
+// 7.4 MB each at M = 3600, d = 512) and the row kernels' launches.
+constexpr int LN_CLUSTER = 8;  // the portable cluster size: N <= 1024
+
+enum LnEpi {
+  LN_POST = 0,      // out = T(LN(acc)), or T(resid + (fs[b] + 1) * LN(acc) + fb[b]) with fs
+  LN_FILM_PRE = 1,  // out = T(LN(resid + (fs[b] + 1) * (acc + bias) + fb[b]))
+};
+enum Ln2 {
+  LN2_NONE = 0,
+  LN2_PLAIN = 1,  // out2 = T(LN2(out))
+  LN2_ROT = 2,    // out2 = T(LN2(out) * cos + swap_pairs(LN2(out)) * ssin)
+};
+
+struct LnFold {
+  bf16* out;               // (M, N)
+  const float *s, *b;      // the LayerNorm's affine (N,)
+  float eps;
+  const float* bias;       // LN_FILM_PRE: the product's bias (N,)
+  const bf16* resid;       // FiLM residual (M, N)
+  const float *fs, *fb;    // FiLM rows (M / L, N); LN_POST: null, none
+  int L;                   // rows m = b L + l
+  const float *s2, *b2;    // the second LayerNorm's affine (N,)
+  float eps2;
+  const bf16 *cos, *ssin;  // LN2_ROT: the rotary tables (L, N)
+  bf16* out2;              // (M, N)
+};
+
+// The statistics of the PBM rows of this block's cluster for v, the
+// threads' C-shaped values (zero past N): (mu, rsqrt(var + eps)) of row r
+// of the block into stat[r], returned. red: 6 PBM float2 of shared memory
+// that no other call uses (the warps' partials, the block's, stat).
+__device__ __forceinline__ const float2* cluster_row_stats(const float (&v)[4][4][4], float2* red, int N,
+                                                           float eps) {
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wm = (warp / PWN) * 64, wcol = warp % PWN;
+  float2 *part = red, *own = red + PWN * PBM, *stat = own + PBM;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float s = 0.f, ss = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = v[i][j][2 * h + e];
+          s += x;
+          ss += x * x;
+        }
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {  // the quad of the row
+        s += __shfl_xor_sync(0xffffffffu, s, o);
+        ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      }
+      if (t == 0) part[wcol * PBM + wm + 16 * i + g + 8 * h] = make_float2(s, ss);
+    }
+  __syncthreads();
+  if (threadIdx.x < PBM) {
+    float2 a = part[threadIdx.x];
+    for (int w = 1; w < PWN; ++w) {
+      const float2 q = part[w * PBM + threadIdx.x];
+      a.x += q.x;
+      a.y += q.y;
+    }
+    own[threadIdx.x] = a;
+  }
+  cluster.sync();  // every block's partials are in place
+  if (threadIdx.x < PBM) {
+    float s = 0.f, ss = 0.f;
+    for (unsigned r = 0; r < cluster.num_blocks(); ++r) {
+      const float2 q = *cluster.map_shared_rank(own + threadIdx.x, r);
+      s += q.x;
+      ss += q.y;
+    }
+    const float mu = s / N;
+    stat[threadIdx.x] = make_float2(mu, rsqrtf(ss / N - mu * mu + eps));
+  }
+  __syncthreads();
+  return stat;
+}
+
+// Pairs of the fold's read-only operands, through the non-coherent path.
+__device__ __forceinline__ float2 ld_f2(const float* q) { return __ldg(reinterpret_cast<const float2*>(q)); }
+__device__ __forceinline__ float2 ld_b2(const bf16* q) {
+  const uint32_t u = __ldg(reinterpret_cast<const unsigned int*>(q));
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
+
+// out (and out2) = the LayerNorm fold of A . W^T, W (N, K) in nn.Linear
+// layout; grid (cdiv(N, PBN), cdiv(M, PBM)) in clusters of cdiv(N, PBN)
+// along x. N is even and every epilogue operand aligned for pairs (gemm_ln
+// checks). A thread holds rows wm + 16 i + g + 8 h (i < 4, h < 2) and the
+// column pairs wn + 8 j + 2 t (j < 4) of the block's tile; the epilogue
+// runs per row group (i, h), its loads before its arithmetic and stores.
+// (Storing all groups after all groups' arithmetic, so that no store
+// stands between two groups' loads, was measured no faster: at 2 blocks
+// an SM it spills, at 1 it matches this order; tools/torch_ln_time.py.)
+template <int LNE, int LN2>
+__global__ void __launch_bounds__(PT, 2)
+gemm_ln_kernel(ProjGroup p, LnFold f, int M, int N, int K, bool vec) {
+  extern __shared__ __align__(16) unsigned char tcd_smem[];
+  const int n0 = blockIdx.x * PBN, m0 = blockIdx.y * PBM;
+  float acc[4][4][4];
+  mma_loop<false, false>(reinterpret_cast<bf16*>(tcd_smem), p, 0, M, N, K, m0, n0, 0, K, 1, vec, acc);
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is past its last ldmatrix: the ring is free
+  float2* red = reinterpret_cast<float2*>(tcd_smem);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wm = (warp / PWN) * 64, wn = (warp % PWN) * 32;
+  auto row = [&](int i, int h) { return m0 + wm + 16 * i + g + 8 * h; };
+  auto col = [&](int j) { return n0 + wn + 8 * j + 2 * t; };
+  const float2 zero2 = make_float2(0.f, 0.f);
+
+  // The LayerNorm's input in acc: the product (zero past M and N, as the
+  // zero-filled tiles make it), or LN_FILM_PRE's f32 FiLM residual.
+  if constexpr (LNE == LN_FILM_PRE) {
+    float2 bb[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bb[j] = col(j) < N ? ld_f2(f.bias + col(j)) : zero2;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = row(i, h);
+        float2 rr[4], f1[4], f2[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = col(j);
+          const bool in = m < M && n < N;
+          const size_t fr = (size_t)(m / f.L) * N + n;
+          rr[j] = in ? ld_b2(f.resid + (size_t)m * N + n) : zero2;
+          f1[j] = in ? ld_f2(f.fs + fr) : zero2;
+          f2[j] = in ? ld_f2(f.fb + fr) : zero2;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool in = m < M && col(j) < N;
+          float &a0 = acc[i][j][2 * h], &a1 = acc[i][j][2 * h + 1];
+          a0 = in ? rr[j].x + (f1[j].x + 1.f) * (a0 + bb[j].x) + f2[j].x : 0.f;
+          a1 = in ? rr[j].y + (f1[j].y + 1.f) * (a1 + bb[j].y) + f2[j].y : 0.f;
+        }
+      }
+  }
+
+  // LN [+ FiLM residual], stored in T; acc becomes the rounded output,
+  // zero past N (the second LayerNorm's input)
+  {
+    const float2* stat = cluster_row_stats(acc, red, N, f.eps);
+    const bool film = LNE == LN_POST && f.fs != nullptr;
+    float2 sc[4], bi[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      sc[j] = col(j) < N ? ld_f2(f.s + col(j)) : zero2;
+      bi[j] = col(j) < N ? ld_f2(f.b + col(j)) : zero2;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = row(i, h);
+        const float2 ms = stat[m - m0];
+        float2 rr[4], f1[4], f2[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = col(j);
+          const bool in = film && m < M && n < N;
+          const size_t fr = (size_t)(m / f.L) * N + n;
+          rr[j] = in ? ld_b2(f.resid + (size_t)m * N + n) : zero2;
+          f1[j] = in ? ld_f2(f.fs + fr) : zero2;
+          f2[j] = in ? ld_f2(f.fb + fr) : zero2;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = col(j);
+          float &a0 = acc[i][j][2 * h], &a1 = acc[i][j][2 * h + 1];
+          float y0 = (a0 - ms.x) * ms.y * sc[j].x + bi[j].x;
+          float y1 = (a1 - ms.x) * ms.y * sc[j].y + bi[j].y;
+          if (film) {
+            y0 = rr[j].x + (f1[j].x + 1.f) * y0 + f2[j].x;
+            y1 = rr[j].y + (f1[j].y + 1.f) * y1 + f2[j].y;
+          }
+          const __nv_bfloat162 o = __floats2bfloat162_rn(y0, y1);
+          if (m < M && n < N) *reinterpret_cast<__nv_bfloat162*>(f.out + (size_t)m * N + n) = o;
+          const float2 r = __bfloat1622float2(o);
+          a0 = n < N ? r.x : 0.f;
+          a1 = n < N ? r.y : 0.f;
+        }
+      }
+  }
+
+  if constexpr (LN2 != LN2_NONE) {
+    const float2* stat = cluster_row_stats(acc, red + 6 * PBM, N, f.eps2);
+    float2 sc[4], bi[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      sc[j] = col(j) < N ? ld_f2(f.s2 + col(j)) : zero2;
+      bi[j] = col(j) < N ? ld_f2(f.b2 + col(j)) : zero2;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = row(i, h);
+        const float2 ms = stat[m - m0];
+        float2 cs[4], sn[4];
+        if constexpr (LN2 == LN2_ROT) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int n = col(j);
+            const bool in = m < M && n < N;
+            const size_t tr = (size_t)(m % f.L) * N + n;
+            cs[j] = in ? ld_b2(f.cos + tr) : zero2;
+            sn[j] = in ? ld_b2(f.ssin + tr) : zero2;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float y0 = (acc[i][j][2 * h] - ms.x) * ms.y * sc[j].x + bi[j].x;
+          float y1 = (acc[i][j][2 * h + 1] - ms.x) * ms.y * sc[j].y + bi[j].y;
+          if constexpr (LN2 == LN2_ROT) {
+            const float r0 = y0 * cs[j].x + y1 * sn[j].x;
+            const float r1 = y1 * cs[j].y + y0 * sn[j].y;
+            y0 = r0;
+            y1 = r1;
+          }
+          const int n = col(j);
+          if (m < M && n < N)
+            *reinterpret_cast<__nv_bfloat162*>(f.out2 + (size_t)m * N + n) = __floats2bfloat162_rn(y0, y1);
+        }
+      }
+  }
+  cooperative_groups::this_cluster().sync();  // no block leaves while a peer reads its statistics
+}
+
+// The LayerNorm fold of out = A . W^T (A (M, K), W (N, K), bf16): one
+// cluster launch; refused (launch_status) where N is odd or above
+// LN_CLUSTER * PBN, or an epilogue operand is not aligned for pairs.
+template <int LNE, int LN2>
+inline void gemm_ln(const bf16* A, const bf16* W, int M, int N, int K, const LnFold& f, cudaStream_t st) {
+  const int ntn = cdiv(N, PBN);
+  const bool ok = N % 2 == 0 && ntn <= LN_CLUSTER && aligned(f.out, 4) && aligned(f.out2, 4) &&
+                  aligned(f.resid, 4) && aligned(f.cos, 4) && aligned(f.ssin, 4) && aligned(f.s, 8) &&
+                  aligned(f.b, 8) && aligned(f.s2, 8) && aligned(f.b2, 8) && aligned(f.bias, 8) &&
+                  aligned(f.fs, 8) && aligned(f.fb, 8);
+  if (!ok) return refuse();
+  ProjGroup p{};
+  p.a[0] = A;
+  p.w[0] = W;
+  const bool vec = K % 8 == 0 && al16(A) && al16(W);
+  const int bytes = mma_smem<false, false>();
+  auto kernel = gemm_ln_kernel<LNE, LN2>;
+  allow_smem(reinterpret_cast<const void*>(kernel), bytes);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ntn, cdiv(M, PBM), 1);
+  cfg.blockDim = dim3(PT, 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ntn;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, p, f, M, N, K, vec);
+  if (e != cudaSuccess) refuse(e);
 }
 
 // C[M, N] = sum_{j < J} A[j] . B[j], A[j] (M, K) and B[j] (K, N) row-major

@@ -27,8 +27,7 @@ namespace tcd {
 template <typename T>
 int ln_matmul(const T* x, const float* s, const float* b, const T* w, const float* bias, int M,
               int d, int N, float eps, T* y, T* out, cudaStream_t st) {
-  ln_rows_kernel<T, T><<<M, 256, 0, st>>>(x, s, b, eps, d, 1, nullptr, nullptr, nullptr, nullptr,
-                                          nullptr, y, nullptr);
+  ln_rows<T, T>(x, s, b, eps, M, d, 1, nullptr, nullptr, nullptr, nullptr, nullptr, y, nullptr, st);
   gemm<T, EPI_BIAS_ROUNDED>(y, w, M, N, d, epi(out, bias), st);
   return (int)cudaGetLastError();
 }

@@ -28,8 +28,7 @@ template <typename T>
 int ln_rotary_matmul(const T* x, const float* s, const float* b, const T* cos_t, const T* ssin_t,
                      const T* wr, const T* wp, int M, int L, int d, int fr, int fp, float eps,
                      T* y, T* r, T* qk, T* v, cudaStream_t st) {
-  ln_rows_kernel<T, T><<<M, 256, 0, st>>>(x, s, b, eps, d, L, cos_t, ssin_t, nullptr, nullptr,
-                                          nullptr, wp ? y : nullptr, r);
+  ln_rows<T, T>(x, s, b, eps, M, d, L, cos_t, ssin_t, nullptr, nullptr, nullptr, wp ? y : nullptr, r, st);
   gemm<T, EPI_STORE>(r, wr, M, fr, d, epi(qk), st);
   if (wp) gemm<T, EPI_STORE>(y, wp, M, fp, d, epi(v), st);
   return (int)cudaGetLastError();

@@ -18,22 +18,26 @@
 // memory a block may use, which the TPU kernel's 16 MB VMEM program held.
 //
 // Design: a short pipeline of hand-written launches on one stream.
-//   1. ln_rows_kernel: LN + rotary per row (f32 stats), y and r stored in T;
+//   1. ln_rows (common.cuh): LN + rotary per row (f32 stats), one warp a
+//      row, y and r stored in T;
 //   2. q, k and v in one grouped launch of the projection (gemm_mma.cuh);
 //   3. heads_attention (attention.cuh, shared with K11): flash attention,
 //      one block per (64 queries, head, batch), streaming key tiles with an
 //      online softmax, so no logit row ever leaves the block; in bf16 on
 //      the tensor cores (mma.sync), in f32 on the FMA units;
-//   4. out projection into an f32 scratch, then ln_rows_kernel for the
-//      post-attention LN with the FiLM residual as its epilogue.
-// Five launches. In bf16 the projections run on the tensor cores
-// (mma.sync, a cp.async ring; gemm_mma.cuh says why that design), in f32
-// on the FMA units. The sequence is tcd::sa_block of blocks.cuh, which K6
-// (layer.cu) reuses.
+//   4. the out projection with the post-attention LN and the FiLM residual
+//      in its epilogue: in bf16 one cluster of d/128 blocks along N holds
+//      whole rows and reduces their statistics through distributed shared
+//      memory (gemm_ln), so the f32 product never leaves the SMs; in f32
+//      the product goes to an f32 scratch and a row kernel reads it back.
+// Four launches in bf16, five in f32. The projections run on the tensor
+// cores in bf16 (mma.sync, a cp.async ring; gemm_mma.cuh says why that
+// design), on the FMA units in f32. The sequence is tcd::sa_block of
+// blocks.cuh, whose steps K6 (layer.cu) reuses.
 #include "blocks.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16. table/dist and fs/fb may be null.
-// Returns cudaGetLastError() after the launches.
+// Returns the launches' status (launch_status).
 extern "C" int tcd_sa_block(int dtype, const void* x, const float* s1, const float* b1,
                             const void* cos_t, const void* ssin_t, const void* wq,
                             const void* wk, const void* wv, const void* wfc, const float* s2,
@@ -48,7 +52,7 @@ extern "C" int tcd_sa_block(int dtype, const void* x, const float* s1, const flo
                      (const T*)wk, (const T*)wv, (const T*)wfc, s2, b2, (const T*)table, dist, fs,
                      fb, B, L, d, hd, nhead, eps1, eps2, (T*)y, (T*)r, (T*)q, (T*)k, (T*)v, (T*)o,
                      z, (T*)out, st);
-    return (int)cudaGetLastError();
+    return tcd::launch_status();
   }
   if (dtype == 1) {
     using T = __nv_bfloat16;
@@ -56,7 +60,7 @@ extern "C" int tcd_sa_block(int dtype, const void* x, const float* s1, const flo
                      (const T*)wk, (const T*)wv, (const T*)wfc, s2, b2, (const T*)table, dist, fs,
                      fb, B, L, d, hd, nhead, eps1, eps2, (T*)y, (T*)r, (T*)q, (T*)k, (T*)v, (T*)o,
                      z, (T*)out, st);
-    return (int)cudaGetLastError();
+    return tcd::launch_status();
   }
   return -1;
 }

@@ -61,8 +61,7 @@ int sa_fwd(const SaTrainArgs& a, cudaStream_t st) {
   const Drop dr = make_drop(a.seeds, a.thresh, a.dscale, a.drop_on);
   const T *x = (const T*)a.x, *cs = (const T*)a.cos_t, *sn = (const T*)a.ssin_t;
   T *y = (T*)a.y, *r = (T*)a.r, *q = (T*)a.q, *k = (T*)a.k, *v = (T*)a.v, *o = (T*)a.o;
-  ln_rows_kernel<T, T><<<M, 256, 0, st>>>(x, a.s1, a.b1, a.eps1, a.d, a.L, cs, sn, nullptr,
-                                          nullptr, nullptr, y, r);
+  ln_rows<T, T>(x, a.s1, a.b1, a.eps1, M, a.d, a.L, cs, sn, nullptr, nullptr, nullptr, y, r, st);
   const T* ins[3] = {r, r, y};
   const T* wts[3] = {(const T*)a.wq, (const T*)a.wk, (const T*)a.wv};
   void* outs[3] = {q, k, v};

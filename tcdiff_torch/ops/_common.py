@@ -1,5 +1,6 @@
 """Helpers shared by the block wrappers: the f32 LayerNorm of the plain
-versions, and the argument checks and ctypes plumbing of the CUDA path."""
+versions, and the argument checks, scratch and ctypes plumbing of the CUDA
+path."""
 
 from __future__ import annotations
 
@@ -42,8 +43,40 @@ def check_cuda(x: torch.Tensor, **tensors) -> int:
     return DTYPE_CODE[x.dtype]
 
 
+# The widest row a bf16 LayerNorm in a product's epilogue holds: a cluster
+# of at most 8 blocks of 128 columns (csrc/gemm_mma.cuh, gemm_ln).
+LN_FOLD_MAX_D = 1024
+
+
+def check_ln_fold(d: int, dtype: torch.dtype) -> None:
+    """Raise where a block's bf16 post-attention or FF LayerNorm, which runs
+    in its product's epilogue, cannot hold a row of d."""
+    if dtype == torch.bfloat16 and d > LN_FOLD_MAX_D:
+        raise ValueError(f"d={d}: the bf16 kernels take d <= {LN_FOLD_MAX_D}")
+
+
+def scratch(device, specs: dict) -> dict:
+    """{name: tensor} of the given {name: (shape, dtype)}, carved from one
+    allocation, each on a 256-byte boundary; a spec of None gives None."""
+    offsets, total = {}, 0
+    for name, spec in specs.items():
+        if spec is not None:
+            shape, dtype = spec
+            offsets[name] = total
+            total += -(-torch.Size(shape).numel() * dtype.itemsize // 256) * 256
+    buf = torch.empty(total, dtype=torch.uint8, device=device)
+    out = dict.fromkeys(specs)
+    for name, off in offsets.items():
+        shape, dtype = specs[name]
+        n = torch.Size(shape).numel() * dtype.itemsize
+        out[name] = buf[off:off + n].view(dtype).view(shape)
+    return out
+
+
 def as_t(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return t.to(dtype).contiguous()
+    """t as a contiguous tensor of dtype: t itself where it already is one
+    (checked without a dispatch, as a wrapper's per-call host work)."""
+    return t if t.dtype == dtype and t.is_contiguous() else t.to(dtype).contiguous()
 
 
 def ptr(t) -> ctypes.c_void_p:

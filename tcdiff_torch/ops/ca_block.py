@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, launch, ln_f32, mm_f32
+from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, check_ln_fold, launch, ln_f32, mm_f32
 from tcdiff_torch.ops.attention import attention_plain
 from tcdiff_torch.ops.sa_block import rotary_tables
 from tcdiff_torch.ops.sa_block_train import rot
@@ -75,6 +75,7 @@ def _ca_block_cuda(x, s1, b1, angles, memory, memory_rot, wq, wk, wv, wfc, s2, b
     dk = hd // nhead
     if d % 2 or hd % nhead or dk > 64 or dk % 4:
         raise ValueError(f"unsupported widths d={d}, h*dk={hd}, nhead={nhead}")
+    check_ln_fold(d, x.dtype)
     film = film_scale is not None
     if film != (film_shift is not None):
         raise ValueError("give both film rows or neither")

@@ -24,7 +24,7 @@ import torch
 
 from tcdiff_torch.ops import _build
 from tcdiff_torch.ops._common import (
-    as_t, check_cuda, ln_f32, mm_f32, ptr, raise_on, stream_ptr,
+    as_t, check_cuda, check_ln_fold, ln_f32, mm_f32, ptr, raise_on, stream_ptr,
 )
 
 
@@ -131,6 +131,7 @@ def _ff_tail_cuda(x, scale, bias, w1, b1, w2, b2, film_scale, film_shift, s4, b4
     code = check_cuda(x, scale=scale, bias=bias, w1=w1, b1=b1, w2=w2, b2=b2,
                       film_scale=film_scale, film_shift=film_shift, s4=s4, b4=b4, w3=w3, b3=b3)
     B, L, d, ff = _check_shapes(x, w1, w2, film_scale, film_shift, w3)
+    check_ln_fold(d, x.dtype)
     dt = x.dtype
     f32 = lambda t: t.float().contiguous()
     w1c, w2c, w3c = as_t(w1, dt), as_t(w2, dt), as_t(w3, dt)

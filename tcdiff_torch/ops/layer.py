@@ -16,18 +16,23 @@ rows and the step's time-token rows). The arguments are `fused_layer`'s,
 with weights in nn.Linear layout: wq/wk/wv/cwq (h*dk, d), wfc/cfc
 (d, h*dk), w1 (ff, d), w2 (d, ff), w3 (d, d); LN affines and biases (n,);
 FiLM rows (b, d). `layer` runs the hand-written CUDA kernel
-(`csrc/layer.cu`) for a CUDA x and `layer_plain` for a CPU x.
+(`csrc/layer.cu`: 10 launches in bf16, the LayerNorms after the fc and W2
+products in their epilogues; 15 in f32) for a CUDA x and `layer_plain` for
+a CPU x. In bf16 d is at most 1024.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, launch
+from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, check_ln_fold, launch, scratch
 from tcdiff_torch.ops.ca_block import cross_plain
 from tcdiff_torch.ops.ff_block import ff_tail_plain
 from tcdiff_torch.ops.sa_block import rotary_tables, sa_block_plain
 
+_WEIGHTS = ("wq", "wk", "wv", "wfc", "cwq", "cfc", "kcat", "vcat", "w1", "w2", "w3")
 _FF_ARGS = ("s3", "b3", "w1", "bb1", "w2", "bb2", "f3s", "f3b", "s4", "b4", "w3", "bb3")
 
 
@@ -56,6 +61,14 @@ _Args = args_struct(  # LayerArgs in csrc/layer.cu
 )
 
 
+@functools.lru_cache(maxsize=32)
+def _tables(angles, dtype):
+    """rotary_tables(angles, dtype) once per angle table and dtype: the
+    model passes the same shared, never written `angle_table` tensor at
+    every step (the cache holds it by identity)."""
+    return rotary_tables(angles, dtype)
+
+
 def _layer_cuda(x, angles, s1, b1, wq, wk, wv, wfc, sa_s2, sa_b2, f1s, f1b,
                 n2s, n2b, cwq, cfc, ca_s2, ca_b2, kcat, vcat, f2s, f2b, ff_args, *, nhead, eps1, eps2, include_ff):
     named = dict(angles=angles, s1=s1, b1=b1, wq=wq, wk=wk, wv=wv, wfc=wfc, sa_s2=sa_s2, sa_b2=sa_b2, f1s=f1s,
@@ -80,17 +93,19 @@ def _layer_cuda(x, angles, s1, b1, wq, wk, wv, wfc, sa_s2, sa_b2, f1s, f1b,
         if name in named and tuple(named[name].shape) != shape:
             raise ValueError(f"{name} has shape {tuple(named[name].shape)}, expected {shape}")
 
+    check_ln_fold(d, x.dtype)
+
     dt, dev = x.dtype, x.device
-    cos, ssin = rotary_tables(angles, dt)
-    ten = {name: as_t(t, dt) if name in ("wq", "wk", "wv", "wfc", "cwq", "cfc", "kcat", "vcat", "w1", "w2", "w3")
-           else t.float().contiguous() for name, t in named.items() if name != "angles"}
-    empty = lambda n, t=dt: torch.empty((B, L, n), dtype=t, device=dev)
-    ten.update(x=x, cos=cos, ssin=ssin, y=empty(d), r=empty(d), q=empty(hd), k=empty(hd), v=empty(hd),
-               o=empty(hd), z=empty(d, torch.float32), x1=empty(d), out=torch.empty_like(x))
-    if include_ff:
-        ten.update(x2=empty(d), h=empty(ff))
+    cos, ssin = _tables(angles, dt)
+    ten = {name: as_t(t, dt if name in _WEIGHTS else torch.float32) for name, t in named.items() if name != "angles"}
+    rows = lambda n, t=dt: ((B, L, n), t)
+    ten.update(scratch(dev, dict(
+        y=rows(d), r=rows(d), q=rows(hd), k=rows(hd), v=rows(hd), o=rows(hd), x1=rows(d),
+        z=rows(d, torch.float32) if dt == torch.float32 else None,  # the bf16 folds keep it in the SMs
+        x2=rows(d) if include_ff else None, h=rows(ff) if include_ff else None)))
+    ten.update(x=x, cos=cos, ssin=ssin, out=torch.empty_like(x))
     dims = dict(B=B, L=L, Lm=Lm, d=d, hd=hd, nhead=nhead, ff=ff, include_ff=int(include_ff), eps1=eps1, eps2=eps2)
-    launch("layer", "tcd_layer", _Args, ten, dims, x, "layer")
+    launch("layer", "tcd_layer", _Args, {k: t for k, t in ten.items() if t is not None}, dims, x, "layer")
     layer.launches += 1
     return ten["out"]
 

@@ -24,7 +24,7 @@ import torch
 from tcdiff_torch.models.rotary import signed_pairs, swap_pairs
 from tcdiff_torch.ops import _build
 from tcdiff_torch.ops._common import (
-    as_t, check_cuda, ln_f32, mm_f32, ptr, raise_on, stream_ptr,
+    as_t, check_cuda, check_ln_fold, ln_f32, mm_f32, ptr, raise_on, stream_ptr,
 )
 from tcdiff_torch.ops.attention import N_TRJ_BUCKETS, trpe_bias
 
@@ -92,6 +92,7 @@ def _sa_block_cuda(
     dk = hd // nhead
     if d % 2 or hd % nhead or dk > 64 or dk % 4:
         raise ValueError(f"unsupported widths d={d}, h*dk={hd}, nhead={nhead}")
+    check_ln_fold(d, x.dtype)
     for name, w, shape in (("wq", wq, (hd, d)), ("wk", wk, (hd, d)), ("wv", wv, (hd, d)),
                            ("wfc", wfc, (d, hd)), ("angles", angles, (L, d))):
         if tuple(w.shape) != shape:

@@ -56,9 +56,9 @@ class _Inputs:
         return [None if n is None else (self.t[n].T if n.startswith("w") else self.t[n]) for n in names]
 
 
-def _ln(*names):
+def _ln(*names, d=D):
     """LayerNorm affines (d,): scales near 1, shifts near 0."""
-    return {n: (D, 1.0 if n[0] == "s" else 0.0, 0.1) for n in names}
+    return {n: (d, 1.0 if n[0] == "s" else 0.0, 0.1) for n in names}
 
 
 def _check(out, ref, dtype):
@@ -95,16 +95,24 @@ def test_ca_block_matches_jax(dtype, film):
     _check(out, ref, dtype)
 
 
-@pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("include_ff", [False, True])
-def test_layer_matches_jax(dtype, include_ff):
-    a = _Inputs(2, dtype, dict(x=(B, L, D), wq=(D, HD), wk=(D, HD), wv=(D, HD), wfc=(HD, D),
-                               wcq=(D, HD), wcfc=(HD, D), kcat=(B, LM, HD), vcat=(B, LM, HD),
-                               w1=(D, FF), w2=(FF, D), w3=(D, D), f1s=(B, D), f1b=(B, D),
-                               f2s=(B, D), f2b=(B, D), f3s=(B, D), f3b=(B, D)),
-                dict(_ln("s1", "b1", "ss2", "sb2", "n2s", "n2b", "cs2", "cb2", "s3", "b3", "s4", "b4"),
-                     bb1=(FF, 0.0, 0.1), bb2=(D, 0.0, 0.1), bb3=(D, 0.0, 0.1)))
-    angles = rotary_freqs(L, D)
+# (include_ff, dtype, L, d): the base shape under its original ids, then a
+# length that no tile of the CUDA kernels divides (L = 37) and the widths
+# whose bf16 LayerNorm folds run in clusters of 1 and 2 blocks on the card
+# (d = 128, 256)
+_LAYER_CASES = [pytest.param(ff, dt, L, D, id=f"{ff}-{dt}") for ff in (False, True) for dt in DTYPES] + [
+    pytest.param(ff, dt, length, d, id=f"{ff}-{dt}-L{length}-d{d}")
+    for length, d in ((37, D), (L, 128), (L, 256)) for ff in (False, True) for dt in DTYPES]
+
+
+@pytest.mark.parametrize("include_ff, dtype, length, d", _LAYER_CASES)
+def test_layer_matches_jax(dtype, include_ff, length, d):
+    a = _Inputs(2, dtype, dict(x=(B, length, d), wq=(d, HD), wk=(d, HD), wv=(d, HD), wfc=(HD, d),
+                               wcq=(d, HD), wcfc=(HD, d), kcat=(B, LM, HD), vcat=(B, LM, HD),
+                               w1=(d, FF), w2=(FF, d), w3=(d, d), f1s=(B, d), f1b=(B, d),
+                               f2s=(B, d), f2b=(B, d), f3s=(B, d), f3b=(B, d)),
+                dict(_ln("s1", "b1", "ss2", "sb2", "n2s", "n2b", "cs2", "cb2", "s3", "b3", "s4", "b4", d=d),
+                     bb1=(FF, 0.0, 0.1), bb2=(d, 0.0, 0.1), bb3=(d, 0.0, 0.1)))
+    angles = rotary_freqs(length, d)
     head = ("s1", "b1", "wq", "wk", "wv", "wfc", "ss2", "sb2", "f1s", "f1b",
             "n2s", "n2b", "wcq", "wcfc", "cs2", "cb2", "kcat", "vcat", "f2s", "f2b")
     ff = ("s3", "b3", "w1", "bb1", "w2", "bb2", "f3s", "f3b", "s4", "b4", "w3", "bb3") if include_ff else ()

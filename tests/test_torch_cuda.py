@@ -295,6 +295,66 @@ def test_layernorm_kernel_matches_plain(dev, dtype, rows, d):
     assert (out.float() - ref.float()).abs().max().item() <= _tol(dtype, ref)
 
 
+# Every variant of the LayerNorm row body (csrc/common.cuh ln_rows, the
+# LayerNorm stage of every kernel) through its test entry: the templated
+# widths 64, 256, 512 and 1024 and the general body (96), 3 x 37 rows (odd,
+# and not a multiple of the 8 warps of a block).
+LN_VARIANTS = {
+    "plain": dict(),
+    "rotary": dict(angles=True),
+    "rotary_only": dict(angles=True, normed=False),
+    "film": dict(film=True),
+    "f32_input": dict(f32_in=True),
+}
+
+
+def _ln_rows_case(g, dev, dtype, variant, b, l, d, x=None):
+    opt = LN_VARIANTS[variant]
+    if x is None:
+        x = 3.0 * _rnd(g, dev, b, l, d) + 1.0
+        x = x if opt.get("f32_in") else x.to(dtype)
+    kw = dict(dtype=dtype, angles=angle_table(l, d, dev) if opt.get("angles") else None,
+              normed=opt.get("normed", True))
+    if opt.get("film"):
+        kw.update(film_scale=_rnd(g, dev, b, d, std=0.1), film_shift=_rnd(g, dev, b, d, std=0.1),
+                  resid=_rnd(g, dev, b, l, d).to(dtype))
+    return x, 1 + _rnd(g, dev, d, std=0.1), _rnd(g, dev, d, std=0.1), kw
+
+
+def _check_ln_rows(x, s, b, kw, dtype):
+    from tcdiff_torch.ops import layernorm as m
+
+    before = m.ln_rows.launches
+    outs = m.ln_rows(x, s, b, 1e-5, **kw)
+    refs = m.ln_rows_plain(x, s, b, 1e-5, **kw)
+    torch.cuda.synchronize()
+    assert m.ln_rows.launches == before + 1
+    for out, ref in zip(outs, refs):
+        assert (out is None) == (ref is None)
+        if ref is not None:
+            assert out.dtype == dtype and out.shape == x.shape
+            assert (out.float() - ref.float()).abs().max().item() <= _tol(dtype, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", list(LN_VARIANTS))
+@pytest.mark.parametrize("d", [64, 96, 256, 512, 1024])
+def test_ln_rows_kernel_matches_plain(dev, dtype, variant, d):
+    g = torch.Generator(device=dev).manual_seed(12)
+    _check_ln_rows(*_ln_rows_case(g, dev, dtype, variant, 3, 37, d), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", list(LN_VARIANTS))
+def test_ln_rows_kernel_takes_unaligned_rows(dev, dtype, variant):
+    # rows that start 4 bytes past a 16-byte boundary: the general body at d = 512
+    g = torch.Generator(device=dev).manual_seed(13)
+    xt = torch.float32 if variant == "f32_input" else dtype
+    buf = (3.0 * _rnd(g, dev, 3 * 37 * 512 + 2) + 1.0).to(xt)
+    x = buf[4 // buf.element_size():][: 3 * 37 * 512].view(3, 37, 512)
+    _check_ln_rows(*_ln_rows_case(g, dev, dtype, variant, 3, 37, 512, x=x), dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d, n", [(64, 48), (D, FF), (D, D)])
 def test_ln_matmul_kernel_matches_plain(dev, dtype, d, n):
@@ -638,3 +698,70 @@ def test_serving_block_kernels_refuse_what_they_do_not_take(dev):
         layer(*head(x, kv), nhead=4)
     with pytest.raises(TypeError):
         layer(*head(x.half(), kv), nhead=4, include_ff=False)
+
+
+# K6 at the widths whose bf16 LayerNorm folds run in clusters of 1, 2 and 4
+# blocks (d = 128, 256, 512), at a length no tile divides (37) and the
+# serving length (450), with and without the FF section; then a bf16 call
+# twice, bit for bit (the folds add the cluster's row statistics in rank
+# order), and the widths a cluster cannot hold.
+
+
+def _layer_args(g, dev, dtype, b, l, d, lm=38, hd=128, ff=None):
+    ff = ff or 2 * d
+    r = lambda *s, std=1.0: _rnd(g, dev, *s, std=std)
+    w = lambda o, i: r(o, i, std=i**-0.5).to(dtype)
+    ln = lambda: (1 + r(d, std=0.1), r(d, std=0.1))
+    fl = lambda: (r(b, d, std=0.1).to(dtype), r(b, d, std=0.1).to(dtype))
+    head = (r(b, l, d).to(dtype), angle_table(l, d, dev), *ln(), w(hd, d), w(hd, d), w(hd, d), w(d, hd),
+            *ln(), *fl(), *ln(), w(hd, d), w(d, hd), *ln(), r(b, lm, hd).to(dtype), r(b, lm, hd).to(dtype), *fl())
+    tail = (*ln(), w(ff, d), r(ff, std=0.1), w(d, ff), r(d, std=0.1), *fl(), *ln(), w(d, d), r(d, std=0.1))
+    return head, tail
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("include_ff", [False, True])
+@pytest.mark.parametrize("l", [37, 450])
+@pytest.mark.parametrize("d", [128, 256, 512])
+def test_layer_kernel_widths_match_plain(dev, dtype, include_ff, l, d):
+    from tcdiff_torch.ops import layer as m
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    head, tail = _layer_args(g, dev, dtype, 2, l, d)
+    _check_serving(m.layer, m.layer_plain, head + (tail if include_ff else ()),
+                   dict(nhead=2, include_ff=include_ff), dtype)
+
+
+def test_layer_kernel_repeats_bit_for_bit(dev):
+    from tcdiff_torch.ops import layer as m
+
+    g = torch.Generator(device=dev).manual_seed(15)
+    head, tail = _layer_args(g, dev, torch.bfloat16, 2, 450, 512)
+    first = m.layer(*head, *tail, nhead=2)
+    again = m.layer(*head, *tail, nhead=2)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+def test_bf16_blocks_refuse_rows_past_a_cluster(dev):
+    from tcdiff_torch.ops import layer as m
+    from tcdiff_torch.ops.ca_block import ca_block
+
+    d = 1152  # 9 blocks of 128 columns: more than a cluster of 8 holds
+    g = torch.Generator(device=dev).manual_seed(16)
+    for dtype in (torch.float32, torch.bfloat16):
+        head, tail = _layer_args(g, dev, dtype, 1, 8, d, lm=5, ff=256)
+        x, v = head[0], torch.ones(d, device=dev)
+        wq, wfc = head[4], head[7]
+        sa = (x, v, v, head[1], wq, wq, wq, wfc, v, v)
+        ff = (x, v, v, tail[2], tail[3], tail[4], tail[5], tail[6], tail[7], v, v, tail[10], tail[11])
+        mem = torch.zeros(1, 5, d, device=dev, dtype=dtype)
+        ca = (x, v, v, head[1], mem, mem, wq, wq, wq, wfc, v, v)
+        calls = (lambda: m.layer(*head, *tail, nhead=2), lambda: sa_block.sa_block(*sa, nhead=2),
+                 lambda: ff_block.ff_tail(*ff), lambda: ca_block(*ca, nhead=2))
+        for call in calls:
+            if dtype == torch.bfloat16:
+                with pytest.raises(ValueError):
+                    call()
+            else:  # f32 runs the unfused sequence, which takes any even d
+                assert torch.isfinite(call()).all().item()

@@ -56,10 +56,19 @@ def _check(out, ref, dtype):
         assert np.abs(out - ref).max() <= 2.0**-5 * max(1.0, np.abs(ref).max())
 
 
-@pytest.mark.parametrize("dtype", list(DTYPES))
-def test_layernorm_matches_jax(dtype):
-    jx, tx = _both(_normal(0, B, L, D, scale=2.0) + 0.5, dtype)
-    s, b = _ln_params(1)
+# (dtype, rows, d): the base shape under its original ids, then row counts
+# that are not multiples of the CUDA kernel's 8 warps a block, at the
+# widths of its templated bodies (64, 512) and of its general one (96)
+_LN_CASES = [pytest.param(dt, B * L, D, id=dt) for dt in DTYPES] + [
+    pytest.param(dt, rows, d, id=f"{dt}-rows{rows}-d{d}")
+    for d in (64, 96, 512) for rows in (37, 75) for dt in DTYPES]
+
+
+@pytest.mark.parametrize("dtype, rows, d", _LN_CASES)
+def test_layernorm_matches_jax(dtype, rows, d):
+    jx, tx = _both(_normal(0, rows, d, scale=2.0) + 0.5, dtype)
+    rng = np.random.default_rng(1)
+    s, b = (1.0 + 0.1 * rng.normal(size=d)).astype(np.float32), (0.1 * rng.normal(size=d)).astype(np.float32)
     ref = fused_layernorm(jx, jnp.asarray(s), jnp.asarray(b), eps=1e-6)
     _check(layernorm(tx, torch.from_numpy(s), torch.from_numpy(b), 1e-6), ref, dtype)
 
