@@ -45,6 +45,16 @@ last line:
      ordered reduction included, and the reduction's own from
      torch.profiler) and TFLOP/s beside its bound and torch.matmul's time
      (a yardstick only); each weight gradient twice, bit for bit;
+     then the bodies K4 and K7 were redesigned around, alone (ops/
+     train_common.py, ops/gemm.py): the three train row kernels at 28800
+     rows of 512, rate 0.1 (device time alone from torch.profiler, GB/s,
+     share of the byte bound), K4's memory cotangent dmem = rot_m^T(dk.Wk)
+     + dv.Wv and K7's q = rot(LN(x)).Wq beside torch.matmul of the same
+     products; then one bf16 K4 fwd+bwd call under torch.profiler, listed
+     by device kernel (7 launches forward, 20 backward; no memory-side
+     rows_bwd or rot_rows), the attention's share at rate 0.1 and 0 and its
+     kernels' registers (cuobjdump), and one bf16 K7 call (4 device
+     kernels, no PyTorch kernel);
   7. serve 3 requests (batch 4 each: 3 dancers x 5 s of motion) through
      GaussianDiffusion.ddim_sample on a full-width bf16 DanceDecoder with
      seeded random weights, check the outputs and the kernels' launch
@@ -103,6 +113,7 @@ from tcdiff_torch.ops import (
     ln_rotary_matmul, sa_block, sa_block_train,
 )
 from tcdiff_torch.ops.plain import plain_blocks
+from tcdiff_torch.ops import train_common
 from tcdiff_torch.ops.train_common import weight_splits
 from tcdiff_torch.optim.adan import Adan
 from tcdiff_torch.train.state import create_train_state
@@ -119,7 +130,7 @@ RATE = 0.1  # the config's dropout
 LC = 150  # cond encoder tokens: 301 music frames packed in pairs
 KERNELS = ("sa_block", "ff_tail", "ff_block", "ca_block", "layer", "ln_rotary_matmul", "ln_matmul", "layernorm",
            "attention", "sa_block_train", "ca_block_train", "ff_tail_train")
-BUILD = KERNELS + ("gemm",)  # and the projection's entry point of the GEMM phase
+BUILD = KERNELS + ("gemm", "train_rows")  # and the entry points of the products and the train row kernels alone
 SERVING_OPS = {  # the per-op kernels' wrappers, by kernel name
     "ln_rotary_matmul": ln_rotary_matmul.ln_rotary_matmul, "ln_matmul": ln_matmul.ln_matmul,
     "layernorm": layernorm.layernorm, "attention": attention.attention,
@@ -570,7 +581,7 @@ def compare_ln_rows(gen: torch.Generator) -> dict:
         if label == "3600x512 bf16":
             names = our_kernels(fn, 1)
             print(f"K10 at d={D}: {names}")
-            check(calls(names, f"ln_rows_kernel<bf16, bf16, {D // 32}>") == 1,
+            check(calls(names, f"ln_rows_kernel<bf16, bf16, {D // 32}, true>") == 1,
                   f"K10 at d={D} did not run the body templated on {D // 32} elements a lane: {names}")
     return {"rows": extra, "device_ms": extra["3600x512 bf16"]["device_ms"],
             "library_device_ms": extra["3600x512 bf16"]["library_device_ms"]}
@@ -942,6 +953,211 @@ def compare_backward_gemms(gen: torch.Generator) -> dict:
     return figures
 
 
+def kernel_us(fn, part: str, reps: int = 10) -> float:
+    """The median device time in us of the kernels whose name holds `part`
+    over `reps` calls of fn() under torch.profiler (each kernel's own
+    interval: its time alone, without the wrapper's other launches). Two
+    more calls run than the median needs: the profiler now and then drops
+    an event on the card (device_kernels)."""
+    fn()
+    torch.cuda.synchronize()
+    _, events = device_kernels(lambda: [fn() for _ in range(reps + 2)],
+                               accept=lambda ks: sum(part in n for n, _, _ in ks) >= reps)
+    times = [end - start for name, start, end in events if part in name]
+    check(len(times) >= reps, f"the profiler saw {len(times)} launches of {part}, expected {reps} at least")
+    return statistics.median(times)
+
+
+def compare_new_bodies(gen: torch.Generator) -> dict:
+    """Phase 6d: the bodies K4 and K7 were redesigned around, alone, bf16,
+    through their test entries (ops/train_common.py, ops/gemm.py): the
+    three train row kernels at the train rows (28800 x 512, rate 0.1, the
+    forms K4 launches), each held against its plain version, its device
+    time from torch.profiler (the kernel alone, without the partials'
+    reductions the entry adds), GB/s and share of its byte bound; then
+    K4's memory cotangent (9728 x 512, two products of K = 512 and rot^T
+    between them) and K7's q projection with the LayerNorm and rotary in
+    its prologue (3600 x 512 x 512), each held against its plain version
+    and timed (calls queued back to back) beside torch.matmul of the same
+    products (a yardstick only). Returns {kernel: {body: figures}}."""
+    dev, bf16, b = "cuda", torch.bfloat16, TRAIN_BATCH
+    rnd = lambda *shape, std=1.0: torch.randn(shape, generator=gen, device=dev) * std
+    seeds = torch.randint(0, 2**32, (b,), generator=gen, device=dev, dtype=torch.int64)
+    s, bias = 1.0 + rnd(D, std=0.1), rnd(D, std=0.1)
+    fs, fb = rnd(b, D, std=0.1), rnd(b, D, std=0.1)
+    z, x, g, dr = rnd(b, L, D), rnd(b, L, D).to(bf16), rnd(b, L, D).to(bf16), rnd(b, L, D)
+    angles = angle_table(L, D, dev)
+    nch = -(-L // train_common.RCH)
+    part_bytes = lambda n: 4 * n * b * nch * D  # the chunk partials of n parameter gradients, written
+    tables = 2 * L * D * 2
+    cases = (  # (label, kernel name, the entry, its plain version, the bytes it must move)
+        ("chain_top_fwd", "chain_top_fwd_kernel",
+         lambda: train_common.chain_top_fwd(z, x, s, bias, fs, fb, seeds, rate=RATE),
+         lambda: train_common.chain_top_fwd_plain(z, x, s, bias, fs, fb, seeds, rate=RATE), nbytes(z, x, x)),
+        ("chain_top_bwd", "chain_top_bwd_kernel",
+         lambda: train_common.chain_top_bwd(g, z, s, bias, fs, seeds, rate=RATE),
+         lambda: train_common.chain_top_bwd_plain(g, z, s, bias, fs, seeds, rate=RATE),
+         nbytes(g, z, g) + part_bytes(4)),
+        ("rows_bwd (x side)", "rows_bwd_kernel",
+         lambda: train_common.rows_bwd(dr, x, s, 1e-5, angles=angles, resid=g),
+         lambda: train_common.rows_bwd_plain(dr, x, s, 1e-5, angles=angles, resid=g),
+         nbytes(dr, x, g, x) + tables + part_bytes(2)),
+    )
+    figures = collections.defaultdict(dict)
+    for label, name, fn, plain, io in cases:
+        outs, refs = fn(), plain()
+        outs, refs = (outs, refs) if isinstance(outs, tuple) else ((outs,), (refs,))
+        torch.cuda.synchronize()
+        err = 0.0
+        for o, r in zip(outs, refs):
+            if r is None:
+                continue
+            e, tol = (o.float() - r.float()).abs().max().item(), grad_tolerance(bf16, r.float())
+            check(torch.isfinite(o).all().item(), f"{label}: output not finite")
+            check(e <= tol, f"{label} disagrees with its plain version: {e} > {tol}")
+            err = max(err, e)
+        us = kernel_us(fn, name)
+        bnd = bound(0, io)
+        print(f"train row kernel {label} {b * L}x{D} bf16 rate {RATE}: max_abs_err {err:.3e}; device {us:.1f} us "
+              f"alone ({io / us / 1e3:.0f} GB/s, {1e3 * bnd['bound_ms'] / us:.3f} of the byte bound "
+              f"{1e3 * bnd['bound_ms']:.1f} us)")
+        figures["ca_block_train"][label] = dict(device_us=us, gb_s=io / us / 1e3,
+                                                bound_share=1e3 * bnd["bound_ms"] / us, max_abs_err=err, **bnd)
+
+    # K4's memory cotangent and K7's q projection
+    w = lambda o, i: rnd(o, i, std=i**-0.5).to(bf16)
+    mm = b * LM
+    dk, dv, wk, wv = rnd(mm, HD).to(bf16), rnd(mm, HD).to(bf16), w(HD, D), w(HD, D)
+    am = angle_table(LM, D, dev)
+    xs, s1, b1, wq = rnd(B, L, D).to(bf16), 1.0 + rnd(D, std=0.1), rnd(D, std=0.1), w(HD, D)
+    dkv, wkv = torch.cat((dk, dv), 1), torch.cat((wk, wv), 0)  # the library's operands
+    bodies = (
+        ("ca_block_train", "dmem = rot_m^T(dk.Wk) + dv.Wv", (mm, D, 2 * HD),
+         lambda: gemm.gemm_nn_rot(dk, wk, dv, wv, am), lambda: gemm.gemm_nn_rot_plain(dk, wk, dv, wv, am),
+         nbytes(dk, dv, wk, wv) + 2 * LM * D * 2 + mm * D * 2, lambda: torch.matmul(dkv, wkv)),
+        ("ca_block", "q = rot(LN(x)).Wq", (B * L, HD, D),
+         lambda: gemm.gemm_lnrot(xs, s1, b1, angles, wq), lambda: gemm.gemm_lnrot_plain(xs, s1, b1, angles, wq),
+         nbytes(xs, s1, b1, wq) + tables + B * L * HD * 2, lambda: torch.matmul(xs, wq.t())),
+    )
+    for kernel, label, (m, n, k), fn, plain, io, library in bodies:
+        out, ref = fn(), plain()
+        torch.cuda.synchronize()
+        err, tol = (out.float() - ref.float()).abs().max().item(), tolerance(bf16, ref.float())
+        check(torch.isfinite(out).all().item(), f"{label}: output not finite")
+        check(err <= tol, f"{label} disagrees with its plain version: {err} > {tol}")
+        flops = 2 * m * n * k
+        ms, lib_ms = device_ms(fn), device_ms(library)
+        bnd = bound(flops, io)
+        print(f"{label} {m}x{n}x{k} bf16: max_abs_err {err:.3e} (tol {tol:.3e}) kernel {1e3 * ms:.1f} us "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), bound {1e3 * bnd['bound_ms']:.1f} us ({bnd['bound_by']}), "
+              f"torch.matmul of the same products {1e3 * lib_ms:.1f} us")
+        figures[kernel][label] = dict(shape=[m, n, k], max_abs_err=err, ms=ms, tflops=flops / ms / 1e9,
+                                      library_ms=lib_ms, **bnd)
+    return figures
+
+
+def register_counts(lib: str, part: str) -> dict:
+    """{kernel: registers} of the kernels of csrc/<lib>.cu whose name holds
+    `part`, from cuobjdump -res-usage on the built library ({} where the
+    toolkit has no cuobjdump)."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        res = subprocess.run([tool, "-res-usage", str(_build._target(lib))], capture_output=True, text=True,
+                             timeout=120)
+    except (OSError, subprocess.SubprocessError):
+        return {}
+    regs, name = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"REG:(\d+)", line)
+        if m and name and part in name:
+            regs[name] = int(m.group(1))
+    return regs
+
+
+def profile_k4_k7(gen: torch.Generator) -> dict:
+    """Phase 6e: one bf16 K4 call at the train shape under torch.profiler,
+    forward alone and forward + backward, listed by device kernel: 7
+    launches forward and 20 backward, the memory side's rotary the row
+    body with the LayerNorm off, dmem the one rot^T product, no memory-side
+    rows_bwd and no rot_rows kernel; the attention's share of its device
+    time at rate 0 and 0.1, and its kernels' registers (cuobjdump). Then
+    one bf16 K7 call at the serving shape: 4 device kernels, each a
+    hand-written one (no PyTorch kernel). Returns extra figures for K4 and
+    K7."""
+    figures = {}
+    for rate in (RATE, 0.0):
+        bf16 = torch.bfloat16
+        fn, _, args, diff, kw, _ = train_cases(gen, bf16)["ca_block_train"]
+        kw = dict(kw, rate=rate)
+        args = tuple(a.float() if a.dim() == 2 and a.shape[0] == TRAIN_BATCH and a.is_floating_point() else a
+                     for a in args)  # FiLM rows in f32, as the kernel takes them
+        leaves = [a.detach().clone().requires_grad_(i in diff) if a.is_floating_point() else a
+                  for i, a in enumerate(args)]
+        out = fn(*leaves, **kw)
+        cot = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+        step = lambda: torch.autograd.grad(fn(*leaves, **kw), [leaves[i] for i in diff], cot)
+        step()
+        torch.cuda.synchronize()
+        ours = lambda ks: [k for k in ks if "tcd::" in k[0]]  # the wrapper's seed conversion runs PyTorch kernels
+        _, fwd_all = device_kernels(lambda: fn(*leaves, **kw), accept=lambda ks: len(ours(ks)) == 7)
+        _, both_all = device_kernels(step, accept=lambda ks: len(ours(ks)) == 27)
+        fwd, both = ours(fwd_all), ours(both_all)
+        bwd = both[len(fwd):]
+        total = sum(e - s for _, s, e in both)
+        attn = sum(e - s for n, s, e in both if "attn" in n)
+        label = f"K4 ca_block_train bf16 rate {rate}"
+        print(f"{label}: one fwd+bwd call, {len(fwd)} launches forward and {len(bwd)} backward, {total:.0f} us of "
+              f"kernels, the attention {attn:.0f} us ({attn / total:.3f}); PyTorch kernels beside them "
+              f"{len(both_all) - len(both)}")
+        if rate == RATE:
+            for part, events in (("forward", fwd), ("backward", bwd)):
+                print(f"  {part}: " + ", ".join(f"{n.replace('tcd::', '')} {e - s:.1f}" for n, s, e in events))
+            names = collections.Counter(n for n, _, _ in bwd)
+            check(len(fwd) == 7, f"K4 made {len(fwd)} launches forward, expected 7")
+            check(len(bwd) == 20, f"K4 made {len(bwd)} launches backward, expected 20")
+            check(not any("rot_rows" in n for n, _, _ in both), "K4 still runs a rot_rows kernel")
+            check(sum("ln_rows_kernel" in n and "false" in n for n, _, _ in fwd) == 1,
+                  "K4's memory rotary is not the row body with the LayerNorm off")
+            check(calls(names, "rows_bwd_kernel") == 1, f"K4's backward runs {calls(names, 'rows_bwd_kernel')} "
+                  "rows_bwd kernels; the memory side's should be gone")
+            check(calls(names, "gemm_rot_nn_kernel") == 1, "K4's dmem is not the one rot^T product")
+            regs = register_counts("ca_block_train", "attn")
+            print(f"  the attention kernels' registers (cuobjdump -res-usage): {regs or 'not measured'}")
+            figures.update(profile_fwd_launches=len(fwd), profile_bwd_launches=len(bwd), attention_regs=regs)
+        figures[f"attention_share_rate_{rate}"] = attn / total
+        figures[f"kernel_us_rate_{rate}"] = total
+        del out, leaves
+        torch.cuda.empty_cache()
+
+    # K7: one bf16 call (FiLM rows in f32, as the kernel takes them)
+    dev = "cuda"
+    rnd = lambda *shape, std=1.0: torch.randn(shape, generator=gen, device=dev) * std
+    w = lambda o, i: rnd(o, i, std=i**-0.5).to(torch.bfloat16)
+    mem = rnd(B, LM, D).to(torch.bfloat16)
+    args = (rnd(B, L, D).to(torch.bfloat16), 1.0 + rnd(D, std=0.1), rnd(D, std=0.1), angle_table(L, D, dev), mem,
+            apply_rotary(mem, angle_table(LM, D, dev)), w(HD, D), w(HD, D), w(HD, D), w(D, HD),
+            1.0 + rnd(D, std=0.1), rnd(D, std=0.1), rnd(B, D, std=0.1), rnd(B, D, std=0.1))
+    fn = lambda: ca_block.ca_block(*args, nhead=H)
+    fn()  # the tables' first call builds them
+    torch.cuda.synchronize()
+    # a spin kernel first: on the card the profiler drops a session's first
+    # event now and then (K7's first launch, three sessions in a row once)
+    ours = lambda ks: [k for k in ks if "spin_kernel" not in k[0]]
+    _, kernels = device_kernels(lambda: (torch.cuda._sleep(1000), fn()), accept=lambda ks: len(ours(ks)) == 4)
+    kernels = ours(kernels)
+    print(f"K7 ca_block bf16 film=True: {len(kernels)} device kernels a call: "
+          + ", ".join(f"{n.replace('tcd::', '')} {e - s:.1f} us" for n, s, e in kernels))
+    check(len(kernels) == 4, f"K7 ran {len(kernels)} device kernels, expected 4")
+    check(all("tcd::" in n for n, _, _ in kernels), "K7's call ran a PyTorch kernel")
+    check(sum("gemm_lnrot_kernel" in n for n, _, _ in kernels) == 1, "K7's q is not the LayerNorm-prologue launch")
+    return {"ca_block_train": figures, "ca_block": {"device_kernels_film": len(kernels)}}
+
+
 def check_output(out: torch.Tensor, x_0: torch.Tensor, shape) -> None:
     check(tuple(out.shape) == tuple(shape), f"output shape {tuple(out.shape)} != {shape}")
     check(torch.isfinite(out).all().item(), "output not finite")
@@ -1309,6 +1525,10 @@ def main() -> int:
             figures[name].update(extra)
         for name, products in compare_backward_gemms(gen).items():
             figures[name]["bwd_products"] = products
+        for name, bodies in compare_new_bodies(gen).items():
+            figures[name]["bodies"] = bodies
+        for name, extra in profile_k4_k7(gen).items():
+            figures[name].update(extra)
         launches = serve(gen)
         t0 = time.perf_counter()
         launches.update(serve_per_op(gen))

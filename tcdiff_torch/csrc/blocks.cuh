@@ -107,16 +107,23 @@ void cross_attend(const T* r, const T* k, const T* v, int Lm, const T* wq, int B
 }
 
 // The query side of cross-attention against projected k, v (B, Lm, hd):
-// r = rot(LN(x; eps1)); cross_attend; fc; LN(eps2) [+ FiLM residual]. K7
-// after its k/v projections.
+// q = rot(LN(x; eps1)).Wq; the attention; fc; LN(eps2) [+ FiLM residual].
+// K7 after its k/v projections. bf16: q in one launch with the LayerNorm
+// and the rotary in its prologue (gemm_lnrot; r unused), 3 launches in
+// all; f32: r = rot(LN(x)) by the row kernel, then cross_attend, 5.
 template <typename T>
 void cross_attention(const T* x, const float* s1, const float* b1, const T* cos_t,
                      const T* ssin_t, const T* k, const T* v, int Lm, const T* wq, const T* wfc,
                      const float* s2, const float* b2, const float* fs, const float* fb, int B,
                      int L, int d, int hd, int nhead, float eps1, float eps2, T* r, T* q, T* o,
                      float* z, T* out, cudaStream_t st) {
-  ln_rows<T, T>(x, s1, b1, eps1, B * L, d, L, cos_t, ssin_t, nullptr, nullptr, nullptr, nullptr, r, st);
-  cross_attend<T>(r, k, v, Lm, wq, B, L, d, hd, nhead, q, o, st);
+  if constexpr (std::is_same<T, bf16>::value) {
+    gemm_lnrot<T>(x, s1, b1, eps1, cos_t, ssin_t, L, wq, B * L, hd, d, q, st);
+    heads_attention<T>(q, k, v, o, B, L, Lm, hd, nhead, nullptr, nullptr, st);
+  } else {
+    ln_rows<T, T>(x, s1, b1, eps1, B * L, d, L, cos_t, ssin_t, nullptr, nullptr, nullptr, nullptr, r, st);
+    cross_attend<T>(r, k, v, Lm, wq, B, L, d, hd, nhead, q, o, st);
+  }
   fc_post_ln<T>(o, wfc, s2, b2, x, fs, fb, B, L, d, hd, eps2, z, out, st);
 }
 

@@ -19,16 +19,19 @@
 // GFLOP of attention against ~10 MB: operations, ~6.2 us at the bf16
 // tensor-core peak.
 //
-// Design: one grouped launch of the projection (gemm_mma.cuh) takes the
-// memory's k and v over its B * Lm rows into T (the TPU kernel rounds each
-// head's k and v to the compute dtype), then the shared cross-attention
-// sequence of blocks.cuh: the LN + rotary row kernel, the q GEMM, the
-// flash attention of attention.cuh with Lq != Lk (as K11 runs it), and the
-// fc GEMM with the post-LN and the FiLM residual in its epilogue (bf16: a
-// cluster along N holds whole rows, gemm_ln; f32: an f32 scratch and a row
-// kernel). K6 (layer.cu) runs the same steps against the cached k/v. The
-// projections and the attention run on the tensor cores in bf16, on the
-// FMA units in f32.
+// Design, bf16, 4 launches: one grouped launch of the projection
+// (gemm_mma.cuh) takes the memory's k and v over its B * Lm rows into T
+// (the TPU kernel rounds each head's k and v to the compute dtype); q =
+// T(rot(LN(x))).Wq in one launch with the LayerNorm and the rotary in its
+// prologue (gemm_lnrot: a block stages its rows of x whole in shared
+// memory, so rot(LN(x)) never goes to device memory); the flash attention
+// of attention.cuh with Lq != Lk (as K11 runs it); the fc GEMM with the
+// post-LN and the FiLM residual in its epilogue (gemm_ln: a cluster along
+// N holds whole rows). f32, 6 launches, keeps the unfused sequence: the
+// LN + rotary row kernel into r, q, the attention, fc into an f32 scratch
+// and a row kernel. The projections and the attention run on the tensor
+// cores in bf16, on the FMA units in f32. K6 (layer.cu) runs the same
+// attention and fc steps against the cached k/v.
 #include "blocks.cuh"
 
 // Pointers, then the ints, then the floats: the layout of the ctypes
@@ -64,8 +67,8 @@ void ca_block(const CaBlockArgs& a, cudaStream_t st) {
 
 // x (B, L, d), mem and mrot (B, Lm, d), d even; cos/ssin (L, d) in T;
 // wq/wk/wv (hd, d), wfc (d, hd) in T; LN affines and FiLM rows f32;
-// scratch r (B*L, d), q and o (B*L, hd), k and v (B*Lm, hd) in T, z
-// (B*L, d) f32, used in f32 only. dtype: 0 = float32, 1 = bfloat16.
+// scratch q and o (B*L, hd), k and v (B*Lm, hd) in T; r (B*L, d) in T and
+// z (B*L, d) f32, used in f32 only (null in bf16). dtype: 0 = float32, 1 = bfloat16.
 // Returns the launches' status (launch_status).
 extern "C" int tcd_ca_block(int dtype, const CaBlockArgs* a, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -196,6 +196,34 @@ __device__ __forceinline__ void st_vec(__nv_bfloat16* p, const float (&v)[W]) {
 }
 
 // ------------------------------------------------------ LayerNorm rows
+// The arithmetic of one LayerNorm row, shared by the row body below and
+// the q projection's prologue (gemm_lnrot of gemm_mma.cuh), so that both
+// round alike: explicit round-to-nearest operations leave the compiler no
+// multiply-add contraction of its own to choose.
+struct LnStat {
+  float mu, rs;
+};
+__device__ __forceinline__ void ln_add(float x, float& s, float& ss) {
+  s = __fadd_rn(s, x);
+  ss = __fmaf_rn(x, x, ss);
+}
+// The row's (mu, rsqrt(E[x^2] - mu^2 + eps)) from a lane's partial sums.
+__device__ __forceinline__ LnStat ln_stat(float s, float ss, int d, float eps) {
+  warp_sum2(s, ss);
+  const float mu = __fdiv_rn(s, (float)d);
+  return {mu, rsqrtf(__fadd_rn(__fsub_rn(__fdiv_rn(ss, (float)d), __fmul_rn(mu, mu)), eps))};
+}
+__device__ __forceinline__ float ln_y(float x, LnStat st, float sc, float bi) {
+  return __fmaf_rn(__fmul_rn(__fsub_rn(x, st.mu), st.rs), sc, bi);
+}
+// The rotary of the pair (y0, y1) of columns (c, c + 1), c even:
+// y * cos + swap_pairs(y) * ssin.
+__device__ __forceinline__ void rot_pair(float y0, float y1, float c0, float c1, float s0, float s1, float& r0,
+                                         float& r1) {
+  r0 = __fmaf_rn(y1, s0, __fmul_rn(y0, c0));
+  r1 = __fmaf_rn(y0, s1, __fmul_rn(y1, c1));
+}
+
 // The LayerNorm row body of every kernel (K10, and the row stages of K1,
 // K2, K2b, K6-K9 and K3-K5's forwards): y = LN(in) in f32 (var = E[x^2] -
 // mu^2, as the TPU kernels), then
@@ -204,7 +232,8 @@ __device__ __forceinline__ void st_vec(__nv_bfloat16* p, const float (&v)[W]) {
 //   out_rot = T(y * cos + swap_pairs(y) * ssin)         (cos != nullptr)
 // Rows are m = b * L + l; cos/ssin are (L, d) tables in T with the
 // rotate-half signs folded into ssin; out may be null (the rotated output
-// only). d must be even.
+// only). d must be even. NORM = false: no LayerNorm, y = in (the rotary
+// alone: K4's memory side, rot_rows).
 //
 // What bounds it on the H100: ~8 operations an element against 2-4 bytes
 // in and 2-4 out: the bytes (3,600 rows of 512 in bf16: 3.7 MB, 1.1 us at
@@ -225,7 +254,7 @@ __device__ __forceinline__ void st_vec(__nv_bfloat16* p, const float (&v)[W]) {
 // (the second time from L1).
 constexpr int LN_WARPS = 8;
 
-template <typename TI, typename T, int EPL>
+template <typename TI, typename T, int EPL, bool NORM = true>
 __global__ void __launch_bounds__(32 * LN_WARPS)
 ln_rows_kernel(const TI* __restrict__ in, const float* __restrict__ scale, const float* __restrict__ bias,
                float eps, int M, int d, int L, const T* __restrict__ cos_t, const T* __restrict__ ssin_t,
@@ -236,43 +265,40 @@ ln_rows_kernel(const TI* __restrict__ in, const float* __restrict__ scale, const
   if constexpr (EPL > 0) {
     constexpr int W = EPL < 8 ? EPL : 8, NC = EPL / W;
     float sc[NC][W], bi[NC][W];
+    if constexpr (NORM) {
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      ld_vec<W>(scale + (c * 32 + lane) * W, sc[c]);
-      ld_vec<W>(bias + (c * 32 + lane) * W, bi[c]);
+      for (int c = 0; c < NC; ++c) {
+        ld_vec<W>(scale + (c * 32 + lane) * W, sc[c]);
+        ld_vec<W>(bias + (c * 32 + lane) * W, bi[c]);
+      }
     }
     for (int m = first; m < M; m += stride) {
       const size_t row = (size_t)m * d;
       float x[NC][W];
 #pragma unroll
       for (int c = 0; c < NC; ++c) ld_vec<W>(in + row + (c * 32 + lane) * W, x[c]);
-      float s = 0.f, ss = 0.f;
+      LnStat st{0.f, 1.f};
+      if constexpr (NORM) {
+        float s = 0.f, ss = 0.f;
 #pragma unroll
-      for (int c = 0; c < NC; ++c)
+        for (int c = 0; c < NC; ++c)
 #pragma unroll
-        for (int e = 0; e < W; ++e) {
-          s += x[c][e];
-          ss += x[c][e] * x[c][e];
-        }
-      warp_sum2(s, ss);
-      const float mu = s / d;
-      const float rs = rsqrtf(ss / d - mu * mu + eps);
+          for (int e = 0; e < W; ++e) ln_add(x[c][e], s, ss);
+        st = ln_stat(s, ss, d, eps);
+      }
       const int l = m % L, b = m / L;
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const int col = (c * 32 + lane) * W;
         float y[W];
 #pragma unroll
-        for (int e = 0; e < W; ++e) y[e] = (x[c][e] - mu) * rs * sc[c][e] + bi[c][e];
+        for (int e = 0; e < W; ++e) y[e] = NORM ? ln_y(x[c][e], st, sc[c][e], bi[c][e]) : x[c][e];
         if (out_rot) {
           float cs[W], sn[W], r[W];
           ld_vec<W>(cos_t + (size_t)l * d + col, cs);
           ld_vec<W>(ssin_t + (size_t)l * d + col, sn);
 #pragma unroll
-          for (int e = 0; e < W; e += 2) {
-            r[e] = y[e] * cs[e] + y[e + 1] * sn[e];
-            r[e + 1] = y[e + 1] * cs[e + 1] + y[e] * sn[e + 1];
-          }
+          for (int e = 0; e < W; e += 2) rot_pair(y[e], y[e + 1], cs[e], cs[e + 1], sn[e], sn[e + 1], r[e], r[e + 1]);
           st_vec<W>(out_rot + row + col, r);
         }
         if (out) {
@@ -291,24 +317,22 @@ ln_rows_kernel(const TI* __restrict__ in, const float* __restrict__ scale, const
   } else {
     for (int m = first; m < M; m += stride) {
       const TI* x = in + (size_t)m * d;
-      float s = 0.f, ss = 0.f;
-      for (int c = lane; c < d; c += 32) {
-        const float v = to_f(x[c]);
-        s += v;
-        ss += v * v;
+      LnStat st{0.f, 1.f};
+      if constexpr (NORM) {
+        float s = 0.f, ss = 0.f;
+        for (int c = lane; c < d; c += 32) ln_add(to_f(x[c]), s, ss);
+        st = ln_stat(s, ss, d, eps);
       }
-      warp_sum2(s, ss);
-      const float mu = s / d;
-      const float rs = rsqrtf(ss / d - mu * mu + eps);
       const int l = m % L, b = m / L;
       for (int p = lane; p < d / 2; p += 32) {
         const int c0 = 2 * p, c1 = c0 + 1;
-        float y0 = (to_f(x[c0]) - mu) * rs * scale[c0] + bias[c0];
-        float y1 = (to_f(x[c1]) - mu) * rs * scale[c1] + bias[c1];
+        float y0 = NORM ? ln_y(to_f(x[c0]), st, scale[c0], bias[c0]) : to_f(x[c0]);
+        float y1 = NORM ? ln_y(to_f(x[c1]), st, scale[c1], bias[c1]) : to_f(x[c1]);
         if (out_rot) {
           const size_t t = (size_t)l * d;
-          const float r0 = y0 * to_f(cos_t[t + c0]) + y1 * to_f(ssin_t[t + c0]);
-          const float r1 = y1 * to_f(cos_t[t + c1]) + y0 * to_f(ssin_t[t + c1]);
+          float r0, r1;
+          rot_pair(y0, y1, to_f(cos_t[t + c0]), to_f(cos_t[t + c1]), to_f(ssin_t[t + c0]), to_f(ssin_t[t + c1]),
+                   r0, r1);
           out_rot[(size_t)m * d + c0] = from_f<T>(r0);
           out_rot[(size_t)m * d + c1] = from_f<T>(r1);
         }
@@ -326,34 +350,34 @@ ln_rows_kernel(const TI* __restrict__ in, const float* __restrict__ scale, const
   }
 }
 
-// One launch of ln_rows_kernel<TI, T, EPL>: min(rows / LN_WARPS, the
+// One launch of ln_rows_kernel<TI, T, EPL, NORM>: min(rows / LN_WARPS, the
 // blocks the card holds at once) blocks, found once per instance.
-template <typename TI, typename T, int EPL, typename... Args>
+template <typename TI, typename T, int EPL, bool NORM, typename... Args>
 inline void launch_ln_rows(int M, cudaStream_t st, Args... args) {
   static const int resident = [] {
     int dev = 0, sms = 1, per = 1;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, ln_rows_kernel<TI, T, EPL>, 32 * LN_WARPS, 0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, ln_rows_kernel<TI, T, EPL, NORM>, 32 * LN_WARPS, 0);
     return sms * (per > 0 ? per : 1);
   }();
   const int blocks = std::max(1, std::min(cdiv(M, LN_WARPS), resident));
-  ln_rows_kernel<TI, T, EPL><<<blocks, 32 * LN_WARPS, 0, st>>>(args...);
+  ln_rows_kernel<TI, T, EPL, NORM><<<blocks, 32 * LN_WARPS, 0, st>>>(args...);
 }
 
-// The LayerNorm rows above over M rows of d: the body templated on d / 32
-// where d is one of the widths the paths use and every operand is 16-byte
-// aligned, else the general body.
-template <typename TI, typename T>
+// The LayerNorm rows above over M rows of d (NORM), or the rotary alone
+// (!NORM): the body templated on d / 32 where d is one of the widths the
+// paths use and every operand is 16-byte aligned, else the general body.
+template <typename TI, typename T, bool NORM = true>
 inline void ln_rows(const TI* in, const float* scale, const float* bias, float eps, int M, int d, int L,
                     const T* cos_t, const T* ssin_t, const T* resid, const float* fs, const float* fb, T* out,
                     T* out_rot, cudaStream_t st) {
   const bool vec = aligned(in, 16) && aligned(scale, 16) && aligned(bias, 16) && aligned(cos_t, 16) &&
                    aligned(ssin_t, 16) && aligned(resid, 16) && aligned(fs, 16) && aligned(fb, 16) &&
                    aligned(out, 16) && aligned(out_rot, 16);
-#define TCD_LN_ROWS(EPL)                                                                                      \
-  return launch_ln_rows<TI, T, EPL>(M, st, in, scale, bias, eps, M, d, L, cos_t, ssin_t, resid, fs, fb, out, \
-                                    out_rot)
+#define TCD_LN_ROWS(EPL)                                                                                   \
+  return launch_ln_rows<TI, T, EPL, NORM>(M, st, in, scale, bias, eps, M, d, L, cos_t, ssin_t, resid, fs, fb, \
+                                          out, out_rot)
   switch (vec ? d : 0) {
     case 64: TCD_LN_ROWS(2);
     case 128: TCD_LN_ROWS(4);
@@ -365,19 +389,12 @@ inline void ln_rows(const TI* in, const float* scale, const float* bias, float e
 #undef TCD_LN_ROWS
 }
 
-// Rotary only (the cross-attention memory side): out = T(in*cos + swap(in)*ssin).
+// The rotary alone, out = T(in * cos + swap_pairs(in) * ssin), with the
+// row body (the cross-attention memory side of K4).
 template <typename T>
-__global__ void rot_rows_kernel(const T* __restrict__ in, const T* __restrict__ cos_t,
-                                const T* __restrict__ ssin_t, int d, int L, T* __restrict__ out) {
-  const int m = blockIdx.x, l = m % L;
-  const T* row = in + (size_t)m * d;
-  const size_t t = (size_t)l * d;
-  for (int p = threadIdx.x; p < d / 2; p += blockDim.x) {
-    const int c0 = 2 * p, c1 = c0 + 1;
-    const float y0 = to_f(row[c0]), y1 = to_f(row[c1]);
-    out[(size_t)m * d + c0] = from_f<T>(y0 * to_f(cos_t[t + c0]) + y1 * to_f(ssin_t[t + c0]));
-    out[(size_t)m * d + c1] = from_f<T>(y1 * to_f(cos_t[t + c1]) + y0 * to_f(ssin_t[t + c1]));
-  }
+inline void rot_rows(const T* in, const T* cos_t, const T* ssin_t, int M, int d, int L, T* out, cudaStream_t st) {
+  ln_rows<T, T, false>(in, nullptr, nullptr, 0.f, M, d, L, cos_t, ssin_t, nullptr, nullptr, nullptr, nullptr, out,
+                       st);
 }
 
 // ---------------------------------------------------------------- GEMM

@@ -29,6 +29,26 @@
 
 namespace tcd {
 
+// K5's own row kernels (ff_tail_bwd_rows, gelu_bwd_rows): a block of RT
+// threads walks FF_RCH consecutive rows of one batch element (grid
+// (cdiv(L, FF_RCH), B)); thread t owns columns t, t + RT, ... (at most CPT
+// of them, so a width <= RT * CPT = 1024) and keeps its columns' partial
+// gradient sums in registers across the rows. Its last row pass, the LN3
+// backward, is the attention blocks' rows_bwd (train_common.cuh) over the
+// same nch chunks, so the partials of one backward share their layout
+// (ops/ff_block_train.py FF_RCH).
+constexpr int RT = 128, CPT = 8, FF_RCH = 16;
+
+// Writes a thread's column partials to row `row` of each given (rows, d) array.
+__device__ __forceinline__ void store_partial(float* p, size_t row, int d, const float (&a)[CPT]) {
+  if (!p) return;
+#pragma unroll
+  for (int k = 0; k < CPT; ++k) {
+    const int c = threadIdx.x + k * RT;
+    if (c < d) p[row * d + c] = a[k];
+  }
+}
+
 struct FfTrainArgs {
   // inputs
   const void *x;
@@ -60,7 +80,7 @@ struct FfTrainArgs {
   uint32_t thresh;
 };
 
-// LN4 / FiLM / dropout backward (grid (cdiv(L, RCH), B)): given g = d out
+// LN4 / FiLM / dropout backward (grid (cdiv(L, FF_RCH), B)): given g = d out
 // and dy4 = g.W3 (f32), recompute LN4's statistics of x2; then
 //   d b3 += g;  dx2 = LN4_bwd(dy4) (f32 out), d s4 += dy4*xhat, d b4 += dy4
 //   d fs += dx2 * zd, d fb += dx2                          (per batch element)
@@ -77,8 +97,8 @@ ff_tail_bwd_rows_kernel(const T* __restrict__ g, const float* __restrict__ dy4,
   float afs[CPT], afb[CPT], ab3[CPT], as4[CPT], ab4[CPT], ab2[CPT];
 #pragma unroll
   for (int k = 0; k < CPT; ++k) afs[k] = afb[k] = ab3[k] = as4[k] = ab4[k] = ab2[k] = 0.f;
-  const int l1 = min(L, (chunk + 1) * RCH);
-  for (int l = chunk * RCH; l < l1; ++l) {
+  const int l1 = min(L, (chunk + 1) * FF_RCH);
+  for (int l = chunk * FF_RCH; l < l1; ++l) {
     const size_t m = (size_t)b * L + l;
     float xh[CPT], gx[CPT];
     float s1 = 0.f, s2 = 0.f;
@@ -141,8 +161,8 @@ gelu_bwd_rows_kernel(const float* __restrict__ dad, const float* __restrict__ u,
   float ab1[CPT];
 #pragma unroll
   for (int k = 0; k < CPT; ++k) ab1[k] = 0.f;
-  const int l1 = min(L, (chunk + 1) * RCH);
-  for (int l = chunk * RCH; l < l1; ++l) {
+  const int l1 = min(L, (chunk + 1) * FF_RCH);
+  for (int l = chunk * FF_RCH; l < l1; ++l) {
     const size_t m = (size_t)b * L + l;
 #pragma unroll
     for (int k = 0; k < CPT; ++k) {
@@ -183,7 +203,7 @@ int ff_fwd(const FfTrainArgs& a, cudaStream_t st) {
 
 template <typename T>
 int ff_bwd(const FfTrainArgs& a, cudaStream_t st) {
-  const int M = a.B * a.L, d = a.d, ff = a.ff, nch = cdiv(a.L, RCH);
+  const int M = a.B * a.L, d = a.d, ff = a.ff, nch = cdiv(a.L, FF_RCH);
   const size_t P = (size_t)a.B * nch * d, V = (size_t)a.B * d;
   const Drop dr = make_drop(a.seeds, a.thresh, a.dscale, a.drop_on);
   const T *x = (const T*)a.x, *g = (const T*)a.g;
@@ -201,13 +221,13 @@ int ff_bwd(const FfTrainArgs& a, cudaStream_t st) {
   wgrad<T>(du, (const T*)a.y, M, ff, d, a.wpart, a.wcap, (T*)a.dw1, st);
   gemm_nn<T, EPI_STORE_F32>(du, w1, a.dy, M, d, ff, st);  // dy = du . W1
   // dx = dx2 + LN3_bwd(dy): partials 6 s3, 7 b3
-  rows_bwd_kernel<T><<<rows, RT, 0, st>>>(a.dy, nullptr, nullptr, nullptr, x, a.s3, a.eps, nullptr,
-                                          a.dx2, a.L, d, (T*)a.dx, a.part + 6 * P, a.part + 7 * P);
+  rows_bwd<T>(a.dy, nullptr, nullptr, nullptr, x, a.s3, a.eps, nullptr, a.dx2, a.B, a.L, d, nch, (T*)a.dx,
+              a.part + 6 * P, a.part + 7 * P, st);
   reduce_per_batch(a.part, a.B, nch, d, a.vec, st);
   reduce_per_batch(a.part + P, a.B, nch, d, a.vec + V, st);
   for (int i = 2; i < 8; ++i) reduce_all(a.part + i * P, a.B, nch, d, a.vec + i * V, st);
   reduce_all(a.part_ff, a.B, nch, ff, a.vec_ff, st);
-  return (int)cudaGetLastError();
+  return launch_status();
 }
 
 }  // namespace tcd

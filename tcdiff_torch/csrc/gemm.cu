@@ -3,17 +3,20 @@
 // triples that share M, N, K and the epilogue (the grouped form is K1's
 // q/k/v launch); the input gradient C = sum_j A[j] . B[j] (B (K, N), up to
 // 2 joined pairs: K3's dr); and the split-row weight gradient dW = G^T X
-// with its ordered reduction. No path of the model calls it; the kernels
-// reach the same code through blocks.cuh and train_common.cuh.
+// with its ordered reduction, up to 3 over the same rows in one launch
+// (K4's dWk and dWv). Then, bf16 only, K4's memory cotangent
+// (gemm_nn_rot) and K7's q projection with the LayerNorm and rotary in its
+// prologue (gemm_lnrot). No path of the model calls it; the kernels reach
+// the same code through blocks.cuh and train_common.cuh.
 #include "gemm_mma.cuh"
 
 // Pointers, then the ints: the layout of the ctypes mirror in ops/gemm.py.
 // a1, a2, w1, w2, c1, c2 are read only when groups > 1; bias, resid, fs,
 // fb as the epilogue needs them (common.cuh: Epi). layout 0: forward;
 // 1: input gradient, a (M, K), w (K, N), c0 (M, N), groups the joined
-// pairs; 2: weight gradient, a0 = G (M, N), w0 = X (M, K) over M rows,
-// c0 = dW (N, K), `part` holding `cap` floats, `splits` row chunks (0:
-// the count the train kernels use).
+// pairs; 2: weight gradients, a[g] = G (M, N), w[g] = X (M, K) over M
+// rows, c0 = dW (groups, N, K), `part` holding `cap` floats, `splits` row
+// chunks (0: the count the train kernels use).
 struct GemmArgs {
   const void *a0, *a1, *a2, *w0, *w1, *w2;
   void *c0, *c1, *c2;
@@ -41,7 +44,9 @@ void gemm_entry(const GemmArgs& a, cudaStream_t st) {
 template <typename T>
 int gemm_epi(const GemmArgs& a, cudaStream_t st) {
   if (a.layout == 2) {
-    wgrad<T>((const T*)a.a0, (const T*)a.w0, a.M, a.N, a.K, a.part, (size_t)a.cap, (T*)a.c0, st, a.splits);
+    const T* gs[3] = {(const T*)a.a0, (const T*)a.a1, (const T*)a.a2};
+    const T* xs[3] = {(const T*)a.w0, (const T*)a.w1, (const T*)a.w2};
+    wgrad_group<T>(a.groups, gs, xs, a.M, a.N, a.K, a.part, (size_t)a.cap, (T*)a.c0, st, a.splits);
     return (int)cudaGetLastError();
   }
   // both layouts store; only the input gradient adds, only the forward takes a bias
@@ -67,9 +72,41 @@ int gemm_epi(const GemmArgs& a, cudaStream_t st) {
 // cudaGetLastError() after the launches, -1 for what it does not take.
 extern "C" int tcd_gemm(int dtype, const GemmArgs* a, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int most = a->layout == 0 ? tcd::PGROUP : a->layout == 1 ? 2 : 1;
+  const int most = a->layout == 1 ? 2 : tcd::PGROUP;
   if (a->layout < 0 || a->layout > 2 || a->groups < 1 || a->groups > most) return -1;
   if (dtype == 0) return tcd::gemm_epi<float>(*a, st);
   if (dtype == 1) return tcd::gemm_epi<__nv_bfloat16>(*a, st);
   return -1;
+}
+
+// K4's memory cotangent and K7's q projection alone, bf16 (ops/gemm.py
+// gemm_nn_rot, gemm_lnrot): the layout of the ctypes mirror there.
+struct GemmRotArgs {
+  const void *a0, *w0, *a1, *w1, *cos, *ssin;
+  const float *s, *b;
+  void* out;
+  int M, N, K, L;
+  float eps;
+};
+
+// out (M, N) = T(rot^T(a0 . w0) + a1 . w1), a (M, K), w (K, N), the
+// tables (L, N) at row m % L. dtype 1 (bfloat16) only; returns the
+// launch's status, -1 for another dtype.
+extern "C" int tcd_gemm_nn_rot(int dtype, const GemmRotArgs* a, void* stream) {
+  if (dtype != 1) return -1;
+  using T = __nv_bfloat16;
+  tcd::gemm_nn_rot<T>((const T*)a->a0, (const T*)a->w0, (const T*)a->a1, (const T*)a->w1, (const T*)a->cos,
+                   (const T*)a->ssin, a->L, a->M, a->N, a->K, (T*)a->out, static_cast<cudaStream_t>(stream));
+  return tcd::launch_status();
+}
+
+// out (M, N) = T(rot(LN(a0; s, b, eps))) . w0^T, a0 (M, K), w0 (N, K), the
+// tables (L, K) at row m % L. dtype 1 (bfloat16) only; returns the
+// launch's status, -1 for another dtype.
+extern "C" int tcd_gemm_lnrot(int dtype, const GemmRotArgs* a, void* stream) {
+  if (dtype != 1) return -1;
+  using T = __nv_bfloat16;
+  tcd::gemm_lnrot<T>((const T*)a->a0, a->s, a->b, a->eps, (const T*)a->cos, (const T*)a->ssin, a->L, (const T*)a->w0,
+                  a->M, a->N, a->K, (T*)a->out, static_cast<cudaStream_t>(stream));
+  return tcd::launch_status();
 }

@@ -169,10 +169,13 @@ __device__ __forceinline__ void epi_store2(const EpiArgs& ep, size_t o, EpiVal r
 // acc = the warp's 64 x 32 piece of this block's tile of A . B over the K
 // rows [kb, ke), through the ring of PSTAGES stages at sm (layouts as
 // gemm_mma_kernel's; g: the triple whose A and B the block reads; join >
-// 1 runs the pairs 0 .. join-1 in turn into the same sums).
+// 1 runs the pairs 0 .. join-1 in turn into the same sums); zero = false
+// adds to acc as it stands (the ring must then be free: no warp still
+// reading it, no copy into it in flight).
 template <bool KA, bool KB>
 __device__ __forceinline__ void mma_loop(bf16* sm, const ProjGroup& p, int g, int M, int N, int K, int m0, int n0,
-                                         int kb, int ke, int join, bool vec, float (&acc)[4][4][4]) {
+                                         int kb, int ke, int join, bool vec, float (&acc)[4][4][4],
+                                         bool zero = true) {
   constexpr int A_ELEMS = tile_elems<KA, PBM>(), STAGE = A_ELEMS + tile_elems<KB, PBN>();
   constexpr int LDA = KA ? PBM + 8 : PBK + 8, LDB = KB ? PBN + 8 : PBK + 8;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -195,12 +198,14 @@ __device__ __forceinline__ void mma_loop(bf16* sm, const ProjGroup& p, int g, in
       load_tile<PBN, PBK, PT>(s + A_ELEMS, B + k0, K, n0, N, ke - k0, vec);
   };
 
+  if (zero) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  }
 
 #pragma unroll
   for (int s = 0; s < PSTAGES - 1; ++s) {
@@ -722,37 +727,393 @@ inline void reduce(const float* part, int groups, int n, size_t cols, TO* out, c
 
 // The row chunks a weight gradient over R rows aims at: about one wave
 // of WGRAD_BLOCKS blocks (2 an SM) over the (N, K) gradient's 128 x 128
-// tiles.
+// tiles, times G where G gradients share the launch.
 // ops/train_common.py::weight_splits computes the same (and the chunking
 // of wgrad) to size the partials; a shape alone fixes the count, so a run
 // repeats bit for bit.
-inline int wgrad_splits(int R, int N, int K) {
-  return std::max(1, std::min(WGRAD_BLOCKS / (cdiv(N, PBM) * cdiv(K, PBN)), cdiv(R, PBK)));
+inline int wgrad_splits(int R, int N, int K, int G = 1) {
+  return std::max(1, std::min(WGRAD_BLOCKS / (G * cdiv(N, PBM) * cdiv(K, PBN)), cdiv(R, PBK)));
 }
 
-// dW (N, K) = sum_r G[r, n] * X[r, k] for G (R, N), X (R, K): the weight
-// gradient of an nn.Linear layer, y = x W^T. The R rows are cut into
-// chunks of a multiple of the K step (about wgrad_splits of them, or
-// `splits` where given > 0) whose f32 partials go to `part`, then are
-// added in order and cast to T. `cap`: the floats `part` holds; the chunks
-// grow if they would not fit.
+// dW[g] (N, K) = sum_r G[g][r, n] * X[g][r, k] for g < NG (<= PGROUP), G[g]
+// (R, N), X[g] (R, K): the weight gradients of nn.Linear layers, y = x W^T,
+// over the same R rows. The rows are cut into chunks of a multiple of the
+// K step (about wgrad_splits of them, or `splits` where given > 0), whose
+// f32 partials go to `part`, gradient g's n chunks at part + g n N K; then
+// one reduction adds each gradient's chunks in order and casts them to T
+// into out, (NG, N, K) contiguous. bf16: one launch of the NG products'
+// chunks together (K4's dWk and dWv: one wave of both); f32: one FMA
+// launch per product. `cap`: the floats `part` holds; the chunks grow if
+// they would not fit.
+template <typename T>
+inline void wgrad_group(int NG, const T* const* G, const T* const* X, int R, int N, int K, float* part, size_t cap,
+                        T* out, cudaStream_t st, int splits = 0) {
+  int n = splits > 0 ? splits : wgrad_splits(R, N, K, NG);
+  n = (int)std::max<size_t>(1, std::min<size_t>(n, cap / ((size_t)NG * N * K)));  // what `part` holds
+  const int rchunk = cdiv(cdiv(R, n), PBK) * PBK;
+  n = cdiv(R, rchunk);
+  const size_t slice = (size_t)n * N * K;  // one gradient's partials
+  if constexpr (std::is_same<T, bf16>::value) {
+    ProjGroup p{};
+    for (int g = 0; g < NG; ++g) {
+      p.a[g] = G[g];
+      p.w[g] = X[g];
+      p.c[g] = part + g * slice;
+    }
+    launch_gemm_mma<EPI_PARTIAL, true, true>(p, NG, 1, epi(part), N, K, R, rchunk, n, st);
+  } else {
+    for (int g = 0; g < NG; ++g)
+      gemm_t<T, true, false, EPI_PARTIAL>(G[g], X[g], N, K, R, epi(part + g * slice), st, rchunk);
+  }
+  reduce<T>(part, NG, n, (size_t)N * K, out, st);
+}
+
+// One weight gradient dW (N, K) = G^T X (wgrad_group of one).
 template <typename T>
 inline void wgrad(const T* G, const T* X, int R, int N, int K, float* part, size_t cap, T* out, cudaStream_t st,
                   int splits = 0) {
-  int n = splits > 0 ? splits : wgrad_splits(R, N, K);
-  n = (int)std::max<size_t>(1, std::min<size_t>(n, cap / ((size_t)N * K)));  // what `part` holds
-  const int rchunk = cdiv(cdiv(R, n), PBK) * PBK;
-  n = cdiv(R, rchunk);
-  if constexpr (std::is_same<T, bf16>::value) {
-    ProjGroup p{};
-    p.a[0] = G;
-    p.w[0] = X;
-    p.c[0] = part;
-    launch_gemm_mma<EPI_PARTIAL, true, true>(p, 1, 1, epi(part), N, K, R, rchunk, n, st);
-  } else {
-    gemm_t<T, true, false, EPI_PARTIAL>(G, X, N, K, R, epi(part), st, rchunk);
+  wgrad_group<T>(1, &G, &X, R, N, K, part, cap, out, st, splits);
+}
+
+// ------------------------------------------- the memory cotangent (bf16)
+// C (M, N) = T(rot^T(A0 . B0) + A1 . B1), A (M, K) and B (K, N) row-major
+// (the input gradient's layout), rot^T(g) = g * cos + swap_pairs(g * ssin)
+// with the tables' row m % L: K4's memory cotangent
+// dmem = rot_m^T(dk . Wk) + dv . Wv, in the order of the TPU kernel
+// (tcdiff_tpu/ops/fused_ca_block_train.py, _ca_bwd_projm_kernel: drm kept
+// in f32, _rot_t applied, dv . Wv added, one rounding). One launch of the
+// input-gradient body: the K loop over A0 . B0 into the f32 sums, rot^T on
+// them in registers (the pair (2t, 2t + 1) of a row lies in one thread's C
+// fragment), the K loop over A1 . B1 into the same sums, then the store.
+// This replaces two products into f32 scratch (drm, dvm: 2 x 19.9 MB at
+// 9728 x 512) and a row pass that read both back.
+template <typename T>  // bf16
+__global__ void __launch_bounds__(PT, 2)
+gemm_rot_nn_kernel(ProjGroup p, const T* __restrict__ cos_t, const T* __restrict__ ssin_t, int L, int M, int N, int K,
+                   bool vec, T* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char tcd_smem[];
+  bf16* sm = reinterpret_cast<bf16*>(tcd_smem);
+  const int n0 = blockIdx.x * PBN, m0 = blockIdx.y * PBM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gr = lane >> 2, t = lane & 3;
+  const int wm = (warp / PWN) * 64, wn = (warp % PWN) * 32;
+  float acc[4][4][4];
+  mma_loop<false, true>(sm, p, 0, M, N, K, m0, n0, 0, K, 1, vec, acc);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm + 16 * i + gr + 8 * h;
+      if (m >= M) continue;  // nor is it stored
+      const size_t tr = (size_t)(m % L) * N;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + wn + 8 * j + 2 * t;
+        if (n >= N) continue;
+        const float2 cs = ld_b2(cos_t + tr + n), sn = ld_b2(ssin_t + tr + n);
+        float &a0 = acc[i][j][2 * h], &a1 = acc[i][j][2 * h + 1];
+        const float g0 = a0, g1 = a1;
+        a0 = g0 * cs.x + g1 * sn.y;
+        a1 = g1 * cs.y + g0 * sn.x;
+      }
+    }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is past its last ldmatrix: the ring is free for the second product
+  mma_loop<false, true>(sm, p, 1, M, N, K, m0, n0, 0, K, 1, vec, acc, false);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm + 16 * i + gr + 8 * h;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + wn + 8 * j + 2 * t;
+        if (n < N) store2(out + (size_t)m * N + n, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+    }
+}
+
+// The memory cotangent above: one launch; refused (launch_status) where N
+// is odd or an output or table row is not 4-byte aligned. T: bf16 (a
+// template, so that only the sources that launch it compile its kernel).
+template <typename T>
+inline void gemm_nn_rot(const T* A0, const T* B0, const T* A1, const T* B1, const T* cos_t, const T* ssin_t, int L,
+                        int M, int N, int K, T* out, cudaStream_t st) {
+  static_assert(std::is_same<T, bf16>::value, "f32 keeps the unfused sequence");
+  if (N % 2 || !aligned(out, 4) || !aligned(cos_t, 4) || !aligned(ssin_t, 4)) return refuse();
+  ProjGroup p{};
+  p.a[0] = A0;
+  p.w[0] = B0;
+  p.a[1] = A1;
+  p.w[1] = B1;
+  const bool vec = K % 8 == 0 && N % 8 == 0 && al16(A0) && al16(B0) && al16(A1) && al16(B1);
+  launch_mma(gemm_rot_nn_kernel<T>, dim3(cdiv(N, PBN), cdiv(M, PBM)), PT, mma_smem<false, true>(), st, p, cos_t,
+             ssin_t, L, M, N, K, vec, out);
+}
+
+// ------------------------- LayerNorm and rotary in the prologue (bf16)
+// q = T(rot(LN(x; eps))) . W^T for x (M, d) and W (N, d), W in nn.Linear
+// layout, the rotary tables' row m % L: K7's q projection with the
+// LayerNorm and the rotary of its input in the prologue, so that
+// rot(LN(x)) (r, 3600 x 512 in T at the serving shape) never leaves the
+// SMs and its row launch goes. The function of
+// tcdiff_tpu/ops/fused_ln_rotary_matmul.py::fused_ln_rotary_matmul with
+// w_plain=None (_kernel_rot_only).
+//
+// A block of PT threads owns BM = 32 MI rows (128 at d <= 512, 64 at
+// d <= 1024) by PBN columns of q, each warp 16 MI rows by 32 columns:
+//   1. cp.async: the ring's first PSTAGES - 1 K steps of W, so that those
+//      loads run under 2;
+//   2. one warp a row, ln_rows' arithmetic (ln_add, ln_stat, ln_y,
+//      rot_pair of common.cuh) in its chunk and shuffle order, the rounded
+//      T(rot(LN)) written to the block's resident tile of BM rows of d in
+//      shared memory. The templated body reads each row and its tables
+//      from device memory three rows ahead, so that a warp's rows start
+//      while the later ones are in flight (staging the whole tile first
+//      made every warp wait for all of it); the general body stages x (d
+//      padded to the K step with zeros) and works in place;
+//   3. the K loop of mma_loop, A's fragments from the resident tile, W's
+//      through the ring;
+//   4. T(acc) stored in pairs.
+// With the same A values and K order as ln_rows + gemm, q is the same
+// bits. The d / 128 column blocks of a row tile each redo its LayerNorm:
+// the price of keeping r out of device memory. BM x (d + 8) of x and the
+// ring take ~184 KB (one block an SM): at the serving shape (M = 3600, N =
+// 512) the grid of 29 x 4 blocks runs one a SM anyway.
+constexpr int LNROT_MAX_D = 1024;
+
+__host__ __device__ constexpr int lnrot_kp(int d) { return (d + PBK - 1) / PBK * PBK; }  // d padded to the K step
+__host__ __device__ constexpr int lnrot_ld(int d) { return lnrot_kp(d) + 8; }
+inline int lnrot_smem(int d, int mi) {
+  return (32 * mi * lnrot_ld(d) + PSTAGES * tile_elems<false, PBN>()) * (int)sizeof(bf16);
+}
+
+// MI: m16 tiles a warp along M (BM = 32 MI); EPL: ln_rows' elements a lane
+// (d / 32 for d = 64 .. 1024, 0: its general body).
+template <int MI, int EPL>
+__global__ void __launch_bounds__(PT, 1)
+gemm_lnrot_kernel(const bf16* __restrict__ x, const float* __restrict__ scale, const float* __restrict__ bias,
+                  float eps, const bf16* __restrict__ cos_t, const bf16* __restrict__ ssin_t, int L,
+                  const bf16* __restrict__ W, int M, int N, int d, bool xvec, bool wvec, bf16* __restrict__ out) {
+  constexpr int BM = 32 * MI, BSTAGE = tile_elems<false, PBN>(), LDB = PBK + 8;
+  extern __shared__ __align__(16) unsigned char tcd_smem[];
+  const int KP = lnrot_kp(d), LDX = KP + 8, nk = KP / PBK;
+  bf16* xs = reinterpret_cast<bf16*>(tcd_smem);  // BM x LDX: x, then T(rot(LN(x)))
+  bf16* ring = xs + BM * LDX;
+  const int n0 = blockIdx.x * PBN, m0 = blockIdx.y * BM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // 1. the ring's first steps, in flight under the prologue; the general
+  // body also stages x's rows whole (d padded to the K step with zeros)
+  auto load = [&](int kt) {
+    load_tile<PBN, PBK, PT>(ring + (kt % PSTAGES) * BSTAGE, W + kt * PBK, d, n0, N, d - kt * PBK, wvec);
+  };
+  if constexpr (EPL == 0) {
+    for (int idx = threadIdx.x; idx < BM * (KP / 8); idx += PT) {
+      const int r = idx / (KP / 8), c = (idx % (KP / 8)) * 8, m = m0 + r;
+      bf16* dst = xs + r * LDX + c;
+      if (xvec) {
+        const bool ok = m < M && c < d;
+        cp_async16(dst, ok ? x + (size_t)m * d + c : x, ok ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) dst[e] = m < M && c + e < d ? x[(size_t)m * d + c + e] : __float2bfloat16(0.f);
+      }
+    }
   }
-  reduce<T>(part, 1, n, (size_t)N * K, out, st);
+  cp_async_commit();
+#pragma unroll
+  for (int s = 0; s < PSTAGES - 1; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
+  }
+
+  // 2. the LayerNorm and the rotary, one warp a row
+  if constexpr (EPL > 0) {
+    // d = 32 EPL is a multiple of the K step: no padding. A warp reads its
+    // rows of x from device memory, with the row's tables, PF rows ahead,
+    // so that their latency runs under the rows before; rows past M are
+    // zeros.
+    constexpr int VW = EPL < 8 ? EPL : 8, NC = EPL / VW;
+    float sc[NC][VW], bi[NC][VW];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      ld_vec<VW>(scale + (c * 32 + lane) * VW, sc[c]);
+      ld_vec<VW>(bias + (c * 32 + lane) * VW, bi[c]);
+    }
+    // a row and its tables as raw bf16 words, PF rows ahead of the one
+    // being normalised (slot i: row r + 8 i); widened as ld_vec widens
+    constexpr int NW = VW / 2, PF = 3;
+    uint32_t px[PF][NC][NW], pc[PF][NC][NW], ps[PF][NC][NW];
+    auto load_row = [&](int m, uint32_t (&wx)[NC][NW], uint32_t (&wc)[NC][NW], uint32_t (&ws)[NC][NW]) {
+      const size_t tr = (size_t)(m % L) * d;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int col = (c * 32 + lane) * VW;
+        ld_words<NW>(x + (size_t)m * d + col, wx[c]);
+        ld_words<NW>(cos_t + tr + col, wc[c]);
+        ld_words<NW>(ssin_t + tr + col, ws[c]);
+      }
+    };
+    auto widen = [](uint32_t w, int hi) { return __uint_as_float(hi ? w & 0xffff0000u : w << 16); };
+#pragma unroll
+    for (int i = 0; i < PF; ++i) {
+      const int r = warp + PT / 32 * i;
+      if (r < BM && m0 + r < M) load_row(m0 + r, px[i], pc[i], ps[i]);
+    }
+    for (int r = warp; r < BM; r += PT / 32) {
+      const int m = m0 + r;
+      bf16* row = xs + r * LDX;
+      if (m >= M) {
+        const float zero[VW] = {};
+#pragma unroll
+        for (int c = 0; c < NC; ++c) st_vec<VW>(row + (c * 32 + lane) * VW, zero);
+        continue;
+      }
+      uint32_t cx[NC][NW], cc[NC][NW], cn[NC][NW];
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int k = 0; k < NW; ++k) {
+          cx[c][k] = px[0][c][k];
+          cc[c][k] = pc[0][c][k];
+          cn[c][k] = ps[0][c][k];
+#pragma unroll
+          for (int i = 0; i + 1 < PF; ++i) {
+            px[i][c][k] = px[i + 1][c][k];
+            pc[i][c][k] = pc[i + 1][c][k];
+            ps[i][c][k] = ps[i + 1][c][k];
+          }
+        }
+      if (r + PT / 32 * PF < BM && m + PT / 32 * PF < M)
+        load_row(m + PT / 32 * PF, px[PF - 1], pc[PF - 1], ps[PF - 1]);
+      float v[NC][VW];
+      float s = 0.f, ss = 0.f;
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int e = 0; e < VW; ++e) {
+          v[c][e] = widen(cx[c][e / 2], e & 1);
+          ln_add(v[c][e], s, ss);
+        }
+      const LnStat st = ln_stat(s, ss, d, eps);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        float y[VW], o[VW];
+#pragma unroll
+        for (int e = 0; e < VW; ++e) y[e] = ln_y(v[c][e], st, sc[c][e], bi[c][e]);
+#pragma unroll
+        for (int e = 0; e < VW; e += 2)
+          rot_pair(y[e], y[e + 1], widen(cc[c][e / 2], 0), widen(cc[c][e / 2], 1), widen(cn[c][e / 2], 0),
+                   widen(cn[c][e / 2], 1), o[e], o[e + 1]);
+        st_vec<VW>(row + (c * 32 + lane) * VW, o);
+      }
+    }
+  } else {
+    cp_async_wait<PSTAGES - 1>();  // x has landed
+    __syncthreads();
+    for (int r = warp; r < BM; r += PT / 32) {
+      const int m = m0 + r;
+      if (m >= M) break;
+      bf16* row = xs + r * LDX;
+      float s = 0.f, ss = 0.f;
+      for (int c = lane; c < d; c += 32) ln_add(__bfloat162float(row[c]), s, ss);
+      const LnStat st = ln_stat(s, ss, d, eps);
+      const size_t tr = (size_t)(m % L) * d;
+      for (int q = lane; q < d / 2; q += 32) {
+        const int c0 = 2 * q, c1 = c0 + 1;
+        const float y0 = ln_y(__bfloat162float(row[c0]), st, scale[c0], bias[c0]);
+        const float y1 = ln_y(__bfloat162float(row[c1]), st, scale[c1], bias[c1]);
+        float r0, r1;
+        rot_pair(y0, y1, __bfloat162float(cos_t[tr + c0]), __bfloat162float(cos_t[tr + c1]),
+                 __bfloat162float(ssin_t[tr + c0]), __bfloat162float(ssin_t[tr + c1]), r0, r1);
+        row[c0] = __float2bfloat16(r0);
+        row[c1] = __float2bfloat16(r1);
+      }
+    }
+  }
+  __syncthreads();  // the block's A is in place
+
+  // 3. the K loop: A from the resident tile, W through the ring
+  const int wm = (warp / PWN) * 16 * MI, wn = (warp % PWN) * 32;
+  const FragOff f = frag_off(lane);
+  float acc[MI][4][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<PSTAGES - 2>();  // step kt has landed
+    __syncthreads();               // ... for every thread, and slot (kt - 1) % PSTAGES is free
+    if (kt + PSTAGES - 1 < nk) load(kt + PSTAGES - 1);
+    cp_async_commit();
+    const bf16* Bs = ring + (kt % PSTAGES) * BSTAGE;
+#pragma unroll
+    for (int kk = 0; kk < PBK; kk += 16) {
+      uint32_t af[MI][4], bw[2][4];
+#pragma unroll
+      for (int i = 0; i < MI; ++i) ldsm_x4(af[i], xs + (wm + 16 * i + f.ra) * LDX + kt * PBK + kk + f.ca);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) ldsm_x4(bw[j], Bs + (wn + 16 * j + f.rb) * LDB + kk + f.cb);
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          mma16816(acc[i][2 * j], af[i], bw[j][0], bw[j][1]);
+          mma16816(acc[i][2 * j + 1], af[i], bw[j][2], bw[j][3]);
+        }
+    }
+  }
+
+  // 4. the store
+  const int gr = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm + 16 * i + gr + 8 * h;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + wn + 8 * j + 2 * t;
+        if (n < N) store2(out + (size_t)m * N + n, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+    }
+}
+
+// out (M, N) = T(rot(LN(x; eps))) . W^T, one launch (above); refused
+// (launch_status) for an odd d or N, d > LNROT_MAX_D, or an output not
+// 4-byte aligned, as a LayerNorm fold is. The LayerNorm's order is
+// ln_rows': its templated body where d is 64 .. 1024 and the affine and
+// the tables are 16-byte aligned, else its general one. T: bf16 (a
+// template, so that only the sources that launch it compile its kernels).
+template <typename T>
+inline void gemm_lnrot(const T* x, const float* scale, const float* bias, float eps, const T* cos_t, const T* ssin_t,
+                       int L, const T* W, int M, int N, int d, T* out, cudaStream_t st) {
+  static_assert(std::is_same<T, bf16>::value, "f32 keeps the unfused sequence");
+  if (d % 2 || N % 2 || d > LNROT_MAX_D || !aligned(out, 4)) return refuse();
+  const bool xvec = d % 8 == 0 && al16(x), wvec = d % 8 == 0 && al16(W);
+  const bool tvec = xvec && aligned(scale, 16) && aligned(bias, 16) && aligned(cos_t, 16) && aligned(ssin_t, 16);
+  const int mi = lnrot_kp(d) <= 512 ? 4 : 2, bytes = lnrot_smem(d, mi);
+#define TCD_LNROT(MI, EPL)                                                                                      \
+  do {                                                                                                         \
+    launch_mma(gemm_lnrot_kernel<MI, EPL>, dim3(cdiv(N, PBN), cdiv(M, 32 * MI)), PT, bytes, st, x, scale, bias, \
+               eps, cos_t, ssin_t, L, W, M, N, d, xvec, wvec, out);                                             \
+    return;                                                                                                    \
+  } while (0)
+  switch (tvec ? d : 0) {
+    case 64: TCD_LNROT(4, 2);
+    case 128: TCD_LNROT(4, 4);
+    case 256: TCD_LNROT(4, 8);
+    case 512: TCD_LNROT(4, 16);
+    case 1024: TCD_LNROT(2, 32);
+    default:
+      if (mi == 4) TCD_LNROT(4, 0);
+      TCD_LNROT(2, 0);
+  }
+#undef TCD_LNROT
 }
 
 }  // namespace tcd

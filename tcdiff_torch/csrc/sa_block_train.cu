@@ -68,9 +68,8 @@ int sa_fwd(const SaTrainArgs& a, cudaStream_t st) {
   gemm_group<T, EPI_STORE>(3, ins, wts, outs, M, a.hd, a.d, epi(nullptr), st);
   attention_fwd<T>(q, k, v, a.B, a.nhead, a.L, a.L, a.hd, dr, o, a.lse, st);
   gemm<T, EPI_STORE_F32>(o, (const T*)a.wfc, M, a.d, a.hd, epi(a.z), st);
-  chain_top_fwd_kernel<T><<<M, RT, 0, st>>>(a.z, x, a.s2, a.b2, a.fs, a.fb, a.eps2, a.L, a.d, dr,
-                                            (T*)a.out);
-  return (int)cudaGetLastError();
+  chain_top_fwd<T>(a.z, x, a.s2, a.b2, a.fs, a.fb, a.eps2, a.B, a.L, a.d, cdiv(a.L, RCH), dr, (T*)a.out, st);
+  return launch_status();
 }
 
 template <typename T>
@@ -84,11 +83,10 @@ int sa_bwd(const SaTrainArgs& a, cudaStream_t st) {
   const T *y = (const T*)a.y, *r = (const T*)a.r, *q = (const T*)a.q, *k = (const T*)a.k,
           *v = (const T*)a.v, *o = (const T*)a.o;
   T *dz = (T*)a.dz, *dO = (T*)a.dO, *dq = (T*)a.dq, *dk = (T*)a.dk, *dv = (T*)a.dv;
-  const dim3 rows(nch, a.B);
 
   // chain top: partials 0 fs, 1 fb, 2 s2, 3 b2
-  chain_top_bwd_kernel<T><<<rows, RT, 0, st>>>(g, a.z, a.s2, a.b2, a.fs, a.eps2, a.L, d, dr, dz,
-                                               a.part, a.part + P, a.part + 2 * P, a.part + 3 * P);
+  chain_top_bwd<T>(g, a.z, a.s2, a.b2, a.fs, a.eps2, a.B, a.L, d, nch, dr, dz, a.part, a.part + P, a.part + 2 * P,
+                   a.part + 3 * P, st);
   wgrad<T>(dz, o, M, d, hd, a.wpart, a.wcap, (T*)a.dwfc, st);
   gemm_nn<T, EPI_STORE>(dz, wfc, dO, M, hd, d, st);  // dO = dz . Wfc
   attention_bwd<T>(q, k, v, o, dO, a.lse, a.B, a.nhead, a.L, a.L, hd, dr, a.Dsum, dq, dk, dv, st);
@@ -100,13 +98,12 @@ int sa_bwd(const SaTrainArgs& a, cudaStream_t st) {
   gemm_nn<T, EPI_STORE_F32>(2, dqk, wqk, a.dr, M, d, hd, st);  // dr = dq.Wq + dk.Wk, the joined form
   gemm_nn<T, EPI_STORE_F32>(dv, wv, a.dyv, M, d, hd, st);
   // dx = g + LN1_bwd(rot^T(dr) + dyv): partials 4 s1, 5 b1
-  rows_bwd_kernel<T><<<rows, RT, 0, st>>>(a.dr, (const T*)a.cos_t, (const T*)a.ssin_t, a.dyv, x,
-                                          a.s1, a.eps1, g, nullptr, a.L, d, (T*)a.dx,
-                                          a.part + 4 * P, a.part + 5 * P);
+  rows_bwd<T>(a.dr, (const T*)a.cos_t, (const T*)a.ssin_t, a.dyv, x, a.s1, a.eps1, g, nullptr, a.B, a.L, d, nch,
+              (T*)a.dx, a.part + 4 * P, a.part + 5 * P, st);
   reduce_per_batch(a.part, a.B, nch, d, a.vec, st);              // vec[0] = dfs (B, d)
   reduce_per_batch(a.part + P, a.B, nch, d, a.vec + V, st);      // vec[1] = dfb
   for (int i = 2; i < 6; ++i) reduce_all(a.part + i * P, a.B, nch, d, a.vec + i * V, st);
-  return (int)cudaGetLastError();
+  return launch_status();
 }
 
 // The attention alone, forward and backward, as K3 and K4 run it: q
@@ -139,7 +136,7 @@ int attn_train_bwd(const AttnTrainArgs& a, cudaStream_t st) {
 
 }  // namespace tcd
 
-// dtype: 0 = float32, 1 = bfloat16. Return cudaGetLastError() after the launches.
+// dtype: 0 = float32, 1 = bfloat16. Returns the launches' status (launch_status).
 extern "C" int tcd_sa_train_fwd(int dtype, const tcd::SaTrainArgs* a, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return tcd::sa_fwd<float>(*a, st);

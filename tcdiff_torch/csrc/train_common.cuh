@@ -16,11 +16,435 @@
 namespace tcd {
 
 // ------------------------------------------------------------- row kernels
-// A row kernel's block of RT threads walks RCH consecutive rows of one
-// batch element (grid (cdiv(L, RCH), B)); thread t owns columns
-// t, t + RT, ... (at most CPT of them, so d <= RT * CPT = 1024) and keeps
-// its columns' partial gradient sums in registers across the rows.
-constexpr int RT = 128, CPT = 8, RCH = 16;
+// The row kernels of the attention blocks' chains (chain_top_fwd,
+// chain_top_bwd, rows_bwd; K3 and K4, and K5's last row pass), one warp a
+// row, as ln_rows of common.cuh: a block of RW warps owns chunk c of nch
+// of one batch element's L rows, rows [c L / nch, (c + 1) L / nch) (grid
+// (nch, B)), and warp w walks its rows l0 + w, l0 + w + RW, ...
+//
+// What bounds them on the H100: a handful of operations and two dropout
+// hashes an element against 6-14 bytes of it in and out: the bytes (K4's
+// chain_top_bwd at 28800 x 512: g and the f32 z in, dz out, 118 MB, 35 us
+// at 3.35 TB/s; rows_bwd: the f32 dr, x and g in, dx out, 148 MB, 44 us).
+//
+// Design: a lane holds EPL = d / 32 elements of a row in registers, read
+// once in chunks of W = min(EPL, 8) contiguous elements (16 bytes of bf16,
+// two 16-byte vectors of f32) at column (c * 32 + lane) * W, so a rotary
+// pair lies in one lane, and every load of a row is issued before its
+// statistics; those are xor shuffles (no block barrier). The block's
+// constant rows (the LayerNorm affine, the batch element's FiLM rows) sit
+// in shared memory and the registers hold the row and the running column
+// sums, so that four blocks fit an SM (at 231 registers a thread, with
+// the constants in registers too, two did). Each dropout mask is hashed
+// once per salt and element (chain_top_bwd keeps the FC mask's bits for
+// its last pass). Templated on d / 32 for d = 64 .. 1024; EPL = 0 is a
+// pair-wise body (pairs (2p, 2p + 1), p = lane, lane + 32, ..., element
+// loads) for any other even d <= 1024 or an operand not 16-byte aligned.
+//
+// Parameter gradients (the LayerNorm affines, and per batch element the
+// FiLM rows) are sums over rows; nothing is added across blocks: a warp
+// adds its rows in registers, the block adds its warps in warp order
+// through shared memory and writes the chunk's partial to row b * nch + c
+// of its (B * nch, d) array, and reduce_kernel adds the chunks in a fixed
+// order, so a backward repeats bit for bit. A block's rows never cross a
+// batch element, since dfs and dfb are per element.
+constexpr int RW = 4;       // warps of a row block
+constexpr int RCH = 32;     // rows of a chunk, about: nch = cdiv(L, RCH) (ops/train_common.py RCH)
+constexpr int ROW_MAX_D = 1024;
+
+// Chunk c of nch over L rows starts at row_at(c).
+__device__ __forceinline__ int row_at(int c, int nch, int L) { return (int)((long long)c * L / nch); }
+
+// A lane's columns: NC chunks of W, chunk c at (c * 32 + lane) * W.
+template <int EPL>
+struct RowShape {
+  static constexpr int W = EPL > 0 ? (EPL < 8 ? EPL : 8) : 2;
+  static constexpr int NC = EPL > 0 ? EPL / W : ROW_MAX_D / 64;
+  // whether chunk c of this lane lies in the row (always, where templated)
+  static __device__ __forceinline__ bool in(int c, int lane, int d) { return EPL > 0 || (c * 32 + lane) * W < d; }
+};
+
+// W elements at p widened to f32: one or two vectors where templated,
+// element loads in the pair-wise body.
+template <int EPL, int W, typename TT>
+__device__ __forceinline__ void ld_row(const TT* p, float (&v)[W]) {
+  if constexpr (EPL > 0) {
+    ld_vec<W>(p, v);
+  } else {
+#pragma unroll
+    for (int e = 0; e < W; ++e) v[e] = to_f(p[e]);
+  }
+}
+template <int EPL, int W, typename TT>
+__device__ __forceinline__ void st_row(TT* p, const float (&v)[W]) {
+  if constexpr (EPL > 0) {
+    st_vec<W>(p, v);
+  } else {
+#pragma unroll
+    for (int e = 0; e < W; ++e) p[e] = from_f<TT>(v[e]);
+  }
+}
+
+// v * scale where kept, else 0 (the site off: v).
+__device__ __forceinline__ float drop_kept(float v, const Drop& d, bool keep) {
+  return !d.on ? v : keep ? v * d.scale : 0.f;
+}
+
+// The block's sum of its warps' per-lane column sums a, in warp order,
+// written to row `row` of the (rows, d) array p (null: none). red: RW x
+// ROW_MAX_D floats of shared memory.
+template <int EPL, int NC, int W>
+__device__ __forceinline__ void store_chunk(float (*red)[ROW_MAX_D], const float (&a)[NC][W], float* p, size_t row,
+                                            int d) {
+  if (!p) return;  // the same for the whole block
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();  // an earlier call's readers are done with red
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+    if (RowShape<EPL>::in(c, lane, d))
+#pragma unroll
+      for (int e = 0; e < W; ++e) red[warp][(c * 32 + lane) * W + e] = a[c][e];
+  __syncthreads();
+  for (int col = threadIdx.x; col < d; col += 32 * RW) {
+    float t = red[0][col];
+#pragma unroll
+    for (int w = 1; w < RW; ++w) t += red[w][col];
+    p[row * d + col] = t;
+  }
+}
+
+// The block's constant rows (the LayerNorm affine, its batch element's
+// FiLM rows) in shared memory, where the warps read them as they need them
+// (registers hold a row's values and the running sums instead): n rows of
+// d, row i from src[i] (+ add[i]).
+template <int N>
+__device__ __forceinline__ void stage_rows(float (*cst)[ROW_MAX_D], const float* const (&src)[N],
+                                           const float (&add)[N], int d) {
+  for (int i = threadIdx.x; i < d; i += 32 * RW)
+#pragma unroll
+    for (int r = 0; r < N; ++r) cst[r][i] = src[r][i] + add[r];
+  __syncthreads();
+}
+
+// Chain top of an attention block, forward:
+//   out = x + (fs+1) * drop_OUT(LN(drop_FC(z); eps) * s + b) + fb
+template <typename T, int EPL>
+__global__ void __launch_bounds__(32 * RW)
+chain_top_fwd_kernel(const float* __restrict__ z, const T* __restrict__ x, const float* __restrict__ s,
+                     const float* __restrict__ bb, const float* __restrict__ fs, const float* __restrict__ fb,
+                     float eps, int L, int d, int nch, Drop dr, T* __restrict__ out) {
+  using S = RowShape<EPL>;
+  constexpr int W = S::W, NC = S::NC;
+  __shared__ __align__(16) float cst[4][ROW_MAX_D];  // s, b, fs + 1, fb
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, b = blockIdx.y;
+  const int l1 = row_at(blockIdx.x + 1, nch, L);
+  stage_rows<4>(cst, {s, bb, fs + (size_t)b * d, fb + (size_t)b * d}, {0.f, 0.f, 1.f, 0.f}, d);
+  const uint32_t kfc = drop_key(dr, b, SALT_FC), kout = drop_key(dr, b, SALT_OUT);
+  for (int l = row_at(blockIdx.x, nch, L) + warp; l < l1; l += RW) {
+    const size_t row = ((size_t)b * L + l) * d;
+    float v[NC][W], xr[NC][W];
+    float su = 0.f, ss = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = (c * 32 + lane) * W;
+      if (!S::in(c, lane, d)) continue;
+      ld_row<EPL>(z + row + col, v[c]);
+      ld_row<EPL>(x + row + col, xr[c]);
+#pragma unroll
+      for (int e = 0; e < W; ++e) {
+        v[c][e] = drop_kept(v[c][e], dr, keep_key(dr, kfc, (uint32_t)(l * d + col + e)));
+        su += v[c][e];
+        ss += v[c][e] * v[c][e];
+      }
+    }
+    warp_sum2(su, ss);
+    const float mu = su / d, rs = rsqrtf(ss / d - mu * mu + eps);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = (c * 32 + lane) * W;
+      if (!S::in(c, lane, d)) continue;
+      float sc[W], bi[W], f1[W], f2[W];
+      ld_vec<W>(cst[0] + col, sc);
+      ld_vec<W>(cst[1] + col, bi);
+      ld_vec<W>(cst[2] + col, f1);
+      ld_vec<W>(cst[3] + col, f2);
+#pragma unroll
+      for (int e = 0; e < W; ++e) {
+        const float sa = drop_kept((v[c][e] - mu) * rs * sc[e] + bi[e], dr,
+                                   keep_key(dr, kout, (uint32_t)(l * d + col + e)));
+        xr[c][e] = xr[c][e] + f1[e] * sa + f2[e];
+      }
+      st_row<EPL>(out + row + col, xr[c]);
+    }
+  }
+}
+
+// Chain top backward: given g = d out, recompute z2 = drop_FC(z), its LN
+// and sa_d = drop_OUT(LN * s + b); then
+//   d fs += g * sa_d, d fb += g                       (per batch element)
+//   gsa = drop_OUT(g * (fs+1));  d s += gsa * xhat, d b += gsa
+//   dz = drop_FC(LN_bwd(gsa))                         -> T
+// A block's rows share s, b and fs, so a lane keeps three column sums,
+// G = sum g, P = sum k g xhat and Q = sum k g (k the OUT mask's keep), and
+// the four partials follow at the end: d fs = c (s P + b Q), d fb = G,
+// d s = c (fs+1) P, d b = c (fs+1) Q, c the kept values' scale.
+template <typename T, int EPL>
+__global__ void __launch_bounds__(32 * RW)
+chain_top_bwd_kernel(const T* __restrict__ g, const float* __restrict__ z, const float* __restrict__ s,
+                     const float* __restrict__ bb, const float* __restrict__ fs, float eps, int L, int d, int nch,
+                     Drop dr, T* __restrict__ dz, float* p_fs, float* p_fb, float* p_s, float* p_b) {
+  using S = RowShape<EPL>;
+  constexpr int W = S::W, NC = S::NC;
+  static_assert(NC * W <= 32, "a lane's FC mask bits fit one word");
+  __shared__ float red[RW][ROW_MAX_D];
+  __shared__ __align__(16) float cst[3][ROW_MAX_D];  // s, b, fs + 1
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, b = blockIdx.y;
+  const int l1 = row_at(blockIdx.x + 1, nch, L);
+  stage_rows<3>(cst, {s, bb, fs + (size_t)b * d}, {0.f, 0.f, 1.f}, d);
+  float ag[NC][W], agp[NC][W], agq[NC][W];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < W; ++e) ag[c][e] = agp[c][e] = agq[c][e] = 0.f;
+  const uint32_t kfc = drop_key(dr, b, SALT_FC), kout = drop_key(dr, b, SALT_OUT);
+  for (int l = row_at(blockIdx.x, nch, L) + warp; l < l1; l += RW) {
+    const size_t row = ((size_t)b * L + l) * d;
+    float xh[NC][W], gx[NC][W];
+    uint32_t fc_bits = 0u;
+    float su = 0.f, ss = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = (c * 32 + lane) * W;
+      if (!S::in(c, lane, d)) continue;
+      ld_row<EPL>(z + row + col, xh[c]);
+      ld_row<EPL>(g + row + col, gx[c]);  // g, until it becomes gx below
+#pragma unroll
+      for (int e = 0; e < W; ++e) {
+        const bool keep = keep_key(dr, kfc, (uint32_t)(l * d + col + e));
+        fc_bits |= (uint32_t)keep << (c * W + e);
+        xh[c][e] = drop_kept(xh[c][e], dr, keep);
+        su += xh[c][e];
+        ss += xh[c][e] * xh[c][e];
+      }
+    }
+    warp_sum2(su, ss);
+    const float mu = su / d, rs = rsqrtf(ss / d - mu * mu + eps);
+    float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = (c * 32 + lane) * W;
+      if (!S::in(c, lane, d)) continue;
+      float sc[W], f1[W];
+      ld_vec<W>(cst[0] + col, sc);
+      ld_vec<W>(cst[2] + col, f1);
+#pragma unroll
+      for (int e = 0; e < W; ++e) {
+        const bool keep = keep_key(dr, kout, (uint32_t)(l * d + col + e));
+        xh[c][e] = (xh[c][e] - mu) * rs;
+        const float gg = gx[c][e], gk = keep ? gg : 0.f;
+        ag[c][e] += gg;
+        agp[c][e] += gk * xh[c][e];
+        agq[c][e] += gk;
+        gx[c][e] = drop_kept(gg * f1[e], dr, keep) * sc[e];
+        m1 += gx[c][e];
+        m2 += gx[c][e] * xh[c][e];
+      }
+    }
+    warp_sum2(m1, m2);
+    m1 /= d;
+    m2 /= d;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = (c * 32 + lane) * W;
+      if (!S::in(c, lane, d)) continue;
+      float o[W];
+#pragma unroll
+      for (int e = 0; e < W; ++e)
+        o[e] = drop_kept(rs * (gx[c][e] - m1 - xh[c][e] * m2), dr, (fc_bits >> (c * W + e)) & 1u);
+      st_row<EPL>(dz + row + col, o);
+    }
+  }
+  // the four partials from G, P and Q
+  const float ks = dr.on ? dr.scale : 1.f;
+  float t[NC][W];
+  auto derive = [&](int which) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = (c * 32 + lane) * W;
+#pragma unroll
+      for (int e = 0; e < W; ++e) {
+        const bool in = S::in(c, lane, d);
+        const float sc = in ? cst[0][col + e] : 0.f, bi = in ? cst[1][col + e] : 0.f;
+        const float f1 = in ? cst[2][col + e] : 0.f;
+        t[c][e] = which == 0 ? ks * (sc * agp[c][e] + bi * agq[c][e])
+                             : ks * f1 * (which == 1 ? agp[c][e] : agq[c][e]);
+      }
+    }
+  };
+  const size_t prow = (size_t)b * nch + blockIdx.x;
+  derive(0);
+  store_chunk<EPL>(red, t, p_fs, prow, d);
+  store_chunk<EPL>(red, ag, p_fb, prow, d);
+  derive(1);
+  store_chunk<EPL>(red, t, p_s, prow, d);
+  derive(2);
+  store_chunk<EPL>(red, t, p_b, prow, d);
+}
+
+// The bottom of a block's backward:
+//   dy  = (cos ? rot^T(dr) : dr) + (dadd ? dadd : 0)       rot^T(g) = g*cos + swap(g*ssin)
+//   dxl = x ? LN_bwd(dy; stats of x, scale s) : dy           d s += dy * xhat, d b += dy
+//   out = T(dxl + resT + res32)                              (residuals where given)
+// d even; partials only with x.
+template <typename T, int EPL>
+__global__ void __launch_bounds__(32 * RW)
+rows_bwd_kernel(const float* __restrict__ dr, const T* __restrict__ cos_t, const T* __restrict__ ssin_t,
+                const float* __restrict__ dadd, const T* __restrict__ x, const float* __restrict__ s, float eps,
+                const T* __restrict__ resT, const float* __restrict__ res32, int L, int d, int nch,
+                T* __restrict__ out, float* p_s, float* p_b) {
+  using S = RowShape<EPL>;
+  constexpr int W = S::W, NC = S::NC;
+  __shared__ float red[RW][ROW_MAX_D];
+  __shared__ __align__(16) float cst[1][ROW_MAX_D];  // s
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, b = blockIdx.y;
+  const int l1 = row_at(blockIdx.x + 1, nch, L);
+  if (x) stage_rows<1>(cst, {s}, {0.f}, d);
+  float as[NC][W], ab[NC][W];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < W; ++e) as[c][e] = ab[c][e] = 0.f;
+  for (int l = row_at(blockIdx.x, nch, L) + warp; l < l1; l += RW) {
+    const size_t row = ((size_t)b * L + l) * d;
+    float dy[NC][W], xh[NC][W], rr[NC][W];  // rr: the residuals, read with the rest
+    float su = 0.f, ss = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = (c * 32 + lane) * W;
+#pragma unroll
+      for (int e = 0; e < W; ++e) dy[c][e] = xh[c][e] = rr[c][e] = 0.f;
+      if (!S::in(c, lane, d)) continue;
+      ld_row<EPL>(dr + row + col, dy[c]);
+      if (x) ld_row<EPL>(x + row + col, xh[c]);
+      if (resT) ld_row<EPL>(resT + row + col, rr[c]);
+      if (res32) {
+        float a[W];
+        ld_row<EPL>(res32 + row + col, a);
+#pragma unroll
+        for (int e = 0; e < W; ++e) rr[c][e] += a[e];
+      }
+      if (cos_t) {
+        float cs[W], sn[W];
+        ld_row<EPL>(cos_t + (size_t)l * d + col, cs);
+        ld_row<EPL>(ssin_t + (size_t)l * d + col, sn);
+#pragma unroll
+        for (int e = 0; e < W; e += 2) {
+          const float g0 = dy[c][e], g1 = dy[c][e + 1];
+          dy[c][e] = g0 * cs[e] + g1 * sn[e + 1];
+          dy[c][e + 1] = g1 * cs[e + 1] + g0 * sn[e];
+        }
+      }
+      if (dadd) {
+        float a[W];
+        ld_row<EPL>(dadd + row + col, a);
+#pragma unroll
+        for (int e = 0; e < W; ++e) dy[c][e] += a[e];
+      }
+#pragma unroll
+      for (int e = 0; e < W; ++e) {
+        su += xh[c][e];
+        ss += xh[c][e] * xh[c][e];
+      }
+    }
+    float m1 = 0.f, m2 = 0.f, rs = 1.f;
+    if (x) {
+      warp_sum2(su, ss);
+      const float mu = su / d;
+      rs = rsqrtf(ss / d - mu * mu + eps);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int col = (c * 32 + lane) * W;
+        float sc[W];
+#pragma unroll
+        for (int e = 0; e < W; ++e) sc[e] = 0.f;  // and dy is, past d
+        if (S::in(c, lane, d)) ld_vec<W>(cst[0] + col, sc);
+#pragma unroll
+        for (int e = 0; e < W; ++e) {
+          xh[c][e] = (xh[c][e] - mu) * rs;
+          as[c][e] += dy[c][e] * xh[c][e];
+          ab[c][e] += dy[c][e];
+          dy[c][e] *= sc[e];  // gx
+          m1 += dy[c][e];
+          m2 += dy[c][e] * xh[c][e];
+        }
+      }
+      warp_sum2(m1, m2);
+      m1 /= d;
+      m2 /= d;
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = (c * 32 + lane) * W;
+      if (!S::in(c, lane, d)) continue;
+      float v[W];
+#pragma unroll
+      for (int e = 0; e < W; ++e) v[e] = (x ? rs * (dy[c][e] - m1 - xh[c][e] * m2) : dy[c][e]) + rr[c][e];
+      st_row<EPL>(out + row + col, v);
+    }
+  }
+  const size_t prow = (size_t)b * nch + blockIdx.x;
+  store_chunk<EPL>(red, as, p_s, prow, d);
+  store_chunk<EPL>(red, ab, p_b, prow, d);
+}
+
+// The launches of the row kernels: grid (nch, B) of RW warps, the body
+// templated on d / 32 where d is 64 .. 1024 and every operand 16-byte
+// aligned, else the pair-wise body; refused (launch_status) for an odd d
+// or d > ROW_MAX_D.
+#define TCD_ROW_DISPATCH(KERNEL, T, d, vec, grid, st, ...)                              \
+  do {                                                                                  \
+    if ((d) % 2 || (d) > ROW_MAX_D) {                                                   \
+      refuse();                                                                         \
+      break;                                                                            \
+    }                                                                                   \
+    switch ((vec) ? (d) : 0) {                                                          \
+      case 64: KERNEL<T, 2><<<grid, 32 * RW, 0, st>>>(__VA_ARGS__); break;             \
+      case 128: KERNEL<T, 4><<<grid, 32 * RW, 0, st>>>(__VA_ARGS__); break;            \
+      case 256: KERNEL<T, 8><<<grid, 32 * RW, 0, st>>>(__VA_ARGS__); break;            \
+      case 512: KERNEL<T, 16><<<grid, 32 * RW, 0, st>>>(__VA_ARGS__); break;           \
+      case 1024: KERNEL<T, 32><<<grid, 32 * RW, 0, st>>>(__VA_ARGS__); break;          \
+      default: KERNEL<T, 0><<<grid, 32 * RW, 0, st>>>(__VA_ARGS__); break;             \
+    }                                                                                   \
+  } while (0)
+
+template <typename T>
+inline void chain_top_fwd(const float* z, const T* x, const float* s, const float* bb, const float* fs,
+                          const float* fb, float eps, int B, int L, int d, int nch, const Drop& dr, T* out,
+                          cudaStream_t st) {
+  const bool vec = aligned(z, 16) && aligned(x, 16) && aligned(s, 16) && aligned(bb, 16) && aligned(fs, 16) &&
+                   aligned(fb, 16) && aligned(out, 16);
+  TCD_ROW_DISPATCH(chain_top_fwd_kernel, T, d, vec, dim3(nch, B), st, z, x, s, bb, fs, fb, eps, L, d, nch, dr, out);
+}
+
+template <typename T>
+inline void chain_top_bwd(const T* g, const float* z, const float* s, const float* bb, const float* fs, float eps,
+                          int B, int L, int d, int nch, const Drop& dr, T* dz, float* p_fs, float* p_fb, float* p_s,
+                          float* p_b, cudaStream_t st) {
+  const bool vec = aligned(g, 16) && aligned(z, 16) && aligned(s, 16) && aligned(bb, 16) && aligned(fs, 16) &&
+                   aligned(dz, 16);
+  TCD_ROW_DISPATCH(chain_top_bwd_kernel, T, d, vec, dim3(nch, B), st, g, z, s, bb, fs, eps, L, d, nch, dr, dz,
+                   p_fs, p_fb, p_s, p_b);
+}
+
+template <typename T>
+inline void rows_bwd(const float* dr, const T* cos_t, const T* ssin_t, const float* dadd, const T* x,
+                     const float* s, float eps, const T* resT, const float* res32, int B, int L, int d, int nch,
+                     T* out, float* p_s, float* p_b, cudaStream_t st) {
+  const bool vec = aligned(dr, 16) && aligned(cos_t, 16) && aligned(ssin_t, 16) && aligned(dadd, 16) &&
+                   aligned(x, 16) && aligned(s, 16) && aligned(resT, 16) && aligned(res32, 16) && aligned(out, 16);
+  TCD_ROW_DISPATCH(rows_bwd_kernel, T, d, vec, dim3(nch, B), st, dr, cos_t, ssin_t, dadd, x, s, eps, resT, res32, L,
+                   d, nch, out, p_s, p_b);
+}
 
 // Column sums of the row-chunk partials: per batch element (dfs, dfb) or
 // over everything (LayerNorm affines, biases); `part` is (B * nch, cols).
@@ -29,184 +453,6 @@ inline void reduce_per_batch(const float* part, int B, int nch, int cols, float*
 }
 inline void reduce_all(const float* part, int B, int nch, int cols, float* out, cudaStream_t st) {
   reduce<float>(part, 1, B * nch, cols, out, st);
-}
-
-// Writes a thread's column partials to row `row` of each given (rows, d) array.
-__device__ __forceinline__ void store_partial(float* p, size_t row, int d, const float (&a)[CPT]) {
-  if (!p) return;
-#pragma unroll
-  for (int k = 0; k < CPT; ++k) {
-    const int c = threadIdx.x + k * RT;
-    if (c < d) p[row * d + c] = a[k];
-  }
-}
-
-// Chain top of an attention block, forward, one row per block (grid M):
-//   out = x + (fs+1) * drop_OUT(LN(drop_FC(z); eps) * s + b) + fb
-template <typename T>
-__global__ void __launch_bounds__(RT)
-chain_top_fwd_kernel(const float* __restrict__ z, const T* __restrict__ x, const float* __restrict__ s,
-                     const float* __restrict__ bb, const float* __restrict__ fs,
-                     const float* __restrict__ fb, float eps, int L, int d, Drop dr, T* __restrict__ out) {
-  const int m = blockIdx.x, b = m / L, l = m % L;
-  float v[CPT];
-  float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-  for (int k = 0; k < CPT; ++k) {
-    const int c = threadIdx.x + k * RT;
-    v[k] = c < d ? dropv(z[(size_t)m * d + c], dr, b, SALT_FC, (uint32_t)(l * d + c)) : 0.f;
-    s1 += v[k];
-    s2 += v[k] * v[k];
-  }
-  block_sum2(s1, s2);
-  const float mu = s1 / d, rs = rsqrtf(s2 / d - mu * mu + eps);
-#pragma unroll
-  for (int k = 0; k < CPT; ++k) {
-    const int c = threadIdx.x + k * RT;
-    if (c >= d) continue;
-    const uint32_t idx = (uint32_t)(l * d + c);
-    const float sa = dropv((v[k] - mu) * rs * s[c] + bb[c], dr, b, SALT_OUT, idx);
-    const size_t o = (size_t)m * d + c;
-    out[o] = from_f<T>(to_f(x[o]) + (fs[(size_t)b * d + c] + 1.f) * sa + fb[(size_t)b * d + c]);
-  }
-}
-
-// Chain top backward (grid (cdiv(L, RCH), B)): given g = d out, recompute
-// z2 = drop_FC(z), its LN and sa_d = drop_OUT(LN * s + b); then
-//   d fs += g * sa_d, d fb += g                       (per batch element)
-//   gsa = drop_OUT(g * (fs+1));  d s += gsa * xhat, d b += gsa
-//   dz = drop_FC(LN_bwd(gsa))                         -> T
-template <typename T>
-__global__ void __launch_bounds__(RT)
-chain_top_bwd_kernel(const T* __restrict__ g, const float* __restrict__ z, const float* __restrict__ s,
-                     const float* __restrict__ bb, const float* __restrict__ fs, float eps, int L,
-                     int d, Drop dr, T* __restrict__ dz, float* p_fs, float* p_fb, float* p_s,
-                     float* p_b) {
-  const int chunk = blockIdx.x, b = blockIdx.y;
-  float afs[CPT], afb[CPT], as[CPT], ab[CPT];
-#pragma unroll
-  for (int k = 0; k < CPT; ++k) afs[k] = afb[k] = as[k] = ab[k] = 0.f;
-  const int l1 = min(L, (chunk + 1) * RCH);
-  for (int l = chunk * RCH; l < l1; ++l) {
-    const size_t m = (size_t)b * L + l;
-    float xh[CPT], gx[CPT];
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int k = 0; k < CPT; ++k) {
-      const int c = threadIdx.x + k * RT;
-      xh[k] = c < d ? dropv(z[m * d + c], dr, b, SALT_FC, (uint32_t)(l * d + c)) : 0.f;
-      s1 += xh[k];
-      s2 += xh[k] * xh[k];
-    }
-    block_sum2(s1, s2);
-    const float mu = s1 / d, rs = rsqrtf(s2 / d - mu * mu + eps);
-    float m1 = 0.f, m2 = 0.f;
-#pragma unroll
-    for (int k = 0; k < CPT; ++k) {
-      const int c = threadIdx.x + k * RT;
-      gx[k] = 0.f;
-      if (c >= d) continue;
-      const uint32_t idx = (uint32_t)(l * d + c);
-      xh[k] = (xh[k] - mu) * rs;
-      const float sad = dropv(xh[k] * s[c] + bb[c], dr, b, SALT_OUT, idx);
-      const float gg = to_f(g[m * d + c]);
-      afs[k] += gg * sad;
-      afb[k] += gg;
-      const float gsa = dropv(gg * (fs[(size_t)b * d + c] + 1.f), dr, b, SALT_OUT, idx);
-      as[k] += gsa * xh[k];
-      ab[k] += gsa;
-      gx[k] = gsa * s[c];
-      m1 += gx[k];
-      m2 += gx[k] * xh[k];
-    }
-    block_sum2(m1, m2);
-    m1 /= d;
-    m2 /= d;
-#pragma unroll
-    for (int k = 0; k < CPT; ++k) {
-      const int c = threadIdx.x + k * RT;
-      if (c >= d) continue;
-      const float dz2 = rs * (gx[k] - m1 - xh[k] * m2);
-      dz[m * d + c] = from_f<T>(dropv(dz2, dr, b, SALT_FC, (uint32_t)(l * d + c)));
-    }
-  }
-  const size_t row = (size_t)b * gridDim.x + chunk;
-  store_partial(p_fs, row, d, afs);
-  store_partial(p_fb, row, d, afb);
-  store_partial(p_s, row, d, as);
-  store_partial(p_b, row, d, ab);
-}
-
-// The bottom of a block's backward (grid (cdiv(L, RCH), B)):
-//   dy  = (cos ? rot^T(dr) : dr) + (dadd ? dadd : 0)       rot^T(g) = g*cos + swap(g*ssin)
-//   dxl = x ? LN_bwd(dy; stats of x, scale s) : dy           d s += dy * xhat, d b += dy
-//   out = T(dxl + resT + res32)                              (residuals where given)
-// d must be even (rotary pairs (2i, 2i+1) sit in neighbouring lanes).
-template <typename T>
-__global__ void __launch_bounds__(RT)
-rows_bwd_kernel(const float* __restrict__ dr, const T* __restrict__ cos_t, const T* __restrict__ ssin_t,
-                const float* __restrict__ dadd, const T* __restrict__ x, const float* __restrict__ s,
-                float eps, const T* __restrict__ resT, const float* __restrict__ res32, int L, int d,
-                T* __restrict__ out, float* p_s, float* p_b) {
-  const int chunk = blockIdx.x, b = blockIdx.y;
-  float as[CPT], ab[CPT];
-#pragma unroll
-  for (int k = 0; k < CPT; ++k) as[k] = ab[k] = 0.f;
-  const int l1 = min(L, (chunk + 1) * RCH);
-  for (int l = chunk * RCH; l < l1; ++l) {
-    const size_t m = (size_t)b * L + l;
-    float dy[CPT], xh[CPT];
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int k = 0; k < CPT; ++k) {
-      const int c = threadIdx.x + k * RT;
-      const bool ok = c < d;
-      const float g = ok ? dr[m * d + c] : 0.f;
-      if (cos_t) {  // every lane takes part in the shuffle
-        const float w = ok ? g * to_f(ssin_t[(size_t)l * d + c]) : 0.f;
-        const float partner = __shfl_xor_sync(0xffffffffu, w, 1);
-        dy[k] = ok ? g * to_f(cos_t[(size_t)l * d + c]) + partner : 0.f;
-      } else {
-        dy[k] = g;
-      }
-      if (ok && dadd) dy[k] += dadd[m * d + c];
-      xh[k] = (ok && x) ? to_f(x[m * d + c]) : 0.f;
-      s1 += xh[k];
-      s2 += xh[k] * xh[k];
-    }
-    float m1 = 0.f, m2 = 0.f, rs = 1.f;
-    if (x) {
-      block_sum2(s1, s2);
-      const float mu = s1 / d;
-      rs = rsqrtf(s2 / d - mu * mu + eps);
-#pragma unroll
-      for (int k = 0; k < CPT; ++k) {
-        const int c = threadIdx.x + k * RT;
-        if (c >= d) continue;
-        xh[k] = (xh[k] - mu) * rs;
-        as[k] += dy[k] * xh[k];
-        ab[k] += dy[k];
-        const float gx = dy[k] * s[c];
-        m1 += gx;
-        m2 += gx * xh[k];
-      }
-      block_sum2(m1, m2);
-      m1 /= d;
-      m2 /= d;
-    }
-#pragma unroll
-    for (int k = 0; k < CPT; ++k) {
-      const int c = threadIdx.x + k * RT;
-      if (c >= d) continue;
-      float v = x ? rs * (dy[k] * s[c] - m1 - xh[k] * m2) : dy[k];
-      if (resT) v += to_f(resT[m * d + c]);
-      if (res32) v += res32[m * d + c];
-      out[m * d + c] = from_f<T>(v);
-    }
-  }
-  const size_t row = (size_t)b * gridDim.x + chunk;
-  store_partial(p_s, row, d, as);
-  store_partial(p_b, row, d, ab);
 }
 
 // ---------------------------------------------------------------- attention

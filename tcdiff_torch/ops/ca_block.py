@@ -14,7 +14,10 @@ wfc (d, h*dk); LN affines (d,); film rows (b, d). LN statistics, rotary,
 logits, softmax and every product sum in f32; q, k, v, the probabilities
 and the attention output rounded to the compute dtype (x.dtype) where the
 TPU kernel rounds them. `ca_block` runs the hand-written CUDA kernel
-(`csrc/ca_block.cu`) for a CUDA x and `ca_block_plain` for a CPU x.
+(`csrc/ca_block.cu`: 4 launches in bf16, the LayerNorm and the rotary of
+the q side in the q projection's prologue and the post-LN in fc's
+epilogue; 6 in f32) for a CUDA x and `ca_block_plain` for a CPU x; in bf16
+d is at most 1024.
 
 `cross_plain` is the query side against projected k/v, which the
 whole-layer kernel's plain version (`ops/layer.py`) shares.
@@ -24,9 +27,9 @@ from __future__ import annotations
 
 import torch
 
-from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, check_ln_fold, launch, ln_f32, mm_f32
+from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, check_ln_fold, launch, ln_f32, mm_f32, scratch
 from tcdiff_torch.ops.attention import attention_plain
-from tcdiff_torch.ops.sa_block import rotary_tables
+from tcdiff_torch.ops.sa_block import cached_rotary_tables, rotary_tables
 from tcdiff_torch.ops.sa_block_train import rot
 from tcdiff_torch.ops.train_common import film_residual
 
@@ -86,21 +89,22 @@ def _ca_block_cuda(x, s1, b1, angles, memory, memory_rot, wq, wk, wv, wfc, s2, b
         if t is not None and tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
 
+    # host work only: no cast of what is already in its dtype, the rotary
+    # tables once per angle table, the scratch in one allocation
     dt, dev = x.dtype, x.device
-    f32 = lambda t: t.float().contiguous()
-    cos, ssin = rotary_tables(angles, dt)
-    empty = lambda n, rows=L, t=dt: torch.empty((B, rows, n), dtype=t, device=dev)
-    out = torch.empty_like(x)
-    ten = dict(x=x, s1=f32(s1), b1=f32(b1), cos=cos, ssin=ssin, mem=as_t(memory, dt), mrot=as_t(memory_rot, dt),
+    f32 = lambda t: None if t is None else as_t(t, torch.float32)
+    cos, ssin = cached_rotary_tables(angles, dt)
+    unfused = dt == torch.float32  # r and z: the f32 sequence's row kernel inputs (bf16: in the SMs)
+    rows = lambda n, length=L, t=dt: ((B, length, n), t)
+    ten = scratch(dev, dict(r=rows(d) if unfused else None, q=rows(hd), k=rows(hd, Lm), v=rows(hd, Lm), o=rows(hd),
+                            z=rows(d, t=torch.float32) if unfused else None))
+    ten.update(x=x, s1=f32(s1), b1=f32(b1), cos=cos, ssin=ssin, mem=as_t(memory, dt), mrot=as_t(memory_rot, dt),
                wq=as_t(wq, dt), wk=as_t(wk, dt), wv=as_t(wv, dt), wfc=as_t(wfc, dt), s2=f32(s2), b2=f32(b2),
-               r=empty(d), q=empty(hd), k=empty(hd, Lm), v=empty(hd, Lm), o=empty(hd),
-               z=empty(d, t=torch.float32), out=out)
-    if film:
-        ten.update(fs=f32(film_scale), fb=f32(film_shift))
+               fs=f32(film_scale), fb=f32(film_shift), out=torch.empty_like(x))
     dims = dict(B=B, L=L, Lm=Lm, d=d, hd=hd, nhead=nhead, eps1=eps1, eps2=eps2)
-    launch("ca_block", "tcd_ca_block", _Args, ten, dims, x, "ca_block")
+    launch("ca_block", "tcd_ca_block", _Args, {k: t for k, t in ten.items() if t is not None}, dims, x, "ca_block")
     ca_block.launches += 1
-    return out
+    return ten["out"]
 
 
 def ca_block(x, s1, b1, angles, memory, memory_rot, wq, wk, wv, wfc, s2, b2,

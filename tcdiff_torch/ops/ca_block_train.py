@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, launch, ln_f32, mm_f32
-from tcdiff_torch.ops.sa_block import rotary_tables
+from tcdiff_torch.ops.sa_block import cached_rotary_tables, rotary_tables
 from tcdiff_torch.ops.sa_block_train import attention_plain, chain_top_plain, rot
 from tcdiff_torch.ops.train_common import (
     RCH, as_uint32_int32, count_kernel, save_tensors, saved_tensors, threshold, weight_scratch,
@@ -51,7 +51,7 @@ _Args = args_struct(  # CaTrainArgs in csrc/ca_block_train.cu
     ("x", "mem", "cosx", "ssinx", "cosm", "ssinm", "wq", "wk", "wv", "wfc",
      "sx", "bx", "ss", "sb", "fs", "fb", "seeds",
      "r", "rm", "q", "k", "v", "o", "lse", "z", "out",
-     "g", "dz", "dO", "dq", "dk", "dv", "dx", "dmem", "dwq", "dwk", "dwv", "dwfc",
+     "g", "dz", "dO", "dq", "dk", "dv", "dx", "dmem", "dwq", "dwkv", "dwfc",
      "dr", "drm", "dvm", "part", "wpart", "Dsum", "vec"),
     ("B", "L", "Lm", "d", "hd", "nhead", "wcap", "drop_on"),
     ("eps1", "eps2", "dscale"),
@@ -79,12 +79,11 @@ class _CaBlockTrain(torch.autograd.Function):
             if tuple(t.shape) != shape:
                 raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
         dt, dev = x.dtype, x.device
-        f32 = lambda t: t.float().contiguous()
-        cosx, ssinx = rotary_tables(angles_x, dt)
-        cosm, ssinm = rotary_tables(angles_m, dt)
+        f32 = lambda t: as_t(t, torch.float32)
+        cosx, ssinx = cached_rotary_tables(angles_x, dt)
+        cosm, ssinm = cached_rotary_tables(angles_m, dt)
         ten = dict(
-            x=x, mem=as_t(mem, dt), cosx=cosx.contiguous(), ssinx=ssinx.contiguous(),
-            cosm=cosm.contiguous(), ssinm=ssinm.contiguous(),
+            x=x, mem=as_t(mem, dt), cosx=cosx, ssinx=ssinx, cosm=cosm, ssinm=ssinm,
             wq=as_t(wq, dt), wk=as_t(wk, dt), wv=as_t(wv, dt), wfc=as_t(wfc, dt),
             sx=f32(s2), bx=f32(b2), ss=f32(sa_s), sb=f32(sa_b), fs=f32(fs), fb=f32(fb),
             seeds=as_uint32_int32(seeds),
@@ -93,7 +92,7 @@ class _CaBlockTrain(torch.autograd.Function):
         ten.update(r=e(B, L, d), rm=e(B, Lm, d), q=e(B, L, hd), k=e(B, Lm, hd), v=e(B, Lm, hd),
                    o=e(B, L, hd), lse=e(B, nhead, L, t=torch.float32), z=e(B, L, d, t=torch.float32),
                    out=torch.empty_like(x))
-        wcap = weight_scratch((B * L, d, hd), (B * L, hd, d), (B * Lm, hd, d))  # dWfc, dWq; dWk, dWv
+        wcap = weight_scratch((B * L, d, hd), (B * L, hd, d), (B * Lm, hd, d, 2))  # dWfc, dWq; dWk with dWv
         dims = dict(B=B, L=L, Lm=Lm, d=d, hd=hd, nhead=nhead, wcap=wcap,
                     drop_on=int(rate > 0), eps1=eps1, eps2=eps2, dscale=1.0 / (1.0 - rate),
                     thresh=threshold(rate))
@@ -113,20 +112,21 @@ class _CaBlockTrain(torch.autograd.Function):
         e = lambda *shape, t=dt: torch.empty(shape, dtype=t, device=dev)
         nch = -(-L // RCH)
         ten.update(
-            g=g.to(dt).contiguous(), dz=e(B, L, d), dO=e(B, L, hd), dq=e(B, L, hd), dk=e(B, Lm, hd),
+            g=as_t(g, dt), dz=e(B, L, d), dO=e(B, L, hd), dq=e(B, L, hd), dk=e(B, Lm, hd),
             dv=e(B, Lm, hd), dx=torch.empty_like(x), dmem=e(B, Lm, d),
-            dwq=e(hd, d), dwk=e(hd, d), dwv=e(hd, d), dwfc=e(d, hd),
-            dr=e(B, L, d, t=torch.float32), drm=e(B, Lm, d, t=torch.float32),
-            dvm=e(B, Lm, d, t=torch.float32), part=e(N_VEC, B * nch, d, t=torch.float32),
+            dwq=e(hd, d), dwkv=e(2, hd, d), dwfc=e(d, hd),
+            dr=e(B, L, d, t=torch.float32), part=e(N_VEC, B * nch, d, t=torch.float32),
             wpart=e(dims["wcap"], t=torch.float32), Dsum=e(B, dims["nhead"], L, t=torch.float32),
             vec=e(N_VEC, B, d, t=torch.float32),
         )
+        if dt == torch.float32:  # the unfused memory side's products (bf16: one launch, no scratch)
+            ten.update(drm=e(B, Lm, d), dvm=e(B, Lm, d))
         launch("ca_block_train", "tcd_ca_train_bwd", _Args, ten, dims, x, "ca_block_train backward")
         ca_block_train.bwd_launches += 1
         vec = ten["vec"]
         tmem, ts2, tb2, twq, twk, twv, twfc, tss, tsb, tfs, tfb = ctx.in_dtypes
         return (ten["dx"], ten["dmem"].to(tmem), vec[4, 0].to(ts2), vec[5, 0].to(tb2), None, None,
-                ten["dwq"].to(twq), ten["dwk"].to(twk), ten["dwv"].to(twv), ten["dwfc"].to(twfc),
+                ten["dwq"].to(twq), ten["dwkv"][0].to(twk), ten["dwkv"][1].to(twv), ten["dwfc"].to(twfc),
                 vec[2, 0].to(tss), vec[3, 0].to(tsb), vec[0].to(tfs), vec[1].to(tfb),
                 None, None, None, None, None)
 

@@ -25,7 +25,7 @@ import torch
 
 from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, launch, ln_f32, mm_f32
 from tcdiff_torch.ops.train_common import (
-    RCH, SALT_FF1, SALT_FF2, as_uint32_int32, count_kernel, drop, film_residual, save_tensors,
+    FF_RCH, SALT_FF1, SALT_FF2, as_uint32_int32, count_kernel, drop, film_residual, save_tensors,
     saved_tensors, threshold, weight_scratch,
 )
 
@@ -101,7 +101,7 @@ class _FfTailTrain(torch.autograd.Function):
         dt, dev = x.dtype, x.device
         e = lambda *shape, t=dt: torch.empty(shape, dtype=t, device=dev)
         f = torch.float32
-        nch = -(-L // RCH)
+        nch = -(-L // FF_RCH)
         ten.update(
             g=g.to(dt).contiguous(), dy4=e(B, L, d, t=f), dx2=e(B, L, d, t=f), dz=e(B, L, d),
             dad=e(B, L, ff, t=f), du=e(B, L, ff), dy=e(B, L, d, t=f), dx=torch.empty_like(x),

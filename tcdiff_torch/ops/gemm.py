@@ -30,7 +30,17 @@ the FiLM arguments are shared by the group.
 form: one launch, C = a0 . b0 + a1 . b1 in one f32 sum (K3's dr).
 `wgrad` (g (R, N), x (R, K)) sums f32 partials of row chunks in chunk
 order and rounds to T; `splits` chunks where given, else as the train
-kernels cut them (`train_common.weight_splits`).
+kernels cut them (`train_common.weight_splits`); lists of up to three g
+and as many x over the same rows are one launch (K4's dWk and dWv).
+
+Two more bodies, bf16 only (in f32 the kernels keep the unfused
+sequences, and these entries raise):
+
+    gemm_nn_rot  C = rot^T(a0 . b0) + a1 . b1   K4's memory cotangent
+    gemm_lnrot   C = rot(LN(x)) . W^T            K7's q projection
+
+rot^T(g) = g*cos + swap_pairs(g*ssin) and rot(y) = y*cos + swap_pairs(y)*ssin
+with the tables of an angle table (L, N or d) at row m % L.
 """
 
 from __future__ import annotations
@@ -38,7 +48,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, launch, mm_f32
+from tcdiff_torch.models.rotary import swap_pairs
+from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, check_ln_fold, launch, ln_f32, mm_f32
+from tcdiff_torch.ops.sa_block import cached_rotary_tables, rotary_tables
 from tcdiff_torch.ops.train_common import weight_splits
 
 EPILOGUES = {"store": 0, "store_f32": 1, "bias": 2, "bias_gelu": 3, "bias_film": 4}  # tcd::Epi
@@ -194,32 +206,141 @@ gemm_nn.launches = 0
 
 # ----------------------------------------------------------- weight gradient
 def wgrad_plain(g, x):
-    """Plain version of wgrad: g^T . x in f32, rounded to g's dtype."""
+    """Plain version of wgrad: g^T . x in f32, rounded to g's dtype (lists:
+    one each)."""
+    if isinstance(g, (list, tuple)):
+        return [wgrad_plain(gi, xi) for gi, xi in zip(g, x)]
     return (g.float().t() @ x.float()).to(g.dtype)
 
 
 def wgrad(g, x, splits: int | None = None):
     """dW (N, K) = g^T . x for g (R, N), x (R, K): the CUDA kernel (split
     rows, f32 partials added in chunk order, then rounded) for a CUDA g,
-    the plain version for a CPU g."""
-    if g.device.type == "cpu":
+    the plain version for a CPU g. Lists of up to three g and as many x of
+    one shape: one launch, a list of gradients."""
+    grouped = isinstance(g, (list, tuple))
+    gs, xs = (list(g), list(x)) if grouped else ([g], [x])
+    if gs[0].device.type == "cpu":
         return wgrad_plain(g, x)
-    if g.device.type != "cuda":
-        raise ValueError(f"wgrad runs on CPU or CUDA tensors, got {g.device}")
-    check_cuda(g, operand=x)
-    if g.dim() != 2 or x.dim() != 2 or x.shape[0] != g.shape[0] or x.dtype != g.dtype or not x.is_contiguous():
-        raise ValueError(f"g (R, N) and x (R, K) share R and dtype, got {tuple(g.shape)} and {tuple(x.shape)}")
-    R, N = g.shape
-    K = x.shape[1]
-    n = weight_splits(R, N, K) if splits is None else splits
+    if gs[0].device.type != "cuda":
+        raise ValueError(f"wgrad runs on CPU or CUDA tensors, got {gs[0].device}")
+    if not 1 <= len(gs) <= GROUP_MAX or len(xs) != len(gs):
+        raise ValueError(f"give 1 to {GROUP_MAX} g and as many x, got {len(gs)} and {len(xs)}")
+    R, N = gs[0].shape
+    K = xs[0].shape[1]
+    for gi, xi in zip(gs, xs):
+        check_cuda(gi, operand=xi)
+        if (gi.dim() != 2 or xi.dim() != 2 or tuple(gi.shape) != (R, N) or tuple(xi.shape) != (R, K)
+                or xi.dtype != gi.dtype or gi.dtype != gs[0].dtype or not xi.is_contiguous()):
+            raise ValueError(f"g (R, N) and x (R, K) share R and dtype, got {tuple(gi.shape)} and {tuple(xi.shape)}")
+    n = weight_splits(R, N, K, len(gs)) if splits is None else splits
     if n < 1:
         raise ValueError(f"splits must be at least 1, got {n}")
-    part = torch.empty(n * N * K, dtype=torch.float32, device=g.device)
-    out = torch.empty((N, K), dtype=g.dtype, device=g.device)
-    dims = dict(M=R, N=N, K=K, L=1, epi=0, groups=1, layout=LAYOUT_WGRAD, splits=n, cap=part.numel())
-    launch("gemm", "tcd_gemm", _Args, dict(a0=g, w0=x, c0=out, part=part), dims, g, "wgrad")
+    part = torch.empty(len(gs) * n * N * K, dtype=torch.float32, device=gs[0].device)
+    out = torch.empty((len(gs), N, K), dtype=gs[0].dtype, device=gs[0].device)
+    ten = dict(c0=out, part=part)
+    for i, (gi, xi) in enumerate(zip(gs, xs)):
+        ten.update({f"a{i}": gi, f"w{i}": xi})
+    dims = dict(M=R, N=N, K=K, L=1, epi=0, groups=len(gs), layout=LAYOUT_WGRAD, splits=n, cap=part.numel())
+    launch("gemm", "tcd_gemm", _Args, ten, dims, gs[0], "wgrad")
     wgrad.launches += 1
-    return out
+    return list(out) if grouped else out[0]
 
 
 wgrad.launches = 0
+
+
+# ------------------------------------------- K4's memory cotangent, K7's q
+def gemm_nn_rot_plain(a0, b0, a1, b1, angles):
+    """Plain version of gemm_nn_rot: the products in f32 (b rounded to a's
+    dtype), rot^T on the first in f32, one rounding at the end."""
+    dt = a0.dtype
+    cos, ssin = rotary_tables(angles, dt)
+    rows = torch.arange(a0.shape[0], device=a0.device) % angles.shape[0]
+    g = a0.float() @ b0.to(dt).float()
+    g = g * cos.float()[rows] + swap_pairs(g * ssin.float()[rows])
+    return (g + a1.float() @ b1.to(dt).float()).to(dt)
+
+
+_RotArgs = args_struct(  # GemmRotArgs in csrc/gemm.cu
+    "GemmRotArgs", ("a0", "w0", "a1", "w1", "cos", "ssin", "s", "b", "out"), ("M", "N", "K", "L"), ("eps",))
+
+
+def _bf16_only(x, what: str) -> None:
+    check_cuda(x)
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{what} is a bf16 kernel: in f32 the kernels keep the unfused sequence")
+
+
+def gemm_nn_rot(a0, b0, a1, b1, angles):
+    """C (M, N) = rot^T(a0 . b0) + a1 . b1 for a (M, K), b (K, N) (weights
+    in nn.Linear layout read as (K, N)) and the angle table (L, N), row
+    m % L: K4's d mem = rot_m^T(dk . Wk) + dv . Wv over its B Lm rows. The
+    CUDA kernel (bf16, one launch) for a CUDA a0, the plain version for a
+    CPU a0."""
+    if a0.device.type == "cpu":
+        return gemm_nn_rot_plain(a0, b0, a1, b1, angles)
+    if a0.device.type != "cuda":
+        raise ValueError(f"gemm_nn_rot runs on CPU or CUDA tensors, got {a0.device}")
+    _bf16_only(a0, "gemm_nn_rot")
+    M, K = a0.shape
+    N = b0.shape[1]
+    for name, t, shape in (("b0", b0, (K, N)), ("a1", a1, (M, K)), ("b1", b1, (K, N)),
+                           ("angles", angles, (angles.shape[0], N))):
+        check_cuda(a0, **{name: t})
+        if t.dim() != 2 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if N % 2:
+        raise ValueError(f"N={N} must be even: the rotary pairs")
+    cos, ssin = cached_rotary_tables(angles, a0.dtype)
+    out = torch.empty((M, N), dtype=a0.dtype, device=a0.device)
+    ten = dict(a0=a0, w0=as_t(b0, a0.dtype), a1=as_t(a1, a0.dtype), w1=as_t(b1, a0.dtype), cos=cos, ssin=ssin,
+               out=out)
+    launch("gemm", "tcd_gemm_nn_rot", _RotArgs, ten, dict(M=M, N=N, K=K, L=angles.shape[0]), a0, "gemm_nn_rot")
+    gemm_nn_rot.launches += 1
+    return out
+
+
+gemm_nn_rot.launches = 0
+
+
+def gemm_lnrot_plain(x, scale, bias, angles, w, eps: float = 1e-5):
+    """Plain version of gemm_lnrot: LN and rotary in f32, rounded to x's
+    dtype, then the product in f32 sums."""
+    from tcdiff_torch.ops.sa_block_train import rot
+
+    dt = x.dtype
+    cos, ssin = rotary_tables(angles, dt)
+    return mm_f32(rot(ln_f32(x, scale, bias, eps), cos, ssin).to(dt), w).to(dt)
+
+
+def gemm_lnrot(x, scale, bias, angles, w, eps: float = 1e-5):
+    """q = T(rot(LN(x; eps))) . w^T for x (b, L, d), the LayerNorm affine
+    (d,), the angle table (L, d) and w (N, d): K7's q projection with the
+    LayerNorm and the rotary in its prologue. The CUDA kernel (bf16, one
+    launch) for a CUDA x, the plain version for a CPU x."""
+    if x.device.type == "cpu":
+        return gemm_lnrot_plain(x, scale, bias, angles, w, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"gemm_lnrot runs on CPU or CUDA tensors, got {x.device}")
+    _bf16_only(x, "gemm_lnrot")
+    check_cuda(x, scale=scale, bias=bias, angles=angles, w=w)
+    B, L, d = x.shape
+    N = w.shape[0]
+    if d % 2 or N % 2:
+        raise ValueError(f"d={d} and N={N} must be even")
+    check_ln_fold(d, x.dtype)  # a block holds its rows whole: as many as a LayerNorm fold
+    for name, t, shape in (("scale", scale, (d,)), ("bias", bias, (d,)), ("angles", angles, (L, d)),
+                           ("w", w, (N, d))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    cos, ssin = cached_rotary_tables(angles, x.dtype)
+    out = torch.empty((B, L, N), dtype=x.dtype, device=x.device)
+    ten = dict(a0=x, w0=as_t(w, x.dtype), cos=cos, ssin=ssin, s=as_t(scale, torch.float32),
+               b=as_t(bias, torch.float32), out=out)
+    launch("gemm", "tcd_gemm_lnrot", _RotArgs, ten, dict(M=B * L, N=N, K=d, L=L, eps=eps), x, "gemm_lnrot")
+    gemm_lnrot.launches += 1
+    return out
+
+
+gemm_lnrot.launches = 0

@@ -23,14 +23,12 @@ a CPU x. In bf16 d is at most 1024.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, check_ln_fold, launch, scratch
 from tcdiff_torch.ops.ca_block import cross_plain
 from tcdiff_torch.ops.ff_block import ff_tail_plain
-from tcdiff_torch.ops.sa_block import rotary_tables, sa_block_plain
+from tcdiff_torch.ops.sa_block import cached_rotary_tables, sa_block_plain
 
 _WEIGHTS = ("wq", "wk", "wv", "wfc", "cwq", "cfc", "kcat", "vcat", "w1", "w2", "w3")
 _FF_ARGS = ("s3", "b3", "w1", "bb1", "w2", "bb2", "f3s", "f3b", "s4", "b4", "w3", "bb3")
@@ -61,14 +59,6 @@ _Args = args_struct(  # LayerArgs in csrc/layer.cu
 )
 
 
-@functools.lru_cache(maxsize=32)
-def _tables(angles, dtype):
-    """rotary_tables(angles, dtype) once per angle table and dtype: the
-    model passes the same shared, never written `angle_table` tensor at
-    every step (the cache holds it by identity)."""
-    return rotary_tables(angles, dtype)
-
-
 def _layer_cuda(x, angles, s1, b1, wq, wk, wv, wfc, sa_s2, sa_b2, f1s, f1b,
                 n2s, n2b, cwq, cfc, ca_s2, ca_b2, kcat, vcat, f2s, f2b, ff_args, *, nhead, eps1, eps2, include_ff):
     named = dict(angles=angles, s1=s1, b1=b1, wq=wq, wk=wk, wv=wv, wfc=wfc, sa_s2=sa_s2, sa_b2=sa_b2, f1s=f1s,
@@ -96,7 +86,7 @@ def _layer_cuda(x, angles, s1, b1, wq, wk, wv, wfc, sa_s2, sa_b2, f1s, f1b,
     check_ln_fold(d, x.dtype)
 
     dt, dev = x.dtype, x.device
-    cos, ssin = _tables(angles, dt)
+    cos, ssin = cached_rotary_tables(angles, dt)
     ten = {name: as_t(t, dt if name in _WEIGHTS else torch.float32) for name, t in named.items() if name != "angles"}
     rows = lambda n, t=dt: ((B, L, n), t)
     ten.update(scratch(dev, dict(

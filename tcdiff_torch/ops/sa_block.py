@@ -18,6 +18,7 @@ where the TPU kernel rounds them.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -34,6 +35,15 @@ def rotary_tables(angles: torch.Tensor, dtype: torch.dtype):
     (as `tcdiff_tpu/ops/fused_ln_rotary_matmul.py::_tables`)."""
     a = angles.float()
     return torch.cos(a).to(dtype), signed_pairs(torch.sin(a)).to(dtype)
+
+
+@functools.lru_cache(maxsize=32)
+def cached_rotary_tables(angles: torch.Tensor, dtype: torch.dtype):
+    """rotary_tables(angles, dtype) once per angle table and dtype, for the
+    CUDA wrappers: the model passes the same shared, never written
+    `angle_table` tensor at every call (the cache holds it by identity), so
+    a call enqueues no table kernels."""
+    return rotary_tables(angles, dtype)
 
 
 def sa_block_plain(

@@ -27,10 +27,10 @@ import torch
 
 from tcdiff_torch.models.rotary import swap_pairs
 from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, launch, ln_f32, mm_f32
-from tcdiff_torch.ops.sa_block import rotary_tables
+from tcdiff_torch.ops.sa_block import cached_rotary_tables, rotary_tables
 from tcdiff_torch.ops.train_common import (
-    RCH, SALT_ATTN, SALT_FC, SALT_OUT, as_uint32_int32, count_kernel, drop, film_residual, save_tensors,
-    saved_tensors, threshold, weight_scratch,
+    RCH, SALT_ATTN, as_uint32_int32, chain_top_fwd_plain, count_kernel, drop, save_tensors, saved_tensors,
+    threshold, weight_scratch,
 )
 
 
@@ -56,9 +56,7 @@ def attention_plain(q, k, v, seeds, nhead: int, rate: float):
 
 def chain_top_plain(o, x, wfc, s2, b2, film_scale, film_shift, seeds, rate: float, eps2: float):
     """out projection -> drop_FC -> LN(eps2) -> drop_OUT -> FiLM residual."""
-    z2 = drop(mm_f32(o, wfc), seeds, SALT_FC, rate)
-    sa = drop(ln_f32(z2, s2, b2, eps2), seeds, SALT_OUT, rate)
-    return film_residual(x, sa, film_scale, film_shift).to(x.dtype)
+    return chain_top_fwd_plain(mm_f32(o, wfc), x, s2, b2, film_scale, film_shift, seeds, rate=rate, eps=eps2)
 
 
 def sa_block_train_plain(x, s1, b1, angles, wq, wk, wv, wfc, s2, b2, film_scale, film_shift, seeds,
@@ -103,10 +101,10 @@ class _SaBlockTrain(torch.autograd.Function):
             if tuple(t.shape) != shape:
                 raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
         dt, dev = x.dtype, x.device
-        f32 = lambda t: t.float().contiguous()
-        cos, ssin = rotary_tables(angles, dt)
+        f32 = lambda t: as_t(t, torch.float32)
+        cos, ssin = cached_rotary_tables(angles, dt)
         ten = dict(
-            x=x, cos_t=cos.contiguous(), ssin_t=ssin.contiguous(),
+            x=x, cos_t=cos, ssin_t=ssin,
             wq=as_t(wq, dt), wk=as_t(wk, dt), wv=as_t(wv, dt), wfc=as_t(wfc, dt),
             s1=f32(s1), b1=f32(b1), s2=f32(s2), b2=f32(b2), fs=f32(fs), fb=f32(fb),
             seeds=as_uint32_int32(seeds),

@@ -25,6 +25,10 @@ from __future__ import annotations
 
 import torch
 
+from tcdiff_torch.models.rotary import swap_pairs
+from tcdiff_torch.ops._common import DTYPE_CODE, args_struct, as_t, check_cuda, launch
+from tcdiff_torch.ops.sa_block import cached_rotary_tables, rotary_tables
+
 SALT_ATTN = 0x100  # + head index: attention probabilities
 SALT_FC = 0x200  # after the attention block's out projection
 SALT_OUT = 0x300  # after the attention block's LayerNorm
@@ -87,7 +91,11 @@ def as_uint32_int32(seeds: torch.Tensor) -> torch.Tensor:
     return (s - (s >= 2**31).to(torch.int64) * 2**32).to(torch.int32).contiguous()
 
 
-RCH = 16  # rows per block of the CUDA row kernels (csrc/train_common.cuh)
+# csrc/train_common.cuh: the attention blocks' row kernels (K3, K4) cut
+# each batch element's L rows into cdiv(L, RCH) chunks, one partial row of
+# each parameter gradient a chunk; K5's own row kernels (csrc/ff_tail_train.cu)
+# take chunks of FF_RCH rows, and its rows_bwd launch the same count
+RCH, FF_RCH = 32, 16
 
 
 # csrc/gemm_mma.cuh: the weight gradient's 128 x 128 tiles, its chunks a
@@ -96,20 +104,21 @@ RCH = 16  # rows per block of the CUDA row kernels (csrc/train_common.cuh)
 WGRAD_TILE, WGRAD_STEP, WGRAD_BLOCKS = 128, 64, 264
 
 
-def weight_splits(rows: int, n: int, k: int) -> int:
+def weight_splits(rows: int, n: int, k: int, groups: int = 1) -> int:
     """Row chunks of a CUDA weight gradient (n, k) over `rows` rows, as
-    `wgrad` in csrc/gemm_mma.cuh cuts them: about one wave of blocks over
-    the gradient's tiles, each chunk a multiple of the K step."""
+    `wgrad_group` in csrc/gemm_mma.cuh cuts them: about one wave of blocks
+    over the tiles of the `groups` gradients of one launch, each chunk a
+    multiple of the K step."""
     cdiv = lambda a, b: -(-a // b)
-    tiles = cdiv(n, WGRAD_TILE) * cdiv(k, WGRAD_TILE)
+    tiles = groups * cdiv(n, WGRAD_TILE) * cdiv(k, WGRAD_TILE)
     target = max(1, min(WGRAD_BLOCKS // tiles, cdiv(rows, WGRAD_STEP)))
     return cdiv(rows, cdiv(cdiv(rows, target), WGRAD_STEP) * WGRAD_STEP)
 
 
 def weight_scratch(*products) -> int:
-    """f32 elements of split-row partials enough for each (rows, n, k)
-    weight gradient of a kernel in turn."""
-    return max(weight_splits(r, n, k) * n * k for r, n, k in products)
+    """f32 elements of split-row partials enough for each (rows, n, k) or
+    (rows, n, k, groups) weight-gradient launch of a kernel in turn."""
+    return max(g * weight_splits(r, n, k, g) * n * k for r, n, k, g in ((*p, 1)[:4] for p in products))
 
 
 def save_tensors(ctx, ten: dict) -> None:
@@ -132,3 +141,167 @@ def count_kernel(fn):
     fn.launches = 0
     fn.bwd_launches = 0
     return fn
+
+
+# --------------------------------------------------- the row kernels alone
+# The row kernels of csrc/train_common.cuh by themselves, for tests and
+# measurement (csrc/train_rows.cu); K3, K4 and K5 launch them inside their
+# sequences and no path calls these wrappers. Each runs its CUDA kernel for
+# a CUDA tensor (the backward ones also add their chunk partials, in order)
+# and its plain version for a CPU tensor. z, dr, dadd and an f32 resid are
+# f32 (b, L, d); x, g and the outputs are in the compute dtype; the LayerNorm
+# affine (d,) and the FiLM rows (b, d) are widened to f32; seeds int64 (b,).
+
+def _chain_in(z, s, b, seeds, rate: float, eps: float):
+    """drop_FC(z) and its LayerNorm's xhat and rstd, in f32."""
+    z2 = drop(z.float(), seeds, SALT_FC, rate)
+    mu = z2.mean(-1, keepdim=True)
+    rs = torch.rsqrt((z2 * z2).mean(-1, keepdim=True) - mu * mu + eps)
+    return z2, (z2 - mu) * rs, rs
+
+
+def chain_top_fwd_plain(z, x, s, b, film_scale, film_shift, seeds, *, rate: float, eps: float = 1e-6):
+    """out = x + (fs+1) * drop_OUT(LN(drop_FC(z); eps) * s + b) + fb, in x's dtype."""
+    _, xh, _ = _chain_in(z, s, b, seeds, rate, eps)
+    sa = drop(xh * s.float() + b.float(), seeds, SALT_OUT, rate)
+    return film_residual(x, sa, film_scale, film_shift).to(x.dtype)
+
+
+def chain_top_bwd_plain(g, z, s, b, film_scale, seeds, *, rate: float, eps: float = 1e-6):
+    """The backward of chain_top_fwd_plain for its cotangent g: (dz in g's
+    dtype, dfs and dfb (b, d), ds and db (d,), all f32)."""
+    _, xh, rs = _chain_in(z, s, b, seeds, rate, eps)
+    gf = g.float()
+    sad = drop(xh * s.float() + b.float(), seeds, SALT_OUT, rate)
+    gsa = drop(gf * (film_scale.float()[:, None, :] + 1.0), seeds, SALT_OUT, rate)
+    gx = gsa * s.float()
+    dz2 = rs * (gx - gx.mean(-1, keepdim=True) - xh * (gx * xh).mean(-1, keepdim=True))
+    dz = drop(dz2, seeds, SALT_FC, rate).to(g.dtype)
+    return dz, (gf * sad).sum(1), gf.sum(1), (gsa * xh).sum((0, 1)), gsa.sum((0, 1))
+
+
+def rows_bwd_plain(dr, x=None, s=None, eps: float = 1e-5, *, angles=None, dadd=None, resid=None, dtype=None):
+    """dy = rot^T(dr) + dadd (rot^T(g) = g*cos + swap(g*ssin), the tables of
+    `angles` (L, d) in the output dtype), then with x the LayerNorm's
+    backward of dy (x's statistics, scale s) and (ds, db), then + resid:
+    (out in x's dtype or `dtype`, ds, db), the last two None without x."""
+    dt = x.dtype if x is not None else dtype
+    dy = dr.float()
+    if angles is not None:
+        cos, ssin = rotary_tables(angles, dt)
+        dy = dy * cos.float() + swap_pairs(dy * ssin.float())
+    if dadd is not None:
+        dy = dy + dadd.float()
+    ds = db = None
+    if x is not None:
+        xf = x.float()
+        mu = xf.mean(-1, keepdim=True)
+        rs = torch.rsqrt((xf * xf).mean(-1, keepdim=True) - mu * mu + eps)
+        xh = (xf - mu) * rs
+        gx = dy * s.float()
+        ds, db = (dy * xh).sum((0, 1)), dy.sum((0, 1))
+        dy = rs * (gx - gx.mean(-1, keepdim=True) - xh * (gx * xh).mean(-1, keepdim=True))
+    if resid is not None:
+        dy = dy + resid.float()
+    return dy.to(dt), ds, db
+
+
+_ROWS_KINDS = {"chain_top_fwd": 0, "chain_top_bwd": 1, "rows_bwd": 2}
+_RowsArgs = args_struct(  # RowsArgs in csrc/train_rows.cu
+    "RowsArgs",
+    ("z", "x", "g", "dr", "cos", "ssin", "dadd", "resT", "res32", "s", "b", "fs", "fb", "seeds", "out", "part",
+     "vec"),
+    ("kind", "B", "L", "d", "nch", "drop_on"),
+    ("eps", "dscale"),
+    ("thresh",),
+)
+
+
+def _rows_cuda(kind: str, x_like, ten: dict, B: int, L: int, d: int, seeds=None, rate: float = 0.0,
+               eps: float = 0.0):
+    if d % 2 or d > 1024:
+        raise ValueError(f"the row kernels take an even d <= 1024, got {d}")
+    nch = -(-L // RCH)
+    dev = x_like.device
+    ten.update(part=torch.empty((4, B * nch, d), dtype=torch.float32, device=dev),
+               vec=torch.empty(4 * B * d, dtype=torch.float32, device=dev))
+    if seeds is not None:
+        ten["seeds"] = as_uint32_int32(seeds)
+    dims = dict(kind=_ROWS_KINDS[kind], B=B, L=L, d=d, nch=nch, drop_on=int(rate > 0), eps=eps,
+                dscale=1.0 / (1.0 - rate), thresh=threshold(rate))
+    launch("train_rows", "tcd_train_rows", _RowsArgs, {k: t for k, t in ten.items() if t is not None}, dims,
+           x_like, kind)
+    return ten["vec"]
+
+
+def _rows_device(t, name: str) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on CPU or CUDA tensors, got {t.device}")
+    return t.device.type
+
+
+def _f32(t):
+    return None if t is None else as_t(t, torch.float32)
+
+
+def _check_rows(first, **tensors):
+    check_cuda(first, **tensors)
+    B, L, d = first.shape
+    for name, t in tensors.items():
+        if t is not None and t.dim() == 3 and tuple(t.shape) != (B, L, d):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(B, L, d)}")
+        if t is not None and t.dim() == 2 and tuple(t.shape) not in ((B, d), (L, d)):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(B, d)} or {(L, d)}")
+        if t is not None and t.dim() == 1 and tuple(t.shape) != (d,) and name != "seeds":
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(d,)}")
+    return B, L, d
+
+
+def chain_top_fwd(z, x, s, b, film_scale, film_shift, seeds, *, rate: float, eps: float = 1e-6):
+    """The chain top's forward row kernel: see chain_top_fwd_plain."""
+    if _rows_device(x, "chain_top_fwd") == "cpu":
+        return chain_top_fwd_plain(z, x, s, b, film_scale, film_shift, seeds, rate=rate, eps=eps)
+    B, L, d = _check_rows(x, z=z, s=s, b=b, film_scale=film_scale, film_shift=film_shift, seeds=seeds)
+    out = torch.empty_like(x)
+    _rows_cuda("chain_top_fwd", x, dict(z=_f32(z), x=x, s=_f32(s), b=_f32(b), fs=_f32(film_scale),
+                                        fb=_f32(film_shift), out=out), B, L, d, seeds, rate, eps)
+    chain_top_fwd.launches += 1
+    return out
+
+
+def chain_top_bwd(g, z, s, b, film_scale, seeds, *, rate: float, eps: float = 1e-6):
+    """The chain top's backward row kernel: see chain_top_bwd_plain."""
+    if _rows_device(g, "chain_top_bwd") == "cpu":
+        return chain_top_bwd_plain(g, z, s, b, film_scale, seeds, rate=rate, eps=eps)
+    B, L, d = _check_rows(g, z=z, s=s, b=b, film_scale=film_scale, seeds=seeds)
+    dz = torch.empty_like(g)
+    vec = _rows_cuda("chain_top_bwd", g, dict(g=g, z=_f32(z), s=_f32(s), b=_f32(b), fs=_f32(film_scale), out=dz),
+                     B, L, d, seeds, rate, eps)
+    chain_top_bwd.launches += 1
+    vec = vec.view(4, B, d)
+    return dz, vec[0], vec[1], vec[2, 0], vec[3, 0]
+
+
+def rows_bwd(dr, x=None, s=None, eps: float = 1e-5, *, angles=None, dadd=None, resid=None, dtype=None):
+    """The bottom of a block's backward, the row kernel: see rows_bwd_plain."""
+    if _rows_device(dr, "rows_bwd") == "cpu":
+        return rows_bwd_plain(dr, x, s, eps, angles=angles, dadd=dadd, resid=resid, dtype=dtype)
+    dt = x.dtype if x is not None else dtype
+    if dt not in DTYPE_CODE or (x is not None) != (s is not None):
+        raise ValueError("rows_bwd takes x with its scale s, or neither and an output dtype")
+    lead = x if x is not None else torch.empty((1, 1, 1), dtype=dt, device=dr.device)
+    B, L, d = _check_rows(dr, ln_input=x, dadd=dadd, resid=resid, angles=angles)
+    if x is not None and not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    cos, ssin = cached_rotary_tables(angles, dt) if angles is not None else (None, None)
+    res32 = resid if resid is not None and resid.dtype == torch.float32 and dt != torch.float32 else None
+    resT = resid if resid is not None and res32 is None else None
+    out = torch.empty(dr.shape, dtype=dt, device=dr.device)
+    vec = _rows_cuda("rows_bwd", lead, dict(dr=_f32(dr), cos=cos, ssin=ssin, dadd=_f32(dadd), x=x, s=_f32(s),
+                                           resT=None if resT is None else resT.to(dt).contiguous(),
+                                           res32=res32, out=out), B, L, d, eps=eps)
+    rows_bwd.launches += 1
+    return (out, vec[:d], vec[d:2 * d]) if x is not None else (out, None, None)
+
+
+chain_top_fwd.launches = chain_top_bwd.launches = rows_bwd.launches = 0  # kernel launches; not the plain path

@@ -765,3 +765,196 @@ def test_bf16_blocks_refuse_rows_past_a_cluster(dev):
                     call()
             else:  # f32 runs the unfused sequence, which takes any even d
                 assert torch.isfinite(call()).all().item()
+
+
+# ------------------------------------------------- K4's and K7's new bodies
+# The train row kernels (csrc/train_common.cuh, one warp a row) through
+# their test entry (ops/train_common.py) at the widths of their templated
+# body (64, 512, 1024) and of the pair-wise one (70 = 2 x 35), at a length
+# no chunk divides (L = 37 against chunks of ~32 rows), at rate 0 and 0.1,
+# in each form K3, K4 and K5 launch; each backward twice, bit for bit.
+# Then K4's memory cotangent (gemm_nn_rot) at Lm = 152 and a ragged Lm,
+# K7's q projection with the LayerNorm in its prologue (gemm_lnrot) bit for
+# bit equal to ln_rows + gemm, K7 at the prologue's widths, and the widths
+# the new bodies refuse. Tolerances as above (_train_tol for the rows).
+ROW_WIDTHS = [64, 70, 512, 1024]
+ROW_FORMS = {"K3": (True, True, True, "T"), "K4_x": (True, False, True, "T"), "K4_mem": (True, True, False, None),
+             "K5": (False, False, True, "f32")}  # (rotary, dadd, LayerNorm, residual)
+
+
+def _rows_close(out, ref, dtype, grad):
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert (out.float() - ref.float()).abs().max().item() <= _train_tol(dtype, ref.float(), grad)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("d", ROW_WIDTHS)
+def test_chain_top_kernels_match_plain(dev, dtype, rate, d):
+    from tcdiff_torch.ops import train_common as m
+
+    g = torch.Generator(device=dev).manual_seed(20)
+    b, l = 3, 37
+    z, x = _rnd(g, dev, b, l, d), _rnd(g, dev, b, l, d).to(dtype)
+    s, bias = 1 + _rnd(g, dev, d, std=0.1), _rnd(g, dev, d, std=0.1)
+    fs, fb = _rnd(g, dev, b, d, std=0.1), _rnd(g, dev, b, d, std=0.1)
+    seeds = torch.randint(0, 2**32, (b,), generator=g, device=dev, dtype=torch.int64)
+    before = (m.chain_top_fwd.launches, m.chain_top_bwd.launches)
+    out = m.chain_top_fwd(z, x, s, bias, fs, fb, seeds, rate=rate)
+    _rows_close(out, m.chain_top_fwd_plain(z, x, s, bias, fs, fb, seeds, rate=rate), dtype, False)
+    cot = _rnd(g, dev, b, l, d).to(dtype)
+    got = m.chain_top_bwd(cot, z, s, bias, fs, seeds, rate=rate)
+    again = m.chain_top_bwd(cot, z, s, bias, fs, seeds, rate=rate)
+    ref = m.chain_top_bwd_plain(cot, z, s, bias, fs, seeds, rate=rate)
+    torch.cuda.synchronize()
+    assert (m.chain_top_fwd.launches, m.chain_top_bwd.launches) == (before[0] + 1, before[1] + 2)
+    for i, (a, a2, r) in enumerate(zip(got, again, ref)):
+        assert torch.equal(a, a2), f"output {i} differs between two runs"
+        _rows_close(a, r, dtype, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", list(ROW_FORMS))
+@pytest.mark.parametrize("d", ROW_WIDTHS)
+def test_rows_bwd_kernel_matches_plain(dev, dtype, form, d):
+    from tcdiff_torch.ops import train_common as m
+
+    use_rot, use_dadd, use_ln, res = ROW_FORMS[form]
+    g = torch.Generator(device=dev).manual_seed(21)
+    b, l = 3, 37
+    dr = _rnd(g, dev, b, l, d)
+    x = (2.0 * _rnd(g, dev, b, l, d) + 0.5).to(dtype) if use_ln else None
+    s = 1 + _rnd(g, dev, d, std=0.1) if use_ln else None
+    kw = dict(angles=angle_table(l, d, dev) if use_rot else None, dadd=_rnd(g, dev, b, l, d) if use_dadd else None,
+              resid=None if res is None else _rnd(g, dev, b, l, d).to(dtype if res == "T" else torch.float32),
+              dtype=dtype)
+    before = m.rows_bwd.launches
+    got = m.rows_bwd(dr, x, s, 1e-5, **kw)
+    again = m.rows_bwd(dr, x, s, 1e-5, **kw)
+    ref = m.rows_bwd_plain(dr, x, s, 1e-5, **kw)
+    torch.cuda.synchronize()
+    assert m.rows_bwd.launches == before + 2
+    for i, (a, a2, r) in enumerate(zip(got, again, ref)):
+        assert (a is None) == (r is None), i
+        if r is not None:
+            assert torch.equal(a, a2), f"output {i} differs between two runs"
+            _rows_close(a, r, dtype, True)
+
+
+@pytest.mark.parametrize("b, lm", [(64, 152), (3, 37), (1, 1)])
+def test_gemm_nn_rot_kernel_matches_plain(dev, b, lm):
+    from tcdiff_torch.ops import gemm as m
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    bf16 = torch.bfloat16
+    dk, dv = _rnd(g, dev, b * lm, 512).to(bf16), _rnd(g, dev, b * lm, 512).to(bf16)
+    wk, wv = (_rnd(g, dev, 512, 512, std=512**-0.5).to(bf16) for _ in range(2))
+    angles = angle_table(lm, 512, dev)
+    before = m.gemm_nn_rot.launches
+    out = m.gemm_nn_rot(dk, wk, dv, wv, angles)
+    ref = m.gemm_nn_rot_plain(dk, wk, dv, wv, angles)
+    torch.cuda.synchronize()
+    assert m.gemm_nn_rot.launches == before + 1
+    assert out.dtype == bf16 and out.shape == ref.shape
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(bf16, ref.float())
+
+
+@pytest.mark.parametrize("d", [64, 96, 512, 1024])
+@pytest.mark.parametrize("l", [37, 450])
+def test_gemm_lnrot_kernel_is_ln_rows_then_gemm(dev, d, l):
+    """The prologue runs ln_rows' arithmetic in its order, and the K loop
+    the projection's: q is the same bits as ln_rows' rotated output fed to
+    gemm, and within tolerance of the plain version."""
+    from tcdiff_torch.ops import gemm as m
+    from tcdiff_torch.ops import layernorm
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    bf16 = torch.bfloat16
+    b = 8 if l == 450 else 3
+    x = (2.0 * _rnd(g, dev, b, l, d) + 0.5).to(bf16)
+    s, bias = 1 + _rnd(g, dev, d, std=0.1), _rnd(g, dev, d, std=0.1)
+    w = _rnd(g, dev, 512, d, std=d**-0.5).to(bf16)
+    angles = angle_table(l, d, dev)
+    before = m.gemm_lnrot.launches
+    q = m.gemm_lnrot(x, s, bias, angles, w, 1e-5)
+    r = layernorm.ln_rows(x, s, bias, 1e-5, angles=angles, normed=False)[1]
+    q2 = m.gemm(r.view(b * l, d), w).view(b, l, 512)
+    ref = m.gemm_lnrot_plain(x, s, bias, angles, w, 1e-5)
+    torch.cuda.synchronize()
+    assert m.gemm_lnrot.launches == before + 1
+    assert torch.equal(q, q2)
+    assert (q.float() - ref.float()).abs().max().item() <= _tol(bf16, ref.float())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 96, 1024])
+@pytest.mark.parametrize("film", [False, True])
+def test_ca_block_kernel_widths_match_plain(dev, dtype, d, film):
+    """K7 at the widths of the q prologue's other bodies: its general one
+    (96) and 64 rows a block (1024), with and without the FiLM rows."""
+    from tcdiff_torch.models.rotary import apply_rotary
+    from tcdiff_torch.ops import ca_block as m
+
+    g = torch.Generator(device=dev).manual_seed(24)
+    r = lambda *s, std=1.0: _rnd(g, dev, *s, std=std)
+    w = lambda o, i: r(o, i, std=i**-0.5).to(dtype)
+    ln = lambda: (1 + r(d, std=0.1), r(d, std=0.1))
+    mem = r(2, SLM, d).to(dtype)
+    args = (r(2, SL, d).to(dtype), *ln(), angle_table(SL, d, dev), mem, apply_rotary(mem, angle_table(SLM, d, dev)),
+            w(128, d), w(128, d), w(128, d), w(d, 128), *ln(),
+            *((r(2, d, std=0.1), r(2, d, std=0.1)) if film else (None, None)))
+    _check_serving(m.ca_block, m.ca_block_plain, args, dict(nhead=H), dtype)
+
+
+def test_ca_block_bf16_makes_four_launches(dev):
+    """K7 in bf16: k and v grouped, q with its LayerNorm prologue, the
+    attention, fc with its LayerNorm fold, and no other device kernel (the
+    wrapper's tables are cached and nothing is cast)."""
+    from tcdiff_torch.models.rotary import apply_rotary
+    from tcdiff_torch.ops import ca_block as m
+
+    g = torch.Generator(device=dev).manual_seed(25)
+    bf16 = torch.bfloat16
+    w = lambda o, i: _rnd(g, dev, o, i, std=i**-0.5).to(bf16)
+    mem = _rnd(g, dev, 2, SLM, D).to(bf16)
+    args = (_rnd(g, dev, 2, SL, D).to(bf16), 1 + _rnd(g, dev, D, std=0.1), _rnd(g, dev, D, std=0.1),
+            angle_table(SL, D, dev), mem, apply_rotary(mem, angle_table(SLM, D, dev)), w(128, D), w(128, D),
+            w(128, D), w(D, 128), 1 + _rnd(g, dev, D, std=0.1), _rnd(g, dev, D, std=0.1),
+            _rnd(g, dev, 2, D, std=0.1), _rnd(g, dev, 2, D, std=0.1))
+    m.ca_block(*args, nhead=H)  # the tables' first call builds them
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):  # the profiler drops an event now and then: a reading of 4 is the one to judge
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda._sleep(1000)  # a session's first event is the one it drops
+            m.ca_block(*args, nhead=H)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False) and "#" not in e.name
+                 and "spin_kernel" not in e.name]
+        if len(names) == 4:
+            break
+    assert len(names) == 4 and all("tcd::" in n for n in names), names
+
+
+def test_new_bodies_refuse_what_they_do_not_take(dev):
+    from tcdiff_torch.ops import gemm as m
+    from tcdiff_torch.ops import train_common as tc
+
+    bf16 = torch.bfloat16
+    x = torch.zeros(1, 8, 1152, device=dev, dtype=bf16)
+    v = torch.ones(1152, device=dev)
+    with pytest.raises(ValueError):  # d past what the prologue holds
+        m.gemm_lnrot(x, v, v, angle_table(8, 1152, dev), torch.zeros(64, 1152, device=dev, dtype=bf16))
+    with pytest.raises(TypeError):  # f32 keeps the unfused sequence
+        m.gemm_lnrot(x.float(), v, v, angle_table(8, 1152, dev), torch.zeros(64, 1152, device=dev))
+    a, w = torch.zeros(16, 64, device=dev, dtype=bf16), torch.zeros(64, 63, device=dev, dtype=bf16)
+    with pytest.raises(ValueError):  # an odd N: no rotary pairs
+        m.gemm_nn_rot(a, w, a, w, torch.zeros(8, 63, device=dev))
+    w = torch.zeros(64, 64, device=dev, dtype=bf16)
+    with pytest.raises(TypeError):
+        m.gemm_nn_rot(a.float(), w.float(), a.float(), w.float(), angle_table(8, 64, dev))
+    for d in (1026, 65):  # past ROW_MAX_D; odd
+        dr = torch.zeros(1, 4, d, device=dev)
+        with pytest.raises(ValueError):
+            tc.rows_bwd(dr, dr.to(bf16), torch.ones(d, device=dev))
