@@ -53,8 +53,8 @@ last line:
      products; then one bf16 K4 fwd+bwd call under torch.profiler, listed
      by device kernel (7 launches forward, 20 backward; no memory-side
      rows_bwd or rot_rows), the attention's share at rate 0.1 and 0 and its
-     kernels' registers (cuobjdump), and one bf16 K7 call (4 device
-     kernels, no PyTorch kernel);
+     kernels' registers (cuobjdump), and one bf16 K7 call with FiLM rows
+     (4 device kernels, no PyTorch kernel);
   7. serve 3 requests (batch 4 each: 3 dancers x 5 s of motion) through
      GaussianDiffusion.ddim_sample on a full-width bf16 DanceDecoder with
      seeded random weights, check the outputs and the kernels' launch
@@ -77,8 +77,9 @@ last line:
      section: K6; ff_tail off, with fuse_film and with ln_matmul: K2b; the
      k/v cache off with ca_block: K7): one bf16 ddim_sample request of
      batch 4 each with its launch counts, the layer_fuse request once more
-     under torch.profiler, and an f32 request through the kernels and the
-     plain versions on the same noise;
+     under torch.profiler, K7 with the operands the ca_block request gives
+     it (4 device kernels, no PyTorch kernel), and an f32 request through
+     the kernels and the plain versions on the same noise;
  11. train: 1 warm-up and 3 timed steps (loss, backward, Adan, EMA) of the
      full-width bf16 DanceDecoder at batch 64, dropout 0.1, on seeded
      synthetic motion and music; check a finite loss, finite parameters
@@ -234,16 +235,17 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if torch.is_tensor(t))
 
 
-def device_kernels(fn, accept=None):
+def device_kernels(fn, accept=None, attempts: int = 3):
     """Run fn() once under torch.profiler. Returns the wall seconds and the
     device kernels it ran, [(name without arguments, start us, end us)] in
     order of start. Now and then the profiler hands back no device events,
-    or misses one (both seen on the card): fn() then runs again, three
-    times at most, until `accept(kernels)` holds where given; the last
-    reading is returned either way, for the caller's check to judge."""
+    or misses some (both seen on the card, several sessions in a row):
+    fn() then runs again, `attempts` times at most, until
+    `accept(kernels)` holds where given; the last reading is returned
+    either way, for the caller's check to judge."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     last = None
-    for _ in range(3):
+    for _ in range(attempts):
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
             fn()
@@ -691,11 +693,32 @@ def serving_launches() -> dict:
     return {name: fn.launches for name, fn in {**SERVING_BLOCKS, **SERVING_OPS}.items()}
 
 
+def check_request_k7(model, request) -> None:
+    """K7 with the operands the ca_block configuration's request passes it:
+    layer 0's first call of one more request, recorded, then run alone
+    through check_k7_kernels."""
+    layer, calls = model.layers[0], []
+
+    def record(*args, **kw):
+        if not calls:
+            calls.append((args, kw))
+        return ca_block.ca_block(*args, **kw)
+
+    layer.ca_block_fn = record
+    try:
+        request()
+    finally:
+        layer.ca_block_fn = ca_block.ca_block
+    args, kw = calls[0]
+    check_k7_kernels(lambda: ca_block.ca_block(*args, **kw), "as the ca_block request calls it")
+
+
 def serve_block_configs(gen: torch.Generator, card: str) -> dict:
     """Phase 10: one bf16 ddim_sample request of batch 4 through each of
     BLOCK_CONFIGS on the full-width model (a warm-up request first), with
     its launch counts; the layer_fuse request once more under
-    torch.profiler; then one f32 request through the kernels and the plain
+    torch.profiler; K7 alone with the operands of the ca_block request
+    (check_request_k7); then one f32 request through the kernels and the plain
     versions on the same noise. Returns the launches of K6 (layer_fuse),
     K2b (ff_tail off) and K7 (ca_block, k/v cache off)."""
     cfg = DanceDecoderConfig(dancer_num=3)
@@ -730,6 +753,7 @@ def serve_block_configs(gen: torch.Generator, card: str) -> dict:
             launches["ff_block"] = counts["ff_block"]
         elif label == "ca_block, k/v cache off":
             launches["ca_block"] = counts["ca_block"]
+            check_request_k7(model, lambda: diff.ddim_sample(shape, cond, generator=gen, x_0=x_0))
 
         model.dtype = torch.float32
         out_k = diff.ddim_sample(shape, cond, x_0=x_0, noise=noise)
@@ -988,25 +1012,27 @@ def compare_new_bodies(gen: torch.Generator) -> dict:
     z, x, g, dr = rnd(b, L, D), rnd(b, L, D).to(bf16), rnd(b, L, D).to(bf16), rnd(b, L, D)
     angles = angle_table(L, D, dev)
     nch = -(-L // train_common.RCH)
-    part_bytes = lambda n: 4 * n * b * nch * D  # the chunk partials of n parameter gradients, written
+    part_bytes = lambda n: 4 * n * b * nch * D  # the f32 chunk partials of n parameter gradients, written
     tables = 2 * L * D * 2
-    cases = (  # (label, kernel name, the entry, its plain version, the bytes it must move)
+    cases = (  # (label, kernel name, the entry, its plain version, its inputs' bytes, the design's scratch bytes)
         ("chain_top_fwd", "chain_top_fwd_kernel",
          lambda: train_common.chain_top_fwd(z, x, s, bias, fs, fb, seeds, rate=RATE),
-         lambda: train_common.chain_top_fwd_plain(z, x, s, bias, fs, fb, seeds, rate=RATE), nbytes(z, x, x)),
+         lambda: train_common.chain_top_fwd_plain(z, x, s, bias, fs, fb, seeds, rate=RATE),
+         nbytes(z, x, s, bias, fs, fb, seeds), 0),
         ("chain_top_bwd", "chain_top_bwd_kernel",
          lambda: train_common.chain_top_bwd(g, z, s, bias, fs, seeds, rate=RATE),
          lambda: train_common.chain_top_bwd_plain(g, z, s, bias, fs, seeds, rate=RATE),
-         nbytes(g, z, g) + part_bytes(4)),
+         nbytes(g, z, s, bias, fs, seeds), part_bytes(4)),
         ("rows_bwd (x side)", "rows_bwd_kernel",
          lambda: train_common.rows_bwd(dr, x, s, 1e-5, angles=angles, resid=g),
          lambda: train_common.rows_bwd_plain(dr, x, s, 1e-5, angles=angles, resid=g),
-         nbytes(dr, x, g, x) + tables + part_bytes(2)),
+         nbytes(dr, x, s, g) + tables, part_bytes(2)),
     )
     figures = collections.defaultdict(dict)
-    for label, name, fn, plain, io in cases:
+    for label, name, fn, plain, in_bytes, scratch in cases:
         outs, refs = fn(), plain()
         outs, refs = (outs, refs) if isinstance(outs, tuple) else ((outs,), (refs,))
+        io = in_bytes + nbytes(*outs)  # each input read once, each output written once
         torch.cuda.synchronize()
         err = 0.0
         for o, r in zip(outs, refs):
@@ -1020,8 +1046,8 @@ def compare_new_bodies(gen: torch.Generator) -> dict:
         bnd = bound(0, io)
         print(f"train row kernel {label} {b * L}x{D} bf16 rate {RATE}: max_abs_err {err:.3e}; device {us:.1f} us "
               f"alone ({io / us / 1e3:.0f} GB/s, {1e3 * bnd['bound_ms'] / us:.3f} of the byte bound "
-              f"{1e3 * bnd['bound_ms']:.1f} us)")
-        figures["ca_block_train"][label] = dict(device_us=us, gb_s=io / us / 1e3,
+              f"{1e3 * bnd['bound_ms']:.1f} us; its chunk partials, outside the bound, {scratch / 1e6:.1f} MB more)")
+        figures["ca_block_train"][label] = dict(device_us=us, gb_s=io / us / 1e3, scratch_bytes=scratch,
                                                 bound_share=1e3 * bnd["bound_ms"] / us, max_abs_err=err, **bnd)
 
     # K4's memory cotangent and K7's q projection
@@ -1077,6 +1103,29 @@ def register_counts(lib: str, part: str) -> dict:
         if m and name and part in name:
             regs[name] = int(m.group(1))
     return regs
+
+
+def check_k7_kernels(fn, what: str) -> int:
+    """One bf16 K7 call fn() under torch.profiler: 4 device kernels, each a
+    hand-written one (the wrapper casts and builds nothing), q the
+    LayerNorm-prologue launch. Returns the count."""
+    fn()  # the tables' first call builds them
+    torch.cuda.synchronize()
+    # a pause and a spin kernel first: on the card the profiler drops the
+    # events at a session's start now and then (K7's first launch, three
+    # sessions in a row once; its first three, three sessions in a row).
+    # The spin kernel is at::cuda::(anonymous namespace)::spin_kernel,
+    # which device_kernels' names cut at its first parenthesis.
+    ours = lambda ks: [k for k in ks if k[0] != "at::cuda::"]
+    _, kernels = device_kernels(lambda: (time.sleep(0.01), torch.cuda._sleep(1_000_000), fn()),
+                                accept=lambda ks: len(ours(ks)) == 4, attempts=10)
+    kernels = ours(kernels)
+    print(f"K7 ca_block bf16 {what}: {len(kernels)} device kernels a call: "
+          + ", ".join(f"{n.replace('tcd::', '')} {e - s:.1f} us" for n, s, e in kernels))
+    check(len(kernels) == 4, f"K7 ({what}) ran {len(kernels)} device kernels, expected 4")
+    check(all("tcd::" in n for n, _, _ in kernels), f"K7's call ({what}) ran a PyTorch kernel")
+    check(sum("gemm_lnrot_kernel" in n for n, _, _ in kernels) == 1, "K7's q is not the LayerNorm-prologue launch")
+    return len(kernels)
 
 
 def profile_k4_k7(gen: torch.Generator) -> dict:
@@ -1142,20 +1191,8 @@ def profile_k4_k7(gen: torch.Generator) -> dict:
     args = (rnd(B, L, D).to(torch.bfloat16), 1.0 + rnd(D, std=0.1), rnd(D, std=0.1), angle_table(L, D, dev), mem,
             apply_rotary(mem, angle_table(LM, D, dev)), w(HD, D), w(HD, D), w(HD, D), w(D, HD),
             1.0 + rnd(D, std=0.1), rnd(D, std=0.1), rnd(B, D, std=0.1), rnd(B, D, std=0.1))
-    fn = lambda: ca_block.ca_block(*args, nhead=H)
-    fn()  # the tables' first call builds them
-    torch.cuda.synchronize()
-    # a spin kernel first: on the card the profiler drops a session's first
-    # event now and then (K7's first launch, three sessions in a row once)
-    ours = lambda ks: [k for k in ks if "spin_kernel" not in k[0]]
-    _, kernels = device_kernels(lambda: (torch.cuda._sleep(1000), fn()), accept=lambda ks: len(ours(ks)) == 4)
-    kernels = ours(kernels)
-    print(f"K7 ca_block bf16 film=True: {len(kernels)} device kernels a call: "
-          + ", ".join(f"{n.replace('tcd::', '')} {e - s:.1f} us" for n, s, e in kernels))
-    check(len(kernels) == 4, f"K7 ran {len(kernels)} device kernels, expected 4")
-    check(all("tcd::" in n for n, _, _ in kernels), "K7's call ran a PyTorch kernel")
-    check(sum("gemm_lnrot_kernel" in n for n, _, _ in kernels) == 1, "K7's q is not the LayerNorm-prologue launch")
-    return {"ca_block_train": figures, "ca_block": {"device_kernels_film": len(kernels)}}
+    n = check_k7_kernels(lambda: ca_block.ca_block(*args, nhead=H), "film=True, operands in the kernel's dtypes")
+    return {"ca_block_train": figures, "ca_block": {"device_kernels_film": n}}
 
 
 def check_output(out: torch.Tensor, x_0: torch.Tensor, shape) -> None:

@@ -23,13 +23,14 @@
 // (gemm_mma.cuh) takes the memory's k and v over its B * Lm rows into T
 // (the TPU kernel rounds each head's k and v to the compute dtype); q =
 // T(rot(LN(x))).Wq in one launch with the LayerNorm and the rotary in its
-// prologue (gemm_lnrot: a block stages its rows of x whole in shared
-// memory, so rot(LN(x)) never goes to device memory); the flash attention
-// of attention.cuh with Lq != Lk (as K11 runs it); the fc GEMM with the
-// post-LN and the FiLM residual in its epilogue (gemm_ln: a cluster along
-// N holds whole rows). f32, 6 launches, keeps the unfused sequence: the
-// LN + rotary row kernel into r, q, the attention, fc into an f32 scratch
-// and a row kernel. The projections and the attention run on the tensor
+// prologue (gemm_lnrot: the blocks of a row tile along N run as one
+// cluster, each normalising a share of the tile's rows into every block's
+// shared memory, so rot(LN(x)) never goes to device memory); the flash
+// attention of attention.cuh with Lq != Lk (as K11 runs it); the fc GEMM
+// with the post-LN and the FiLM residual in its epilogue (gemm_ln: a
+// cluster along N holds whole rows). f32, 6 launches, keeps the unfused
+// sequence: the LN + rotary row kernel into r, q, the attention, fc into
+// an f32 scratch and a row kernel. The projections and the attention run on the tensor
 // cores in bf16, on the FMA units in f32. K6 (layer.cu) runs the same
 // attention and fc steps against the cached k/v.
 #include "blocks.cuh"

@@ -636,23 +636,8 @@ inline void gemm_ln(const bf16* A, const bf16* W, int M, int N, int K, const LnF
   p.a[0] = A;
   p.w[0] = W;
   const bool vec = K % 8 == 0 && al16(A) && al16(W);
-  const int bytes = mma_smem<false, false>();
-  auto kernel = gemm_ln_kernel<LNE, LN2>;
-  allow_smem(reinterpret_cast<const void*>(kernel), bytes);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ntn, cdiv(M, PBM), 1);
-  cfg.blockDim = dim3(PT, 1, 1);
-  cfg.dynamicSmemBytes = bytes;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = ntn;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, p, f, M, N, K, vec);
-  if (e != cudaSuccess) refuse(e);
+  launch_mma_cluster(gemm_ln_kernel<LNE, LN2>, dim3(ntn, cdiv(M, PBM)), ntn, PT, mma_smem<false, false>(), st, p, f,
+                     M, N, K, vec);
 }
 
 // C[M, N] = sum_{j < J} A[j] . B[j], A[j] (M, K) and B[j] (K, N) row-major
@@ -861,25 +846,30 @@ inline void gemm_nn_rot(const T* A0, const T* B0, const T* A1, const T* B1, cons
 // w_plain=None (_kernel_rot_only).
 //
 // A block of PT threads owns BM = 32 MI rows (128 at d <= 512, 64 at
-// d <= 1024) by PBN columns of q, each warp 16 MI rows by 32 columns:
+// d <= 1024) by PBN columns of q, each warp 16 MI rows by 32 columns. The
+// cdiv(N, PBN) <= LN_CLUSTER blocks of a row tile run as one cluster along
+// N (4 at N = 512, so the grid of 29 x 4 blocks at M = 3600 stays), and
+// each normalises 1 / cs of the tile's rows:
 //   1. cp.async: the ring's first PSTAGES - 1 K steps of W, so that those
 //      loads run under 2;
 //   2. one warp a row, ln_rows' arithmetic (ln_add, ln_stat, ln_y,
-//      rot_pair of common.cuh) in its chunk and shuffle order, the rounded
-//      T(rot(LN)) written to the block's resident tile of BM rows of d in
-//      shared memory. The templated body reads each row and its tables
-//      from device memory three rows ahead, so that a warp's rows start
-//      while the later ones are in flight (staging the whole tile first
-//      made every warp wait for all of it); the general body stages x (d
-//      padded to the K step with zeros) and works in place;
-//   3. the K loop of mma_loop, A's fragments from the resident tile, W's
-//      through the ring;
+//      rot_pair of common.cuh) in its chunk and shuffle order, on the rows
+//      r = rank + cs j of the tile; the rounded T(rot(LN)) goes to the
+//      resident tile (BM rows of d) of every block of the cluster, through
+//      distributed shared memory. The templated body reads each row and
+//      its tables from device memory rows ahead, so that a warp's rows
+//      start while the later ones are in flight; the general body
+//      stages its rows of x (d padded to the K step with zeros), works in
+//      place and then copies each row to the peers;
+//   3. cluster.sync(): every tile is whole; the K loop of mma_loop, A's
+//      fragments from the resident tile, W's through the ring;
 //   4. T(acc) stored in pairs.
 // With the same A values and K order as ln_rows + gemm, q is the same
-// bits. The d / 128 column blocks of a row tile each redo its LayerNorm:
-// the price of keeping r out of device memory. BM x (d + 8) of x and the
-// ring take ~184 KB (one block an SM): at the serving shape (M = 3600, N =
-// 512) the grid of 29 x 4 blocks runs one a SM anyway.
+// bits. Each row is normalised once, by one block of its cluster: a
+// block that normalised the whole tile alone would spend 4x the prologue
+// at N = 512, more than ln_rows' launch costs. BM x (d + 8) of x and the
+// ring take ~184 KB (one block an SM), which the grid's single wave
+// affords.
 constexpr int LNROT_MAX_D = 1024;
 
 __host__ __device__ constexpr int lnrot_kp(int d) { return (d + PBK - 1) / PBK * PBK; }  // d padded to the K step
@@ -902,15 +892,21 @@ gemm_lnrot_kernel(const bf16* __restrict__ x, const float* __restrict__ scale, c
   bf16* ring = xs + BM * LDX;
   const int n0 = blockIdx.x * PBN, m0 = blockIdx.y * BM;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the cluster's cs blocks share the tile's rows: this block's are
+  // r = rank + cs j, a warp's r = rank + cs warp + RS i
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank(), RS = cs * (PT / 32);
+  cluster_arrive_relaxed();  // this block has started: its peers may write its tile (cluster_wait below)
 
   // 1. the ring's first steps, in flight under the prologue; the general
-  // body also stages x's rows whole (d padded to the K step with zeros)
+  // body also stages its rows of x whole (d padded to the K step with zeros)
   auto load = [&](int kt) {
     load_tile<PBN, PBK, PT>(ring + (kt % PSTAGES) * BSTAGE, W + kt * PBK, d, n0, N, d - kt * PBK, wvec);
   };
   if constexpr (EPL == 0) {
-    for (int idx = threadIdx.x; idx < BM * (KP / 8); idx += PT) {
-      const int r = idx / (KP / 8), c = (idx % (KP / 8)) * 8, m = m0 + r;
+    const int cpr = KP / 8;  // 16-byte pieces a row
+    for (int idx = threadIdx.x; idx < (BM - rank + cs - 1) / cs * cpr; idx += PT) {
+      const int r = rank + cs * (idx / cpr), c = (idx % cpr) * 8, m = m0 + r;
       bf16* dst = xs + r * LDX + c;
       if (xvec) {
         const bool ok = m < M && c < d;
@@ -942,8 +938,10 @@ gemm_lnrot_kernel(const bf16* __restrict__ x, const float* __restrict__ scale, c
       ld_vec<VW>(bias + (c * 32 + lane) * VW, bi[c]);
     }
     // a row and its tables as raw bf16 words, PF rows ahead of the one
-    // being normalised (slot i: row r + 8 i); widened as ld_vec widens
-    constexpr int NW = VW / 2, PF = 3;
+    // being normalised (slot i: row r + RS i); widened as ld_vec widens.
+    // At d = 1024 three rows of words spill (BM = 64 there, so a warp of a
+    // cluster of 4 has 2 rows): one row ahead.
+    constexpr int NW = VW / 2, PF = EPL >= 32 ? 1 : 3;
     uint32_t px[PF][NC][NW], pc[PF][NC][NW], ps[PF][NC][NW];
     auto load_row = [&](int m, uint32_t (&wx)[NC][NW], uint32_t (&wc)[NC][NW], uint32_t (&ws)[NC][NW]) {
       const size_t tr = (size_t)(m % L) * d;
@@ -958,16 +956,18 @@ gemm_lnrot_kernel(const bf16* __restrict__ x, const float* __restrict__ scale, c
     auto widen = [](uint32_t w, int hi) { return __uint_as_float(hi ? w & 0xffff0000u : w << 16); };
 #pragma unroll
     for (int i = 0; i < PF; ++i) {
-      const int r = warp + PT / 32 * i;
+      const int r = rank + cs * warp + RS * i;
       if (r < BM && m0 + r < M) load_row(m0 + r, px[i], pc[i], ps[i]);
     }
-    for (int r = warp; r < BM; r += PT / 32) {
+    cluster_wait();  // every peer has started
+    for (int r = rank + cs * warp; r < BM; r += RS) {
       const int m = m0 + r;
       bf16* row = xs + r * LDX;
       if (m >= M) {
         const float zero[VW] = {};
+        for (int q = 0; q < cs; ++q)
 #pragma unroll
-        for (int c = 0; c < NC; ++c) st_vec<VW>(row + (c * 32 + lane) * VW, zero);
+          for (int c = 0; c < NC; ++c) st_vec<VW>(cluster.map_shared_rank(row, q) + (c * 32 + lane) * VW, zero);
         continue;
       }
       uint32_t cx[NC][NW], cc[NC][NW], cn[NC][NW];
@@ -985,8 +985,7 @@ gemm_lnrot_kernel(const bf16* __restrict__ x, const float* __restrict__ scale, c
             ps[i][c][k] = ps[i + 1][c][k];
           }
         }
-      if (r + PT / 32 * PF < BM && m + PT / 32 * PF < M)
-        load_row(m + PT / 32 * PF, px[PF - 1], pc[PF - 1], ps[PF - 1]);
+      if (r + RS * PF < BM && m + RS * PF < M) load_row(m + RS * PF, px[PF - 1], pc[PF - 1], ps[PF - 1]);
       float v[NC][VW];
       float s = 0.f, ss = 0.f;
 #pragma unroll
@@ -1006,33 +1005,40 @@ gemm_lnrot_kernel(const bf16* __restrict__ x, const float* __restrict__ scale, c
         for (int e = 0; e < VW; e += 2)
           rot_pair(y[e], y[e + 1], widen(cc[c][e / 2], 0), widen(cc[c][e / 2], 1), widen(cn[c][e / 2], 0),
                    widen(cn[c][e / 2], 1), o[e], o[e + 1]);
-        st_vec<VW>(row + (c * 32 + lane) * VW, o);
+        for (int q = 0; q < cs; ++q) st_vec<VW>(cluster.map_shared_rank(row, q) + (c * 32 + lane) * VW, o);
       }
     }
   } else {
     cp_async_wait<PSTAGES - 1>();  // x has landed
     __syncthreads();
-    for (int r = warp; r < BM; r += PT / 32) {
+    cluster_wait();  // every peer has started
+    for (int r = rank + cs * warp; r < BM; r += RS) {
       const int m = m0 + r;
-      if (m >= M) break;
       bf16* row = xs + r * LDX;
-      float s = 0.f, ss = 0.f;
-      for (int c = lane; c < d; c += 32) ln_add(__bfloat162float(row[c]), s, ss);
-      const LnStat st = ln_stat(s, ss, d, eps);
-      const size_t tr = (size_t)(m % L) * d;
-      for (int q = lane; q < d / 2; q += 32) {
-        const int c0 = 2 * q, c1 = c0 + 1;
-        const float y0 = ln_y(__bfloat162float(row[c0]), st, scale[c0], bias[c0]);
-        const float y1 = ln_y(__bfloat162float(row[c1]), st, scale[c1], bias[c1]);
-        float r0, r1;
-        rot_pair(y0, y1, __bfloat162float(cos_t[tr + c0]), __bfloat162float(cos_t[tr + c1]),
-                 __bfloat162float(ssin_t[tr + c0]), __bfloat162float(ssin_t[tr + c1]), r0, r1);
-        row[c0] = __float2bfloat16(r0);
-        row[c1] = __float2bfloat16(r1);
+      if (m < M) {
+        float s = 0.f, ss = 0.f;
+        for (int c = lane; c < d; c += 32) ln_add(__bfloat162float(row[c]), s, ss);
+        const LnStat st = ln_stat(s, ss, d, eps);
+        const size_t tr = (size_t)(m % L) * d;
+        for (int q = lane; q < d / 2; q += 32) {
+          const int c0 = 2 * q, c1 = c0 + 1;
+          const float y0 = ln_y(__bfloat162float(row[c0]), st, scale[c0], bias[c0]);
+          const float y1 = ln_y(__bfloat162float(row[c1]), st, scale[c1], bias[c1]);
+          float r0, r1;
+          rot_pair(y0, y1, __bfloat162float(cos_t[tr + c0]), __bfloat162float(cos_t[tr + c1]),
+                   __bfloat162float(ssin_t[tr + c0]), __bfloat162float(ssin_t[tr + c1]), r0, r1);
+          row[c0] = __float2bfloat16(r0);
+          row[c1] = __float2bfloat16(r1);
+        }
+      }
+      __syncwarp();  // the row (zeros past M) to the peers' tiles, in 16-byte pieces
+      for (int q = 1; q < cs; ++q) {
+        uint4* dst = reinterpret_cast<uint4*>(cluster.map_shared_rank(row, (rank + q) % cs));
+        for (int c = lane; c < KP / 8; c += 32) dst[c] = reinterpret_cast<const uint4*>(row)[c];
       }
     }
   }
-  __syncthreads();  // the block's A is in place
+  cluster.sync();  // every block's A is in place
 
   // 3. the K loop: A from the resident tile, W through the ring
   const int wm = (warp / PWN) * 16 * MI, wn = (warp % PWN) * 32;
@@ -1083,9 +1089,10 @@ gemm_lnrot_kernel(const bf16* __restrict__ x, const float* __restrict__ scale, c
     }
 }
 
-// out (M, N) = T(rot(LN(x; eps))) . W^T, one launch (above); refused
-// (launch_status) for an odd d or N, d > LNROT_MAX_D, or an output not
-// 4-byte aligned, as a LayerNorm fold is. The LayerNorm's order is
+// out (M, N) = T(rot(LN(x; eps))) . W^T, one cluster launch (above);
+// refused (launch_status) for an odd d or N, d > LNROT_MAX_D, N above
+// LN_CLUSTER * PBN, or an output not 4-byte aligned, as a LayerNorm fold
+// is. The LayerNorm's order is
 // ln_rows': its templated body where d is 64 .. 1024 and the affine and
 // the tables are 16-byte aligned, else its general one. T: bf16 (a
 // template, so that only the sources that launch it compile its kernels).
@@ -1093,14 +1100,15 @@ template <typename T>
 inline void gemm_lnrot(const T* x, const float* scale, const float* bias, float eps, const T* cos_t, const T* ssin_t,
                        int L, const T* W, int M, int N, int d, T* out, cudaStream_t st) {
   static_assert(std::is_same<T, bf16>::value, "f32 keeps the unfused sequence");
-  if (d % 2 || N % 2 || d > LNROT_MAX_D || !aligned(out, 4)) return refuse();
+  const int ntn = cdiv(N, PBN);
+  if (d % 2 || N % 2 || d > LNROT_MAX_D || ntn > LN_CLUSTER || !aligned(out, 4)) return refuse();
   const bool xvec = d % 8 == 0 && al16(x), wvec = d % 8 == 0 && al16(W);
   const bool tvec = xvec && aligned(scale, 16) && aligned(bias, 16) && aligned(cos_t, 16) && aligned(ssin_t, 16);
   const int mi = lnrot_kp(d) <= 512 ? 4 : 2, bytes = lnrot_smem(d, mi);
 #define TCD_LNROT(MI, EPL)                                                                                      \
   do {                                                                                                         \
-    launch_mma(gemm_lnrot_kernel<MI, EPL>, dim3(cdiv(N, PBN), cdiv(M, 32 * MI)), PT, bytes, st, x, scale, bias, \
-               eps, cos_t, ssin_t, L, W, M, N, d, xvec, wvec, out);                                             \
+    launch_mma_cluster(gemm_lnrot_kernel<MI, EPL>, dim3(ntn, cdiv(M, 32 * MI)), ntn, PT, bytes, st, x, scale,  \
+                       bias, eps, cos_t, ssin_t, L, W, M, N, d, xvec, wvec, out);                              \
     return;                                                                                                    \
   } while (0)
   switch (tvec ? d : 0) {

@@ -184,4 +184,34 @@ inline void launch_mma(Kernel kernel, dim3 grid, int threads, int bytes, cudaStr
   kernel<<<grid, threads, bytes, st>>>(args...);
 }
 
+// launch_mma in clusters of cx blocks along x; a launch the card refuses
+// (a cluster that does not fit) is refused as a failed one is.
+template <typename... KArgs, typename... Args>
+inline void launch_mma_cluster(void (*kernel)(KArgs...), dim3 grid, int cx, int threads, int bytes, cudaStream_t st,
+                               Args... args) {
+  allow_smem(reinterpret_cast<const void*>(kernel), bytes);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cx;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, static_cast<KArgs>(args)...);
+  if (e != cudaSuccess) refuse(e);
+}
+
+// The cluster barrier in two halves: arrive (relaxed: it orders no
+// memory) as soon as a block has started, wait where its peers' shared
+// memory is about to be written.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory"); }
+
 }  // namespace tcd

@@ -17,7 +17,7 @@ TPU kernel rounds them. `ca_block` runs the hand-written CUDA kernel
 (`csrc/ca_block.cu`: 4 launches in bf16, the LayerNorm and the rotary of
 the q side in the q projection's prologue and the post-LN in fc's
 epilogue; 6 in f32) for a CUDA x and `ca_block_plain` for a CPU x; in bf16
-d is at most 1024.
+d and h*dk are at most 1024.
 
 `cross_plain` is the query side against projected k/v, which the
 whole-layer kernel's plain version (`ops/layer.py`) shares.
@@ -78,7 +78,7 @@ def _ca_block_cuda(x, s1, b1, angles, memory, memory_rot, wq, wk, wv, wfc, s2, b
     dk = hd // nhead
     if d % 2 or hd % nhead or dk > 64 or dk % 4:
         raise ValueError(f"unsupported widths d={d}, h*dk={hd}, nhead={nhead}")
-    check_ln_fold(d, x.dtype)
+    check_ln_fold(max(d, hd), x.dtype)  # fc's fold holds rows of d, q's cluster rows of hd
     film = film_scale is not None
     if film != (film_shift is not None):
         raise ValueError("give both film rows or neither")

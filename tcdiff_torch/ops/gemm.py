@@ -330,6 +330,7 @@ def gemm_lnrot(x, scale, bias, angles, w, eps: float = 1e-5):
     if d % 2 or N % 2:
         raise ValueError(f"d={d} and N={N} must be even")
     check_ln_fold(d, x.dtype)  # a block holds its rows whole: as many as a LayerNorm fold
+    check_ln_fold(N, x.dtype)  # a cluster holds a row tile's N columns, as a fold's does
     for name, t, shape in (("scale", scale, (d,)), ("bias", bias, (d,)), ("angles", angles, (L, d)),
                            ("w", w, (N, d))):
         if tuple(t.shape) != shape:

@@ -861,10 +861,12 @@ def test_gemm_nn_rot_kernel_matches_plain(dev, b, lm):
 
 @pytest.mark.parametrize("d", [64, 96, 512, 1024])
 @pytest.mark.parametrize("l", [37, 450])
-def test_gemm_lnrot_kernel_is_ln_rows_then_gemm(dev, d, l):
+@pytest.mark.parametrize("n", [512, 320])
+def test_gemm_lnrot_kernel_is_ln_rows_then_gemm(dev, d, l, n):
     """The prologue runs ln_rows' arithmetic in its order, and the K loop
     the projection's: q is the same bits as ln_rows' rotated output fed to
-    gemm, and within tolerance of the plain version."""
+    gemm, and within tolerance of the plain version, with clusters of 4
+    and 3 blocks sharing the rows (N = 512, 320)."""
     from tcdiff_torch.ops import gemm as m
     from tcdiff_torch.ops import layernorm
 
@@ -873,12 +875,12 @@ def test_gemm_lnrot_kernel_is_ln_rows_then_gemm(dev, d, l):
     b = 8 if l == 450 else 3
     x = (2.0 * _rnd(g, dev, b, l, d) + 0.5).to(bf16)
     s, bias = 1 + _rnd(g, dev, d, std=0.1), _rnd(g, dev, d, std=0.1)
-    w = _rnd(g, dev, 512, d, std=d**-0.5).to(bf16)
+    w = _rnd(g, dev, n, d, std=d**-0.5).to(bf16)
     angles = angle_table(l, d, dev)
     before = m.gemm_lnrot.launches
     q = m.gemm_lnrot(x, s, bias, angles, w, 1e-5)
     r = layernorm.ln_rows(x, s, bias, 1e-5, angles=angles, normed=False)[1]
-    q2 = m.gemm(r.view(b * l, d), w).view(b, l, 512)
+    q2 = m.gemm(r.view(b * l, d), w).view(b, l, n)
     ref = m.gemm_lnrot_plain(x, s, bias, angles, w, 1e-5)
     torch.cuda.synchronize()
     assert m.gemm_lnrot.launches == before + 1
@@ -948,6 +950,9 @@ def test_new_bodies_refuse_what_they_do_not_take(dev):
         m.gemm_lnrot(x, v, v, angle_table(8, 1152, dev), torch.zeros(64, 1152, device=dev, dtype=bf16))
     with pytest.raises(TypeError):  # f32 keeps the unfused sequence
         m.gemm_lnrot(x.float(), v, v, angle_table(8, 1152, dev), torch.zeros(64, 1152, device=dev))
+    x, v = torch.zeros(1, 8, 64, device=dev, dtype=bf16), torch.ones(64, device=dev)
+    with pytest.raises(ValueError):  # N past a cluster of LN_CLUSTER blocks
+        m.gemm_lnrot(x, v, v, angle_table(8, 64, dev), torch.zeros(1152, 64, device=dev, dtype=bf16))
     a, w = torch.zeros(16, 64, device=dev, dtype=bf16), torch.zeros(64, 63, device=dev, dtype=bf16)
     with pytest.raises(ValueError):  # an odd N: no rotary pairs
         m.gemm_nn_rot(a, w, a, w, torch.zeros(8, 63, device=dev))

@@ -13,9 +13,11 @@ call's kernels by name (torch.profiler, chip_smoke.device_kernels), in
 launch order for the row kernels (chain_top_*, rows_bwd_*) and summed for
 the attention's (attn_*). K4 also at dropout 0, for the attention's share.
 Seeded random inputs; FiLM rows and LayerNorm affines in f32, weights in
-bf16, so no wrapper casts. Prints one JSON line, with the card's name and
-power limit. To compare with another tree, copy this file into it
-(`git archive` of the parent) and run the two in turns.
+bf16, so no wrapper casts. Then K7's q side alone: the LayerNorm-prologue
+launch (gemm_lnrot) and the row kernel and product it replaced (ln_rows +
+gemm), each kernel's median device us. Prints one JSON line, with the
+card's name and power limit. To compare with another tree, copy this
+file into it (`git archive` of the parent) and run the two in turns.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 from chip_smoke import B, D, FF, H, HD, L, LM, TRAIN_BATCH  # noqa: E402
 from tcdiff_torch.models.rotary import angle_table, apply_rotary  # noqa: E402
-from tcdiff_torch.ops import ca_block, ca_block_train, ff_block_train, sa_block_train  # noqa: E402
+from tcdiff_torch.ops import ca_block, ca_block_train, ff_block_train, gemm, layernorm, sa_block_train  # noqa: E402
 
 ROWS = ("chain_top_fwd", "chain_top_bwd", "rows_bwd", "rot_rows", "ff_tail_bwd_rows", "gelu_bwd_rows")
 
@@ -103,6 +105,18 @@ def main() -> int:
     for label, args in (("K7", k7 + (None, None)), ("K7 film", k7 + film(B))):
         fn = lambda args=args: ca_block.ca_block(*args, nhead=H)
         res[label] = dict(device_ms=chip_smoke.device_ms(fn, reps=20), **profile(fn))
+
+    # K7's q side alone: the prologue launch, and the row kernel and the
+    # product it replaced (ln_rows + gemm, the same bits), each kernel's
+    # median us (ln_rows' wrapper also builds its tables: not counted)
+    x, s1, b1, ang, wq = k7[0], k7[1], k7[2], k7[3], k7[6]
+    if not hasattr(gemm, "gemm_lnrot"):  # a tree from before the prologue
+        print(json.dumps({"card": chip_smoke.card_line(), "bf16": res}))
+        return 0
+    unfused = lambda: gemm.gemm(layernorm.ln_rows(x, s1, b1, 1e-5, angles=ang, normed=False)[1].view(B * L, D), wq)
+    res["K7 q"] = dict(prologue_us=chip_smoke.kernel_us(lambda: gemm.gemm_lnrot(x, s1, b1, ang, wq), "gemm_lnrot"),
+                       ln_rows_us=chip_smoke.kernel_us(unfused, "ln_rows_kernel"),
+                       gemm_us=chip_smoke.kernel_us(unfused, "gemm_mma_kernel"))
     print(json.dumps({"card": chip_smoke.card_line(), "bf16": res}))
     return 0
 
