@@ -17,7 +17,13 @@ last line:
      point (ops/gemm.py), bf16: q/k/v grouped 3600x1536x512, fc
      3600x512x512, W1 3600x1024x512, W2 3600x512x1024, W3 3600x512x512,
      each held against its plain version, its device time and TFLOP/s
-     beside its bound and torch.matmul's time (a yardstick only);
+     beside its bound and torch.matmul's time (a yardstick only); then the
+     wgmma + TMA body (ops/gemm.gemm_wg) at K8's and K2b's products: K8's
+     q||k||v (3 x 3600x512x512 in one launch) and 3600x512x512, K2b's W1
+     3600x1024x512 (bias+GELU) and W2 3600x512x1024 (bias), each against
+     its plain version, its device time and TFLOP/s beside its bound,
+     mma.sync's and torch.matmul's time, its grid and waves, and the plans
+     at N = 512, 1024 and 1536;
   4. the same for the per-op kernels K8 (both forms), K9, K10 and K11
      (450x450 self-attention with and without TRPE, 450x152
      cross-attention, the cond encoder's 150x150), with the one PyTorch
@@ -31,6 +37,13 @@ last line:
      bf16 device time, and one call under torch.profiler: 10 device
      kernels with the FF section (7 without), one LayerNorm row kernel,
      the folds of the LayerNorms into the fc and W2 epilogues by name;
+     then K8 (weights apart and joined, the rot-only form) and K2b (with and
+     without FiLM) alone in bf16, in the default design (the row kernel,
+     then the products on the wgmma body) and with the LayerNorm in the
+     first product's prologue: each against its plain version, its device
+     time, one call's device kernels by name (K8: 2 or 1, K2b: 3 or 2, no
+     mma.sync and no PyTorch kernel), each prologue against ln_rows + the
+     same wgmma product, and the host us a call spends on tensor maps;
   6. hold each train kernel (K3, K4, K5) against its plain version at the
      main path's train shapes (b=64, L=450, Lm=152, d=512), in bf16 and
      f32, dropout 0.1 with the same seeds: the output and every gradient
@@ -65,7 +78,8 @@ last line:
      bf16 CFG denoiser forward against the plain versions;
   8. the per-op serving configuration (ServingKernels.per_op: K8-K11 on,
      K1/K2 off): one long_ddim_sample request over 4 slices of one song
-     after a warm-up, with the launch counts of K8-K11; then f32 requests
+     after a warm-up, with the launch counts of K8-K11 and the count of
+     K8's products on each body (all on wgmma); then f32 requests
      through the kernels and the plain versions on the same noise: one with
      a trj_dist (K11's TRPE form), one with the k/v cache off (K8's
      rot-only form);
@@ -76,7 +90,8 @@ last line:
  10. the block kernels' configurations (layer_fuse with and without its FF
      section: K6; ff_tail off, with fuse_film and with ln_matmul: K2b; the
      k/v cache off with ca_block: K7): one bf16 ddim_sample request of
-     batch 4 each with its launch counts, the layer_fuse request once more
+     batch 4 each with its launch counts (K2b's products counted by body:
+     all on wgmma), the layer_fuse and ff_tail-off requests once more
      under torch.profiler, K7 with the operands the ca_block request gives
      it (4 device kernels, no PyTorch kernel), and an f32 request through
      the kernels and the plain versions on the same noise;
@@ -449,6 +464,175 @@ def compare_gemms(gen: torch.Generator) -> dict:
     return figures
 
 
+def compare_wgmma(gen: torch.Generator) -> dict:
+    """Phase 3c: the wgmma + TMA body (ops/gemm.gemm_wg, csrc/gemm_wgmma.cuh)
+    at K8's and K2b's product shapes (M = b L = 3600, d=512, ff=1024), bf16:
+    K8's q||k||v (three products of N=512 in one launch, each with its own A)
+    and one product of 3600x512x512, K2b's W1 (3600x1024x512, bias+GELU) and
+    W2 (3600x512x1024, bias). Each held against its plain version; its device
+    time (calls queued back to back) and TFLOP/s beside its bound,
+    mma.sync's (ops/gemm.gemm, the body it replaces on this path) and
+    torch.matmul's (a yardstick only), and the grid and waves of its plan.
+    Returns {kernel: {product: figures}}."""
+    dev, M = "cuda", B * L
+    bf16 = torch.bfloat16
+    rnd = lambda *shape, std=1.0: torch.randn(shape, generator=gen, device=dev) * std
+    w = lambda o, i: rnd(o, i, std=i**-0.5).to(bf16)
+    r, y, h = rnd(M, D).to(bf16), rnd(M, D).to(bf16), rnd(M, FF).to(bf16)
+    wq, wk, wv, w1, w2 = w(HD, D), w(HD, D), w(HD, D), w(FF, D), w(D, FF)
+    b1, b2 = rnd(FF, std=0.1), rnd(D, std=0.1)
+    rry, wqkv = torch.stack((r, r, y)), torch.stack((wq, wk, wv)).transpose(1, 2)  # the library's operands
+    bf = 2
+    # (kernel, product, gemm_wg's args, mma.sync's, N, K, bytes of the inputs, the library's call)
+    cases = (
+        ("ln_rotary_matmul", "q||k||v grouped", ([r, r, y], [wq, wk, wv]), ([r, r, y], [wq, wk, wv]), 3 * HD, D,
+         nbytes(r, y, wq, wk, wv), lambda: torch.matmul(rry, wqkv)),
+        ("ln_rotary_matmul", "q alone", (r, wq), (r, wq), HD, D, nbytes(r, wq), lambda: torch.matmul(r, wq.t())),
+        ("ff_block", "W1 bias+GELU", (y, w1, "bias_gelu", b1), (y, w1, "bias_gelu", b1), FF, D, nbytes(y, w1, b1),
+         lambda: torch.matmul(y, w1.t())),
+        ("ff_block", "W2 bias", (h, w2, "bias", b2), (h, w2, "bias", b2), D, FF, nbytes(h, w2, b2),
+         lambda: torch.matmul(h, w2.t())),
+    )
+    figures = collections.defaultdict(dict)
+    for kernel, label, args, mma_args, N, K, in_bytes, library in cases:
+        out, ref = gemm.gemm_wg(*args), gemm.gemm_plain(*args)
+        torch.cuda.synchronize()
+        outs, refs = (out, ref) if isinstance(out, list) else ([out], [ref])
+        err = max((a.float() - b.float()).abs().max().item() for a, b in zip(outs, refs))
+        tol = min(tolerance(bf16, b.float()) for b in refs)
+        check(all(torch.isfinite(a).all().item() for a in outs), f"wgmma {label} output not finite")
+        check(err <= tol, f"wgmma {label} disagrees: {err} > {tol}")
+        flops = 2 * M * N * K
+        ms, mma_ms, lib_ms = device_ms(lambda: gemm.gemm_wg(*args)), device_ms(lambda: gemm.gemm(*mma_args)), \
+            device_ms(library)
+        b = bound(flops, in_bytes + M * N * bf)
+        ns = [a.shape[0] for a in args[1]] if isinstance(args[1], list) else [N]
+        plan = gemm.gemm_plan(M, ns, K)
+        print(f"wgmma {label} {M}x{N}x{K} bf16: max_abs_err {err:.3e} (tol {tol:.3e}) {1e3 * ms:.1f} us "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), bound {1e3 * b['bound_ms']:.1f} us ({b['bound_by']}); mma.sync "
+              f"{1e3 * mma_ms:.1f} us ({flops / mma_ms / 1e9:.1f}), torch.matmul {1e3 * lib_ms:.1f} us "
+              f"({flops / lib_ms / 1e9:.1f}); {plan['tile'][0]}x{plan['tile'][1]} tiles, grid {plan['grid']}, "
+              f"{plan['blocks']} blocks, {plan['waves']:.2f} waves")
+        figures[kernel][label] = dict(shape=[M, N, K], max_abs_err=err, ms=ms, tflops=flops / ms / 1e9,
+                                      mma_ms=mma_ms, library_ms=lib_ms, grid=list(plan["grid"]),
+                                      waves=plan["waves"], **b)
+    for n in (512, 1024, 1536):
+        plan = gemm.gemm_plan(M, [n], D)
+        print(f"wgmma plan at M={M}, N={n}, K={D}: {plan['tile'][0]}x{plan['tile'][1]} tiles, grid {plan['grid']}, "
+              f"{plan['blocks']} blocks, {plan['waves']:.2f} waves of 132 SMs")
+    return figures
+
+
+def check_one_call(fn, want: int, what: str, wg: int, rows: int) -> list:
+    """One bf16 call fn() under torch.profiler (a pause and a spin first,
+    read again up to 10 times while the profiler drops an event): exactly
+    `want` device kernels, `wg` of them the wgmma body, `rows` row kernels,
+    none of them gemm_mma_kernel or a PyTorch kernel. Returns [(kernel, us)]."""
+    fn()
+    torch.cuda.synchronize()
+    ours = lambda ks: [k for k in ks if k[0] != "at::cuda::"]  # the spin kernel
+    _, kernels = device_kernels(lambda: (time.sleep(0.01), torch.cuda._sleep(1_000_000), fn()),
+                                accept=lambda ks: len(ours(ks)) == want, attempts=10)
+    kernels = [(n, e - s) for n, s, e in ours(kernels)]
+    print(f"{what}: {len(kernels)} device kernels a call: " + ", ".join(f"{n.replace('tcd::', '')} {us:.1f} us"
+                                                                    for n, us in kernels))
+    check(len(kernels) == want, f"{what} ran {len(kernels)} device kernels, expected {want}")
+    check(all("tcd::" in n for n, _ in kernels), f"{what} ran a PyTorch kernel")
+    check(sum("gemm_wg_kernel" in n for n, _ in kernels) == wg, f"{what}: not {wg} wgmma launches")
+    check(sum("ln_rows_kernel" in n for n, _ in kernels) == rows, f"{what}: not {rows} row kernels")
+    check(not any("gemm_mma_kernel" in n for n, _ in kernels), f"{what} ran the mma.sync body")
+    return kernels
+
+
+def compare_k8_k2b(gen: torch.Generator) -> dict:
+    """Phase 5b: K8 (self q/k/v with q's and k's weights apart, as the per-op
+    path calls it, and joined; the rot-only cross query) and K2b (with and
+    without FiLM rows) alone at the serving shape, bf16, operands in the
+    kernels' dtypes (no wrapper cast), each in the default design (the row
+    body, then the products on the wgmma body) and with the LayerNorm in the
+    first product's prologue: device time a call (calls queued back to
+    back), its device kernels by name under torch.profiler (K8: the row
+    kernel and one wgmma launch, or the wgmma launch alone; K2b: the row
+    kernel and two wgmma launches, or two; no mma.sync and no PyTorch
+    kernel), each against the plain version. Then each prologue against
+    ln_rows + the same wgmma product, each kernel's median device us, and
+    the host us a call spends on tensor maps. Returns extra figures for
+    K8 and K2b."""
+    dev, bf16 = "cuda", torch.bfloat16
+    rnd = lambda *shape, std=1.0: torch.randn(shape, generator=gen, device=dev) * std
+    w = lambda o, i: rnd(o, i, std=i**-0.5).to(bf16)
+    x, s, b = rnd(B, L, D).to(bf16), 1.0 + rnd(D, std=0.1), rnd(D, std=0.1)
+    ang = angle_table(L, D, dev)
+    wq, wk, wv, w1, w2 = w(HD, D), w(HD, D), w(HD, D), w(FF, D), w(D, FF)
+    b1, b2, fs, fb = rnd(FF, std=0.1), rnd(D, std=0.1), rnd(B, D, std=0.1), rnd(B, D, std=0.1)
+    k8, wqk = ln_rotary_matmul.ln_rotary_matmul, torch.cat([wq, wk])
+    calls = (  # (kernel, label, call(prologue), plain, wgmma launches)
+        ("ln_rotary_matmul", "self q/k/v, weights apart", lambda p: k8(x, s, b, ang, (wq, wk), wv, prologue=p),
+         lambda: ln_rotary_matmul.ln_rotary_matmul_plain(x, s, b, ang, (wq, wk), wv), 1),
+        ("ln_rotary_matmul", "self q/k/v, joined", lambda p: k8(x, s, b, ang, wqk, wv, prologue=p),
+         lambda: ln_rotary_matmul.ln_rotary_matmul_plain(x, s, b, ang, wqk, wv), 1),
+        ("ln_rotary_matmul", "rot-only cross q", lambda p: k8(x, s, b, ang, wq, prologue=p),
+         lambda: ln_rotary_matmul.ln_rotary_matmul_plain(x, s, b, ang, wq), 1),
+        ("ff_block", "film=False", lambda p: ff_block.ff_block(x, s, b, w1, b1, w2, b2, prologue=p),
+         lambda: ff_block.ff_block_plain(x, s, b, w1, b1, w2, b2), 2),
+        ("ff_block", "film=True", lambda p: ff_block.ff_block(x, s, b, w1, b1, w2, b2, fs, fb, prologue=p),
+         lambda: ff_block.ff_block_plain(x, s, b, w1, b1, w2, b2, fs, fb), 2),
+    )
+    flat = lambda o: [t for part in (o if isinstance(o, tuple) else (o,))
+                      for t in (part if isinstance(part, tuple) else (part,))]
+    figures = collections.defaultdict(dict)
+    for kernel, label, call, plain, wg in calls:
+        name = "K8" if kernel == "ln_rotary_matmul" else "K2b"
+        refs = flat(plain())
+        for prologue in (False, True):
+            design = "prologue" if prologue else "row body + wgmma"
+            outs = flat(call(prologue))
+            torch.cuda.synchronize()
+            err = max((o.float() - r.float()).abs().max().item() for o, r in zip(outs, refs))
+            tol = min(tolerance(bf16, r.float()) for r in refs)
+            check(err <= tol, f"{name} {label} ({design}) disagrees with its plain version: {err} > {tol}")
+            ms = device_ms(lambda: call(prologue), reps=20)
+            kernels = check_one_call(lambda: call(prologue), wg + (0 if prologue else 1),
+                                     f"{name} {label} bf16, {design}", wg, 0 if prologue else 1)
+            print(f"{name} {label} bf16, {design}: max_abs_err {err:.3e} (tol {tol:.3e}); device "
+                  f"{1e3 * ms:.1f} us a call (calls queued back to back)")
+            figures[kernel][f"{label}, {design}"] = dict(device_ms=ms, max_abs_err=err,
+                                                         kernels_us={n: us for n, us in kernels})
+
+    # each prologue against ln_rows + the same wgmma product
+    us = kernel_us
+    def k8_unfused():
+        y, r = layernorm.ln_rows(x, s, b, 1e-5, angles=ang)
+        return gemm.gemm_wg([r.view(B * L, D), r.view(B * L, D), y.view(B * L, D)], [wq, wk, wv])
+    w1_unfused = lambda: gemm.gemm_wg(layernorm.ln_rows(x, s, b, 1e-5)[0].view(B * L, D), w1, "bias_gelu", b1)
+    for kernel, label, fused, unfused in (
+            ("ln_rotary_matmul", "K8 q||k||v", lambda: gemm.gemm_wg_ln(x, s, b, ang, [wq, wk, wv], [1, 1, 0]),
+             k8_unfused),
+            ("ff_block", "K2b W1 bias+GELU", lambda: gemm.gemm_wg_ln(x, s, b, None, [w1], [0], "bias_gelu", b1),
+             w1_unfused)):
+        p_us, l_us, g_us = us(fused, "gemm_wg_kernel"), us(unfused, "ln_rows_kernel"), us(unfused, "gemm_wg_kernel")
+        print(f"{label}: the LayerNorm prologue {p_us:.1f} us against ln_rows {l_us:.1f} + the product {g_us:.1f} = "
+              f"{l_us + g_us:.1f} us (each kernel's median device us)")
+        figures[kernel]["prologue_vs_unfused_us"] = dict(prologue=p_us, ln_rows=l_us, product=g_us)
+
+    # the host time a call spends on tensor maps (cached: lookups only)
+    for kernel, lib, fn in (("ln_rotary_matmul", "ln_rotary_matmul", lambda: k8(x, s, b, ang, (wq, wk), wv)),
+                            ("ff_block", "ff_block", lambda: ff_block.ff_block(x, s, b, w1, b1, w2, b2))):
+        fn()
+        torch.cuda.synchronize()
+        before = gemm.tma_stats(lib)
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        after = gemm.tma_stats(lib)
+        per = (after["us"] - before["us"]) / 100
+        print(f"{kernel}: tensor maps {per:.2f} host us a call ({(after['lookups'] - before['lookups']) / 100:.0f} "
+              f"lookups, {after['encodes'] - before['encodes']} encodes in 100 calls); {after['encodes']} encoded "
+              f"since the library loaded, {after['us']:.0f} us in all")
+        figures[kernel]["tma_host_us_per_call"] = per
+    return figures
+
+
 def measure(figures: dict, name: str, label: str, dtype, kernel, plain, flops: float, io_bytes: int,
             library=None, peak: float = PEAK_BF16, main: bool = False) -> None:
     """Hold kernel() against plain() (the same inputs), time both (and
@@ -736,11 +920,13 @@ def serve_block_configs(gen: torch.Generator, card: str) -> dict:
         diff.ddim_sample(shape, cond, generator=gen, x_0=x_0)  # warm-up
         torch.cuda.synchronize()
         reset_serving_launches()
+        bodies = gemm.body_launches("ff_block")
         t0 = time.perf_counter()
         out = diff.ddim_sample(shape, cond, generator=gen, x_0=x_0)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = {k: n for k, n in serving_launches().items() if n}
+        bodies = {k: n - bodies[k] for k, n in gemm.body_launches("ff_block").items()}
         check_output(out, x_0, shape)
         print(f"{label}: launches {counts} (expected {want})")
         check(counts == want, f"{label}: launches {counts}, expected {want}")
@@ -751,6 +937,9 @@ def serve_block_configs(gen: torch.Generator, card: str) -> dict:
             print_profile(label, lambda: diff.ddim_sample(shape, cond, generator=gen, x_0=x_0))
         elif label == "ff_tail off":
             launches["ff_block"] = counts["ff_block"]
+            print(f"{label}: K2b's products by body {bodies} (expected all {2 * counts['ff_block']} on wgmma)")
+            check(bodies == {"mma.sync": 0, "wgmma": 2 * counts["ff_block"]}, f"K2b's products ran on {bodies}")
+            print_profile(label, lambda: diff.ddim_sample(shape, cond, generator=gen, x_0=x_0))
         elif label == "ca_block, k/v cache off":
             launches["ca_block"] = counts["ca_block"]
             check_request_k7(model, lambda: diff.ddim_sample(shape, cond, generator=gen, x_0=x_0))
@@ -1315,11 +1504,13 @@ def serve_per_op(gen: torch.Generator) -> dict:
     torch.cuda.synchronize()
 
     reset_serving_launches()
+    bodies = gemm.body_launches("ln_rotary_matmul")
     t0 = time.perf_counter()
     out = diff.long_ddim_sample(shape, cond, generator=gen, x_0=x_0)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in SERVING_OPS.items()}
+    bodies = {k: n - bodies[k] for k, n in gemm.body_launches("ln_rotary_matmul").items()}
     check_output(out, x_0, shape)
     # per step: K8 once a layer (self-attention; the cached cross-attention
     # query is plain), K9 twice, K10 twice (self and cross post-LN), K11
@@ -1329,6 +1520,8 @@ def serve_per_op(gen: torch.Generator) -> dict:
     print(f"per-op path: long_ddim_sample over {REQ_BATCH} slices, bf16: launches {launches} (expected {want}); "
           f"K1/K2 {sa_block.sa_block.launches}/{ff_block.ff_tail.launches} (expected 0)")
     check(launches == want, f"per-op launches {launches}, expected {want}")
+    print(f"per-op path: K8's products by body {bodies} (expected all {want['ln_rotary_matmul']} on wgmma)")
+    check(bodies == {"mma.sync": 0, "wgmma": want["ln_rotary_matmul"]}, f"K8's products ran on {bodies}")
     check(sa_block.sa_block.launches == 0 and ff_block.ff_tail.launches == 0, "a block kernel ran in the per-op path")
     print(f"per-op path: {seconds:.3f} s per request, {REQ_BATCH * CLIP_S / seconds:.2f} s-motion/s "
           f"(slices x 5 s; bf16, kernels)")
@@ -1554,9 +1747,12 @@ def main() -> int:
         figures = compare_kernels(gen)
         for name, products in compare_gemms(gen).items():
             figures[name]["products"] = products
+        wgmma_products = compare_wgmma(gen)
         figures.update(compare_serving_ops(gen))
         figures["layernorm"].update(compare_ln_rows(gen))
         figures.update(compare_block_kernels(gen))
+        for name, extra in compare_k8_k2b(gen).items():
+            figures[name].update(extra, wgmma_products=wgmma_products[name])
         figures.update(compare_train_kernels(gen))
         for name, extra in compare_train_attention(gen).items():
             figures[name].update(extra)

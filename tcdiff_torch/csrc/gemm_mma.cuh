@@ -322,11 +322,23 @@ gemm_mma_kernel(ProjGroup p, EpiArgs ep, int M, int N, int K, int ntn, int kchun
 // Whether a pointer is 16-byte aligned.
 inline bool al16(const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; }
 
+// Launches of each product body in this library since it was loaded, on
+// the host as they are enqueued: gemm_mma_kernel here, the wgmma body of
+// gemm_wgmma.cuh there (the libraries that include it export the counts).
+// Internal linkage: a static in an inline function would be one object
+// for every library of the process (the dynamic linker unifies them).
+enum Body { BODY_MMA = 0, BODY_WGMMA = 1 };
+static inline long long* body_launches() {
+  static long long n[2] = {0, 0};
+  return n;
+}
+
 // One launch of the tensor-core body: G triples (or one output over `join`
 // pairs) of the layout <KA, KB>, `splits` chunks of `kchunk` along K.
 template <int EPI, bool KA, bool KB>
 inline void launch_gemm_mma(const ProjGroup& p, int G, int join, EpiArgs ep, int M, int N, int K, int kchunk,
                             int splits, cudaStream_t st) {
+  ++body_launches()[BODY_MMA];
   bool vec = (KA ? M : K) % 8 == 0 && (KB ? N : K) % 8 == 0;
   for (int i = 0; i < std::max(G, join); ++i) vec = vec && al16(p.a[i]) && al16(p.w[i]);
   const int ntn = cdiv(N, PBN);

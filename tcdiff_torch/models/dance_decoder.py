@@ -258,9 +258,8 @@ class SBIMSA(nn.Module):
         `kernels.ln_rotary`."""
         if kernels.ln_rotary:
             w = lambda m: m.weight.to(x.dtype)
-            qk, v = self.ln_rotary_fn(x, norm.weight, norm.bias, angles,
-                                      torch.cat([w(self.w_qs), w(self.w_ks)]), w(self.w_vs), 1e-5)
-            q, k = qk.chunk(2, dim=-1)
+            (q, k), v = self.ln_rotary_fn(x, norm.weight, norm.bias, angles, (w(self.w_qs), w(self.w_ks)),
+                                          w(self.w_vs), 1e-5)
             return q, k, v
         h = _ln(norm, x, 1e-5)
         r = apply_rotary(h, angles)

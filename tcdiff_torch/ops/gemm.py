@@ -41,19 +41,37 @@ sequences, and these entries raise):
 
 rot^T(g) = g*cos + swap_pairs(g*ssin) and rot(y) = y*cos + swap_pairs(y)*ssin
 with the tables of an angle table (L, N or d) at row m % L.
+
+The forward projection on the wgmma + TMA body (`csrc/gemm_wgmma.cuh`),
+bf16 only, which K2b's and K8's products run:
+
+    gemm_wg      C[g] = A[g] . W[g]^T, up to three products of one launch,
+                 each with its own N (and A), the epilogues above and
+                 bias_film_t = T(bias_film)
+    gemm_wg_ln   C[g] = T(LN(x)) . W[g]^T or T(rot(LN(x))) . W[g]^T, the
+                 LayerNorm (and rotary) in the prologue: K8's and K2b's W1
+
+`gemm_plan` is the dispatch rule written out (which body a product runs,
+its grid, cluster and waves), `body_launches` the per-body launch counts
+of a library and `tma_stats` the host time its tensor maps took;
+`swizzle128` mirrors the shared-memory layout the prologue writes.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
 
 from tcdiff_torch.models.rotary import swap_pairs
+from tcdiff_torch.ops import _build
 from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, check_ln_fold, launch, ln_f32, mm_f32
 from tcdiff_torch.ops.sa_block import cached_rotary_tables, rotary_tables
 from tcdiff_torch.ops.train_common import weight_splits
 
 EPILOGUES = {"store": 0, "store_f32": 1, "bias": 2, "bias_gelu": 3, "bias_film": 4}  # tcd::Epi
+WG_EPILOGUES = dict(EPILOGUES, bias_film_t=8)
 NN_EPILOGUES = {"store": 0, "store_f32": 1, "acc_f32": 5}
 LAYOUT_FWD, LAYOUT_NN, LAYOUT_WGRAD = 0, 1, 2  # GemmArgs.layout
 F32_OUT = ("store_f32", "bias_film")
@@ -65,9 +83,10 @@ def _epilogue_plain(acc, dt, epilogue, bias, resid, film_scale, film_shift, L):
         acc = acc + bias.float()
     if epilogue == "store_f32":
         return acc
-    if epilogue == "bias_film":
+    if epilogue in ("bias_film", "bias_film_t"):
         rows = lambda t: t.float().repeat_interleave(L, dim=0)
-        return resid.float() + (rows(film_scale) + 1.0) * acc + rows(film_shift)
+        acc = resid.float() + (rows(film_scale) + 1.0) * acc + rows(film_shift)
+        return acc if epilogue == "bias_film" else acc.to(dt)
     if epilogue == "bias_gelu":
         acc = F.gelu(acc)
     return acc.to(dt)
@@ -75,10 +94,14 @@ def _epilogue_plain(acc, dt, epilogue, bias, resid, film_scale, film_shift, L):
 
 def gemm_plain(a, w, epilogue: str = "store", bias=None, resid=None, film_scale=None, film_shift=None,
                L: int = 1):
-    """Plain PyTorch version: mm_f32 and the epilogue in f32; the oracle."""
-    grouped = isinstance(a, (list, tuple))
+    """Plain PyTorch version of gemm and gemm_wg: mm_f32 and the epilogue in
+    f32; the oracle. w a list: one output per w, with a[i] (a list) or the
+    one a."""
+    grouped = isinstance(w, (list, tuple))
+    ws = list(w) if grouped else [w]
+    as_ = list(a) if isinstance(a, (list, tuple)) else [a] * len(ws)
     outs = [_epilogue_plain(mm_f32(ai, wi), ai.dtype, epilogue, bias, resid, film_scale, film_shift, L)
-            for ai, wi in zip(*((a, w) if grouped else ((a,), (w,))))]
+            for ai, wi in zip(as_, ws)]
     return outs if grouped else outs[0]
 
 
@@ -345,3 +368,216 @@ def gemm_lnrot(x, scale, bias, angles, w, eps: float = 1e-5):
 
 
 gemm_lnrot.launches = 0
+
+
+# ------------------------------------------------- the wgmma + TMA body
+WG_BN, WG_BK = 128, 64  # csrc/gemm_wgmma.cuh: WBN, WBK
+WG_WGS = 2              # consumer warpgroups of a block: 128-row tiles
+WG_LN_WIDTHS = (64, 128, 256, 512)  # the prologue's row widths
+LN_CLUSTER = 8          # the most blocks of a cluster along N
+SMS = 132               # the H100 SXM's SMs
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def tma_ok(t: torch.Tensor | None) -> bool:
+    """Whether TMA can read the row-major bf16 operand t: a 16-byte aligned
+    base and a row stride of a multiple of 16 bytes (tcd::tma_ok)."""
+    return t is None or (t.data_ptr() % 16 == 0 and t.stride(-2 if t.dim() > 1 else 0) % 8 == 0
+                         and t.stride(-1) == 1)
+
+
+def gemm_plan(M: int, ns, K: int, tma: bool = True, ln_d: int | None = None, ln_aligned: bool = True,
+              wgs: int = WG_WGS, prologue: bool = True) -> dict:
+    """The dispatch rule of the bf16 forward projection, as csrc/gemm_wgmma.cuh
+    applies it (gemm_wg, wg_ln_ok), for C[g] = A . W[g]^T with N = ns[g]:
+
+    - ln_d given (A = LN(x) of rows of ln_d = K): the prologue ("wgmma+ln",
+      one cluster launch) where it is asked for (prologue), ln_d is one of
+      WG_LN_WIDTHS, the row operands are 16-byte aligned (ln_aligned), TMA
+      takes every W (tma) and every group has the same count of column
+      tiles, at most LN_CLUSTER; else ln_rows, then the product by the rule
+      below;
+    - "wgmma" where TMA takes every operand (tma: 16-byte aligned, K % 8 ==
+      0); else "mma.sync", one launch per group.
+
+    Returns dict(body, launches, tile (BM, BN), grid (x, y), cluster,
+    blocks, waves): waves are blocks over the blocks the SMs hold at once
+    (one an SM, two for 64-row wgmma tiles and for mma.sync)."""
+    ns = list(ns)
+    tiles = [_cdiv(n, WG_BN) for n in ns]
+    tma = tma and K % 8 == 0 and K > 0
+    if (prologue and ln_d is not None and ln_d in WG_LN_WIDTHS and ln_aligned and tma and len(ns) <= GROUP_MAX
+            and len(set(tiles)) == 1 and tiles[0] <= LN_CLUSTER):
+        body, bm, cluster, launches, per_sm = "wgmma+ln", 64 * WG_WGS, tiles[0], 1, 1
+    elif tma:
+        body, bm, cluster, launches, per_sm = "wgmma", 64 * wgs, 1, 1, 2 if wgs == 1 else 1
+    else:
+        body, bm, cluster, launches, per_sm = "mma.sync", 128, 1, len(ns), 2
+    if ln_d is not None and body != "wgmma+ln":
+        launches += 1  # ln_rows
+    grid = (sum(tiles), _cdiv(M, bm))
+    blocks = grid[0] * grid[1]
+    return dict(body=body, launches=launches, tile=(bm, WG_BN), grid=grid, cluster=cluster, blocks=blocks,
+                waves=blocks / (SMS * per_sm))
+
+
+def swizzle128(r: int, col: int, bm: int) -> int:
+    """The byte offset of element (r, col) of a bf16 A tile of bm rows
+    stored as K steps of bm rows x 128 bytes with TMA's 128-byte swizzle:
+    16-byte chunk c of row r's line at chunk c ^ (r % 8) (tcd::swz128)."""
+    return (col // 64) * bm * 128 + r * 128 + ((((col // 8) % 8) ^ (r % 8)) * 16) + (col % 8) * 2
+
+
+_WgArgs = args_struct(  # GemmWgArgs in csrc/gemm.cu
+    "GemmWgArgs",
+    ("a0", "a1", "a2", "w0", "w1", "w2", "c0", "c1", "c2", "bias", "resid", "fs", "fb"),
+    ("M", "K", "L", "epi", "groups", "n0", "n1", "n2", "wgs"),
+    (),
+)
+
+
+def gemm_wg(a, w, epilogue: str = "store", bias=None, resid=None, film_scale=None, film_shift=None, L: int = 1,
+            wgs: int | None = None):
+    """C[g] = a[g] . w[g]^T on the wgmma + TMA body (bf16; gemm_plan's rule:
+    operands TMA cannot take run on mma.sync): the CUDA kernel for a CUDA
+    operand, the plain version (gemm_plain) for a CPU one. w: a tensor
+    (N, K) or a list of up to three with their own N; a: one (M, K) tensor
+    shared by the group, or a list as long as w. wgs: the consumer
+    warpgroups of a block (1: 64-row tiles, 2: 128-row; None: the default).
+    Returns a tensor, or a list for a list w."""
+    grouped = isinstance(w, (list, tuple))
+    ws = list(w) if grouped else [w]
+    as_ = list(a) if isinstance(a, (list, tuple)) else [a] * len(ws)
+    x = as_[0]
+    if x.device.type == "cpu":
+        return gemm_plain(a, w, epilogue, bias, resid, film_scale, film_shift, L)
+    if x.device.type != "cuda":
+        raise ValueError(f"gemm_wg runs on CPU or CUDA tensors, got {x.device}")
+    _bf16_only(x, "gemm_wg")
+    check_cuda(x, bias=bias, resid=resid, film_scale=film_scale, film_shift=film_shift)
+    if epilogue not in WG_EPILOGUES:
+        raise ValueError(f"unknown epilogue {epilogue!r}; one of {sorted(WG_EPILOGUES)}")
+    if not 1 <= len(ws) <= GROUP_MAX or len(as_) != len(ws):
+        raise ValueError(f"give 1 to {GROUP_MAX} w and one a or as many, got {len(ws)} and {len(as_)}")
+    if x.dim() != 2:
+        raise ValueError(f"a must be (M, K), got {tuple(x.shape)}")
+    M, K = x.shape
+    for ai, wi in zip(as_, ws):
+        check_cuda(x, a=ai, w=wi)
+        if ai.dtype != x.dtype or tuple(ai.shape) != (M, K) or wi.dim() != 2 or wi.shape[1] != K:
+            raise ValueError(f"a group shares dtype and a (M, K) = {(M, K)}; w is (N, K)")
+        if not (ai.is_contiguous() and wi.is_contiguous()):
+            raise ValueError("a and w must be contiguous")
+    ns = [wi.shape[0] for wi in ws]
+    if epilogue not in ("store", "store_f32") and (bias is None or len(set(ns)) > 1 or tuple(bias.shape) != (ns[0],)):
+        raise ValueError(f"epilogue {epilogue} needs bias (N,) and one N for the group, got {ns}")
+    if epilogue.startswith("bias_film"):
+        N = ns[0]
+        if M % L or resid is None or tuple(resid.shape) != (M, N):
+            raise ValueError(f"{epilogue} needs resid (M, N) = {(M, N)} and L dividing M = {M}")
+        for name, t in (("film_scale", film_scale), ("film_shift", film_shift)):
+            if t is None or tuple(t.shape) != (M // L, N):
+                raise ValueError(f"{epilogue} needs {name} (M / L, N) = {(M // L, N)}")
+    if wgs not in (None, 1, WG_WGS):
+        raise ValueError(f"wgs is 1 or {WG_WGS}, got {wgs}")
+    dt = x.dtype
+    out_dt = torch.float32 if epilogue in F32_OUT else dt
+    outs = [torch.empty((M, n), dtype=out_dt, device=x.device) for n in ns]
+    ten = {}
+    for i, (ai, wi, ci) in enumerate(zip(as_, ws, outs)):
+        ten.update({f"a{i}": ai, f"w{i}": wi.to(dt) if wi.dtype != dt else wi, f"c{i}": ci})
+    if epilogue not in ("store", "store_f32"):
+        ten["bias"] = as_t(bias, torch.float32)
+    if epilogue.startswith("bias_film"):
+        ten.update(resid=as_t(resid, dt), fs=as_t(film_scale, torch.float32), fb=as_t(film_shift, torch.float32))
+    dims = dict(M=M, K=K, L=L, epi=WG_EPILOGUES[epilogue], groups=len(ws), wgs=wgs or 0,
+                **{f"n{i}": n for i, n in enumerate(ns)})
+    launch("gemm", "tcd_gemm_wg", _WgArgs, ten, dims, x, "gemm_wg")
+    gemm_wg.launches += 1
+    return outs if grouped else outs[0]
+
+
+gemm_wg.launches = 0
+
+
+def body_launches(lib: str = "gemm") -> dict:
+    """{"mma.sync": n, "wgmma": n}: the launches of each product body that
+    csrc/<lib>.cu (gemm, ff_block or ln_rotary_matmul) has enqueued since
+    it was loaded, counted by the C code where it launches."""
+    fn = _build.load(lib).tcd_body_launches
+    out = (ctypes.c_longlong * 2)()
+    fn(out)
+    return {"mma.sync": out[0], "wgmma": out[1]}
+
+
+def tma_stats(lib: str = "gemm") -> dict:
+    """{"lookups", "encodes", "us"}: the tensor maps csrc/<lib>.cu has looked
+    up and encoded since it was loaded, and the host us they took."""
+    out = (ctypes.c_double * 3)()
+    _build.load(lib).tcd_tma_stats(out)
+    return {"lookups": int(out[0]), "encodes": int(out[1]), "us": out[2]}
+
+
+_WgLnArgs = args_struct(  # GemmWgLnArgs in csrc/gemm.cu
+    "GemmWgLnArgs",
+    ("x", "cos", "ssin", "w0", "w1", "w2", "c0", "c1", "c2", "s", "b", "bias"),
+    ("M", "L", "d", "epi", "groups", "n0", "n1", "n2", "rot0", "rot1", "rot2", "cluster", "wgs"),
+    ("eps",),
+)
+
+
+def gemm_wg_ln_plain(x, scale, bias, angles, w, rot, epilogue: str = "store", b=None, eps: float = 1e-5):
+    """Plain version of gemm_wg_ln: LN (and the rotary) in f32, rounded to
+    x's dtype, then each product in f32 sums and the epilogue."""
+    from tcdiff_torch.ops.sa_block_train import rot as rotate
+
+    dt = x.dtype
+    y = ln_f32(x, scale, bias, eps)
+    cos, ssin = rotary_tables(angles, dt) if any(rot) else (None, None)
+    outs = []
+    for wi, ri in zip(w, rot):
+        a = (rotate(y, cos, ssin) if ri else y).to(dt)
+        outs.append(_epilogue_plain(mm_f32(a, wi), dt, epilogue, b, None, None, None, 1))
+    return outs
+
+
+def gemm_wg_ln(x, scale, bias, angles, w, rot, epilogue: str = "store", b=None, eps: float = 1e-5,
+               cluster: int = 0, wgs: int | None = None):
+    """C[g] = T(LN(x)) . w[g]^T, or T(rot(LN(x))) . w[g]^T where rot[g], for x
+    (B, L, d), the LayerNorm's affine (d,), the angle table (L, d) (None
+    where no rot) and a list of up to three w (n, d) of one column-tile
+    count: the wgmma body with the LayerNorm in its prologue (bf16, one
+    launch; epilogue store or bias_gelu with b); cluster: blocks of a
+    cluster along N (0: a product's column tiles; 1: each block normalises
+    its own rows); wgs: consumer warpgroups a block (1: 64-row tiles, two
+    blocks an SM; 2: 128-row; None: the default). The CUDA kernel for a
+    CUDA x, the plain version for a CPU x. Returns a list."""
+    if x.device.type == "cpu":
+        return gemm_wg_ln_plain(x, scale, bias, angles, w, rot, epilogue, b, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"gemm_wg_ln runs on CPU or CUDA tensors, got {x.device}")
+    _bf16_only(x, "gemm_wg_ln")
+    B, L, d = x.shape
+    if epilogue not in ("store", "bias_gelu") or not 1 <= len(w) <= GROUP_MAX or len(rot) != len(w):
+        raise ValueError("epilogue store or bias_gelu, 1 to 3 w and a rot flag each")
+    cos, ssin = cached_rotary_tables(angles, x.dtype) if any(rot) else (None, None)
+    outs = [torch.empty((B, L, wi.shape[0]), dtype=x.dtype, device=x.device) for wi in w]
+    ten = dict(x=x, s=as_t(scale, torch.float32), b=as_t(bias, torch.float32), cos=cos, ssin=ssin)
+    for i, (wi, ci) in enumerate(zip(w, outs)):
+        check_cuda(x, w=wi)
+        ten.update({f"w{i}": wi, f"c{i}": ci})
+    if epilogue == "bias_gelu":
+        ten["bias"] = as_t(b, torch.float32)
+    if wgs not in (None, 1, WG_WGS):
+        raise ValueError(f"wgs is 1 or {WG_WGS}, got {wgs}")
+    dims = dict(M=B * L, L=L, d=d, epi=WG_EPILOGUES[epilogue], groups=len(w), cluster=cluster, eps=eps, wgs=wgs or 0,
+                **{f"n{i}": wi.shape[0] for i, wi in enumerate(w)}, **{f"rot{i}": int(r) for i, r in enumerate(rot)})
+    launch("gemm", "tcd_gemm_wg_ln", _WgLnArgs, {k: t for k, t in ten.items() if t is not None}, dims, x, "gemm_wg_ln")
+    gemm_wg_ln.launches += 1
+    return outs
+
+
+gemm_wg_ln.launches = 0

@@ -9,83 +9,134 @@ fused_ln_rotary_matmul`, both of its Pallas programs:
 
 with cos and the sign-folded sin rounded to x's dtype T first (the TPU
 kernel's `_tables`, `sa_block.rotary_tables` here) and f32 sums. The
-per-op serving path calls it for the self-attention q/k/v (w_rot = [w_q;
-w_k], w_plain = w_v) and, with the k/v cache off, for the cross-attention
-query (w_rot = w_q). x (b, L, d); angles (L, d) f32; weights in nn.Linear
-layout (n, d), in the compute dtype. `ln_rotary_matmul` runs the CUDA
-kernel (`csrc/ln_rotary_matmul.cu`) for a CUDA tensor and
-`ln_rotary_matmul_plain` for a CPU tensor.
+per-op serving path calls it for the self-attention q/k/v (w_rot = (w_q,
+w_k), w_plain = w_v) and, with the k/v cache off, for the cross-attention
+query (w_rot = w_q). w_rot is one weight, or the JAX-shaped joined [w_q;
+w_k], whose rotated output is one tensor; or a tuple of weights, whose
+rotated outputs are a tuple. x (b, L, d); angles (L, d) f32; weights in
+nn.Linear layout (n, d), in the compute dtype. `ln_rotary_matmul` runs
+the CUDA kernel (`csrc/ln_rotary_matmul.cu`) for a CUDA tensor and
+`ln_rotary_matmul_plain` for a CPU tensor. In bf16 the kernel is two
+launches, the row body writing y and rot(y) and every product in one
+launch of the wgmma + TMA body; `prologue=True` asks for one launch with
+the LayerNorm and rotary in the body's prologue (where `gemm.gemm_plan`
+says the prologue takes the shape), which measured slower on the H100
+(PERF.md).
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from tcdiff_torch.models.rotary import swap_pairs
-from tcdiff_torch.ops import _build
-from tcdiff_torch.ops._common import as_t, check_cuda, ln_f32, mm_f32, ptr, raise_on, stream_ptr
-from tcdiff_torch.ops.sa_block import rotary_tables
+from tcdiff_torch.ops import gemm
+from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, launch, ln_f32, mm_f32, scratch
+from tcdiff_torch.ops.sa_block import cached_rotary_tables, rotary_tables
+
+
+def _weights(w_rot):
+    """(the rotated weights as a list, whether they were given apart)."""
+    apart = isinstance(w_rot, (list, tuple))
+    return (list(w_rot) if apart else [w_rot]), apart
 
 
 def ln_rotary_matmul_plain(x, scale, bias, angles, w_rot, w_plain=None, eps: float = 1e-5):
     """Plain PyTorch version of the kernel; its oracle."""
     dt = x.dtype
+    ws, apart = _weights(w_rot)
     cos, ssin = rotary_tables(angles, dt)
     y = ln_f32(x, scale, bias, eps)
     r = (y * cos.float() + swap_pairs(y) * ssin.float()).to(dt)
-    qk = mm_f32(r, w_rot).to(dt)
+    rot = [mm_f32(r, w).to(dt) for w in ws]
+    rot = tuple(rot) if apart else rot[0]
     if w_plain is None:
-        return qk
-    return qk, mm_f32(y.to(dt), w_plain).to(dt)
+        return rot
+    return rot, mm_f32(y.to(dt), w_plain).to(dt)
 
 
-def _fn():
-    fn = _build.load("ln_rotary_matmul").tcd_ln_rotary_matmul
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float]
-                       + [ctypes.c_void_p] * 5)
-        fn.restype = ctypes.c_int
-    return fn
+_Args = args_struct(  # LnRotArgs in csrc/ln_rotary_matmul.cu
+    "LnRotArgs",
+    ("x", "s", "b", "cos", "ssin", "wr0", "wr1", "wp", "y", "r", "o0", "o1", "ov"),
+    ("M", "L", "d", "n0", "n1", "np", "prologue"),
+    ("eps",),
+)
 
 
-def _ln_rotary_matmul_cuda(x, scale, bias, angles, w_rot, w_plain, eps):
-    code = check_cuda(x, scale=scale, bias=bias, angles=angles, w_rot=w_rot, w_plain=w_plain)
+def product_groups(ns, n_plain: int) -> list:
+    """The N of each product of one bf16 launch, as the kernel forms them:
+    the rotated weights' (a joined [w_q; w_k] as its two halves where that
+    gives every product the same count of 128-column tiles), then the plain
+    weight's (n_plain, 0: none)."""
+    tiles = lambda n: -(-n // gemm.WG_BN)
+    if len(ns) == 1 and n_plain and ns[0] % 2 == 0 and tiles(ns[0] // 2) == tiles(n_plain):
+        ns = [ns[0] // 2] * 2
+    return list(ns) + ([n_plain] if n_plain else [])
+
+
+def plan(x, scale, bias, cos, ssin, w_rot, w_plain, prologue: bool = False) -> dict:
+    """gemm.gemm_plan of one bf16 call (the operands as the kernel takes
+    them): "wgmma+ln" is one launch with the LayerNorm and rotary in the
+    prologue, else ln_rows and one launch of the products."""
     B, L, d = x.shape
-    fr = w_rot.shape[0]
-    fp = 0 if w_plain is None else w_plain.shape[0]
+    ws = w_rot + ([] if w_plain is None else [w_plain])
+    n_plain = 0 if w_plain is None else w_plain.shape[0]
+    ns = [w.shape[0] for w in w_rot] + ([n_plain] if n_plain else [])
+    if prologue:
+        ns = product_groups([w.shape[0] for w in w_rot], n_plain)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, scale, bias, cos, ssin))
+    return gemm.gemm_plan(B * L, ns, d, tma=all(gemm.tma_ok(w) for w in ws), ln_d=d, ln_aligned=aligned,
+                          prologue=prologue)
+
+
+def _ln_rotary_matmul_cuda(x, scale, bias, angles, w_rot, w_plain, eps, prologue):
+    ws, apart = _weights(w_rot)
+    if not 1 <= len(ws) <= 2:
+        raise ValueError(f"give one rotated weight or two apart, got {len(ws)}")
+    check_cuda(x, scale=scale, bias=bias, angles=angles, w_plain=w_plain, **{f"w_rot{i}": w for i, w in enumerate(ws)})
+    B, L, d = x.shape
     if d % 2:
         raise ValueError(f"d={d} must be even")
-    shapes = [("scale", scale, (d,)), ("bias", bias, (d,)), ("angles", angles, (L, d)), ("w_rot", w_rot, (fr, d))]
+    shapes = [("scale", scale, (d,)), ("bias", bias, (d,)), ("angles", angles, (L, d))]
+    shapes += [(f"w_rot[{i}]", w, (w.shape[0], d)) for i, w in enumerate(ws)]
     if w_plain is not None:
-        shapes.append(("w_plain", w_plain, (fp, d)))
+        shapes.append(("w_plain", w_plain, (w_plain.shape[0], d)))
     for name, t, shape in shapes:
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+
+    # host work only: the tables once per angle table, no cast of what is
+    # already in its dtype, the outputs (and the unfused sequence's
+    # scratch, where it runs) from one allocation
     dt = x.dtype
-    cos, ssin = rotary_tables(angles, dt)
-    s, b = scale.float().contiguous(), bias.float().contiguous()
-    wr = as_t(w_rot, dt)
+    cos, ssin = cached_rotary_tables(angles, dt)
+    s, b = as_t(scale, torch.float32), as_t(bias, torch.float32)
+    wr = [as_t(w, dt) for w in ws]
     wp = None if w_plain is None else as_t(w_plain, dt)
-    empty = lambda n: torch.empty((B, L, n), dtype=dt, device=x.device)
-    r, qk = empty(d), empty(fr)
-    y, v = (None, None) if wp is None else (empty(d), empty(fp))
-    rc = _fn()(code, ptr(x), ptr(s), ptr(b), ptr(cos), ptr(ssin), ptr(wr), ptr(wp), B * L, L, d, fr, fp,
-               eps, ptr(y), ptr(r), ptr(qk), ptr(v), stream_ptr(x.device))
-    raise_on(rc, "ln_rotary_matmul")
+    fused = dt == torch.bfloat16 and plan(x, s, b, cos, ssin, wr, wp, prologue)["body"] == "wgmma+ln"
+    rows = lambda n: ((B, L, n), dt)
+    ten = scratch(x.device, dict(y=None if fused or wp is None else rows(d), r=None if fused else rows(d),
+                                 o0=rows(wr[0].shape[0]), o1=rows(wr[1].shape[0]) if apart else None,
+                                 ov=None if wp is None else rows(wp.shape[0])))
+    ten.update(x=x, s=s, b=b, cos=cos, ssin=ssin, wr0=wr[0], wr1=wr[1] if apart else None, wp=wp)
+    dims = dict(M=B * L, L=L, d=d, n0=wr[0].shape[0], n1=wr[1].shape[0] if apart else 0,
+                np=0 if wp is None else wp.shape[0], prologue=int(fused), eps=eps)
+    launch("ln_rotary_matmul", "tcd_ln_rotary_matmul", _Args, {k: t for k, t in ten.items() if t is not None},
+           dims, x, "ln_rotary_matmul")
     ln_rotary_matmul.launches += 1
-    return qk if v is None else (qk, v)
+    rot = (ten["o0"], ten["o1"]) if apart else ten["o0"]
+    return rot if wp is None else (rot, ten["ov"])
 
 
-def ln_rotary_matmul(x, scale, bias, angles, w_rot, w_plain=None, eps: float = 1e-5):
+def ln_rotary_matmul(x, scale, bias, angles, w_rot, w_plain=None, eps: float = 1e-5, *, prologue: bool = False):
     """LN -> rotary -> projection(s): CUDA kernel for a CUDA x, plain
-    version for a CPU x. Returns (qk, v), or qk alone without w_plain."""
+    version for a CPU x. Returns (rotated, v), or the rotated output(s)
+    alone without w_plain; the rotated output is a tuple where w_rot is.
+    prologue: the one-launch bf16 design (see the module docstring)."""
     if x.device.type == "cpu":
         return ln_rotary_matmul_plain(x, scale, bias, angles, w_rot, w_plain, eps)
     if x.device.type != "cuda":
         raise ValueError(f"ln_rotary_matmul runs on CPU or CUDA tensors, got {x.device}")
-    return _ln_rotary_matmul_cuda(x, scale, bias, angles, w_rot, w_plain, eps)
+    return _ln_rotary_matmul_cuda(x, scale, bias, angles, w_rot, w_plain, eps, prologue)
 
 
 ln_rotary_matmul.launches = 0  # kernel launches; the plain path does not count

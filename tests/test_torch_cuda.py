@@ -963,3 +963,271 @@ def test_new_bodies_refuse_what_they_do_not_take(dev):
         dr = torch.zeros(1, 4, d, device=dev)
         with pytest.raises(ValueError):
             tc.rows_bwd(dr, dr.to(bf16), torch.ones(d, device=dev))
+
+
+# ------------------------------------------------ the wgmma + TMA body
+# The bf16 forward projection on wgmma with TMA (csrc/gemm_wgmma.cuh,
+# ops/gemm.gemm_wg) against its plain version: each epilogue at M = 1, 154
+# and 3600 (ragged against 128-row tiles), N = 96 (ragged against 128
+# columns) to 1536 and N = 50, 49 (the epilogue's direct paths), K = 64 to
+# 1024; both tiles; the grouped form with an N per product; the dispatch
+# to mma.sync of what TMA cannot take, shown by the per-body counts; two
+# runs bit for bit. Then K8 and K2b through the new design, the row body
+# first (the default) or the LayerNorm in the first product's prologue:
+# each product on wgmma (the per-body counts), the launches under
+# torch.profiler. Tolerances as above.
+WG_EPILOGUES = ["store", "store_f32", "bias", "bias_gelu", "bias_film", "bias_film_t"]
+
+
+def _wg_case(g, dev, M, N, K):
+    L = GEMM_L[M]
+    a, w = _rnd(g, dev, M, K).to(torch.bfloat16), _rnd(g, dev, N, K, std=K**-0.5).to(torch.bfloat16)
+    extra = (_rnd(g, dev, N, std=0.1), _rnd(g, dev, M, N).to(torch.bfloat16), _rnd(g, dev, M // L, N, std=0.1),
+             _rnd(g, dev, M // L, N, std=0.1), L)
+    return a, w, extra
+
+
+def _bodies(lib):
+    from tcdiff_torch.ops import gemm as m
+
+    return m.body_launches(lib)
+
+
+@pytest.mark.parametrize("epilogue", WG_EPILOGUES)
+@pytest.mark.parametrize("M", [1, 154, 3600])
+@pytest.mark.parametrize("N, K", [(96, 64), (512, 512), (1024, 512), (1536, 512), (512, 1024), (50, 64), (49, 64)])
+def test_gemm_wg_kernel_matches_plain(dev, epilogue, M, N, K):
+    """N % 8 == 0: the epilogue staged through shared memory; N = 50 in
+    pairs, N = 49 element by element, straight from the fragments."""
+    from tcdiff_torch.ops import gemm as m
+
+    g = torch.Generator(device=dev).manual_seed(40)
+    a, w, extra = _wg_case(g, dev, M, N, K)
+    before, bodies = m.gemm_wg.launches, _bodies("gemm")
+    out = m.gemm_wg(a, w, epilogue, *extra)
+    ref = m.gemm_plain(a, w, epilogue, *extra)
+    torch.cuda.synchronize()
+    after = _bodies("gemm")
+    assert m.gemm_wg.launches == before + 1
+    assert (after["wgmma"] - bodies["wgmma"], after["mma.sync"] - bodies["mma.sync"]) == (1, 0)
+    assert out.dtype == ref.dtype and out.shape == (M, N)
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(torch.bfloat16, ref)
+
+
+@pytest.mark.parametrize("wgs", [1, 2])
+@pytest.mark.parametrize("M, N, K", [(3600, 512, 512), (154, 96, 64), (3600, 1024, 1024), (1, 512, 512)])
+def test_gemm_wg_tiles_match_plain(dev, wgs, M, N, K):
+    """64-row tiles (one consumer warpgroup) and 128-row tiles (two)."""
+    from tcdiff_torch.ops import gemm as m
+
+    g = torch.Generator(device=dev).manual_seed(41)
+    a, w, (bias, *_) = _wg_case(g, dev, M, N, K)
+    out = m.gemm_wg(a, w, "bias_gelu", bias, wgs=wgs)
+    ref = m.gemm_plain(a, w, "bias_gelu", bias)
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(torch.bfloat16, ref)
+
+
+@pytest.mark.parametrize("shared_a", [True, False])
+@pytest.mark.parametrize("ns", [(96, 200, 8), (512, 1024), (512, 512, 512)])
+def test_gemm_wg_groups_of_unequal_n(dev, shared_a, ns):
+    """Up to three products with their own N in one launch."""
+    from tcdiff_torch.ops import gemm as m
+
+    g = torch.Generator(device=dev).manual_seed(42)
+    M, K = 3600, 512
+    a = [_rnd(g, dev, M, K).to(torch.bfloat16) for _ in ns]
+    w = [_rnd(g, dev, n, K, std=K**-0.5).to(torch.bfloat16) for n in ns]
+    ta = a[0] if shared_a else a
+    bodies = _bodies("gemm")
+    outs = m.gemm_wg(ta, w)
+    refs = m.gemm_plain(ta, w)
+    torch.cuda.synchronize()
+    assert _bodies("gemm")["wgmma"] == bodies["wgmma"] + 1
+    for out, ref, n in zip(outs, refs, ns):
+        assert out.shape == (M, n)
+        assert (out.float() - ref.float()).abs().max().item() <= _tol(torch.bfloat16, ref)
+
+
+@pytest.mark.parametrize("case", ["aligned", "a 2 bytes off", "w 2 bytes off", "K % 8 != 0"])
+def test_gemm_wg_dispatch_by_alignment(dev, case):
+    """Operands TMA takes run on wgmma; an operand 2 bytes off a 16-byte
+    boundary, or rows of K % 8 != 0, run on mma.sync: the per-body counts
+    show which, as gemm_plan says, and both agree with the plain version."""
+    from tcdiff_torch.ops import gemm as m
+
+    g = torch.Generator(device=dev).manual_seed(43)
+    M, N = 154, 96
+    K = 100 if case == "K % 8 != 0" else 64
+    buf = _rnd(g, dev, M * K + N * K + 16).to(torch.bfloat16)
+    oa = 1 if case == "a 2 bytes off" else 0
+    ow = 1 if case == "w 2 bytes off" else 0
+    a = buf[oa:oa + M * K].view(M, K)
+    w = buf[M * K + 8 + ow:M * K + 8 + ow + N * K].view(N, K) * K**-0.5
+    w = buf[M * K + 8 + ow:M * K + 8 + ow + N * K].view(N, K).copy_(w)
+    plan = m.gemm_plan(M, [N], K, tma=m.tma_ok(a) and m.tma_ok(w))
+    assert plan["body"] == ("wgmma" if case == "aligned" else "mma.sync")
+    bodies = _bodies("gemm")
+    out = m.gemm_wg(a, w)
+    ref = m.gemm_plain(a, w)
+    torch.cuda.synchronize()
+    after = _bodies("gemm")
+    body = "wgmma" if plan["body"] == "wgmma" else "mma.sync"
+    other = "mma.sync" if body == "wgmma" else "wgmma"
+    assert (after[body] - bodies[body], after[other] - bodies[other]) == (1, 0)
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(torch.bfloat16, ref)
+
+
+def test_gemm_wg_repeats_bit_for_bit(dev):
+    from tcdiff_torch.ops import gemm as m
+
+    g = torch.Generator(device=dev).manual_seed(44)
+    a, w, (bias, resid, fs, fb, L) = _wg_case(g, dev, 3600, 512, 1024)
+    one = m.gemm_wg(a, w, "bias_film_t", bias, resid, fs, fb, L)
+    two = m.gemm_wg(a, w, "bias_film_t", bias, resid, fs, fb, L)
+    assert torch.equal(one, two)
+
+
+def _k8_args(g, dev, dtype, d, L_=37, b=2):
+    s, bb = 1 + _rnd(g, dev, d, std=0.1), _rnd(g, dev, d, std=0.1)
+    w = lambda: _rnd(g, dev, d, d, std=d**-0.5).to(dtype)
+    return _rnd(g, dev, b, L_, d).to(dtype), s, bb, angle_table(L_, d, dev), w(), w(), w()
+
+
+def _flat(o):
+    return [t for part in (o if isinstance(o, tuple) else (o,)) for t in (part if isinstance(part, tuple) else (part,))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d, l", [(64, 37), (512, 37), (512, 450)])
+@pytest.mark.parametrize("form", ["apart", "joined", "rot-only", "rot-only apart"])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_ln_rotary_matmul_new_design_matches_plain(dev, dtype, d, l, form, prologue):
+    """K8 in both forms with q's and k's weights apart and joined: bf16 the
+    row body and one launch of the wgmma body for every product, or with
+    the prologue one launch of the body with the LayerNorm and rotary in
+    its prologue (no mma.sync launch either way); f32 the FMA sequence."""
+    from tcdiff_torch.ops import ln_rotary_matmul as m
+
+    g = torch.Generator(device=dev).manual_seed(45)
+    x, s, bb, ang, wq, wk, wv = _k8_args(g, dev, dtype, d, l)
+    w_rot = {"apart": (wq, wk), "joined": torch.cat([wq, wk]), "rot-only": wq, "rot-only apart": (wq, wk)}[form]
+    w_plain = wv if form in ("apart", "joined") else None
+    before, bodies = m.ln_rotary_matmul.launches, _bodies("ln_rotary_matmul")
+    out = _flat(m.ln_rotary_matmul(x, s, bb, ang, w_rot, w_plain, prologue=prologue))
+    ref = _flat(m.ln_rotary_matmul_plain(x, s, bb, ang, w_rot, w_plain))
+    torch.cuda.synchronize()
+    after = _bodies("ln_rotary_matmul")
+    assert m.ln_rotary_matmul.launches == before + 1
+    if dtype == torch.bfloat16:
+        assert (after["wgmma"] - bodies["wgmma"], after["mma.sync"] - bodies["mma.sync"]) == (1, 0)
+        cos, ssin = rotary_tables_of(ang, dtype)
+        plan = m.plan(x, s, bb, cos, ssin, list(w_rot) if isinstance(w_rot, tuple) else [w_rot], w_plain, prologue)
+        assert plan["body"] == ("wgmma+ln" if prologue else "wgmma")
+    assert len(out) == len(ref)
+    for o, r in zip(out, ref):
+        assert o.dtype == dtype and o.shape == r.shape
+        assert (o.float() - r.float()).abs().max().item() <= _tol(dtype, r)
+
+
+def rotary_tables_of(angles, dtype):
+    from tcdiff_torch.ops.sa_block import cached_rotary_tables
+
+    return cached_rotary_tables(angles, dtype)
+
+
+@pytest.mark.parametrize("d", [96, 1024])
+def test_ln_rotary_matmul_outside_the_prologue(dev, d):
+    """Widths the prologue does not hold (96: not a templated width; 1024:
+    past 512) run ln_rows and then the wgmma products though the prologue
+    is asked for, as gemm_plan says."""
+    from tcdiff_torch.ops import ln_rotary_matmul as m
+
+    g = torch.Generator(device=dev).manual_seed(46)
+    x, s, bb, ang, wq, wk, wv = _k8_args(g, dev, torch.bfloat16, d)
+    bodies = _bodies("ln_rotary_matmul")
+    out = _flat(m.ln_rotary_matmul(x, s, bb, ang, (wq, wk), wv, prologue=True))
+    ref = _flat(m.ln_rotary_matmul_plain(x, s, bb, ang, (wq, wk), wv))
+    torch.cuda.synchronize()
+    after = _bodies("ln_rotary_matmul")
+    assert (after["wgmma"] - bodies["wgmma"], after["mma.sync"] - bodies["mma.sync"]) == (1, 0)
+    for o, r in zip(out, ref):
+        assert (o.float() - r.float()).abs().max().item() <= _tol(torch.bfloat16, r)
+
+
+@pytest.mark.parametrize("film", [False, True])
+@pytest.mark.parametrize("b, l, d, ff", [(2, 100, 128, 256), (8, 450, 512, 1024), (2, 37, 64, 96)])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_ff_block_new_design_matches_plain(dev, film, b, l, d, ff, prologue):
+    """K2b in bf16: both products on wgmma (no mma.sync launch), W1 after
+    the row body or with LN3 in its prologue."""
+    g = torch.Generator(device=dev).manual_seed(47)
+    bf16 = torch.bfloat16
+    r = lambda *s, std=1.0: _rnd(g, dev, *s, std=std)
+    args = (r(b, l, d).to(bf16), 1 + r(d, std=0.1), r(d, std=0.1), r(ff, d, std=d**-0.5).to(bf16), r(ff, std=0.1),
+            r(d, ff, std=ff**-0.5).to(bf16), r(d, std=0.1),
+            *((r(b, d, std=0.1), r(b, d, std=0.1)) if film else (None, None)))
+    bodies = _bodies("ff_block")
+    out = ff_block.ff_block(*args, prologue=prologue)
+    ref = ff_block.ff_block_plain(*args)
+    torch.cuda.synchronize()
+    after = _bodies("ff_block")
+    assert (after["wgmma"] - bodies["wgmma"], after["mma.sync"] - bodies["mma.sync"]) == (2, 0)
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(bf16, ref)
+
+
+def _device_names(fn, want):
+    """The device kernels of one fn() under torch.profiler (read again,
+    three times at most, while the profiler drops an event)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda._sleep(1000)  # a session's first event is the one it drops
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False) and "#" not in e.name
+                 and "spin_kernel" not in e.name]
+        if len(names) == want:
+            break
+    return names
+
+
+@pytest.mark.parametrize("prologue", [False, True])
+def test_k8_and_k2b_launches_on_the_card(dev, prologue):
+    """bf16 at the serving shape: one K8 call is the row kernel and one
+    gemm_wg_kernel launch (with the prologue: that launch alone), one K2b
+    call the row kernel and two (with the prologue: two), and no other
+    device kernel (no mma.sync product, no PyTorch kernel)."""
+    from tcdiff_torch.ops import ln_rotary_matmul as m
+
+    g = torch.Generator(device=dev).manual_seed(48)
+    x, s, bb, ang, wq, wk, wv = _k8_args(g, dev, torch.bfloat16, 512, 450, 8)
+    rows = 0 if prologue else 1
+    names = _device_names(lambda: m.ln_rotary_matmul(x, s, bb, ang, (wq, wk), wv, prologue=prologue), 1 + rows)
+    assert len(names) == 1 + rows and sum("gemm_wg_kernel" in n for n in names) == 1, names
+    assert sum("ln_rows_kernel" in n for n in names) == rows, names
+    r = lambda *sh, std=1.0: _rnd(g, dev, *sh, std=std)
+    args = (x, s, bb, r(1024, 512, std=512**-0.5).to(torch.bfloat16), r(1024, std=0.1),
+            r(512, 1024, std=1024**-0.5).to(torch.bfloat16), r(512, std=0.1), r(8, 512, std=0.1), r(8, 512, std=0.1))
+    names = _device_names(lambda: ff_block.ff_block(*args, prologue=prologue), 2 + rows)
+    assert len(names) == 2 + rows and sum("gemm_wg_kernel" in n for n in names) == 2, names
+    assert sum("ln_rows_kernel" in n for n in names) == rows, names
+
+
+def test_wgmma_body_refuses_what_it_does_not_take(dev):
+    from tcdiff_torch.ops import gemm as m
+
+    bf16 = torch.bfloat16
+    a, w = torch.zeros(16, 64, device=dev, dtype=bf16), torch.zeros(32, 64, device=dev, dtype=bf16)
+    with pytest.raises(TypeError):  # bf16 only
+        m.gemm_wg(a.float(), w.float())
+    with pytest.raises(ValueError):  # four products
+        m.gemm_wg(a, [w] * 4)
+    with pytest.raises(ValueError):  # a bias over products of unequal N
+        m.gemm_wg(a, [w, w[:16]], "bias", torch.zeros(32, device=dev))
+    with pytest.raises(ValueError):  # a tile of 192 rows
+        m.gemm_wg(a, w, wgs=3)
+    with pytest.raises(ValueError):  # K of w against a
+        m.gemm_wg(a, torch.zeros(32, 48, device=dev, dtype=bf16))

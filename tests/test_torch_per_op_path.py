@@ -163,10 +163,11 @@ def test_uncached_forward_matches_jax(models, monkeypatch, attention, trpe):
 
 
 @pytest.mark.parametrize("attention, kv_cache, trpe", [(1, True, True), (2, True, False), (1, False, True),
-                                                       (2, False, False)])
+                                                       (2, False, False), (2, True, True), (1, False, False)])
 def test_cached_guided_forward_matches_jax(models, monkeypatch, attention, kv_cache, trpe):
     """encode_cond_cfg + guided (CFG dedup at layer 0), with the k/v cache
-    hoisted or the memory path."""
+    hoisted or the memory path; every layer's self-attention q, k, v come
+    from one K8 call with q's and k's weights apart."""
     jmodel, params, tmodel = models
     _set_flags(monkeypatch, attention, kv_cache)
     x, cond, t, dist = _inputs(2, 3)

@@ -1,8 +1,10 @@
-"""Device times of the train blocks (K3, K4, K5, forward + backward) and of
-the serving cross-attention block (K7), bf16, at the main path's shapes,
-made to compare two trees of the repository in one machine.
+"""Device times of the train blocks (K3, K4, K5, forward + backward), of
+the serving cross-attention block (K7), and of K8 and K2b, bf16, at the
+main path's shapes, made to compare two trees of the repository in one
+machine.
 
-    python3 tools/torch_block_time.py
+    python3 tools/torch_block_time.py                  # all of them
+    python3 tools/torch_block_time.py --only k8,k2b    # a part: train, k7, k8, k2b
 
 Runs from the root of the tree it lies in, with that tree's kernels: K3,
 K4 and K5 at the train shape (b=64, L=450, Lm=152, d=512, 8x64 heads,
@@ -15,13 +17,20 @@ the attention's (attn_*). K4 also at dropout 0, for the attention's share.
 Seeded random inputs; FiLM rows and LayerNorm affines in f32, weights in
 bf16, so no wrapper casts. Then K7's q side alone: the LayerNorm-prologue
 launch (gemm_lnrot) and the row kernel and product it replaced (ln_rows +
-gemm), each kernel's median device us. Prints one JSON line, with the
-card's name and power limit. To compare with another tree, copy this
+gemm), each kernel's median device us. K8 (self q/k/v with the joined
+q||k weight, as every tree takes it, and apart where the tree takes that;
+the rot-only cross query) and K2b (with and without FiLM rows) at the
+serving shape (b=8, L=450, d=512, ff=1024): device time a call and one
+call's kernels by name; then, in a tree with the wgmma body, each
+LayerNorm prologue (K8's q|k|v, K2b's W1) against ln_rows + the same
+wgmma product, each kernel's median device us. Prints one JSON line, with
+the card's name and power limit. To compare with another tree, copy this
 file into it (`git archive` of the parent) and run the two in turns.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import json
 import os
@@ -34,7 +43,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 from chip_smoke import B, D, FF, H, HD, L, LM, TRAIN_BATCH  # noqa: E402
 from tcdiff_torch.models.rotary import angle_table, apply_rotary  # noqa: E402
-from tcdiff_torch.ops import ca_block, ca_block_train, ff_block_train, gemm, layernorm, sa_block_train  # noqa: E402
+from tcdiff_torch.ops import (  # noqa: E402
+    ca_block, ca_block_train, ff_block, ff_block_train, gemm, layernorm, ln_rotary_matmul, sa_block_train,
+)
 
 ROWS = ("chain_top_fwd", "chain_top_bwd", "rows_bwd", "rot_rows", "ff_tail_bwd_rows", "gelu_bwd_rows")
 
@@ -61,7 +72,51 @@ def profile(fn) -> dict:
                 by_kernel=dict(counts), by_kernel_us=dict(us_by))
 
 
+def serving_k8_k2b(res: dict, parts, rnd, w, ln, film) -> None:
+    """K8 and K2b (see the module docstring) into res."""
+    dev = "cuda"
+    x = rnd(B, L, D).to(torch.bfloat16)
+    s, b = ln()
+    ang = angle_table(L, D, dev)
+    wq, wk, wv = w(HD, D), w(HD, D), w(HD, D)
+    wr = torch.cat([wq, wk])
+    w1, w2, b1, b2 = w(FF, D), w(D, FF), rnd(FF, std=0.1), rnd(D, std=0.1)
+    fs, fb = film(B)
+    new = hasattr(gemm, "gemm_wg_ln")  # a tree with the wgmma body
+    calls = {}
+    if "k8" in parts:
+        calls["K8"] = lambda: ln_rotary_matmul.ln_rotary_matmul(x, s, b, ang, wr, wv)
+        if new:
+            calls["K8 apart"] = lambda: ln_rotary_matmul.ln_rotary_matmul(x, s, b, ang, (wq, wk), wv)
+        calls["K8 rot-only"] = lambda: ln_rotary_matmul.ln_rotary_matmul(x, s, b, ang, wq)
+    if "k2b" in parts:
+        calls["K2b"] = lambda: ff_block.ff_block(x, s, b, w1, b1, w2, b2)
+        calls["K2b film"] = lambda: ff_block.ff_block(x, s, b, w1, b1, w2, b2, fs, fb)
+    for label, fn in calls.items():
+        res[label] = dict(device_ms=chip_smoke.device_ms(fn, reps=20), **profile(fn))
+    if not new:
+        return
+    # each prologue against ln_rows + the same wgmma product (ln_rows'
+    # wrapper also builds its rotary tables: not counted)
+    us = chip_smoke.kernel_us
+    if "k8" in parts:
+        def unfused():
+            y, r = layernorm.ln_rows(x, s, b, 1e-5, angles=ang)
+            return gemm.gemm_wg([r.view(B * L, D), r.view(B * L, D), y.view(B * L, D)], [wq, wk, wv])
+        res["K8 prologue"] = dict(
+            prologue_us=us(lambda: gemm.gemm_wg_ln(x, s, b, ang, [wq, wk, wv], [1, 1, 0]), "gemm_wg_kernel"),
+            ln_rows_us=us(unfused, "ln_rows_kernel"), product_us=us(unfused, "gemm_wg_kernel"))
+    if "k2b" in parts:
+        unfused_w1 = lambda: gemm.gemm_wg(layernorm.ln_rows(x, s, b, 1e-5)[0].view(B * L, D), w1, "bias_gelu", b1)
+        res["K2b W1 prologue"] = dict(
+            prologue_us=us(lambda: gemm.gemm_wg_ln(x, s, b, None, [w1], [0], "bias_gelu", b1), "gemm_wg_kernel"),
+            ln_rows_us=us(unfused_w1, "ln_rows_kernel"), product_us=us(unfused_w1, "gemm_wg_kernel"))
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", default="train,k7,k8,k2b", help="comma-separated parts: train, k7, k8, k2b")
+    parts = set(ap.parse_args().only.split(","))
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
@@ -86,37 +141,39 @@ def main() -> int:
         res[name] = dict(device_ms=chip_smoke.device_ms(step, reps=5), fwd_launches=fwd["launches"],
                          bwd_launches=both["launches"] - fwd["launches"], **both)
 
-    sab = (rnd(b, L, D).to(bf16), *ln(), angle_table(L, D, dev), w(HD, D), w(HD, D), w(HD, D), w(D, HD), *ln(),
-           *film(b), seeds)
-    train_block("K3", sa_block_train.sa_block_train, sab, (0, 1, 2, 4, 5, 6, 7, 8, 9, 10, 11),
-                dict(nhead=H, rate=chip_smoke.RATE))
-    cab = (rnd(b, L, D).to(bf16), rnd(b, LM, D).to(bf16), *ln(), angle_table(L, D, dev), angle_table(LM, D, dev),
-           w(HD, D), w(HD, D), w(HD, D), w(D, HD), *ln(), *film(b), seeds)
-    cad = (0, 1, 2, 3, 6, 7, 8, 9, 10, 11, 12, 13)
-    train_block("K4", ca_block_train.ca_block_train, cab, cad, dict(nhead=H, rate=chip_smoke.RATE))
-    train_block("K4 rate 0", ca_block_train.ca_block_train, cab, cad, dict(nhead=H, rate=0.0))
-    ffb = (rnd(b, L, D).to(bf16), *ln(), w(FF, D), rnd(FF, std=0.1), w(D, FF), rnd(D, std=0.1), *film(b), *ln(),
-           w(D, D), rnd(D, std=0.1), seeds)
-    train_block("K5", ff_block_train.ff_tail_train, ffb, tuple(range(13)), dict(rate=chip_smoke.RATE))
+    serving_k8_k2b(res, parts, rnd, w, ln, film)
+    if "train" in parts:
+        sab = (rnd(b, L, D).to(bf16), *ln(), angle_table(L, D, dev), w(HD, D), w(HD, D), w(HD, D), w(D, HD),
+               *ln(), *film(b), seeds)
+        train_block("K3", sa_block_train.sa_block_train, sab, (0, 1, 2, 4, 5, 6, 7, 8, 9, 10, 11),
+                    dict(nhead=H, rate=chip_smoke.RATE))
+        cab = (rnd(b, L, D).to(bf16), rnd(b, LM, D).to(bf16), *ln(), angle_table(L, D, dev),
+               angle_table(LM, D, dev), w(HD, D), w(HD, D), w(HD, D), w(D, HD), *ln(), *film(b), seeds)
+        cad = (0, 1, 2, 3, 6, 7, 8, 9, 10, 11, 12, 13)
+        train_block("K4", ca_block_train.ca_block_train, cab, cad, dict(nhead=H, rate=chip_smoke.RATE))
+        train_block("K4 rate 0", ca_block_train.ca_block_train, cab, cad, dict(nhead=H, rate=0.0))
+        ffb = (rnd(b, L, D).to(bf16), *ln(), w(FF, D), rnd(FF, std=0.1), w(D, FF), rnd(D, std=0.1), *film(b),
+               *ln(), w(D, D), rnd(D, std=0.1), seeds)
+        train_block("K5", ff_block_train.ff_tail_train, ffb, tuple(range(13)), dict(rate=chip_smoke.RATE))
 
-    mem = rnd(B, LM, D).to(bf16)
-    k7 = (rnd(B, L, D).to(bf16), *ln(), angle_table(L, D, dev), mem, apply_rotary(mem, angle_table(LM, D, dev)),
-          w(HD, D), w(HD, D), w(HD, D), w(D, HD), *ln())
-    for label, args in (("K7", k7 + (None, None)), ("K7 film", k7 + film(B))):
-        fn = lambda args=args: ca_block.ca_block(*args, nhead=H)
-        res[label] = dict(device_ms=chip_smoke.device_ms(fn, reps=20), **profile(fn))
-
-    # K7's q side alone: the prologue launch, and the row kernel and the
-    # product it replaced (ln_rows + gemm, the same bits), each kernel's
-    # median us (ln_rows' wrapper also builds its tables: not counted)
-    x, s1, b1, ang, wq = k7[0], k7[1], k7[2], k7[3], k7[6]
-    if not hasattr(gemm, "gemm_lnrot"):  # a tree from before the prologue
-        print(json.dumps({"card": chip_smoke.card_line(), "bf16": res}))
-        return 0
-    unfused = lambda: gemm.gemm(layernorm.ln_rows(x, s1, b1, 1e-5, angles=ang, normed=False)[1].view(B * L, D), wq)
-    res["K7 q"] = dict(prologue_us=chip_smoke.kernel_us(lambda: gemm.gemm_lnrot(x, s1, b1, ang, wq), "gemm_lnrot"),
-                       ln_rows_us=chip_smoke.kernel_us(unfused, "ln_rows_kernel"),
-                       gemm_us=chip_smoke.kernel_us(unfused, "gemm_mma_kernel"))
+    if "k7" in parts:
+        mem = rnd(B, LM, D).to(bf16)
+        k7 = (rnd(B, L, D).to(bf16), *ln(), angle_table(L, D, dev), mem, apply_rotary(mem, angle_table(LM, D, dev)),
+              w(HD, D), w(HD, D), w(HD, D), w(D, HD), *ln())
+        for label, args in (("K7", k7 + (None, None)), ("K7 film", k7 + film(B))):
+            fn = lambda args=args: ca_block.ca_block(*args, nhead=H)
+            res[label] = dict(device_ms=chip_smoke.device_ms(fn, reps=20), **profile(fn))
+        # K7's q side alone: the prologue launch, and the row kernel and the
+        # product it replaced (ln_rows + gemm, the same bits), each kernel's
+        # median us (ln_rows' wrapper also builds its tables: not counted)
+        x, s1, b1, ang, wq = k7[0], k7[1], k7[2], k7[3], k7[6]
+        if hasattr(gemm, "gemm_lnrot"):  # a tree from after the prologue
+            unfused = lambda: gemm.gemm(
+                layernorm.ln_rows(x, s1, b1, 1e-5, angles=ang, normed=False)[1].view(B * L, D), wq)
+            res["K7 q"] = dict(
+                prologue_us=chip_smoke.kernel_us(lambda: gemm.gemm_lnrot(x, s1, b1, ang, wq), "gemm_lnrot"),
+                ln_rows_us=chip_smoke.kernel_us(unfused, "ln_rows_kernel"),
+                gemm_us=chip_smoke.kernel_us(unfused, "gemm_mma_kernel"))
     print(json.dumps({"card": chip_smoke.card_line(), "bf16": res}))
     return 0
 

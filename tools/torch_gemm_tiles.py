@@ -1,7 +1,8 @@
 """Tile shapes of the bf16 projection's main loop, side by side on one CUDA
 card, beside torch.matmul.
 
-    python3 tools/torch_gemm_tiles.py
+    python3 tools/torch_gemm_tiles.py                 # every part
+    python3 tools/torch_gemm_tiles.py --only wgmma    # a part: mma, epilogues, backward, wgmma
 
 Builds `tools/gemm_tiles.cu` (the mma.sync loop of
 `tcdiff_torch/csrc/gemm_mma.cuh` over a few block tiles, K steps, warp
@@ -16,11 +17,15 @@ shapes, so that the cost of an epilogue is its time less the loop's (v4).
 Then the backward's bodies (ops/gemm.py) at the train rows (M = 28800):
 the input gradient by shape and epilogue, and the split-row weight
 gradient by split count (the count the train kernels use marked), each
-with its ordered reduction. Prints the card's name and power limit first.
+with its ordered reduction. Then the wgmma + TMA body (ops/gemm.gemm_wg)
+at K8's and K2b's products with their epilogues, in 64-row tiles (one
+consumer warpgroup, two blocks an SM) and 128-row tiles (two, one an SM),
+each with its L2 -> SM rate. Prints the card's name and power limit first.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import os
 import subprocess
@@ -50,11 +55,45 @@ EPILOGUES = [(3600, 512, 512, ("store", "store_f32", "bias")), (3600, 1024, 512,
 L = 450  # rows of one FiLM row
 
 
+def wgmma(gen) -> None:
+    """The wgmma body's tiles at K8's and K2b's products (module docstring)."""
+    M, D, FF, L = 3600, 512, 1024, 450
+    rnd = lambda *shape, std=1.0: torch.randn(shape, generator=gen, device="cuda") * std
+    x, h = rnd(M, D).bfloat16(), rnd(M, FF).bfloat16()
+    wq, wk, wv = (rnd(D, D, std=D**-0.5).bfloat16() for _ in range(3))
+    w1, w2 = rnd(FF, D, std=D**-0.5).bfloat16(), rnd(D, FF, std=FF**-0.5).bfloat16()
+    b1, b2, fs, fb = rnd(FF, std=0.1), rnd(D, std=0.1), rnd(M // L, D, std=0.1), rnd(M // L, D, std=0.1)
+    cases = (  # (label, N, K, gemm_wg's args)
+        ("K8 q||k||v store", 3 * D, D, (x, [wq, wk, wv])),
+        ("K8 rot-only q store", D, D, (x, wq)),
+        ("K2b W1 bias+GELU", FF, D, (x, w1, "bias_gelu", b1)),
+        ("K2b W2 bias", D, FF, (h, w2, "bias", b2)),
+        ("K2b W2 bias+FiLM", D, FF, (h, w2, "bias_film_t", b2, x, fs, fb, L)),
+    )
+    print(f"the wgmma + TMA body (ops/gemm.gemm_wg, csrc/gemm_wgmma.cuh) at M = {M}:")
+    for label, N, K, args in cases:
+        flops = 2 * M * N * K
+        for wgs in (1, 2):
+            ms = chip_smoke.device_ms(lambda: gemm.gemm_wg(*args, wgs=wgs))
+            l2 = M * N * K * 2 * (1 / (64 * wgs) + 1 / gemm.WG_BN)
+            print(f"  {label} {M}x{N}x{K}, {64 * wgs}x{gemm.WG_BN} tiles: {1e3 * ms:.1f} us, "
+                  f"{flops / ms / 1e9:.0f} TFLOP/s, L2->SM {l2 / ms / 1e9:.2f} TB/s")
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", default="mma,epilogues,backward,wgmma",
+                    help="comma-separated parts: mma, epilogues, backward, wgmma")
+    parts = set(ap.parse_args().only.split(","))
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
     print(f"card: {chip_smoke.card_line()}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if "wgmma" in parts:
+        wgmma(gen)
+    if "mma" not in parts and "epilogues" not in parts and "backward" not in parts:
+        return 0
     _build.BUILD.mkdir(parents=True, exist_ok=True)
     lib_path = _build.BUILD / "libgemm_tiles.so"
     res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path),
@@ -67,8 +106,7 @@ def main() -> int:
                                                                                   ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream().cuda_stream
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    for M, N, K in SHAPES:
+    for M, N, K in SHAPES if "mma" in parts else ():
         a = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
         w = (torch.randn(N, K, generator=gen, device="cuda") * K**-0.5).bfloat16()
         c = torch.empty(M, N, device="cuda", dtype=torch.bfloat16)
@@ -89,8 +127,9 @@ def main() -> int:
             print(f"  v{v} {bm}x{bn}x{bk} warps {warps} stages {stages}{' fragments first' if pre else ''}: "
                   f"{1e3 * ms:.1f} us, {flops / ms / 1e9:.0f} TFLOP/s, {occ.value} blocks/SM, "
                   f"{flops / l2:.0f} FLOP/byte, L2->SM {l2 / ms / 1e9:.2f} TB/s")
-    print("the projection (ops/gemm.py, csrc/gemm_mma.cuh) by epilogue:")
-    for M, N, K, epilogues in EPILOGUES:
+    if "epilogues" in parts:
+        print("the projection (ops/gemm.py, csrc/gemm_mma.cuh) by epilogue:")
+    for M, N, K, epilogues in EPILOGUES if "epilogues" in parts else ():
         a = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
         w = (torch.randn(N, K, generator=gen, device="cuda") * K**-0.5).bfloat16()
         film = (0.1 * torch.randn(N, generator=gen, device="cuda"),
@@ -100,7 +139,8 @@ def main() -> int:
         for epi in epilogues:
             ms = chip_smoke.device_ms(lambda: gemm.gemm(a, w, epi, *film))
             print(f"  {M}x{N}x{K} {epi}: {1e3 * ms:.1f} us, {2 * M * N * K / ms / 1e9:.0f} TFLOP/s")
-    backward(gen)
+    if "backward" in parts:
+        backward(gen)
     return 0
 
 
