@@ -1170,12 +1170,13 @@ def kernel_us(fn, part: str, reps: int = 10) -> float:
     """The median device time in us of the kernels whose name holds `part`
     over `reps` calls of fn() under torch.profiler (each kernel's own
     interval: its time alone, without the wrapper's other launches). Two
-    more calls run than the median needs: the profiler now and then drops
-    an event on the card (device_kernels)."""
+    more calls run than the median needs, and the reading is taken again
+    (10 times at most) while it holds fewer: the profiler now and then
+    drops events on the card (device_kernels)."""
     fn()
     torch.cuda.synchronize()
     _, events = device_kernels(lambda: [fn() for _ in range(reps + 2)],
-                               accept=lambda ks: sum(part in n for n, _, _ in ks) >= reps)
+                               accept=lambda ks: sum(part in n for n, _, _ in ks) >= reps, attempts=10)
     times = [end - start for name, start, end in events if part in name]
     check(len(times) >= reps, f"the profiler saw {len(times)} launches of {part}, expected {reps} at least")
     return statistics.median(times)
