@@ -38,12 +38,10 @@ last line:
      kernels with the FF section (7 without), one LayerNorm row kernel,
      the folds of the LayerNorms into the fc and W2 epilogues by name;
      then K8 (weights apart and joined, the rot-only form) and K2b (with and
-     without FiLM) alone in bf16, in the default design (the row kernel,
-     then the products on the wgmma body) and with the LayerNorm in the
-     first product's prologue: each against its plain version, its device
-     time, one call's device kernels by name (K8: 2 or 1, K2b: 3 or 2, no
-     mma.sync and no PyTorch kernel), each prologue against ln_rows + the
-     same wgmma product, and the host us a call spends on tensor maps;
+     without FiLM) alone in bf16 (the row kernel, then the products on the
+     wgmma body): each against its plain version, its device time, one
+     call's device kernels by name (K8: 2, K2b: 3, no mma.sync and no
+     PyTorch kernel), and the host us a call spends on tensor maps;
   6. hold each train kernel (K3, K4, K5) against its plain version at the
      main path's train shapes (b=64, L=450, Lm=152, d=512), in bf16 and
      f32, dropout 0.1 with the same seeds: the output and every gradient
@@ -250,31 +248,46 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if torch.is_tensor(t))
 
 
+LEAD_SPINS = 32  # short spin kernels ahead of each profiled call (device_kernels)
+
+
 def device_kernels(fn, accept=None, attempts: int = 3):
     """Run fn() once under torch.profiler. Returns the wall seconds and the
     device kernels it ran, [(name without arguments, start us, end us)] in
-    order of start. Now and then the profiler hands back no device events,
-    or misses some (both seen on the card, several sessions in a row):
-    fn() then runs again, `attempts` times at most, until
-    `accept(kernels)` holds where given; the last reading is returned
-    either way, for the caller's check to judge."""
+    order of start. On the card a session drops its first device events:
+    now and then one early in a process, several in every session late in
+    a long one (K7's check then read no kernel of its call ten times in a
+    row). So each session starts with a pause and LEAD_SPINS short spin
+    kernels, which take that loss and are left out of the reading. Where a
+    reading still holds no device events, or `accept(kernels)` does not
+    hold, fn() runs again, after a pause that grows from 0.1 s to 1 s,
+    `attempts` times at most, each rejected reading noted on stderr; the
+    last reading is returned either way, for the caller's check to judge."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     last = None
-    for _ in range(attempts):
+    for attempt in range(attempts):
+        if attempt:
+            torch.cuda.synchronize()
+            time.sleep(min(1.0, 0.1 * 2 ** (attempt - 1)))
         with torch.profiler.profile(activities=acts) as prof:
+            time.sleep(0.01)
+            for _ in range(LEAD_SPINS):
+                torch.cuda._sleep(10_000)
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         kernels = sorted(((re.sub(r"\(.*\)$", "", e.name.replace("void ", "")).replace("__nv_bfloat16", "bf16"),
                            e.time_range.start, e.time_range.end) for e in prof.events()
-                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name
                           and not getattr(e, "is_user_annotation", False) and "#" not in e.name),
                          key=lambda k: k[1])
         if kernels:
             last = wall, kernels
             if accept is None or accept(kernels):
                 break
+        print(f"device_kernels: reading {attempt + 1} of {attempts} held {len(kernels)} device kernels; "
+              f"{'reading again' if attempt + 1 < attempts else 'no more readings'}", file=sys.stderr)
     if last is None:
         raise SmokeFailure("the profiler saw no device events")
     return last
@@ -524,16 +537,14 @@ def compare_wgmma(gen: torch.Generator) -> dict:
 
 
 def check_one_call(fn, want: int, what: str, wg: int, rows: int) -> list:
-    """One bf16 call fn() under torch.profiler (a pause and a spin first,
-    read again up to 10 times while the profiler drops an event): exactly
-    `want` device kernels, `wg` of them the wgmma body, `rows` row kernels,
-    none of them gemm_mma_kernel or a PyTorch kernel. Returns [(kernel, us)]."""
+    """One bf16 call fn() under torch.profiler (read again up to 10 times
+    while the profiler drops an event): exactly `want` device kernels, `wg`
+    of them the wgmma body, `rows` row kernels, none of them
+    gemm_mma_kernel or a PyTorch kernel. Returns [(kernel, us)]."""
     fn()
     torch.cuda.synchronize()
-    ours = lambda ks: [k for k in ks if k[0] != "at::cuda::"]  # the spin kernel
-    _, kernels = device_kernels(lambda: (time.sleep(0.01), torch.cuda._sleep(1_000_000), fn()),
-                                accept=lambda ks: len(ours(ks)) == want, attempts=10)
-    kernels = [(n, e - s) for n, s, e in ours(kernels)]
+    _, kernels = device_kernels(fn, accept=lambda ks: len(ks) == want, attempts=10)
+    kernels = [(n, e - s) for n, s, e in kernels]
     print(f"{what}: {len(kernels)} device kernels a call: " + ", ".join(f"{n.replace('tcd::', '')} {us:.1f} us"
                                                                     for n, us in kernels))
     check(len(kernels) == want, f"{what} ran {len(kernels)} device kernels, expected {want}")
@@ -548,16 +559,13 @@ def compare_k8_k2b(gen: torch.Generator) -> dict:
     """Phase 5b: K8 (self q/k/v with q's and k's weights apart, as the per-op
     path calls it, and joined; the rot-only cross query) and K2b (with and
     without FiLM rows) alone at the serving shape, bf16, operands in the
-    kernels' dtypes (no wrapper cast), each in the default design (the row
-    body, then the products on the wgmma body) and with the LayerNorm in the
-    first product's prologue: device time a call (calls queued back to
-    back), its device kernels by name under torch.profiler (K8: the row
-    kernel and one wgmma launch, or the wgmma launch alone; K2b: the row
-    kernel and two wgmma launches, or two; no mma.sync and no PyTorch
-    kernel), each against the plain version. Then each prologue against
-    ln_rows + the same wgmma product, each kernel's median device us, and
-    the host us a call spends on tensor maps. Returns extra figures for
-    K8 and K2b."""
+    kernels' dtypes (no wrapper cast): the row body, then the products on
+    the wgmma body. Device time a call (calls queued back to back), its
+    device kernels by name under torch.profiler (K8: the row kernel and one
+    wgmma launch; K2b: the row kernel and two wgmma launches; no mma.sync
+    and no PyTorch kernel), each against the plain version; then the host
+    us a call spends on tensor maps. Returns extra figures for K8 and
+    K2b."""
     dev, bf16 = "cuda", torch.bfloat16
     rnd = lambda *shape, std=1.0: torch.randn(shape, generator=gen, device=dev) * std
     w = lambda o, i: rnd(o, i, std=i**-0.5).to(bf16)
@@ -566,16 +574,16 @@ def compare_k8_k2b(gen: torch.Generator) -> dict:
     wq, wk, wv, w1, w2 = w(HD, D), w(HD, D), w(HD, D), w(FF, D), w(D, FF)
     b1, b2, fs, fb = rnd(FF, std=0.1), rnd(D, std=0.1), rnd(B, D, std=0.1), rnd(B, D, std=0.1)
     k8, wqk = ln_rotary_matmul.ln_rotary_matmul, torch.cat([wq, wk])
-    calls = (  # (kernel, label, call(prologue), plain, wgmma launches)
-        ("ln_rotary_matmul", "self q/k/v, weights apart", lambda p: k8(x, s, b, ang, (wq, wk), wv, prologue=p),
+    calls = (  # (kernel, label, call, plain, wgmma launches)
+        ("ln_rotary_matmul", "self q/k/v, weights apart", lambda: k8(x, s, b, ang, (wq, wk), wv),
          lambda: ln_rotary_matmul.ln_rotary_matmul_plain(x, s, b, ang, (wq, wk), wv), 1),
-        ("ln_rotary_matmul", "self q/k/v, joined", lambda p: k8(x, s, b, ang, wqk, wv, prologue=p),
+        ("ln_rotary_matmul", "self q/k/v, joined", lambda: k8(x, s, b, ang, wqk, wv),
          lambda: ln_rotary_matmul.ln_rotary_matmul_plain(x, s, b, ang, wqk, wv), 1),
-        ("ln_rotary_matmul", "rot-only cross q", lambda p: k8(x, s, b, ang, wq, prologue=p),
+        ("ln_rotary_matmul", "rot-only cross q", lambda: k8(x, s, b, ang, wq),
          lambda: ln_rotary_matmul.ln_rotary_matmul_plain(x, s, b, ang, wq), 1),
-        ("ff_block", "film=False", lambda p: ff_block.ff_block(x, s, b, w1, b1, w2, b2, prologue=p),
+        ("ff_block", "film=False", lambda: ff_block.ff_block(x, s, b, w1, b1, w2, b2),
          lambda: ff_block.ff_block_plain(x, s, b, w1, b1, w2, b2), 2),
-        ("ff_block", "film=True", lambda p: ff_block.ff_block(x, s, b, w1, b1, w2, b2, fs, fb, prologue=p),
+        ("ff_block", "film=True", lambda: ff_block.ff_block(x, s, b, w1, b1, w2, b2, fs, fb),
          lambda: ff_block.ff_block_plain(x, s, b, w1, b1, w2, b2, fs, fb), 2),
     )
     flat = lambda o: [t for part in (o if isinstance(o, tuple) else (o,))
@@ -584,36 +592,16 @@ def compare_k8_k2b(gen: torch.Generator) -> dict:
     for kernel, label, call, plain, wg in calls:
         name = "K8" if kernel == "ln_rotary_matmul" else "K2b"
         refs = flat(plain())
-        for prologue in (False, True):
-            design = "prologue" if prologue else "row body + wgmma"
-            outs = flat(call(prologue))
-            torch.cuda.synchronize()
-            err = max((o.float() - r.float()).abs().max().item() for o, r in zip(outs, refs))
-            tol = min(tolerance(bf16, r.float()) for r in refs)
-            check(err <= tol, f"{name} {label} ({design}) disagrees with its plain version: {err} > {tol}")
-            ms = device_ms(lambda: call(prologue), reps=20)
-            kernels = check_one_call(lambda: call(prologue), wg + (0 if prologue else 1),
-                                     f"{name} {label} bf16, {design}", wg, 0 if prologue else 1)
-            print(f"{name} {label} bf16, {design}: max_abs_err {err:.3e} (tol {tol:.3e}); device "
-                  f"{1e3 * ms:.1f} us a call (calls queued back to back)")
-            figures[kernel][f"{label}, {design}"] = dict(device_ms=ms, max_abs_err=err,
-                                                         kernels_us={n: us for n, us in kernels})
-
-    # each prologue against ln_rows + the same wgmma product
-    us = kernel_us
-    def k8_unfused():
-        y, r = layernorm.ln_rows(x, s, b, 1e-5, angles=ang)
-        return gemm.gemm_wg([r.view(B * L, D), r.view(B * L, D), y.view(B * L, D)], [wq, wk, wv])
-    w1_unfused = lambda: gemm.gemm_wg(layernorm.ln_rows(x, s, b, 1e-5)[0].view(B * L, D), w1, "bias_gelu", b1)
-    for kernel, label, fused, unfused in (
-            ("ln_rotary_matmul", "K8 q||k||v", lambda: gemm.gemm_wg_ln(x, s, b, ang, [wq, wk, wv], [1, 1, 0]),
-             k8_unfused),
-            ("ff_block", "K2b W1 bias+GELU", lambda: gemm.gemm_wg_ln(x, s, b, None, [w1], [0], "bias_gelu", b1),
-             w1_unfused)):
-        p_us, l_us, g_us = us(fused, "gemm_wg_kernel"), us(unfused, "ln_rows_kernel"), us(unfused, "gemm_wg_kernel")
-        print(f"{label}: the LayerNorm prologue {p_us:.1f} us against ln_rows {l_us:.1f} + the product {g_us:.1f} = "
-              f"{l_us + g_us:.1f} us (each kernel's median device us)")
-        figures[kernel]["prologue_vs_unfused_us"] = dict(prologue=p_us, ln_rows=l_us, product=g_us)
+        outs = flat(call())
+        torch.cuda.synchronize()
+        err = max((o.float() - r.float()).abs().max().item() for o, r in zip(outs, refs))
+        tol = min(tolerance(bf16, r.float()) for r in refs)
+        check(err <= tol, f"{name} {label} disagrees with its plain version: {err} > {tol}")
+        ms = device_ms(call, reps=20)
+        kernels = check_one_call(call, wg + 1, f"{name} {label} bf16", wg, 1)
+        print(f"{name} {label} bf16: max_abs_err {err:.3e} (tol {tol:.3e}); device {1e3 * ms:.1f} us a call "
+              f"(calls queued back to back)")
+        figures[kernel][label] = dict(device_ms=ms, max_abs_err=err, kernels_us={n: us for n, us in kernels})
 
     # the host time a call spends on tensor maps (cached: lookups only)
     for kernel, lib, fn in (("ln_rotary_matmul", "ln_rotary_matmul", lambda: k8(x, s, b, ang, (wq, wk), wv)),
@@ -1301,15 +1289,9 @@ def check_k7_kernels(fn, what: str) -> int:
     LayerNorm-prologue launch. Returns the count."""
     fn()  # the tables' first call builds them
     torch.cuda.synchronize()
-    # a pause and a spin kernel first: on the card the profiler drops the
-    # events at a session's start now and then (K7's first launch, three
-    # sessions in a row once; its first three, three sessions in a row).
-    # The spin kernel is at::cuda::(anonymous namespace)::spin_kernel,
-    # which device_kernels' names cut at its first parenthesis.
-    ours = lambda ks: [k for k in ks if k[0] != "at::cuda::"]
-    _, kernels = device_kernels(lambda: (time.sleep(0.01), torch.cuda._sleep(1_000_000), fn()),
-                                accept=lambda ks: len(ours(ks)) == 4, attempts=10)
-    kernels = ours(kernels)
+    # on the card the profiler drops the events at a session's start
+    # (device_kernels' lead-in takes that loss)
+    _, kernels = device_kernels(fn, accept=lambda ks: len(ks) == 4, attempts=10)
     print(f"K7 ca_block bf16 {what}: {len(kernels)} device kernels a call: "
           + ", ".join(f"{n.replace('tcd::', '')} {e - s:.1f} us" for n, s, e in kernels))
     check(len(kernels) == 4, f"K7 ({what}) ran {len(kernels)} device kernels, expected 4")

@@ -17,20 +17,17 @@
 // ff=1024) the block is 7.5 GFLOP against ~2 MB of weights and ~15 MB of
 // activations: operations, ~7.6 us at the bf16 tensor-core peak.
 //
-// Design, bf16: ln_rows writes LN3's output y, then both products run on
-// the wgmma + TMA body (gemm_wg of gemm_wgmma.cuh; mma.sync where TMA
-// cannot take an operand): W1 with bias + GELU in its epilogue, W2 with
-// the bias (EPI_BIAS) or the bias and the FiLM residual (EPI_BIAS_FILM_T,
-// which writes T where K2's EPI_BIAS_FILM keeps f32 for LN4). With
-// `prologue`, two launches instead of three: LN3 in W1's prologue
-// (gemm_wg_ln: the 8 column blocks of a row tile at ff = 1024 one cluster,
-// each normalising an eighth of the tile's rows into every block's shared
-// memory), so y never reaches device memory; on the H100 it measured
-// slower than ln_rows + W1 at the serving shape (PERF.md), so it is the
-// option. The (M, ff) hidden activation makes one round trip, which the
-// TPU kernel keeps in VMEM (at the serving shape 7.4 MB, within L2). f32:
-// K2's sequence without its last LayerNorm and GEMM (ff_hidden of
-// blocks.cuh, then W2), FMA products.
+// Design, bf16: three launches. ln_rows writes LN3's output y, then both
+// products run on the wgmma + TMA body (gemm_wg of gemm_wgmma.cuh;
+// mma.sync where its rule sends them): W1 with bias + GELU in its
+// epilogue, W2 with the bias (EPI_BIAS) or the bias and the FiLM residual
+// (EPI_BIAS_FILM_T, which writes T where K2's EPI_BIAS_FILM keeps f32 for
+// LN4). LN3 in W1's prologue (one launch fewer, y never in device memory)
+// measured slower on the H100 than ln_rows + W1 at the serving shape
+// (PERF.md), so the row body runs it. The (M, ff) hidden activation makes one
+// round trip, which the TPU kernel keeps in VMEM (at the serving shape
+// 7.4 MB, within L2). f32: K2's sequence without its last LayerNorm and
+// GEMM (ff_hidden of blocks.cuh, then W2), FMA products.
 #include "blocks.cuh"
 #include "gemm_wgmma.cuh"
 
@@ -39,26 +36,19 @@ namespace tcd {
 template <typename T>
 void ff_block(const T* x, const float* s3, const float* b3, const T* w1, const float* bb1,
               const T* w2, const float* bb2, const float* fs, const float* fb, int B, int L, int d,
-              int ff, float eps, T* y, T* h, T* out, bool prologue, cudaStream_t st) {
+              int ff, float eps, T* y, T* h, T* out, cudaStream_t st) {
   const int M = B * L;
   if constexpr (std::is_same<T, bf16>::value) {
-    const WgLn ln{x, s3, b3, eps, nullptr, nullptr, L};
-    const int rot = 0;
+    ln_rows<T, T>(x, s3, b3, eps, M, d, L, nullptr, nullptr, nullptr, nullptr, nullptr, y, nullptr, st);
+    const T* yc = y;
     void* hc = h;
-    if (prologue && wg_ln_ok(ln, d, 1, &w1, &ff, false)) {
-      gemm_wg_ln<EPI_BIAS_GELU>(ln, M, d, 1, &w1, &rot, &hc, &ff, nullptr, epi(h, bb1), st);
-    } else {
-      if (!y) return refuse();
-      ln_rows<T, T>(x, s3, b3, eps, M, d, L, nullptr, nullptr, nullptr, nullptr, nullptr, y, nullptr, st);
-      const T* yc = y;
-      gemm_wg<EPI_BIAS_GELU>(1, &yc, &w1, &hc, &ff, nullptr, M, d, epi(h, bb1), st);
-    }
+    gemm_wg<EPI_BIAS_GELU>(1, &yc, &w1, &hc, &ff, M, d, epi(h, bb1), st);
     const T* ha = h;
     void* oc = out;
     if (fs)
-      gemm_wg<EPI_BIAS_FILM_T>(1, &ha, &w2, &oc, &d, nullptr, M, ff, epi(out, bb2, x, fs, fb, L), st);
+      gemm_wg<EPI_BIAS_FILM_T>(1, &ha, &w2, &oc, &d, M, ff, epi(out, bb2, x, fs, fb, L), st);
     else
-      gemm_wg<EPI_BIAS>(1, &ha, &w2, &oc, &d, nullptr, M, ff, epi(out, bb2), st);
+      gemm_wg<EPI_BIAS>(1, &ha, &w2, &oc, &d, M, ff, epi(out, bb2), st);
   } else {
     ff_hidden<T>(x, s3, b3, w1, bb1, M, L, d, ff, eps, y, h, st);
     if (fs)
@@ -71,26 +61,25 @@ void ff_block(const T* x, const float* s3, const float* b3, const T* w1, const f
 }  // namespace tcd
 
 // x (B, L, d), d even; w1 (ff, d), w2 (d, ff) in T; fs/fb (B, d) f32 or
-// both null; y (M, d), h (M, ff) scratch in T (y may be null where W1's
-// prologue runs: bf16, prologue != 0 and wg_ln_ok). dtype: 0 = float32,
+// both null; y (M, d), h (M, ff) scratch in T. dtype: 0 = float32,
 // 1 = bfloat16.
 // Returns the launches' status (launch_status: a failed or refused launch
 // is not 0).
 extern "C" int tcd_ff_block(int dtype, const void* x, const float* s3, const float* b3,
                             const void* w1, const float* bb1, const void* w2, const float* bb2,
                             const float* fs, const float* fb, int B, int L, int d, int ff,
-                            float eps, void* y, void* h, void* out, int prologue, void* stream) {
+                            float eps, void* y, void* h, void* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     using T = float;
     tcd::ff_block<T>((const T*)x, s3, b3, (const T*)w1, bb1, (const T*)w2, bb2, fs, fb, B, L, d,
-                     ff, eps, (T*)y, (T*)h, (T*)out, prologue != 0, st);
+                     ff, eps, (T*)y, (T*)h, (T*)out, st);
     return tcd::launch_status();
   }
   if (dtype == 1) {
     using T = __nv_bfloat16;
     tcd::ff_block<T>((const T*)x, s3, b3, (const T*)w1, bb1, (const T*)w2, bb2, fs, fb, B, L, d,
-                     ff, eps, (T*)y, (T*)h, (T*)out, prologue != 0, st);
+                     ff, eps, (T*)y, (T*)h, (T*)out, st);
     return tcd::launch_status();
   }
   return -1;

@@ -7,10 +7,9 @@
 // (K4's dWk and dWv). Then, bf16 only, K4's memory cotangent
 // (gemm_nn_rot) and K7's q projection with the LayerNorm and rotary in its
 // prologue (gemm_lnrot); and the forward projection on the wgmma + TMA
-// body (gemm_wg of gemm_wgmma.cuh: up to 3 products with their own N, the
-// tile chosen by its consumer warpgroups), with the counts of each body's
-// launches and the tensor maps' host time, and its LayerNorm-prologue form
-// (gemm_wg_ln). No path of the model calls it;
+// body (gemm_wg of gemm_wgmma.cuh: up to 3 products with their own N),
+// with the counts of each body's launches and the tensor maps' host time.
+// No path of the model calls it;
 // the kernels reach the same code through blocks.cuh, train_common.cuh and
 // gemm_wgmma.cuh.
 #include "gemm_wgmma.cuh"
@@ -119,15 +118,14 @@ extern "C" int tcd_gemm_lnrot(int dtype, const GemmRotArgs* a, void* stream) {
 // The forward projection on the wgmma body (gemm_wg) alone, bf16: the
 // layout of the ctypes mirror in ops/gemm.py. Group g: a[g] (M, K), w[g]
 // (n[g], K), c[g] (M, n[g]); bias, resid, fs, fb as the epilogue needs
-// them (shared by the groups); wgs: consumer warpgroups of a block (BM = 64
-// wgs; 0: the default, WG_WGS).
+// them (shared by the groups).
 struct GemmWgArgs {
   const void *a0, *a1, *a2, *w0, *w1, *w2;
   void *c0, *c1, *c2;
   const float* bias;
   const void* resid;
   const float *fs, *fb;
-  int M, K, L, epi, groups, n0, n1, n2, wgs;
+  int M, K, L, epi, groups, n0, n1, n2;
 };
 
 namespace tcd {
@@ -138,13 +136,7 @@ void gemm_wg_entry(const GemmWgArgs& a, cudaStream_t st) {
   const bf16* ws[3] = {(const bf16*)a.w0, (const bf16*)a.w1, (const bf16*)a.w2};
   void* cs[3] = {a.c0, a.c1, a.c2};
   const int ns[3] = {a.n0, a.n1, a.n2};
-  const EpiArgs ep = epi(nullptr, a.bias, a.resid, a.fs, a.fb, a.L);
-  if (a.wgs == 1)
-    gemm_wg<EPI, 1>(a.groups, as, ws, cs, ns, nullptr, a.M, a.K, ep, st);
-  else if (a.wgs == 0 || a.wgs == WG_WGS)
-    gemm_wg<EPI, WG_WGS>(a.groups, as, ws, cs, ns, nullptr, a.M, a.K, ep, st);
-  else
-    refuse();
+  gemm_wg<EPI>(a.groups, as, ws, cs, ns, a.M, a.K, epi(nullptr, a.bias, a.resid, a.fs, a.fb, a.L), st);
 }
 
 }  // namespace tcd
@@ -164,47 +156,5 @@ extern "C" int tcd_gemm_wg(int dtype, const GemmWgArgs* a, void* stream) {
     case tcd::EPI_BIAS_FILM_T: tcd::gemm_wg_entry<tcd::EPI_BIAS_FILM_T>(*a, st); break;
     default: return -1;
   }
-  return tcd::launch_status();
-}
-
-// The LayerNorm-prologue product of the wgmma body (gemm_wg_ln) alone,
-// bf16: C[g] = T(LN(x)) . w[g]^T, or T(rot(LN(x))) . w[g]^T where rot[g],
-// x (M, d), the tables (L, d) at row m % L, w[g] (n[g], d); epi STORE or
-// BIAS_GELU (bias shared); cluster: blocks of a cluster along N (0: a
-// group's column tiles); wgs: consumer warpgroups a block (0: WG_WGS). The
-// layout of the ctypes mirror in ops/gemm.py.
-struct GemmWgLnArgs {
-  const void *x, *cos, *ssin, *w0, *w1, *w2;
-  void *c0, *c1, *c2;
-  const float *s, *b, *bias;
-  int M, L, d, epi, groups, n0, n1, n2, rot0, rot1, rot2, cluster, wgs;
-  float eps;
-};
-
-// dtype 1 (bfloat16) only; returns the launch's status (launch_status),
-// -1 for what it does not take.
-extern "C" int tcd_gemm_wg_ln(int dtype, const GemmWgLnArgs* a, void* stream) {
-  using tcd::bf16;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype != 1 || a->groups < 1 || a->groups > tcd::WGROUP) return -1;
-  const tcd::WgLn ln{(const bf16*)a->x, a->s, a->b, a->eps, (const bf16*)a->cos, (const bf16*)a->ssin, a->L};
-  const bf16* ws[3] = {(const bf16*)a->w0, (const bf16*)a->w1, (const bf16*)a->w2};
-  void* cs[3] = {a->c0, a->c1, a->c2};
-  const int ns[3] = {a->n0, a->n1, a->n2}, rot[3] = {a->rot0, a->rot1, a->rot2};
-#define TCD_WG_LN_ENTRY(EPI, WGS)                                                                        \
-  tcd::gemm_wg_ln<EPI, WGS>(ln, a->M, a->d, a->groups, ws, rot, cs, ns, nullptr, tcd::epi(nullptr, a->bias), st, \
-                            a->cluster)
-  const int wgs = a->wgs ? a->wgs : tcd::WG_WGS;
-  if (wgs != 1 && wgs != 2) return -1;
-  if (a->epi == tcd::EPI_STORE) {
-    if (wgs == 1) TCD_WG_LN_ENTRY(tcd::EPI_STORE, 1);
-    else TCD_WG_LN_ENTRY(tcd::EPI_STORE, 2);
-  } else if (a->epi == tcd::EPI_BIAS_GELU) {
-    if (wgs == 1) TCD_WG_LN_ENTRY(tcd::EPI_BIAS_GELU, 1);
-    else TCD_WG_LN_ENTRY(tcd::EPI_BIAS_GELU, 2);
-  } else {
-    return -1;
-  }
-#undef TCD_WG_LN_ENTRY
   return tcd::launch_status();
 }

@@ -1,7 +1,6 @@
 // The bf16 forward projection on Hopper's warpgroup MMA (wgmma), its
 // operands brought by the Tensor Memory Accelerator (TMA): K2b's and K8's
-// products, and, as an option of both, the LayerNorm (with the rotary) of
-// the first product's input in its prologue.
+// products.
 //
 // Replaces, in bf16, gemm_mma_kernel (gemm_mma.cuh) in the products of K2b
 // (tcdiff_tpu/ops/fused_ff_block.py::fused_ff_block, _ff_kernel: h =
@@ -23,61 +22,38 @@
 // Design:
 // - C = A . W^T with A (M, K) and W (N, K) row-major (nn.Linear layout):
 //   both K-major, wgmma's natural bf16 layout, so nothing is transposed.
-// - A block is WGS consumer warpgroups, each owning 64 rows (BM = 64 WGS),
-//   and one producer warpgroup; WBN = 128 columns; K steps of WBK = 64
-//   (one 128-byte line of bf16, the width of the 128-byte swizzle). WGS = 2
-//   (128 x 128 tiles, one block an SM) was as fast as or faster than 1
-//   (64-row tiles, two an SM) at every serving shape measured
-//   (tools/torch_wg_trace.py, chip_smoke.py); 128 x 256 tiles were not
-//   built: at M = 3600, N = 512 they make 58 blocks for 132 SMs.
+// - 128 x 128 tiles (WBM x WBN), one block an SM: two consumer warpgroups,
+//   each owning 64 rows, and one producer warpgroup; K steps of WBK = 64
+//   (one 128-byte line of bf16, the width of the 128-byte swizzle). 64-row
+//   tiles (one consumer warpgroup, two blocks an SM) were no faster at any
+//   serving shape measured (PERF.md); 128 x 256 tiles were not built: at
+//   M = 3600, N = 512 they make 58 blocks for 132 SMs.
 // - The producer's first thread keeps TMA loads in flight into a ring of
-//   4 stages (wg_stages), each guarded by a full and an empty mbarrier; a
-//   tile lands in the 128-byte swizzle the wgmma descriptors read. Rows
-//   past M or N and columns past K arrive as zeros (TMA's fill past the
-//   edge), so ragged shapes need no masks until the stores.
+//   WG_STAGES stages, each guarded by a full and an empty mbarrier; a tile
+//   lands in the 128-byte swizzle the wgmma descriptors read. Rows past M
+//   or N and columns past K arrive as zeros (TMA's fill past the edge), so
+//   ragged shapes need no masks until the stores.
 // - Each consumer warpgroup runs wgmma.m64n128k16 (4 a K step) on a stage
 //   that has landed, keeps that step's group in flight while it waits for
 //   the one before (wait_group 1) and then frees the earlier stage.
 // - setmaxnreg moves registers from the producer (40) to the consumers
-//   (232 with two consumer warpgroups, 216 with one); the roles split
-//   once and never meet again.
-// - The epilogue runs on the accumulators: wgmma's m64nN accumulator gives
-//   each warp 16 rows, laid out per 8 columns as mma.sync's C fragment
-//   (rows g and g + 8, columns 2t and 2t + 1), and the arithmetic is
-//   epi_math's with the same rounding points (wg_math). Where the
-//   operands allow 16-byte pieces, the sums go through the free shared
-//   memory first and the epilogue runs on 8 contiguous elements of a row
-//   at a time in a rolled loop, its loads and stores along the rows; else
-//   on the fragments, in pairs where aligned.
+//   (232); the roles split once and never meet again.
+// - The epilogue: wgmma's m64nN accumulator gives each warp 16 rows, laid
+//   out per 8 columns as mma.sync's C fragment (rows g and g + 8, columns
+//   2t and 2t + 1). Each warpgroup writes its 64 rows of f32 sums into the
+//   free ring, then its threads walk the rows' 8-column pieces in 16-byte
+//   loads and stores along the rows, with epi_math's arithmetic and
+//   rounding points (wg_math).
 // - Grouped form: up to WGROUP products in one launch, each with its own
-//   A, W, N, output and output row stride (K8's q, k and v in one launch
-//   without a joined weight).
-// - Prologue (gemm_wg_ln; K8 and K2b's W1 with `prologue`): A = T(LN(x))
-//   or T(rot(LN(x))) is written by the block's warps into a resident tile
-//   of BM rows by d in the swizzled layout the wgmma descriptors read: a
-//   lane of ln_rows' body holds VW contiguous elements (8 at d = 512, one
-//   16-byte chunk), and chunk c of row r goes to chunk c ^ (r & 7) of its
-//   128-byte line. Only W streams through the ring; its first stages are
-//   in flight under the prologue. The column blocks of a group's row tile
-//   run as one cluster along N (cdiv(N, WBN) of them, at most LN_CLUSTER);
-//   each normalises a contiguous run of the tile's rows into its own tile
-//   and sends it to every peer's with the bulk-copy engine, so a row is
-//   normalised once a group: at K8's q, k, v (3 x 512 columns) 3 clusters
-//   of 4 a row tile, two of them rotated and one plain. The arithmetic is
-//   ln_rows' (ln_add, ln_stat, ln_y, rot_pair), so A is the same bits as
-//   ln_rows writes. On the H100 it measured slower than ln_rows + the
-//   product at the serving shapes: a block runs its prologue, K loop and
-//   epilogue one after another (one block an SM), and its A arrives
-//   through distributed shared memory no faster than TMA brings it from
-//   L2; so K8 and K2b run ln_rows and gemm_wg unless asked.
-// - Dispatch (gemm_wg, wg_ln_ok): TMA needs a 16-byte aligned base and a
-//   row stride that is a multiple of 16 bytes (K % 8 == 0); a product whose
-//   operands TMA cannot take runs on gemm_mma_kernel, by that rule alone.
-//   The prologue takes d in {64, 128, 256, 512} with every row operand
-//   16-byte aligned and the groups' column tiles equal in count and at most
-//   LN_CLUSTER; else the caller runs ln_rows and then gemm_wg. A launch or
-//   a tensor-map encode that fails is refused (launch_status) and raises;
-//   it never reruns on the old body.
+//   A, W, N and output (K8's q, k and v in one launch without a joined
+//   weight).
+// - Dispatch (gemm_wg): the body runs a product where TMA can read its
+//   operands (every A and W 16-byte aligned, K % 8 == 0: rows a multiple
+//   of 16 bytes apart) and its epilogue moves in 16-byte pieces (every N %
+//   8 == 0; the outputs, bias, residual and FiLM rows 16-byte aligned);
+//   else gemm_mma_kernel runs it, by that rule alone (ops/gemm.gemm_plan
+//   states it). A launch or a tensor-map encode that fails is refused
+//   (launch_status) and raises; it never reruns on the old body.
 // - Tensor maps are encoded on the host with cuTensorMapEncodeTiled,
 //   obtained through cudaGetDriverEntryPoint (the library links no
 //   libcuda), passed as __grid_constant__ kernel parameters and cached by
@@ -95,39 +71,19 @@
 
 namespace tcd {
 
-constexpr int WBN = 128, WBK = 64;  // block tile columns; K step (64 bf16: one 128-byte swizzle line)
-// TMA ring depth: 4 stages, or 2 for the prologue's 64-row tiles, whose
-// blocks (64 rows of A resident, 97 KB) then fit two an SM
-__host__ __device__ constexpr int wg_stages(int wgs, bool prologue) { return prologue && wgs == 1 ? 2 : 4; }
-constexpr int WGROUP = 3;           // most products of one launch
-constexpr int WG_WGS = 2;           // consumer warpgroups of a block by default: 128 x 128 tiles
-// setmaxnreg: a block of 2 consumer warpgroups runs 1 an SM (168 registers a
-// thread at launch), of 1 consumer warpgroup 2 an SM (128 at launch)
-constexpr int WG_PRODUCER_REGS = 40;
-__host__ __device__ constexpr int wg_consumer_regs(int wgs) { return wgs == 1 ? 216 : 232; }
-__host__ __device__ constexpr int wg_min_blocks(int wgs) { return wgs == 1 ? 2 : 1; }
+constexpr int WBM = 128, WBN = 128, WBK = 64;  // block tile rows and columns; K step (one 128-byte swizzle line)
+constexpr int WG_STAGES = 4;                   // TMA ring depth
+constexpr int WGROUP = 3;                      // most products of one launch
+constexpr int WG_THREADS = 384;                // two consumer warpgroups and the producer's
+// setmaxnreg: one block an SM, 168 registers a thread at launch
+constexpr int WG_PRODUCER_REGS = 40, WG_CONSUMER_REGS = 232;
 static_assert(WGROUP == PGROUP, "pick() selects among PGROUP entries");
 
-// Bytes of one K step of A (BM rows of 128 bytes) and of W (WBN rows).
-__host__ __device__ constexpr int wg_a_bytes(int wgs) { return 64 * wgs * 128; }
-constexpr int WG_B_BYTES = WBN * 128;
-
-// The byte offset of element (r, col) of an A tile of bm rows stored as
-// K steps of bm rows x 128 bytes with the 128-byte swizzle: 16-byte chunk
-// c of row r's line at chunk c ^ (r & 7) (ops/gemm.py::swizzle128 mirrors
-// it).
-__host__ __device__ constexpr int swz128(int r, int col, int bm) {
-  return (col >> 6) * bm * 128 + r * 128 + ((((col >> 3) & 7) ^ (r & 7)) << 4) + (col & 7) * 2;
-}
-
+// Bytes of one K step of A (WBM rows of 128 bytes) and of W (WBN rows).
+constexpr int WG_A_BYTES = WBM * 128, WG_B_BYTES = WBN * 128;
 // Dynamic shared memory of a launch: 1024 bytes of slack to align the
-// swizzled tiles, A (the ring's stages, or nk resident K steps with the
-// prologue), the ring's W stages, the full and empty barriers and the
-// prologue's barrier.
-inline int wg_smem(int wgs, bool prologue, int nk) {
-  const int stages = wg_stages(wgs, prologue);
-  return 1024 + (prologue ? nk : stages) * wg_a_bytes(wgs) + stages * WG_B_BYTES + (2 * stages + 1) * 8;
-}
+// swizzled tiles, the ring's A and W stages, its full and empty barriers.
+constexpr int WG_SMEM = 1024 + WG_STAGES * (WG_A_BYTES + WG_B_BYTES) + 2 * WG_STAGES * 8;
 
 // ------------------------------------------------------------ PTX helpers
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -163,23 +119,6 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int 
           "r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0), "r"(smem_addr(bar))
       : "memory");
-}
-
-// The shared::cluster address of the same offset in block `rank` of the
-// cluster as the shared::cta address addr.
-__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, int rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
-  return out;
-}
-// `bytes` of this block's shared memory at src to the cluster address dst,
-// by the bulk-copy engine, completing on the barrier at the cluster
-// address bar (the destination block's).
-__device__ __forceinline__ void dsmem_copy(uint32_t dst, const void* src, int bytes, uint32_t bar) {
-  asm volatile("cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-                   dst),
-               "r"(smem_addr(src)), "r"(bytes), "r"(bar)
-               : "memory");
 }
 
 // The wgmma descriptor of a K-major bf16 tile with the 128-byte swizzle at
@@ -261,192 +200,73 @@ __device__ __forceinline__ EpiVal wg_math(float v, const EpiIn& in) {
 
 // --------------------------------------------------------- the kernel
 struct WgMaps {
-  CUtensorMap a[WGROUP];  // A (M, K) of each group, in boxes of BM rows (no prologue)
+  CUtensorMap a[WGROUP];  // A (M, K) of each group, in boxes of WBM rows
   CUtensorMap w[WGROUP];  // W (N_g, K) of each group, in boxes of WBN rows
 };
 struct WgGroups {
-  void* c[WGROUP];          // outputs
-  int n[WGROUP];            // N of each group
-  int ldc[WGROUP];          // row stride of each output (elements)
-  int tile0[WGROUP + 1];    // first column tile of each group; tile0[g] = the grid's x for g >= G
-  int rot[WGROUP];          // prologue: A = T(rot(LN(x))) (1) or T(LN(x)) (0)
-};
-struct WgLn {               // the prologue's operands
-  const bf16* x;            // (M, d)
-  const float *s, *b;       // the LayerNorm's affine (d,)
-  float eps;
-  const bf16 *cos, *ssin;   // rotary tables (L, d), row m % L
-  int L;
+  void* c[WGROUP];        // outputs (M, N_g)
+  int n[WGROUP];          // N of each group
+  int tile0[WGROUP + 1];  // first column tile of each group; tile0[g] = the grid's x for g >= G
 };
 
-// The prologue: T(LN(x)) (rot = 0) or T(rot(LN(x))) of the BM rows from m0
-// into the resident A tile of every block of the cluster. Block `rank` of
-// cs owns a contiguous run of the tile's 8-row atoms; its warps normalise
-// those rows one warp a row (the arithmetic and order of ln_rows' body
-// templated on EPL = d / 32), PF rows of x and their tables in flight
-// together, into its own tile; then its threads send the run to every
-// peer's tile with the bulk-copy engine (one copy a thread, for each K
-// step and peer: issued by one thread, the copies took ~2-3 us), each
-// completing on the peer's barrier abar. The caller's
-// consumers wait on abar (this block's own rows and every peer's) before
-// the K loop. Rows past M are left as they are (a row of A reaches only its
-// own row of C, which is not stored).
-template <int WGS, int EPL>
-__device__ __forceinline__ void wg_prologue(unsigned char* a_tiles, uint64_t* abar, const WgLn& ln, int rot, int M,
-                                            int m0) {
-  constexpr int BM = 64 * WGS, NWARPS = 4 * (WGS + 1), d = 32 * EPL, NK = d / WBK;
-  constexpr int VW = EPL < 8 ? EPL : 8, NC = EPL / VW, NWD = VW / 2, PF = 3;
-  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
-  const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
-  const int r_lo = 8 * (BM / 8 * rank / cs), r_hi = 8 * (BM / 8 * (rank + 1) / cs);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (threadIdx.x == 0) mbar_expect_tx(abar, (BM - (r_hi - r_lo)) * 128 * NK);  // the peers' rows
-  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");  // abar is initialised (released to the peers)
-  float sc[NC][VW], bi[NC][VW];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    ld_vec<VW>(ln.s + (c * 32 + lane) * VW, sc[c]);
-    ld_vec<VW>(ln.b + (c * 32 + lane) * VW, bi[c]);
-  }
-  auto widen = [](uint32_t w, int hi) { return __uint_as_float(hi ? w & 0xffff0000u : w << 16); };
-  for (int r0 = r_lo + warp; r0 < r_hi; r0 += NWARPS * PF) {
-    uint32_t wx[PF][NC][NWD], wc[PF][NC][NWD], ws[PF][NC][NWD];
-#pragma unroll
-    for (int i = 0; i < PF; ++i) {
-      const int r = r0 + NWARPS * i, m = m0 + r;
-      if (r >= r_hi || m >= M) continue;
-      const size_t tr = (size_t)(m % ln.L) * d;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int col = (c * 32 + lane) * VW;
-        ld_words<NWD>(ln.x + (size_t)m * d + col, wx[i][c]);
-        if (rot) {
-          ld_words<NWD>(ln.cos + tr + col, wc[i][c]);
-          ld_words<NWD>(ln.ssin + tr + col, ws[i][c]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < PF; ++i) {
-      const int r = r0 + NWARPS * i, m = m0 + r;
-      if (r >= r_hi || m >= M) continue;
-      float v[NC][VW];
-      float s = 0.f, ss = 0.f;
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-#pragma unroll
-        for (int e = 0; e < VW; ++e) {
-          v[c][e] = widen(wx[i][c][e / 2], e & 1);
-          ln_add(v[c][e], s, ss);
-        }
-      const LnStat st = ln_stat(s, ss, d, ln.eps);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        float o[VW];
-#pragma unroll
-        for (int e = 0; e < VW; ++e) o[e] = ln_y(v[c][e], st, sc[c][e], bi[c][e]);
-        if (rot) {
-#pragma unroll
-          for (int e = 0; e < VW; e += 2) {
-            const float y0 = o[e], y1 = o[e + 1];
-            rot_pair(y0, y1, widen(wc[i][c][e / 2], 0), widen(wc[i][c][e / 2], 1), widen(ws[i][c][e / 2], 0),
-                     widen(ws[i][c][e / 2], 1), o[e], o[e + 1]);
-          }
-        }
-        st_vec<VW>(reinterpret_cast<bf16*>(a_tiles + swz128(r, (c * 32 + lane) * VW, BM)), o);
-      }
-    }
-  }
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the stores, before the copies and wgmma read them
-  __syncthreads();                                                 // this block's rows are whole
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // every peer's abar is initialised
-  // one copy a thread: (peer, K step) = (threadIdx.x / NK + 1, threadIdx.x % NK)
-  if (threadIdx.x < (cs - 1) * NK) {
-    const int peer = (rank + threadIdx.x / NK + 1) % cs, kb = threadIdx.x % NK;
-    unsigned char* src = a_tiles + kb * BM * 128 + r_lo * 128;
-    dsmem_copy(peer_addr(smem_addr(src), peer), src, (r_hi - r_lo) * 128, peer_addr(smem_addr(abar), peer));
-    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  }
-}
-
-// C[g] = A . W[g]^T with the epilogue EPI, bf16 operands, f32 sums. Grid
-// (tile0[G], cdiv(M, BM)); block x belongs to group g (tile0[g] <= x <
-// tile0[g + 1]), columns (x - tile0[g]) WBN onwards. EPL = 0: A[g] by TMA
-// (maps.a); EPL > 0: the prologue over x (d = 32 EPL = K), launched in
-// clusters of the groups' column tiles along x.
-template <int EPI, int WGS, int EPL>
-__global__ void __launch_bounds__(128 * (WGS + 1), wg_min_blocks(WGS))
-gemm_wg_kernel(const __grid_constant__ WgMaps maps, WgGroups gp, WgLn ln, EpiArgs ep, int M, int K) {
-  constexpr int BM = 64 * WGS, ABYTES = BM * 128, S = wg_stages(WGS, EPL > 0);
+// C[g] = A[g] . W[g]^T with the epilogue EPI, bf16 operands, f32 sums. Grid
+// (tile0[G], cdiv(M, WBM)); block x belongs to group g (tile0[g] <= x <
+// tile0[g + 1]), columns (x - tile0[g]) WBN onwards.
+template <int EPI>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+gemm_wg_kernel(const __grid_constant__ WgMaps maps, WgGroups gp, EpiArgs ep, int M, int K) {
+  constexpr int S = WG_STAGES;
   extern __shared__ __align__(16) unsigned char tcd_smem[];
   unsigned char* base = tcd_smem + ((1024 - (smem_addr(tcd_smem) & 1023)) & 1023);
   const int nk = (K + WBK - 1) / WBK;
-  unsigned char* a_tiles = base;  // the ring's A stages, or the prologue's nk resident K steps
-  unsigned char* b_tiles = base + (EPL > 0 ? nk : S) * ABYTES;
+  unsigned char* a_tiles = base;  // the ring's A stages
+  unsigned char* b_tiles = base + S * WG_A_BYTES;
   uint64_t* full = reinterpret_cast<uint64_t*>(b_tiles + S * WG_B_BYTES);
   uint64_t* empty = full + S;
-  uint64_t* abar = empty + S;  // the prologue's: A is whole
 
   const int bx = blockIdx.x, g = bx >= gp.tile0[2] ? 2 : bx >= gp.tile0[1] ? 1 : 0;
   const int t0 = g == 0 ? 0 : g == 1 ? gp.tile0[1] : gp.tile0[2];
-  const int n0 = (bx - t0) * WBN, m0 = blockIdx.y * BM, N = pick(gp.n, g);
+  const int n0 = (bx - t0) * WBN, m0 = blockIdx.y * WBM, N = pick(gp.n, g);
   const CUtensorMap* wmap = g == 0 ? &maps.w[0] : g == 1 ? &maps.w[1] : &maps.w[2];
   const CUtensorMap* amap = g == 0 ? &maps.a[0] : g == 1 ? &maps.a[1] : &maps.a[2];
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(full + s, 1);
-      mbar_init(empty + s, 4 * WGS);  // lane 0 of every consumer warp
+      mbar_init(empty + s, 8);  // lane 0 of every consumer warp
     }
-    mbar_init(abar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  const bool issuer = threadIdx.x == 128 * WGS;  // the producer warpgroup's first thread
-  // K step kt into ring stage kt % S, once the consumers have freed it
-  auto issue = [&](int kt) {
-    const int s = kt % S;
-    if (kt >= S) mbar_wait(empty + s, (kt / S - 1) & 1);
-    mbar_expect_tx(full + s, WG_B_BYTES + (EPL > 0 ? 0 : ABYTES));
-    tma_load(b_tiles + s * WG_B_BYTES, wmap, kt * WBK, n0, full + s);
-    if (EPL == 0) tma_load(a_tiles + s * ABYTES, amap, kt * WBK, m0, full + s);
-  };
-  int issued = 0;
-  if constexpr (EPL > 0) {
-    if (issuer)
-      for (; issued < nk && issued < S; ++issued) issue(issued);  // W's first steps, under the prologue
-    wg_prologue<WGS, EPL>(a_tiles, abar, ln, pick(gp.rot, g), M, m0);
-  }
-
-  if (threadIdx.x >= 128 * WGS) {
-    // the producer: registers to the consumers, then the rest of the ring
+  if (threadIdx.x >= 256) {
+    // the producer: registers to the consumers; its first thread keeps K
+    // step kt in ring stage kt % S, once the consumers have freed it
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(WG_PRODUCER_REGS));
-    if (issuer)
-      for (; issued < nk; ++issued) issue(issued);
+    if (threadIdx.x == 256)
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % S;
+        if (kt >= S) mbar_wait(empty + s, (kt / S - 1) & 1);
+        mbar_expect_tx(full + s, WG_A_BYTES + WG_B_BYTES);
+        tma_load(b_tiles + s * WG_B_BYTES, wmap, kt * WBK, n0, full + s);
+        tma_load(a_tiles + s * WG_A_BYTES, amap, kt * WBK, m0, full + s);
+      }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(wg_consumer_regs(WGS)));
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WG_CONSUMER_REGS));
     const int wg = threadIdx.x >> 7;
     using TO = EpiOut<bf16, EPI>;
     constexpr int FROW = WBN * 4 + 16;  // a staged f32 row, bytes: padded, so a fragment's 8 rows use 8 bank quads
+    static_assert(2 * 64 * FROW <= S * (WG_A_BYTES + WG_B_BYTES), "the staged rows fit in the ring");
     const int lane = threadIdx.x & 31, gr = lane >> 2, t = lane & 3, wr = ((threadIdx.x >> 5) & 3) * 16 + gr;
-    const int mb = m0 + wg * 64 + wr, ldc = pick(gp.ldc, g);
-    ep.c = pick(gp.c, g);
-    auto al = [](const void* q, int b) { return reinterpret_cast<uintptr_t>(q) % b == 0; };
-    const bool pairs = N % 2 == 0 && ldc % 2 == 0 && al(ep.c, 8) && al(ep.c2, 8) && al(ep.bias, 8) &&
-                       al(ep.fs, 8) && al(ep.fb, 8) && al(ep.resid, 4);
-    const int free_bytes = ((EPL > 0 ? nk : S) * ABYTES) + S * WG_B_BYTES;  // A and the ring, free after the K loop
-    const bool staged = WGS * 64 * FROW <= free_bytes && !ep.c2 && N % 8 == 0 && ldc % 8 == 0 && al(ep.c, 16) &&
-                        al(ep.bias, 16) && al(ep.resid, 16) && al(ep.fs, 16) && al(ep.fb, 16);
+    TO* const c = static_cast<TO*>(pick(gp.c, g));
 
     float d[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) d[i] = 0.f;
-    if constexpr (EPL > 0) mbar_wait(abar, 0);  // this block's rows and every peer's
     for (int kt = 0; kt < nk; ++kt) {
       const int s = kt % S;
       mbar_wait(full + s, (kt / S) & 1);
-      const uint64_t da = wg_desc(smem_addr(a_tiles + (EPL > 0 ? kt : s) * ABYTES + wg * 64 * 128));
+      const uint64_t da = wg_desc(smem_addr(a_tiles + s * WG_A_BYTES + wg * 64 * 128));
       const uint64_t db = wg_desc(smem_addr(b_tiles + s * WG_B_BYTES));
       wg_fence_acc(d);
       wgmma_fence();
@@ -460,79 +280,36 @@ gemm_wg_kernel(const __grid_constant__ WgMaps maps, WgGroups gp, WgLn ln, EpiArg
     wgmma_wait<0>();
     wg_fence_acc(d);
 
-    // Epilogue. Staged (the output, bias and FiLM operands allow 16-byte
-    // pieces): each warpgroup writes its 64 rows of f32 sums into the free
-    // A and ring (pass 1, as the fragments hold them), then its threads
-    // walk the rows' 8-column pieces (pass 2, a loop kept rolled, so that
-    // its code stays small: unrolled over the 64 sums, the bias+GELU and
-    // FiLM epilogues took 4-5 us more a block than the plain store), each
-    // piece's operands and output in 16-byte loads and stores along the
-    // row. Else the direct path, as the mma body's: 4 column blocks at a
-    // time, their loads first, their arithmetic, then their stores, in
-    // pairs where aligned. A thread holds rows mb and mb + 8 and columns
-    // n0 + 8 j + 2t, 2t + 1 of each block j.
-    if (staged) {
-      asm volatile("bar.sync 1, %0;\n" ::"n"(128 * WGS) : "memory");  // every warpgroup is past A and the ring
-      unsigned char* stage = a_tiles + wg * 64 * FROW;                   // this warpgroup's rows
+    // Epilogue: each warpgroup writes its 64 rows of f32 sums into the
+    // ring, free once both warpgroups are past the K loop (pass 1, as the
+    // fragments hold them: rows wr and wr + 8, columns 8 j + 2t, 2t + 1);
+    // then its threads walk the rows' 8-column pieces (pass 2, a loop kept
+    // rolled, so that its code stays small: unrolled over the 64 sums, the
+    // bias+GELU and FiLM epilogues took 4-5 us more a block than the plain
+    // store), each piece's operands and output in 16-byte loads and stores
+    // along the row.
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");  // both warpgroups are past the ring
+    unsigned char* stage = a_tiles + wg * 64 * FROW;   // this warpgroup's rows
 #pragma unroll
-      for (int j = 0; j < WBN / 8; ++j)
+    for (int j = 0; j < WBN / 8; ++j)
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-          *reinterpret_cast<float2*>(stage + (wr + 8 * h) * FROW + (8 * j + 2 * t) * 4) =
-              make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
-      asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");  // this warpgroup's rows are staged
-      constexpr int PPR = WBN / 8;                                    // pieces a row
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(stage + (wr + 8 * h) * FROW + (8 * j + 2 * t) * 4) =
+            make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+    asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");  // this warpgroup's rows are staged
+    constexpr int PPR = WBN / 8;                                    // pieces a row
 #pragma unroll 1
-      for (int i = threadIdx.x & 127; i < 64 * PPR; i += 128) {
-        const int rr = i / PPR, m = m0 + wg * 64 + rr, n = n0 + 8 * (i % PPR);
-        if (m >= M || n >= N) continue;
-        float v[8], o[8];
-        ld_vec<8>(reinterpret_cast<const float*>(stage + rr * FROW) + 8 * (i % PPR), v);
-        EpiIn in[8];
-        wg_load8<EPI>(ep, N, m, n, in);
+    for (int i = threadIdx.x & 127; i < 64 * PPR; i += 128) {
+      const int rr = i / PPR, m = m0 + wg * 64 + rr, n = n0 + 8 * (i % PPR);
+      if (m >= M || n >= N) continue;
+      float v[8], o[8];
+      ld_vec<8>(reinterpret_cast<const float*>(stage + rr * FROW) + 8 * (i % PPR), v);
+      EpiIn in[8];
+      wg_load8<EPI>(ep, N, m, n, in);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) o[e] = wg_math<EPI>(v[e], in[e]).c;
-        st_vec<8>(static_cast<TO*>(ep.c) + (size_t)m * ldc + n, o);
-      }
-    } else {
-#pragma unroll
-      for (int jc = 0; jc < WBN / 8; jc += 4) {
-        EpiVal r[4][4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int m = mb + 8 * h, n = n0 + 8 * (jc + j) + 2 * t;
-            if (m >= M || n >= N) continue;  // nor is it stored
-            const float v0 = d[4 * (jc + j) + 2 * h], v1 = d[4 * (jc + j) + 2 * h + 1];
-            EpiIn in0{0.f, 0.f, 0.f, 0.f}, in1 = in0;
-            if (pairs) {
-              const float2 b2 = epi_bias<EPI>() ? *reinterpret_cast<const float2*>(ep.bias + n) : float2{0.f, 0.f};
-              epi_load2<EPI>(ep, N, m, n, b2, in0, in1);
-            } else {
-              in0 = epi_load<bf16, EPI>(ep, N, m, n);
-              if (n + 1 < N) in1 = epi_load<bf16, EPI>(ep, N, m, n + 1);
-            }
-            r[j][2 * h] = wg_math<EPI>(v0, in0);
-            r[j][2 * h + 1] = n + 1 < N ? wg_math<EPI>(v1, in1) : EpiVal{0.f, 0.f};
-          }
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int m = mb + 8 * h, n = n0 + 8 * (jc + j) + 2 * t;
-            if (m >= M || n >= N) continue;
-            if (pairs) {
-              epi_store2<EPI>(ep, (size_t)m * ldc + n, r[j][2 * h], r[j][2 * h + 1]);
-            } else {  // ldc == N here (gemm_wg checks)
-              epi_store<bf16, EPI>(ep, M, N, m, n, 0, r[j][2 * h]);
-              if (n + 1 < N) epi_store<bf16, EPI>(ep, M, N, m, n + 1, 0, r[j][2 * h + 1]);
-            }
-          }
-      }
+      for (int e = 0; e < 8; ++e) o[e] = wg_math<EPI>(v[e], in[e]).c;
+      st_vec<8>(c + (size_t)m * N + n, o);
     }
-    if (EPL > 0)
-      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");  // the prologue's copies have read this block
   }
 }
 
@@ -605,7 +382,7 @@ static inline bool tma_map(CUtensorMap* out, const void* p, int rows, int cols, 
 }
 
 // The groups' column tiles (tile0) and the grid's x; false past WGROUP.
-inline bool wg_tiles(WgGroups& gp, int G, const int* N, const int* ldc, void* const* C) {
+inline bool wg_tiles(WgGroups& gp, int G, const int* N, void* const* C) {
   if (G < 1 || G > WGROUP) return false;
   gp = WgGroups{};
   int x = 0;
@@ -614,47 +391,39 @@ inline bool wg_tiles(WgGroups& gp, int G, const int* N, const int* ldc, void* co
     if (g < G) {
       gp.c[g] = C[g];
       gp.n[g] = N[g];
-      gp.ldc[g] = ldc ? ldc[g] : N[g];
       x += cdiv(N[g], WBN);
     }
   }
   gp.tile0[WGROUP] = x;
-  for (int g = G; g < WGROUP; ++g) gp.tile0[g] = x;
   return true;
 }
 
-// One launch of gemm_wg_kernel<EPI, WGS, EPL>: clusters of cx blocks along x
-// where cx > 1.
-template <int EPI, int WGS, int EPL>
-inline void launch_wg(const WgMaps& maps, const WgGroups& gp, const WgLn& ln, const EpiArgs& ep, int M, int K,
-                      int cx, cudaStream_t st) {
-  ++body_launches()[BODY_WGMMA];
-  const dim3 grid(gp.tile0[WGROUP], cdiv(M, 64 * WGS));
-  const int bytes = wg_smem(WGS, EPL > 0, cdiv(K, WBK)), threads = 128 * (WGS + 1);
-  if (cx > 1)
-    launch_mma_cluster(gemm_wg_kernel<EPI, WGS, EPL>, grid, cx, threads, bytes, st, maps, gp, ln, ep, M, K);
-  else
-    launch_mma(gemm_wg_kernel<EPI, WGS, EPL>, grid, threads, bytes, st, maps, gp, ln, ep, M, K);
+// Whether the wgmma body takes the G products (the dispatch rule): TMA
+// reads every A and W (tma_ok), and the epilogue moves in 16-byte pieces
+// (every N % 8 == 0, the outputs and the epilogue's operands 16-byte
+// aligned; a null operand is).
+inline bool wg_ok(int G, const bf16* const* A, const bf16* const* W, void* const* C, const int* N, int K,
+                  const EpiArgs& ep) {
+  bool ok = al16(ep.bias) && al16(ep.resid) && al16(ep.fs) && al16(ep.fb);
+  for (int g = 0; g < G; ++g) ok = ok && tma_ok(A[g], K) && tma_ok(W[g], K) && N[g] % 8 == 0 && al16(C[g]);
+  return ok;
 }
 
 // C[g] = A[g] . W[g]^T for g < G (<= WGROUP), A[g] (M, K), W[g] (N[g], K),
-// C[g] (M, N[g]) of row stride ldc[g] (null: N[g]), bf16, the epilogue's
-// other operands shared. One wgmma launch of WGS consumer warpgroups where
-// TMA takes every A and W (tma_ok), else one gemm_mma_kernel launch per
-// group (refused where an output's row stride is not its N).
-template <int EPI, int WGS = WG_WGS>
-inline void gemm_wg(int G, const bf16* const* A, const bf16* const* W, void* const* C, const int* N, const int* ldc,
-                    int M, int K, EpiArgs ep, cudaStream_t st) {
+// C[g] (M, N[g]), bf16, the epilogue's other operands shared. One wgmma
+// launch where wg_ok holds, else one gemm_mma_kernel launch per group.
+// Refused: a second output or dropout in the epilogue (no caller asks the
+// forward projection for either).
+template <int EPI>
+inline void gemm_wg(int G, const bf16* const* A, const bf16* const* W, void* const* C, const int* N, int M, int K,
+                    EpiArgs ep, cudaStream_t st) {
   static_assert(EPI == EPI_STORE || EPI == EPI_STORE_F32 || EPI == EPI_BIAS || EPI == EPI_BIAS_GELU ||
                     EPI == EPI_BIAS_FILM || EPI == EPI_BIAS_FILM_T,
                 "the forward's epilogues");
   WgGroups gp;
-  if (!wg_tiles(gp, G, N, ldc, C)) return refuse();
-  bool tma = true;
-  for (int g = 0; g < G; ++g) tma = tma && tma_ok(A[g], K) && tma_ok(W[g], K);
-  if (!tma) {
+  if (!wg_tiles(gp, G, N, C) || ep.c2 || ep.dr.on) return refuse();
+  if (!wg_ok(G, A, W, C, N, K, ep)) {
     for (int g = 0; g < G; ++g) {
-      if (gp.ldc[g] != N[g]) return refuse();
       ProjGroup p{};
       p.a[0] = A[g];
       p.w[0] = W[g];
@@ -663,63 +432,11 @@ inline void gemm_wg(int G, const bf16* const* A, const bf16* const* W, void* con
     }
     return;
   }
-  if (ep.dr.on) return refuse();  // the body's epilogue runs without dropout
-  // an output of row stride other than N is stored in pairs only
-  for (int g = 0; g < G; ++g)
-    if (gp.ldc[g] != N[g] && (N[g] % 2 || gp.ldc[g] % 2 || !aligned(C[g], 8) || epi_film<EPI>())) return refuse();
   WgMaps maps{};
   for (int g = 0; g < G; ++g)
-    if (!tma_map(&maps.a[g], A[g], M, K, K, 64 * WGS) || !tma_map(&maps.w[g], W[g], N[g], K, K, WBN))
-      return refuse();
-  launch_wg<EPI, WGS, 0>(maps, gp, WgLn{}, ep, M, K, 1, st);
-}
-
-// Whether the prologue takes LN(x) (M, d) into the G groups' products:
-// d one of 64 .. 512 (A's BM x d stay resident), the row operands 16-byte
-// aligned (ln_rows' templated body), TMA takes every W, and the groups'
-// column tiles are equal in count (the cluster) and at most LN_CLUSTER.
-inline bool wg_ln_ok(const WgLn& ln, int d, int G, const bf16* const* W, const int* N, bool rot) {
-  if ((d != 64 && d != 128 && d != 256 && d != 512) || G < 1 || G > WGROUP) return false;
-  bool ok = al16(ln.x) && al16(ln.s) && al16(ln.b) && (!rot || (al16(ln.cos) && al16(ln.ssin)));
-  for (int g = 0; g < G; ++g)
-    ok = ok && tma_ok(W[g], d) && cdiv(N[g], WBN) == cdiv(N[0], WBN) && cdiv(N[g], WBN) <= LN_CLUSTER;
-  return ok;
-}
-
-// C[g] = T(LN(x)) . W[g]^T, or T(rot(LN(x))) . W[g]^T where rot[g], for g <
-// G, the LayerNorm in the prologue (above): one launch of WGS consumer
-// warpgroups a block (BM = 64 WGS rows) in clusters of cx blocks along N
-// (0: a group's column tiles; cx must divide them; 1: each block
-// normalises its rows alone); refused where wg_ln_ok does not hold (the
-// caller runs ln_rows and gemm_wg then).
-template <int EPI, int WGS = WG_WGS>
-inline void gemm_wg_ln(const WgLn& ln, int M, int d, int G, const bf16* const* W, const int* rot, void* const* C,
-                       const int* N, const int* ldc, EpiArgs ep, cudaStream_t st, int cx = 0) {
-  bool any_rot = false;
-  for (int g = 0; g < G; ++g) any_rot = any_rot || rot[g];
-  WgGroups gp;
-  if (!wg_ln_ok(ln, d, G, W, N, any_rot) || !wg_tiles(gp, G, N, ldc, C) || ep.dr.on) return refuse();
-  const int ntn = cdiv(N[0], WBN);
-  if (cx == 0) cx = ntn;
-  if (cx < 1 || ntn % cx) return refuse();
-  for (int g = 0; g < G; ++g) {
-    gp.rot[g] = rot[g];
-    if (gp.ldc[g] != N[g] && (N[g] % 2 || gp.ldc[g] % 2 || !aligned(C[g], 8) || epi_film<EPI>())) return refuse();
-  }
-  WgMaps maps{};
-  for (int g = 0; g < G; ++g)
-    if (!tma_map(&maps.w[g], W[g], N[g], d, d, WBN)) return refuse();
-#define TCD_WG_LN(EPL)                                               \
-  case 32 * EPL:                                                     \
-    return launch_wg<EPI, WGS, EPL>(maps, gp, ln, ep, M, d, cx, st)
-  switch (d) {
-    TCD_WG_LN(2);
-    TCD_WG_LN(4);
-    TCD_WG_LN(8);
-    TCD_WG_LN(16);
-  }
-#undef TCD_WG_LN
-  refuse();
+    if (!tma_map(&maps.a[g], A[g], M, K, K, WBM) || !tma_map(&maps.w[g], W[g], N[g], K, K, WBN)) return refuse();
+  ++body_launches()[BODY_WGMMA];
+  launch_mma(gemm_wg_kernel<EPI>, dim3(gp.tile0[WGROUP], cdiv(M, WBM)), WG_THREADS, WG_SMEM, st, maps, gp, ep, M, K);
 }
 
 }  // namespace tcd

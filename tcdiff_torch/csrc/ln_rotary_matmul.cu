@@ -20,93 +20,31 @@
 // common.cuh, one warp a row), and one launch of the wgmma + TMA body
 // (gemm_wg of gemm_wgmma.cuh) runs every product, each with its own A
 // (rot(y) for q and k, y for v) and its own N: 3 x 4 x 29 blocks at the
-// serving shape (mma.sync where TMA cannot take an operand). With
-// `prologue`, one launch instead: the LayerNorm and the rotary in the
-// wgmma body's prologue (gemm_wg_ln; each group's column blocks of a row
-// tile one cluster that normalises the tile's rows once into every
-// block's shared memory; a joined [Wq; Wk] runs as its two halves writing
-// the two halves of qk), so y and rot(y) never reach device memory. On the
-// H100 the prologue measured slower than ln_rows + the product at the
-// serving shape (PERF.md: a block runs its prologue, K loop and epilogue
-// one after another, and its 128 KB of A arrive through distributed
-// shared memory at a lower rate than TMA brings them from L2), so it is
-// the option and the two launches the default. f32: ln_rows and one FMA
-// projection per weight.
+// serving shape (mma.sync where its rule sends them). The LayerNorm and
+// rotary in the products' prologue (one launch, y and rot(y) never in
+// device memory) measured slower on the H100 at the serving shape
+// (PERF.md: a block ran its prologue, K loop and epilogue one after
+// another), so the row body runs them. f32: ln_rows and one FMA projection
+// per weight.
 #include "gemm_wgmma.cuh"
 
 // The layout of the ctypes mirror in ops/ln_rotary_matmul.py. x (M = B L
 // rows of d), d even; cos/ssin (L, d) in T; wr0 (n0, d) and, in the
 // separate form, wr1 (n1, d) rotated; wp (np, d) or null (rot-only); y, r
-// (M, d) scratch of the unfused sequence (null where the prologue runs);
-// o0 (M, n0), o1 (M, n1), ov (M, np); prologue: 1 for the one-launch
-// design (bf16, where wg_ln_ok holds).
+// (M, d) scratch (y unused without wp); o0 (M, n0), o1 (M, n1), ov (M, np).
 struct LnRotArgs {
   const void* x;
   const float *s, *b;
   const void *cos, *ssin, *wr0, *wr1, *wp;
   void *y, *r, *o0, *o1, *ov;
-  int M, L, d, n0, n1, np, prologue;
+  int M, L, d, n0, n1, np;
   float eps;
 };
 
 namespace tcd {
 
-// The products of K8 as groups: (weight, N, output row stride, output,
-// rotated). A joined q||k weight is split in halves where that makes the
-// groups' column tiles equal (the prologue's clusters), its halves writing
-// the halves of o0.
-struct LnRotGroups {
-  const bf16* w[WGROUP];
-  int n[WGROUP], ldc[WGROUP], rot[WGROUP];
-  void* c[WGROUP];
-  int G = 0;
-  void add(const void* wt, int nn, int ld, void* out, int r) {
-    w[G] = static_cast<const bf16*>(wt);
-    n[G] = nn;
-    ldc[G] = ld;
-    c[G] = out;
-    rot[G++] = r;
-  }
-};
-
-inline int ln_rotary_matmul_bf16(const LnRotArgs& a, cudaStream_t st) {
-  using T = bf16;
-  const WgLn ln{(const T*)a.x, a.s, a.b, a.eps, (const T*)a.cos, (const T*)a.ssin, a.L};
-  LnRotGroups pro;
-  if (a.wr1) {
-    pro.add(a.wr0, a.n0, a.n0, a.o0, 1);
-    pro.add(a.wr1, a.n1, a.n1, a.o1, 1);
-  } else if (a.wp && a.n0 % 2 == 0 && cdiv(a.n0 / 2, WBN) == cdiv(a.np, WBN) && aligned(a.o0, 8)) {
-    const int h = a.n0 / 2;
-    pro.add(a.wr0, h, a.n0, a.o0, 1);
-    pro.add((const T*)a.wr0 + (size_t)h * a.d, h, a.n0, (T*)a.o0 + h, 1);
-  } else {
-    pro.add(a.wr0, a.n0, a.n0, a.o0, 1);
-  }
-  if (a.wp) pro.add(a.wp, a.np, a.np, a.ov, 0);
-  if (a.prologue && wg_ln_ok(ln, a.d, pro.G, pro.w, pro.n, true)) {
-    gemm_wg_ln<EPI_STORE>(ln, a.M, a.d, pro.G, pro.w, pro.rot, pro.c, pro.n, pro.ldc, epi(nullptr), st);
-    return launch_status();
-  }
-  // ln_rows, then the products as given, A = rot(y) or y
-  if (!a.r || (a.wp && !a.y)) {
-    refuse();
-    return launch_status();
-  }
-  ln_rows<T, T>((const T*)a.x, a.s, a.b, a.eps, a.M, a.d, a.L, (const T*)a.cos, (const T*)a.ssin, nullptr, nullptr,
-                nullptr, a.wp ? (T*)a.y : nullptr, (T*)a.r, st);
-  LnRotGroups un;
-  un.add(a.wr0, a.n0, a.n0, a.o0, 1);
-  if (a.wr1) un.add(a.wr1, a.n1, a.n1, a.o1, 1);
-  if (a.wp) un.add(a.wp, a.np, a.np, a.ov, 0);
-  const T* A[WGROUP];
-  for (int g = 0; g < un.G; ++g) A[g] = un.rot[g] ? (const T*)a.r : (const T*)a.y;
-  gemm_wg<EPI_STORE>(un.G, A, un.w, un.c, un.n, nullptr, a.M, a.d, epi(nullptr), st);
-  return launch_status();
-}
-
-inline int ln_rotary_matmul_f32(const LnRotArgs& a, cudaStream_t st) {
-  using T = float;
+template <typename T>
+int ln_rotary_matmul(const LnRotArgs& a, cudaStream_t st) {
   const T *x = (const T*)a.x, *cs = (const T*)a.cos, *sn = (const T*)a.ssin;
   T *y = (T*)a.y, *r = (T*)a.r;
   if (!r || (a.wp && !y)) {
@@ -114,9 +52,24 @@ inline int ln_rotary_matmul_f32(const LnRotArgs& a, cudaStream_t st) {
     return launch_status();
   }
   ln_rows<T, T>(x, a.s, a.b, a.eps, a.M, a.d, a.L, cs, sn, nullptr, nullptr, nullptr, a.wp ? y : nullptr, r, st);
-  gemm<T, EPI_STORE>(r, (const T*)a.wr0, a.M, a.n0, a.d, epi(a.o0), st);
-  if (a.wr1) gemm<T, EPI_STORE>(r, (const T*)a.wr1, a.M, a.n1, a.d, epi(a.o1), st);
-  if (a.wp) gemm<T, EPI_STORE>(y, (const T*)a.wp, a.M, a.np, a.d, epi(a.ov), st);
+  if constexpr (std::is_same<T, bf16>::value) {
+    const T* A[WGROUP] = {r, r, y};
+    const T* W[WGROUP] = {(const T*)a.wr0, (const T*)a.wr1, (const T*)a.wp};
+    void* C[WGROUP] = {a.o0, a.o1, a.ov};
+    int N[WGROUP] = {a.n0, a.n1, a.np}, G = 1;
+    if (a.wr1) ++G;
+    if (a.wp) {  // v: the last group
+      A[G] = y;
+      W[G] = (const T*)a.wp;
+      C[G] = a.ov;
+      N[G++] = a.np;
+    }
+    gemm_wg<EPI_STORE>(G, A, W, C, N, a.M, a.d, epi(nullptr), st);
+  } else {
+    gemm<T, EPI_STORE>(r, (const T*)a.wr0, a.M, a.n0, a.d, epi(a.o0), st);
+    if (a.wr1) gemm<T, EPI_STORE>(r, (const T*)a.wr1, a.M, a.n1, a.d, epi(a.o1), st);
+    if (a.wp) gemm<T, EPI_STORE>(y, (const T*)a.wp, a.M, a.np, a.d, epi(a.ov), st);
+  }
   return launch_status();
 }
 
@@ -126,7 +79,7 @@ inline int ln_rotary_matmul_f32(const LnRotArgs& a, cudaStream_t st) {
 // failed or refused launch (launch_status) is not 0.
 extern "C" int tcd_ln_rotary_matmul(int dtype, const LnRotArgs* a, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return tcd::ln_rotary_matmul_f32(*a, st);
-  if (dtype == 1) return tcd::ln_rotary_matmul_bf16(*a, st);
+  if (dtype == 0) return tcd::ln_rotary_matmul<float>(*a, st);
+  if (dtype == 1) return tcd::ln_rotary_matmul<tcd::bf16>(*a, st);
   return -1;
 }

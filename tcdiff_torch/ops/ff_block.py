@@ -9,9 +9,7 @@ Counterpart of `tcdiff_tpu/ops/fused_ff_block.py`:
 CUDA tensor and `ff_tail_plain` for a CPU tensor; `ff_block` (K2b, the
 chain without the tail, on the serving path with the FF block kernel on
 and the tail off) runs `csrc/ff_block.cu` or `ff_block_plain` alike (in
-bf16 the row body for LN3 and both products on the wgmma + TMA body;
-`prologue=True` asks for LN3 in W1's prologue, two launches instead of
-three, which measured slower on the H100: PERF.md).
+bf16 the row body for LN3 and both products on the wgmma + TMA body).
 Weights are in nn.Linear layout: w1 (ff, d),
 w2 (d, ff), w3 (d, d); biases and LN affines (n,); film rows (b, d).
 GELU is the exact erf form. LN statistics, GELU, FiLM and every product
@@ -25,7 +23,7 @@ import ctypes
 
 import torch
 
-from tcdiff_torch.ops import _build, gemm
+from tcdiff_torch.ops import _build
 from tcdiff_torch.ops._common import (
     as_t, check_cuda, check_ln_fold, ln_f32, mm_f32, ptr, raise_on, scratch, stream_ptr,
 )
@@ -65,7 +63,7 @@ def ff_tail_plain(x, scale, bias, w1, b1, w2, b2, film_scale, film_shift, s4, b4
 
 _ARGTYPES = {  # tcd_<name>: dtype, the pointers, the ints, eps, the scratch and output, the stream
     "ff_block": ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float]
-                 + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]),
+                 + [ctypes.c_void_p] * 4),
     "ff_tail": ([ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_float]
                 + [ctypes.c_void_p] * 6),
 }
@@ -94,53 +92,38 @@ def _check_shapes(x, w1, w2, film_scale, film_shift, w3=None):
     return B, L, d, ff
 
 
-def ff_block_plan(x, scale, bias, w1, w2, prologue: bool = False) -> list:
-    """gemm.gemm_plan of W1 (LN3 in its prologue where the plan's body is
-    "wgmma+ln", else ln_rows first) and of W2, in bf16, for the operands as
-    the kernel takes them."""
-    B, L, d = x.shape
-    aligned = all(t.data_ptr() % 16 == 0 for t in (x, scale, bias))
-    return [gemm.gemm_plan(B * L, [w1.shape[0]], d, tma=gemm.tma_ok(w1), ln_d=d, ln_aligned=aligned,
-                           prologue=prologue),
-            gemm.gemm_plan(B * L, [d], w1.shape[0], tma=gemm.tma_ok(w2))]
-
-
-def _ff_block_cuda(x, scale, bias, w1, b1, w2, b2, film_scale, film_shift, eps, prologue):
+def _ff_block_cuda(x, scale, bias, w1, b1, w2, b2, film_scale, film_shift, eps):
     code = check_cuda(x, scale=scale, bias=bias, w1=w1, b1=b1, w2=w2, b2=b2,
                       film_scale=film_scale, film_shift=film_shift)
     if (film_scale is None) != (film_shift is None):
         raise ValueError("give both film rows or neither")
     B, L, d, ff = _check_shapes(x, w1, w2, film_scale, film_shift)
-    # host work only: no cast of what is already in its dtype, the hidden
-    # activation (and LN3's output where W1 has no prologue) and the
-    # output from one allocation
+    # host work only: no cast of what is already in its dtype, LN3's
+    # output, the hidden activation and the output from one allocation
     dt = x.dtype
     f32 = lambda t: None if t is None else as_t(t, torch.float32)
     w1c, w2c = as_t(w1, dt), as_t(w2, dt)
     s3f, b3f, bb1, bb2, fs, fb = (f32(t) for t in (scale, bias, b1, b2, film_scale, film_shift))
-    fused = dt == torch.bfloat16 and ff_block_plan(x, s3f, b3f, w1c, w2c, prologue)[0]["body"] == "wgmma+ln"
-    ten = scratch(x.device, dict(y=None if fused else ((B, L, d), dt), h=((B, L, ff), dt), out=((B, L, d), dt)))
+    ten = scratch(x.device, dict(y=((B, L, d), dt), h=((B, L, ff), dt), out=((B, L, d), dt)))
     y, h, out = ten["y"], ten["h"], ten["out"]
     rc = _fn("ff_block")(
         code, ptr(x), ptr(s3f), ptr(b3f), ptr(w1c), ptr(bb1), ptr(w2c), ptr(bb2), ptr(fs), ptr(fb),
-        B, L, d, ff, eps, ptr(y), ptr(h), ptr(out), int(fused), stream_ptr(x.device),
+        B, L, d, ff, eps, ptr(y), ptr(h), ptr(out), stream_ptr(x.device),
     )
     raise_on(rc, "ff_block")
     ff_block.launches += 1
     return out
 
 
-def ff_block(x, scale, bias, w1, b1, w2, b2, film_scale=None, film_shift=None, eps: float = 1e-5, *,
-             prologue: bool = False):
+def ff_block(x, scale, bias, w1, b1, w2, b2, film_scale=None, film_shift=None, eps: float = 1e-5):
     """The FF block without the tail: CUDA kernel for a CUDA x, plain
-    version for a CPU x. See the module docstring for shapes and
-    `prologue`."""
+    version for a CPU x. See the module docstring for shapes."""
     args = (x, scale, bias, w1, b1, w2, b2, film_scale, film_shift)
     if x.device.type == "cpu":
         return ff_block_plain(*args, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"ff_block runs on CPU or CUDA tensors, got {x.device}")
-    return _ff_block_cuda(*args, eps, prologue)
+    return _ff_block_cuda(*args, eps)
 
 
 ff_block.launches = 0  # kernel launches; the plain path does not count

@@ -48,13 +48,10 @@ bf16 only, which K2b's and K8's products run:
     gemm_wg      C[g] = A[g] . W[g]^T, up to three products of one launch,
                  each with its own N (and A), the epilogues above and
                  bias_film_t = T(bias_film)
-    gemm_wg_ln   C[g] = T(LN(x)) . W[g]^T or T(rot(LN(x))) . W[g]^T, the
-                 LayerNorm (and rotary) in the prologue: K8's and K2b's W1
 
 `gemm_plan` is the dispatch rule written out (which body a product runs,
-its grid, cluster and waves), `body_launches` the per-body launch counts
-of a library and `tma_stats` the host time its tensor maps took;
-`swizzle128` mirrors the shared-memory layout the prologue writes.
+its grid and waves), `body_launches` the per-body launch counts of a
+library and `tma_stats` the host time its tensor maps took.
 """
 
 from __future__ import annotations
@@ -371,83 +368,63 @@ gemm_lnrot.launches = 0
 
 
 # ------------------------------------------------- the wgmma + TMA body
-WG_BN, WG_BK = 128, 64  # csrc/gemm_wgmma.cuh: WBN, WBK
-WG_WGS = 2              # consumer warpgroups of a block: 128-row tiles
-WG_LN_WIDTHS = (64, 128, 256, 512)  # the prologue's row widths
-LN_CLUSTER = 8          # the most blocks of a cluster along N
-SMS = 132               # the H100 SXM's SMs
+WG_BM, WG_BN = 128, 128  # csrc/gemm_wgmma.cuh: WBM, WBN
+SMS = 132                # the H100 SXM's SMs
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def aligned16(t: torch.Tensor | None) -> bool:
+    """Whether t's base is 16-byte aligned (None is)."""
+    return t is None or t.data_ptr() % 16 == 0
+
+
 def tma_ok(t: torch.Tensor | None) -> bool:
     """Whether TMA can read the row-major bf16 operand t: a 16-byte aligned
     base and a row stride of a multiple of 16 bytes (tcd::tma_ok)."""
-    return t is None or (t.data_ptr() % 16 == 0 and t.stride(-2 if t.dim() > 1 else 0) % 8 == 0
-                         and t.stride(-1) == 1)
+    return t is None or (aligned16(t) and t.stride(-2 if t.dim() > 1 else 0) % 8 == 0 and t.stride(-1) == 1)
 
 
-def gemm_plan(M: int, ns, K: int, tma: bool = True, ln_d: int | None = None, ln_aligned: bool = True,
-              wgs: int = WG_WGS, prologue: bool = True) -> dict:
+def gemm_plan(M: int, ns, K: int, tma: bool = True, epilogue_aligned: bool = True) -> dict:
     """The dispatch rule of the bf16 forward projection, as csrc/gemm_wgmma.cuh
-    applies it (gemm_wg, wg_ln_ok), for C[g] = A . W[g]^T with N = ns[g]:
+    applies it (gemm_wg, wg_ok), for C[g] = A[g] . W[g]^T with N = ns[g]:
+    "wgmma", one launch of 128 x 128 tiles, where TMA takes every A and W
+    (tma: 16-byte aligned bases; and K % 8 == 0) and the epilogue moves in
+    16-byte pieces (every N % 8 == 0; epilogue_aligned: the outputs, bias,
+    residual and FiLM rows 16-byte aligned); else "mma.sync", one launch
+    per product. The wrappers do not call it: the C code dispatches.
 
-    - ln_d given (A = LN(x) of rows of ln_d = K): the prologue ("wgmma+ln",
-      one cluster launch) where it is asked for (prologue), ln_d is one of
-      WG_LN_WIDTHS, the row operands are 16-byte aligned (ln_aligned), TMA
-      takes every W (tma) and every group has the same count of column
-      tiles, at most LN_CLUSTER; else ln_rows, then the product by the rule
-      below;
-    - "wgmma" where TMA takes every operand (tma: 16-byte aligned, K % 8 ==
-      0); else "mma.sync", one launch per group.
-
-    Returns dict(body, launches, tile (BM, BN), grid (x, y), cluster,
-    blocks, waves): waves are blocks over the blocks the SMs hold at once
-    (one an SM, two for 64-row wgmma tiles and for mma.sync)."""
+    Returns dict(body, launches, tile (BM, BN), grid (x, y), blocks,
+    waves): waves are blocks over the blocks the SMs hold at once (one an
+    SM for wgmma, two for mma.sync)."""
     ns = list(ns)
-    tiles = [_cdiv(n, WG_BN) for n in ns]
-    tma = tma and K % 8 == 0 and K > 0
-    if (prologue and ln_d is not None and ln_d in WG_LN_WIDTHS and ln_aligned and tma and len(ns) <= GROUP_MAX
-            and len(set(tiles)) == 1 and tiles[0] <= LN_CLUSTER):
-        body, bm, cluster, launches, per_sm = "wgmma+ln", 64 * WG_WGS, tiles[0], 1, 1
-    elif tma:
-        body, bm, cluster, launches, per_sm = "wgmma", 64 * wgs, 1, 1, 2 if wgs == 1 else 1
+    if tma and K > 0 and K % 8 == 0 and epilogue_aligned and all(n % 8 == 0 for n in ns):
+        body, launches, per_sm = "wgmma", 1, 1
     else:
-        body, bm, cluster, launches, per_sm = "mma.sync", 128, 1, len(ns), 2
-    if ln_d is not None and body != "wgmma+ln":
-        launches += 1  # ln_rows
-    grid = (sum(tiles), _cdiv(M, bm))
+        body, launches, per_sm = "mma.sync", len(ns), 2
+    grid = (sum(_cdiv(n, WG_BN) for n in ns), _cdiv(M, WG_BM))
     blocks = grid[0] * grid[1]
-    return dict(body=body, launches=launches, tile=(bm, WG_BN), grid=grid, cluster=cluster, blocks=blocks,
+    return dict(body=body, launches=launches, tile=(WG_BM, WG_BN), grid=grid, blocks=blocks,
                 waves=blocks / (SMS * per_sm))
-
-
-def swizzle128(r: int, col: int, bm: int) -> int:
-    """The byte offset of element (r, col) of a bf16 A tile of bm rows
-    stored as K steps of bm rows x 128 bytes with TMA's 128-byte swizzle:
-    16-byte chunk c of row r's line at chunk c ^ (r % 8) (tcd::swz128)."""
-    return (col // 64) * bm * 128 + r * 128 + ((((col // 8) % 8) ^ (r % 8)) * 16) + (col % 8) * 2
 
 
 _WgArgs = args_struct(  # GemmWgArgs in csrc/gemm.cu
     "GemmWgArgs",
     ("a0", "a1", "a2", "w0", "w1", "w2", "c0", "c1", "c2", "bias", "resid", "fs", "fb"),
-    ("M", "K", "L", "epi", "groups", "n0", "n1", "n2", "wgs"),
+    ("M", "K", "L", "epi", "groups", "n0", "n1", "n2"),
     (),
 )
 
 
-def gemm_wg(a, w, epilogue: str = "store", bias=None, resid=None, film_scale=None, film_shift=None, L: int = 1,
-            wgs: int | None = None):
+def gemm_wg(a, w, epilogue: str = "store", bias=None, resid=None, film_scale=None, film_shift=None, L: int = 1):
     """C[g] = a[g] . w[g]^T on the wgmma + TMA body (bf16; gemm_plan's rule:
-    operands TMA cannot take run on mma.sync): the CUDA kernel for a CUDA
-    operand, the plain version (gemm_plain) for a CPU one. w: a tensor
+    what the body does not take runs on mma.sync): the CUDA kernel for a
+    CUDA operand, the plain version (gemm_plain) for a CPU one. w: a tensor
     (N, K) or a list of up to three with their own N; a: one (M, K) tensor
-    shared by the group, or a list as long as w. wgs: the consumer
-    warpgroups of a block (1: 64-row tiles, 2: 128-row; None: the default).
-    Returns a tensor, or a list for a list w."""
+    shared by the group, or a list as long as w. Returns a tensor, or a
+    list for a list w."""
     grouped = isinstance(w, (list, tuple))
     ws = list(w) if grouped else [w]
     as_ = list(a) if isinstance(a, (list, tuple)) else [a] * len(ws)
@@ -481,8 +458,6 @@ def gemm_wg(a, w, epilogue: str = "store", bias=None, resid=None, film_scale=Non
         for name, t in (("film_scale", film_scale), ("film_shift", film_shift)):
             if t is None or tuple(t.shape) != (M // L, N):
                 raise ValueError(f"{epilogue} needs {name} (M / L, N) = {(M // L, N)}")
-    if wgs not in (None, 1, WG_WGS):
-        raise ValueError(f"wgs is 1 or {WG_WGS}, got {wgs}")
     dt = x.dtype
     out_dt = torch.float32 if epilogue in F32_OUT else dt
     outs = [torch.empty((M, n), dtype=out_dt, device=x.device) for n in ns]
@@ -493,8 +468,7 @@ def gemm_wg(a, w, epilogue: str = "store", bias=None, resid=None, film_scale=Non
         ten["bias"] = as_t(bias, torch.float32)
     if epilogue.startswith("bias_film"):
         ten.update(resid=as_t(resid, dt), fs=as_t(film_scale, torch.float32), fb=as_t(film_shift, torch.float32))
-    dims = dict(M=M, K=K, L=L, epi=WG_EPILOGUES[epilogue], groups=len(ws), wgs=wgs or 0,
-                **{f"n{i}": n for i, n in enumerate(ns)})
+    dims = dict(M=M, K=K, L=L, epi=WG_EPILOGUES[epilogue], groups=len(ws), **{f"n{i}": n for i, n in enumerate(ns)})
     launch("gemm", "tcd_gemm_wg", _WgArgs, ten, dims, x, "gemm_wg")
     gemm_wg.launches += 1
     return outs if grouped else outs[0]
@@ -519,65 +493,3 @@ def tma_stats(lib: str = "gemm") -> dict:
     out = (ctypes.c_double * 3)()
     _build.load(lib).tcd_tma_stats(out)
     return {"lookups": int(out[0]), "encodes": int(out[1]), "us": out[2]}
-
-
-_WgLnArgs = args_struct(  # GemmWgLnArgs in csrc/gemm.cu
-    "GemmWgLnArgs",
-    ("x", "cos", "ssin", "w0", "w1", "w2", "c0", "c1", "c2", "s", "b", "bias"),
-    ("M", "L", "d", "epi", "groups", "n0", "n1", "n2", "rot0", "rot1", "rot2", "cluster", "wgs"),
-    ("eps",),
-)
-
-
-def gemm_wg_ln_plain(x, scale, bias, angles, w, rot, epilogue: str = "store", b=None, eps: float = 1e-5):
-    """Plain version of gemm_wg_ln: LN (and the rotary) in f32, rounded to
-    x's dtype, then each product in f32 sums and the epilogue."""
-    from tcdiff_torch.ops.sa_block_train import rot as rotate
-
-    dt = x.dtype
-    y = ln_f32(x, scale, bias, eps)
-    cos, ssin = rotary_tables(angles, dt) if any(rot) else (None, None)
-    outs = []
-    for wi, ri in zip(w, rot):
-        a = (rotate(y, cos, ssin) if ri else y).to(dt)
-        outs.append(_epilogue_plain(mm_f32(a, wi), dt, epilogue, b, None, None, None, 1))
-    return outs
-
-
-def gemm_wg_ln(x, scale, bias, angles, w, rot, epilogue: str = "store", b=None, eps: float = 1e-5,
-               cluster: int = 0, wgs: int | None = None):
-    """C[g] = T(LN(x)) . w[g]^T, or T(rot(LN(x))) . w[g]^T where rot[g], for x
-    (B, L, d), the LayerNorm's affine (d,), the angle table (L, d) (None
-    where no rot) and a list of up to three w (n, d) of one column-tile
-    count: the wgmma body with the LayerNorm in its prologue (bf16, one
-    launch; epilogue store or bias_gelu with b); cluster: blocks of a
-    cluster along N (0: a product's column tiles; 1: each block normalises
-    its own rows); wgs: consumer warpgroups a block (1: 64-row tiles, two
-    blocks an SM; 2: 128-row; None: the default). The CUDA kernel for a
-    CUDA x, the plain version for a CPU x. Returns a list."""
-    if x.device.type == "cpu":
-        return gemm_wg_ln_plain(x, scale, bias, angles, w, rot, epilogue, b, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"gemm_wg_ln runs on CPU or CUDA tensors, got {x.device}")
-    _bf16_only(x, "gemm_wg_ln")
-    B, L, d = x.shape
-    if epilogue not in ("store", "bias_gelu") or not 1 <= len(w) <= GROUP_MAX or len(rot) != len(w):
-        raise ValueError("epilogue store or bias_gelu, 1 to 3 w and a rot flag each")
-    cos, ssin = cached_rotary_tables(angles, x.dtype) if any(rot) else (None, None)
-    outs = [torch.empty((B, L, wi.shape[0]), dtype=x.dtype, device=x.device) for wi in w]
-    ten = dict(x=x, s=as_t(scale, torch.float32), b=as_t(bias, torch.float32), cos=cos, ssin=ssin)
-    for i, (wi, ci) in enumerate(zip(w, outs)):
-        check_cuda(x, w=wi)
-        ten.update({f"w{i}": wi, f"c{i}": ci})
-    if epilogue == "bias_gelu":
-        ten["bias"] = as_t(b, torch.float32)
-    if wgs not in (None, 1, WG_WGS):
-        raise ValueError(f"wgs is 1 or {WG_WGS}, got {wgs}")
-    dims = dict(M=B * L, L=L, d=d, epi=WG_EPILOGUES[epilogue], groups=len(w), cluster=cluster, eps=eps, wgs=wgs or 0,
-                **{f"n{i}": wi.shape[0] for i, wi in enumerate(w)}, **{f"rot{i}": int(r) for i, r in enumerate(rot)})
-    launch("gemm", "tcd_gemm_wg_ln", _WgLnArgs, {k: t for k, t in ten.items() if t is not None}, dims, x, "gemm_wg_ln")
-    gemm_wg_ln.launches += 1
-    return outs
-
-
-gemm_wg_ln.launches = 0

@@ -18,10 +18,7 @@ nn.Linear layout (n, d), in the compute dtype. `ln_rotary_matmul` runs
 the CUDA kernel (`csrc/ln_rotary_matmul.cu`) for a CUDA tensor and
 `ln_rotary_matmul_plain` for a CPU tensor. In bf16 the kernel is two
 launches, the row body writing y and rot(y) and every product in one
-launch of the wgmma + TMA body; `prologue=True` asks for one launch with
-the LayerNorm and rotary in the body's prologue (where `gemm.gemm_plan`
-says the prologue takes the shape), which measured slower on the H100
-(PERF.md).
+launch of the wgmma + TMA body.
 """
 
 from __future__ import annotations
@@ -29,7 +26,6 @@ from __future__ import annotations
 import torch
 
 from tcdiff_torch.models.rotary import swap_pairs
-from tcdiff_torch.ops import gemm
 from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, launch, ln_f32, mm_f32, scratch
 from tcdiff_torch.ops.sa_block import cached_rotary_tables, rotary_tables
 
@@ -57,38 +53,12 @@ def ln_rotary_matmul_plain(x, scale, bias, angles, w_rot, w_plain=None, eps: flo
 _Args = args_struct(  # LnRotArgs in csrc/ln_rotary_matmul.cu
     "LnRotArgs",
     ("x", "s", "b", "cos", "ssin", "wr0", "wr1", "wp", "y", "r", "o0", "o1", "ov"),
-    ("M", "L", "d", "n0", "n1", "np", "prologue"),
+    ("M", "L", "d", "n0", "n1", "np"),
     ("eps",),
 )
 
 
-def product_groups(ns, n_plain: int) -> list:
-    """The N of each product of one bf16 launch, as the kernel forms them:
-    the rotated weights' (a joined [w_q; w_k] as its two halves where that
-    gives every product the same count of 128-column tiles), then the plain
-    weight's (n_plain, 0: none)."""
-    tiles = lambda n: -(-n // gemm.WG_BN)
-    if len(ns) == 1 and n_plain and ns[0] % 2 == 0 and tiles(ns[0] // 2) == tiles(n_plain):
-        ns = [ns[0] // 2] * 2
-    return list(ns) + ([n_plain] if n_plain else [])
-
-
-def plan(x, scale, bias, cos, ssin, w_rot, w_plain, prologue: bool = False) -> dict:
-    """gemm.gemm_plan of one bf16 call (the operands as the kernel takes
-    them): "wgmma+ln" is one launch with the LayerNorm and rotary in the
-    prologue, else ln_rows and one launch of the products."""
-    B, L, d = x.shape
-    ws = w_rot + ([] if w_plain is None else [w_plain])
-    n_plain = 0 if w_plain is None else w_plain.shape[0]
-    ns = [w.shape[0] for w in w_rot] + ([n_plain] if n_plain else [])
-    if prologue:
-        ns = product_groups([w.shape[0] for w in w_rot], n_plain)
-    aligned = all(t.data_ptr() % 16 == 0 for t in (x, scale, bias, cos, ssin))
-    return gemm.gemm_plan(B * L, ns, d, tma=all(gemm.tma_ok(w) for w in ws), ln_d=d, ln_aligned=aligned,
-                          prologue=prologue)
-
-
-def _ln_rotary_matmul_cuda(x, scale, bias, angles, w_rot, w_plain, eps, prologue):
+def _ln_rotary_matmul_cuda(x, scale, bias, angles, w_rot, w_plain, eps):
     ws, apart = _weights(w_rot)
     if not 1 <= len(ws) <= 2:
         raise ValueError(f"give one rotated weight or two apart, got {len(ws)}")
@@ -105,21 +75,19 @@ def _ln_rotary_matmul_cuda(x, scale, bias, angles, w_rot, w_plain, eps, prologue
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
 
     # host work only: the tables once per angle table, no cast of what is
-    # already in its dtype, the outputs (and the unfused sequence's
-    # scratch, where it runs) from one allocation
+    # already in its dtype, the outputs and the scratch from one allocation
     dt = x.dtype
     cos, ssin = cached_rotary_tables(angles, dt)
     s, b = as_t(scale, torch.float32), as_t(bias, torch.float32)
     wr = [as_t(w, dt) for w in ws]
     wp = None if w_plain is None else as_t(w_plain, dt)
-    fused = dt == torch.bfloat16 and plan(x, s, b, cos, ssin, wr, wp, prologue)["body"] == "wgmma+ln"
     rows = lambda n: ((B, L, n), dt)
-    ten = scratch(x.device, dict(y=None if fused or wp is None else rows(d), r=None if fused else rows(d),
+    ten = scratch(x.device, dict(y=None if wp is None else rows(d), r=rows(d),
                                  o0=rows(wr[0].shape[0]), o1=rows(wr[1].shape[0]) if apart else None,
                                  ov=None if wp is None else rows(wp.shape[0])))
     ten.update(x=x, s=s, b=b, cos=cos, ssin=ssin, wr0=wr[0], wr1=wr[1] if apart else None, wp=wp)
     dims = dict(M=B * L, L=L, d=d, n0=wr[0].shape[0], n1=wr[1].shape[0] if apart else 0,
-                np=0 if wp is None else wp.shape[0], prologue=int(fused), eps=eps)
+                np=0 if wp is None else wp.shape[0], eps=eps)
     launch("ln_rotary_matmul", "tcd_ln_rotary_matmul", _Args, {k: t for k, t in ten.items() if t is not None},
            dims, x, "ln_rotary_matmul")
     ln_rotary_matmul.launches += 1
@@ -127,16 +95,15 @@ def _ln_rotary_matmul_cuda(x, scale, bias, angles, w_rot, w_plain, eps, prologue
     return rot if wp is None else (rot, ten["ov"])
 
 
-def ln_rotary_matmul(x, scale, bias, angles, w_rot, w_plain=None, eps: float = 1e-5, *, prologue: bool = False):
+def ln_rotary_matmul(x, scale, bias, angles, w_rot, w_plain=None, eps: float = 1e-5):
     """LN -> rotary -> projection(s): CUDA kernel for a CUDA x, plain
     version for a CPU x. Returns (rotated, v), or the rotated output(s)
-    alone without w_plain; the rotated output is a tuple where w_rot is.
-    prologue: the one-launch bf16 design (see the module docstring)."""
+    alone without w_plain; the rotated output is a tuple where w_rot is."""
     if x.device.type == "cpu":
         return ln_rotary_matmul_plain(x, scale, bias, angles, w_rot, w_plain, eps)
     if x.device.type != "cuda":
         raise ValueError(f"ln_rotary_matmul runs on CPU or CUDA tensors, got {x.device}")
-    return _ln_rotary_matmul_cuda(x, scale, bias, angles, w_rot, w_plain, eps, prologue)
+    return _ln_rotary_matmul_cuda(x, scale, bias, angles, w_rot, w_plain, eps)
 
 
 ln_rotary_matmul.launches = 0  # kernel launches; the plain path does not count

@@ -969,13 +969,12 @@ def test_new_bodies_refuse_what_they_do_not_take(dev):
 # The bf16 forward projection on wgmma with TMA (csrc/gemm_wgmma.cuh,
 # ops/gemm.gemm_wg) against its plain version: each epilogue at M = 1, 154
 # and 3600 (ragged against 128-row tiles), N = 96 (ragged against 128
-# columns) to 1536 and N = 50, 49 (the epilogue's direct paths), K = 64 to
-# 1024; both tiles; the grouped form with an N per product; the dispatch
-# to mma.sync of what TMA cannot take, shown by the per-body counts; two
-# runs bit for bit. Then K8 and K2b through the new design, the row body
-# first (the default) or the LayerNorm in the first product's prologue:
-# each product on wgmma (the per-body counts), the launches under
-# torch.profiler. Tolerances as above.
+# columns) to 1536, K = 64 to 1024, and N = 50, 49, which the dispatch
+# rule sends to mma.sync; the grouped form with an N per product; the
+# dispatch to mma.sync of what the body does not take, shown by the
+# per-body counts; two runs bit for bit. Then K8 and K2b through the new
+# design: the row body, then each product on wgmma (the per-body counts),
+# the launches under torch.profiler. Tolerances as above.
 WG_EPILOGUES = ["store", "store_f32", "bias", "bias_gelu", "bias_film", "bias_film_t"]
 
 
@@ -997,8 +996,7 @@ def _bodies(lib):
 @pytest.mark.parametrize("M", [1, 154, 3600])
 @pytest.mark.parametrize("N, K", [(96, 64), (512, 512), (1024, 512), (1536, 512), (512, 1024), (50, 64), (49, 64)])
 def test_gemm_wg_kernel_matches_plain(dev, epilogue, M, N, K):
-    """N % 8 == 0: the epilogue staged through shared memory; N = 50 in
-    pairs, N = 49 element by element, straight from the fragments."""
+    """N % 8 == 0 on wgmma; N = 50 and 49 on mma.sync, as gemm_plan says."""
     from tcdiff_torch.ops import gemm as m
 
     g = torch.Generator(device=dev).manual_seed(40)
@@ -1008,22 +1006,12 @@ def test_gemm_wg_kernel_matches_plain(dev, epilogue, M, N, K):
     ref = m.gemm_plain(a, w, epilogue, *extra)
     torch.cuda.synchronize()
     after = _bodies("gemm")
+    body = m.gemm_plan(M, [N], K)["body"]
+    assert body == ("wgmma" if N % 8 == 0 else "mma.sync")
     assert m.gemm_wg.launches == before + 1
-    assert (after["wgmma"] - bodies["wgmma"], after["mma.sync"] - bodies["mma.sync"]) == (1, 0)
+    assert (after["wgmma"] - bodies["wgmma"], after["mma.sync"] - bodies["mma.sync"]) == \
+        ((1, 0) if body == "wgmma" else (0, 1))
     assert out.dtype == ref.dtype and out.shape == (M, N)
-    assert (out.float() - ref.float()).abs().max().item() <= _tol(torch.bfloat16, ref)
-
-
-@pytest.mark.parametrize("wgs", [1, 2])
-@pytest.mark.parametrize("M, N, K", [(3600, 512, 512), (154, 96, 64), (3600, 1024, 1024), (1, 512, 512)])
-def test_gemm_wg_tiles_match_plain(dev, wgs, M, N, K):
-    """64-row tiles (one consumer warpgroup) and 128-row tiles (two)."""
-    from tcdiff_torch.ops import gemm as m
-
-    g = torch.Generator(device=dev).manual_seed(41)
-    a, w, (bias, *_) = _wg_case(g, dev, M, N, K)
-    out = m.gemm_wg(a, w, "bias_gelu", bias, wgs=wgs)
-    ref = m.gemm_plain(a, w, "bias_gelu", bias)
     assert (out.float() - ref.float()).abs().max().item() <= _tol(torch.bfloat16, ref)
 
 
@@ -1048,15 +1036,18 @@ def test_gemm_wg_groups_of_unequal_n(dev, shared_a, ns):
         assert (out.float() - ref.float()).abs().max().item() <= _tol(torch.bfloat16, ref)
 
 
-@pytest.mark.parametrize("case", ["aligned", "a 2 bytes off", "w 2 bytes off", "K % 8 != 0"])
+@pytest.mark.parametrize("case", ["aligned", "a 2 bytes off", "w 2 bytes off", "K % 8 != 0", "bias 4 bytes off",
+                                  "resid 2 bytes off", "a group with N % 8 != 0"])
 def test_gemm_wg_dispatch_by_alignment(dev, case):
-    """Operands TMA takes run on wgmma; an operand 2 bytes off a 16-byte
-    boundary, or rows of K % 8 != 0, run on mma.sync: the per-body counts
-    show which, as gemm_plan says, and both agree with the plain version."""
+    """Operands the body takes run on wgmma; an A or W 2 bytes off a 16-byte
+    boundary, rows of K % 8 != 0, an epilogue operand off 16 bytes or a
+    product of N % 8 != 0 in the group send every product to mma.sync (one
+    launch each): the per-body counts show which, as gemm_plan says, and
+    both agree with the plain version."""
     from tcdiff_torch.ops import gemm as m
 
     g = torch.Generator(device=dev).manual_seed(43)
-    M, N = 154, 96
+    M, N, L = 154, 96, 77
     K = 100 if case == "K % 8 != 0" else 64
     buf = _rnd(g, dev, M * K + N * K + 16).to(torch.bfloat16)
     oa = 1 if case == "a 2 bytes off" else 0
@@ -1064,17 +1055,23 @@ def test_gemm_wg_dispatch_by_alignment(dev, case):
     a = buf[oa:oa + M * K].view(M, K)
     w = buf[M * K + 8 + ow:M * K + 8 + ow + N * K].view(N, K) * K**-0.5
     w = buf[M * K + 8 + ow:M * K + 8 + ow + N * K].view(N, K).copy_(w)
-    plan = m.gemm_plan(M, [N], K, tma=m.tma_ok(a) and m.tma_ok(w))
+    ws = [w, w[:50].contiguous()] if case == "a group with N % 8 != 0" else [w]
+    bias = _rnd(g, dev, N + 1, std=0.1)[(1 if case == "bias 4 bytes off" else 0):][:N]
+    resid = _rnd(g, dev, M * N + 1).to(torch.bfloat16)[(1 if case == "resid 2 bytes off" else 0):][:M * N].view(M, N)
+    fs, fb = _rnd(g, dev, M // L, N, std=0.1), _rnd(g, dev, M // L, N, std=0.1)
+    args = ("bias_film_t", bias, resid, fs, fb, L) if len(ws) == 1 else ("store",)
+    plan = m.gemm_plan(M, [wi.shape[0] for wi in ws], K, tma=m.tma_ok(a) and all(m.tma_ok(wi) for wi in ws),
+                       epilogue_aligned=m.aligned16(bias) and m.aligned16(resid))
     assert plan["body"] == ("wgmma" if case == "aligned" else "mma.sync")
     bodies = _bodies("gemm")
-    out = m.gemm_wg(a, w)
-    ref = m.gemm_plain(a, w)
+    out = m.gemm_wg(a, ws, *args)
+    ref = m.gemm_plain(a, ws, *args)
     torch.cuda.synchronize()
     after = _bodies("gemm")
-    body = "wgmma" if plan["body"] == "wgmma" else "mma.sync"
-    other = "mma.sync" if body == "wgmma" else "wgmma"
-    assert (after[body] - bodies[body], after[other] - bodies[other]) == (1, 0)
-    assert (out.float() - ref.float()).abs().max().item() <= _tol(torch.bfloat16, ref)
+    want = {"wgmma": 1, "mma.sync": 0} if plan["body"] == "wgmma" else {"wgmma": 0, "mma.sync": len(ws)}
+    assert {k: after[k] - bodies[k] for k in after} == want
+    for o, r in zip(out, ref):
+        assert (o.float() - r.float()).abs().max().item() <= _tol(torch.bfloat16, r)
 
 
 def test_gemm_wg_repeats_bit_for_bit(dev):
@@ -1100,12 +1097,10 @@ def _flat(o):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d, l", [(64, 37), (512, 37), (512, 450)])
 @pytest.mark.parametrize("form", ["apart", "joined", "rot-only", "rot-only apart"])
-@pytest.mark.parametrize("prologue", [False, True])
-def test_ln_rotary_matmul_new_design_matches_plain(dev, dtype, d, l, form, prologue):
+def test_ln_rotary_matmul_new_design_matches_plain(dev, dtype, d, l, form):
     """K8 in both forms with q's and k's weights apart and joined: bf16 the
-    row body and one launch of the wgmma body for every product, or with
-    the prologue one launch of the body with the LayerNorm and rotary in
-    its prologue (no mma.sync launch either way); f32 the FMA sequence."""
+    row body and one launch of the wgmma body for every product (no
+    mma.sync launch); f32 the FMA sequence."""
     from tcdiff_torch.ops import ln_rotary_matmul as m
 
     g = torch.Generator(device=dev).manual_seed(45)
@@ -1113,39 +1108,29 @@ def test_ln_rotary_matmul_new_design_matches_plain(dev, dtype, d, l, form, prolo
     w_rot = {"apart": (wq, wk), "joined": torch.cat([wq, wk]), "rot-only": wq, "rot-only apart": (wq, wk)}[form]
     w_plain = wv if form in ("apart", "joined") else None
     before, bodies = m.ln_rotary_matmul.launches, _bodies("ln_rotary_matmul")
-    out = _flat(m.ln_rotary_matmul(x, s, bb, ang, w_rot, w_plain, prologue=prologue))
+    out = _flat(m.ln_rotary_matmul(x, s, bb, ang, w_rot, w_plain))
     ref = _flat(m.ln_rotary_matmul_plain(x, s, bb, ang, w_rot, w_plain))
     torch.cuda.synchronize()
     after = _bodies("ln_rotary_matmul")
     assert m.ln_rotary_matmul.launches == before + 1
     if dtype == torch.bfloat16:
         assert (after["wgmma"] - bodies["wgmma"], after["mma.sync"] - bodies["mma.sync"]) == (1, 0)
-        cos, ssin = rotary_tables_of(ang, dtype)
-        plan = m.plan(x, s, bb, cos, ssin, list(w_rot) if isinstance(w_rot, tuple) else [w_rot], w_plain, prologue)
-        assert plan["body"] == ("wgmma+ln" if prologue else "wgmma")
     assert len(out) == len(ref)
     for o, r in zip(out, ref):
         assert o.dtype == dtype and o.shape == r.shape
         assert (o.float() - r.float()).abs().max().item() <= _tol(dtype, r)
 
 
-def rotary_tables_of(angles, dtype):
-    from tcdiff_torch.ops.sa_block import cached_rotary_tables
-
-    return cached_rotary_tables(angles, dtype)
-
-
 @pytest.mark.parametrize("d", [96, 1024])
-def test_ln_rotary_matmul_outside_the_prologue(dev, d):
-    """Widths the prologue does not hold (96: not a templated width; 1024:
-    past 512) run ln_rows and then the wgmma products though the prologue
-    is asked for, as gemm_plan says."""
+def test_ln_rotary_matmul_other_widths(dev, d):
+    """d = 96 (no templated row width) and d = 1024: the row body, then the
+    products on wgmma."""
     from tcdiff_torch.ops import ln_rotary_matmul as m
 
     g = torch.Generator(device=dev).manual_seed(46)
     x, s, bb, ang, wq, wk, wv = _k8_args(g, dev, torch.bfloat16, d)
     bodies = _bodies("ln_rotary_matmul")
-    out = _flat(m.ln_rotary_matmul(x, s, bb, ang, (wq, wk), wv, prologue=True))
+    out = _flat(m.ln_rotary_matmul(x, s, bb, ang, (wq, wk), wv))
     ref = _flat(m.ln_rotary_matmul_plain(x, s, bb, ang, (wq, wk), wv))
     torch.cuda.synchronize()
     after = _bodies("ln_rotary_matmul")
@@ -1156,10 +1141,9 @@ def test_ln_rotary_matmul_outside_the_prologue(dev, d):
 
 @pytest.mark.parametrize("film", [False, True])
 @pytest.mark.parametrize("b, l, d, ff", [(2, 100, 128, 256), (8, 450, 512, 1024), (2, 37, 64, 96)])
-@pytest.mark.parametrize("prologue", [False, True])
-def test_ff_block_new_design_matches_plain(dev, film, b, l, d, ff, prologue):
-    """K2b in bf16: both products on wgmma (no mma.sync launch), W1 after
-    the row body or with LN3 in its prologue."""
+def test_ff_block_new_design_matches_plain(dev, film, b, l, d, ff):
+    """K2b in bf16: the row body, then both products on wgmma (no mma.sync
+    launch)."""
     g = torch.Generator(device=dev).manual_seed(47)
     bf16 = torch.bfloat16
     r = lambda *s, std=1.0: _rnd(g, dev, *s, std=std)
@@ -1167,7 +1151,7 @@ def test_ff_block_new_design_matches_plain(dev, film, b, l, d, ff, prologue):
             r(d, ff, std=ff**-0.5).to(bf16), r(d, std=0.1),
             *((r(b, d, std=0.1), r(b, d, std=0.1)) if film else (None, None)))
     bodies = _bodies("ff_block")
-    out = ff_block.ff_block(*args, prologue=prologue)
+    out = ff_block.ff_block(*args)
     ref = ff_block.ff_block_plain(*args)
     torch.cuda.synchronize()
     after = _bodies("ff_block")
@@ -1194,26 +1178,23 @@ def _device_names(fn, want):
     return names
 
 
-@pytest.mark.parametrize("prologue", [False, True])
-def test_k8_and_k2b_launches_on_the_card(dev, prologue):
+def test_k8_and_k2b_launches_on_the_card(dev):
     """bf16 at the serving shape: one K8 call is the row kernel and one
-    gemm_wg_kernel launch (with the prologue: that launch alone), one K2b
-    call the row kernel and two (with the prologue: two), and no other
-    device kernel (no mma.sync product, no PyTorch kernel)."""
+    gemm_wg_kernel launch, one K2b call the row kernel and two, and no
+    other device kernel (no mma.sync product, no PyTorch kernel)."""
     from tcdiff_torch.ops import ln_rotary_matmul as m
 
     g = torch.Generator(device=dev).manual_seed(48)
     x, s, bb, ang, wq, wk, wv = _k8_args(g, dev, torch.bfloat16, 512, 450, 8)
-    rows = 0 if prologue else 1
-    names = _device_names(lambda: m.ln_rotary_matmul(x, s, bb, ang, (wq, wk), wv, prologue=prologue), 1 + rows)
-    assert len(names) == 1 + rows and sum("gemm_wg_kernel" in n for n in names) == 1, names
-    assert sum("ln_rows_kernel" in n for n in names) == rows, names
+    names = _device_names(lambda: m.ln_rotary_matmul(x, s, bb, ang, (wq, wk), wv), 2)
+    assert len(names) == 2 and sum("gemm_wg_kernel" in n for n in names) == 1, names
+    assert sum("ln_rows_kernel" in n for n in names) == 1, names
     r = lambda *sh, std=1.0: _rnd(g, dev, *sh, std=std)
     args = (x, s, bb, r(1024, 512, std=512**-0.5).to(torch.bfloat16), r(1024, std=0.1),
             r(512, 1024, std=1024**-0.5).to(torch.bfloat16), r(512, std=0.1), r(8, 512, std=0.1), r(8, 512, std=0.1))
-    names = _device_names(lambda: ff_block.ff_block(*args, prologue=prologue), 2 + rows)
-    assert len(names) == 2 + rows and sum("gemm_wg_kernel" in n for n in names) == 2, names
-    assert sum("ln_rows_kernel" in n for n in names) == rows, names
+    names = _device_names(lambda: ff_block.ff_block(*args), 3)
+    assert len(names) == 3 and sum("gemm_wg_kernel" in n for n in names) == 2, names
+    assert sum("ln_rows_kernel" in n for n in names) == 1, names
 
 
 def test_wgmma_body_refuses_what_it_does_not_take(dev):
@@ -1227,7 +1208,5 @@ def test_wgmma_body_refuses_what_it_does_not_take(dev):
         m.gemm_wg(a, [w] * 4)
     with pytest.raises(ValueError):  # a bias over products of unequal N
         m.gemm_wg(a, [w, w[:16]], "bias", torch.zeros(32, device=dev))
-    with pytest.raises(ValueError):  # a tile of 192 rows
-        m.gemm_wg(a, w, wgs=3)
     with pytest.raises(ValueError):  # K of w against a
         m.gemm_wg(a, torch.zeros(32, 48, device=dev, dtype=bf16))

@@ -2,19 +2,18 @@
 kernels redesigned around it, K2b and K8, on the CPU.
 
 - `gemm.gemm_plan`, the dispatch rule of the body written out (which body
-  runs a product, its tile, grid, cluster and waves, by shape and by
-  alignment), at the serving shapes and at the shapes it refuses;
-- `gemm.swizzle128`, the shared-memory layout the prologue writes (TMA's
-  128-byte swizzle), a permutation within each 8-row x 128-byte atom;
+  runs a product, its tile, grid and waves, by shape and by alignment), at
+  the serving shapes and at the shapes it sends to mma.sync, and
+  `gemm.tma_ok` on tensors one or more elements off a 16-byte boundary;
 - `gemm.gemm_wg`'s plain version (the grouped form with an N per product,
   every epilogue) against the products and epilogues of the JAX package's
   Pallas kernels (`jnp.dot(..., preferred_element_type=f32)`, the bias in
   f32, `_gelu_exact`, `_ff_kernel`'s FiLM residual);
 - K8 with its rotated weights apart (q and k, as the per-op call site
   passes them) against `fused_ln_rotary_matmul` with the joined weight in
-  interpret mode, as `tests/test_torch_serving_ops.py` runs it; the
-  products a bf16 launch forms (`ln_rotary_matmul.product_groups`) and the
-  plans of K8's and K2b's calls.
+  interpret mode, as `tests/test_torch_serving_ops.py` runs it, at
+  d = 64 and at other widths; K2b against `fused_ff_block` at widths other
+  than `tests/test_torch_block_ops.py`'s.
 
 Same seeded numpy inputs into both; tolerances f32 1e-5 abs/rel (the order
 of f32 sums), bf16 2^-5 of the largest reference value, the bound the CUDA
@@ -28,11 +27,10 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from tcdiff_tpu.models.rotary import rotary_freqs  # noqa: E402
-from tcdiff_tpu.ops.fused_ff_block import _gelu_exact  # noqa: E402
+from tcdiff_tpu.ops.fused_ff_block import _gelu_exact, fused_ff_block  # noqa: E402
 from tcdiff_tpu.ops.fused_ln_rotary_matmul import fused_ln_rotary_matmul  # noqa: E402
 from tcdiff_torch.ops import ff_block, ln_rotary_matmul  # noqa: E402
 from tcdiff_torch.ops import gemm as g  # noqa: E402
-from tcdiff_torch.ops.sa_block import rotary_tables  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -52,64 +50,57 @@ def _check(out, ref, dtype):
 
 
 # ------------------------------------------------------------ the dispatch
-# (M, the products' N, K, operands TMA takes, the prologue's d, its row
-# operands aligned, consumer warpgroups) -> (body, launches, tile, grid,
-# cluster). The serving shapes (M = b L = 3600): K8's q, k, v and its
-# rot-only form, K2b's W1 (N = ff = 1024) and W2 (K = 1024), the grouped
-# q||k||v without a prologue; then what sends a product elsewhere.
+# (M, the products' N, K, TMA takes every A and W, the epilogue's operands
+# 16-byte aligned) -> (body, launches, grid). The serving shapes (M = b L =
+# 3600): K8's q, k, v (with a joined [w_q; w_k] too) and its rot-only
+# form, K2b's W1 (N = ff = 1024) and W2 (K = 1024); then what sends a
+# product to mma.sync: an operand TMA cannot take, K % 8 != 0, an N % 8 !=
+# 0 (in any product of the group), an epilogue operand off 16 bytes.
 PLANS = [
-    ((3600, [512, 512, 512], 512, True, 512, True, 2), ("wgmma+ln", 1, (128, 128), (12, 29), 4)),
-    ((3600, [512], 512, True, 512, True, 2), ("wgmma+ln", 1, (128, 128), (4, 29), 4)),
-    ((3600, [1024], 512, True, 512, True, 2), ("wgmma+ln", 1, (128, 128), (8, 29), 8)),
-    ((3600, [512], 1024, True, None, True, 2), ("wgmma", 1, (128, 128), (4, 29), 1)),
-    ((3600, [512], 512, True, None, True, 2), ("wgmma", 1, (128, 128), (4, 29), 1)),
-    ((3600, [1024], 512, True, None, True, 2), ("wgmma", 1, (128, 128), (8, 29), 1)),
-    ((3600, [512, 512, 512], 512, True, None, True, 2), ("wgmma", 1, (128, 128), (12, 29), 1)),
-    ((3600, [1536], 512, True, None, True, 2), ("wgmma", 1, (128, 128), (12, 29), 1)),
-    ((3600, [512], 512, True, None, True, 1), ("wgmma", 1, (64, 128), (4, 57), 1)),
-    ((154, [96, 200, 64], 64, True, None, True, 2), ("wgmma", 1, (128, 128), (4, 2), 1)),
-    # the prologue refused: a width it does not hold, unequal column tiles,
-    # more than a cluster along N, unaligned rows; ln_rows, then wgmma
-    ((3600, [512], 96, True, 96, True, 2), ("wgmma", 2, (128, 128), (4, 29), 1)),
-    ((3600, [512], 1024, True, 1024, True, 2), ("wgmma", 2, (128, 128), (4, 29), 1)),
-    ((3600, [512, 640], 512, True, 512, True, 2), ("wgmma", 2, (128, 128), (9, 29), 1)),
-    ((3600, [1152], 512, True, 512, True, 2), ("wgmma", 2, (128, 128), (9, 29), 1)),
-    ((3600, [512], 512, True, 512, False, 2), ("wgmma", 2, (128, 128), (4, 29), 1)),
-    # operands TMA cannot take: mma.sync, one launch a product
-    ((3600, [512], 512, False, None, True, 2), ("mma.sync", 1, (128, 128), (4, 29), 1)),
-    ((154, [48], 100, True, None, True, 2), ("mma.sync", 1, (128, 128), (1, 2), 1)),
-    ((3600, [512, 512, 512], 512, False, 512, True, 2), ("mma.sync", 4, (128, 128), (12, 29), 1)),
+    ((3600, [512, 512, 512], 512, True, True), ("wgmma", 1, (12, 29))),
+    ((3600, [1024, 512], 512, True, True), ("wgmma", 1, (12, 29))),
+    ((3600, [512], 512, True, True), ("wgmma", 1, (4, 29))),
+    ((3600, [1024], 512, True, True), ("wgmma", 1, (8, 29))),
+    ((3600, [512], 1024, True, True), ("wgmma", 1, (4, 29))),
+    ((3600, [1536], 512, True, True), ("wgmma", 1, (12, 29))),
+    ((3600, [96], 64, True, True), ("wgmma", 1, (1, 29))),
+    ((154, [96, 200, 64], 64, True, True), ("wgmma", 1, (4, 2))),
+    ((450, [512, 512, 512], 512, True, True), ("wgmma", 1, (12, 4))),
+    ((1, [512], 512, True, True), ("wgmma", 1, (4, 1))),
+    ((3600, [512], 512, False, True), ("mma.sync", 1, (4, 29))),
+    ((3600, [512, 512, 512], 512, False, True), ("mma.sync", 3, (12, 29))),
+    ((154, [48], 100, True, True), ("mma.sync", 1, (1, 2))),
+    ((154, [50], 64, True, True), ("mma.sync", 1, (1, 2))),
+    ((154, [49], 64, True, True), ("mma.sync", 1, (1, 2))),
+    ((3600, [512, 50], 512, True, True), ("mma.sync", 2, (5, 29))),
+    ((3600, [512], 512, True, False), ("mma.sync", 1, (4, 29))),
+    ((3600, [1024], 512, True, False), ("mma.sync", 1, (8, 29))),
 ]
 
 
 @pytest.mark.parametrize("args, want", PLANS)
 def test_gemm_plan(args, want):
     """Which body runs a bf16 projection, in how many launches, and its
-    grid: the rule csrc/gemm_wgmma.cuh applies (gemm_wg, wg_ln_ok)."""
-    M, ns, K, tma, ln_d, aligned, wgs = args
-    p = g.gemm_plan(M, ns, K, tma=tma, ln_d=ln_d, ln_aligned=aligned, wgs=wgs)
-    assert (p["body"], p["launches"], p["tile"], p["grid"], p["cluster"]) == want
-    assert p["blocks"] == p["grid"][0] * p["grid"][1]
-    per_sm = 1 if p["body"] == "wgmma+ln" or (p["body"] == "wgmma" and wgs == 2) else 2
-    assert p["waves"] == pytest.approx(p["blocks"] / (g.SMS * per_sm))
+    grid: the rule csrc/gemm_wgmma.cuh applies (gemm_wg, wg_ok)."""
+    M, ns, K, tma, epi_aligned = args
+    p = g.gemm_plan(M, ns, K, tma=tma, epilogue_aligned=epi_aligned)
+    assert (p["body"], p["launches"], p["grid"]) == want
+    assert p["tile"] == (128, 128) and p["blocks"] == p["grid"][0] * p["grid"][1]
+    assert p["waves"] == pytest.approx(p["blocks"] / (g.SMS * (1 if p["body"] == "wgmma" else 2)))
 
 
-@pytest.mark.parametrize("bm", [64, 128])
-@pytest.mark.parametrize("kstep", [0, 3, 7])
-def test_swizzle128_permutes_each_atom(bm, kstep):
-    """Element (r, col) of a K step of A lands in its 8-row group's
-    1024-byte atom, the atoms of a K step one after another, and within an
-    atom the 512 bf16 elements take 512 distinct 2-byte slots; a 16-byte
-    chunk stays whole (8 contiguous elements, one vector store)."""
-    for r8 in range(0, bm, 8):
-        base = kstep * bm * 128 + r8 * 128
-        offs = [g.swizzle128(r, kstep * 64 + c, bm) - base for r in range(r8, r8 + 8) for c in range(64)]
-        assert sorted(offs) == list(range(0, 1024, 2))
-        for r in range(r8, r8 + 8):
-            for chunk in range(8):
-                o = [g.swizzle128(r, kstep * 64 + 8 * chunk + e, bm) for e in range(8)]
-                assert o == list(range(o[0], o[0] + 16, 2)) and o[0] % 16 == 0
-                assert (o[0] - base) // 16 % 8 == chunk ^ (r % 8)
+@pytest.mark.parametrize("offset", [0, 1, 4, 8])
+@pytest.mark.parametrize("K", [64, 100])
+def test_tma_ok_by_offset_and_row_stride(offset, K):
+    """An operand TMA reads: its base on a 16-byte boundary (an offset of 0
+    or 8 bf16 elements) and rows a multiple of 16 bytes apart (K % 8 ==
+    0); the plan of a product over it follows."""
+    buf = torch.zeros(16 * K + 8, dtype=torch.bfloat16)
+    a = buf[offset:offset + 16 * K].view(16, K)
+    want = offset % 8 == 0 and K % 8 == 0
+    assert g.tma_ok(a) == want
+    assert g.aligned16(a) == (offset % 8 == 0)
+    assert g.gemm_plan(16, [64], K, tma=g.tma_ok(a))["body"] == ("wgmma" if want else "mma.sync")
 
 
 def _jax_ref(a, w, epilogue, bias, resid, fs, fb, L, jd):
@@ -191,70 +182,50 @@ def test_ln_rotary_matmul_apart_matches_jax(dtype, plain):
     _check(k, ref_qk[..., HD:], dtype)
 
 
-@pytest.mark.parametrize("ns, n_plain, want", [
-    ([1024], 512, [512, 512, 512]),   # the joined q||k at the serving widths: its two halves
-    ([512, 512], 512, [512, 512, 512]),
-    ([512], 0, [512]),                # the rot-only cross query
-    ([1024], 0, [1024]),
-    ([96], 48, [48, 48, 48]),
-    ([1024], 256, [1024, 256]),       # halves of 4 tiles against 2: kept joined
-    ([130], 64, [65, 65, 64]),        # halves of 65 columns: 1 tile each, as the plain weight's
-    ([97], 48, [97, 48]),             # an odd joined weight: kept joined
-])
-def test_ln_rotary_matmul_product_groups(ns, n_plain, want):
-    """The products of one bf16 K8 launch, as csrc/ln_rotary_matmul.cu forms
-    them: a joined [w_q; w_k] splits in halves where the halves' column
-    tiles match the plain weight's."""
-    assert ln_rotary_matmul.product_groups(ns, n_plain) == want
-
-
-@pytest.mark.parametrize("offset", [0, 1])
-@pytest.mark.parametrize("prologue", [False, True])
-def test_k8_and_k2b_plans(offset, prologue):
-    """The plans the K8 and K2b wrappers act on (bf16, d = 512, b L = 74):
-    by default the row body and then the wgmma products (K8 two launches,
-    K2b's W1 two); with the prologue asked for and x 16-byte aligned, one
-    launch each with the LayerNorm in the prologue; with x one element off,
-    the row body and the wgmma products whatever is asked."""
-    bf = torch.bfloat16
-    x = torch.zeros(2 * 37 * 512 + offset, dtype=bf)[offset:].view(2, 37, 512)
-    s, b = torch.ones(512), torch.zeros(512)
-    cos, ssin = rotary_tables(torch.zeros(37, 512), bf)
-    w = lambda n, k: torch.zeros(n, k, dtype=bf)
-    k8 = ln_rotary_matmul.plan(x, s, b, cos, ssin, [w(512, 512), w(512, 512)], w(512, 512), prologue)
-    w1, w2 = w(1024, 512), w(512, 1024)
-    p1, p2 = ff_block.ff_block_plan(x, s, b, w1, w2, prologue)
-    if prologue and offset == 0:
-        assert (k8["body"], k8["launches"], k8["grid"], k8["cluster"]) == ("wgmma+ln", 1, (12, 1), 4)
-        assert (p1["body"], p1["launches"], p1["cluster"]) == ("wgmma+ln", 1, 8)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("d, hd", [(128, 64), (96, 40)])
+@pytest.mark.parametrize("plain", [True, False])
+def test_ln_rotary_matmul_apart_widths_match_jax(dtype, d, hd, plain):
+    """K8 with q's and k's weights apart at other widths: d = 128 with
+    products of 64 columns, d = 96 with 40 (N % 8 == 0, whose products
+    the card runs on wgmma, and K = 96)."""
+    jd, td = DTYPES[dtype]
+    x = _normal(30, B, L, d)
+    s, b = (1.0 + 0.1 * _normal(31, d)), 0.1 * _normal(32, d)
+    angles = rotary_freqs(L, d)
+    wq, wk, wv = (_normal(33 + i, hd, d, scale=d**-0.5) for i in range(3))
+    jx = jnp.asarray(x).astype(jd)
+    jargs = (jnp.asarray(s), jnp.asarray(b), jnp.asarray(angles))
+    jr = jnp.asarray(np.concatenate([wq, wk]).T).astype(jd)
+    t = lambda v: torch.from_numpy(v).to(td)
+    targs = (t(x), torch.from_numpy(s), torch.from_numpy(b), torch.from_numpy(angles), (t(wq), t(wk)))
+    if plain:
+        ref_qk, ref_v = fused_ln_rotary_matmul(jx, *jargs, jr, jnp.asarray(wv.T).astype(jd), eps=1e-5)
+        (q, k), v = ln_rotary_matmul.ln_rotary_matmul(*targs, t(wv), 1e-5)
+        _check(v, ref_v, dtype)
     else:
-        assert (k8["body"], k8["launches"], k8["grid"], k8["cluster"]) == ("wgmma", 2, (12, 1), 1)
-        assert (p1["body"], p1["launches"], p1["cluster"]) == ("wgmma", 2, 1)
-    assert (p2["body"], p2["launches"], p2["grid"]) == ("wgmma", 1, (4, 1))
+        ref_qk = fused_ln_rotary_matmul(jx, *jargs, jr, None, eps=1e-5)
+        q, k = ln_rotary_matmul.ln_rotary_matmul(*targs, None, 1e-5)
+    _check(q, ref_qk[..., :hd], dtype)
+    _check(k, ref_qk[..., hd:], dtype)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("rot", [(1, 1, 0), (1,), (0,)])
-def test_gemm_wg_ln_matches_jax(dtype, rot):
-    """The LayerNorm-prologue product alone (`gemm.gemm_wg_ln`, its plain
-    version on the CPU): each product T(rot(LN(x))) . w^T or T(LN(x)) . w^T,
-    against `fused_ln_rotary_matmul` in interpret mode (q, k from its
-    rotated output, v from its plain one)."""
+@pytest.mark.parametrize("film", [False, True])
+@pytest.mark.parametrize("b, l, d, ff", [(2, 37, 128, 256), (1, 40, 96, 200)])
+def test_ff_block_widths_match_jax(dtype, film, b, l, d, ff):
+    """K2b (ff_block's plain version on the CPU) against `fused_ff_block` in
+    interpret mode: rows no 128-row tile divides, and d = 96 with ff = 200."""
     jd, td = DTYPES[dtype]
-    x = _normal(20, B, L, D)
-    s, b = (1.0 + 0.1 * _normal(21, D)), 0.1 * _normal(22, D)
-    angles = rotary_freqs(L, D)
-    ws = [_normal(23 + i, HD, D, scale=D**-0.5) for i in range(len(rot))]
-    t = lambda v: torch.from_numpy(v).to(td)
-    jx, jargs = jnp.asarray(x).astype(jd), (jnp.asarray(s), jnp.asarray(b), jnp.asarray(angles))
-    refs = []
-    for w, r in zip(ws, rot):
-        jw = jnp.asarray(w.T).astype(jd)
-        rq, rv = fused_ln_rotary_matmul(jx, *jargs, jw, jw, eps=1e-5)
-        refs.append(rq if r else rv)
-    before = g.gemm_wg_ln.launches
-    outs = g.gemm_wg_ln(t(x), torch.from_numpy(s), torch.from_numpy(b), torch.from_numpy(angles), [t(w) for w in ws],
-                        list(rot))
-    assert g.gemm_wg_ln.launches == before
-    for out, ref in zip(outs, refs):
-        _check(out, ref, dtype)
+    x = _normal(40, b, l, d)
+    s3, b3 = 1.0 + 0.1 * _normal(41, d), 0.1 * _normal(42, d)
+    w1, w2 = _normal(43, ff, d, scale=d**-0.5), _normal(44, d, ff, scale=ff**-0.5)  # nn.Linear layout
+    bb1, bb2 = 0.1 * _normal(45, ff), 0.1 * _normal(46, d)
+    fs, fb = (0.1 * _normal(47, b, d), 0.1 * _normal(48, b, d)) if film else (None, None)
+    j = lambda v: None if v is None else jnp.asarray(v)
+    jc = lambda v: jnp.asarray(v).astype(jd)
+    ref = fused_ff_block(jc(x), j(s3), j(b3), jc(w1.T), j(bb1), jc(w2.T), j(bb2), j(fs), j(fb))
+    t = lambda v: None if v is None else torch.from_numpy(v)
+    tc = lambda v: torch.from_numpy(v).to(td)
+    out = ff_block.ff_block(tc(x), t(s3), t(b3), tc(w1), t(bb1), tc(w2), t(bb2), t(fs), t(fb))
+    _check(out, ref, dtype)

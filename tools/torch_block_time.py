@@ -21,9 +21,7 @@ gemm), each kernel's median device us. K8 (self q/k/v with the joined
 q||k weight, as every tree takes it, and apart where the tree takes that;
 the rot-only cross query) and K2b (with and without FiLM rows) at the
 serving shape (b=8, L=450, d=512, ff=1024): device time a call and one
-call's kernels by name; then, in a tree with the wgmma body, each
-LayerNorm prologue (K8's q|k|v, K2b's W1) against ln_rows + the same
-wgmma product, each kernel's median device us. Prints one JSON line, with
+call's kernels by name. Prints one JSON line, with
 the card's name and power limit. To compare with another tree, copy this
 file into it (`git archive` of the parent) and run the two in turns.
 """
@@ -82,7 +80,7 @@ def serving_k8_k2b(res: dict, parts, rnd, w, ln, film) -> None:
     wr = torch.cat([wq, wk])
     w1, w2, b1, b2 = w(FF, D), w(D, FF), rnd(FF, std=0.1), rnd(D, std=0.1)
     fs, fb = film(B)
-    new = hasattr(gemm, "gemm_wg_ln")  # a tree with the wgmma body
+    new = hasattr(gemm, "gemm_wg")  # a tree with the wgmma body
     calls = {}
     if "k8" in parts:
         calls["K8"] = lambda: ln_rotary_matmul.ln_rotary_matmul(x, s, b, ang, wr, wv)
@@ -94,23 +92,6 @@ def serving_k8_k2b(res: dict, parts, rnd, w, ln, film) -> None:
         calls["K2b film"] = lambda: ff_block.ff_block(x, s, b, w1, b1, w2, b2, fs, fb)
     for label, fn in calls.items():
         res[label] = dict(device_ms=chip_smoke.device_ms(fn, reps=20), **profile(fn))
-    if not new:
-        return
-    # each prologue against ln_rows + the same wgmma product (ln_rows'
-    # wrapper also builds its rotary tables: not counted)
-    us = chip_smoke.kernel_us
-    if "k8" in parts:
-        def unfused():
-            y, r = layernorm.ln_rows(x, s, b, 1e-5, angles=ang)
-            return gemm.gemm_wg([r.view(B * L, D), r.view(B * L, D), y.view(B * L, D)], [wq, wk, wv])
-        res["K8 prologue"] = dict(
-            prologue_us=us(lambda: gemm.gemm_wg_ln(x, s, b, ang, [wq, wk, wv], [1, 1, 0]), "gemm_wg_kernel"),
-            ln_rows_us=us(unfused, "ln_rows_kernel"), product_us=us(unfused, "gemm_wg_kernel"))
-    if "k2b" in parts:
-        unfused_w1 = lambda: gemm.gemm_wg(layernorm.ln_rows(x, s, b, 1e-5)[0].view(B * L, D), w1, "bias_gelu", b1)
-        res["K2b W1 prologue"] = dict(
-            prologue_us=us(lambda: gemm.gemm_wg_ln(x, s, b, None, [w1], [0], "bias_gelu", b1), "gemm_wg_kernel"),
-            ln_rows_us=us(unfused_w1, "ln_rows_kernel"), product_us=us(unfused_w1, "gemm_wg_kernel"))
 
 
 def main() -> int:

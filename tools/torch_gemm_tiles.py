@@ -18,9 +18,8 @@ Then the backward's bodies (ops/gemm.py) at the train rows (M = 28800):
 the input gradient by shape and epilogue, and the split-row weight
 gradient by split count (the count the train kernels use marked), each
 with its ordered reduction. Then the wgmma + TMA body (ops/gemm.gemm_wg)
-at K8's and K2b's products with their epilogues, in 64-row tiles (one
-consumer warpgroup, two blocks an SM) and 128-row tiles (two, one an SM),
-each with its L2 -> SM rate. Prints the card's name and power limit first.
+at K8's and K2b's products with their epilogues (128 x 128 tiles, one
+block an SM), each with its L2 -> SM rate. Prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -73,11 +72,10 @@ def wgmma(gen) -> None:
     print(f"the wgmma + TMA body (ops/gemm.gemm_wg, csrc/gemm_wgmma.cuh) at M = {M}:")
     for label, N, K, args in cases:
         flops = 2 * M * N * K
-        for wgs in (1, 2):
-            ms = chip_smoke.device_ms(lambda: gemm.gemm_wg(*args, wgs=wgs))
-            l2 = M * N * K * 2 * (1 / (64 * wgs) + 1 / gemm.WG_BN)
-            print(f"  {label} {M}x{N}x{K}, {64 * wgs}x{gemm.WG_BN} tiles: {1e3 * ms:.1f} us, "
-                  f"{flops / ms / 1e9:.0f} TFLOP/s, L2->SM {l2 / ms / 1e9:.2f} TB/s")
+        ms = chip_smoke.device_ms(lambda: gemm.gemm_wg(*args))
+        l2 = M * N * K * 2 * (1 / gemm.WG_BM + 1 / gemm.WG_BN)
+        print(f"  {label} {M}x{N}x{K}, {gemm.WG_BM}x{gemm.WG_BN} tiles: {1e3 * ms:.1f} us, "
+              f"{flops / ms / 1e9:.0f} TFLOP/s, L2->SM {l2 / ms / 1e9:.2f} TB/s")
 
 
 def main() -> int:

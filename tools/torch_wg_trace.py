@@ -5,18 +5,14 @@ ff = 1024, bf16).
     python3 tools/torch_wg_trace.py
 
 Builds an instrumented copy of csrc/gemm.cu into tcdiff_torch/build/
-wgtrace (thread 0 of each block records %globaltimer at its start, at the
-end of the prologue, after the K loop and after the epilogue, and its SM),
-runs each product twice through the copy's entry points (tcd_gemm_wg_ln,
-tcd_gemm_wg) and prints, for the second run: the blocks and the SMs they ran on,
-the span from the first start to the last end, the share of 132 SMs x
-the span the blocks were busy, the median and largest us of each phase
-(start -> prologue end, which is the barrier set-up alone without a
-prologue; the K loop; the epilogue) and the start times of every
-twelfth block, which show the rounds of blocks; with the prologue also
-its own phases (up to its first row's statistics, that is its loads;
-its rows and the cluster barrier; the copies' issue; the consumers' wait
-for the peers' rows). The instrumented copy
+wgtrace (thread 0 of each block records %globaltimer at its start, after
+the barriers' set-up, after the K loop and after its share of the
+epilogue, and its SM), runs each product twice through the copy's entry
+point (tcd_gemm_wg) and prints, for the second run: the blocks and the
+SMs they ran on, the span from the first start to the last end, the
+share of 132 SMs x the span the blocks were busy, the median and largest
+us of each phase (set-up, K loop, epilogue) and the start times of every
+twelfth block, which show the rounds of blocks. The instrumented copy
 times itself: read the phases against each other, and time the real
 kernels with tools/torch_block_time.py or chip_smoke.py.
 """
@@ -35,9 +31,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from tcdiff_torch.models.rotary import angle_table  # noqa: E402
 from tcdiff_torch.ops import _build, gemm  # noqa: E402
-from tcdiff_torch.ops.sa_block import cached_rotary_tables  # noqa: E402
 
 TRACE = '''
 __device__ unsigned long long tcd_trace[65536][8];
@@ -51,28 +45,14 @@ PATCHES = (  # (text of gemm_wgmma.cuh, the same with a record added)
     ("  unsigned char* base = tcd_smem + ((1024",
      "  const unsigned long long t_start = tcd_now();\n  const int bid = blockIdx.y * gridDim.x + blockIdx.x;\n"
      "  unsigned char* base = tcd_smem + ((1024"),
-    ("  if (threadIdx.x >= 128 * WGS) {\n",
+    ("  if (threadIdx.x >= 256) {\n",
      "  if (threadIdx.x == 0) {\n    unsigned sm;\n    asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(sm));\n"
      "    tcd_trace[bid][0] = t_start;\n    tcd_trace[bid][1] = tcd_now();\n    tcd_trace[bid][4] = sm;\n  }\n"
-     "  if (threadIdx.x >= 128 * WGS) {\n"),
+     "  if (threadIdx.x >= 256) {\n"),
     ("    wgmma_wait<0>();\n    wg_fence_acc(d);\n",
      "    wgmma_wait<0>();\n    wg_fence_acc(d);\n    if (threadIdx.x == 0) tcd_trace[bid][2] = tcd_now();\n"),
-    ("    if (EPL > 0)\n      asm volatile(\"cp.async.bulk.wait_group.read 0;",
-     "    if (threadIdx.x == 0) tcd_trace[bid][3] = tcd_now();\n"
-     "    if (EPL > 0)\n      asm volatile(\"cp.async.bulk.wait_group.read 0;"),
-    # inside the prologue: its first row's statistics (its loads have
-    # landed), the end of its rows, the cluster barrier's end
-    ("      const LnStat st = ln_stat(s, ss, d, ln.eps);\n",
-     "      const LnStat st = ln_stat(s, ss, d, ln.eps);\n      asm volatile(\"\" ::\"f\"(st.rs));\n"
-     "      if (threadIdx.x == 0 && r0 == r_lo && i == 0)\n"
-     "        tcd_trace[blockIdx.y * gridDim.x + blockIdx.x][5] = tcd_now();\n"),
-    ("  asm volatile(\"barrier.cluster.wait.aligned;\\n\" ::: \"memory\");  // every peer's abar is initialised\n",
-     "  asm volatile(\"barrier.cluster.wait.aligned;\\n\" ::: \"memory\");  // every peer's abar is initialised\n"
-     "  if (threadIdx.x == 0) tcd_trace[blockIdx.y * gridDim.x + blockIdx.x][7] = tcd_now();\n"),
-    # the consumers' wait for the peers' rows
-    ("    if constexpr (EPL > 0) mbar_wait(abar, 0);  // this block's rows and every peer's\n",
-     "    if constexpr (EPL > 0) mbar_wait(abar, 0);  // this block's rows and every peer's\n"
-     "    if (threadIdx.x == 0) tcd_trace[bid][6] = tcd_now();\n"),
+    ("      st_vec<8>(c + (size_t)m * N + n, o);\n    }\n",
+     "      st_vec<8>(c + (size_t)m * N + n, o);\n    }\n    if (threadIdx.x == 0) tcd_trace[bid][3] = tcd_now();\n"),
 )
 READ = '''
 extern "C" int tcd_trace_clear() {
@@ -127,8 +107,6 @@ def main() -> int:
     B, L, D, FF = 8, 450, 512, 1024
     M = B * L
     x = rnd(B, L, D).to(bf)
-    s, b = 1 + rnd(D, std=0.1), rnd(D, std=0.1)
-    cos, ssin = cached_rotary_tables(angle_table(L, D, dev), bf)
     wq, wk, wv = (rnd(512, D, std=D**-0.5).to(bf) for _ in range(3))
     w1, w2 = rnd(FF, D, std=D**-0.5).to(bf), rnd(D, FF, std=FF**-0.5).to(bf)
     b1, b2 = rnd(FF, std=0.1), rnd(D, std=0.1)
@@ -136,35 +114,21 @@ def main() -> int:
     outs = [torch.empty(M, FF, dtype=bf, device=dev) for _ in range(3)]
     xa = x.view(M, D)
 
-    def with_prologue(ws, rots, epi=0, bias=None, cluster=0, wgs=0):
-        ten = dict(x=x, cos=cos, ssin=ssin, s=s, b=b, bias=bias, **{f"w{i}": w for i, w in enumerate(ws)},
-                   **{f"c{i}": outs[i] for i in range(len(ws))})
-        dims = dict(M=M, L=L, d=D, epi=epi, groups=len(ws), cluster=cluster, eps=1e-5, wgs=wgs,
-                    **{f"n{i}": w.shape[0] for i, w in enumerate(ws)}, **{f"rot{i}": r for i, r in enumerate(rots)})
-        return entry("tcd_gemm_wg_ln", gemm._WgLnArgs, ten, dims)
-
-    def by_tma(a, ws, epi=0, bias=None, resid=None, fsx=None, fbx=None, wgs=0):
+    def by_tma(a, ws, epi=0, bias=None, resid=None, fsx=None, fbx=None):
         ten = dict(bias=bias, resid=resid, fs=fsx, fb=fbx, **{f"a{i}": a for i in range(len(ws))},
                    **{f"w{i}": w for i, w in enumerate(ws)}, **{f"c{i}": outs[i] for i in range(len(ws))})
-        dims = dict(M=a.shape[0], K=a.shape[1], L=L, epi=epi, groups=len(ws), wgs=wgs,
+        dims = dict(M=a.shape[0], K=a.shape[1], L=L, epi=epi, groups=len(ws),
                     **{f"n{i}": w.shape[0] for i, w in enumerate(ws)})
         return entry("tcd_gemm_wg", gemm._WgArgs, ten, dims)
 
-    store, gelu, bias_, film_t = (gemm.WG_EPILOGUES[k] for k in ("store", "bias_gelu", "bias", "bias_film_t"))
+    gelu, bias_, film_t = (gemm.WG_EPILOGUES[k] for k in ("bias_gelu", "bias", "bias_film_t"))
     cases = (
-        ("K8 q|k|v, prologue (clusters of 4)", with_prologue([wq, wk, wv], [1, 1, 0]), 12 * 29),
-        ("K8 q|k|v, prologue, no cluster", with_prologue([wq, wk, wv], [1, 1, 0], cluster=1), 12 * 29),
-        ("K8 q|k|v, prologue, 64-row tiles", with_prologue([wq, wk, wv], [1, 1, 0], wgs=1), 12 * 57),
-        ("K8 rot-only, prologue", with_prologue([wq], [1]), 4 * 29),
-        ("K2b W1 bias+GELU, prologue (clusters of 8)", with_prologue([w1], [0], gelu, b1), 8 * 29),
-        ("K2b W1 store, prologue", with_prologue([w1], [0]), 8 * 29),
-        ("K2b W1 bias+GELU, prologue, 64-row tiles", with_prologue([w1], [0], gelu, b1, wgs=1), 8 * 57),
         ("q|k|v by TMA, store", by_tma(xa, [wq, wk, wv]), 12 * 29),
         ("W1 by TMA, bias+GELU", by_tma(xa, [w1], gelu, b1), 8 * 29),
         ("W1 by TMA, store", by_tma(xa, [w1]), 8 * 29),
         ("K2b W2 bias+FiLM", by_tma(h, [w2], film_t, b2, xa, fs, fb), 4 * 29),
         ("K2b W2 bias", by_tma(h, [w2], bias_, b2), 4 * 29),
-        ("512x512 by TMA, store, 64-row tiles", by_tma(xa, [wq], wgs=1), 4 * 57),
+        ("512x512 by TMA, store", by_tma(xa, [wq]), 4 * 29),
     )
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
@@ -187,11 +151,8 @@ def main() -> int:
         starts = sorted((r[0] - first) / 1e3 for r in rows)
         busy = sum((r[3] - r[0]) / 1e3 for r in rows) / (132 * span)
         print(f"{label}: {blocks} blocks on {len(set(r[4] for r in rows))} SMs, span {span:.1f} us, busy "
-              f"{busy:.2f}; median/max us: start -> prologue end {q(phase(0, 1))}, K loop {q(phase(1, 2))}, "
+              f"{busy:.2f}; median/max us: set-up {q(phase(0, 1))}, K loop {q(phase(1, 2))}, "
               f"epilogue {q(phase(2, 3))}; starts (us) " + ", ".join(f"{t:.1f}" for t in starts[::12]), flush=True)
-        if rows[0][5]:  # the prologue's own phases
-            print(f"  prologue: start -> first row's statistics {q(phase(0, 5))}, -> cluster barrier passed "
-                  f"{q(phase(5, 7))}, -> copies issued {q(phase(7, 1))}, -> the peers' rows in {q(phase(1, 6))}")
     return 0
 
 
