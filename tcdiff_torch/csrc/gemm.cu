@@ -63,6 +63,7 @@ int gemm_epi(const GemmArgs& a, cudaStream_t st) {
     case EPI_BIAS: gemm_entry<T, EPI_BIAS>(a, st); break;
     case EPI_BIAS_GELU: gemm_entry<T, EPI_BIAS_GELU>(a, st); break;
     case EPI_BIAS_FILM: gemm_entry<T, EPI_BIAS_FILM>(a, st); break;
+    case EPI_BIAS_ROUNDED: gemm_entry<T, EPI_BIAS_ROUNDED>(a, st); break;
     default: return -1;
   }
   return (int)cudaGetLastError();
@@ -71,8 +72,8 @@ int gemm_epi(const GemmArgs& a, cudaStream_t st) {
 }  // namespace tcd
 
 // dtype: 0 = float32, 1 = bfloat16; layout and epi as GemmArgs says (epi:
-// a tcd::Epi value of STORE, STORE_F32, BIAS, BIAS_GELU or BIAS_FILM in
-// the forward; STORE, STORE_F32 or ACC_F32 in the input gradient). Returns
+// a tcd::Epi value of STORE, STORE_F32, BIAS, BIAS_GELU, BIAS_FILM or
+// BIAS_ROUNDED in the forward; STORE, STORE_F32 or ACC_F32 in the input gradient). Returns
 // cudaGetLastError() after the launches, -1 for what it does not take.
 extern "C" int tcd_gemm(int dtype, const GemmArgs* a, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -142,7 +143,7 @@ void gemm_wg_entry(const GemmWgArgs& a, cudaStream_t st) {
 }  // namespace tcd
 
 // dtype 1 (bfloat16) only; epi a tcd::Epi value of STORE, STORE_F32, BIAS,
-// BIAS_GELU, BIAS_FILM or BIAS_FILM_T. Returns the launch's status
+// BIAS_GELU, BIAS_FILM, BIAS_FILM_T or BIAS_ROUNDED. Returns the launch's status
 // (launch_status), -1 for what it does not take.
 extern "C" int tcd_gemm_wg(int dtype, const GemmWgArgs* a, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -154,6 +155,7 @@ extern "C" int tcd_gemm_wg(int dtype, const GemmWgArgs* a, void* stream) {
     case tcd::EPI_BIAS_GELU: tcd::gemm_wg_entry<tcd::EPI_BIAS_GELU>(*a, st); break;
     case tcd::EPI_BIAS_FILM: tcd::gemm_wg_entry<tcd::EPI_BIAS_FILM>(*a, st); break;
     case tcd::EPI_BIAS_FILM_T: tcd::gemm_wg_entry<tcd::EPI_BIAS_FILM_T>(*a, st); break;
+    case tcd::EPI_BIAS_ROUNDED: tcd::gemm_wg_entry<tcd::EPI_BIAS_ROUNDED>(*a, st); break;
     default: return -1;
   }
   return tcd::launch_status();

@@ -1,14 +1,15 @@
 // The bf16 forward projection on Hopper's warpgroup MMA (wgmma), its
-// operands brought by the Tensor Memory Accelerator (TMA): K2b's and K8's
-// products.
+// operands brought by the Tensor Memory Accelerator (TMA): K2b's, K8's and
+// K9's products.
 //
 // Replaces, in bf16, gemm_mma_kernel (gemm_mma.cuh) in the products of K2b
 // (tcdiff_tpu/ops/fused_ff_block.py::fused_ff_block, _ff_kernel: h =
 // gelu(LN3(x).W1^T + b1), then h.W2^T + b2 with or without the FiLM
-// residual) and K8 (tcdiff_tpu/ops/fused_ln_rotary_matmul.py, _kernel and
-// _kernel_rot_only: q, k from rot(LN(x)), v from LN(x)). The TPU kernels
-// run these products on the MXU with bf16 operands and f32 sums; so does
-// this body.
+// residual), K8 (tcdiff_tpu/ops/fused_ln_rotary_matmul.py, _kernel and
+// _kernel_rot_only: q, k from rot(LN(x)), v from LN(x)) and K9
+// (tcdiff_tpu/ops/fused_ln_matmul.py, _lnmm_kernel: T(LN(x).W^T) + T(b),
+// the product rounded before the bias). The TPU kernels run these products
+// on the MXU with bf16 operands and f32 sums; so does this body.
 //
 // What bounds it on the H100: operations. At the serving shape (M = b L =
 // 3600) one 3600 x 512 x 512 product is 1.9 GFLOP against ~3.7 MB of
@@ -195,6 +196,7 @@ __device__ __forceinline__ EpiVal wg_math(float v, const EpiIn& in) {
     return {in.resid + (in.fs + 1.f) * zd + in.fb, zd};
   }
   if (EPI == EPI_BIAS_FILM_T) return {in.resid + (in.fs + 1.f) * (v + in.bias) + in.fb, 0.f};
+  if (EPI == EPI_BIAS_ROUNDED) return {round_t<bf16>(v) + round_t<bf16>(in.bias), 0.f};
   return {v, 0.f};  // EPI_STORE, EPI_STORE_F32
 }
 
@@ -418,7 +420,7 @@ template <int EPI>
 inline void gemm_wg(int G, const bf16* const* A, const bf16* const* W, void* const* C, const int* N, int M, int K,
                     EpiArgs ep, cudaStream_t st) {
   static_assert(EPI == EPI_STORE || EPI == EPI_STORE_F32 || EPI == EPI_BIAS || EPI == EPI_BIAS_GELU ||
-                    EPI == EPI_BIAS_FILM || EPI == EPI_BIAS_FILM_T,
+                    EPI == EPI_BIAS_FILM || EPI == EPI_BIAS_FILM_T || EPI == EPI_BIAS_ROUNDED,
                 "the forward's epilogues");
   WgGroups gp;
   if (!wg_tiles(gp, G, N, C) || ep.c2 || ep.dr.on) return refuse();

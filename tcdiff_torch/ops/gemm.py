@@ -19,6 +19,7 @@ Epilogues of `gemm`, with acc the f32 sum and T the dtype of a:
     bias       T(acc + bias)
     bias_gelu  T(gelu_erf(acc + bias))
     bias_film  resid + (fs[m // L] + 1) * (acc + bias) + fb[m // L], in f32
+    bias_rounded  T(T(acc) + T(bias)): the product rounded before the bias (K9)
 
 a (M, K), w (N, K), bias (N,) f32, resid (M, N) in T, film rows
 (M / L, N). A list of up to three a and as many w that share M, N and K
@@ -43,7 +44,7 @@ rot^T(g) = g*cos + swap_pairs(g*ssin) and rot(y) = y*cos + swap_pairs(y)*ssin
 with the tables of an angle table (L, N or d) at row m % L.
 
 The forward projection on the wgmma + TMA body (`csrc/gemm_wgmma.cuh`),
-bf16 only, which K2b's and K8's products run:
+bf16 only, which K2b's, K8's and K9's products run:
 
     gemm_wg      C[g] = A[g] . W[g]^T, up to three products of one launch,
                  each with its own N (and A), the epilogues above and
@@ -67,7 +68,7 @@ from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, check_ln_fol
 from tcdiff_torch.ops.sa_block import cached_rotary_tables, rotary_tables
 from tcdiff_torch.ops.train_common import weight_splits
 
-EPILOGUES = {"store": 0, "store_f32": 1, "bias": 2, "bias_gelu": 3, "bias_film": 4}  # tcd::Epi
+EPILOGUES = {"store": 0, "store_f32": 1, "bias": 2, "bias_gelu": 3, "bias_film": 4, "bias_rounded": 7}  # tcd::Epi
 WG_EPILOGUES = dict(EPILOGUES, bias_film_t=8)
 NN_EPILOGUES = {"store": 0, "store_f32": 1, "acc_f32": 5}
 LAYOUT_FWD, LAYOUT_NN, LAYOUT_WGRAD = 0, 1, 2  # GemmArgs.layout
@@ -76,6 +77,8 @@ GROUP_MAX = 3
 
 
 def _epilogue_plain(acc, dt, epilogue, bias, resid, film_scale, film_shift, L):
+    if epilogue == "bias_rounded":
+        return acc.to(dt) + bias.to(dt)
     if epilogue != "store" and epilogue != "store_f32":
         acc = acc + bias.float()
     if epilogue == "store_f32":
@@ -479,7 +482,7 @@ gemm_wg.launches = 0
 
 def body_launches(lib: str = "gemm") -> dict:
     """{"mma.sync": n, "wgmma": n}: the launches of each product body that
-    csrc/<lib>.cu (gemm, ff_block or ln_rotary_matmul) has enqueued since
+    csrc/<lib>.cu (gemm, ff_block, ln_rotary_matmul or ln_matmul) has enqueued since
     it was loaded, counted by the C code where it launches."""
     fn = _build.load(lib).tcd_body_launches
     out = (ctypes.c_longlong * 2)()

@@ -11,17 +11,16 @@ The product is rounded to the output dtype BEFORE the bias is added in
 that dtype, as the TPU kernel does; in bf16 that differs from F.linear's
 fused bias. x (..., d); w (n, d) in nn.Linear layout, in the compute
 dtype; b (n,). `ln_matmul` runs the CUDA kernel (`csrc/ln_matmul.cu`) for
-a CUDA tensor and `ln_matmul_plain` for a CPU tensor.
+a CUDA tensor and `ln_matmul_plain` for a CPU tensor. In bf16 the kernel
+is two launches, the row body writing y and the product with its
+rounded-bias epilogue on the wgmma + TMA body.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from tcdiff_torch.ops import _build
-from tcdiff_torch.ops._common import as_t, check_cuda, ln_f32, mm_f32, ptr, raise_on, stream_ptr
+from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, launch, ln_f32, mm_f32, scratch
 
 
 def ln_matmul_plain(x, scale, bias, w, b, eps: float = 1e-5):
@@ -31,17 +30,12 @@ def ln_matmul_plain(x, scale, bias, w, b, eps: float = 1e-5):
     return mm_f32(y, w).to(dt) + b.to(dt)
 
 
-def _fn():
-    fn = _build.load("ln_matmul").tcd_ln_matmul
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float]
-                       + [ctypes.c_void_p] * 3)
-        fn.restype = ctypes.c_int
-    return fn
+_Args = args_struct(  # LnMatmulArgs in csrc/ln_matmul.cu
+    "LnMatmulArgs", ("x", "s", "b", "w", "bias", "y", "out"), ("M", "d", "N"), ("eps",))
 
 
 def _ln_matmul_cuda(x, scale, bias, w, b, eps):
-    code = check_cuda(x, scale=scale, bias=bias, w=w, b=b)
+    check_cuda(x, scale=scale, bias=bias, w=w, b=b)
     d = x.shape[-1]
     n = w.shape[0]
     if d % 2:
@@ -49,16 +43,16 @@ def _ln_matmul_cuda(x, scale, bias, w, b, eps):
     for name, t, shape in (("scale", scale, (d,)), ("bias", bias, (d,)), ("w", w, (n, d)), ("b", b, (n,))):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    s, sb, bb = scale.float().contiguous(), bias.float().contiguous(), b.float().contiguous()
-    wc = as_t(w, x.dtype)
-    m = x.numel() // d
-    y = torch.empty((m, d), dtype=x.dtype, device=x.device)
-    out = torch.empty(x.shape[:-1] + (n,), dtype=x.dtype, device=x.device)
-    rc = _fn()(code, ptr(x), ptr(s), ptr(sb), ptr(wc), ptr(bb), m, d, n, eps, ptr(y), ptr(out),
-               stream_ptr(x.device))
-    raise_on(rc, "ln_matmul")
+
+    # host work only: no cast of what is already in its dtype, y and the
+    # output from one allocation
+    dt, m = x.dtype, x.numel() // d
+    ten = scratch(x.device, dict(y=((m, d), dt), out=(x.shape[:-1] + (n,), dt)))
+    ten.update(x=x, s=as_t(scale, torch.float32), b=as_t(bias, torch.float32), w=as_t(w, dt),
+               bias=as_t(b, torch.float32))
+    launch("ln_matmul", "tcd_ln_matmul", _Args, ten, dict(M=m, d=d, N=n, eps=eps), x, "ln_matmul")
     ln_matmul.launches += 1
-    return out
+    return ten["out"]
 
 
 def ln_matmul(x, scale, bias, w, b, eps: float = 1e-5):

@@ -83,7 +83,7 @@ GEMM_L = {1: 1, 154: 77, 3600: 450}  # M -> L, the rows of one FiLM row
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("epilogue", ["store", "store_f32", "bias", "bias_gelu", "bias_film"])
+@pytest.mark.parametrize("epilogue", ["store", "store_f32", "bias", "bias_gelu", "bias_film", "bias_rounded"])
 @pytest.mark.parametrize("M", [1, 154, 3600])
 @pytest.mark.parametrize("N, K", [(48, 64), (49, 64), (64, 100)])
 def test_gemm_kernel_matches_plain(dev, dtype, epilogue, M, N, K):
@@ -355,20 +355,40 @@ def test_ln_rows_kernel_takes_unaligned_rows(dev, dtype, variant):
     _check_ln_rows(*_ln_rows_case(g, dev, dtype, variant, 3, 37, 512, x=x), dtype)
 
 
+def _k9_args(g, dev, dtype, d, n, b=B, l=77):
+    """K9's operands; a bias of ~8 shows the rounding order: T(T(acc) + T(b))
+    against T(acc + b) differs in about 30% of the bf16 outputs."""
+    return (_rnd(g, dev, b, l, d).to(dtype), 1 + _rnd(g, dev, d, std=0.1), _rnd(g, dev, d, std=0.1),
+            _rnd(g, dev, n, d, std=d**-0.5).to(dtype), _rnd(g, dev, n, std=8.0))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d, n", [(64, 48), (D, FF), (D, D)])
-def test_ln_matmul_kernel_matches_plain(dev, dtype, d, n):
+@pytest.mark.parametrize("d, n, b, l", [(64, 48, B, 77), (D, FF, B, 77), (D, D, B, 77), (64, 40, B, 37),
+                                        (512, 1024, 8, 450), (512, 512, 8, 450), (1024, 512, B, 37),
+                                        (96, 200, B, 37)])
+def test_ln_matmul_kernel_matches_plain(dev, dtype, d, n, b, l):
+    """K9: bf16 the row body and one launch of the wgmma body (no mma.sync
+    launch), the product rounded before the bias: the plain version's bits
+    but for a rare product rounded the other way by the order of the f32
+    sums; f32 the FMA sequence (neither tensor-core body)."""
     from tcdiff_torch.ops import ln_matmul as m
+    from tcdiff_torch.ops._common import ln_f32, mm_f32
 
     g = torch.Generator(device=dev).manual_seed(6)
-    x = _rnd(g, dev, B, 77, d).to(dtype)
-    s, b = 1 + _rnd(g, dev, d, std=0.1), _rnd(g, dev, d, std=0.1)
-    w, bias = _rnd(g, dev, n, d, std=d**-0.5).to(dtype), _rnd(g, dev, n)
-    before = m.ln_matmul.launches
-    out = m.ln_matmul(x, s, b, w, bias)
-    ref = m.ln_matmul_plain(x, s, b, w, bias)
-    assert m.ln_matmul.launches == before + 1 and out.shape == (B, 77, n)
+    x, s, bb, w, bias = _k9_args(g, dev, dtype, d, n, b, l)
+    before, bodies = m.ln_matmul.launches, _bodies("ln_matmul")
+    out = m.ln_matmul(x, s, bb, w, bias)
+    ref = m.ln_matmul_plain(x, s, bb, w, bias)
+    torch.cuda.synchronize()
+    after = _bodies("ln_matmul")
+    assert m.ln_matmul.launches == before + 1 and out.shape == (b, l, n) and out.dtype == dtype
+    want = (1, 0) if dtype == torch.bfloat16 else (0, 0)
+    assert (after["wgmma"] - bodies["wgmma"], after["mma.sync"] - bodies["mma.sync"]) == want
     assert (out.float() - ref.float()).abs().max().item() <= _tol(dtype, ref)
+    if dtype == torch.bfloat16:
+        other = (mm_f32(ln_f32(x, s, bb, 1e-5).to(dtype), w) + bias).to(dtype)
+        assert (out != ref).float().mean().item() <= 0.01
+        assert (other != ref).float().mean().item() > 0.02
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -974,8 +994,9 @@ def test_new_bodies_refuse_what_they_do_not_take(dev):
 # dispatch to mma.sync of what the body does not take, shown by the
 # per-body counts; two runs bit for bit. Then K8 and K2b through the new
 # design: the row body, then each product on wgmma (the per-body counts),
-# the launches under torch.profiler. Tolerances as above.
-WG_EPILOGUES = ["store", "store_f32", "bias", "bias_gelu", "bias_film", "bias_film_t"]
+# the launches under torch.profiler (K9's too); K9's product on mma.sync
+# where an operand is off the body's rule. Tolerances as above.
+WG_EPILOGUES = ["store", "store_f32", "bias", "bias_gelu", "bias_film", "bias_film_t", "bias_rounded"]
 
 
 def _wg_case(g, dev, M, N, K):
@@ -1159,6 +1180,37 @@ def test_ff_block_new_design_matches_plain(dev, film, b, l, d, ff):
     assert (out.float() - ref.float()).abs().max().item() <= _tol(bf16, ref)
 
 
+@pytest.mark.parametrize("case", ["bias 4 bytes off", "w 2 bytes off", "N % 8 != 0", "d % 8 != 0"])
+def test_ln_matmul_off_the_rule_runs_on_mma(dev, case):
+    """K9 in bf16 with an operand the wgmma body does not take: a bias 4
+    bytes off a 16-byte boundary, a weight 2 bytes off, N % 8 != 0 (the
+    output's rows off 16 bytes) or d % 8 != 0 (TMA's rows): its product on
+    mma.sync (the per-body counts, as gemm_plan says), and it agrees with
+    the plain version."""
+    from tcdiff_torch.ops import gemm
+    from tcdiff_torch.ops import ln_matmul as m
+
+    g = torch.Generator(device=dev).manual_seed(50)
+    d = 100 if case == "d % 8 != 0" else 64
+    n = 50 if case == "N % 8 != 0" else 96
+    x, s, bb, w, bias = _k9_args(g, dev, torch.bfloat16, d, n, l=37)
+    if case == "bias 4 bytes off":
+        bias = torch.cat([bias[:1], bias])[1:]
+    if case == "w 2 bytes off":
+        buf = torch.empty(n * d + 8, device=dev, dtype=torch.bfloat16)
+        w = buf[1:1 + n * d].view(n, d).copy_(w)
+    plan = gemm.gemm_plan(x.numel() // d, [n], d, tma=gemm.tma_ok(w), epilogue_aligned=gemm.aligned16(bias))
+    assert plan["body"] == "mma.sync"
+    bodies = _bodies("ln_matmul")
+    out = m.ln_matmul(x, s, bb, w, bias)
+    ref = m.ln_matmul_plain(x, s, bb, w, bias)
+    torch.cuda.synchronize()
+    after = _bodies("ln_matmul")
+    assert (after["wgmma"] - bodies["wgmma"], after["mma.sync"] - bodies["mma.sync"]) == (0, 1)
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(torch.bfloat16, ref)
+    assert (out != ref).float().mean().item() <= 0.01
+
+
 def _device_names(fn, want):
     """The device kernels of one fn() under torch.profiler (read again,
     three times at most, while the profiler drops an event)."""
@@ -1195,6 +1247,20 @@ def test_k8_and_k2b_launches_on_the_card(dev):
     names = _device_names(lambda: ff_block.ff_block(*args), 3)
     assert len(names) == 3 and sum("gemm_wg_kernel" in n for n in names) == 2, names
     assert sum("ln_rows_kernel" in n for n in names) == 1, names
+
+
+@pytest.mark.parametrize("n", [1024, 512])
+def test_k9_launches_on_the_card(dev, n):
+    """bf16 at the serving shape (linear1 N = 1024, linear3 N = 512): one K9
+    call is the row kernel and one gemm_wg_kernel launch, and no other
+    device kernel (no mma.sync product, no PyTorch kernel)."""
+    from tcdiff_torch.ops import ln_matmul as m
+
+    g = torch.Generator(device=dev).manual_seed(51)
+    x, s, bb, w, bias = _k9_args(g, dev, torch.bfloat16, 512, n, 8, 450)
+    names = _device_names(lambda: m.ln_matmul(x, s, bb, w, bias), 2)
+    assert len(names) == 2 and sum("gemm_wg_kernel" in k for k in names) == 1, names
+    assert sum("ln_rows_kernel" in k for k in names) == 1, names
 
 
 def test_wgmma_body_refuses_what_it_does_not_take(dev):

@@ -3,8 +3,9 @@ the forward projection K1, K2 and the other kernels run, and the
 backward's input and weight gradients of K3-K5) against the products and
 epilogues of the JAX package's Pallas kernels, written as those kernels
 write them: `jnp.dot(..., preferred_element_type=f32)`, the bias in f32,
-`_gelu_exact`, the FiLM residual of `_ff_tail_kernel`, the backward's
-`dot_general`s of `_ff_train_bwd_kernel`.
+`_gelu_exact`, the FiLM residual of `_ff_tail_kernel`, `_lnmm_kernel`'s
+product rounded before its bias, the backward's `dot_general`s of
+`_ff_train_bwd_kernel`.
 
 On the CPU the port's wrapper runs its plain version. Same seeded numpy
 inputs into both; ragged shapes (M = 1, 154; N = 50 and K = 100, not
@@ -39,6 +40,8 @@ def _jax_ref(a, w, epilogue, bias, resid, fs, fb, L, jd):
         return acc
     if epilogue == "store":
         return acc.astype(jd)
+    if epilogue == "bias_rounded":  # _lnmm_kernel: the product rounded to T, then the bias added in T
+        return acc.astype(jd) + jnp.asarray(bias).astype(jd)
     acc = acc + jnp.asarray(bias)
     if epilogue == "bias":
         return acc.astype(jd)

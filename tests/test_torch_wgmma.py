@@ -1,5 +1,5 @@
-"""The wgmma + TMA body of the port's bf16 forward projection and the two
-kernels redesigned around it, K2b and K8, on the CPU.
+"""The wgmma + TMA body of the port's bf16 forward projection and the
+kernels redesigned around it, K2b, K8 and K9, on the CPU.
 
 - `gemm.gemm_plan`, the dispatch rule of the body written out (which body
   runs a product, its tile, grid and waves, by shape and by alignment), at
@@ -8,7 +8,10 @@ kernels redesigned around it, K2b and K8, on the CPU.
 - `gemm.gemm_wg`'s plain version (the grouped form with an N per product,
   every epilogue) against the products and epilogues of the JAX package's
   Pallas kernels (`jnp.dot(..., preferred_element_type=f32)`, the bias in
-  f32, `_gelu_exact`, `_ff_kernel`'s FiLM residual);
+  f32, `_gelu_exact`, `_ff_kernel`'s FiLM residual, `_lnmm_kernel`'s
+  product rounded before its bias);
+- the rounded-bias epilogue of `gemm_plain` (K9's product) bit for bit
+  against `ln_matmul_plain`'s rounding, and apart from the plain bias;
 - K8 with its rotated weights apart (q and k, as the per-op call site
   passes them) against `fused_ln_rotary_matmul` with the joined weight in
   interpret mode, as `tests/test_torch_serving_ops.py` runs it, at
@@ -53,9 +56,11 @@ def _check(out, ref, dtype):
 # (M, the products' N, K, TMA takes every A and W, the epilogue's operands
 # 16-byte aligned) -> (body, launches, grid). The serving shapes (M = b L =
 # 3600): K8's q, k, v (with a joined [w_q; w_k] too) and its rot-only
-# form, K2b's W1 (N = ff = 1024) and W2 (K = 1024); then what sends a
-# product to mma.sync: an operand TMA cannot take, K % 8 != 0, an N % 8 !=
-# 0 (in any product of the group), an epilogue operand off 16 bytes.
+# form, K2b's W1 (N = ff = 1024) and W2 (K = 1024), K9's linear1 (N =
+# 1024: 232 blocks, 1.76 waves) and linear3 (N = 512: 116 blocks, 0.88
+# waves); a narrow N = 40 on wgmma; then what sends a product to mma.sync:
+# an operand TMA cannot take, K % 8 != 0, an N % 8 != 0 (in any product of
+# the group), an epilogue operand off 16 bytes.
 PLANS = [
     ((3600, [512, 512, 512], 512, True, True), ("wgmma", 1, (12, 29))),
     ((3600, [1024, 512], 512, True, True), ("wgmma", 1, (12, 29))),
@@ -65,6 +70,7 @@ PLANS = [
     ((3600, [1536], 512, True, True), ("wgmma", 1, (12, 29))),
     ((3600, [96], 64, True, True), ("wgmma", 1, (1, 29))),
     ((154, [96, 200, 64], 64, True, True), ("wgmma", 1, (4, 2))),
+    ((154, [40], 64, True, True), ("wgmma", 1, (1, 2))),
     ((450, [512, 512, 512], 512, True, True), ("wgmma", 1, (12, 4))),
     ((1, [512], 512, True, True), ("wgmma", 1, (4, 1))),
     ((3600, [512], 512, False, True), ("mma.sync", 1, (4, 29))),
@@ -108,6 +114,8 @@ def _jax_ref(a, w, epilogue, bias, resid, fs, fb, L, jd):
     acc = jnp.dot(jnp.asarray(a).astype(jd), jnp.asarray(w).astype(jd).T, preferred_element_type=jnp.float32)
     if epilogue in ("store", "store_f32"):
         return acc.astype(jd) if epilogue == "store" else acc
+    if epilogue == "bias_rounded":  # _lnmm_kernel: the product rounded to T, then the bias added in T
+        return acc.astype(jd) + jnp.asarray(bias).astype(jd)
     acc = acc + jnp.asarray(bias)
     if epilogue in ("bias", "bias_gelu"):
         return (acc if epilogue == "bias" else _gelu_exact(acc)).astype(jd)
@@ -132,6 +140,27 @@ def test_gemm_wg_matches_jax(dtype, epilogue):
     assert g.gemm_wg.launches == before  # the plain path does not count
     assert out.dtype == (torch.float32 if epilogue in g.F32_OUT else td)
     _check(out, _jax_ref(a, w, epilogue, bias, resid, fs, fb, L, jd), dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_gemm_plain_bias_rounded_is_ln_matmul_rounding(dtype):
+    """gemm_plain(..., "bias_rounded") on T(LN(x)) is ln_matmul_plain bit for
+    bit: the product rounded to T, then the bias added in T. With a bias of
+    ~8, in bf16 that is not the plain bias epilogue's T(acc + bias)."""
+    from tcdiff_torch.ops._common import ln_f32
+    from tcdiff_torch.ops.ln_matmul import ln_matmul_plain
+
+    td = DTYPES[dtype][1]
+    d, n = 64, 40
+    x = torch.from_numpy(_normal(50, 3, 20, d)).to(td)
+    s, b = torch.from_numpy(1.0 + 0.1 * _normal(51, d)), torch.from_numpy(0.1 * _normal(52, d))
+    w, bias = torch.from_numpy(_normal(53, n, d, scale=d**-0.5)).to(td), torch.from_numpy(_normal(54, n, scale=8.0))
+    y = ln_f32(x, s, b, 1e-5).to(td).view(-1, d)
+    out = g.gemm_plain(y, w, "bias_rounded", bias)
+    assert out.dtype == td
+    assert torch.equal(out, ln_matmul_plain(x, s, b, w, bias).view(-1, n))
+    if td == torch.bfloat16:
+        assert not torch.equal(out, g.gemm_plain(y, w, "bias", bias))
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))

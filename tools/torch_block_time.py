@@ -1,10 +1,10 @@
 """Device times of the train blocks (K3, K4, K5, forward + backward), of
-the serving cross-attention block (K7), and of K8 and K2b, bf16, at the
-main path's shapes, made to compare two trees of the repository in one
-machine.
+the serving cross-attention block (K7), and of K8, K2b and K9, bf16, at
+the main path's shapes, made to compare two trees of the repository in
+one machine.
 
     python3 tools/torch_block_time.py                  # all of them
-    python3 tools/torch_block_time.py --only k8,k2b    # a part: train, k7, k8, k2b
+    python3 tools/torch_block_time.py --only k8,k2b    # a part: train, k7, k8, k2b, k9
 
 Runs from the root of the tree it lies in, with that tree's kernels: K3,
 K4 and K5 at the train shape (b=64, L=450, Lm=152, d=512, 8x64 heads,
@@ -20,8 +20,9 @@ launch (gemm_lnrot) and the row kernel and product it replaced (ln_rows +
 gemm), each kernel's median device us. K8 (self q/k/v with the joined
 q||k weight, as every tree takes it, and apart where the tree takes that;
 the rot-only cross query) and K2b (with and without FiLM rows) at the
-serving shape (b=8, L=450, d=512, ff=1024): device time a call and one
-call's kernels by name. Prints one JSON line, with
+serving shape (b=8, L=450, d=512, ff=1024), and K9 (norm3 -> linear1, N =
+1024, and norm4 -> linear3, N = 512, the bias f32 as the path passes it):
+device time a call and one call's kernels by name. Prints one JSON line, with
 the card's name and power limit. To compare with another tree, copy this
 file into it (`git archive` of the parent) and run the two in turns.
 """
@@ -42,7 +43,7 @@ import chip_smoke  # noqa: E402
 from chip_smoke import B, D, FF, H, HD, L, LM, TRAIN_BATCH  # noqa: E402
 from tcdiff_torch.models.rotary import angle_table, apply_rotary  # noqa: E402
 from tcdiff_torch.ops import (  # noqa: E402
-    ca_block, ca_block_train, ff_block, ff_block_train, gemm, layernorm, ln_rotary_matmul, sa_block_train,
+    ca_block, ca_block_train, ff_block, ff_block_train, gemm, layernorm, ln_matmul, ln_rotary_matmul, sa_block_train,
 )
 
 ROWS = ("chain_top_fwd", "chain_top_bwd", "rows_bwd", "rot_rows", "ff_tail_bwd_rows", "gelu_bwd_rows")
@@ -70,15 +71,15 @@ def profile(fn) -> dict:
                 by_kernel=dict(counts), by_kernel_us=dict(us_by))
 
 
-def serving_k8_k2b(res: dict, parts, rnd, w, ln, film) -> None:
-    """K8 and K2b (see the module docstring) into res."""
+def serving_k8_k2b_k9(res: dict, parts, rnd, w, ln, film) -> None:
+    """K8, K2b and K9 (see the module docstring) into res."""
     dev = "cuda"
     x = rnd(B, L, D).to(torch.bfloat16)
     s, b = ln()
     ang = angle_table(L, D, dev)
     wq, wk, wv = w(HD, D), w(HD, D), w(HD, D)
     wr = torch.cat([wq, wk])
-    w1, w2, b1, b2 = w(FF, D), w(D, FF), rnd(FF, std=0.1), rnd(D, std=0.1)
+    w1, w2, w3, b1, b2, b3 = w(FF, D), w(D, FF), w(D, D), rnd(FF, std=0.1), rnd(D, std=0.1), rnd(D, std=0.1)
     fs, fb = film(B)
     new = hasattr(gemm, "gemm_wg")  # a tree with the wgmma body
     calls = {}
@@ -90,13 +91,16 @@ def serving_k8_k2b(res: dict, parts, rnd, w, ln, film) -> None:
     if "k2b" in parts:
         calls["K2b"] = lambda: ff_block.ff_block(x, s, b, w1, b1, w2, b2)
         calls["K2b film"] = lambda: ff_block.ff_block(x, s, b, w1, b1, w2, b2, fs, fb)
+    if "k9" in parts:
+        calls["K9 linear1"] = lambda: ln_matmul.ln_matmul(x, s, b, w1, b1)
+        calls["K9 linear3"] = lambda: ln_matmul.ln_matmul(x, s, b, w3, b3)
     for label, fn in calls.items():
         res[label] = dict(device_ms=chip_smoke.device_ms(fn, reps=20), **profile(fn))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", default="train,k7,k8,k2b", help="comma-separated parts: train, k7, k8, k2b")
+    ap.add_argument("--only", default="train,k7,k8,k2b,k9", help="comma-separated parts: train, k7, k8, k2b, k9")
     parts = set(ap.parse_args().only.split(","))
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -122,7 +126,7 @@ def main() -> int:
         res[name] = dict(device_ms=chip_smoke.device_ms(step, reps=5), fwd_launches=fwd["launches"],
                          bwd_launches=both["launches"] - fwd["launches"], **both)
 
-    serving_k8_k2b(res, parts, rnd, w, ln, film)
+    serving_k8_k2b_k9(res, parts, rnd, w, ln, film)
     if "train" in parts:
         sab = (rnd(b, L, D).to(bf16), *ln(), angle_table(L, D, dev), w(HD, D), w(HD, D), w(HD, D), w(D, HD),
                *ln(), *film(b), seeds)

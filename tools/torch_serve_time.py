@@ -1,15 +1,17 @@
 """Seconds per serving request and per train step of the port on one CUDA
 card, made to compare two trees of the repository in one machine.
 
-    python3 tools/torch_serve_time.py [--requests 3] [--train-steps 3]
+    python3 tools/torch_serve_time.py [--requests 3] [--train-steps 3] [--config per_op]
 
 Runs from the root of the tree it lies in, with that tree's kernels. On
 the full-width bf16 DanceDecoder of `chip_smoke.py` (seeded random
 weights): one warm-up and `--requests` timed `ddim_sample` requests of
-batch 4 in the default configuration (K1/K2), one more under
-torch.profiler (device busy time, idle share, chip_smoke.device_profile),
-then one warm-up and `--train-steps` timed batch-64 bf16 train steps.
-Prints one JSON line, with the card's name and power limit.
+batch 4 in the default configuration (K1/K2), or with `--config per_op`
+`long_ddim_sample` requests over 4 slices in the per-op configuration
+(K8-K11, as chip_smoke's phase 8), one more under torch.profiler (device
+busy time, idle share, chip_smoke.device_profile), then one warm-up and
+`--train-steps` timed batch-64 bf16 train steps (none with 0). Prints one
+JSON line, with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
-from tcdiff_torch import DanceDecoderConfig, DiffusionConfig  # noqa: E402
+from tcdiff_torch import DanceDecoderConfig, DiffusionConfig, ServingKernels  # noqa: E402
 from tcdiff_torch.diffusion.gaussian import GaussianDiffusion  # noqa: E402
 from tcdiff_torch.models.dance_decoder import DanceDecoder  # noqa: E402
 
@@ -34,18 +36,21 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--requests", type=int, default=3)
     ap.add_argument("--train-steps", type=int, default=3)
+    ap.add_argument("--config", choices=("default", "per_op"), default="default")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
     cfg, dcfg = DanceDecoderConfig(dancer_num=3), DiffusionConfig()
-    model = DanceDecoder(cfg, dtype=torch.bfloat16).init_random(torch.Generator().manual_seed(0))
+    kernels = ServingKernels.per_op(attention=1) if args.config == "per_op" else ServingKernels()
+    model = DanceDecoder(cfg, dtype=torch.bfloat16, kernels=kernels).init_random(torch.Generator().manual_seed(0))
     diff = GaussianDiffusion(model, dcfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
     shape = (chip_smoke.REQ_BATCH, cfg.tokens, cfg.nfeats)
     cond = torch.randn((shape[0], 2 * cfg.seq_len + 1, cfg.cond_feature_dim), generator=gen, device="cuda")
     x_0 = 0.1 * torch.randn((shape[0], cfg.tokens, 3), generator=gen, device="cuda")
-    request = lambda: diff.ddim_sample(shape, cond, generator=gen, x_0=x_0)
+    sample = diff.long_ddim_sample if args.config == "per_op" else diff.ddim_sample
+    request = lambda: sample(shape, cond, generator=gen, x_0=x_0)
     request()
     torch.cuda.synchronize()
     times = []
@@ -58,17 +63,19 @@ def main() -> int:
     del model, diff
     torch.cuda.empty_cache()
 
-    model, state, step = chip_smoke.make_trainer(cfg, torch.bfloat16)
-    x, tcond = chip_smoke.train_inputs(cfg, chip_smoke.TRAIN_BATCH, 1)
-    tgen = torch.Generator(device="cuda").manual_seed(2)
-    state, _ = step(state, x, tcond, tgen)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(args.train_steps):
+    step_ms = None
+    if args.train_steps:
+        model, state, step = chip_smoke.make_trainer(cfg, torch.bfloat16)
+        x, tcond = chip_smoke.train_inputs(cfg, chip_smoke.TRAIN_BATCH, 1)
+        tgen = torch.Generator(device="cuda").manual_seed(2)
         state, _ = step(state, x, tcond, tgen)
-    torch.cuda.synchronize()
-    step_ms = 1e3 * (time.perf_counter() - t0) / args.train_steps
-    print(json.dumps({"card": chip_smoke.card_line(), "s_per_request": times,
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(args.train_steps):
+            state, _ = step(state, x, tcond, tgen)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / args.train_steps
+    print(json.dumps({"card": chip_smoke.card_line(), "config": args.config, "s_per_request": times,
                       "profiled_wall_s": wall, "busy_s": busy, "idle_share": 1 - busy / wall,
                       "train_ms_per_step": step_ms}))
     return 0
