@@ -132,6 +132,7 @@ from tcdiff_torch.ops import (
 )
 from tcdiff_torch.ops.plain import plain_blocks
 from tcdiff_torch.ops import train_common
+from tcdiff_torch.ops._common import ln_f32, mm_f32
 from tcdiff_torch.ops.train_common import weight_splits
 from tcdiff_torch.optim.adan import Adan
 from tcdiff_torch.train.state import create_train_state
@@ -572,11 +573,14 @@ def compare_wgmma_kernels(gen: torch.Generator) -> dict:
     without FiLM rows) and K9 (norm3 -> linear1 and norm4 -> linear3) alone
     at the serving shape, bf16, operands in the kernels' dtypes (no wrapper
     cast): the row body, then the products on the wgmma body. Device time a
-    call (calls queued back to back), its device kernels by name under
-    torch.profiler (K8 and K9: the row kernel and one wgmma launch; K2b: the
-    row kernel and two wgmma launches; no mma.sync and no PyTorch kernel),
-    each against the plain version (K9 with its bound); then the host us a
-    call spends on tensor maps. Returns extra figures for K8, K2b and K9."""
+    call (calls queued back to back) beside its bound, its device kernels by
+    name under torch.profiler (K8 and K9: the row kernel and one wgmma
+    launch; K2b: the row kernel and two wgmma launches; no mma.sync and no
+    PyTorch kernel), each against the plain version. K9 takes a bias of ~8,
+    where the rounding order shows: at most 1% of its outputs off the plain
+    version's bits, and the sum rounded once (F.linear's order) off them in
+    more than 2%. Then the host us a call spends on tensor maps. Returns
+    extra figures for K8, K2b and K9."""
     dev, bf16 = "cuda", torch.bfloat16
     rnd = lambda *shape, std=1.0: torch.randn(shape, generator=gen, device=dev) * std
     w = lambda o, i: rnd(o, i, std=i**-0.5).to(bf16)
@@ -584,26 +588,35 @@ def compare_wgmma_kernels(gen: torch.Generator) -> dict:
     ang = angle_table(L, D, dev)
     wq, wk, wv, w1, w2, w3 = w(HD, D), w(HD, D), w(HD, D), w(FF, D), w(D, FF), w(D, D)
     b1, b2, b3, fs, fb = rnd(FF, std=0.1), rnd(D, std=0.1), rnd(D, std=0.1), rnd(B, D, std=0.1), rnd(B, D, std=0.1)
+    c1, c3 = rnd(FF, std=8.0), rnd(D, std=8.0)  # K9's biases
     k8, wqk = ln_rotary_matmul.ln_rotary_matmul, torch.cat([wq, wk])
     k9, k9_plain = ln_matmul.ln_matmul, ln_matmul.ln_matmul_plain
-    calls = (  # (kernel, label, call, plain, wgmma launches)
+    M = B * L
+    # (kernel, label, call, plain, wgmma launches, the products' operations,
+    # the inputs each read once)
+    calls = (
         ("ln_rotary_matmul", "self q/k/v, weights apart", lambda: k8(x, s, b, ang, (wq, wk), wv),
-         lambda: ln_rotary_matmul.ln_rotary_matmul_plain(x, s, b, ang, (wq, wk), wv), 1),
+         lambda: ln_rotary_matmul.ln_rotary_matmul_plain(x, s, b, ang, (wq, wk), wv), 1, 2 * M * D * 3 * HD,
+         (x, s, b, ang, wq, wk, wv)),
         ("ln_rotary_matmul", "self q/k/v, joined", lambda: k8(x, s, b, ang, wqk, wv),
-         lambda: ln_rotary_matmul.ln_rotary_matmul_plain(x, s, b, ang, wqk, wv), 1),
+         lambda: ln_rotary_matmul.ln_rotary_matmul_plain(x, s, b, ang, wqk, wv), 1, 2 * M * D * 3 * HD,
+         (x, s, b, ang, wqk, wv)),
         ("ln_rotary_matmul", "rot-only cross q", lambda: k8(x, s, b, ang, wq),
-         lambda: ln_rotary_matmul.ln_rotary_matmul_plain(x, s, b, ang, wq), 1),
+         lambda: ln_rotary_matmul.ln_rotary_matmul_plain(x, s, b, ang, wq), 1, 2 * M * D * HD, (x, s, b, ang, wq)),
         ("ff_block", "film=False", lambda: ff_block.ff_block(x, s, b, w1, b1, w2, b2),
-         lambda: ff_block.ff_block_plain(x, s, b, w1, b1, w2, b2), 2),
+         lambda: ff_block.ff_block_plain(x, s, b, w1, b1, w2, b2), 2, 4 * M * D * FF, (x, s, b, w1, b1, w2, b2)),
         ("ff_block", "film=True", lambda: ff_block.ff_block(x, s, b, w1, b1, w2, b2, fs, fb),
-         lambda: ff_block.ff_block_plain(x, s, b, w1, b1, w2, b2, fs, fb), 2),
-        ("ln_matmul", "norm3->linear1", lambda: k9(x, s, b, w1, b1), lambda: k9_plain(x, s, b, w1, b1), 1),
-        ("ln_matmul", "norm4->linear3", lambda: k9(x, s, b, w3, b3), lambda: k9_plain(x, s, b, w3, b3), 1),
+         lambda: ff_block.ff_block_plain(x, s, b, w1, b1, w2, b2, fs, fb), 2, 4 * M * D * FF,
+         (x, s, b, w1, b1, w2, b2, fs, fb)),
+        ("ln_matmul", "norm3->linear1", lambda: k9(x, s, b, w1, c1), lambda: k9_plain(x, s, b, w1, c1), 1,
+         2 * M * D * FF, (x, s, b, w1, c1)),
+        ("ln_matmul", "norm4->linear3", lambda: k9(x, s, b, w3, c3), lambda: k9_plain(x, s, b, w3, c3), 1,
+         2 * M * D * D, (x, s, b, w3, c3)),
     )
     flat = lambda o: [t for part in (o if isinstance(o, tuple) else (o,))
                       for t in (part if isinstance(part, tuple) else (part,))]
     figures = collections.defaultdict(dict)
-    for kernel, label, call, plain, wg in calls:
+    for kernel, label, call, plain, wg, flops, inputs in calls:
         name = WG_LIBS[kernel]
         refs = flat(plain())
         outs = flat(call())
@@ -611,17 +624,23 @@ def compare_wgmma_kernels(gen: torch.Generator) -> dict:
         err = max((o.float() - r.float()).abs().max().item() for o, r in zip(outs, refs))
         tol = min(tolerance(bf16, r.float()) for r in refs)
         check(err <= tol, f"{name} {label} disagrees with its plain version: {err} > {tol}")
+        bits = {}
+        if kernel == "ln_matmul":
+            y, wn, bn = ln_f32(x, s, b, 1e-5).to(bf16), inputs[3], inputs[4]
+            other = (mm_f32(y, wn) + bn).to(bf16)
+            bits = dict(off_bits=(outs[0] != refs[0]).float().mean().item(),
+                        linear_off_bits=(other != refs[0]).float().mean().item())
+            print(f"{name} {label} bf16, bias ~8: {bits['off_bits']:.4%} of the outputs off the plain version's "
+                  f"bits (at most 1%), F.linear's order off them in {bits['linear_off_bits']:.2%} (more than 2%)")
+            check(bits["off_bits"] <= 0.01, f"{name} {label}: {bits['off_bits']:.4%} of the outputs off the bits")
+            check(bits["linear_off_bits"] > 0.02, f"{name} {label}: the rounding order does not show")
         ms = device_ms(call, reps=20)
         kernels = check_one_call(call, wg + 1, f"{name} {label} bf16", wg, 1)
-        extra, bnd = {}, ""
-        if kernel == "ln_matmul":  # the product's operations; x, the affines, W, the bias and the output once
-            cols = refs[0].shape[-1]
-            extra = bound(2 * B * L * D * cols, nbytes(x, s, b, refs[0]) + cols * D * 2 + cols * 4)
-            bnd = f", bound {1e3 * extra['bound_ms']:.1f} us ({extra['bound_by']})"
+        bnd = bound(flops, nbytes(*inputs, *refs))
         print(f"{name} {label} bf16: max_abs_err {err:.3e} (tol {tol:.3e}); device {1e3 * ms:.1f} us a call "
-              f"(calls queued back to back){bnd}")
+              f"(calls queued back to back), bound {1e3 * bnd['bound_ms']:.1f} us ({bnd['bound_by']})")
         figures[kernel][label] = dict(device_ms=ms, max_abs_err=err, kernels_us={n: us for n, us in kernels},
-                                      **extra)
+                                      **bnd, **bits)
 
     # the host time a call spends on tensor maps (cached: lookups only)
     for kernel, lib, fn in (("ln_rotary_matmul", "ln_rotary_matmul", lambda: k8(x, s, b, ang, (wq, wk), wv)),
@@ -1525,12 +1544,17 @@ def serve_per_op(gen: torch.Generator) -> dict:
 
     reset_serving_launches()
     bodies = bodies_since()
+    maps = {lib: gemm.tma_stats(lib) for lib in ("ln_rotary_matmul", "ln_matmul")}
     t0 = time.perf_counter()
     out = diff.long_ddim_sample(shape, cond, generator=gen, x_0=x_0)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in SERVING_OPS.items()}
     bodies = bodies_since(bodies)
+    for lib, was in maps.items():
+        now = gemm.tma_stats(lib)
+        print(f"per-op path: {WG_LIBS[lib]}'s tensor maps in the request: {now['lookups'] - was['lookups']} "
+              f"lookups, {now['encodes'] - was['encodes']} encodes, {now['us'] - was['us']:.0f} host us")
     check_output(out, x_0, shape)
     # per step: K8 once a layer (self-attention; the cached cross-attention
     # query is plain), K9 twice, K10 twice (self and cross post-LN), K11

@@ -11,7 +11,9 @@ batch 4 in the default configuration (K1/K2), or with `--config per_op`
 (K8-K11, as chip_smoke's phase 8), one more under torch.profiler (device
 busy time, idle share, chip_smoke.device_profile), then one warm-up and
 `--train-steps` timed batch-64 bf16 train steps (none with 0). Prints one
-JSON line, with the card's name and power limit.
+JSON line, with the card's name and power limit and, for each timed
+per-op request, the tensor maps K8's and K9's libraries looked up and
+encoded and the host us they took (null for a library without them).
 """
 
 from __future__ import annotations
@@ -30,6 +32,13 @@ import chip_smoke  # noqa: E402
 from tcdiff_torch import DanceDecoderConfig, DiffusionConfig, ServingKernels  # noqa: E402
 from tcdiff_torch.diffusion.gaussian import GaussianDiffusion  # noqa: E402
 from tcdiff_torch.models.dance_decoder import DanceDecoder  # noqa: E402
+from tcdiff_torch.ops import _build, gemm  # noqa: E402
+
+
+def tma_stats(lib: str) -> dict | None:
+    """gemm.tma_stats(lib), or None where the tree's library encodes no
+    tensor maps (a tree before its kernel ran on the wgmma body)."""
+    return gemm.tma_stats(lib) if hasattr(_build.load(lib), "tcd_tma_stats") else None
 
 
 def main() -> int:
@@ -53,12 +62,17 @@ def main() -> int:
     request = lambda: sample(shape, cond, generator=gen, x_0=x_0)
     request()
     torch.cuda.synchronize()
-    times = []
+    libs = ("ln_rotary_matmul", "ln_matmul") if args.config == "per_op" else ()  # K8's and K9's
+    times, maps = [], {lib: [] for lib in libs}
     for _ in range(args.requests):
+        before = {lib: tma_stats(lib) for lib in libs}
         t0 = time.perf_counter()
         request()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        for lib, was in before.items():
+            now = tma_stats(lib)
+            maps[lib].append(None if now is None else {k: now[k] - was[k] for k in now})
     wall, busy, _ = chip_smoke.device_profile(request)
     del model, diff
     torch.cuda.empty_cache()
@@ -76,6 +90,7 @@ def main() -> int:
         torch.cuda.synchronize()
         step_ms = 1e3 * (time.perf_counter() - t0) / args.train_steps
     print(json.dumps({"card": chip_smoke.card_line(), "config": args.config, "s_per_request": times,
+                      "tma_per_request": maps,
                       "profiled_wall_s": wall, "busy_s": busy, "idle_share": 1 - busy / wall,
                       "train_ms_per_step": step_ms}))
     return 0
