@@ -88,7 +88,23 @@ last line:
      ddim_sample_footwork, ddim_sample_stream over two slices,
      ddim_sample(forecast_every=2) with its K1/K2 launch counts, and
      partial_denoise (the DDPM loop) from t=100;
- 10. the block kernels' configurations (layer_fuse with and without its FF
+ 10. generate: wav to dance through tcdiff_torch.train.orchestrator.generate
+     on a seeded 20 s song (clicks on a 120 BPM grid over noise) at full
+     width: the bf16 denoiser in the default configuration (K1/K2), the
+     DBN (TrajDecoder) and a normalizer fit on seeded data, all with seeded
+     random weights; 7 slices, 20 DBN windows, a 600-frame trajectory. Each
+     stage's time (features, DBN rollout, Kalman, sampling) and s-motion/s;
+     the output checked, K1 and K2 each launched 8 x 50 times and no other
+     serving kernel; the request from its features once more under
+     torch.profiler; the DBN on the card against the same DBN on the CPU
+     with the TF32 flags at PyTorch's defaults (one window, then the rollout
+     and the Kalman filter, the error printed window by window), and one
+     window with TF32 on, which must not change its bits; an f32 request
+     through the kernels against the plain versions on the same noise; then
+     generate_streaming over the song's first 3 slices (the time at which
+     each slice is ready), whose trajectory must equal the full rollout's
+     first frames;
+ 11. the block kernels' configurations (layer_fuse with and without its FF
      section: K6; ff_tail off, with fuse_film and with ln_matmul: K2b; the
      k/v cache off with ca_block: K7): one bf16 ddim_sample request of
      batch 4 each with its launch counts (K2b's products, and K9's with
@@ -97,7 +113,7 @@ last line:
      under torch.profiler, K7 with the operands the ca_block request gives
      it (4 device kernels, no PyTorch kernel), and an f32 request through
      the kernels and the plain versions on the same noise;
- 11. train: 1 warm-up and 3 timed steps (loss, backward, Adan, EMA) of the
+ 12. train: 1 warm-up and 3 timed steps (loss, backward, Adan, EMA) of the
      full-width bf16 DanceDecoder at batch 64, dropout 0.1, on seeded
      synthetic motion and music; check a finite loss, finite parameters
      and the train kernels' launch counts (8 layers x 4 steps, forward and
@@ -105,13 +121,14 @@ last line:
      body, gemm_kernel); then two f32 steps at batch 4 through the kernels
      and two through the plain versions on the same weights and draws: each step's
      loss and gradients, and the parameters after the second Adan step;
- 12. a line of JSON with every kernel's figures, the card's line, and the
+ 13. a line of JSON with every kernel's figures, the card's line, and the
      last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import collections
+import copy
 import json
 import re
 import statistics
@@ -119,10 +136,14 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tcdiff_torch import DanceDecoderConfig, DiffusionConfig, ServingKernels, TrainConfig
+from tcdiff_torch import DanceDecoderConfig, DiffusionConfig, ServingKernels, TrainConfig, TrajDecoderConfig
+from tcdiff_torch.data.audio import save_wav
+from tcdiff_torch.data.features import SR
+from tcdiff_torch.data.normalizer import Normalizer
 from tcdiff_torch.diffusion.gaussian import GaussianDiffusion
 from tcdiff_torch.models.dance_decoder import DanceDecoder
 from tcdiff_torch.models.rotary import angle_table, apply_rotary
@@ -135,14 +156,19 @@ from tcdiff_torch.ops import train_common
 from tcdiff_torch.ops._common import ln_f32, mm_f32
 from tcdiff_torch.ops.train_common import weight_splits
 from tcdiff_torch.optim.adan import Adan
+from tcdiff_torch.train import orchestrator
 from tcdiff_torch.train.state import create_train_state
 from tcdiff_torch.train.train_step import make_train_step
+from tcdiff_torch.trajdecoder import TrajDecoder, autoregressive_rollout, kalman_smooth_batch
 
 B, L, D, H, FF = 8, 450, 512, 8, 1024  # serving shapes: CFG-doubled batch of 4
 HD = H * 64
 LM = 152  # cross-attention memory: 150 music rows + 2 time tokens
 REQUESTS, REQ_BATCH, CLIP_S = 3, 4, 5.0
 F32_PATH_TOL = 1e-3  # f32 whole 50-step path, kernels vs plain (sums in another order)
+SONG_S, SONG_SLICES, SONG_WINDOWS, SONG_FRAMES = 20.0, 7, 20, 600  # the generate phase's song
+DBN_WINDOW_TOL = 1e-5  # one DBN window, card vs CPU, share of its largest output
+DBN_ROLLOUT_TOL = 1e-4  # the rollout and the Kalman filter, card vs CPU, share of the largest value
 TRAIN_BATCH, TRAIN_STEPS = 64, 3  # bench.py's train default; + 1 warm-up step
 F32_STEP_BATCH = 4
 RATE = 0.1  # the config's dropout
@@ -941,7 +967,7 @@ def check_request_k7(model, request) -> None:
 
 
 def serve_block_configs(gen: torch.Generator, card: str) -> dict:
-    """Phase 10: one bf16 ddim_sample request of batch 4 through each of
+    """Phase 11: one bf16 ddim_sample request of batch 4 through each of
     BLOCK_CONFIGS on the full-width model (a warm-up request first), with
     its launch counts; the layer_fuse request once more under
     torch.profiler; K7 alone with the operands of the ca_block request
@@ -1644,6 +1670,154 @@ def other_samplers(gen: torch.Generator) -> None:
     torch.cuda.empty_cache()
 
 
+def smoke_song(path: str) -> None:
+    """SONG_S seconds of quiet noise with a click on every beat of a 120 BPM
+    grid, seeded, as a 16-bit wav at the features' rate."""
+    rng = np.random.default_rng(0)
+    y = rng.normal(size=int(SONG_S * SR)).astype(np.float32) * 1e-2
+    for s in range(0, len(y), SR // 2):
+        n = min(64, len(y) - s)
+        y[s:s + n] += rng.normal(size=n).astype(np.float32) * 0.5
+    save_wav(path, y, SR)
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return (a.cpu() - b.cpu()).abs().max().item()
+
+
+def check_dbn(traj_model, normalizer, feats: np.ndarray, traj: torch.Tensor) -> None:
+    """The DBN on the card against a copy on the CPU, same weights and
+    music, f32, with the TF32 flags as the caller left them (PyTorch's
+    defaults here): one window, then the whole rollout with the Kalman
+    filter against `traj`, the generate request's. Then the window and
+    the filter over it with TF32 on for cuBLAS and cuDNN, which the DBN and
+    the filter turn off for themselves."""
+    tcfg = traj_model.cfg
+    cpu_model = copy.deepcopy(traj_model).to("cpu")
+    seed = torch.from_numpy(orchestrator.circle_seed(normalizer, traj.shape[0], tcfg.window_size))
+    music = torch.from_numpy(feats[None])
+    win = (tcfg.window_size + tcfg.step) * 2
+    ref = cpu_model(seed, music[:, :win])
+    out = traj_model(seed.cuda(), music[:, :win].cuda())
+    err, tol = max_err(out, ref), DBN_WINDOW_TOL * ref.abs().max().item()
+    print(f"DBN, one window (1 x 3 x {tcfg.window_size} XY, {win} music frames), card vs CPU, f32, TF32 flags "
+          f"cuBLAS {torch.backends.cuda.matmul.allow_tf32} cuDNN {torch.backends.cudnn.allow_tf32}: "
+          f"max_abs_diff {err:.3e} (tol {tol:.3e}, {DBN_WINDOW_TOL:.0e} of the largest output "
+          f"{ref.abs().max().item():.3f})")
+    check(err <= tol, f"DBN window disagrees with the CPU: {err} > {tol}")
+    mm, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    was = (mm.allow_tf32, cudnn.allow_tf32)
+    filtered = kalman_smooth_batch(out)
+    mm.allow_tf32 = cudnn.allow_tf32 = True
+    try:
+        tf32 = traj_model(seed.cuda(), music[:, :win].cuda())
+        tf32_filtered = kalman_smooth_batch(tf32)
+    finally:
+        mm.allow_tf32, cudnn.allow_tf32 = was
+    same = torch.equal(tf32, out) and torch.equal(tf32_filtered, filtered)
+    print(f"DBN, the same window and the Kalman filter over it with TF32 on for cuBLAS and cuDNN: bit for bit {same}")
+    check(same, "the DBN's or the filter's output moved with the caller's TF32 flags")
+
+    ref = kalman_smooth_batch(autoregressive_rollout(cpu_model, seed, music, tcfg.window_size, tcfg.step))[0]
+    check(ref.shape == traj.shape, f"CPU trajectory {tuple(ref.shape)} != card's {tuple(traj.shape)}")
+    err, tol = max_err(traj, ref), DBN_ROLLOUT_TOL * ref.abs().max().item()
+    w, st = tcfg.window_size, tcfg.step
+    growth = [max_err(traj[:, w + i * st:w + (i + 1) * st], ref[:, w + i * st:w + (i + 1) * st])
+              for i in range((ref.shape[1] - w) // st)]
+    print(f"DBN rollout ({len(growth)} windows) + Kalman ({ref.shape[1]} frames), card vs CPU: max_abs_diff "
+          f"{err:.3e} (tol {tol:.3e}, {DBN_ROLLOUT_TOL:.0e} of the largest value {ref.abs().max().item():.3f}); "
+          f"by window: {' '.join(f'{e:.1e}' for e in growth)}")
+    check(err <= tol, f"DBN rollout disagrees with the CPU: {err} > {tol}")
+
+
+def serve_generate(gen: torch.Generator, card: str) -> dict:
+    """Phase 10: wav to dance through orchestrator.generate at full width,
+    then the first slices through generate_streaming. Returns the launches
+    of K1 and K2 in the one generate request."""
+    song = _build.BUILD / "smoke_song.wav"
+    _build.BUILD.mkdir(parents=True, exist_ok=True)
+    smoke_song(str(song))
+    cfg = DanceDecoderConfig(dancer_num=3)
+    dcfg = DiffusionConfig()
+    model = DanceDecoder(cfg, dtype=torch.bfloat16).init_random(torch.Generator().manual_seed(0))
+    diff = GaussianDiffusion(model, dcfg)
+    traj_model = TrajDecoder(TrajDecoderConfig()).init_random(torch.Generator().manual_seed(1))
+    normalizer = Normalizer.fit(torch.randn((64, cfg.seq_len, cfg.nfeats), generator=torch.Generator().manual_seed(2)),
+                                device="cuda")
+    mm, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    was = (mm.allow_tf32, cudnn.allow_tf32)
+    mm.allow_tf32, cudnn.allow_tf32 = False, True  # PyTorch's defaults, as a user of generate has them
+    try:
+        reset_serving_launches()
+        report = {}
+        t0 = time.perf_counter()
+        out = orchestrator.generate(str(song), diff, traj_model, normalizer, generator=gen, report=report)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k: n for k, n in serving_launches().items() if n}
+        n, traj = report["slices"], report["traj"]
+        stages = ", ".join(f"{k} {v:.3f} s" for k, v in report["seconds"].items())
+        print(f"generate ({SONG_S:.0f} s song, bf16, default kernels): {n} slices, {report['windows']} DBN windows, "
+              f"trajectory {tuple(traj.shape)}; {seconds:.3f} s for the request ({stages}); "
+              f"{n * CLIP_S / seconds:.2f} s-motion/s over the request, "
+              f"{n * CLIP_S / report['seconds']['sampling']:.2f} over the sampling (slices x 5 s); {card}")
+        check((n, report["windows"], traj.shape[1]) == (SONG_SLICES, SONG_WINDOWS, SONG_FRAMES),
+              f"generate: {n} slices, {report['windows']} windows, {traj.shape[1]} frames, expected "
+              f"{SONG_SLICES}, {SONG_WINDOWS}, {SONG_FRAMES}")
+        check_output(out, report["x_0"], (n, cfg.tokens, cfg.nfeats))
+        want = dict.fromkeys(("sa_block", "ff_tail"), cfg.num_layers * dcfg.sampling_timesteps)
+        print(f"generate: launches {counts} (expected {want})")
+        check(counts == want, f"generate: launches {counts}, expected {want}")
+        print_profile("generate request from its features (the DBN, Kalman and the sampling)",
+                      lambda: orchestrator.generate_from_features(report["feats"], diff, traj_model, normalizer,
+                                                                  generator=gen))
+
+        check_dbn(traj_model, normalizer, report["feats"], traj)
+
+        # f32, same injected noise: kernels against plain versions, whole request
+        model.dtype = torch.float32
+        shape = (n, cfg.tokens, cfg.nfeats)
+        noise = {"init": torch.randn(shape, generator=gen, device="cuda"),
+                 "steps": torch.randn((dcfg.sampling_timesteps,) + shape, generator=gen, device="cuda")}
+        f32 = lambda: orchestrator.generate_from_features(report["feats"], diff, traj_model, normalizer, noise=noise)
+        out_k = f32()
+        with plain_blocks(model):
+            out_p = f32()
+        check_output(out_k, report["x_0"], shape)
+        err = max_err(out_k, out_p)
+        print(f"generate, f32, kernels vs plain on the same noise: max_abs_diff {err:.3e} (tol {F32_PATH_TOL:.0e})")
+        check(err <= F32_PATH_TOL, f"generate: f32 path disagrees: {err} > {F32_PATH_TOL}")
+
+        # streaming over the first 3 slices: its trajectory is the full rollout's
+        model.dtype = torch.bfloat16
+        sreport, ready = {}, []
+
+        def on_slice(i, s4):
+            torch.cuda.synchronize()
+            ready.append(time.perf_counter() - t0)
+
+        t0 = time.perf_counter()
+        stream = orchestrator.generate_streaming(str(song), diff, traj_model, normalizer, generator=gen, slices=3,
+                                                 on_slice=on_slice, report=sreport)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        frames = cfg.seq_len + 2 * (cfg.seq_len // 2)
+        check(tuple(stream.shape) == (frames, cfg.dancer_num, cfg.nfeats) and torch.isfinite(stream).all().item(),
+              f"generate_streaming: output {tuple(stream.shape)} malformed")
+        same = torch.equal(stream[..., 4:6], traj[:, :frames].transpose(0, 1))
+        stages = ", ".join(f"{k} {v:.3f} s" for k, v in sreport["seconds"].items())
+        print(f"generate_streaming, first {sreport['slices']} slices ({frames} frames), bf16: {seconds:.3f} s "
+              f"({stages}); "
+              f"each slice ready after {' '.join(f'{t:.3f}' for t in ready)} s; "
+              f"trajectory equal to the full rollout's first {frames} frames: {same}")
+        check(same, "generate_streaming's trajectory differs from the full rollout's")
+    finally:
+        mm.allow_tf32, cudnn.allow_tf32 = was
+    del model, diff, traj_model
+    torch.cuda.empty_cache()
+    return {name: counts[name] for name in ("sa_block", "ff_tail")}
+
+
 def train_launches() -> dict:
     return {name: (getattr(mod, name).launches, getattr(mod, name).bwd_launches)
             for mod, name in ((sa_block_train, "sa_block_train"), (ca_block_train, "ca_block_train"),
@@ -1677,7 +1851,7 @@ def train_inputs(cfg, batch: int, seed: int):
 
 
 def train(card: str) -> dict:
-    """Phase 11: the train path. Returns the train kernels' launch counts."""
+    """Phase 12: the train path. Returns the train kernels' launch counts."""
     cfg = DanceDecoderConfig(dancer_num=3)
     model, state, step = make_trainer(cfg, torch.bfloat16)
     x, cond = train_inputs(cfg, TRAIN_BATCH, 1)
@@ -1810,6 +1984,10 @@ def main() -> int:
         launches.update(serve_per_op(gen))
         other_samplers(gen)
         print(f"per-op path and other samplers took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        for name, n in serve_generate(gen, card).items():
+            launches[name] += n
+        print(f"generate phase took {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         launches.update(serve_block_configs(gen, card))
         print(f"block-kernel configurations took {time.perf_counter() - t0:.1f} s")

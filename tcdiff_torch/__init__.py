@@ -10,5 +10,5 @@ Configuration types, and `ServingKernels` (which kernels serve), are in
 """
 
 from tcdiff_torch.config import (  # noqa: F401
-    DanceDecoderConfig, DiffusionConfig, ServingKernels, TrainConfig,
+    DanceDecoderConfig, DiffusionConfig, ServingKernels, TrainConfig, TrajDecoderConfig,
 )

@@ -1,7 +1,7 @@
 """Configuration types and constants of the port.
 
 A copy of the dataclasses and constants `tcdiff_tpu/config.py` defines for
-the denoiser, the diffusion and the trainer (same defaults), so that the
+the denoiser, the diffusion, the trainer and the DBN (same defaults), so that the
 port runs where JAX is not installed; and `ServingKernels`, the port's
 form of the environment flags that choose the JAX package's serving path.
 """
@@ -119,6 +119,33 @@ class DiffusionConfig:
     footwork_frames: Tuple[int, int] = (75, 120)
     footwork_joints: Tuple[int, ...] = (1, 2, 3, 4, 5, 7, 8, 10, 11)
     footwork_blend_width: int = 10
+
+
+@dataclasses.dataclass(frozen=True)
+class TrajDecoderConfig:
+    """Dance-Beat Navigator (DBN), the trajectory network (reference
+    `TrajDecoder/model/traj_model.py:125-167`,
+    `TrajDecoder/options/option_traj.py:3-70`); the trainer's fields are
+    carried for the DBN trainer."""
+
+    nfeats: int = 2  # global XY
+    trans_layer: int = 6
+    window_size: int = 100
+    step: int = 25
+    latent_dim: int = 64
+    n_head: int = 4
+    dropout: float = 0.1
+    cond_feature_dim: int = 438
+    # trainer
+    total_iter: int = 800_000
+    print_iter: int = 5000
+    batch_size: int = 128
+    lr: float = 2e-3
+    gamma: float = 0.05
+    lr_milestones: Tuple[int, ...] = (60_000,)
+    weight_decay: float = 1e-6
+    adam_betas: Tuple[float, float] = (0.5, 0.9)
+    seed: int = 42
 
 
 @dataclasses.dataclass(frozen=True)

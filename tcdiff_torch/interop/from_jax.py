@@ -1,4 +1,4 @@
-"""Load a flax DanceDecoder param tree into the port.
+"""Load flax param trees (the DanceDecoder's, the DBN's) into the port.
 
 `params_to_state_dict` maps the flax tree (numpy leaves, or anything
 `np.asarray` takes) onto the reference state-dict layout the port's modules
@@ -8,6 +8,11 @@ the cond encoder's separate q/k/v projections are concatenated into
 buffers are added. The map is linear, so it also carries trees of the same
 structure that are not weights (gradients, optimizer moments) to the
 parameter names, which is how the tests compare them.
+
+`traj_params_to_state_dict` maps the flax TrajDecoder tree onto the
+reference's DBN state-dict names (the inverse of the JAX package's
+`traj_decoder_params_from_torch`), and `load_reference_traj` loads a
+reference-layout `{'net': state_dict}` checkpoint.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import numpy as np
 import torch
 
 from tcdiff_torch.models.dance_decoder import DanceDecoder
+from tcdiff_torch.trajdecoder.model import TrajDecoder
 from tcdiff_torch.models.rotary import inv_freq_buffer
 
 
@@ -98,10 +104,51 @@ def params_to_state_dict(params: Mapping, num_layers: int, latent_dim: int) -> D
     return sd
 
 
+def _load_strict(model: torch.nn.Module, sd: Mapping) -> None:
+    model.load_state_dict({k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}, strict=True)
+
+
 def load_jax_params(model: DanceDecoder, params: Mapping) -> DanceDecoder:
     """Copy a flax param tree into `model` (strict: every key must match)."""
-    sd = params_to_state_dict(params, model.cfg.num_layers, model.cfg.latent_dim)
-    model.load_state_dict(
-        {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}, strict=True
-    )
+    _load_strict(model, params_to_state_dict(params, model.cfg.num_layers, model.cfg.latent_dim))
+    return model
+
+
+def traj_params_to_state_dict(params: Mapping, trans_layer: int = 6) -> Dict[str, np.ndarray]:
+    """flax TrajDecoder tree -> the reference's DBN state dict (numpy)."""
+    sd: Dict = {f"lstm.{k}": np.asarray(v) for k, v in params["lstm"].items()}
+    for i in range(3):
+        _dense(sd, f"music_projection.{2 * i}", params[f"music_projection_{i}"])
+    _dense(sd, "trans_extractor.cond_emb", params["cond_emb"])
+    _dense(sd, "trans_extractor.traj_emb", {"kernel": params["traj_emb_kernel"], "bias": params["traj_emb_bias"]})
+    for i in range(4):
+        _dense(sd, f"Decoder.{2 * i}", params[f"decoder_{i}"])
+    for i in range(trans_layer):
+        blk, pre = params[f"block_{i}"], f"trans_extractor.blocks.{i}"
+        _ln(sd, pre + ".ln1", blk["ln1"])
+        _ln(sd, pre + ".ln2", blk["ln2"])
+        for name in ("query", "key", "value", "proj"):
+            _dense(sd, f"{pre}.attn.{name}", blk[name])
+        _dense(sd, pre + ".mlp.0", blk["mlp0"])
+        _dense(sd, pre + ".mlp.2", blk["mlp2"])
+    return sd
+
+
+def load_jax_traj_params(model: TrajDecoder, params: Mapping) -> TrajDecoder:
+    """Copy a flax TrajDecoder param tree into `model` (strict: every key
+    must match)."""
+    _load_strict(model, traj_params_to_state_dict(params, model.cfg.trans_layer))
+    return model
+
+
+def load_reference_traj(model: TrajDecoder, path: str) -> TrajDecoder:
+    """Load a reference-layout DBN checkpoint, `{'net': state_dict}`
+    (`TrajDecoder/train_traj.py:281-282`; the `.pt` branch of the JAX
+    package's `TCDiff._load_traj_params`). Every parameter of `model` must
+    be in it; what the network does not hold as a parameter (a buffer of
+    the reference's, such as its unused attention mask) is skipped, as the
+    JAX package's converter skips it."""
+    sd = torch.load(path, map_location="cpu", weights_only=False)["net"]
+    names = set(model.state_dict())
+    _load_strict(model, {k: v.detach().cpu().numpy() for k, v in sd.items() if k in names})
     return model

@@ -7,12 +7,16 @@ output scale (the sums run in another order); bf16 4 bf16 ulps of the
 largest output (q/k/v, attention weights and outputs are rounded to bf16).
 """
 
+import copy
+
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from tcdiff_torch.config import TrajDecoderConfig  # noqa: E402
 from tcdiff_torch.models.rotary import angle_table  # noqa: E402
 from tcdiff_torch.ops import ff_block, sa_block  # noqa: E402
+from tcdiff_torch.trajdecoder import TrajDecoder  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 B, L, D, H, FF = 2, 100, 128, 2, 256
@@ -1284,3 +1288,17 @@ def test_wgmma_body_refuses_what_it_does_not_take(dev):
         m.gemm_wg(a, [w, w[:16]], "bias", torch.zeros(32, device=dev))
     with pytest.raises(ValueError):  # K of w against a
         m.gemm_wg(a, torch.zeros(32, 48, device=dev, dtype=bf16))
+
+
+def test_dbn_window_matches_cpu(dev):
+    """One full-width DBN window on the card against the same weights on
+    the CPU, f32, at b = 3 (its LSTM recurs over the batch), within 1e-5 of
+    the largest output."""
+    cpu = TrajDecoder(TrajDecoderConfig(), device="cpu").init_random(torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to(dev)
+    g = torch.Generator().manual_seed(1)
+    x, music = 0.5 * torch.randn((3, 3, 100, 2), generator=g), torch.randn((3, 250, 438), generator=g)
+    ref = cpu(x, music)
+    out = card(x.to(dev), music.to(dev))
+    assert out.device.type == "cuda"
+    assert (out.cpu() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()

@@ -37,4 +37,7 @@ def test_scan_sees_the_port():
             "diffusion/gaussian.py", "ops/sa_block_train.py", "ops/ca_block_train.py",
             "ops/ff_block_train.py", "train/train_step.py", "optim/adan.py",
             "geometry/skeleton.py", "config.py", "ops/attention.py", "ops/layernorm.py", "ops/ln_matmul.py",
-            "ops/ln_rotary_matmul.py", "diffusion/masks.py", "ops/ca_block.py", "ops/layer.py"} <= names
+            "ops/ln_rotary_matmul.py", "diffusion/masks.py", "ops/ca_block.py", "ops/layer.py",
+            "data/audio.py", "data/features.py", "data/normalizer.py", "trajdecoder/model.py",
+            "trajdecoder/rollout.py", "trajdecoder/kalman.py", "trajdecoder/postprocess.py",
+            "trajdecoder/streaming.py", "interop/from_jax.py", "train/orchestrator.py"} <= names
