@@ -121,29 +121,62 @@ last line:
      body, gemm_kernel); then two f32 steps at batch 4 through the kernels
      and two through the plain versions on the same weights and draws: each step's
      loss and gradients, and the parameters after the second Adan step;
- 13. a line of JSON with every kernel's figures, the card's line, and the
-     last line: {"ok": true, "device": {...}}.
+ 13. data: training from the data on disk. A seeded raw AIOZ-GDance tree
+     (3 dancers, four 20 s train songs and one 10 s test song, Y-up motion
+     at 30 fps, wavs at the feature rate) in a temporary directory, through
+     create_dataset (124 + 11 slices, feats438 on the host, a spawned pool);
+     AIOZDataset built on the card and on the CPU, train and test: the
+     packed channels and the normalized poses card vs CPU within 1e-5 (in
+     the data's units), the contacts equal off a 1e-5 band about the 0.01
+     threshold (the flips counted), the npz cache bit for bit; the DBN
+     trained from the TrajDataset by TrajTrainer (full width, 8 iterations,
+     the batch clamped to the 124 slices, one checkpoint and one eval
+     rollout at the end; ms per iteration, finite losses), its checkpoint
+     reloaded by load_reference_traj giving the trained network's window
+     bit for bit, one dropout-0 step card vs CPU (losses 1e-5 relative,
+     gradients 1e-4 of each tensor's largest); then the denoiser's
+     train_loop (bf16, full width, batch 64, 2 epochs of one step) over the
+     AIOZDataset through the native prefetcher (a numpy fallback fails),
+     K3/K4/K5 launched 8 x steps times each way, finite loss and
+     parameters, its checkpoint restored bit for bit (parameters, EMA, Adan
+     moments, step), steps/s with the host IO, and one step (its batch read
+     by the prefetcher) under torch.profiler for the device's idle share;
+ 14. a line of JSON with every kernel's figures (K3-K5's launches count the
+     train phase's and the train loop's), the card's line, and the last
+     line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
+import io
 import json
+import os
+import pickle
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import types
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from tcdiff_torch import DanceDecoderConfig, DiffusionConfig, ServingKernels, TrainConfig, TrajDecoderConfig
+from tcdiff_torch.data import dataset as data_ds
 from tcdiff_torch.data.audio import save_wav
+from tcdiff_torch.data.create_dataset import create_dataset
 from tcdiff_torch.data.features import SR
+from tcdiff_torch.data.native_loader import PrefetchingBatches
 from tcdiff_torch.data.normalizer import Normalizer
+from tcdiff_torch.data.synthetic import synthetic_motion
+from tcdiff_torch.interop.from_jax import load_reference_traj
 from tcdiff_torch.diffusion.gaussian import GaussianDiffusion
 from tcdiff_torch.models.dance_decoder import DanceDecoder
 from tcdiff_torch.models.rotary import angle_table, apply_rotary
@@ -160,6 +193,9 @@ from tcdiff_torch.train import orchestrator
 from tcdiff_torch.train.state import create_train_state
 from tcdiff_torch.train.train_step import make_train_step
 from tcdiff_torch.trajdecoder import TrajDecoder, autoregressive_rollout, kalman_smooth_batch
+from tcdiff_torch.trajdecoder.dataset import TrajDataset
+from tcdiff_torch.trajdecoder.trainer import TrajTrainer, make_traj_optimizer, make_traj_train_step
+from tcdiff_torch.utils.checkpoint import restore_train_state
 
 B, L, D, H, FF = 8, 450, 512, 8, 1024  # serving shapes: CFG-doubled batch of 4
 HD = H * 64
@@ -171,6 +207,13 @@ DBN_WINDOW_TOL = 1e-5  # one DBN window, card vs CPU, share of its largest outpu
 DBN_ROLLOUT_TOL = 1e-4  # the rollout and the Kalman filter, card vs CPU, share of the largest value
 TRAIN_BATCH, TRAIN_STEPS = 64, 3  # bench.py's train default; + 1 warm-up step
 F32_STEP_BATCH = 4
+# the data phase: a raw AIOZ tree of 3 dancers, 4 train songs of 20 s and
+# one test song of 10 s (31 slices a train song, 11 test)
+DATA_TRAIN_S, DATA_TEST_S, DATA_TRAIN_SONGS = 20.0, 10.0, 4
+DATA_SLICES = (4 * 31, 11)
+DATA_TOL = 1e-5  # the packed channels, card vs CPU; and the normalized ones in the data's units
+DBN_ITERS = DBN_PRINT = 8  # one checkpoint and one eval rollout, at the last iteration
+LOOP_BATCH, LOOP_EPOCHS = 64, 2  # 124 slices: one batch of 64 an epoch
 RATE = 0.1  # the config's dropout
 LC = 150  # cond encoder tokens: 301 music frames packed in pairs
 KERNELS = ("sa_block", "ff_tail", "ff_block", "ca_block", "layer", "ln_rotary_matmul", "ln_matmul", "layernorm",
@@ -1943,6 +1986,225 @@ def train(card: str) -> dict:
     return launches
 
 
+def write_raw_tree(root: str) -> None:
+    """A seeded raw AIOZ-GDance tree (`motions_smpl/<seq>.pkl` at 30 fps, Y-up;
+    `musics438/<seq>.wav` at the feature rate; the split lists), as
+    tests/test_e2e_files.py writes one: smooth synthetic motion, a 220 Hz
+    tone over noise with a click every 0.5 s."""
+    rng = np.random.default_rng(0)
+    os.makedirs(os.path.join(root, "motions_smpl"))
+    os.makedirs(os.path.join(root, "musics438"))
+    songs = [(f"train{i}", DATA_TRAIN_S) for i in range(DATA_TRAIN_SONGS)] + [("test0", DATA_TEST_S)]
+    for i, (name, secs) in enumerate(songs):
+        pos, q = synthetic_motion(1, 3, int(secs * 30), seed=100 + i)
+        with open(os.path.join(root, "motions_smpl", f"{name}.pkl"), "wb") as f:
+            pickle.dump({"root_trans": pos[0], "smpl_poses": q[0], "smpl_betas": np.zeros((3, 10), np.float32),
+                         "meta": {"name": name}}, f)
+        t = np.arange(int(secs * SR)) / SR
+        y = 0.2 * np.sin(2 * np.pi * 220.0 * t) + 0.02 * rng.normal(size=t.shape)
+        y[::SR // 2] = 0.9
+        save_wav(os.path.join(root, "musics438", f"{name}.wav"), y.astype(np.float32), SR)
+    with open(os.path.join(root, "train_split_sequence_names.txt"), "w") as f:
+        f.writelines(f"{name}\n" for name, _ in songs[:-1])
+    with open(os.path.join(root, "val_split_sequence_names.txt"), "w") as f:
+        f.write("test0\n")
+
+
+def check_dataset(root: str, split: str, mine, ref) -> None:
+    """The split's packed channels (card vs CPU) within DATA_TOL, the
+    contacts equal off the 1e-5 band about the threshold (the flips
+    counted), and the normalized poses within DATA_TOL in the data's units
+    (x range / 2 of each sample and channel for the train split's own
+    fits; / scale of the train normalizer for the test split)."""
+    arrays, _, _ = data_ds._load_slices(root, split == "train", 3, None, ("pos", "q"))
+    pos = torch.from_numpy(np.stack(arrays["pos"]))
+    q = torch.from_numpy(np.stack(arrays["q"]))
+    q = q.reshape(q.shape[:3] + (24, 3))
+    packed_cpu = data_ds._process_batch(pos, q)
+    packed = data_ds._process_batch(pos.cuda(), q.cuda()).cpu()
+    root_aa = data_ds.quaternion_to_axis_angle(data_ds.quat_multiply(
+        torch.as_tensor(data_ds._YUP_TO_ZUP_QUAT), data_ds.axis_angle_to_quaternion(q[..., 0, :])))
+    vel = data_ds._foot_velocity(data_ds.smpl_fk(torch.cat([root_aa[..., None, :], q[..., 1:, :]], dim=-2),
+                                                 data_ds.rotate_points_x90(pos)))
+    band = (vel - data_ds.CONTACT_VELOCITY).abs() <= 1e-5
+    flips = packed[..., :4] != packed_cpu[..., :4]
+    err = (packed[..., 4:] - packed_cpu[..., 4:]).abs().max().item()
+    if split == "train":
+        flat = packed_cpu.reshape(len(packed_cpu), -1, 151)
+        half = ((flat.amax(1) - flat.amin(1)) / 2)[:, None, None, :]
+    else:
+        half = 1.0 / ref.normalizer.scale.cpu()
+    norm_err = ((torch.from_numpy(mine.poses) - torch.from_numpy(ref.poses)).abs() * half)
+    norm_err[..., :4][flips] = 0.0
+    print(f"data: {split} split, {len(mine)} slices, card vs CPU: packed channels {err:.3e} (tol {DATA_TOL}), "
+          f"normalized {norm_err.max().item():.3e} in the data's units (tol {DATA_TOL}); contacts "
+          f"{packed[..., :4].mean().item():.3f} in contact, {int(flips.sum())} flipped, {int(band.sum())} "
+          f"within 1e-5 of the threshold")
+    check(err <= DATA_TOL, f"{split}: packed channels, card vs CPU, {err}")
+    check(not (flips & ~band).any().item(), f"{split}: contacts differ off the threshold band")
+    check(norm_err.max().item() <= DATA_TOL, f"{split}: normalized poses, card vs CPU, {norm_err.max().item()}")
+
+
+def dbn_step_card_vs_cpu(ds) -> None:
+    """One DBN step at dropout 0 on the card and on the CPU from the same
+    weights, batch and injected window start: the losses within 1e-5
+    relative, each gradient within 1e-4 of its tensor's largest value (the
+    attention's key biases, zero in exact arithmetic, under 1e-6 of the
+    network's largest gradient)."""
+    cfg = TrajDecoderConfig(dropout=0.0)
+    card = TrajDecoder(cfg).init_random(torch.Generator().manual_seed(3))
+    cpu = TrajDecoder(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    batch = next(ds.batches(min(16, len(ds))))
+    metrics = []
+    for model in (card, cpu):
+        opt, sched = make_traj_optimizer(model, cfg)
+        x = torch.as_tensor(batch["x"], device=model.device)
+        cond = torch.as_tensor(batch["cond"], device=model.device)
+        metrics.append(make_traj_train_step(model, opt, sched, cfg)(x, cond, None, start=17))
+    loss_err = max(abs(metrics[0][k].item() - metrics[1][k].item()) / abs(metrics[1][k].item())
+                   for k in ("recon", "dis_loss", "v_loss", "total"))
+    grads = {n: p.grad.cpu() for n, p in card.named_parameters()}
+    largest = max(p.grad.abs().max().item() for p in cpu.parameters())
+    worst, worst_name = 0.0, ""
+    for name, p in cpu.named_parameters():
+        diff = (grads[name] - p.grad).abs().max().item()
+        if name.endswith("attn.key.bias"):
+            share = max(grads[name].abs().max().item(), p.grad.abs().max().item()) / (1e-6 * largest)
+        else:
+            share = diff / (1e-4 * max(p.grad.abs().max().item(), 1e-30))
+        if share > worst:
+            worst, worst_name = share, name
+    print(f"dbn: one step at dropout 0, card vs CPU (batch 16, start 17): losses {loss_err:.2e} relative "
+          f"(tol 1e-5); largest gradient difference {worst:.3f} of its tolerance ({worst_name})")
+    check(loss_err <= 1e-5, f"DBN step losses, card vs CPU: {loss_err}")
+    check(worst <= 1.0, f"DBN step gradient of {worst_name}, card vs CPU: {worst} of its tolerance")
+
+
+def data_phase(card: str) -> dict:
+    """Phase 13: training from the data on disk. Returns the train kernels'
+    (forward, backward) launch counts of the train loop."""
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="tcdiff_data_")
+    try:
+        root = os.path.join(work, "AIOZ")
+        write_raw_tree(root)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):  # a line a feature file
+            create_dataset(types.SimpleNamespace(dataset_folder=root, root_path=root, stride=0.5, length=5.0,
+                                                 workers=None))
+        slices = tuple(len(os.listdir(os.path.join(root, s, "feats438"))) for s in ("train", "test"))
+        print(f"data: create_dataset wrote {slices[0]} train and {slices[1]} test slices (motion, wav, "
+              f"feats438) in {time.perf_counter() - t0:.2f} s")
+        check(slices == DATA_SLICES, f"create_dataset wrote {slices} slices, expected {DATA_SLICES}")
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_ds = data_ds.AIOZDataset(root, train=True)
+        test_ds = data_ds.AIOZDataset(root, train=False, normalizer=train_ds.normalizer)
+        torch.cuda.synchronize()
+        print(f"data: AIOZDataset on the card, train and test, in {time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        train_cpu = data_ds.AIOZDataset(root, train=True, device="cpu")
+        test_cpu = data_ds.AIOZDataset(root, train=False, normalizer=train_cpu.normalizer, device="cpu")
+        print(f"data: the same on the CPU in {time.perf_counter() - t0:.3f} s")
+        check_dataset(root, "train", train_ds, train_cpu)
+        check_dataset(root, "test", test_ds, test_cpu)
+        t0 = time.perf_counter()
+        cache = os.path.join(work, "train.npz")
+        train_ds.save_cache(cache)
+        back = data_ds.AIOZDataset.from_cache(cache)
+        same = (np.array_equal(back.poses, train_ds.poses) and back.feature_files == train_ds.feature_files
+                and back.wav_files == train_ds.wav_files
+                and torch.equal(back.normalizer.scale, train_ds.normalizer.scale)
+                and torch.equal(back.normalizer.offset, train_ds.normalizer.offset))
+        print(f"data: save_cache / from_cache {'bit for bit' if same else 'DIFFER'} in "
+              f"{time.perf_counter() - t0:.3f} s")
+        check(same, "the dataset cache does not round-trip bit for bit")
+
+        # the DBN: train, one checkpoint and one eval rollout, card vs CPU
+        traj_train = TrajDataset(root, train=True)
+        traj_test = TrajDataset(root, train=False, normalizer=traj_train.normalizer)
+        cfg = TrajDecoderConfig(total_iter=DBN_ITERS, print_iter=DBN_PRINT)
+        trainer = TrajTrainer(cfg)
+        t0 = time.perf_counter()
+        trainer.train(traj_train, traj_test, out_dir=os.path.join(work, "traj"))
+        seconds = time.perf_counter() - t0
+        ms = [1e3 * s for s in trainer.step_seconds]
+        print(f"dbn on {card}: {DBN_ITERS} iterations at batch {min(cfg.batch_size, len(traj_train))} (clamped "
+              f"from {cfg.batch_size} to the {len(traj_train)} slices) in {seconds:.2f} s with the checkpoint "
+              f"and the eval rollout; ms/iteration median {statistics.median(ms):.1f}, first {ms[0]:.1f}; "
+              f"losses {[round(v, 5) for v in trainer.losses]}")
+        check(trainer.step == DBN_ITERS and len(trainer.checkpoints) == 1, "the DBN trainer's iterations")
+        check(all(np.isfinite(trainer.losses)), f"DBN losses not finite: {trainer.losses}")
+        check(trainer.last_eval is not None and np.isfinite(trainer.last_eval).all(), "the DBN eval rollout")
+        fresh = load_reference_traj(TrajDecoder(cfg), trainer.checkpoints[0])
+        batch = next(traj_test.batches(min(4, len(traj_test))))
+        x = torch.as_tensor(batch["x"], device="cuda")[:, :, :cfg.window_size, :2]
+        music = torch.as_tensor(batch["cond"], device="cuda")[:, :2 * (cfg.window_size + cfg.step)]
+        check(torch.equal(fresh(x, music), trainer.model(x, music)),
+              "the DBN checkpoint reloaded by load_reference_traj gives another window than the trained network")
+        print(f"dbn: checkpoint {os.path.basename(trainer.checkpoints[0])} reloads through load_reference_traj "
+              f"bit for bit; eval rollout {trainer.last_eval.shape}")
+        dbn_step_card_vs_cpu(traj_train)
+
+        # the denoiser's train loop over the dataset, through K3/K4/K5
+        cfg = DanceDecoderConfig(dancer_num=3)
+        model, state, step = make_trainer(cfg, torch.bfloat16)
+        reset_train_launches()
+        t0 = time.perf_counter()
+        out = orchestrator.train_loop(state, step, train_ds, os.path.join(work, "run"), epochs=LOOP_EPOCHS,
+                                      batch_size=LOOP_BATCH, save_interval=LOOP_EPOCHS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = train_launches()
+        want = cfg.num_layers * out["steps"]
+        print(f"train_loop on {card}: {out['steps']} steps of batch {LOOP_BATCH} bf16 over {len(train_ds)} "
+              f"slices, loader {out['loader']}, in {seconds:.2f} s with the checkpoint: "
+              f"{out['steps'] / seconds:.3f} steps/s including the host IO; logged steps/s "
+              f"{out['metrics'].get('steps_per_sec', float('nan')):.3f}, loss {out['metrics'].get('total')}; "
+              f"launches (forward, backward) {launches} (expected {want} each)")
+        check(out["loader"] == "native", f"the train loop read its batches with {out['loader']}, not natively")
+        check(out["steps"] >= 2 and len(out["checkpoints"]) == 1, f"train_loop: {out['steps']} steps, "
+              f"{len(out['checkpoints'])} checkpoints")
+        for name, (fwd, bwd) in launches.items():
+            check(fwd == want and bwd == want, f"train_loop: {name} launched ({fwd}, {bwd}), expected {want}")
+        check(np.isfinite(out["metrics"]["total"]), "train_loop loss not finite")
+        check(all(torch.isfinite(p).all().item() for p in model.parameters()), "train_loop parameters not finite")
+        _, fresh_state, _ = make_trainer(cfg, torch.bfloat16)
+        t0 = time.perf_counter()
+        fresh_state, _ = restore_train_state(out["checkpoints"][0], fresh_state)
+        named = dict(fresh_state.model.named_parameters())
+        same = fresh_state.step == state.step and fresh_state.optimizer.param_groups[0]["step"] == \
+            state.optimizer.param_groups[0]["step"]
+        for name, p in state.model.named_parameters():
+            same = same and torch.equal(named[name], p) and torch.equal(fresh_state.ema_params[name],
+                                                                         state.ema_params[name])
+            for k in ("m", "v", "n", "prev_grad"):
+                same = same and torch.equal(fresh_state.optimizer.state[named[name]][k], state.optimizer.state[p][k])
+        print(f"train_loop: checkpoint {os.path.basename(out['checkpoints'][0])} "
+              f"({os.path.getsize(out['checkpoints'][0]) / 2**20:.0f} MiB) restores the parameters, EMA, Adan "
+              f"moments and step {'bit for bit' if same else 'WITH DIFFERENCES'} in {time.perf_counter() - t0:.2f} s")
+        check(same, "restore_train_state does not give back the saved state bit for bit")
+        del fresh_state
+
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        item = np.load(train_ds.feature_files[0], mmap_mode="r").shape
+
+        def one_step():
+            batch = next(iter(PrefetchingBatches(train_ds, LOOP_BATCH, item_shape=item)))
+            step(state, torch.as_tensor(batch["x"], device="cuda"), torch.as_tensor(batch["cond"], device="cuda"),
+                 gen)
+
+        print_profile(f"one train_loop step (batch {LOOP_BATCH} read by the prefetcher, then the step)", one_step)
+        del model, state, step
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"data phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -1994,12 +2256,13 @@ def main() -> int:
         t0 = time.perf_counter()
         train_counts = train(card)
         print(f"train phase took {time.perf_counter() - t0:.1f} s")
+        loop_counts = data_phase(card)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
 
-    launches.update({name: fwd for name, (fwd, _) in train_counts.items()})
-    bwd = {name: {"bwd_launches": b} for name, (_, b) in train_counts.items()}
+    launches.update({name: fwd + loop_counts[name][0] for name, (fwd, _) in train_counts.items()})
+    bwd = {name: {"bwd_launches": b + loop_counts[name][1]} for name, (_, b) in train_counts.items()}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"tcdiff_torch/csrc/{name}.cu",
          "replaces": REPLACES[name], "launches": launches[name], **figures[name], **bwd.get(name, {})}

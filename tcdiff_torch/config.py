@@ -163,6 +163,8 @@ class TrainConfig:
     adan_eps: float = 1e-8
 
 
+DATA_FPS = 30  # motion frames a second (the JAX package's DataConfig.raw_fps)
+
 # Channel layout of the 151-d motion representation:
 # [contacts(4), root_pos(3), rot6d(24*6)]
 N_JOINTS = 24

@@ -1,6 +1,6 @@
 """The 438-d music feature recipe @ 60 FPS, on the host (numpy/scipy).
 
-A copy of `tcdiff_tpu/data/features.py:14-70`, which rebuilds the
+A copy of `tcdiff_tpu/data/features.py`, which rebuilds the
 reference's `data/data_preprocess/_preprocess_wav.py:5-83` and
 `dataset_utils.py:45-86` without librosa:
 
@@ -10,12 +10,16 @@ reference's `data/data_preprocess/_preprocess_wav.py:5-83` and
 
 Feature rows are transposed to (frames, 438), the layout of the reference's
 saved .npy files. Feature extraction stays on the host by design, as in the
-JAX package; the arrays go to the card afterwards.
+JAX package; the arrays go to the card afterwards. `processing_music_list`
+fans the files of a directory out over a spawned process pool; each child
+imports this module afresh, which imports neither torch nor CUDA.
 """
 
 from __future__ import annotations
 
 import os
+from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -68,3 +72,53 @@ def wav_processing(wav_path: str, save_npy: bool = False) -> np.ndarray:
     if save_npy:
         np.save(os.path.splitext(wav_path)[0] + ".npy", feat)
     return feat
+
+
+def _extract_one(args) -> str:
+    """(wav path, feats438 path): extract and save. At module level, so that
+    a spawned worker can import it."""
+    src_wav, feat_npy = args
+    np.save(feat_npy, wav_processing(src_wav))
+    return feat_npy
+
+
+def processing_music_list(music_data_path: str, root_path: str, folder_state: str, verbose: bool = True,
+                          workers: Optional[int] = None) -> None:
+    """Extract a feats438 .npy for every wav of a directory into
+    `{root_path}/{folder_state}/feats438` (`dataset_utils.py:12-43`),
+    skipping files already there; a precomputed `<name>.npy` beside a wav
+    is copied as it is. The files fan out over `workers` processes
+    (default: 3/4 of the CPUs); the reference runs its librosa chain file by
+    file."""
+    feats_path = Path(root_path) / folder_state / "feats438"
+    feats_path.mkdir(parents=True, exist_ok=True)
+
+    todo = []
+    names = sorted({os.path.splitext(f)[0] for f in os.listdir(music_data_path)})
+    for name in names:
+        feat_npy = feats_path / f"{name}.npy"
+        src_npy = Path(music_data_path) / f"{name}.npy"
+        src_wav = Path(music_data_path) / f"{name}.wav"
+        if feat_npy.exists():
+            continue
+        if src_npy.exists():
+            np.save(feat_npy, np.load(src_npy))
+        elif src_wav.exists():
+            todo.append((str(src_wav), str(feat_npy)))
+
+    if not todo:
+        return
+    if workers is None:
+        workers = min(len(todo), max(1, (os.cpu_count() or 4) * 3 // 4))
+    if workers <= 1 or len(todo) == 1:
+        for args in todo:
+            if verbose:
+                print(f"feats438 <- {args[0]}")
+            _extract_one(args)
+        return
+    import multiprocessing as mp
+
+    with mp.get_context("spawn").Pool(workers) as pool:
+        for done in pool.imap_unordered(_extract_one, todo):
+            if verbose:
+                print(f"feats438 -> {done}")

@@ -1,1 +1,2 @@
-"""Rotation conversions and SMPL forward kinematics for the train loss."""
+"""Rotation conversions and SMPL forward kinematics, for the train loss and
+the dataset."""

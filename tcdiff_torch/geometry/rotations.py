@@ -1,12 +1,14 @@
-"""Rotation conversions the FK loss needs: 6D -> matrix -> quaternion, and
-quaternion products.
+"""Rotation conversions: what the FK loss needs (6D -> matrix ->
+quaternion, quaternion products) and what the dataset needs (axis-angle
+<-> quaternion, quaternion -> matrix -> 6D).
 
 PyTorch counterpart of the matching functions of
 `tcdiff_tpu/geometry/rotations.py`. Quaternions are real-first (w, x, y,
 z). Every function broadcasts over leading dimensions and is
 differentiable with finite gradients: the square roots and norms use a
 double `where`, so that the branch not taken never feeds an infinite
-derivative into the product with zero.
+derivative into the product with zero; the axis-angle conversions take a
+Taylor branch below 1e-6 rad.
 """
 
 from __future__ import annotations
@@ -83,3 +85,57 @@ def rotation_6d_to_matrix(d6: torch.Tensor) -> torch.Tensor:
     b2 = b2 / _safe_norm(b2).clamp_min(1e-12)
     b3 = torch.linalg.cross(b1, b2, dim=-1)
     return torch.stack([b1, b2, b3], dim=-2)
+
+
+def axis_angle_to_quaternion(axis_angle: torch.Tensor) -> torch.Tensor:
+    """(..., 3) axis-angle -> (..., 4) wxyz quaternion: [cos(a/2),
+    sin(a/2)/a * axis_angle], a = |axis_angle|; sin(a/2)/a is 0.5 - a^2/48
+    below 1e-6 rad."""
+    angles = _safe_norm(axis_angle)
+    half = angles * 0.5
+    small = angles.abs() < 1e-6
+    safe = torch.where(small, torch.ones_like(angles), angles)
+    sin_half_over = torch.where(small, 0.5 - angles * angles / 48.0, torch.sin(half) / safe)
+    return torch.cat([torch.cos(half), axis_angle * sin_half_over], dim=-1)
+
+
+def quaternion_to_axis_angle(quaternion: torch.Tensor) -> torch.Tensor:
+    """(..., 4) wxyz quaternion -> (..., 3) axis-angle.
+
+    The half angle's atan2 is taken in float64 and rounded: PyTorch's CPU
+    atan2 in float32 gives other bits in its vectorised loop than in the
+    loop's scalar tail, so a float32 result would depend on how a batch is
+    split into calls (the dataset processes in chunks)."""
+    norms = _safe_norm(quaternion[..., 1:])
+    half = torch.atan2(norms.double(), quaternion[..., :1].double()).to(quaternion.dtype)
+    angles = 2.0 * half
+    small = angles.abs() < 1e-6
+    safe = torch.where(small, torch.ones_like(angles), angles)
+    sin_half_over = torch.where(small, 0.5 - angles * angles / 48.0, torch.sin(half) / safe)
+    return quaternion[..., 1:] / sin_half_over
+
+
+def quaternion_to_matrix(quaternion: torch.Tensor) -> torch.Tensor:
+    """(..., 4) wxyz quaternion -> (..., 3, 3) rotation matrix."""
+    w, x, y, z = quaternion.unbind(-1)
+    two_s = 2.0 / (quaternion * quaternion).sum(-1)
+    m = torch.stack([
+        1 - two_s * (y * y + z * z), two_s * (x * y - z * w), two_s * (x * z + y * w),
+        two_s * (x * y + z * w), 1 - two_s * (x * x + z * z), two_s * (y * z - x * w),
+        two_s * (x * z - y * w), two_s * (y * z + x * w), 1 - two_s * (x * x + y * y),
+    ], dim=-1)
+    return m.reshape(quaternion.shape[:-1] + (3, 3))
+
+
+def axis_angle_to_matrix(axis_angle: torch.Tensor) -> torch.Tensor:
+    return quaternion_to_matrix(axis_angle_to_quaternion(axis_angle))
+
+
+def matrix_to_rotation_6d(matrix: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) -> (..., 6): the first two rows, flattened."""
+    return matrix[..., :2, :].reshape(matrix.shape[:-2] + (6,))
+
+
+def ax_to_6v(ax: torch.Tensor) -> torch.Tensor:
+    """Axis-angle -> 6D (the reference's `dataset/quaternion.py` name)."""
+    return matrix_to_rotation_6d(axis_angle_to_matrix(ax))

@@ -1,6 +1,7 @@
 """SMPL 24-joint skeleton and level-parallel forward kinematics.
 
-PyTorch counterpart of the default FK of `tcdiff_tpu/geometry/skeleton.py`:
+PyTorch counterpart of the default FK of `tcdiff_tpu/geometry/skeleton.py`
+(from 6D rotations for the loss, from axis-angle for the dataset):
 the kinematic chain is walked by tree depth, all joints of one level (whose
 parents are independent) in one batched quaternion step, 8 levels in all.
 Same parents, rest offsets and quaternion math.
@@ -13,7 +14,7 @@ import torch
 
 from tcdiff_torch.config import N_JOINTS
 from tcdiff_torch.geometry.rotations import (
-    matrix_to_quaternion, quat_apply, quat_multiply, rotation_6d_to_matrix,
+    axis_angle_to_quaternion, matrix_to_quaternion, quat_apply, quat_multiply, rotation_6d_to_matrix,
 )
 
 SMPL_PARENTS = np.array(
@@ -79,6 +80,13 @@ def fk_from_quats(quats: torch.Tensor, root_positions: torch.Tensor) -> torch.Te
         for k, j in enumerate(level):
             pos_w[j], rot_w[j] = world_pos[..., k, :], world_rot[..., k, :]
     return torch.stack(pos_w, dim=-2)
+
+
+def smpl_fk(rotations: torch.Tensor, root_positions: torch.Tensor) -> torch.Tensor:
+    """FK from local axis-angle rotations (..., 24, 3) and root positions
+    (..., 3): world joint positions (..., 24, 3), the layout of the
+    reference's `SMPLSkeleton.forward` (`vis.py:358-406`)."""
+    return fk_from_quats(axis_angle_to_quaternion(rotations), root_positions)
 
 
 def smpl_fk_from_6d(rot6d: torch.Tensor, root_positions: torch.Tensor) -> torch.Tensor:

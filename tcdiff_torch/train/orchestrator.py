@@ -19,25 +19,50 @@ Both entry points return the normalized samples; rendering and the files
 it writes are not part of this module. The denoiser, the DBN and the
 normalizer must live on one device (the card unless the caller built them
 on the CPU); the features are extracted on the host, by design.
+
+Training, beside them:
+
+  * `load_datasets` (`:250-303`): the synthetic stand-in, or the AIOZ
+    train and test splits from disk through the processed-data cache,
+    keyed by the dancer count and the sha1 of the split;
+  * `train_loop` (`:306-474`): epochs of train steps (`make_train_step`:
+    the loss through the train kernels K3/K4/K5, backward, Adan, EMA) over
+    the dataset's batches, read by the native prefetcher where the data
+    are files; a non-finite loss writes a rescue checkpoint and raises;
+    every `save_interval` epochs the metrics (with `StepTimer`'s rates) are
+    logged and a checkpoint written. The JAX package's `scan_steps` (TPU
+    dispatch machinery), its render and eval during training and its
+    host-0 gating are not here.
 """
 
 from __future__ import annotations
 
+import hashlib
 import logging
+import os
 import time
+from pathlib import Path
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
+from tcdiff_torch.config import DATA_FPS
+from tcdiff_torch.data.dataset import AIOZDataset, load_split_file
 from tcdiff_torch.data.features import wav_processing
+from tcdiff_torch.data.native_loader import PrefetchingBatches, native_available
 from tcdiff_torch.data.normalizer import Normalizer
+from tcdiff_torch.data.synthetic import synthetic_dataset
 from tcdiff_torch.diffusion.gaussian import GaussianDiffusion
 from tcdiff_torch.trajdecoder.kalman import kalman_smooth_batch
 from tcdiff_torch.trajdecoder.model import TrajDecoder
 from tcdiff_torch.trajdecoder.rollout import autoregressive_rollout
 from tcdiff_torch.trajdecoder.rollout import rollout_starts
 from tcdiff_torch.trajdecoder.streaming import TrajectoryStreamer
+from tcdiff_torch.train.state import TrainState
+from tcdiff_torch.utils.checkpoint import save_checkpoint
+from tcdiff_torch.utils.logging import MetricLogger
+from tcdiff_torch.utils.profiling import StepTimer, trace
 
 log = logging.getLogger(__name__)
 
@@ -279,3 +304,145 @@ def generate_streaming(
     if report is not None:
         report["slices"] = len(todo)
     return full
+
+
+# ------------------------------------------------------------------ training
+class _SyntheticDataset:
+    """AIOZDataset-shaped wrapper over synthetic arrays (dataset-free runs)."""
+
+    def __init__(self, n, dancer_num, seed, normalizer=None, seq_len=150, device="cuda"):
+        per_sample = normalizer is None
+        poses, music, norm = synthetic_dataset(n, dancer_num, seq_len=seq_len, seed=seed,
+                                               per_sample_normalization=per_sample, device=device)
+        self.poses, self.music = poses, music
+        self.normalizer = normalizer if normalizer is not None else norm
+        if normalizer is not None:  # as the JAX package does: the fit data normalized once more
+            self.poses = normalizer.normalize(torch.from_numpy(poses).to(normalizer.device)).cpu().numpy()
+        self.feature_files = [f"synthetic_{i}_slice0.npy" for i in range(n)]
+        self.wav_files = [f"synthetic_{i}_slice0.wav" for i in range(n)]
+
+    def __len__(self):
+        return len(self.poses)
+
+    def get(self, idx):
+        return self.poses[idx], self.music[idx], self.feature_files[idx], self.wav_files[idx]
+
+    def batches(self, batch_size, rng=None, drop_last=True):
+        order = np.arange(len(self))
+        if rng is not None:
+            rng.shuffle(order)
+        for i in range(0, len(order), batch_size):
+            idx = order[i:i + batch_size]
+            if drop_last and len(idx) < batch_size:
+                return
+            yield {"x": self.poses[idx], "cond": self.music[idx],
+                   "filename": [self.feature_files[j] for j in idx], "wav": [self.wav_files[j] for j in idx]}
+
+
+def cache_paths(cache_dir: str, dancer_num: int, split: Optional[Sequence[str]]):
+    """The processed-data cache files of the train and test splits: keyed by
+    the dancer count and the sha1 of the sorted split, so that another
+    --split_file never reads a stale cache."""
+    key = hashlib.sha1("\n".join(sorted(split)).encode()).hexdigest()[:8] if split else "all"
+    return (os.path.join(cache_dir, f"train_dn{dancer_num}_{key}.npz"),
+            os.path.join(cache_dir, f"test_dn{dancer_num}_{key}.npz"))
+
+
+def load_datasets(opt, dancer_num: int = 3, seq_len: int = 150, seed: int = 0, device="cuda"):
+    """(train_ds, test_ds): synthetic with `opt.synthetic`, else the AIOZ
+    splits under `opt.data_path` (filtered by `opt.split_file`), read from
+    and written to the cache in `opt.processed_data_dir` unless
+    `opt.no_cache`; `opt.force_reload` reprocesses (the reference's
+    `TCDiff.py:143-173` semantics). The slices are processed on `device`."""
+    if getattr(opt, "synthetic", False):
+        n = getattr(opt, "synthetic_size", 16)
+        train = _SyntheticDataset(n, dancer_num, seed=seed, seq_len=seq_len, device=device)
+        test = _SyntheticDataset(max(2, n // 4), dancer_num, seed=seed + 1, normalizer=train.normalizer,
+                                 seq_len=seq_len, device=device)
+        return train, test
+    split = load_split_file(opt.split_file) if getattr(opt, "split_file", None) else None
+    cache_dir = getattr(opt, "processed_data_dir", None)
+    no_cache = getattr(opt, "no_cache", False)
+    tr_cache, te_cache = cache_paths(cache_dir, dancer_num, split) if cache_dir else (None, None)
+    if (not no_cache and not getattr(opt, "force_reload", False) and tr_cache
+            and os.path.exists(tr_cache) and os.path.exists(te_cache)):
+        return AIOZDataset.from_cache(tr_cache, device=device), AIOZDataset.from_cache(te_cache, device=device)
+    train = AIOZDataset(opt.data_path, train=True, required_dancer_num=dancer_num, split_file=split, device=device)
+    test = AIOZDataset(opt.data_path, train=False, required_dancer_num=dancer_num, split_file=split,
+                       normalizer=train.normalizer, device=device)
+    if tr_cache and not no_cache:
+        train.save_cache(tr_cache)
+        test.save_cache(te_cache)
+    return train, test
+
+
+def train_loop(state: TrainState, train_step: Callable, train_ds, run_dir: str, *, epochs: int,
+               batch_size: int, save_interval: int, seed: int = 0, profile_dir: Optional[str] = None) -> dict:
+    """Train `state` in place for `epochs` epochs of `train_ds`.
+
+    train_step: `make_train_step`'s function for the state's model and
+    optimizer. The batches come in an order drawn from numpy's generator
+    of `seed`, read by the native prefetcher (`PrefetchingBatches`) where
+    the dataset is on disk and a toolchain exists, else by the dataset's
+    own `batches`; every draw of the steps comes from one torch.Generator
+    of `seed` on the model's device. A non-finite loss writes a
+    rescue checkpoint and raises FloatingPointError. Every `save_interval`
+    epochs the running means (with steps/s and seconds of motion a second)
+    go to `{run_dir}/metrics.jsonl` and a checkpoint to
+    `{run_dir}/checkpoints`; `profile_dir` records epoch 2 as a trace.
+
+    Returns {"steps", "loader" ("native" or "numpy"), "checkpoints",
+    "metrics" (the last means logged)}."""
+    device = next(state.model.parameters()).device
+    generator = torch.Generator(device=device).manual_seed(seed)
+    normalizer = train_ds.normalizer
+    run_dir = Path(run_dir)
+    ckpt_dir = str(run_dir / "checkpoints")
+    metrics = MetricLogger(str(run_dir), config={"batch": batch_size, "epochs": epochs})
+    data_rng = np.random.default_rng(seed)
+    timer = StepTimer()
+    motion_s = batch_size * train_ds.poses.shape[2] / DATA_FPS
+    use_native = native_available() and not isinstance(train_ds, _SyntheticDataset)
+    # the prefetcher reads a fixed number of floats a file (and pads a
+    # short file with zeros): take the shape of the dataset's own files
+    item_shape = np.load(train_ds.feature_files[0], mmap_mode="r").shape if use_native else None
+    out = {"steps": 0, "loader": "native" if use_native else "numpy", "checkpoints": [], "metrics": {}}
+    running, n_batches = {}, 0
+    try:
+        for epoch in range(1, epochs + 1):
+            batches = (PrefetchingBatches(train_ds, batch_size, rng=data_rng, item_shape=item_shape) if use_native
+                       else train_ds.batches(batch_size, rng=data_rng))
+            with trace(profile_dir if epoch == 2 else None):
+                for batch in batches:
+                    x = torch.as_tensor(batch["x"], dtype=torch.float32).to(device, non_blocking=True)
+                    cond = torch.as_tensor(batch["cond"], dtype=torch.float32).to(device, non_blocking=True)
+                    timer.tick()
+                    state, m = train_step(state, x, cond, generator)
+                    total = m["total"].item()  # waits for the card
+                    timer.tock()
+                    out["steps"] += 1
+                    if not np.isfinite(total):
+                        # failure detection the reference lacks: halt with a
+                        # rescue checkpoint instead of training on NaNs
+                        path = save_checkpoint(ckpt_dir, state.step, state, normalizer)
+                        out["checkpoints"].append(path)
+                        log.error("non-finite loss %s at step %d; rescue checkpoint at %s", total, state.step, path)
+                        raise FloatingPointError(f"non-finite loss at step {state.step}")
+                    for k, v in m.items():
+                        running[k] = running.get(k, 0.0) + float(v)
+                    n_batches += 1
+            if isinstance(batches, PrefetchingBatches) and batches.loader is not None:
+                out["loader"] = batches.loader
+            if epoch % save_interval == 0 and n_batches:
+                means = {k: v / n_batches for k, v in running.items()}
+                means.update(timer.metrics(motion_seconds_per_step=motion_s))
+                means["epoch"] = epoch
+                metrics.log(means, step=state.step)
+                log.info("epoch %d | loss %.4f | %.2f steps/s", epoch, means["total"],
+                         means.get("steps_per_sec", float("nan")))
+                running, n_batches = {}, 0
+                out["metrics"] = means
+                out["checkpoints"].append(save_checkpoint(ckpt_dir, state.step, state, normalizer))
+    finally:
+        metrics.close()
+    return out

@@ -29,6 +29,13 @@ The network computes in float32 whatever the caller's TF32 flags: its
 rollout feeds its output back ~20 times, so rounding compounds. `forward`
 turns TF32 off for its own duration where a caller turned it on.
 
+`forward` is the serving path: no gradient, no dropout. `forward_train`
+is the trainer's: gradients, and the JAX model's dropout at its
+1 + 3 x trans_layer sites (the trajectory features after the positional
+encoding, `tcdiff_tpu/trajdecoder/model.py:167`; in each block the
+attention probabilities, the projection's output and the MLP's output,
+`:117,121,128`), its masks drawn from the caller's generator.
+
 No Pallas kernel of the JAX package runs here; the network is ordinary
 PyTorch on whatever device holds its parameters.
 """
@@ -37,6 +44,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -44,6 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tcdiff_torch.config import TrajDecoderConfig
+from tcdiff_torch.models.dance_decoder import _identity, dropout_fn
 
 
 def positional_encoding(length: int, dim: int) -> np.ndarray:
@@ -102,11 +111,11 @@ class CrossCondAttention(nn.Module):
         self.query, self.key, self.value = nn.Linear(dim, dim), nn.Linear(dim, dim), nn.Linear(dim, dim)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, drop=_identity) -> torch.Tensor:
         b, t, c = x.shape
         heads = lambda y: y.reshape(b, t, self.n_head, c // self.n_head).transpose(1, 2)
         q, k, v = heads(self.query(x)), heads(self.key(x)), heads(self.value(x))
-        att = torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(c // self.n_head), dim=-1)
+        att = drop(torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(c // self.n_head), dim=-1))
         return self.proj((att @ v).transpose(1, 2).reshape(b, t, c))
 
 
@@ -119,9 +128,9 @@ class Block(nn.Module):
         self.attn = CrossCondAttention(dim, n_head)
         self.mlp = nn.Sequential(nn.Linear(dim, fc_rate * dim), nn.GELU(), nn.Linear(fc_rate * dim, dim))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x))
-        return x + self.mlp(self.ln2(x))
+    def forward(self, x: torch.Tensor, drop=_identity) -> torch.Tensor:
+        x = x + drop(self.attn(self.ln1(x), drop))
+        return x + drop(self.mlp(self.ln2(x)))
 
 
 class Music2TrajTransformer(nn.Module):
@@ -140,7 +149,7 @@ class TrajDecoder(nn.Module):
     """forward(x, music_feat):
       x: (b, dn, seq, 2) XY windows; music_feat: (b, 2*(seq+step), 438).
     Returns (b, dn, seq, 2) float32: the window shifted `step` frames on.
-    Evaluation only: the reference's dropout is not applied."""
+    `forward` evaluates (no dropout, no gradient); `forward_train` trains."""
 
     def __init__(self, cfg: TrajDecoderConfig = TrajDecoderConfig(), device="cuda"):
         super().__init__()
@@ -193,7 +202,17 @@ class TrajDecoder(nn.Module):
         with f32_math():
             return self._forward(x.float(), music_feat.float())
 
-    def _forward(self, x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    def forward_train(self, x: torch.Tensor, music_feat: torch.Tensor,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The forward with gradients and the config's dropout, its masks
+        drawn from `generator` (needed where the rate is above 0; at rate 0
+        the dropout is the identity). The caller runs the backward under
+        `f32_math()` too where its TF32 flags are on."""
+        drop = dropout_fn(self.cfg.dropout, generator)
+        with f32_math():
+            return self._forward(x.float(), music_feat.float(), drop)
+
+    def _forward(self, x: torch.Tensor, m: torch.Tensor, drop=_identity) -> torch.Tensor:
         cfg = self.cfg
         b, dn, seq, c = x.shape
         h = _lstm(self.lstm, x.reshape(b, dn * seq, c))  # recurrence over the batch axis
@@ -202,11 +221,11 @@ class TrajDecoder(nn.Module):
             m = m[:, :-1]
         m = self.music_projection(m.reshape(b, m.shape[1] // 2, cfg.cond_feature_dim * 2))
 
-        traj_feat = h + self._pos(dn * seq)[None]
+        traj_feat = drop(h + self._pos(dn * seq)[None])
         cond_tok = self.trans_extractor.cond_emb(m[:, :seq]).repeat(1, dn, 1)
         feat = torch.cat([cond_tok, traj_feat], dim=2)
         for block in self.trans_extractor.blocks:
-            feat = block(feat)
+            feat = block(feat, drop)
 
         feat = torch.cat([feat, m[:, -seq:].repeat(1, dn, 1)], dim=2)  # (b, dn*seq, 3d)
         return self.Decoder(feat).reshape(b, dn, seq, c)

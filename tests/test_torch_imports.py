@@ -40,4 +40,8 @@ def test_scan_sees_the_port():
             "ops/ln_rotary_matmul.py", "diffusion/masks.py", "ops/ca_block.py", "ops/layer.py",
             "data/audio.py", "data/features.py", "data/normalizer.py", "trajdecoder/model.py",
             "trajdecoder/rollout.py", "trajdecoder/kalman.py", "trajdecoder/postprocess.py",
-            "trajdecoder/streaming.py", "interop/from_jax.py", "train/orchestrator.py"} <= names
+            "trajdecoder/streaming.py", "interop/from_jax.py", "train/orchestrator.py",
+            "utils/logging.py", "utils/profiling.py", "utils/paths.py", "utils/checkpoint.py",
+            "geometry/rotations.py", "data/dataset.py", "data/synthetic.py", "data/create_dataset.py",
+            "data/native_loader.py", "trajdecoder/dataset.py", "trajdecoder/trainer.py",
+            "cli/train_traj.py"} <= names

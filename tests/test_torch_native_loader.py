@@ -1,0 +1,134 @@
+"""The port's copy of the native C++ prefetcher (`tcdiff_torch/data/native_loader.py`):
+`tests/test_native_loader.py`'s cases against the library the port builds
+into its own directory, `tcdiff_torch/build/`, from `native/prefetch.cc`;
+and the fallback to numpy loading where no toolchain exists."""
+
+import numpy as np
+import pytest
+
+from tcdiff_torch.data import native_loader  # noqa: E402
+from tcdiff_torch.data.native_loader import (
+    NativePrefetcher,
+    PrefetchingBatches,
+    native_available,
+    read_npy_f32,
+)
+
+
+
+@pytest.fixture(autouse=True)
+def _toolchain():
+    if not native_available():
+        pytest.skip("g++ toolchain unavailable")
+
+
+def _write_files(tmp_path, n=6, shape=(7, 5), dtype=np.float32):
+    files, arrays = [], []
+    for i in range(n):
+        a = (np.arange(np.prod(shape)).reshape(shape) * (i + 1)).astype(dtype)
+        p = str(tmp_path / f"f{i}.npy")
+        np.save(p, a)
+        files.append(p)
+        arrays.append(a.astype(np.float32))
+    return files, arrays
+
+
+def test_read_npy_f32_single(tmp_path):
+    files, arrays = _write_files(tmp_path, n=1)
+    out = read_npy_f32(files[0], (7, 5))
+    np.testing.assert_array_equal(out, arrays[0])
+
+
+def test_read_npy_f64_converts(tmp_path):
+    files, arrays = _write_files(tmp_path, n=1, dtype=np.float64)
+    out = read_npy_f32(files[0], (7, 5))
+    np.testing.assert_allclose(out, arrays[0])
+
+
+def test_prefetcher_batches_in_submit_order(tmp_path):
+    files, arrays = _write_files(tmp_path, n=6)
+    pf = NativePrefetcher(files, (7, 5), n_threads=3)
+    pf.submit([0, 2, 4])
+    pf.submit([5, 1])
+    b1 = pf.next()
+    b2 = pf.next()
+    pf.close()
+    np.testing.assert_array_equal(b1, np.stack([arrays[0], arrays[2], arrays[4]]))
+    np.testing.assert_array_equal(b2, np.stack([arrays[5], arrays[1]]))
+
+
+def test_prefetcher_bad_file_raises(tmp_path):
+    p = tmp_path / "bad.npy"
+    p.write_bytes(b"not a numpy file at all")
+    pf = NativePrefetcher([str(p)], (4,), n_threads=1)
+    pf.submit([0])
+    with pytest.raises(IOError):
+        pf.next()
+    pf.close()
+
+
+class _FakeDataset:
+    def __init__(self, files, n, item_shape):
+        self.feature_files = files
+        self.wav_files = [f + ".wav" for f in files]
+        self.poses = np.arange(n * 3, dtype=np.float32).reshape(n, 3)
+        self._shape = item_shape
+
+    def __len__(self):
+        return len(self.feature_files)
+
+    def batches(self, batch_size, rng=None):
+        raise AssertionError("fallback path should not be used when native exists")
+
+
+def test_prefetching_batches_iterator(tmp_path):
+    files, arrays = _write_files(tmp_path, n=6)
+    ds = _FakeDataset(files, 6, (7, 5))
+    it = PrefetchingBatches(ds, batch_size=2, depth=2, item_shape=(7, 5))
+    out = list(it)
+    assert it.loader == "native" and len(out) == 3
+    np.testing.assert_array_equal(out[0]["cond"], np.stack(arrays[0:2]))
+    np.testing.assert_array_equal(out[2]["cond"], np.stack(arrays[4:6]))
+    assert out[1]["filename"] == files[2:4]
+    np.testing.assert_array_equal(out[1]["x"], ds.poses[[2, 3]])
+
+
+def test_prefetcher_order_under_contention(tmp_path):
+    """Delivery must follow submit order even when completion is reordered:
+    many single-item batches with a large thread pool."""
+    files, arrays = _write_files(tmp_path, n=24, shape=(64, 32))
+    pf = NativePrefetcher(files, (64, 32), n_threads=12)
+    for i in range(24):
+        pf.submit([i])
+    for i in range(24):
+        out = pf.next()
+        np.testing.assert_array_equal(out[0], arrays[i], err_msg=str(i))
+    pf.close()
+
+
+def test_library_is_built_in_the_port_directory():
+    lib = native_loader._lib_path()
+    assert lib.exists() and lib.parent.name == "build" and lib.parent.parent.name == "tcdiff_torch"
+
+
+def test_submit_rejects_an_index_out_of_range(tmp_path):
+    files, _ = _write_files(tmp_path, n=2)
+    pf = NativePrefetcher(files, (7, 5), n_threads=1)
+    with pytest.raises(IndexError):
+        pf.submit([0, 2])
+    pf.close()
+
+
+def test_prefetching_batches_falls_back_without_a_toolchain(tmp_path, monkeypatch):
+    files, arrays = _write_files(tmp_path, n=4)
+
+    class _Synchronous(_FakeDataset):
+        def batches(self, batch_size, rng=None):
+            for i in range(0, len(self) - len(self) % batch_size, batch_size):
+                yield {"x": self.poses[i:i + batch_size], "cond": np.stack(arrays[i:i + batch_size])}
+
+    monkeypatch.setattr(native_loader, "native_available", lambda: False)
+    it = PrefetchingBatches(_Synchronous(files, 4, (7, 5)), batch_size=2, item_shape=(7, 5))
+    out = list(it)
+    assert it.loader == "numpy" and len(out) == 2
+    np.testing.assert_array_equal(out[1]["cond"], np.stack(arrays[2:4]))
