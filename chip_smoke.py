@@ -141,9 +141,24 @@ last line:
      parameters, its checkpoint restored bit for bit (parameters, EMA, Adan
      moments, step), steps/s with the host IO, and one step (its batch read
      by the prefetcher) under torch.profiler for the device's idle share;
- 14. a line of JSON with every kernel's figures (K3-K5's launches count the
-     train phase's and the train loop's), the card's line, and the last
-     line: {"ok": true, "device": {...}}.
+ 14. the CLI: `tcdiff_torch.cli.train.main` in its five modes on the data
+     phase's raw tree, processed cache and DBN checkpoint, at full width
+     (3 dancers, 8 layers, d=512) in bf16: `--mode train` (batch 64, one
+     epoch: one step, its checkpoint, the train-time render's sampling
+     of 2 clips with --no_render), `--mode eval --traj_source both` from
+     that checkpoint over the 11 test slices (eval.json printed, every
+     value finite, the gt and dbn sets different), `--mode test` with
+     --vis_fk_out (11 FK pkls; one split into per-dancer pkls and
+     exported to BVH, their shapes checked), `--mode
+     val_without_TrajModel --sample_mode long` (the 11 slices stitched on
+     the card), `--mode generate` on a seeded 10 s song (3 slices); K1
+     and K2 400 launches a sampling call and no other serving kernel,
+     K3/K4/K5 8 each way in the train step; the test clips' metrics
+     (`evaluate`) and stitch card vs CPU; each mode's wall time;
+ 15. a line of JSON with every kernel's figures (K1/K2's launches count
+     the CLI phase's, K3-K5's the train phase's, the train loop's and the
+     CLI's), the card's line, and the last line: {"ok": true, "device":
+     {...}}.
 """
 
 from __future__ import annotations
@@ -177,7 +192,12 @@ from tcdiff_torch.data.native_loader import PrefetchingBatches
 from tcdiff_torch.data.normalizer import Normalizer
 from tcdiff_torch.data.synthetic import synthetic_motion
 from tcdiff_torch.interop.from_jax import load_reference_traj
+from tcdiff_torch.cli import train as cli_train
 from tcdiff_torch.diffusion.gaussian import GaussianDiffusion
+from tcdiff_torch.eval import geometric as eval_geometric
+from tcdiff_torch.eval import metrics as eval_metrics
+from tcdiff_torch.export.bvh import pkl_to_bvh
+from tcdiff_torch.export.split_pkl import split_pkl_file
 from tcdiff_torch.models.dance_decoder import DanceDecoder
 from tcdiff_torch.models.rotary import angle_table, apply_rotary
 from tcdiff_torch.ops import (
@@ -196,6 +216,7 @@ from tcdiff_torch.trajdecoder import TrajDecoder, autoregressive_rollout, kalman
 from tcdiff_torch.trajdecoder.dataset import TrajDataset
 from tcdiff_torch.trajdecoder.trainer import TrajTrainer, make_traj_optimizer, make_traj_train_step
 from tcdiff_torch.utils.checkpoint import restore_train_state
+from tcdiff_torch.viz import postprocess as viz_post
 
 B, L, D, H, FF = 8, 450, 512, 8, 1024  # serving shapes: CFG-doubled batch of 4
 HD = H * 64
@@ -214,6 +235,7 @@ DATA_SLICES = (4 * 31, 11)
 DATA_TOL = 1e-5  # the packed channels, card vs CPU; and the normalized ones in the data's units
 DBN_ITERS = DBN_PRINT = 8  # one checkpoint and one eval rollout, at the last iteration
 LOOP_BATCH, LOOP_EPOCHS = 64, 2  # 124 slices: one batch of 64 an epoch
+CLI_SONG_S = 10.0  # the CLI phase's generate: 3 slices
 RATE = 0.1  # the config's dropout
 LC = 150  # cond encoder tokens: 301 music frames packed in pairs
 KERNELS = ("sa_block", "ff_tail", "ff_block", "ca_block", "layer", "ln_rotary_matmul", "ln_matmul", "layernorm",
@@ -1713,11 +1735,11 @@ def other_samplers(gen: torch.Generator) -> None:
     torch.cuda.empty_cache()
 
 
-def smoke_song(path: str) -> None:
-    """SONG_S seconds of quiet noise with a click on every beat of a 120 BPM
+def smoke_song(path: str, seconds: float = SONG_S) -> None:
+    """`seconds` of quiet noise with a click on every beat of a 120 BPM
     grid, seeded, as a 16-bit wav at the features' rate."""
     rng = np.random.default_rng(0)
-    y = rng.normal(size=int(SONG_S * SR)).astype(np.float32) * 1e-2
+    y = rng.normal(size=int(seconds * SR)).astype(np.float32) * 1e-2
     for s in range(0, len(y), SR // 2):
         n = min(64, len(y) - s)
         y[s:s + n] += rng.normal(size=n).astype(np.float32) * 0.5
@@ -2081,134 +2103,302 @@ def dbn_step_card_vs_cpu(ds) -> None:
     check(worst <= 1.0, f"DBN step gradient of {worst_name}, card vs CPU: {worst} of its tolerance")
 
 
-def data_phase(card: str) -> dict:
-    """Phase 13: training from the data on disk. Returns the train kernels'
-    (forward, backward) launch counts of the train loop."""
+def data_phase(card: str, work: str):
+    """Phase 13: training from the data on disk, in the directory `work`.
+    Returns the train kernels' (forward, backward) launch counts of the
+    train loop, and what the CLI phase reuses: the raw tree, the processed
+    cache's directory and the DBN's checkpoint directory."""
     t_phase = time.perf_counter()
-    work = tempfile.mkdtemp(prefix="tcdiff_data_")
-    try:
-        root = os.path.join(work, "AIOZ")
-        write_raw_tree(root)
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()):  # a line a feature file
-            create_dataset(types.SimpleNamespace(dataset_folder=root, root_path=root, stride=0.5, length=5.0,
-                                                 workers=None))
-        slices = tuple(len(os.listdir(os.path.join(root, s, "feats438"))) for s in ("train", "test"))
-        print(f"data: create_dataset wrote {slices[0]} train and {slices[1]} test slices (motion, wav, "
-              f"feats438) in {time.perf_counter() - t0:.2f} s")
-        check(slices == DATA_SLICES, f"create_dataset wrote {slices} slices, expected {DATA_SLICES}")
+    root = os.path.join(work, "AIOZ")
+    write_raw_tree(root)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):  # a line a feature file
+        create_dataset(types.SimpleNamespace(dataset_folder=root, root_path=root, stride=0.5, length=5.0,
+                                             workers=None))
+    slices = tuple(len(os.listdir(os.path.join(root, s, "feats438"))) for s in ("train", "test"))
+    print(f"data: create_dataset wrote {slices[0]} train and {slices[1]} test slices (motion, wav, "
+          f"feats438) in {time.perf_counter() - t0:.2f} s")
+    check(slices == DATA_SLICES, f"create_dataset wrote {slices} slices, expected {DATA_SLICES}")
 
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        train_ds = data_ds.AIOZDataset(root, train=True)
-        test_ds = data_ds.AIOZDataset(root, train=False, normalizer=train_ds.normalizer)
-        torch.cuda.synchronize()
-        print(f"data: AIOZDataset on the card, train and test, in {time.perf_counter() - t0:.3f} s")
-        t0 = time.perf_counter()
-        train_cpu = data_ds.AIOZDataset(root, train=True, device="cpu")
-        test_cpu = data_ds.AIOZDataset(root, train=False, normalizer=train_cpu.normalizer, device="cpu")
-        print(f"data: the same on the CPU in {time.perf_counter() - t0:.3f} s")
-        check_dataset(root, "train", train_ds, train_cpu)
-        check_dataset(root, "test", test_ds, test_cpu)
-        t0 = time.perf_counter()
-        cache = os.path.join(work, "train.npz")
-        train_ds.save_cache(cache)
-        back = data_ds.AIOZDataset.from_cache(cache)
-        same = (np.array_equal(back.poses, train_ds.poses) and back.feature_files == train_ds.feature_files
-                and back.wav_files == train_ds.wav_files
-                and torch.equal(back.normalizer.scale, train_ds.normalizer.scale)
-                and torch.equal(back.normalizer.offset, train_ds.normalizer.offset))
-        print(f"data: save_cache / from_cache {'bit for bit' if same else 'DIFFER'} in "
-              f"{time.perf_counter() - t0:.3f} s")
-        check(same, "the dataset cache does not round-trip bit for bit")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_ds = data_ds.AIOZDataset(root, train=True)
+    test_ds = data_ds.AIOZDataset(root, train=False, normalizer=train_ds.normalizer)
+    torch.cuda.synchronize()
+    print(f"data: AIOZDataset on the card, train and test, in {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    train_cpu = data_ds.AIOZDataset(root, train=True, device="cpu")
+    test_cpu = data_ds.AIOZDataset(root, train=False, normalizer=train_cpu.normalizer, device="cpu")
+    print(f"data: the same on the CPU in {time.perf_counter() - t0:.3f} s")
+    check_dataset(root, "train", train_ds, train_cpu)
+    check_dataset(root, "test", test_ds, test_cpu)
+    t0 = time.perf_counter()
+    cache_dir = os.path.join(work, "cache")  # where cli.train's load_datasets reads it
+    cache, test_cache = orchestrator.cache_paths(cache_dir, 3, None)
+    train_ds.save_cache(cache)
+    test_ds.save_cache(test_cache)
+    back = data_ds.AIOZDataset.from_cache(cache)
+    same = (np.array_equal(back.poses, train_ds.poses) and back.feature_files == train_ds.feature_files
+            and back.wav_files == train_ds.wav_files
+            and torch.equal(back.normalizer.scale, train_ds.normalizer.scale)
+            and torch.equal(back.normalizer.offset, train_ds.normalizer.offset))
+    print(f"data: save_cache / from_cache {'bit for bit' if same else 'DIFFER'} in "
+          f"{time.perf_counter() - t0:.3f} s")
+    check(same, "the dataset cache does not round-trip bit for bit")
 
-        # the DBN: train, one checkpoint and one eval rollout, card vs CPU
-        traj_train = TrajDataset(root, train=True)
-        traj_test = TrajDataset(root, train=False, normalizer=traj_train.normalizer)
-        cfg = TrajDecoderConfig(total_iter=DBN_ITERS, print_iter=DBN_PRINT)
-        trainer = TrajTrainer(cfg)
-        t0 = time.perf_counter()
-        trainer.train(traj_train, traj_test, out_dir=os.path.join(work, "traj"))
-        seconds = time.perf_counter() - t0
-        ms = [1e3 * s for s in trainer.step_seconds]
-        print(f"dbn on {card}: {DBN_ITERS} iterations at batch {min(cfg.batch_size, len(traj_train))} (clamped "
-              f"from {cfg.batch_size} to the {len(traj_train)} slices) in {seconds:.2f} s with the checkpoint "
-              f"and the eval rollout; ms/iteration median {statistics.median(ms):.1f}, first {ms[0]:.1f}; "
-              f"losses {[round(v, 5) for v in trainer.losses]}")
-        check(trainer.step == DBN_ITERS and len(trainer.checkpoints) == 1, "the DBN trainer's iterations")
-        check(all(np.isfinite(trainer.losses)), f"DBN losses not finite: {trainer.losses}")
-        check(trainer.last_eval is not None and np.isfinite(trainer.last_eval).all(), "the DBN eval rollout")
-        fresh = load_reference_traj(TrajDecoder(cfg), trainer.checkpoints[0])
-        batch = next(traj_test.batches(min(4, len(traj_test))))
-        x = torch.as_tensor(batch["x"], device="cuda")[:, :, :cfg.window_size, :2]
-        music = torch.as_tensor(batch["cond"], device="cuda")[:, :2 * (cfg.window_size + cfg.step)]
-        check(torch.equal(fresh(x, music), trainer.model(x, music)),
-              "the DBN checkpoint reloaded by load_reference_traj gives another window than the trained network")
-        print(f"dbn: checkpoint {os.path.basename(trainer.checkpoints[0])} reloads through load_reference_traj "
-              f"bit for bit; eval rollout {trainer.last_eval.shape}")
-        dbn_step_card_vs_cpu(traj_train)
+    # the DBN: train, one checkpoint and one eval rollout, card vs CPU
+    traj_train = TrajDataset(root, train=True)
+    traj_test = TrajDataset(root, train=False, normalizer=traj_train.normalizer)
+    cfg = TrajDecoderConfig(total_iter=DBN_ITERS, print_iter=DBN_PRINT)
+    trainer = TrajTrainer(cfg)
+    t0 = time.perf_counter()
+    trainer.train(traj_train, traj_test, out_dir=os.path.join(work, "traj"))
+    seconds = time.perf_counter() - t0
+    ms = [1e3 * s for s in trainer.step_seconds]
+    print(f"dbn on {card}: {DBN_ITERS} iterations at batch {min(cfg.batch_size, len(traj_train))} (clamped "
+          f"from {cfg.batch_size} to the {len(traj_train)} slices) in {seconds:.2f} s with the checkpoint "
+          f"and the eval rollout; ms/iteration median {statistics.median(ms):.1f}, first {ms[0]:.1f}; "
+          f"losses {[round(v, 5) for v in trainer.losses]}")
+    check(trainer.step == DBN_ITERS and len(trainer.checkpoints) == 1, "the DBN trainer's iterations")
+    check(all(np.isfinite(trainer.losses)), f"DBN losses not finite: {trainer.losses}")
+    check(trainer.last_eval is not None and np.isfinite(trainer.last_eval).all(), "the DBN eval rollout")
+    fresh = load_reference_traj(TrajDecoder(cfg), trainer.checkpoints[0])
+    batch = next(traj_test.batches(min(4, len(traj_test))))
+    x = torch.as_tensor(batch["x"], device="cuda")[:, :, :cfg.window_size, :2]
+    music = torch.as_tensor(batch["cond"], device="cuda")[:, :2 * (cfg.window_size + cfg.step)]
+    check(torch.equal(fresh(x, music), trainer.model(x, music)),
+          "the DBN checkpoint reloaded by load_reference_traj gives another window than the trained network")
+    print(f"dbn: checkpoint {os.path.basename(trainer.checkpoints[0])} reloads through load_reference_traj "
+          f"bit for bit; eval rollout {trainer.last_eval.shape}")
+    dbn_step_card_vs_cpu(traj_train)
 
-        # the denoiser's train loop over the dataset, through K3/K4/K5
-        cfg = DanceDecoderConfig(dancer_num=3)
-        model, state, step = make_trainer(cfg, torch.bfloat16)
-        reset_train_launches()
-        t0 = time.perf_counter()
-        out = orchestrator.train_loop(state, step, train_ds, os.path.join(work, "run"), epochs=LOOP_EPOCHS,
-                                      batch_size=LOOP_BATCH, save_interval=LOOP_EPOCHS)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = train_launches()
-        want = cfg.num_layers * out["steps"]
-        print(f"train_loop on {card}: {out['steps']} steps of batch {LOOP_BATCH} bf16 over {len(train_ds)} "
-              f"slices, loader {out['loader']}, in {seconds:.2f} s with the checkpoint: "
-              f"{out['steps'] / seconds:.3f} steps/s including the host IO; logged steps/s "
-              f"{out['metrics'].get('steps_per_sec', float('nan')):.3f}, loss {out['metrics'].get('total')}; "
-              f"launches (forward, backward) {launches} (expected {want} each)")
-        check(out["loader"] == "native", f"the train loop read its batches with {out['loader']}, not natively")
-        check(out["steps"] >= 2 and len(out["checkpoints"]) == 1, f"train_loop: {out['steps']} steps, "
-              f"{len(out['checkpoints'])} checkpoints")
-        for name, (fwd, bwd) in launches.items():
-            check(fwd == want and bwd == want, f"train_loop: {name} launched ({fwd}, {bwd}), expected {want}")
-        check(np.isfinite(out["metrics"]["total"]), "train_loop loss not finite")
-        check(all(torch.isfinite(p).all().item() for p in model.parameters()), "train_loop parameters not finite")
-        _, fresh_state, _ = make_trainer(cfg, torch.bfloat16)
-        t0 = time.perf_counter()
-        fresh_state, _ = restore_train_state(out["checkpoints"][0], fresh_state)
-        named = dict(fresh_state.model.named_parameters())
-        same = fresh_state.step == state.step and fresh_state.optimizer.param_groups[0]["step"] == \
-            state.optimizer.param_groups[0]["step"]
-        for name, p in state.model.named_parameters():
-            same = same and torch.equal(named[name], p) and torch.equal(fresh_state.ema_params[name],
-                                                                         state.ema_params[name])
-            for k in ("m", "v", "n", "prev_grad"):
-                same = same and torch.equal(fresh_state.optimizer.state[named[name]][k], state.optimizer.state[p][k])
-        print(f"train_loop: checkpoint {os.path.basename(out['checkpoints'][0])} "
-              f"({os.path.getsize(out['checkpoints'][0]) / 2**20:.0f} MiB) restores the parameters, EMA, Adan "
-              f"moments and step {'bit for bit' if same else 'WITH DIFFERENCES'} in {time.perf_counter() - t0:.2f} s")
-        check(same, "restore_train_state does not give back the saved state bit for bit")
-        del fresh_state
+    # the denoiser's train loop over the dataset, through K3/K4/K5
+    cfg = DanceDecoderConfig(dancer_num=3)
+    model, state, step = make_trainer(cfg, torch.bfloat16)
+    reset_train_launches()
+    t0 = time.perf_counter()
+    out = orchestrator.train_loop(state, step, train_ds, os.path.join(work, "run"), epochs=LOOP_EPOCHS,
+                                  batch_size=LOOP_BATCH, save_interval=LOOP_EPOCHS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = train_launches()
+    want = cfg.num_layers * out["steps"]
+    print(f"train_loop on {card}: {out['steps']} steps of batch {LOOP_BATCH} bf16 over {len(train_ds)} "
+          f"slices, loader {out['loader']}, in {seconds:.2f} s with the checkpoint: "
+          f"{out['steps'] / seconds:.3f} steps/s including the host IO; logged steps/s "
+          f"{out['metrics'].get('steps_per_sec', float('nan')):.3f}, loss {out['metrics'].get('total')}; "
+          f"launches (forward, backward) {launches} (expected {want} each)")
+    check(out["loader"] == "native", f"the train loop read its batches with {out['loader']}, not natively")
+    check(out["steps"] >= 2 and len(out["checkpoints"]) == 1, f"train_loop: {out['steps']} steps, "
+          f"{len(out['checkpoints'])} checkpoints")
+    for name, (fwd, bwd) in launches.items():
+        check(fwd == want and bwd == want, f"train_loop: {name} launched ({fwd}, {bwd}), expected {want}")
+    check(np.isfinite(out["metrics"]["total"]), "train_loop loss not finite")
+    check(all(torch.isfinite(p).all().item() for p in model.parameters()), "train_loop parameters not finite")
+    _, fresh_state, _ = make_trainer(cfg, torch.bfloat16)
+    t0 = time.perf_counter()
+    fresh_state, _ = restore_train_state(out["checkpoints"][0], fresh_state)
+    named = dict(fresh_state.model.named_parameters())
+    same = fresh_state.step == state.step and fresh_state.optimizer.param_groups[0]["step"] == \
+        state.optimizer.param_groups[0]["step"]
+    for name, p in state.model.named_parameters():
+        same = same and torch.equal(named[name], p) and torch.equal(fresh_state.ema_params[name],
+                                                                     state.ema_params[name])
+        for k in ("m", "v", "n", "prev_grad"):
+            same = same and torch.equal(fresh_state.optimizer.state[named[name]][k], state.optimizer.state[p][k])
+    print(f"train_loop: checkpoint {os.path.basename(out['checkpoints'][0])} "
+          f"({os.path.getsize(out['checkpoints'][0]) / 2**20:.0f} MiB) restores the parameters, EMA, Adan "
+          f"moments and step {'bit for bit' if same else 'WITH DIFFERENCES'} in {time.perf_counter() - t0:.2f} s")
+    check(same, "restore_train_state does not give back the saved state bit for bit")
+    del fresh_state
 
-        gen = torch.Generator(device="cuda").manual_seed(7)
-        item = np.load(train_ds.feature_files[0], mmap_mode="r").shape
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    item = np.load(train_ds.feature_files[0], mmap_mode="r").shape
 
-        def one_step():
-            batch = next(iter(PrefetchingBatches(train_ds, LOOP_BATCH, item_shape=item)))
-            step(state, torch.as_tensor(batch["x"], device="cuda"), torch.as_tensor(batch["cond"], device="cuda"),
-                 gen)
+    def one_step():
+        batch = next(iter(PrefetchingBatches(train_ds, LOOP_BATCH, item_shape=item)))
+        step(state, torch.as_tensor(batch["x"], device="cuda"), torch.as_tensor(batch["cond"], device="cuda"),
+             gen)
 
-        print_profile(f"one train_loop step (batch {LOOP_BATCH} read by the prefetcher, then the step)", one_step)
-        del model, state, step
-        torch.cuda.empty_cache()
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    print_profile(f"one train_loop step (batch {LOOP_BATCH} read by the prefetcher, then the step)", one_step)
+    del model, state, step
+    torch.cuda.empty_cache()
     print(f"data phase took {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, {"root": root, "cache_dir": cache_dir, "dbn_dir": os.path.dirname(trainer.checkpoints[0])}
+
+
+def cli_launches(before: dict, label: str, calls: int) -> dict:
+    """The serving kernels' launches since `before`: K1 and K2 each 8 layers
+    x 50 DDIM steps a sampling call, no other serving kernel."""
+    now = serving_launches()
+    got = {name: now[name] - before[name] for name in now}
+    want = DanceDecoderConfig().num_layers * DiffusionConfig().sampling_timesteps * calls
+    print(f"cli {label}: K1/K2 launches {got['sa_block']}/{got['ff_tail']} (expected {want} each: {calls} "
+          f"sampling call(s)); other serving kernels {sum(got.values()) - got['sa_block'] - got['ff_tail']}")
+    check(got["sa_block"] == got["ff_tail"] == want, f"cli {label}: K1/K2 launched {got}, expected {want} each")
+    check(sum(got.values()) == 2 * want, f"cli {label}: another serving kernel ran: {got}")
+    return got
+
+
+def check_eval_report(report: dict) -> None:
+    """Every value finite; the gt and dbn sets of the same keys, differing."""
+    dbn = report["dbn_traj"]
+    flat = {k: v for k, v in report.items() if isinstance(v, float)}
+    check(report["traj_source"] == "both" and set(flat) == set(dbn), f"eval.json keys: {sorted(report)}")
+    check(all(np.isfinite(v) for v in (*flat.values(), *dbn.values())), f"eval.json not finite: {report}")
+    check(any(flat[k] != dbn[k] for k in flat), "eval.json: the gt and dbn sets are equal")
+
+
+def metrics_card_vs_cpu(gen: np.ndarray, ref: np.ndarray, music) -> None:
+    """`evaluate` of generated FK joints (N, dn, T, 24, 3) on the card
+    against the CPU: the kinetic features within 1e-5 of their largest
+    value, the geometric feature matrices equal off MARGIN_BAND about their
+    thresholds (the flips inside the band counted), the report's values
+    within 1e-4 relative (FID_g and diversity_g equal where no feature
+    flipped)."""
+    cpu = torch.from_numpy(gen)
+    kin_cpu = eval_metrics.kinetic_features(cpu)
+    kin_err = max_err(eval_metrics.kinetic_features(cpu.cuda()), kin_cpu) / kin_cpu.abs().max().item()
+    margins = eval_geometric.geometric_feature_margins(cpu)
+    frames = eval_geometric.geometric_feature_frames(cpu.cuda()).cpu()
+    off_band = eval_geometric.flips_off_band(frames, margins > 0, margins)
+    flips = int((frames != (margins > 0)).sum())
+    t0 = time.perf_counter()
+    want = eval_metrics.evaluate(gen, ref, music_feats=music, gen_roots=gen[..., 0, :])
+    t_cpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = eval_metrics.evaluate(torch.from_numpy(gen).cuda(), torch.from_numpy(ref).cuda(), music_feats=music,
+                                gen_roots=torch.from_numpy(gen[..., 0, :]).cuda())
+    t_card = time.perf_counter() - t0
+    rel = {k: abs(got[k] - v) / max(abs(v), 1e-12) for k, v in want.items()}
+    print(f"cli metrics of {gen.shape[0]} generated groups, card vs CPU: kinetic features {kin_err:.2e} of the "
+          f"largest (tol 1e-5); geometric {frames.numel()} entries, {flips} flipped, {off_band} off the "
+          f"{eval_geometric.MARGIN_BAND} band (tol 0); report relative differences "
+          f"{ {k: float(f'{v:.2e}') for k, v in rel.items()} }; evaluate {t_card:.2f} s on the card "
+          f"(host parts included), {t_cpu:.2f} s on the CPU")
+    check(kin_err <= 1e-5, f"kinetic features, card vs CPU: {kin_err}")
+    check(off_band == 0, f"{off_band} geometric features differ off the threshold band")
+    for k, r in rel.items():
+        check(r <= (1e-4 if k not in ("fid_g", "div_g") or flips else 1e-6), f"evaluate {k}, card vs CPU: {r}")
+
+
+def cli_phase(card: str, work: str, data: dict) -> tuple:
+    """Phase 14: `python -m tcdiff_torch.cli.train` in its five modes, at
+    full width (3 dancers, 8 layers, d=512, bf16), on the data phase's
+    seeded tree, processed cache and DBN checkpoint. Returns the serving
+    kernels' launches and the train kernels' (forward, backward) ones."""
+    t_phase = time.perf_counter()
+    runs, fk = os.path.join(work, "cli_runs"), os.path.join(work, "cli_fk")
+    song = _build.BUILD / "cli_song.wav"
+    _build.BUILD.mkdir(parents=True, exist_ok=True)
+    smoke_song(str(song), CLI_SONG_S)
+    common = ["--data_path", data["root"], "--processed_data_dir", data["cache_dir"], "--required_dancer_num", "3",
+              "--project", runs, "--exp_name", "cli", "--render_dir", os.path.join(work, "cli_renders"),
+              "--no_render", "--compute_dtype", "bfloat16", "--epochs", "1"]  # one pass of each loop
+    ckpt = ["--checkpoint", os.path.join(runs, "cli", "checkpoints"), "--traj_checkpoint", data["dbn_dir"]]
+    seconds, launches = {}, collections.Counter()
+
+    def run(label: str, argv: list, calls: int):
+        reset_train_launches()
+        before = serving_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner = cli_train.main(argv + common)
+        torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t0
+        launches.update(cli_launches(before, label, calls))
+        return runner
+
+    runner = run("train", ["--mode", "train", "--batch_size", str(LOOP_BATCH), "--save_interval", "1"],
+                 1)  # one step, then the train-time render's sampling of 2 clips
+    train_counts = train_launches()
+    want = runner.cfg.model.num_layers * runner.state.step
+    print(f"cli train: {runner.state.step} step(s) of batch {LOOP_BATCH}, K3/K4/K5 launches (forward, backward) "
+          f"{train_counts} (expected {want} each); checkpoint "
+          f"{sorted(os.listdir(os.path.join(runs, 'cli', 'checkpoints')))}")
+    check(runner.state.step == 1 and runner.model.dtype == torch.bfloat16, "cli train: one bf16 step")
+    for name, (fwd, bwd) in train_counts.items():
+        check(fwd == want and bwd == want, f"cli train: {name} launched ({fwd}, {bwd}), expected {want}")
+    check(all(torch.isfinite(p).all().item() for p in runner.model.parameters()), "cli train: parameters")
+    del runner
+    torch.cuda.empty_cache()
+
+    run("eval", ["--mode", "eval", "--traj_source", "both", *ckpt], 2)
+    with open(os.path.join(runs, "cli", "eval.json")) as f:
+        report = json.load(f)
+    print(f"cli eval.json ({DATA_SLICES[1]} test slices): {json.dumps(report)}")
+    check_eval_report(report)
+
+    test_fk = os.path.join(fk, "test")
+    run("test", ["--mode", "test", "--vis_fk_out", test_fk, *ckpt], 1)
+    pkls = sorted(os.listdir(test_fk))
+    check(len(pkls) == DATA_SLICES[1], f"cli test wrote {len(pkls)} pkls")
+    with open(os.path.join(test_fk, pkls[0]), "rb") as f:
+        first = pickle.load(f)
+    split = split_pkl_file(os.path.join(test_fk, pkls[0]), os.path.join(fk, "split"), pkls[0])
+    bvhs = [pkl_to_bvh(p, os.path.join(fk, "bvh")) for p in split]
+    with open(bvhs[0]) as f:
+        text = f.read()
+    with open(split[0], "rb") as f:
+        sub = pickle.load(f)
+    print(f"cli test: {len(pkls)} FK pkls, {pkls[0]}: smpl_poses {first['smpl_poses'].shape}, smpl_trans "
+          f"{first['smpl_trans'].shape}, full_pose {first['full_pose'].shape}; split into {len(split)} "
+          f"(smpl_poses {sub['smpl_poses'].shape}), {len(bvhs)} BVH files ({len(text)} bytes each)")
+    check(first["smpl_poses"].shape == (450, 72) and first["smpl_trans"].shape == (450, 3)
+          and first["full_pose"].shape == (3, 150, 24, 3), "cli test: the FK pkl's shapes")
+    check(len(split) == 3 and sub["smpl_poses"].shape == (150, 72) and sub["full_pose"].shape == (1, 150, 24, 3),
+          "cli test: the split pkls' shapes")
+    check(text.startswith("HIERARCHY") and "Frames: 150\n" in text, "cli test: the BVH file")
+
+    # the test mode's generated joints: the metrics and the stitch, card vs CPU
+    clips = []
+    for name in pkls:
+        with open(os.path.join(test_fk, name), "rb") as f:
+            clips.append(pickle.load(f))
+    gen_joints = np.stack([c["full_pose"] for c in clips]).astype(np.float32)
+    test_ds = data_ds.AIOZDataset.from_cache(orchestrator.cache_paths(data["cache_dir"], 3, None)[1])
+    gt = np.stack([test_ds.get(i)[0] for i in range(len(test_ds))])
+    gt_flat = torch.from_numpy(np.ascontiguousarray(gt.transpose(0, 2, 1, 3).reshape(len(gt), -1, 151))).cuda()
+    ref_joints = viz_post.postprocess_sample(gt_flat, test_ds.normalizer, 3).poses
+    metrics_card_vs_cpu(gen_joints, ref_joints, [test_ds.get(i)[1] for i in range(len(test_ds))])
+    pos = torch.from_numpy(np.stack([c["smpl_trans"] for c in clips]).reshape(len(clips), 150, 3, 3))
+    q = torch.from_numpy(np.stack([c["smpl_poses"] for c in clips]).reshape(len(clips), 150, 3, 24, 3))
+    cpu_p, cpu_q = viz_post.stitch_long(pos, q)
+    card_p, card_q = viz_post.stitch_long(pos.cuda(), q.cuda())
+    err = max(max_err(card_p, cpu_p) / cpu_p.abs().max().item(), max_err(card_q, cpu_q) / cpu_q.abs().max().item())
+    print(f"cli stitch_long of the {len(clips)} test clips, card vs CPU: {err:.2e} of the largest value "
+          f"(tol 1e-5), {tuple(card_q.shape)}")
+    check(err <= 1e-5, f"stitch_long, card vs CPU: {err}")
+
+    val_fk = os.path.join(fk, "val")
+    run("val_long", ["--mode", "val_without_TrajModel", "--sample_mode", "long", "--vis_fk_out", val_fk, *ckpt], 1)
+    (val_pkl,) = os.listdir(val_fk)
+    with open(os.path.join(val_fk, val_pkl), "rb") as f:
+        val = pickle.load(f)
+    frames = 150 + 75 * (DATA_SLICES[1] - 1)
+    print(f"cli val_without_TrajModel --sample_mode long: {val_pkl}, the {DATA_SLICES[1]} test slices stitched "
+          f"on the card: full_pose {val['full_pose'].shape}")
+    check(val["full_pose"].shape == (3, frames, 24, 3) and np.isfinite(val["full_pose"]).all(), "cli val long")
+
+    gen_fk = os.path.join(fk, "gen")
+    run("generate", ["--mode", "generate", "--wav", str(song), "--vis_fk_out", gen_fk, *ckpt], 1)
+    (gen_pkl,) = os.listdir(gen_fk)
+    with open(os.path.join(gen_fk, gen_pkl), "rb") as f:
+        gen_out = pickle.load(f)
+    print(f"cli generate on a {CLI_SONG_S:.0f} s song: {gen_pkl}, full_pose {gen_out['full_pose'].shape}")
+    check(gen_out["full_pose"].shape == (3, 300, 24, 3) and np.isfinite(gen_out["full_pose"]).all(),
+          "cli generate: 3 slices stitched into 300 frames")
+    total = time.perf_counter() - t_phase
+    print(f"cli phase on {card}: wall seconds by mode "
+          f"{ {k: round(v, 2) for k, v in seconds.items()} }, phase {total:.1f} s")
+    return dict(launches), train_counts
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     try:
         card = card_line()
         print(f"card: {card}")
@@ -2256,13 +2446,23 @@ def main() -> int:
         t0 = time.perf_counter()
         train_counts = train(card)
         print(f"train phase took {time.perf_counter() - t0:.1f} s")
-        loop_counts = data_phase(card)
+        work = tempfile.mkdtemp(prefix="tcdiff_data_")
+        try:
+            loop_counts, data = data_phase(card, work)
+            cli_serving, cli_counts = cli_phase(card, work, data)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
 
-    launches.update({name: fwd + loop_counts[name][0] for name, (fwd, _) in train_counts.items()})
-    bwd = {name: {"bwd_launches": b + loop_counts[name][1]} for name, (_, b) in train_counts.items()}
+    for name, n in cli_serving.items():
+        launches[name] += n
+    launches.update({name: fwd + loop_counts[name][0] + cli_counts[name][0]
+                     for name, (fwd, _) in train_counts.items()})
+    bwd = {name: {"bwd_launches": b + loop_counts[name][1] + cli_counts[name][1]}
+           for name, (_, b) in train_counts.items()}
+    print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s, the kernels' build included")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"tcdiff_torch/csrc/{name}.cu",
          "replaces": REPLACES[name], "launches": launches[name], **figures[name], **bwd.get(name, {})}

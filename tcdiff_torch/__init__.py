@@ -3,12 +3,16 @@
 Layout mirrors `tcdiff_tpu/`: `models/` (rotary, DanceDecoder),
 `diffusion/` (schedules, the DDIM and DDPM samplers, inpainting masks,
 train loss), `geometry/` (rotations, SMPL FK), `optim/` (Adan, EMA),
-`train/` (the train step), `ops/` (the kernels, their plain versions and
-the nvcc build), `csrc/` (CUDA sources) and `interop/` (flax weights in).
+`train/` (the train step, the orchestrator and its `TCDiff` class),
+`data/` and `trajdecoder/` (the dataset and the DBN), `eval/` (the quality
+metrics), `viz/` (post-processing and renders), `export/` (per-dancer
+pkls, BVH, FBX), `cli/` (`train`, `train_traj`), `ops/` (the kernels,
+their plain versions and the nvcc build), `csrc/` (CUDA sources) and
+`interop/` (flax weights in).
 Configuration types, and `ServingKernels` (which kernels serve), are in
 `config.py`.
 """
 
 from tcdiff_torch.config import (  # noqa: F401
-    DanceDecoderConfig, DiffusionConfig, ServingKernels, TrainConfig, TrajDecoderConfig,
+    DanceDecoderConfig, DataConfig, DiffusionConfig, ServingKernels, TCDiffConfig, TrainConfig, TrajDecoderConfig,
 )

@@ -1,0 +1,50 @@
+"""Entry point: `python -m tcdiff_torch.cli.train --mode
+{train,val_without_TrajModel,test,eval,generate} [--device cpu]`.
+
+The port of `tcdiff_tpu/cli/train.py`, the reference's `train.py:8-25`
+dispatch over the `TCDiff` class. The model runs on the card unless
+`--device cpu` is given; without a card the first allocation raises.
+"""
+
+from __future__ import annotations
+
+import os
+
+from tcdiff_torch.cli.args import config_from_opt, parse_train_opt
+from tcdiff_torch.train.orchestrator import TCDiff
+from tcdiff_torch.utils.paths import increment_path
+from tcdiff_torch.utils.profiling import trace
+
+
+def main(argv=None) -> TCDiff:
+    opt = parse_train_opt(argv)
+    cfg = config_from_opt(opt)
+    if opt.mode == "train" and not opt.checkpoint:
+        # run directories that never clobber, as the reference's increment_path
+        opt.exp_name = os.path.basename(str(increment_path(os.path.join(opt.project, opt.exp_name))))
+    runner = TCDiff(cfg, checkpoint_path=opt.checkpoint or None, use_ema_for_eval=opt.mode != "train",
+                    device=opt.device)
+    if opt.mode == "train":
+        runner.train_loop(opt)  # records its own trace of epoch 2 with --profile_dir
+        return runner
+    with trace(opt.profile_dir):
+        if opt.mode == "val_without_TrajModel":
+            runner.given_trajectory_generation_loop(opt)
+        elif opt.mode == "test":
+            runner.test_loop(opt)
+        elif opt.mode == "eval":
+            runner.evaluate_loop(opt)
+        elif opt.mode == "generate":
+            if not opt.wav:
+                raise ValueError("--mode generate needs --wav <file>")
+            if runner.normalizer is None:  # no checkpoint: the synthetic data's stats
+                runner.normalizer = runner.load_datasets(opt)[0].normalizer
+            if opt.streaming:
+                runner.generate_streaming(opt.wav, opt)
+            else:
+                runner.generate(opt.wav, opt)
+    return runner
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,9 @@
 """Configuration types and constants of the port.
 
 A copy of the dataclasses and constants `tcdiff_tpu/config.py` defines for
-the denoiser, the diffusion, the trainer and the DBN (same defaults), so that the
-port runs where JAX is not installed; and `ServingKernels`, the port's
+the denoiser, the diffusion, the trainer, the DBN, the data layout and the
+bundle of them all (same defaults), so that the port runs where JAX is not
+installed; and `ServingKernels`, the port's
 form of the environment flags that choose the JAX package's serving path.
 """
 
@@ -150,17 +151,50 @@ class TrajDecoderConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Diffusion trainer: the fields the train step reads (the JAX
-    package's mesh, remat and scan knobs have no counterpart here)."""
+    """Diffusion trainer. The JAX package's remat and scan knobs have no
+    counterpart here; of its mesh, dp and tp are carried, and `TCDiff`
+    raises where they ask for more than one card."""
 
     batch_size: int = 37
     learning_rate: float = 5e-5
     weight_decay: float = 0.02
+    epochs: int = 10000
+    save_interval: int = 50
     ema_interval: int = 1
     ema_beta: float = 0.9999
     seed: int = 0
     adan_betas: Tuple[float, float, float] = (0.02, 0.08, 0.01)
     adan_eps: float = 1e-8
+    dp: int = -1  # data-parallel size; -1: every card (one, until multi-GPU is ported)
+    tp: int = 1  # tensor-parallel size
+    compute_dtype: str = "float32"  # the network's forward: "float32" or "bfloat16"
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Dataset layout (reference `dataset/group_dataset.py:99-165`, `data/slice.py`)."""
+
+    data_path: str = "./data/AIOZ_Dataset/"
+    processed_data_dir: str = "./data/dataset_backups/"
+    raw_fps: int = 30
+    music_fps: int = 60
+    slice_length_s: float = 5.0
+    slice_stride_s: float = 0.5
+    feature_dim: int = 438
+
+
+@dataclasses.dataclass(frozen=True)
+class TCDiffConfig:
+    """Top-level bundle the CLI fills and `TCDiff` reads."""
+
+    model: DanceDecoderConfig = dataclasses.field(default_factory=DanceDecoderConfig)
+    diffusion: DiffusionConfig = dataclasses.field(default_factory=DiffusionConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    traj: TrajDecoderConfig = dataclasses.field(default_factory=TrajDecoderConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+
+    def with_dancers(self, n: int) -> "TCDiffConfig":
+        return dataclasses.replace(self, model=dataclasses.replace(self.model, dancer_num=n))
 
 
 DATA_FPS = 30  # motion frames a second (the JAX package's DataConfig.raw_fps)

@@ -1,6 +1,8 @@
 """Rotation conversions: what the FK loss needs (6D -> matrix ->
-quaternion, quaternion products) and what the dataset needs (axis-angle
-<-> quaternion, quaternion -> matrix -> 6D).
+quaternion, quaternion products), what the dataset needs (axis-angle
+<-> quaternion, quaternion -> matrix -> 6D), and what the sample
+post-processing and export need (6D -> axis-angle, matrix -> axis-angle,
+quaternion <-> 6D, slerp).
 
 PyTorch counterpart of the matching functions of
 `tcdiff_tpu/geometry/rotations.py`. Quaternions are real-first (w, x, y,
@@ -139,3 +141,40 @@ def matrix_to_rotation_6d(matrix: torch.Tensor) -> torch.Tensor:
 def ax_to_6v(ax: torch.Tensor) -> torch.Tensor:
     """Axis-angle -> 6D (the reference's `dataset/quaternion.py` name)."""
     return matrix_to_rotation_6d(axis_angle_to_matrix(ax))
+
+
+def matrix_to_axis_angle(matrix: torch.Tensor) -> torch.Tensor:
+    return quaternion_to_axis_angle(matrix_to_quaternion(matrix))
+
+
+def quat_slerp(x: torch.Tensor, y: torch.Tensor, a) -> torch.Tensor:
+    """Spherical linear interpolation of wxyz quaternions x, y (..., 4) by
+    weights `a` (a number or a tensor broadcastable to x's leading dims):
+    y flipped where the two lie more than 90 degrees apart (the shorter
+    arc), a linear blend where 1 - cos(omega) < 0.01 (the reference's
+    `dataset/quaternion.py:35-71`, without its in-place flip of y)."""
+    cos_omega = (x * y).sum(-1)
+    neg = cos_omega < 0.0
+    cos_omega = torch.where(neg, -cos_omega, cos_omega)
+    y = torch.where(neg[..., None], -y, y)
+    a = torch.zeros_like(x[..., 0]) + a
+    linear = (1.0 - cos_omega) < 0.01
+    # the acos and the division guarded on the linear branch
+    omega = torch.arccos(torch.where(linear, torch.zeros_like(cos_omega), cos_omega).clamp(-1.0, 1.0))
+    safe_sin = torch.where(linear, torch.ones_like(omega), torch.sin(omega))
+    amount0 = torch.where(linear, 1.0 - a, torch.sin((1.0 - a) * omega) / safe_sin)
+    amount1 = torch.where(linear, a, torch.sin(a * omega) / safe_sin)
+    return amount0[..., None] * x + amount1[..., None] * y
+
+
+def quat_to_6v(q: torch.Tensor) -> torch.Tensor:
+    return matrix_to_rotation_6d(quaternion_to_matrix(q))
+
+
+def quat_from_6v(d6: torch.Tensor) -> torch.Tensor:
+    return matrix_to_quaternion(rotation_6d_to_matrix(d6))
+
+
+def ax_from_6v(d6: torch.Tensor) -> torch.Tensor:
+    """6D -> axis-angle (the reference's `dataset/quaternion.py` name)."""
+    return matrix_to_axis_angle(rotation_6d_to_matrix(d6))

@@ -17,6 +17,14 @@ from tcdiff_torch.geometry.rotations import (
     axis_angle_to_quaternion, matrix_to_quaternion, quat_apply, quat_multiply, rotation_6d_to_matrix,
 )
 
+# joint names (the reference's `vis.py:20-45`)
+SMPL_JOINTS = [
+    "root", "lhip", "rhip", "belly", "lknee", "rknee", "spine", "lankle",
+    "rankle", "chest", "ltoes", "rtoes", "neck", "linshoulder", "rinshoulder",
+    "head", "lshoulder", "rshoulder", "lelbow", "relbow", "lwrist", "rwrist",
+    "lhand", "rhand",
+]
+
 SMPL_PARENTS = np.array(
     [-1, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14, 16, 17, 18, 19, 20, 21],
     dtype=np.int32,

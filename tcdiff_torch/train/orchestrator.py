@@ -1,7 +1,7 @@
-"""The serving core of the reference's `TCDiff` class: music in, dance out.
+"""The reference's `TCDiff` class: serving, training and the eval loops.
 
 Module-level functions named after the JAX package's `TCDiff` methods
-(`tcdiff_tpu/train/orchestrator.py`):
+(`tcdiff_tpu/train/orchestrator.py`), the serving core:
 
   * `window_starts` (`:724-759`) slices the 438-d features into 301-frame
     windows at 2.5 s stride, edge-padding audio shorter than one window;
@@ -30,16 +30,29 @@ Training, beside them:
     the dataset's batches, read by the native prefetcher where the data
     are files; a non-finite loss writes a rescue checkpoint and raises;
     every `save_interval` epochs the metrics (with `StepTimer`'s rates) are
-    logged and a checkpoint written. The JAX package's `scan_steps` (TPU
-    dispatch machinery), its render and eval during training and its
-    host-0 gating are not here.
+    logged, a checkpoint written and the caller's `on_save` run. The JAX
+    package's `scan_steps` (TPU dispatch machinery) and its host-0 gating
+    are not here.
+
+And the `TCDiff` class (`:131-970`) over them, the five modes of
+`cli.train`: `train_loop` (with the render and the metrics at every save
+interval), `given_trajectory_generation_loop`, `test_loop`,
+`evaluate_loop` and `generate` / `generate_streaming`, each rendering and
+writing the FK pkls through `viz/postprocess.py`. It differs from the JAX
+package's class in one deliberate way: in training, only the drawing and
+the writing of the render are caught; the sampling, the FK and the
+metrics run outside the catch, so that a failed kernel launch ends the
+run. Data-parallel sampling (dp > 1) is not ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import json
 import logging
 import os
+import re
 import time
 from pathlib import Path
 from typing import Callable, Optional, Sequence
@@ -47,21 +60,28 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from tcdiff_torch.config import DATA_FPS
+from tcdiff_torch.config import DATA_FPS, ServingKernels, TCDiffConfig
 from tcdiff_torch.data.dataset import AIOZDataset, load_split_file
 from tcdiff_torch.data.features import wav_processing
 from tcdiff_torch.data.native_loader import PrefetchingBatches, native_available
 from tcdiff_torch.data.normalizer import Normalizer
 from tcdiff_torch.data.synthetic import synthetic_dataset
 from tcdiff_torch.diffusion.gaussian import GaussianDiffusion
+from tcdiff_torch.eval.metrics import evaluate
+from tcdiff_torch.geometry.skeleton import smpl_fk
+from tcdiff_torch.interop.from_jax import load_reference_traj
+from tcdiff_torch.models.dance_decoder import DanceDecoder
+from tcdiff_torch.optim.adan import Adan
 from tcdiff_torch.trajdecoder.kalman import kalman_smooth_batch
 from tcdiff_torch.trajdecoder.model import TrajDecoder
 from tcdiff_torch.trajdecoder.rollout import autoregressive_rollout
 from tcdiff_torch.trajdecoder.rollout import rollout_starts
 from tcdiff_torch.trajdecoder.streaming import TrajectoryStreamer
-from tcdiff_torch.train.state import TrainState
-from tcdiff_torch.utils.checkpoint import save_checkpoint
-from tcdiff_torch.utils.logging import MetricLogger
+from tcdiff_torch.train.state import TrainState, create_train_state
+from tcdiff_torch.train.train_step import make_train_step
+from tcdiff_torch.utils.checkpoint import latest_checkpoint, restore_train_state, save_checkpoint
+from tcdiff_torch.utils.logging import MetricLogger, get_logger
+from tcdiff_torch.viz.postprocess import postprocess_sample, render_sample, split_sample, write_sample
 from tcdiff_torch.utils.profiling import StepTimer, trace
 
 log = logging.getLogger(__name__)
@@ -377,7 +397,8 @@ def load_datasets(opt, dancer_num: int = 3, seq_len: int = 150, seed: int = 0, d
 
 
 def train_loop(state: TrainState, train_step: Callable, train_ds, run_dir: str, *, epochs: int,
-               batch_size: int, save_interval: int, seed: int = 0, profile_dir: Optional[str] = None) -> dict:
+               batch_size: int, save_interval: int, seed: int = 0, profile_dir: Optional[str] = None,
+               on_save: Optional[Callable[[int], Optional[dict]]] = None) -> dict:
     """Train `state` in place for `epochs` epochs of `train_ds`.
 
     train_step: `make_train_step`'s function for the state's model and
@@ -390,6 +411,8 @@ def train_loop(state: TrainState, train_step: Callable, train_ds, run_dir: str, 
     epochs the running means (with steps/s and seconds of motion a second)
     go to `{run_dir}/metrics.jsonl` and a checkpoint to
     `{run_dir}/checkpoints`; `profile_dir` records epoch 2 as a trace.
+    `on_save(epoch)`, where given, runs after each of those checkpoints;
+    the metrics it returns (a dict, or None) are logged at the same step.
 
     Returns {"steps", "loader" ("native" or "numpy"), "checkpoints",
     "metrics" (the last means logged)}."""
@@ -443,6 +466,425 @@ def train_loop(state: TrainState, train_step: Callable, train_ds, run_dir: str, 
                 running, n_batches = {}, 0
                 out["metrics"] = means
                 out["checkpoints"].append(save_checkpoint(ckpt_dir, state.step, state, normalizer))
+                extra = on_save(epoch) if on_save is not None else None
+                if extra:
+                    metrics.log(extra, step=state.step)
     finally:
         metrics.close()
     return out
+
+
+# ------------------------------------------------------------ the TCDiff class
+def consecutive_slice_indices(feature_files, count: int):
+    """Indices of up to `count` CONSECUTIVE slices of one song: long-form
+    sampling couples neighbouring half-overlapping slices
+    (`model/diffusion.py:502-506`), so its batch must be slices i, i+1, ...
+    of one song in order. Picks the song with the longest run."""
+    groups = {}
+    for i, f in enumerate(feature_files):
+        m = re.match(r"(.+)_slice(\d+)$", os.path.splitext(os.path.basename(f))[0])
+        if m:
+            groups.setdefault(m.group(1), []).append((int(m.group(2)), i))
+    best = []
+    for slices in groups.values():
+        slices.sort()
+        run = [slices[0]]
+        for prev, cur in zip(slices, slices[1:]):
+            run = run + [cur] if cur[0] == prev[0] + 1 else [cur]
+            if len(run) >= count:
+                break
+        if len(run) > len(best):
+            best = run
+    return [i for _, i in best[:count]]
+
+
+def gt_traj_x0(x, device) -> torch.Tensor:
+    """(B, dn, S, 151) normalized -> the sampler's x_0 (B, S*dn, 3): the XY
+    channels (4, 5) in time-major token order and a zero z
+    (`TCDiff.py:382-389`)."""
+    return _xy_x0(torch.as_tensor(np.asarray(x)[..., 4:6], dtype=torch.float32, device=device))
+
+
+def _flat_metrics(report: dict) -> dict:
+    """An eval report as `eval/<key>` scalars, a sub-report's as
+    `eval/<key>/<sub-key>`."""
+    flat = {f"eval/{k}": v for k, v in report.items() if isinstance(v, (int, float))}
+    for k, v in report.items():
+        if isinstance(v, dict):
+            flat.update({f"eval/{k}/{kk}": vv for kk, vv in v.items() if isinstance(vv, (int, float))})
+    return flat
+
+
+class TCDiff:
+    """The reference's `TCDiff` class (`TCDiff.py:39-657`): the denoiser,
+    its diffusion, Adan and EMA, with the five modes of `cli.train`.
+
+    The model runs in `cfg.train.compute_dtype` on `device` (the card
+    unless the caller asks for the CPU) through the kernels that
+    `ServingKernels.from_env()` chooses (the JAX package's TCDIFF_* flags).
+    `checkpoint_path`: a reference `.pt` or a checkpoint of this program
+    (a file, or the run's checkpoint directory: its latest). Sampling uses
+    the EMA weights where `use_ema_for_eval`, else the trained ones."""
+
+    def __init__(self, cfg: TCDiffConfig, checkpoint_path: Optional[str] = None, use_ema_for_eval: bool = True,
+                 device="cuda"):
+        if cfg.train.tp != 1:
+            raise NotImplementedError("tensor parallelism (tp != 1) is not ported yet: ROADMAP queue 1 item 7")
+        self.cfg = cfg
+        self.device = torch.empty(0, device=device).device  # raises where the device does not exist
+        tr = cfg.train
+        dtype = torch.bfloat16 if tr.compute_dtype == "bfloat16" else torch.float32
+        self.model = DanceDecoder(cfg.model, dtype=dtype, device=self.device, kernels=ServingKernels.from_env())
+        self.model.init_random(torch.Generator().manual_seed(tr.seed))
+        self.diffusion = GaussianDiffusion(self.model, cfg.diffusion, device=self.device)
+        self.optimizer = Adan(self.model.parameters(), lr=tr.learning_rate, betas=tr.adan_betas, eps=tr.adan_eps,
+                              weight_decay=tr.weight_decay)
+        self.state = create_train_state(self.model, self.optimizer)
+        self.logger = get_logger()
+        self.normalizer: Optional[Normalizer] = None
+        self.use_ema_for_eval = use_ema_for_eval
+        self.logger.info("DanceDecoder parameters: %.2fM", sum(p.numel() for p in self.model.parameters()) / 1e6)
+        self.checkpoint_path = checkpoint_path
+        if checkpoint_path:
+            self._load_checkpoint(checkpoint_path)
+
+    # ------------------------------------------------------------------ setup
+    def _check_dancer_count(self, state_dict, path: str) -> None:
+        """The fusion projection's input width is d * dancer_num, so a
+        checkpoint holds for the dancer count it was trained with only;
+        raise where it differs (the reference would fail with a shape
+        error, `TCDiff.py:310-625`)."""
+        w = state_dict.get("relative_projection_layer.0.weight")
+        if w is None:
+            return
+        dn_ckpt = int(w.shape[1]) // self.cfg.model.latent_dim
+        if dn_ckpt != self.cfg.model.dancer_num:
+            raise ValueError(
+                f"checkpoint {path} was trained for {dn_ckpt} dancers but this run is configured for "
+                f"{self.cfg.model.dancer_num} (--required_dancer_num); re-run with --required_dancer_num "
+                f"{dn_ckpt} or use a matching checkpoint")
+
+    def _load_checkpoint(self, path: str) -> None:
+        """A directory: its latest `ckpt_{step}.pt`. A checkpoint this
+        program wrote (it holds the step): the whole train state, as
+        `restore_train_state`. Else a reference `.pt` (`TCDiff.py:266-274`):
+        its EMA weights (`use_ema_for_eval`) or trained ones become both the
+        parameters and the EMA, with its normalizer."""
+        if os.path.isdir(path):
+            found = latest_checkpoint(path)
+            if found is None:
+                raise FileNotFoundError(f"no ckpt_*.pt under {path}")
+            path = found
+        payload = torch.load(path, map_location="cpu", weights_only=False, mmap=True)
+        if "step" in payload:
+            self._check_dancer_count(payload["model_state_dict"], path)
+            del payload
+            self.state, norm = restore_train_state(path, self.state)
+            self.logger.info("restored checkpoint %s (step %d)", path, self.state.step)
+        else:
+            key = "ema_state_dict" if self.use_ema_for_eval else "model_state_dict"
+            sd = {k.replace("module.", ""): v for k, v in payload[key].items()}
+            self._check_dancer_count(sd, path)
+            self.model.load_state_dict(sd, strict=True)
+            with torch.no_grad():
+                for name, p in self.model.named_parameters():
+                    self.state.ema_params[name].copy_(p)
+            norm = payload.get("normalizer")
+            if norm is not None:
+                if isinstance(norm, dict):
+                    norm = Normalizer.from_torch_state(norm["scale"], norm["offset"], device=self.device)
+                else:  # the reference's pickled Normalizer object
+                    norm = Normalizer.from_torch_state(np.asarray(norm.scaler.scale_), np.asarray(norm.scaler.min_),
+                                                       device=self.device)
+            self.logger.info("loaded reference checkpoint %s", path)
+        if norm is not None:
+            self.normalizer = norm
+
+    @contextlib.contextmanager
+    def eval_weights(self):
+        """Within: the model holds the EMA weights where use_ema_for_eval
+        (the trained ones are put back after)."""
+        if not self.use_ema_for_eval:
+            yield
+            return
+        params = dict(self.model.named_parameters())
+        kept = {name: p.detach().clone() for name, p in params.items()}
+        with torch.no_grad():
+            for name, p in params.items():
+                p.copy_(self.state.ema_params[name])
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for name, p in params.items():
+                    p.copy_(kept[name])
+
+    def _generator(self, seed: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(int(seed))
+
+    # ------------------------------------------------------------------- data
+    def load_datasets(self, opt):
+        """(train_ds, test_ds): synthetic with --synthetic, else the AIOZ
+        splits from disk through the processed-data cache."""
+        m = self.cfg.model
+        return load_datasets(opt, dancer_num=m.dancer_num, seq_len=m.seq_len, seed=self.cfg.train.seed,
+                             device=self.device)
+
+    # ------------------------------------------------------------ train loop
+    def train_loop(self, opt, train_ds=None, test_ds=None) -> dict:
+        """Epochs of train steps (the module-level `train_loop`) with, at
+        every save interval, two test clips rendered from the sampler
+        (unless --no_render: then sampled and FK'd only) and, with
+        --eval_during_train, the metric report logged. Only the drawing and
+        writing of the render is caught (and logged): the sampling, the FK
+        and the metrics run outside it, so a failed kernel launch or device
+        error ends the run."""
+        cfg = self.cfg
+        if train_ds is None:
+            train_ds, test_ds = self.load_datasets(opt)
+        self.normalizer = train_ds.normalizer
+        run_dir = Path(opt.project) / opt.exp_name
+        render_dir = Path(getattr(opt, "render_dir", run_dir / "renders"))
+        step_fn = make_train_step(self.diffusion, self.optimizer, cfg.train.ema_beta, cfg.train.ema_interval,
+                                  device=self.device)
+
+        def on_save(epoch: int) -> dict:
+            if getattr(opt, "render_during_train", True) and test_ds is not None:
+                post, names = self._eval_samples(test_ds, count=2)
+                try:  # the drawing and the files only
+                    write_sample(post, epoch, str(render_dir), name=names, sound=False,
+                                 render=getattr(opt, "render", True))
+                except Exception as e:  # a render must never end training
+                    self.logger.warning("render failed: %s", e)
+            if getattr(opt, "eval_during_train", False) and test_ds is not None:
+                return _flat_metrics(self.evaluate_loop(opt, test_ds=test_ds))
+            return {}
+
+        # the module-level train_loop, not this method
+        return train_loop(self.state, step_fn, train_ds, str(run_dir),
+                          epochs=getattr(opt, "epochs", cfg.train.epochs),
+                          batch_size=getattr(opt, "batch_size", cfg.train.batch_size),
+                          save_interval=getattr(opt, "save_interval", cfg.train.save_interval),
+                          seed=cfg.train.seed, profile_dir=getattr(opt, "profile_dir", None), on_save=on_save)
+
+    # -------------------------------------------------------------- sampling
+    def _sample(self, cond, x_0, generator: Optional[torch.Generator], mode: str = "normal", full_ref=None):
+        """mode: normal (DDIM), long (sliced DDIM, neighbouring slices
+        coupled), footwork (the leg channels follow `full_ref`), ddpm (the
+        ancestral loop). Returns (b, seq*dn, nfeats) normalized samples."""
+        if self.cfg.train.dp > 1:
+            raise NotImplementedError("data-parallel sampling (dp > 1) is not ported yet: ROADMAP queue 1 item 7")
+        m = self.cfg.model
+        cond = torch.as_tensor(np.asarray(cond) if not torch.is_tensor(cond) else cond, dtype=torch.float32,
+                               device=self.device)
+        shape = (cond.shape[0], m.seq_len * m.dancer_num, m.nfeats)
+        x_0 = None if x_0 is None else torch.as_tensor(x_0, dtype=torch.float32, device=self.device)
+        with self.eval_weights():
+            if mode == "long":
+                return self.diffusion.long_ddim_sample(shape, cond, generator, x_0=x_0)
+            if mode == "footwork":
+                if full_ref is None:
+                    raise ValueError("footwork mode needs a reference motion")
+                ref = torch.as_tensor(full_ref, dtype=torch.float32, device=self.device)
+                return self.diffusion.ddim_sample_footwork(shape, cond, generator, x_0=ref)
+            if mode == "ddpm":
+                return self.diffusion.p_sample_loop(shape, cond, generator)
+            if mode != "normal":
+                raise ValueError(f"unknown sample mode {mode!r}")
+            return self.diffusion.ddim_sample(shape, cond, generator, x_0=x_0)
+
+    def _eval_samples(self, ds, count: int = 2, mode: str = "normal"):
+        """The first `count` clips of `ds` sampled on their ground-truth
+        trajectories and post-processed: (Postprocessed, wav names)."""
+        items = [ds.get(i) for i in range(min(count, len(ds)))]
+        x, cond = np.stack([it[0] for it in items]), np.stack([it[1] for it in items])
+        samples = self._sample(cond, gt_traj_x0(x, self.device), self._generator(self.state.step), mode)
+        return postprocess_sample(samples, self.normalizer, self.cfg.model.dancer_num, mode), [it[3] for it in items]
+
+    def render_eval_samples(self, ds, epoch, render_dir, count=2, mode="normal", fk_out=None, render=True):
+        """Draw `count` clips with ground-truth trajectories and render them
+        (the train-time visual check, `TCDiff.py:276-303`)."""
+        post, names = self._eval_samples(ds, count, mode)
+        return write_sample(post, epoch, render_dir, fk_out=fk_out, name=names, sound=False, render=render)
+
+    # ----------------------------------------------- eval loop (GT trajectory)
+    def given_trajectory_generation_loop(self, opt, test_ds=None) -> None:
+        """Diffusion-stage eval on ground-truth trajectories
+        (`TCDiff.py:310-431`, `--mode val_without_TrajModel`)."""
+        if test_ds is None:
+            _, test_ds = self.load_datasets(opt)
+        if self.normalizer is None:
+            self.normalizer = test_ds.normalizer
+        render_dir = os.path.join(getattr(opt, "render_dir", "renders"), "VAL_" + getattr(opt, "exp_name", "exp"))
+        render_count = min(getattr(opt, "render_count", 30), len(test_ds))
+        rng = np.random.default_rng(self.cfg.train.seed)
+        mode = getattr(opt, "sample_mode", "normal")
+        for epoch in range(1, getattr(opt, "epochs", 1) + 1):
+            if mode == "long":
+                idx = consecutive_slice_indices(test_ds.feature_files, render_count)
+                if len(idx) < 2:  # no consecutive run (synthetic data): any 2+
+                    idx = list(range(min(render_count, len(test_ds))))
+                items = [test_ds.get(i) for i in idx]
+                batch = {"x": np.stack([it[0] for it in items]), "cond": np.stack([it[1] for it in items]),
+                         "filename": [it[2] for it in items], "wav": [it[3] for it in items]}
+            else:
+                batch = next(iter(test_ds.batches(render_count, rng=rng)))
+            b, dn, s, c = batch["x"].shape
+            full_ref = (np.transpose(batch["x"], (0, 2, 1, 3)).reshape(b, s * dn, c) if mode == "footwork"
+                        else None)
+            samples = self._sample(batch["cond"], gt_traj_x0(batch["x"], self.device), self._generator(epoch), mode,
+                                   full_ref=full_ref)
+            render_sample(samples, self.normalizer, epoch, render_dir, self.cfg.model.dancer_num,
+                          fk_out=getattr(opt, "vis_fk_out", None), name=batch["wav"], sound=False, mode=mode,
+                          render=getattr(opt, "render", True))
+            self.logger.info("[VAL-RENDER SAVED at Epoch %d]", epoch)
+
+    # ----------------------------------------------------------- metric eval
+    def evaluate_loop(self, opt, test_ds=None) -> dict:
+        """Quality metrics of generated motion against the ground truth
+        (`--mode eval`): FID over the kinetic and geometric features,
+        diversity, beat alignment, foot skating, collisions, group
+        consistency (`eval/metrics.evaluate`), written to
+        `{project}/{exp_name}/eval.json`.
+
+        `--traj_source`: `gt` conditions on ground-truth trajectories (the
+        reference's stage isolation, `TCDiff.py:310-431`); `dbn` runs the
+        whole two-stage pipeline, the DBN rollout and the Kalman filter as
+        `test_loop` does; `both` reports the gt metrics flat and the dbn
+        ones under `dbn_traj`."""
+        if test_ds is None:
+            _, test_ds = self.load_datasets(opt)
+        if self.normalizer is None:
+            self.normalizer = test_ds.normalizer
+        count = min(getattr(opt, "render_count", 30), len(test_ds))
+        dn = self.cfg.model.dancer_num
+        traj_source = getattr(opt, "traj_source", "gt")
+        if traj_source not in ("gt", "dbn", "both"):
+            raise ValueError(f"traj_source must be gt, dbn or both, not {traj_source!r}")
+
+        def fk_batch(samples):
+            _, pos, q = split_sample(samples, self.normalizer, dn)
+            b, seq = samples.shape[0], samples.shape[1] // dn
+            joints = smpl_fk(q, pos).reshape(b, seq, dn, 24, 3).transpose(1, 2)
+            return joints, pos.reshape(b, seq, dn, 3).transpose(1, 2)
+
+        batch = next(iter(test_ds.batches(count, rng=np.random.default_rng(0))))
+        x = batch["x"]
+        b, _, s, c = x.shape
+        gt_flat = torch.as_tensor(np.transpose(x, (0, 2, 1, 3)).reshape(b, s * dn, c), dtype=torch.float32,
+                                  device=self.device)
+        ref_joints, _ = fk_batch(gt_flat)
+
+        def metric_set(x_0):
+            gen_joints, gen_roots = fk_batch(self._sample(batch["cond"], x_0, self._generator(self.cfg.train.seed)))
+            return evaluate(gen_joints, ref_joints, music_feats=list(batch["cond"]), gen_roots=gen_roots)
+
+        report = {}
+        if traj_source in ("gt", "both"):
+            report.update(metric_set(gt_traj_x0(x, self.device)))
+        if traj_source in ("dbn", "both"):
+            dbn_set = metric_set(self._make_dbn_traj_fn(opt)(x, batch["cond"]))
+            if traj_source == "dbn":
+                report.update(dbn_set)
+            else:
+                report["dbn_traj"] = dbn_set
+        report["traj_source"] = traj_source
+        self.logger.info("eval metrics: %s", report)
+        out = Path(getattr(opt, "project", "runs")) / getattr(opt, "exp_name", "exp")
+        out.mkdir(parents=True, exist_ok=True)
+        with open(out / "eval.json", "w") as f:
+            json.dump(report, f, indent=2)
+        return report
+
+    # ------------------------------------------------ DBN trajectory stage
+    def _traj_model(self, opt) -> TrajDecoder:
+        return self._load_traj_params(opt, TrajDecoder(self.cfg.traj, device=self.device))
+
+    def _make_dbn_traj_fn(self, opt) -> Callable:
+        """The DBN trajectory stage of `test_loop` and `evaluate_loop`
+        (`make_dbn_traj_fn` over the DBN of --traj_checkpoint)."""
+        return make_dbn_traj_fn(self._traj_model(opt))
+
+    def _load_traj_params(self, opt, traj_model: TrajDecoder) -> TrajDecoder:
+        """The DBN's weights: --traj_checkpoint, a reference `.pt`/`.pth`
+        (`{'net': state_dict}`) or a checkpoint of the DBN trainer (a file,
+        or its checkpoint directory: the latest); without one, random
+        weights from the config's seed."""
+        path = getattr(opt, "traj_checkpoint", None)
+        if not path:
+            self.logger.warning("no --traj_checkpoint given; using random DBN weights")
+            return traj_model.init_random(torch.Generator().manual_seed(self.cfg.traj.seed))
+        if os.path.isdir(path):
+            found = latest_checkpoint(path)
+            if found is None:
+                raise ValueError(
+                    f"no ckpt_*.pt under {path}: a DBN checkpoint of the JAX package (an orbax/flax-msgpack "
+                    f"directory) cannot be read here, where flax is not installed; convert it to a reference "
+                    f"'.pt' ({{'net': state_dict}}) or train the DBN with tcdiff_torch.cli.train_traj")
+            path = found
+        if not path.endswith((".pt", ".pth")):
+            raise ValueError(f"{path}: not a '.pt' DBN checkpoint; a flax-msgpack checkpoint cannot be read "
+                             f"here, where flax is not installed")
+        return load_reference_traj(traj_model, path)
+
+    # --------------------------------------------------- test loop (full DBN)
+    def test_loop(self, opt, test_ds=None) -> None:
+        """The whole two-stage pipeline (`TCDiff.py:434-625`, `--mode
+        test`): the DBN rollout seeded on the first window_size GT frames,
+        the Kalman filter, then the sampler on the generated trajectory."""
+        if test_ds is None:
+            _, test_ds = self.load_datasets(opt)
+        if self.normalizer is None:
+            self.normalizer = test_ds.normalizer
+        dbn_traj = self._make_dbn_traj_fn(opt)
+        render_dir = os.path.join(getattr(opt, "render_dir", "renders"), "TEST_" + getattr(opt, "exp_name", "exp"))
+        render_count = min(getattr(opt, "render_count", 30), len(test_ds))
+        rng = np.random.default_rng(self.cfg.traj.seed)
+        for epoch in range(1, getattr(opt, "epochs", 1) + 1):
+            batch = next(iter(test_ds.batches(render_count, rng=rng)))
+            samples = self._sample(batch["cond"], dbn_traj(batch["x"], batch["cond"]), self._generator(epoch))
+            render_sample(samples, self.normalizer, epoch, render_dir, self.cfg.model.dancer_num,
+                          fk_out=getattr(opt, "vis_fk_out", None), name=batch["wav"], sound=False,
+                          render=getattr(opt, "render", True))
+            self.logger.info("[TEST-RENDER SAVED at Epoch %d]", epoch)
+
+    # ------------------------------------------------- wav -> dance serving
+    def _render_dir(self, opt, wav_path: str) -> str:
+        return os.path.join(getattr(opt, "render_dir", "renders"),
+                            "GEN_" + os.path.splitext(os.path.basename(wav_path))[0])
+
+    def generate(self, wav_path: str, opt) -> np.ndarray:
+        """Wav to choreography (`--mode generate`), the module-level
+        `generate` on this model, then rendered and exported as the
+        long-form clip (several slices) or one clip. Returns its FK joints
+        (`render_sample`)."""
+        if self.normalizer is None:
+            raise ValueError("generate needs a normalizer: a checkpoint, or the synthetic stats of cli.train")
+        traj_model = self._traj_model(opt)
+        with self.eval_weights():
+            samples = generate(wav_path, self.diffusion, traj_model, self.normalizer,
+                               generator=self._generator(self.cfg.train.seed))
+        n = samples.shape[0]
+        return render_sample(samples, self.normalizer, "gen", self._render_dir(opt, wav_path),
+                             self.cfg.model.dancer_num, fk_out=getattr(opt, "vis_fk_out", None),
+                             name=[wav_path] * n, sound=False, mode="long" if n > 1 else "normal",
+                             render=getattr(opt, "render", True))
+
+    def generate_streaming(self, wav_path: str, opt, on_slice=None, resume_from: int = 0,
+                           resume_tail=None) -> np.ndarray:
+        """Low-latency wav to dance (`--mode generate --streaming`): the
+        module-level `generate_streaming` on this model, then rendered and
+        exported as one clip. Returns the motion (L, dn, nfeats),
+        normalized."""
+        if self.normalizer is None:
+            raise ValueError("generate needs a normalizer: a checkpoint, or the synthetic stats of cli.train")
+        traj_model = self._traj_model(opt)
+        with self.eval_weights():
+            full = generate_streaming(wav_path, self.diffusion, traj_model, self.normalizer,
+                                      generator=self._generator(self.cfg.train.seed), on_slice=on_slice,
+                                      resume_from=resume_from, resume_tail=resume_tail)
+        render_sample(full.reshape(1, -1, self.cfg.model.nfeats), self.normalizer, "stream",
+                      self._render_dir(opt, wav_path), self.cfg.model.dancer_num,
+                      fk_out=getattr(opt, "vis_fk_out", None), name=[wav_path], sound=False,
+                      render=getattr(opt, "render", True))
+        return full.cpu().numpy()

@@ -10,7 +10,9 @@ betas (0.5, 0.9) and a multi-step lr schedule (x0.05 at iteration 60000,
 Every `print_iter` iterations: the running means logged, a checkpoint in
 the reference's `{'net': state_dict}` layout (with the optimizer, the
 schedule, the step and the normalizer beside it), and an eval rollout on a
-test batch with the Kalman filter (`train_traj.py:211-284`).
+test batch with the Kalman filter (`train_traj.py:211-284`); with
+render=True the rollout's first two samples are drawn top-down (GIF, which
+needs matplotlib) and every sample's trajectory written as a pkl.
 
 The step computes in float32 under `f32_math`, forward and backward, as
 the network's serving forward does.
@@ -31,6 +33,7 @@ from tcdiff_torch.trajdecoder.rollout import autoregressive_rollout
 from tcdiff_torch.utils.checkpoint import load_checkpoint, save_traj_checkpoint
 from tcdiff_torch.utils.logging import MetricLogger, get_logger
 from tcdiff_torch.utils.profiling import StepTimer
+from tcdiff_torch.viz.traj_render import render_traj_sample
 
 
 def make_traj_optimizer(model: torch.nn.Module, cfg: TrajDecoderConfig):
@@ -122,6 +125,7 @@ class TrajTrainer:
         self.losses: list = []  # every step's total loss
         self.step_seconds: list = []  # every step's wall time, the card waited for
         self.last_eval: Optional[np.ndarray] = None
+        self.renders: list = []  # the files the eval renders wrote (render=True)
         self._step_fn = make_traj_train_step(self.model, self.optimizer, self.scheduler, cfg)
         n_params = sum(p.numel() for p in self.model.parameters())
         self.logger.info("TrajDecoder parameters: %.2fM", n_params / 1e6)
@@ -149,9 +153,6 @@ class TrajTrainer:
 
     def train(self, train_ds, test_ds=None, total_iter: Optional[int] = None, out_dir: str = "runs/traj",
               render: bool = False, batch_size: Optional[int] = None) -> "TrajTrainer":
-        if render:
-            raise NotImplementedError("render=True needs the trajectory renderer (viz), which the port "
-                                      "does not have yet")
         cfg = self.cfg
         total = total_iter if total_iter is not None else cfg.total_iter
         bs = batch_size or cfg.batch_size
@@ -193,7 +194,12 @@ class TrajTrainer:
                         str(out / "ckpt"), self.step, self.model, self.optimizer, self.scheduler,
                         train_ds.normalizer))
                     if test_ds is not None:
-                        self.last_eval = self.eval_rollout(next(iter(test_ds.batches(min(bs, len(test_ds))))))
+                        eval_batch = next(iter(test_ds.batches(min(bs, len(test_ds)))))
+                        self.last_eval = self.eval_rollout(eval_batch)
+                        if render:
+                            self.renders += render_traj_sample(self.last_eval, str(out / "renders"),
+                                                               epoch=self.step, names=eval_batch["wav"],
+                                                               pkl_out=str(out / "traj_pkl"))
         finally:
             metrics.close()
         return self

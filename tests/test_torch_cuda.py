@@ -1326,3 +1326,55 @@ def test_process_batch_matches_cpu(dev):
                                        ds.rotate_points_x90(pos)))
     band = (vel - ds.CONTACT_VELOCITY).abs() <= 1e-5
     assert not ((out[..., :4] != ref[..., :4]) & ~band).any()
+
+
+def _fk_joints(n: int, dn: int, t: int, seed: int) -> torch.Tensor:
+    """(n, dn, t, 24, 3) FK joints of seeded smooth motion (Z-up after the
+    dataset's rotation is not needed: the metrics take any joints)."""
+    from tcdiff_torch.data.synthetic import synthetic_motion
+    from tcdiff_torch.geometry.skeleton import smpl_fk
+
+    pos, q = synthetic_motion(n, dn, t, seed=seed)
+    return smpl_fk(torch.from_numpy(q.reshape(n, dn, t, 24, 3)), torch.from_numpy(pos))
+
+
+def test_metrics_match_cpu(dev):
+    """The eval metrics of 8 groups of 3 dancers x 150 frames on the card
+    against the CPU: the kinetic features within 1e-5 of their largest
+    value; the geometric feature matrices equal wherever the CPU's margin
+    lies farther than MARGIN_BAND from its threshold; the report's other
+    values within 1e-4 relative, and FID_g and diversity_g equal where no
+    feature flipped."""
+    from tcdiff_torch.eval import geometric as geo
+    from tcdiff_torch.eval import metrics as met
+
+    gen, ref = _fk_joints(8, 3, 150, 0), _fk_joints(8, 3, 150, 1)
+    kin_cpu = met.kinetic_features(gen)
+    kin = met.kinetic_features(gen.to(dev))
+    assert kin.device.type == "cuda"
+    assert (kin.cpu() - kin_cpu).abs().max().item() <= 1e-5 * kin_cpu.abs().max().item()
+    margins = geo.geometric_feature_margins(gen)
+    frames = geo.geometric_feature_frames(gen.to(dev))
+    assert geo.flips_off_band(frames, margins > 0, margins) == 0
+    flips = int((frames.cpu() != (margins > 0)).sum())
+    music = [torch.randn((301, 438), generator=torch.Generator().manual_seed(i)).numpy() for i in range(8)]
+    want = met.evaluate(gen, ref, music_feats=music, gen_roots=gen[..., 0, :])
+    got = met.evaluate(gen.to(dev), ref.to(dev), music_feats=music, gen_roots=gen[..., 0, :].to(dev))
+    assert set(got) == set(want)
+    for k, v in want.items():
+        if k in ("fid_g", "div_g"):
+            assert flips or got[k] == pytest.approx(v, rel=1e-6, abs=1e-9), k
+        else:
+            assert got[k] == pytest.approx(v, rel=1e-4, abs=1e-9), k
+
+
+def test_stitch_long_matches_cpu(dev):
+    from tcdiff_torch.viz.postprocess import stitch_long
+
+    g = torch.Generator().manual_seed(2)
+    pos, q = torch.randn((5, 150, 3, 3), generator=g), torch.randn((5, 150, 3, 24, 3), generator=g)
+    fp, fq = stitch_long(pos, q)
+    dp, dq = stitch_long(pos.to(dev), q.to(dev))
+    assert dq.device.type == "cuda" and dp.shape == fp.shape == (450, 3, 3)
+    assert (dp.cpu() - fp).abs().max().item() <= 1e-5 * fp.abs().max().item()
+    assert (dq.cpu() - fq).abs().max().item() <= 1e-5 * fq.abs().max().item()

@@ -44,4 +44,6 @@ def test_scan_sees_the_port():
             "utils/logging.py", "utils/profiling.py", "utils/paths.py", "utils/checkpoint.py",
             "geometry/rotations.py", "data/dataset.py", "data/synthetic.py", "data/create_dataset.py",
             "data/native_loader.py", "trajdecoder/dataset.py", "trajdecoder/trainer.py",
-            "cli/train_traj.py"} <= names
+            "cli/train_traj.py", "eval/geometric.py", "eval/metrics.py", "viz/render.py", "viz/traj_render.py",
+            "viz/postprocess.py", "export/split_pkl.py", "export/bvh.py", "export/fbx_export.py",
+            "export/blender_launch.py", "cli/args.py", "cli/train.py"} <= names

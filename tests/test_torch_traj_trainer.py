@@ -171,8 +171,6 @@ def test_trainer_end_to_end_checkpoint_reloads(tmp_path):
     trainer = TrajTrainer(cfg, dancer_num=2, device="cpu")
     train_ds = SyntheticTrajDataset(6, 2, seq_len=16, seed=0, device="cpu")
     test_ds = SyntheticTrajDataset(3, 2, seq_len=16, seed=1, normalizer=train_ds.normalizer, device="cpu")
-    with pytest.raises(NotImplementedError):
-        trainer.train(train_ds, test_ds, out_dir=str(tmp_path), render=True)
     trainer.train(train_ds, test_ds, out_dir=str(tmp_path))  # batch 8 > 6 slices: clamped
     assert trainer.step == cfg.total_iter and len(trainer.losses) == 4 and np.isfinite(trainer.losses).all()
     rows = [json.loads(line) for line in open(tmp_path / "metrics.jsonl") if "_config" not in line]
