@@ -109,14 +109,15 @@ def parse_train_opt(argv=None):
 
 
 def config_from_opt(opt) -> TCDiffConfig:
-    """Fold the parsed flags into the typed config tree."""
+    """Fold the parsed flags into the typed config tree: the model's
+    dancers and frames, the trainer's counts and the data paths, which
+    `TCDiff` reads from the tree alone."""
     cfg = TCDiffConfig()
     return dataclasses.replace(
         cfg,
         model=dataclasses.replace(cfg.model, dancer_num=opt.required_dancer_num, seq_len=opt.window_size),
         train=dataclasses.replace(cfg.train, batch_size=opt.batch_size, learning_rate=opt.learning_rate,
                                   epochs=opt.epochs, save_interval=opt.save_interval,
-                                  ema_interval=opt.ema_interval, seed=opt.seed, dp=opt.dp, tp=opt.tp,
-                                  compute_dtype=opt.compute_dtype),
+                                  ema_interval=opt.ema_interval, seed=opt.seed, compute_dtype=opt.compute_dtype),
         data=dataclasses.replace(cfg.data, data_path=opt.data_path, processed_data_dir=opt.processed_data_dir),
     )

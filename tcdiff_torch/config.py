@@ -1,10 +1,11 @@
 """Configuration types and constants of the port.
 
 A copy of the dataclasses and constants `tcdiff_tpu/config.py` defines for
-the denoiser, the diffusion, the trainer, the DBN, the data layout and the
-bundle of them all (same defaults), so that the port runs where JAX is not
-installed; and `ServingKernels`, the port's
-form of the environment flags that choose the JAX package's serving path.
+the denoiser, the diffusion, the trainer, the DBN, the data paths and the
+bundle of them all (same defaults, and only the fields the port reads), so
+that the port runs where JAX is not installed; and `ServingKernels`, the
+port's form of the environment flags that choose the JAX package's serving
+path.
 """
 
 from __future__ import annotations
@@ -151,9 +152,9 @@ class TrajDecoderConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Diffusion trainer. The JAX package's remat and scan knobs have no
-    counterpart here; of its mesh, dp and tp are carried, and `TCDiff`
-    raises where they ask for more than one card."""
+    """Diffusion trainer: the fields the train step and `TCDiff`'s loops
+    read (the JAX package's mesh, remat and scan knobs have no counterpart
+    here; their flags raise in `cli.args.check_ported`)."""
 
     batch_size: int = 37
     learning_rate: float = 5e-5
@@ -165,22 +166,18 @@ class TrainConfig:
     seed: int = 0
     adan_betas: Tuple[float, float, float] = (0.02, 0.08, 0.01)
     adan_eps: float = 1e-8
-    dp: int = -1  # data-parallel size; -1: every card (one, until multi-GPU is ported)
-    tp: int = 1  # tensor-parallel size
     compute_dtype: str = "float32"  # the network's forward: "float32" or "bfloat16"
 
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """Dataset layout (reference `dataset/group_dataset.py:99-165`, `data/slice.py`)."""
+    """Where `TCDiff.load_datasets` reads the AIOZ tree and keeps its
+    processed cache (reference `dataset/group_dataset.py:99-165`). The JAX
+    package's frame rates, slice lengths and feature width are the data
+    modules' own constants here (`DATA_FPS`, `create_dataset`)."""
 
     data_path: str = "./data/AIOZ_Dataset/"
     processed_data_dir: str = "./data/dataset_backups/"
-    raw_fps: int = 30
-    music_fps: int = 60
-    slice_length_s: float = 5.0
-    slice_stride_s: float = 0.5
-    feature_dim: int = 438
 
 
 @dataclasses.dataclass(frozen=True)

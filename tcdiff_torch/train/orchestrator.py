@@ -42,11 +42,13 @@ writing the FK pkls through `viz/postprocess.py`. It differs from the JAX
 package's class in one deliberate way: in training, only the drawing and
 the writing of the render are caught; the sampling, the FK and the
 metrics run outside the catch, so that a failed kernel launch ends the
-run. Data-parallel sampling (dp > 1) is not ported.
+run. Data-parallel sampling is not ported: `cli.args` refuses --dp and
+--tp above one card.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import hashlib
 import json
@@ -68,7 +70,6 @@ from tcdiff_torch.data.normalizer import Normalizer
 from tcdiff_torch.data.synthetic import synthetic_dataset
 from tcdiff_torch.diffusion.gaussian import GaussianDiffusion
 from tcdiff_torch.eval.metrics import evaluate
-from tcdiff_torch.geometry.skeleton import smpl_fk
 from tcdiff_torch.interop.from_jax import load_reference_traj
 from tcdiff_torch.models.dance_decoder import DanceDecoder
 from tcdiff_torch.optim.adan import Adan
@@ -81,7 +82,7 @@ from tcdiff_torch.train.state import TrainState, create_train_state
 from tcdiff_torch.train.train_step import make_train_step
 from tcdiff_torch.utils.checkpoint import latest_checkpoint, restore_train_state, save_checkpoint
 from tcdiff_torch.utils.logging import MetricLogger, get_logger
-from tcdiff_torch.viz.postprocess import postprocess_sample, render_sample, split_sample, write_sample
+from tcdiff_torch.viz.postprocess import fk_sample, postprocess_sample, render_sample, write_sample
 from tcdiff_torch.utils.profiling import StepTimer, trace
 
 log = logging.getLogger(__name__)
@@ -524,12 +525,16 @@ class TCDiff:
     `ServingKernels.from_env()` chooses (the JAX package's TCDIFF_* flags).
     `checkpoint_path`: a reference `.pt` or a checkpoint of this program
     (a file, or the run's checkpoint directory: its latest). Sampling uses
-    the EMA weights where `use_ema_for_eval`, else the trained ones."""
+    the EMA weights where `use_ema_for_eval`, else the trained ones.
+
+    The loops read their counts from `cfg.train` (`epochs`, `batch_size`,
+    `save_interval`) and the data paths from `cfg.data`; `opt`, the parsed
+    flags of `cli.args.build_parser`, gives the rest (outputs, the sampler
+    mode, the DBN checkpoint, the synthetic data). The val and test loops
+    render `cfg.train.epochs` rounds, as the reference's `opt.epochs`."""
 
     def __init__(self, cfg: TCDiffConfig, checkpoint_path: Optional[str] = None, use_ema_for_eval: bool = True,
                  device="cuda"):
-        if cfg.train.tp != 1:
-            raise NotImplementedError("tensor parallelism (tp != 1) is not ported yet: ROADMAP queue 1 item 7")
         self.cfg = cfg
         self.device = torch.empty(0, device=device).device  # raises where the device does not exist
         tr = cfg.train
@@ -625,8 +630,10 @@ class TCDiff:
     # ------------------------------------------------------------------- data
     def load_datasets(self, opt):
         """(train_ds, test_ds): synthetic with --synthetic, else the AIOZ
-        splits from disk through the processed-data cache."""
-        m = self.cfg.model
+        splits under `cfg.data.data_path` through the processed-data cache
+        in `cfg.data.processed_data_dir`."""
+        m, d = self.cfg.model, self.cfg.data
+        opt = argparse.Namespace(**{**vars(opt), "data_path": d.data_path, "processed_data_dir": d.processed_data_dir})
         return load_datasets(opt, dancer_num=m.dancer_num, seq_len=m.seq_len, seed=self.cfg.train.seed,
                              device=self.device)
 
@@ -634,46 +641,33 @@ class TCDiff:
     def train_loop(self, opt, train_ds=None, test_ds=None) -> dict:
         """Epochs of train steps (the module-level `train_loop`) with, at
         every save interval, two test clips rendered from the sampler
-        (unless --no_render: then sampled and FK'd only) and, with
-        --eval_during_train, the metric report logged. Only the drawing and
-        writing of the render is caught (and logged): the sampling, the FK
-        and the metrics run outside it, so a failed kernel launch or device
-        error ends the run."""
-        cfg = self.cfg
+        (`render_eval_samples`; with --no_render sampled and FK'd only)
+        and, with --eval_during_train, the metric report logged. Only the
+        drawing and writing of the render is caught (and logged): the
+        sampling, the FK and the metrics run outside it, so a failed kernel
+        launch or device error ends the run."""
+        tr = self.cfg.train
         if train_ds is None:
             train_ds, test_ds = self.load_datasets(opt)
         self.normalizer = train_ds.normalizer
-        run_dir = Path(opt.project) / opt.exp_name
-        render_dir = Path(getattr(opt, "render_dir", run_dir / "renders"))
-        step_fn = make_train_step(self.diffusion, self.optimizer, cfg.train.ema_beta, cfg.train.ema_interval,
-                                  device=self.device)
+        step_fn = make_train_step(self.diffusion, self.optimizer, tr.ema_beta, tr.ema_interval, device=self.device)
 
         def on_save(epoch: int) -> dict:
-            if getattr(opt, "render_during_train", True) and test_ds is not None:
-                post, names = self._eval_samples(test_ds, count=2)
-                try:  # the drawing and the files only
-                    write_sample(post, epoch, str(render_dir), name=names, sound=False,
-                                 render=getattr(opt, "render", True))
-                except Exception as e:  # a render must never end training
-                    self.logger.warning("render failed: %s", e)
-            if getattr(opt, "eval_during_train", False) and test_ds is not None:
-                return _flat_metrics(self.evaluate_loop(opt, test_ds=test_ds))
-            return {}
+            if test_ds is None:
+                return {}
+            self.render_eval_samples(test_ds, epoch, opt.render_dir, render=opt.render)
+            return _flat_metrics(self.evaluate_loop(opt, test_ds=test_ds)) if opt.eval_during_train else {}
 
         # the module-level train_loop, not this method
-        return train_loop(self.state, step_fn, train_ds, str(run_dir),
-                          epochs=getattr(opt, "epochs", cfg.train.epochs),
-                          batch_size=getattr(opt, "batch_size", cfg.train.batch_size),
-                          save_interval=getattr(opt, "save_interval", cfg.train.save_interval),
-                          seed=cfg.train.seed, profile_dir=getattr(opt, "profile_dir", None), on_save=on_save)
+        return train_loop(self.state, step_fn, train_ds, str(Path(opt.project) / opt.exp_name), epochs=tr.epochs,
+                          batch_size=tr.batch_size, save_interval=tr.save_interval, seed=tr.seed,
+                          profile_dir=opt.profile_dir, on_save=on_save)
 
     # -------------------------------------------------------------- sampling
     def _sample(self, cond, x_0, generator: Optional[torch.Generator], mode: str = "normal", full_ref=None):
         """mode: normal (DDIM), long (sliced DDIM, neighbouring slices
         coupled), footwork (the leg channels follow `full_ref`), ddpm (the
         ancestral loop). Returns (b, seq*dn, nfeats) normalized samples."""
-        if self.cfg.train.dp > 1:
-            raise NotImplementedError("data-parallel sampling (dp > 1) is not ported yet: ROADMAP queue 1 item 7")
         m = self.cfg.model
         cond = torch.as_tensor(np.asarray(cond) if not torch.is_tensor(cond) else cond, dtype=torch.float32,
                                device=self.device)
@@ -693,19 +687,23 @@ class TCDiff:
                 raise ValueError(f"unknown sample mode {mode!r}")
             return self.diffusion.ddim_sample(shape, cond, generator, x_0=x_0)
 
-    def _eval_samples(self, ds, count: int = 2, mode: str = "normal"):
-        """The first `count` clips of `ds` sampled on their ground-truth
-        trajectories and post-processed: (Postprocessed, wav names)."""
+    def render_eval_samples(self, ds, epoch, render_dir, count=2, mode="normal", fk_out=None, render=True):
+        """Sample the first `count` clips of `ds` on their ground-truth
+        trajectories and render them (the train-time visual check,
+        `TCDiff.py:276-303`). The sampling and the FK raise; a failure to
+        draw or write is logged and the poses are still returned, since a
+        render must never end training. Returns the FK joints as
+        `render_sample` does."""
         items = [ds.get(i) for i in range(min(count, len(ds)))]
         x, cond = np.stack([it[0] for it in items]), np.stack([it[1] for it in items])
         samples = self._sample(cond, gt_traj_x0(x, self.device), self._generator(self.state.step), mode)
-        return postprocess_sample(samples, self.normalizer, self.cfg.model.dancer_num, mode), [it[3] for it in items]
-
-    def render_eval_samples(self, ds, epoch, render_dir, count=2, mode="normal", fk_out=None, render=True):
-        """Draw `count` clips with ground-truth trajectories and render them
-        (the train-time visual check, `TCDiff.py:276-303`)."""
-        post, names = self._eval_samples(ds, count, mode)
-        return write_sample(post, epoch, render_dir, fk_out=fk_out, name=names, sound=False, render=render)
+        post = postprocess_sample(samples, self.normalizer, self.cfg.model.dancer_num, mode)
+        try:  # the drawing and the files only
+            return write_sample(post, epoch, render_dir, fk_out=fk_out, name=[it[3] for it in items], sound=False,
+                                render=render)
+        except Exception as e:
+            self.logger.warning("render failed: %s", e)
+            return post.poses
 
     # ----------------------------------------------- eval loop (GT trajectory)
     def given_trajectory_generation_loop(self, opt, test_ds=None) -> None:
@@ -715,11 +713,11 @@ class TCDiff:
             _, test_ds = self.load_datasets(opt)
         if self.normalizer is None:
             self.normalizer = test_ds.normalizer
-        render_dir = os.path.join(getattr(opt, "render_dir", "renders"), "VAL_" + getattr(opt, "exp_name", "exp"))
-        render_count = min(getattr(opt, "render_count", 30), len(test_ds))
+        render_dir = os.path.join(opt.render_dir, "VAL_" + opt.exp_name)
+        render_count = min(opt.render_count, len(test_ds))
         rng = np.random.default_rng(self.cfg.train.seed)
-        mode = getattr(opt, "sample_mode", "normal")
-        for epoch in range(1, getattr(opt, "epochs", 1) + 1):
+        mode = opt.sample_mode
+        for epoch in range(1, self.cfg.train.epochs + 1):
             if mode == "long":
                 idx = consecutive_slice_indices(test_ds.feature_files, render_count)
                 if len(idx) < 2:  # no consecutive run (synthetic data): any 2+
@@ -735,8 +733,7 @@ class TCDiff:
             samples = self._sample(batch["cond"], gt_traj_x0(batch["x"], self.device), self._generator(epoch), mode,
                                    full_ref=full_ref)
             render_sample(samples, self.normalizer, epoch, render_dir, self.cfg.model.dancer_num,
-                          fk_out=getattr(opt, "vis_fk_out", None), name=batch["wav"], sound=False, mode=mode,
-                          render=getattr(opt, "render", True))
+                          fk_out=opt.vis_fk_out, name=batch["wav"], sound=False, mode=mode, render=opt.render)
             self.logger.info("[VAL-RENDER SAVED at Epoch %d]", epoch)
 
     # ----------------------------------------------------------- metric eval
@@ -756,17 +753,15 @@ class TCDiff:
             _, test_ds = self.load_datasets(opt)
         if self.normalizer is None:
             self.normalizer = test_ds.normalizer
-        count = min(getattr(opt, "render_count", 30), len(test_ds))
+        count = min(opt.render_count, len(test_ds))
         dn = self.cfg.model.dancer_num
-        traj_source = getattr(opt, "traj_source", "gt")
+        traj_source = opt.traj_source
         if traj_source not in ("gt", "dbn", "both"):
             raise ValueError(f"traj_source must be gt, dbn or both, not {traj_source!r}")
 
-        def fk_batch(samples):
-            _, pos, q = split_sample(samples, self.normalizer, dn)
-            b, seq = samples.shape[0], samples.shape[1] // dn
-            joints = smpl_fk(q, pos).reshape(b, seq, dn, 24, 3).transpose(1, 2)
-            return joints, pos.reshape(b, seq, dn, 3).transpose(1, 2)
+        def fk_batch(samples):  # FK joints (b, dn, seq, 24, 3), roots (b, dn, seq, 3)
+            _, pos, _, joints = fk_sample(samples, self.normalizer, dn)
+            return joints, pos.reshape(joints.shape[0], -1, dn, 3).transpose(1, 2)
 
         batch = next(iter(test_ds.batches(count, rng=np.random.default_rng(0))))
         x = batch["x"]
@@ -790,7 +785,7 @@ class TCDiff:
                 report["dbn_traj"] = dbn_set
         report["traj_source"] = traj_source
         self.logger.info("eval metrics: %s", report)
-        out = Path(getattr(opt, "project", "runs")) / getattr(opt, "exp_name", "exp")
+        out = Path(opt.project) / opt.exp_name
         out.mkdir(parents=True, exist_ok=True)
         with open(out / "eval.json", "w") as f:
             json.dump(report, f, indent=2)
@@ -810,7 +805,7 @@ class TCDiff:
         (`{'net': state_dict}`) or a checkpoint of the DBN trainer (a file,
         or its checkpoint directory: the latest); without one, random
         weights from the config's seed."""
-        path = getattr(opt, "traj_checkpoint", None)
+        path = opt.traj_checkpoint
         if not path:
             self.logger.warning("no --traj_checkpoint given; using random DBN weights")
             return traj_model.init_random(torch.Generator().manual_seed(self.cfg.traj.seed))
@@ -837,21 +832,19 @@ class TCDiff:
         if self.normalizer is None:
             self.normalizer = test_ds.normalizer
         dbn_traj = self._make_dbn_traj_fn(opt)
-        render_dir = os.path.join(getattr(opt, "render_dir", "renders"), "TEST_" + getattr(opt, "exp_name", "exp"))
-        render_count = min(getattr(opt, "render_count", 30), len(test_ds))
+        render_dir = os.path.join(opt.render_dir, "TEST_" + opt.exp_name)
+        render_count = min(opt.render_count, len(test_ds))
         rng = np.random.default_rng(self.cfg.traj.seed)
-        for epoch in range(1, getattr(opt, "epochs", 1) + 1):
+        for epoch in range(1, self.cfg.train.epochs + 1):
             batch = next(iter(test_ds.batches(render_count, rng=rng)))
             samples = self._sample(batch["cond"], dbn_traj(batch["x"], batch["cond"]), self._generator(epoch))
             render_sample(samples, self.normalizer, epoch, render_dir, self.cfg.model.dancer_num,
-                          fk_out=getattr(opt, "vis_fk_out", None), name=batch["wav"], sound=False,
-                          render=getattr(opt, "render", True))
+                          fk_out=opt.vis_fk_out, name=batch["wav"], sound=False, render=opt.render)
             self.logger.info("[TEST-RENDER SAVED at Epoch %d]", epoch)
 
     # ------------------------------------------------- wav -> dance serving
     def _render_dir(self, opt, wav_path: str) -> str:
-        return os.path.join(getattr(opt, "render_dir", "renders"),
-                            "GEN_" + os.path.splitext(os.path.basename(wav_path))[0])
+        return os.path.join(opt.render_dir, "GEN_" + os.path.splitext(os.path.basename(wav_path))[0])
 
     def generate(self, wav_path: str, opt) -> np.ndarray:
         """Wav to choreography (`--mode generate`), the module-level
@@ -866,9 +859,8 @@ class TCDiff:
                                generator=self._generator(self.cfg.train.seed))
         n = samples.shape[0]
         return render_sample(samples, self.normalizer, "gen", self._render_dir(opt, wav_path),
-                             self.cfg.model.dancer_num, fk_out=getattr(opt, "vis_fk_out", None),
-                             name=[wav_path] * n, sound=False, mode="long" if n > 1 else "normal",
-                             render=getattr(opt, "render", True))
+                             self.cfg.model.dancer_num, fk_out=opt.vis_fk_out, name=[wav_path] * n, sound=False,
+                             mode="long" if n > 1 else "normal", render=opt.render)
 
     def generate_streaming(self, wav_path: str, opt, on_slice=None, resume_from: int = 0,
                            resume_tail=None) -> np.ndarray:
@@ -885,6 +877,5 @@ class TCDiff:
                                       resume_from=resume_from, resume_tail=resume_tail)
         render_sample(full.reshape(1, -1, self.cfg.model.nfeats), self.normalizer, "stream",
                       self._render_dir(opt, wav_path), self.cfg.model.dancer_num,
-                      fk_out=getattr(opt, "vis_fk_out", None), name=[wav_path], sound=False,
-                      render=getattr(opt, "render", True))
+                      fk_out=opt.vis_fk_out, name=[wav_path], sound=False, render=opt.render)
         return full.cpu().numpy()

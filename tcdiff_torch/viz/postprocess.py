@@ -90,22 +90,30 @@ class Postprocessed:
     contacts: Optional[np.ndarray] = None
 
 
+def fk_sample(samples: torch.Tensor, normalizer: Normalizer, dancer_num: int):
+    """`split_sample`, then FK, on the samples' device: (contacts (b, dn,
+    seq, 4), pos (b, seq*dn, 3), q (b, seq*dn, 24, 3), joints (b, dn, seq,
+    24, 3))."""
+    b, seq = samples.shape[0], samples.shape[1] // dancer_num
+    contacts, pos, q = split_sample(samples, normalizer, dancer_num)
+    joints = smpl_fk(q, pos).reshape(b, seq, dancer_num, 24, 3).transpose(1, 2)
+    return contacts.transpose(1, 2), pos, q, joints
+
+
 def postprocess_sample(samples: torch.Tensor, normalizer: Normalizer, dancer_num: int,
                        mode: str = "normal") -> Postprocessed:
     """Unnormalize, 6D -> axis-angle, (in long mode) stitch the b slices,
     FK; on the samples' device, then to the host."""
-    b = samples.shape[0]
-    contacts, pos, q = split_sample(samples, normalizer, dancer_num)
-    seq = samples.shape[1] // dancer_num
     if mode == "long":
+        b, seq = samples.shape[0], samples.shape[1] // dancer_num
+        _, pos, q = split_sample(samples, normalizer, dancer_num)
         full_pos, full_q = stitch_long(pos.reshape(b, seq, dancer_num, 3), q.reshape(b, seq, dancer_num, 24, 3))
         n = full_pos.shape[0]
         flat_pos, flat_q = full_pos.reshape(n * dancer_num, 3), full_q.reshape(n * dancer_num, 24, 3)
         poses = smpl_fk(flat_q, flat_pos).reshape(n, dancer_num, 24, 3).transpose(0, 1)
         return Postprocessed(mode, poses.cpu().numpy(), flat_q.cpu().numpy(), flat_pos.cpu().numpy())
-    poses = smpl_fk(q, pos).reshape(b, seq, dancer_num, 24, 3).transpose(1, 2)
-    return Postprocessed(mode, poses.cpu().numpy(), q.cpu().numpy(), pos.cpu().numpy(),
-                         contacts.transpose(1, 2).cpu().numpy())
+    contacts, pos, q, poses = fk_sample(samples, normalizer, dancer_num)
+    return Postprocessed(mode, poses.cpu().numpy(), q.cpu().numpy(), pos.cpu().numpy(), contacts.cpu().numpy())
 
 
 def _dump(path: str, poses: np.ndarray, trans: np.ndarray, full_pose: np.ndarray) -> None:

@@ -25,6 +25,7 @@ from tcdiff_tpu.models import DanceDecoder as JaxDecoder
 from tcdiff_tpu.train import orchestrator as jorch
 from tcdiff_tpu.trajdecoder.model import TrajDecoder as JaxTrajDecoder
 from tcdiff_torch import config as tcfg
+from tcdiff_torch.cli.args import build_parser
 from tcdiff_torch.data.normalizer import Normalizer
 from tcdiff_torch.interop.from_jax import load_jax_params, load_jax_traj_params
 from tcdiff_torch.train import orchestrator as orch
@@ -35,14 +36,14 @@ MODEL = dict(seq_len=SEQ, latent_dim=32, ff_size=32, num_layers=1, num_heads=2, 
              dancer_num=DN, head_dim=16)
 DIFF = dict(sampling_timesteps=2, n_timestep=10, footwork_frames=(4, 12), footwork_blend_width=2)
 TRAJ = dict(window_size=8, step=4, trans_layer=1, latent_dim=16)
-TRAIN = dict(batch_size=4, save_interval=1, epochs=2, dp=1)
+TRAIN = dict(batch_size=4, save_interval=1, epochs=1)
 TOL = dict(atol=3e-5, rtol=3e-5)
 
 
 def cfgs():
     """(JAX config, port config): the same fields."""
     return (jcfg.TCDiffConfig(model=jcfg.DanceDecoderConfig(**MODEL), diffusion=jcfg.DiffusionConfig(**DIFF),
-                              train=jcfg.TrainConfig(**TRAIN), traj=jcfg.TrajDecoderConfig(**TRAJ)),
+                              train=jcfg.TrainConfig(**TRAIN, dp=1), traj=jcfg.TrajDecoderConfig(**TRAJ)),
             tcfg.TCDiffConfig(model=tcfg.DanceDecoderConfig(**MODEL), diffusion=tcfg.DiffusionConfig(**DIFF),
                               train=tcfg.TrainConfig(**TRAIN), traj=tcfg.TrajDecoderConfig(**TRAJ)))
 
@@ -147,9 +148,17 @@ def build_stack(tmp_dir):
     return (JaxRunner(jc, params, traj_params, jnorm), runner, Dataset(8, jnorm, 5), Dataset(8, pnorm, 5), pt)
 
 
+def parsed_opt(**kw):
+    """The flags of `cli.train` at their parser defaults, `kw` set over them."""
+    return types.SimpleNamespace(**{**vars(build_parser().parse_args([])), **kw})
+
+
 def loop_opt(tmp_path, side: str, **kw):
-    base = dict(render=False, vis_fk_out=str(tmp_path / side / "fk"), render_dir=str(tmp_path / side / "r"),
-                exp_name="e", project=str(tmp_path / side / "runs"), epochs=1, render_count=4)
-    return types.SimpleNamespace(**{**base, **kw})
+    """One side's flags, its outputs under tmp_path/side. The port's loops
+    count their rounds from cfg.train.epochs; the JAX package's from
+    `epochs` here."""
+    return parsed_opt(**{**dict(render=False, vis_fk_out=str(tmp_path / side / "fk"),
+                                render_dir=str(tmp_path / side / "r"), exp_name="e",
+                                project=str(tmp_path / side / "runs"), epochs=1, render_count=4), **kw})
 
 

@@ -36,11 +36,12 @@ def test_config_from_opt_matches_jax():
             "bfloat16", "--data_path", "/d", "--processed_data_dir", "/p"]
     ours, ref = args.config_from_opt(args.parse_train_opt(argv)), jargs.config_from_opt(jargs.parse_train_opt(argv))
     assert dataclasses.asdict(ours.model) == dataclasses.asdict(ref.model)
-    assert dataclasses.asdict(ours.data) == dataclasses.asdict(ref.data)
-    ref_train = dataclasses.asdict(ref.train)
-    for k, v in dataclasses.asdict(ours.train).items():
-        assert ref_train[k] == v, k
-    assert ours.train.compute_dtype == "bfloat16" and ours.train.dp == -1
+    for mine, theirs in ((ours.data, ref.data), (ours.train, ref.train)):  # the port keeps what it reads
+        want = dataclasses.asdict(theirs)
+        for k, v in dataclasses.asdict(mine).items():
+            assert want[k] == v, k
+    assert ours.data.data_path == "/d" and ours.data.processed_data_dir == "/p"
+    assert ours.train.compute_dtype == "bfloat16" and ours.train.epochs == 7 and ours.train.save_interval == 2
 
 
 @pytest.mark.parametrize("argv, item", [(["--dp", "2"], "item 7"), (["--tp", "2"], "item 7"),
@@ -59,7 +60,8 @@ def tiny(monkeypatch):
     def config(opt):
         cfg = args.config_from_opt(opt)
         return dataclasses.replace(small, model=dataclasses.replace(small.model, dancer_num=cfg.model.dancer_num,
-                                                                    seq_len=cfg.model.seq_len), train=cfg.train)
+                                                                    seq_len=cfg.model.seq_len),
+                                   train=cfg.train, data=cfg.data)
 
     monkeypatch.setattr(train, "config_from_opt", config)
     monkeypatch.setattr(orch, "MetricLogger", functools.partial(orch.MetricLogger, use_wandb=False,

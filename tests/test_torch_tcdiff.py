@@ -8,6 +8,7 @@ them 1e-4 (6D -> axis-angle and the FK chain widen the samples'
 differences).
 """
 
+import dataclasses
 import os
 import pickle
 
@@ -60,10 +61,11 @@ def test_val_without_traj_model_matches_jax(stack, tmp_path, mode, rendered):
     _same_pkls(tmp_path, 1 if mode == "long" else 4, rendered)
 
 
-def test_test_loop_matches_jax(stack, tmp_path, rendered):
+def test_test_loop_matches_jax(stack, tmp_path, rendered, monkeypatch):
     jr, pr, jds, pds, pt = stack
+    monkeypatch.setattr(pr, "cfg", dataclasses.replace(pr.cfg, train=dataclasses.replace(pr.cfg.train, epochs=2)))
     jr.test_loop(loop_opt(tmp_path, "jax", epochs=2), test_ds=jds)
-    pr.test_loop(loop_opt(tmp_path, "port", epochs=2, traj_checkpoint=pt), test_ds=pds)
+    pr.test_loop(loop_opt(tmp_path, "port", traj_checkpoint=pt), test_ds=pds)
     _same_pkls(tmp_path, 8, rendered)
 
 

@@ -15,6 +15,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from _torch_tcdiff import build_stack, loop_opt, orch  # noqa: E402
+from tcdiff_torch.cli.args import parse_train_opt  # noqa: E402
+from tcdiff_torch.config import TrainConfig  # noqa: E402
 from tcdiff_torch.trajdecoder.model import TrajDecoder  # noqa: E402
 from tcdiff_torch.utils.checkpoint import save_traj_checkpoint  # noqa: E402
 
@@ -70,14 +72,10 @@ def test_traj_checkpoints(tmp_path, stack, caplog):
     assert "random DBN weights" in caplog.text
 
 
-def test_multi_gpu_settings_raise(stack):
-    _, pr, _, pds, _ = stack
-    cfg = pr.cfg
-    with pytest.raises(NotImplementedError, match="item 7"):
-        orch.TCDiff(dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, tp=2)), device="cpu")
-    pr.cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, dp=2))
-    try:
+def test_multi_gpu_settings_raise():
+    """The multi-GPU settings are refused where they enter, the flags of
+    cli.train; the config tree that TCDiff reads has no field for them."""
+    for argv in (["--dp", "2"], ["--tp", "2"], ["--dp", "4", "--tp", "2"]):
         with pytest.raises(NotImplementedError, match="item 7"):
-            pr._sample(pds.music[:2], None, None)
-    finally:
-        pr.cfg = cfg
+            parse_train_opt(argv)
+    assert not {"dp", "tp"} & {f.name for f in dataclasses.fields(TrainConfig)}

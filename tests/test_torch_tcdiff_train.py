@@ -11,25 +11,30 @@ import functools
 import json
 import logging
 import os
-import types
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from _torch_tcdiff import NF, cfgs, orch  # noqa: E402
+from _torch_tcdiff import NF, cfgs, orch, parsed_opt  # noqa: E402
 from tcdiff_tpu.interop import dance_decoder_params_from_torch  # noqa: E402
+from tcdiff_torch.config import DataConfig  # noqa: E402
 from tcdiff_torch.interop.from_jax import load_jax_params  # noqa: E402
 from tcdiff_torch.models.dance_decoder import DanceDecoder  # noqa: E402
 from tcdiff_torch.utils.checkpoint import save_checkpoint  # noqa: E402
 
 
+def _runner(checkpoint_path=None, **train):
+    """The tiny TCDiff, its cfg.train's counts replaced by `train`."""
+    _, pc = cfgs()
+    return orch.TCDiff(dataclasses.replace(pc, train=dataclasses.replace(pc.train, **train)),
+                       checkpoint_path=checkpoint_path, use_ema_for_eval=False, device="cpu")
+
+
 def _train_opt(tmp_path, **kw):
-    base = dict(project=str(tmp_path / "runs"), exp_name="t", render_dir=str(tmp_path / "renders"), render=True,
-                epochs=2, save_interval=1, batch_size=4, synthetic=True, synthetic_size=8, render_count=2,
-                eval_during_train=True, traj_source="gt")
-    return types.SimpleNamespace(**{**base, **kw})
+    return parsed_opt(**{**dict(project=str(tmp_path / "runs"), exp_name="t", render_dir=str(tmp_path / "renders"),
+                                synthetic=True, synthetic_size=8, render_count=2, eval_during_train=True), **kw})
 
 
 @pytest.fixture(autouse=True)
@@ -39,9 +44,8 @@ def jsonl_only(monkeypatch):
 
 
 def test_train_checkpoints_metrics_renders_and_resume(tmp_path):
-    _, pc = cfgs()
-    runner = orch.TCDiff(pc, use_ema_for_eval=False, device="cpu")
-    out = runner.train_loop(_train_opt(tmp_path, epochs=3, save_interval=2))
+    runner = _runner(epochs=3, save_interval=2)
+    out = runner.train_loop(_train_opt(tmp_path))
     assert out["steps"] == 6 and runner.state.step == 6 and len(out["checkpoints"]) == 1
     rows = [json.loads(line) for line in open(tmp_path / "runs" / "t" / "metrics.jsonl") if "_config" not in line]
     evals = [r for r in rows if "eval/fid_k" in r]
@@ -52,28 +56,26 @@ def test_train_checkpoints_metrics_renders_and_resume(tmp_path):
     # resume from the run's checkpoint directory (its step-4 state), then on
     ckpt = orch.latest_checkpoint(str(tmp_path / "runs" / "t" / "checkpoints"))
     saved = torch.load(ckpt, weights_only=False)
-    resumed = orch.TCDiff(pc, checkpoint_path=str(tmp_path / "runs" / "t" / "checkpoints"),
-                          use_ema_for_eval=False, device="cpu")
+    resumed = _runner(str(tmp_path / "runs" / "t" / "checkpoints"), epochs=1)
     assert resumed.state.step == 4 and resumed.normalizer is not None
     for name, p in resumed.model.named_parameters():
         assert torch.equal(p, saved["model_state_dict"][name])
         assert torch.equal(resumed.state.ema_params[name], saved["ema_state_dict"][name])
-    more = resumed.train_loop(_train_opt(tmp_path, epochs=1, exp_name="t2", render=False, eval_during_train=False))
+    more = resumed.train_loop(_train_opt(tmp_path, exp_name="t2", render=False, eval_during_train=False))
     assert more["steps"] == 2 and resumed.state.step == 6
 
 
 def test_train_catches_only_the_render(tmp_path, monkeypatch, caplog):
     """A failed drawing or file write is logged and training goes on; a
     failure of the sampling or of the metrics ends the run."""
-    _, pc = cfgs()
-    runner = orch.TCDiff(pc, use_ema_for_eval=False, device="cpu")
+    runner = _runner(epochs=1)
 
     def broken_write(*a, **k):
         raise OSError("disk full")
 
     monkeypatch.setattr(orch, "write_sample", broken_write)
     with caplog.at_level(logging.WARNING, logger="tcdiff_torch"):
-        out = runner.train_loop(_train_opt(tmp_path, epochs=1, eval_during_train=False))
+        out = runner.train_loop(_train_opt(tmp_path, eval_during_train=False))
     assert out["steps"] == 2 and "render failed: disk full" in caplog.text
 
     def broken_sample(*a, **k):
@@ -81,11 +83,11 @@ def test_train_catches_only_the_render(tmp_path, monkeypatch, caplog):
 
     monkeypatch.setattr(runner, "_sample", broken_sample)
     with pytest.raises(RuntimeError, match="kernel launch failed"):
-        runner.train_loop(_train_opt(tmp_path, epochs=1, exp_name="t2", eval_during_train=False))
+        runner.train_loop(_train_opt(tmp_path, exp_name="t2", eval_during_train=False))
     monkeypatch.setattr(runner, "_sample", orch.TCDiff._sample.__get__(runner))
     monkeypatch.setattr(orch, "evaluate", lambda *a, **k: 1 / 0)
     with pytest.raises(ZeroDivisionError):
-        runner.train_loop(_train_opt(tmp_path, epochs=1, exp_name="t3", render=False))
+        runner.train_loop(_train_opt(tmp_path, exp_name="t3", render=False))
 
 
 def test_dancer_count_mismatch_raises(tmp_path):
@@ -136,3 +138,13 @@ def test_weights_round_trip_through_flax_bit_for_bit():
     assert set(sa) == set(sb)
     for k in sa:
         assert torch.equal(sa[k], sb[k]), k
+
+
+def test_load_datasets_reads_the_config_paths(monkeypatch):
+    """The data paths come from cfg.data, whatever the flags say."""
+    _, pc = cfgs()
+    r = orch.TCDiff(dataclasses.replace(pc, data=DataConfig(data_path="/d", processed_data_dir="/p")), device="cpu")
+    seen = {}
+    monkeypatch.setattr(orch, "load_datasets", lambda opt, **kw: seen.update(vars(opt), **kw))
+    r.load_datasets(parsed_opt(data_path="/flag", processed_data_dir="/flag"))
+    assert seen["data_path"] == "/d" and seen["processed_data_dir"] == "/p" and seen["dancer_num"] == 2
