@@ -155,10 +155,26 @@ last line:
      and K2 400 launches a sampling call and no other serving kernel,
      K3/K4/K5 8 each way in the train step; the test clips' metrics
      (`evaluate`) and stitch card vs CPU; each mode's wall time;
- 15. a line of JSON with every kernel's figures (K1/K2's launches count
-     the CLI phase's, K3-K5's the train phase's, the train loop's and the
-     CLI's), the card's line, and the last line: {"ok": true, "device":
-     {...}}.
+ 15. data parallelism (`tcdiff_torch.parallel`): the one-process
+     references first, then two ranks spawned on the one card over gloo
+     (chosen and printed: NCCL refuses two ranks on one device), full
+     width: two train steps at global batch 64 in bf16 and 8 in f32 (32
+     and 4 a rank, K3-K5 16 each way a rank), `long_ddim_sample_sharded`
+     of 8 slices (4 a rank, 50 steps, injected noise, bf16 and f32), the
+     normal-mode `TCDiff._sample` of 8 clips and two DBN iterations; each
+     rank holds its results against one process (the loss and step-1
+     gradients to `grad_tolerance`, the parameters after step 1 to
+     `tolerance`, after step 2 the two-step rule; the samples to
+     `tolerance` in bf16 and F32_PATH_TOL in f32; the DBN to the data
+     phase's DBN rule), prints its launch counts (K1/K2 400 a sampling call), and
+     every rank's parameters and EMA must be bit-identical; then `python
+     -m torch.distributed.run --standalone --nproc_per_node 1 -m
+     tcdiff_torch.cli.train --dp 1` with the CLI phase's train flags over
+     NCCL, whose checkpoint must equal the CLI phase's bit for bit;
+ 16. a line of JSON with every kernel's figures (K1/K2's launches count
+     the CLI phase's and both dp ranks', K3-K5's the train phase's, the
+     train loop's, the CLI's and both dp ranks'), the card's line, and the
+     last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -166,6 +182,8 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import dataclasses
+import hashlib
 import io
 import json
 import os
@@ -181,9 +199,12 @@ import types
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
-from tcdiff_torch import DanceDecoderConfig, DiffusionConfig, ServingKernels, TrainConfig, TrajDecoderConfig
+from tcdiff_torch import (
+    DanceDecoderConfig, DiffusionConfig, ServingKernels, TCDiffConfig, TrainConfig, TrajDecoderConfig,
+)
 from tcdiff_torch.data import dataset as data_ds
 from tcdiff_torch.data.audio import save_wav
 from tcdiff_torch.data.create_dataset import create_dataset
@@ -209,11 +230,12 @@ from tcdiff_torch.ops import train_common
 from tcdiff_torch.ops._common import ln_f32, mm_f32
 from tcdiff_torch.ops.train_common import weight_splits
 from tcdiff_torch.optim.adan import Adan
+from tcdiff_torch.parallel import all_gather_rows, init_distributed, make_mesh, shard_batch
 from tcdiff_torch.train import orchestrator
 from tcdiff_torch.train.state import create_train_state
 from tcdiff_torch.train.train_step import make_train_step
 from tcdiff_torch.trajdecoder import TrajDecoder, autoregressive_rollout, kalman_smooth_batch
-from tcdiff_torch.trajdecoder.dataset import TrajDataset
+from tcdiff_torch.trajdecoder.dataset import SyntheticTrajDataset, TrajDataset
 from tcdiff_torch.trajdecoder.trainer import TrajTrainer, make_traj_optimizer, make_traj_train_step
 from tcdiff_torch.utils.checkpoint import restore_train_state
 from tcdiff_torch.viz import postprocess as viz_post
@@ -1895,15 +1917,15 @@ def reset_train_launches() -> None:
         getattr(mod, name).launches = getattr(mod, name).bwd_launches = 0
 
 
-def make_trainer(cfg, dtype):
+def make_trainer(cfg, dtype, mesh=None):
     """A full-width model with seeded random weights and its train step,
-    with TrainConfig's Adan and EMA settings."""
+    with TrainConfig's Adan and EMA settings (over `mesh`, where given)."""
     tcfg = TrainConfig()
     model = DanceDecoder(cfg, dtype=dtype).init_random(torch.Generator().manual_seed(0))
     opt = Adan(model.parameters(), lr=tcfg.learning_rate, betas=tcfg.adan_betas, eps=tcfg.adan_eps,
                weight_decay=tcfg.weight_decay)
     step = make_train_step(GaussianDiffusion(model, DiffusionConfig()), opt, ema_beta=tcfg.ema_beta,
-                           ema_interval=tcfg.ema_interval)
+                           ema_interval=tcfg.ema_interval, mesh=mesh)
     return model, create_train_state(model, opt), step
 
 
@@ -2282,6 +2304,21 @@ def metrics_card_vs_cpu(gen: np.ndarray, ref: np.ndarray, music) -> None:
         check(r <= (1e-4 if k not in ("fid_g", "div_g") or flips else 1e-6), f"evaluate {k}, card vs CPU: {r}")
 
 
+CLI_TRAIN = ["--mode", "train", "--batch_size", str(LOOP_BATCH), "--save_interval", "1"]
+
+
+def cli_common(work: str, data: dict, runs: str) -> list:
+    """The CLI phase's flags of every mode: the data phase's tree, cache and
+    3 dancers, the run directory `runs`/cli, bf16, one pass of each loop."""
+    return ["--data_path", data["root"], "--processed_data_dir", data["cache_dir"], "--required_dancer_num", "3",
+            "--project", runs, "--exp_name", "cli", "--render_dir", os.path.join(work, "cli_renders"),
+            "--no_render", "--compute_dtype", "bfloat16", "--epochs", "1"]
+
+
+def cli_train_flags(work: str, data: dict, runs: str) -> list:
+    return CLI_TRAIN + cli_common(work, data, runs)
+
+
 def cli_phase(card: str, work: str, data: dict) -> tuple:
     """Phase 14: `python -m tcdiff_torch.cli.train` in its five modes, at
     full width (3 dancers, 8 layers, d=512, bf16), on the data phase's
@@ -2292,9 +2329,7 @@ def cli_phase(card: str, work: str, data: dict) -> tuple:
     song = _build.BUILD / "cli_song.wav"
     _build.BUILD.mkdir(parents=True, exist_ok=True)
     smoke_song(str(song), CLI_SONG_S)
-    common = ["--data_path", data["root"], "--processed_data_dir", data["cache_dir"], "--required_dancer_num", "3",
-              "--project", runs, "--exp_name", "cli", "--render_dir", os.path.join(work, "cli_renders"),
-              "--no_render", "--compute_dtype", "bfloat16", "--epochs", "1"]  # one pass of each loop
+    common = cli_common(work, data, runs)
     ckpt = ["--checkpoint", os.path.join(runs, "cli", "checkpoints"), "--traj_checkpoint", data["dbn_dir"]]
     seconds, launches = {}, collections.Counter()
 
@@ -2309,8 +2344,7 @@ def cli_phase(card: str, work: str, data: dict) -> tuple:
         launches.update(cli_launches(before, label, calls))
         return runner
 
-    runner = run("train", ["--mode", "train", "--batch_size", str(LOOP_BATCH), "--save_interval", "1"],
-                 1)  # one step, then the train-time render's sampling of 2 clips
+    runner = run("train", CLI_TRAIN, 1)  # one step, then the train-time render's sampling of 2 clips
     train_counts = train_launches()
     want = runner.cfg.model.num_layers * runner.state.step
     print(f"cli train: {runner.state.step} step(s) of batch {LOOP_BATCH}, K3/K4/K5 launches (forward, backward) "
@@ -2394,6 +2428,323 @@ def cli_phase(card: str, work: str, data: dict) -> tuple:
     return dict(launches), train_counts
 
 
+DP_RANKS = 2  # two ranks on the one card, over gloo (NCCL refuses two ranks on one device)
+DP_BATCH, DP_F32_BATCH = 64, 8  # global train batches: 32 and 4 a rank
+DP_SLICES, DP_CLIPS = 8, 8  # the sharded long sampler's slices, normal-mode sampling's clips
+DP_DBN_ITEMS, DP_DBN_ITERS = 32, 2  # the DBN's synthetic set (one global batch of 32) and its iterations
+DP_SEED = 21
+
+
+def dp_inputs(cfg):
+    """The dp phase's seeded global inputs, drawn on the card: the long
+    sampler's cond, trajectory and injected noise, the normal sampler's cond
+    and trajectory."""
+    g = torch.Generator(device="cuda").manual_seed(DP_SEED)
+    tokens, steps = cfg.seq_len * cfg.dancer_num, DiffusionConfig().sampling_timesteps
+    r = lambda *shape, std=1.0: std * torch.randn(shape, generator=g, device="cuda")
+    return {"long_cond": r(DP_SLICES, 2 * cfg.seq_len + 1, cfg.cond_feature_dim),
+            "long_x0": r(DP_SLICES, tokens, 3, std=0.2),
+            "long_noise": {"init": r(DP_SLICES, tokens, cfg.nfeats), "steps": r(steps, DP_SLICES, tokens, cfg.nfeats)},
+            "cond": r(DP_CLIPS, 2 * cfg.seq_len + 1, cfg.cond_feature_dim), "x0": r(DP_CLIPS, tokens, 3, std=0.2)}
+
+
+def dp_tcdiff(device):
+    """The full-width bf16 `TCDiff` (3 dancers), seeded weights; dp = -1."""
+    cfg = TCDiffConfig()
+    cfg = dataclasses.replace(cfg.with_dancers(3), train=dataclasses.replace(cfg.train, compute_dtype="bfloat16"))
+    return orchestrator.TCDiff(cfg, use_ema_for_eval=False, device=device)
+
+
+def dp_dbn(device, dp: int):
+    """The DBN trainer (its config's sizes, its network in float64) and
+    its synthetic set. In float32 on the card the music projection's
+    first weight gradient cancels heavily: one process's lies 7.0e-3 of its
+    largest value from the float64 one (an NVIDIA H100 80GB HBM3), so f32
+    runs of one function in two summation orders differ past the 1e-4
+    rule of `dbn_step_card_vs_cpu`; in float64 that rule holds the dp logic
+    itself (the draws, the gathered LSTM input, the all-reduce)."""
+    trainer = TrajTrainer(TrajDecoderConfig(), dancer_num=3, device=device, dp=dp)
+    trainer.model.double()  # the optimizer keeps the same parameters, now float64
+    return trainer, SyntheticTrajDataset(DP_DBN_ITEMS, 3, 150, seed=DP_SEED, device=trainer.device)
+
+
+def dp_work(mesh, work: str) -> dict:
+    """Every path of the dp phase on `mesh` (None: one process): two train
+    steps in bf16 at DP_BATCH and in f32 at DP_F32_BATCH, the long sampler
+    over DP_SLICES slices (bf16 and f32), normal-mode `TCDiff._sample` of
+    DP_CLIPS clips and DP_DBN_ITERS DBN iterations. Returns the losses,
+    gradients and parameters, samples and launch counts (tensors on the
+    host)."""
+    cfg = DanceDecoderConfig(dancer_num=3)
+    dev = torch.device("cuda", 0)
+    host = lambda named: {n: t.detach().cpu() for n, t in named}
+    out = {"launches": {}}
+    for dtype, batch in ((torch.bfloat16, DP_BATCH), (torch.float32, DP_F32_BATCH)):
+        model, state, step = make_trainer(cfg, dtype, mesh)
+        x, cond = train_inputs(cfg, batch, DP_SEED)
+        if mesh is not None:
+            x, cond = shard_batch((x, cond), mesh)
+        gen = torch.Generator(device="cuda").manual_seed(DP_SEED)
+        reset_train_launches()
+        res = {"metrics": []}
+        for i in range(2):
+            state, m = step(state, x, cond, gen)
+            res["metrics"].append({k: v.item() for k, v in m.items()})
+            if i == 0:
+                res["grads1"] = host((n, p.grad) for n, p in model.named_parameters() if p.grad is not None)
+                res["params1"] = host(model.named_parameters())
+        res["params2"] = host(model.named_parameters())
+        res["ema2"] = {n: e.float().cpu() for n, e in state.ema_params.items()}
+        out[f"train_{dtype}"] = res
+        out["launches"][f"train_{dtype}"] = train_launches()
+        del model, state, step
+        torch.cuda.empty_cache()
+
+    inp = dp_inputs(cfg)
+    for dtype in (torch.bfloat16, torch.float32):
+        model = DanceDecoder(cfg, dtype=dtype, device=dev).init_random(torch.Generator().manual_seed(DP_SEED))
+        diff = GaussianDiffusion(model, DiffusionConfig(), device=dev)
+        shape = (DP_SLICES, cfg.seq_len * cfg.dancer_num, cfg.nfeats)
+        before = serving_launches()
+        if mesh is None:
+            song = diff.long_ddim_sample(shape, inp["long_cond"], x_0=inp["long_x0"], noise=inp["long_noise"])
+        else:
+            song = all_gather_rows(diff.long_ddim_sample_sharded(shape, inp["long_cond"], mesh, x_0=inp["long_x0"],
+                                                                 noise=inp["long_noise"]), mesh)
+        out[f"long_{dtype}"] = song.cpu()
+        out["launches"][f"long_{dtype}"] = {k: v - before[k] for k, v in serving_launches().items()}
+        del model, diff
+    runner = dp_tcdiff(dev)
+    before = serving_launches()
+    out["sample"] = runner._sample(inp["cond"], inp["x0"], torch.Generator(device="cuda").manual_seed(DP_SEED)).cpu()
+    out["launches"]["sample"] = {k: v - before[k] for k, v in serving_launches().items()}
+    out["sample_dp"] = runner.mesh.world
+    del runner
+    torch.cuda.empty_cache()
+
+    # the DBN: one iteration (its gradients, from the same weights), then
+    # the next (`train` starts its batch order anew: the same batch again)
+    trainer, ds = dp_dbn(dev, -1 if mesh is None else mesh.world)
+    run_dir = os.path.join(work, f"dp_dbn_{mesh is None}")
+    trainer.train(ds, total_iter=1, out_dir=run_dir, batch_size=DP_DBN_ITEMS)
+    grads = host((n, p.grad) for n, p in trainer.model.named_parameters())
+    trainer.train(ds, total_iter=DP_DBN_ITERS, out_dir=run_dir, batch_size=DP_DBN_ITEMS)
+    out["dbn"] = {"losses": trainer.losses, "params": host(trainer.model.named_parameters()), "grads": grads}
+    return out
+
+
+def _worst(shares: dict) -> tuple:
+    """(the largest share, its tensor's name)."""
+    name = max(shares, key=shares.get)
+    return shares[name], name
+
+
+def _digest(named: dict) -> str:
+    h = hashlib.sha256()
+    for name in sorted(named):
+        h.update(name.encode())
+        h.update(named[name].numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_rank(rank: int, store: str, work: str) -> None:
+    """One rank of the dp phase (a spawned process): join the gloo group of
+    DP_RANKS on card 0, run `dp_work` on the mesh, wait for the one-process
+    references (`work`/dp_ref.pt, which the parent computes meanwhile),
+    hold each result against them, and save the errors, launch counts and
+    digests of its state to `work`/dp_rank{rank}.pt."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(DP_RANKS), LOCAL_RANK=str(rank))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_distributed("cuda:0", backend="gloo", init_method=store)
+    try:
+        mesh = make_mesh(DP_RANKS, 1, device=dev)
+        print(f"dp rank {rank}/{mesh.world}: backend {mesh.backend}, device {dev}", flush=True)
+        got = dp_work(mesh, work)
+        ref_path, t0 = os.path.join(work, "dp_ref.pt"), time.perf_counter()
+        while not os.path.exists(ref_path):
+            check(time.perf_counter() - t0 < 600, "the one-process references did not come within 600 s")
+            time.sleep(0.5)
+        ref = torch.load(ref_path, map_location="cpu", weights_only=False, mmap=True)
+        errs = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            g, r = got[f"train_{dtype}"], ref[f"train_{dtype}"]
+            errs[f"train_{dtype}"] = {
+                "loss": [abs(a["total"] - b["total"]) / grad_tolerance(dtype, torch.tensor(b["total"]))
+                         for a, b in zip(g["metrics"], r["metrics"])],
+                "grads1": _worst({n: (g["grads1"][n] - t).abs().max().item() / grad_tolerance(dtype, t)
+                                  for n, t in r["grads1"].items()}),
+                "params1": _worst({n: (g["params1"][n] - t).abs().max().item() / tolerance(dtype, t)
+                                   for n, t in r["params1"].items()}),
+                "params2_off": _worst({n: ((g["params2"][n] - t).abs() > 0.1 * TrainConfig().learning_rate)
+                                       .float().mean().item() for n, t in r["params2"].items()}),
+                "digest": _digest({**g["params2"], **{f"ema.{n}": t for n, t in g["ema2"].items()}}),
+            }
+            song, want = got[f"long_{dtype}"], ref[f"long_{dtype}"]
+            tol = F32_PATH_TOL if dtype == torch.float32 else tolerance(dtype, want)
+            errs[f"long_{dtype}"] = (song - want).abs().max().item() / tol
+        errs["sample"] = (got["sample"] - ref["sample"]).abs().max().item() / tolerance(torch.bfloat16, ref["sample"])
+        # the DBN (float64, its config's dropout 0.1), `dbn_step_card_vs_cpu`'s rule: the
+        # losses within 1e-5 relative, each gradient of the first iteration
+        # within 1e-4 of its largest value, but the attention's key biases:
+        # a key bias shifts every logit of a softmax row alike, so the loss
+        # does not depend on it and its gradient is rounding in both runs;
+        # reported as a share of the network's largest gradient, not
+        # compared (AdamW moves it by about lr x the sign of that rounding)
+        d, rd = got["dbn"], ref["dbn"]
+        key_bias = lambda n: n.endswith("attn.key.bias")
+        largest = max(t.abs().max().item() for t in rd["grads"].values())
+        errs["dbn"] = {
+            "loss": max(abs(a - b) / abs(b) for a, b in zip(d["losses"], rd["losses"])) / DATA_TOL,
+            "grads": _worst({n: (d["grads"][n] - t).abs().max().item() / (1e-4 * max(t.abs().max().item(), 1e-30))
+                             for n, t in rd["grads"].items() if not key_bias(n)}),
+            "key_bias_grad": max(max(d["grads"][n].abs().max().item(), t.abs().max().item()) / largest
+                                 for n, t in rd["grads"].items() if key_bias(n)),
+            "params_off": _worst({n: ((d["params"][n] - t).abs() > 0.1 * TrajDecoderConfig().lr).float().mean()
+                                  .item() for n, t in rd["params"].items() if not key_bias(n)}),
+            "digest": _digest(d["params"]),
+        }
+        print(f"dp rank {rank}: launches {got['launches']}", flush=True)
+        torch.save({"errs": errs, "launches": got["launches"], "sample_dp": got["sample_dp"]},
+                   os.path.join(work, f"dp_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def nccl_world1_start(work: str, data: dict) -> tuple:
+    """Start `python -m torch.distributed.run --standalone --nproc_per_node
+    1 -m tcdiff_torch.cli.train --mode train --dp 1` on the data phase's
+    tree, with the CLI phase's train flags: NCCL at world size 1 (an
+    all-reduce over one rank, divided by 1). `nccl_world1_check` waits."""
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+            "-m", "tcdiff_torch.cli.train", "--dp", "1", *cli_train_flags(work, data, os.path.join(work, "nccl_runs"))]
+    log = open(os.path.join(work, "nccl_world1.log"), "w")
+    return subprocess.Popen(argv, stdout=log, stderr=subprocess.STDOUT), log, time.perf_counter()
+
+
+def nccl_world1_check(card: str, work: str, started: tuple) -> None:
+    """Wait for `nccl_world1_start`'s run: its checkpoint must equal the CLI
+    phase's non-distributed one bit for bit (parameters, EMA, Adan)."""
+    proc, log, t0 = started
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        log.close()
+    seconds = time.perf_counter() - t0
+    with open(log.name) as f:
+        out = f.read()
+    check(rc == 0, f"torchrun cli.train --dp 1 exited {rc}:\n{out[-3000:]}")
+    check("backend nccl" in out, "torchrun cli.train: the NCCL backend was not reported")
+    runs = os.path.join(work, "nccl_runs")
+    mine = torch.load(os.path.join(runs, "cli", "checkpoints", "ckpt_1.pt"), map_location="cpu", weights_only=False)
+    ref = torch.load(os.path.join(work, "cli_runs", "cli", "checkpoints", "ckpt_1.pt"), map_location="cpu",
+                     weights_only=False)
+    diffs = []
+    for key in ("model_state_dict", "ema_state_dict"):
+        diffs += [f"{key}.{n}" for n, t in ref[key].items() if not torch.equal(mine[key][n], t)]
+    for i, st in ref["optimizer_state_dict"]["state"].items():
+        diffs += [f"adan.{i}.{k}" for k, t in st.items()
+                  if torch.is_tensor(t) and not torch.equal(mine["optimizer_state_dict"]["state"][i][k], t)]
+    print(f"dp: torchrun --nproc_per_node 1 cli.train --dp 1 over NCCL on {card}: step {mine['step']}, "
+          f"{len(ref['model_state_dict'])} parameters, EMA and Adan moments against the non-distributed CLI "
+          f"run's checkpoint: {len(diffs)} differ (tol: bit for bit); {seconds:.1f} s wall, beside the gloo ranks")
+    check(mine["step"] == ref["step"] == 1 and not diffs, f"NCCL world-1 step differs from the plain one: {diffs[:5]}")
+
+
+def check_dp_ranks(results: list, t_ranks: float) -> None:
+    """Each rank's errors against one process, launch counts and state
+    digests (`_dp_rank`'s results, in rank order)."""
+    want_serving = DanceDecoderConfig().num_layers * DiffusionConfig().sampling_timesteps
+    want_train = DanceDecoderConfig().num_layers * 2
+    for r, res in enumerate(results):
+        e = res["errs"]
+        print(f"dp rank {r} against one process (shares of each tolerance): train bf16 batch {DP_BATCH} "
+              f"{ {k: v for k, v in e['train_torch.bfloat16'].items() if k != 'digest'} }, f32 batch "
+              f"{DP_F32_BATCH} { {k: v for k, v in e['train_torch.float32'].items() if k != 'digest'} }; "
+              f"long {DP_SLICES} slices bf16 {e['long_torch.bfloat16']:.3e}, f32 {e['long_torch.float32']:.3e}; "
+              f"_sample of {DP_CLIPS} over dp={res['sample_dp']} {e['sample']:.3e}; DBN "
+              f"{ {k: v for k, v in e['dbn'].items() if k != 'digest'} }")
+        check(res["sample_dp"] == DP_RANKS, f"rank {r}: TCDiff's mesh has dp={res['sample_dp']}")
+        for dtype in ("torch.bfloat16", "torch.float32"):
+            t = e[f"train_{dtype}"]
+            check(max(t["loss"]) <= 1 and t["grads1"][0] <= 1 and t["params1"][0] <= 1
+                  and t["params2_off"][0] <= 5e-2, f"rank {r}: the dp train steps in {dtype} disagree: {t}")
+            check(e[f"long_{dtype}"] <= 1, f"rank {r}: the sharded long sampler in {dtype} disagrees")
+        check(e["sample"] <= 1, f"rank {r}: dp _sample disagrees with one process")
+        d = e["dbn"]
+        check(d["loss"] <= 1 and d["grads"][0] <= 1 and d["params_off"][0] <= 5e-2,
+              f"rank {r}: the dp DBN disagrees: {d}")
+        for label, counts in res["launches"].items():
+            if label.startswith("train"):
+                check(all(f == b == want_train for f, b in counts.values()),
+                      f"rank {r} {label}: K3-K5 launched {counts}, expected {want_train} each way")
+            else:
+                check(counts["sa_block"] == counts["ff_tail"] == want_serving
+                      and sum(counts.values()) == 2 * want_serving,
+                      f"rank {r} {label}: serving launches {counts}, expected K1/K2 {want_serving} each")
+    for key in ("train_torch.bfloat16", "train_torch.float32", "dbn"):
+        digests = {res["errs"][key]["digest"] for res in results}
+        check(len(digests) == 1, f"{key}: the ranks' parameters differ")
+    print(f"dp: every rank's parameters and EMA bit-identical (sha256) after the bf16, f32 and DBN steps; "
+          f"K1/K2 {want_serving} launches a sampling call a rank, K3-K5 {want_train} each way for two steps a "
+          f"rank; ranks {t_ranks:.1f} s wall", flush=True)
+
+
+def dp_phase(card: str, work: str, data: dict) -> dict:
+    """Phase 15: data parallelism. Two ranks on the one card over gloo
+    (spawned after the kernels are built) and, beside them, NCCL at world
+    size 1 through torchrun and `cli.train`, while this process computes
+    the one-process references. Returns the serving and train kernels'
+    launches in the ranks' runs, summed over the ranks (each rank's are
+    checked)."""
+    t_phase = time.perf_counter()
+    print(f"dp: spawning {DP_RANKS} ranks on card 0, backend gloo (chosen: NCCL refuses two ranks on one "
+          f"device)", flush=True)
+    store = "file://" + os.path.join(work, "dp_store")
+    ctx = torch.multiprocessing.start_processes(_dp_rank, args=(store, work), nprocs=DP_RANKS, join=False,
+                                                start_method="spawn")
+    t0 = time.perf_counter()
+    nccl = None
+    try:
+        nccl = nccl_world1_start(work, data)
+        ref = dp_work(None, work)
+        ref.pop("launches")
+        tmp = os.path.join(work, "dp_ref.pt.tmp")
+        torch.save(ref, tmp)
+        os.replace(tmp, os.path.join(work, "dp_ref.pt"))  # the ranks wait for this name
+        del ref
+        torch.cuda.empty_cache()
+        t_ref = time.perf_counter() - t0
+        print(f"dp: the one-process references in {t_ref:.1f} s, while the ranks ran", flush=True)
+        try:
+            while not ctx.join(timeout=5):
+                check(time.perf_counter() - t0 < 600, "the dp ranks did not finish within 600 s")
+        except torch.multiprocessing.ProcessRaisedException as e:
+            raise SmokeFailure(f"a dp rank failed:\n{e}") from None
+        except torch.multiprocessing.ProcessExitedException as e:
+            raise SmokeFailure(f"a dp rank exited: {e}") from None
+        t_ranks = time.perf_counter() - t0
+        results = [torch.load(os.path.join(work, f"dp_rank{r}.pt"), weights_only=False) for r in range(DP_RANKS)]
+        check_dp_ranks(results, t_ranks)
+        nccl_world1_check(card, work, nccl)
+    finally:  # every process this phase started ends with it
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+        if nccl is not None:
+            if nccl[0].poll() is None:
+                nccl[0].kill()
+            nccl[1].close()
+    print(f"dp phase on {card}: {time.perf_counter() - t_phase:.1f} s (references {t_ref:.1f} s, ranks "
+          f"{t_ranks:.1f} s)")
+    runs = [(label, c) for res in results for label, c in res["launches"].items()]
+    serving = {k: sum(c[k] for label, c in runs if not label.startswith("train")) for k in serving_launches()}
+    train = {k: tuple(sum(c[k][i] for label, c in runs if label.startswith("train")) for i in (0, 1))
+             for k in train_launches()}
+    return {"serving": serving, "train": train}
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -2450,6 +2801,7 @@ def main() -> int:
         try:
             loop_counts, data = data_phase(card, work)
             cli_serving, cli_counts = cli_phase(card, work, data)
+            dp_counts = dp_phase(card, work, data)
         finally:
             shutil.rmtree(work, ignore_errors=True)
     except SmokeFailure as e:
@@ -2457,10 +2809,10 @@ def main() -> int:
         return 1
 
     for name, n in cli_serving.items():
-        launches[name] += n
-    launches.update({name: fwd + loop_counts[name][0] + cli_counts[name][0]
+        launches[name] += n + dp_counts["serving"][name]
+    launches.update({name: fwd + loop_counts[name][0] + cli_counts[name][0] + dp_counts["train"][name][0]
                      for name, (fwd, _) in train_counts.items()})
-    bwd = {name: {"bwd_launches": b + loop_counts[name][1] + cli_counts[name][1]}
+    bwd = {name: {"bwd_launches": b + loop_counts[name][1] + cli_counts[name][1] + dp_counts["train"][name][1]}
            for name, (_, b) in train_counts.items()}
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s, the kernels' build included")
     print(json.dumps({"kernels": [

@@ -6,10 +6,14 @@ Differences from the JAX package's flags:
 
   * `--device {cuda,cpu}` (default cuda) chooses where the model runs; it
     takes the place of the JAX package's TCDIFF_PLATFORM variable;
-  * `--dp` other than -1 and `--tp` other than 1 (the multi-GPU path,
-    ROADMAP queue 1 item 7), `--scan_steps` above 1 (TPU dispatch
-    machinery, which the port does not need) and `--remat` (an opt-in
-    knob, item 8) raise NotImplementedError instead of being ignored.
+  * `--dp` is the data-parallel size: -1 or the world size of the process
+    group (one process a rank, launched by `torchrun --nproc_per_node N
+    -m tcdiff_torch.cli.train --dp N ...`); another value raises
+    ValueError when `TCDiff` builds its mesh;
+  * `--tp` other than 1 (tensor parallelism, ROADMAP queue 1 item 9),
+    `--scan_steps` above 1 (TPU dispatch machinery, which the port does
+    not need) and `--remat` (an opt-in knob, item 8) raise
+    NotImplementedError instead of being ignored.
 """
 
 from __future__ import annotations
@@ -74,7 +78,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--synthetic", action="store_true", default=False,
                         help="run on a generated synthetic dataset (no AIOZ on disk)")
     parser.add_argument("--synthetic_size", type=int, default=16)
-    parser.add_argument("--dp", type=int, default=-1, help="data-parallel size (-1: every card; one here)")
+    parser.add_argument("--dp", type=int, default=-1,
+                        help="data-parallel size: -1 or the number of ranks torchrun started")
     parser.add_argument("--tp", type=int, default=1, help="tensor-parallel size (only 1 here)")
     parser.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"])
     parser.add_argument("--remat", action="store_true", default=False,
@@ -90,9 +95,8 @@ def build_parser() -> argparse.ArgumentParser:
 def check_ported(opt) -> None:
     """Raise NotImplementedError for a flag whose path the port does not
     have, naming the ROADMAP item that brings it."""
-    if opt.dp not in (-1, 1) or opt.tp != 1:
-        raise NotImplementedError(f"--dp {opt.dp} --tp {opt.tp}: the multi-GPU path is not ported yet "
-                                  f"(ROADMAP queue 1 item 7)")
+    if opt.tp != 1:
+        raise NotImplementedError(f"--tp {opt.tp}: tensor parallelism is not ported yet (ROADMAP queue 1 item 9)")
     if opt.scan_steps > 1:
         raise NotImplementedError(f"--scan_steps {opt.scan_steps}: several train steps a dispatch is the JAX "
                                   f"package's TPU dispatch machinery, which the port does not carry "
@@ -118,6 +122,7 @@ def config_from_opt(opt) -> TCDiffConfig:
         model=dataclasses.replace(cfg.model, dancer_num=opt.required_dancer_num, seq_len=opt.window_size),
         train=dataclasses.replace(cfg.train, batch_size=opt.batch_size, learning_rate=opt.learning_rate,
                                   epochs=opt.epochs, save_interval=opt.save_interval,
-                                  ema_interval=opt.ema_interval, seed=opt.seed, compute_dtype=opt.compute_dtype),
+                                  ema_interval=opt.ema_interval, seed=opt.seed, compute_dtype=opt.compute_dtype,
+                                  dp=opt.dp, tp=opt.tp),
         data=dataclasses.replace(cfg.data, data_path=opt.data_path, processed_data_dir=opt.processed_data_dir),
     )

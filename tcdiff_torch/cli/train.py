@@ -4,26 +4,42 @@
 The port of `tcdiff_tpu/cli/train.py`, the reference's `train.py:8-25`
 dispatch over the `TCDiff` class. The model runs on the card unless
 `--device cpu` is given; without a card the first allocation raises.
+
+Data parallelism: `torchrun --nproc_per_node N -m tcdiff_torch.cli.train
+--dp N ...` starts one process a rank; each joins the group first
+(`utils.paths.maybe_init_multihost`: NCCL on `cuda:{LOCAL_RANK}`, gloo
+with `--device cpu`), and rank 0 names the run directory for all.
 """
 
 from __future__ import annotations
 
 import os
 
+import torch.distributed as dist
+
 from tcdiff_torch.cli.args import config_from_opt, parse_train_opt
 from tcdiff_torch.train.orchestrator import TCDiff
-from tcdiff_torch.utils.paths import increment_path
+from tcdiff_torch.utils.logging import get_logger
+from tcdiff_torch.utils.paths import increment_path, maybe_init_multihost
 from tcdiff_torch.utils.profiling import trace
 
 
 def main(argv=None) -> TCDiff:
     opt = parse_train_opt(argv)
+    device = maybe_init_multihost(opt.device)  # joins torchrun's group, if any
+    if dist.is_initialized():
+        get_logger().info("data parallel: rank %d of %d, backend %s, device %s", dist.get_rank(),
+                          dist.get_world_size(), dist.get_backend(), device)
     cfg = config_from_opt(opt)
     if opt.mode == "train" and not opt.checkpoint:
-        # run directories that never clobber, as the reference's increment_path
-        opt.exp_name = os.path.basename(str(increment_path(os.path.join(opt.project, opt.exp_name))))
+        # run directories that never clobber, as the reference's increment_path;
+        # rank 0's choice, so that every rank names the same one
+        name = [os.path.basename(str(increment_path(os.path.join(opt.project, opt.exp_name))))]
+        if dist.is_initialized():
+            dist.broadcast_object_list(name, src=0)
+        opt.exp_name = name[0]
     runner = TCDiff(cfg, checkpoint_path=opt.checkpoint or None, use_ema_for_eval=opt.mode != "train",
-                    device=opt.device)
+                    device=device)
     if opt.mode == "train":
         runner.train_loop(opt)  # records its own trace of epoch 2 with --profile_dir
         return runner

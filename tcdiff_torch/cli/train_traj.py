@@ -5,7 +5,9 @@ The port of `tcdiff_tpu/cli/train_traj.py`, which mirrors the reference's
 It trains on the card unless `--device cpu` is given; `--synthetic` trains
 on seeded stand-in data, otherwise on a dataset that `create_dataset`
 wrote under `--data_path`; `--checkpoint` resumes from a checkpoint the
-trainer wrote.
+trainer wrote. `--dp N` under `torchrun --nproc_per_node N -m
+tcdiff_torch.cli.train_traj --dp N ...` trains data-parallel over N ranks
+(the batch size is the global one; rank 0 writes the files).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import argparse
 
 from tcdiff_torch.config import TrajDecoderConfig
+from tcdiff_torch.utils.paths import maybe_init_multihost
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -42,11 +45,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seq_len", type=int, default=150)
     p.add_argument("--render", action="store_true", default=False)
     p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--dp", type=int, default=-1, help="data-parallel size: -1 or the number of ranks torchrun started")
     return p
 
 
 def main(argv=None):
     opt = build_parser().parse_args(argv)
+    device = maybe_init_multihost(opt.device)  # joins torchrun's group, if any
     cfg = TrajDecoderConfig(
         nfeats=opt.nfeats, trans_layer=opt.trans_layer, window_size=opt.window_size, step=opt.step,
         total_iter=opt.total_iter, print_iter=opt.print_iter, batch_size=opt.batch_size, lr=opt.lr,
@@ -55,7 +60,7 @@ def main(argv=None):
     from tcdiff_torch.trajdecoder.dataset import SyntheticTrajDataset, TrajDataset
     from tcdiff_torch.trajdecoder.trainer import TrajTrainer
 
-    trainer = TrajTrainer(cfg, dancer_num=opt.required_dancer_num, device=opt.device)
+    trainer = TrajTrainer(cfg, dancer_num=opt.required_dancer_num, device=device, dp=opt.dp)
     if opt.checkpoint:
         trainer.restore(opt.checkpoint)
 

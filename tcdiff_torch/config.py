@@ -153,8 +153,9 @@ class TrajDecoderConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Diffusion trainer: the fields the train step and `TCDiff`'s loops
-    read (the JAX package's mesh, remat and scan knobs have no counterpart
-    here; their flags raise in `cli.args.check_ported`)."""
+    read, and the mesh's sizes (dp=-1: the world size of the process group;
+    tp > 1 is not ported). The JAX package's remat and scan knobs have no
+    counterpart here; their flags raise in `cli.args.check_ported`."""
 
     batch_size: int = 37
     learning_rate: float = 5e-5
@@ -167,6 +168,8 @@ class TrainConfig:
     adan_betas: Tuple[float, float, float] = (0.02, 0.08, 0.01)
     adan_eps: float = 1e-8
     compute_dtype: str = "float32"  # the network's forward: "float32" or "bfloat16"
+    dp: int = -1
+    tp: int = 1
 
 
 @dataclasses.dataclass(frozen=True)

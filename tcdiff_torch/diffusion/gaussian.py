@@ -10,6 +10,8 @@ PyTorch counterpart of `tcdiff_tpu/diffusion/gaussian.py`:
     every step and at the end): `ddim_sample` (optionally with `forecast_every`,
     AB2 extrapolation of x0 on skipped steps), `long_ddim_sample` (slices of
     one song on the batch axis, half-window coupling, a guidance ramp),
+    `long_ddim_sample_sharded` (the same with the slices sharded over
+    data-parallel ranks, the coupling a neighbour exchange),
     `ddim_sample_footwork` (leg-chain channels driven by a reference
     motion) and `ddim_sample_stream` (one slice, its first half-window
     inpainted from the previous slice's tail);
@@ -18,6 +20,11 @@ PyTorch counterpart of `tcdiff_tpu/diffusion/gaussian.py`:
 - training: `q_sample`, `p_losses` (predict-x0 with p2 weights: the
   reconstruction, velocity, root-relative FK and foot-skate terms) and
   `loss` (t drawn uniformly, then `p_losses`).
+
+Data parallelism (`parallel.mesh.Rows`): a rank passes its rows of the
+global batch, and every draw (x_T and each step's noise, t, noise,
+keep_mask and dropout) is made at the global batch and these rows kept,
+so that N ranks compute what one process does.
 
 Randomness comes from an explicit `torch.Generator`, or is injected so that
 the JAX package and this one can be fed the same numbers: the samplers take
@@ -31,6 +38,8 @@ and `keep_mask`.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -38,6 +47,8 @@ from tcdiff_torch.config import FOOT_JOINTS, N_JOINTS, DiffusionConfig
 from tcdiff_torch.diffusion.schedules import DiffusionBuffers, ddim_times
 from tcdiff_torch.geometry.skeleton import smpl_fk_from_6d
 from tcdiff_torch.models.dance_decoder import CondCache, DanceDecoder
+from tcdiff_torch.parallel.comm import from_previous
+from tcdiff_torch.parallel.mesh import Mesh, Rows, draw
 
 
 def impose_traj(x: torch.Tensor, x_0: torch.Tensor) -> torch.Tensor:
@@ -86,24 +97,33 @@ class GaussianDiffusion:
         shape = (-1,) + (1,) * (x_start.dim() - 1)
         return self._sqrt_ac[t].reshape(shape) * x_start + self._sqrt_1m_ac[t].reshape(shape) * noise
 
-    def p_losses(self, x_start, cond, t, generator=None, noise=None, keep_mask=None):
+    def p_losses(self, x_start, cond, t, generator=None, noise=None, keep_mask=None, rows: Optional[Rows] = None):
         """The 4-term training loss. x_start (bs, dn, sq, c) as the dataset
         yields it; cond (bs, 301, cond_dim); t (bs,). noise, in the permuted
         (bs, sq, dn, c) layout, and keep_mask (bs,) bool are drawn from
         `generator` unless given; the model's dropout always draws from it.
-        Returns (total, dict of the four weighted terms), scalars."""
+        With `rows` (data parallelism) x_start, cond and t are this rank's
+        rows of the global batch, and noise, keep_mask and the dropout are
+        drawn, or injected, at the global batch and these rows kept.
+        Returns (total, dict of the four weighted terms), scalars: the
+        means over these rows."""
         cfg = self.cfg
         bs, dn, sq, c = x_start.shape
         dev = x_start.device
         x_start = x_start.permute(0, 2, 1, 3)  # (bs, sq, dn, c)
         if noise is None:
-            noise = torch.randn(x_start.shape, generator=generator, device=dev)
+            noise = draw(lambda s: torch.randn(s, generator=generator, device=dev), x_start.shape, rows)
+        elif rows is not None:
+            noise = rows.take(noise)
         x_noisy = self.q_sample(x_start, t, noise)
         # the trajectory channels 4, 5 are never noised
         x_noisy = torch.cat([x_noisy[..., :4], x_start[..., 4:6], x_noisy[..., 6:]], dim=-1)
         if keep_mask is None:
-            keep_mask = torch.rand(bs, generator=generator, device=dev) < 1.0 - cfg.cond_drop_prob
-        out = self.model.forward_train(x_noisy.reshape(bs, sq * dn, c), cond, t, keep_mask, generator)
+            keep_mask = draw(lambda s: torch.rand(s, generator=generator, device=dev), (bs,), rows) < (
+                1.0 - cfg.cond_drop_prob)
+        elif rows is not None:
+            keep_mask = rows.take(keep_mask)
+        out = self.model.forward_train(x_noisy.reshape(bs, sq * dn, c), cond, t, keep_mask, generator, rows)
 
         target = x_start  # predict-x0
         out = out.reshape(bs, sq, dn, c)
@@ -135,11 +155,15 @@ class GaussianDiffusion:
         }
         return sum(losses.values()), losses
 
-    def loss(self, x, cond, generator=None, t=None, noise=None, keep_mask=None):
-        """t ~ U[0, T) from `generator` unless given, then `p_losses`."""
+    def loss(self, x, cond, generator=None, t=None, noise=None, keep_mask=None, rows: Optional[Rows] = None):
+        """t ~ U[0, T) from `generator` unless given, then `p_losses`; with
+        `rows`, t too is drawn, or injected, at the global batch."""
         if t is None:
-            t = torch.randint(0, self.cfg.n_timestep, (x.shape[0],), generator=generator, device=x.device)
-        return self.p_losses(x, cond, t, generator, noise, keep_mask)
+            t = draw(lambda s: torch.randint(0, self.cfg.n_timestep, s, generator=generator, device=x.device),
+                     (x.shape[0],), rows)
+        elif rows is not None:
+            t = rows.take(t)
+        return self.p_losses(x, cond, t, generator, noise, keep_mask, rows)
 
     def encode_cond_cfg(self, cond: torch.Tensor) -> CondCache:
         """Encode the condition once for the doubled (uncond | cond) batch."""
@@ -161,11 +185,13 @@ class GaussianDiffusion:
         return unc + (con - unc) * weight
 
     # ------------------------------------------------------------ sampling
-    def _start(self, shape, dev, generator, noise):
-        """x_T: noise["init"] when injected, else drawn."""
+    def _start(self, shape, dev, generator, noise, rows: Optional[Rows] = None):
+        """x_T: noise["init"] when injected, else drawn; with `rows`, shape
+        is the global batch's and this rank's rows of it are returned."""
         if noise is None:
-            return torch.randn(shape, generator=generator, device=dev)
-        return torch.as_tensor(noise["init"], dtype=torch.float32, device=dev)
+            return draw(lambda s: torch.randn(s, generator=generator, device=dev), shape, rows)
+        init = torch.as_tensor(noise["init"], dtype=torch.float32, device=dev)
+        return init if rows is None else rows.take(init)
 
     def _splice_footwork(self, x, x_0, hard: bool):
         """Frames [lo, hi) of the leg-chain rot6d channels from the
@@ -191,18 +217,22 @@ class GaussianDiffusion:
         return x4.reshape(x.shape)
 
     @staticmethod
-    def _half_copy(x, rows: int, half: int):
+    def _half_copy(x, rows: int, half: int, mesh: Optional[Mesh] = None):
         """Slice coupling: the first `half` of each slice (batch element)'s
         `rows` := the second half of the slice before it; slice 0 keeps
-        its own."""
+        its own. With a mesh the slices are sharded in order over the
+        ranks: a rank's first slice takes the previous rank's last slice's
+        second half (`comm.from_previous`; every rank calls it)."""
         x4 = x.reshape(x.shape[0], rows, -1, x.shape[-1])
-        shifted = torch.cat([x4[:1, :half], x4[:-1, half:]], dim=0)
+        prev = None if mesh is None else from_previous(x4[-1, half:], mesh)
+        first = x4[:1, :half] if prev is None else prev[None]
+        shifted = torch.cat([first, x4[:-1, half:]], dim=0)
         return torch.cat([shifted, x4[:, half:]], dim=1).reshape(x.shape)
 
     @torch.no_grad()
     def _ddim_loop(self, x, cond, weights: np.ndarray, *, generator=None, noise=None, x_0=None,
                    trj_dist=None, footwork: bool = False, long_mode: bool = False, stream_prev=None,
-                   forecast_every: int = 0):
+                   forecast_every: int = 0, rows: Optional[Rows] = None, mesh: Optional[Mesh] = None):
         """The DDIM step loop of every DDIM sampler (the JAX package's
         `_ddim_scan`): x (b, tokens, c) at x_T; weights (S,) the guidance
         weight of each step. Options: the footwork splice, long-form
@@ -210,13 +240,18 @@ class GaussianDiffusion:
         from `stream_prev`, and `forecast_every` >= 2: on skipped steps the
         x0 prediction is extrapolated (AB2) from the previous two instead
         of running the model; the first two and the last step always run
-        it."""
+        it. With `rows` x, cond, x_0 and trj_dist are a data-parallel
+        rank's rows: each step's noise is drawn, or injected, at the global
+        batch and these rows kept; `mesh` couples long-form slices across
+        the ranks."""
         cfg, buf = self.cfg, self.buffers
         dev = x.device
         b = x.shape[0]
         seq_len = self.model.cfg.seq_len
         half = seq_len // 2
         steps = _injected(noise, "steps", dev)
+        if steps is not None and rows is not None:
+            steps = steps[:, rows.start:rows.stop]
         prev_noise = _injected(noise, "prev", dev)
         times = ddim_times(cfg.n_timestep, cfg.sampling_timesteps)
         use_model = np.ones(len(times) - 1, dtype=bool)
@@ -254,7 +289,8 @@ class GaussianDiffusion:
                 max((one - alpha / alpha_next) * (one - alpha_next) / (one - alpha), np.float32(0))
             )
             coef = np.sqrt(max(one - alpha_next - sigma * sigma, np.float32(0)))
-            eps = torch.randn(x.shape, generator=generator, device=dev) if steps is None else steps[i]
+            eps = (draw(lambda s: torch.randn(s, generator=generator, device=dev), x.shape, rows) if steps is None
+                   else steps[i])
             if time_next < 0:
                 x = x_start
             else:
@@ -264,7 +300,7 @@ class GaussianDiffusion:
                 if footwork and time_next >= 0:  # the last step's splice is the soft blend below
                     x = self._splice_footwork(x, x_0, hard=True)
             if long_mode and time > 0 and time_next >= 0:
-                x = self._half_copy(x, seq_len, half)
+                x = self._half_copy(x, seq_len, half, mesh)
             if stream_prev is not None:
                 # RePaint-style: the first half-window is the previous
                 # slice's tail, re-noised to the next step's level
@@ -288,15 +324,18 @@ class GaussianDiffusion:
 
     @torch.no_grad()
     def ddim_sample(self, shape, cond, generator=None, x_0=None, noise=None, trj_dist=None,
-                    forecast_every: int = 0):
+                    forecast_every: int = 0, rows: Optional[Rows] = None):
         """DDIM over `cfg.sampling_timesteps` steps. shape: (b, tokens, c);
         cond: (b, 301, cond_dim); x_0: optional (b, tokens, >=2) trajectory
         (XY in channels 0,1); forecast_every >= 2: the opt-in x0 forecast
-        (see `_ddim_loop`), 0 the exact sampler. Runs on cond's device;
-        returns float32."""
-        x = self._start(shape, cond.device, generator, noise)
+        (see `_ddim_loop`), 0 the exact sampler. With `rows` (a
+        data-parallel rank's share) shape is the global batch's, cond,
+        x_0 and trj_dist are this rank's rows, every draw is made at the
+        global batch (noise, where injected, is global too) and this rank's
+        rows are returned. Runs on cond's device; returns float32."""
+        x = self._start(shape, cond.device, generator, noise, rows)
         return self._ddim_loop(x, cond, self._ddim_weights(), generator=generator, noise=noise, x_0=x_0,
-                               trj_dist=trj_dist, forecast_every=forecast_every)
+                               trj_dist=trj_dist, forecast_every=forecast_every, rows=rows)
 
     @torch.no_grad()
     def long_ddim_sample(self, shape, cond, generator=None, x_0=None, noise=None):
@@ -311,6 +350,29 @@ class GaussianDiffusion:
         weights = np.clip(np.linspace(0, gw * 2, s), None, gw).astype(np.float32)
         x = self._start(shape, cond.device, generator, noise)
         return self._ddim_loop(x, cond, weights, generator=generator, noise=noise, x_0=x_0, long_mode=True)
+
+    @torch.no_grad()
+    def long_ddim_sample_sharded(self, shape, cond, mesh: Mesh, generator=None, x_0=None, noise=None):
+        """`long_ddim_sample` with the slices sharded in order over the
+        mesh's ranks (the JAX package's `long_ddim_sample_sharded`): each
+        rank denoises n_slices/N consecutive slices, and the half-window
+        coupling crosses rank boundaries by a neighbour exchange on every
+        step but the last. shape, cond, x_0 and noise are the global ones
+        (noise["init"] sliced on axis 0, noise["steps"] on axis 1; noise
+        drawn from `generator` is drawn at the global shape), so the
+        result does not depend on N. Every rank calls it; returns this
+        rank's slices (`comm.all_gather_rows` gives the whole song). One
+        slice in all is plain `ddim_sample` without the trajectory, as in
+        `long_ddim_sample`: decided on the global count, so that a rank
+        holding one slice of several keeps x_0."""
+        rows = mesh.rows(shape[0])
+        if shape[0] == 1:
+            return self.ddim_sample(shape, cond, generator, x_0=None, noise=noise)
+        s, gw = self.cfg.sampling_timesteps, self.cfg.guidance_weight
+        weights = np.clip(np.linspace(0, gw * 2, s), None, gw).astype(np.float32)
+        x = self._start(shape, cond.device, generator, noise, rows)
+        return self._ddim_loop(x, rows.take(cond), weights, generator=generator, noise=noise,
+                               x_0=None if x_0 is None else rows.take(x_0), long_mode=True, rows=rows, mesh=mesh)
 
     @torch.no_grad()
     def ddim_sample_footwork(self, shape, cond, generator=None, x_0=None, noise=None):

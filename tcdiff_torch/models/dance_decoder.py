@@ -58,6 +58,7 @@ from tcdiff_torch.ops import (
 )
 from tcdiff_torch.ops.attention import N_TRJ_BUCKETS, trpe_bias
 from tcdiff_torch.ops.layer import layer as fused_layer
+from tcdiff_torch.parallel.mesh import Rows, draw
 
 
 class CondCache(NamedTuple):
@@ -86,27 +87,33 @@ def _identity(t):
     return t
 
 
-def dropout_fn(rate: float, generator: Optional[torch.Generator]):
+def dropout_fn(rate: float, generator: Optional[torch.Generator], rows: Optional[Rows] = None):
     """flax-style dropout (keep with probability 1-rate, kept values scaled
-    by 1/(1-rate)) drawing its masks from `generator`; identity at rate 0."""
+    by 1/(1-rate)) drawing its masks from `generator`; identity at rate 0.
+    With `rows` the masks are drawn at the global batch and this rank's
+    rows kept (`parallel.mesh.draw`)."""
     if rate == 0.0:
         return _identity
     if generator is None:
         raise ValueError("dropout > 0 in training needs a torch.Generator")
 
     def drop(t):
-        keep = torch.rand(t.shape, generator=generator, device=t.device) >= rate
+        keep = draw(lambda s: torch.rand(s, generator=generator, device=t.device), t.shape, rows) >= rate
         return torch.where(keep, t / (1.0 - rate), torch.zeros((), dtype=t.dtype, device=t.device))
 
     return drop
 
 
-def block_seeds(generator: Optional[torch.Generator], b: int, device, rate: float) -> torch.Tensor:
+def block_seeds(generator: Optional[torch.Generator], b: int, device, rate: float,
+                rows: Optional[Rows] = None) -> torch.Tensor:
     """One uint32 dropout seed per batch element for a train-block op
-    (int64 (b,)); zeros at rate 0, as the JAX package passes."""
+    (int64 (b,)); zeros at rate 0, as the JAX package passes. With `rows`
+    the seeds are drawn for the global batch and this rank's kept, so the
+    kernels' hash sees the seeds a single process would give these rows."""
     if rate == 0.0:
         return torch.zeros(b, dtype=torch.int64, device=device)
-    return torch.randint(0, 2**32, (b,), generator=generator, device=device, dtype=torch.int64)
+    return draw(lambda s: torch.randint(0, 2**32, s, generator=generator, device=device, dtype=torch.int64),
+                (b,), rows)
 
 
 def _heads(t: torch.Tensor, nhead: int) -> torch.Tensor:
@@ -454,14 +461,15 @@ class FiLMTransformerDecoderLayer(nn.Module):
             x = self.traj_Modulation[2](ctx, out)
         return x
 
-    def forward_train(self, x, memory, t, traj_emb, generator, rate: float):
+    def forward_train(self, x, memory, t, traj_emb, generator, rate: float, rows: Optional[Rows] = None):
         """The train path: x (b, L, d); memory (b, Lm, d); t (b, d). Each
         block op draws its own (b,) dropout seeds from `generator`, in the
-        order self-attention, cross-attention, FF."""
+        order self-attention, cross-attention, FF (at the global batch of
+        `rows`, where given)."""
         dt, dev = x.dtype, x.device
         b, L, d = x.shape
         w = lambda m: m.weight.to(dt)
-        seeds = lambda: block_seeds(generator, b, dev, rate)
+        seeds = lambda: block_seeds(generator, b, dev, rate, rows)
         angles = angle_table(L, d, dev)
 
         sa = self.self_attn
@@ -632,19 +640,22 @@ class DanceDecoder(nn.Module):
         t_tokens = _lin(self.to_time_tokens[0], t_hidden).reshape(times.shape[0], 2, d)
         return h, traj_emb, t, t_tokens
 
-    def forward_train(self, x, cond, times, keep_mask=None, generator: Optional[torch.Generator] = None):
+    def forward_train(self, x, cond, times, keep_mask=None, generator: Optional[torch.Generator] = None,
+                      rows: Optional[Rows] = None):
         """The train path (the JAX package's deterministic=False), with
         dropout cfg.dropout drawn from `generator`: x (b, tokens, nfeats),
-        cond (b, 301, cond_dim), times (b,), keep_mask (b,) bool. Returns
-        (b, tokens, nfeats) float32."""
+        cond (b, 301, cond_dim), times (b,), keep_mask (b,) bool. With
+        `rows` (a data-parallel rank's rows of the global batch) every
+        dropout draw is made at the global batch and these rows kept.
+        Returns (b, tokens, nfeats) float32."""
         rate = self.cfg.dropout
         if keep_mask is None:
             keep_mask = torch.ones(times.shape[0], dtype=torch.bool, device=times.device)
-        ct, cond_hidden = self.encode_cond(cond, keep_mask, dropout_fn(rate, generator))
+        ct, cond_hidden = self.encode_cond(cond, keep_mask, dropout_fn(rate, generator, rows))
         h, traj_emb, t, t_tokens = self._embed(x, times, cond_hidden)
         memory = _ln(self.norm_cond, torch.cat([ct, t_tokens], dim=-2), 1e-6)
         for layer in self.layers:
-            h = layer.forward_train(h, memory, t, traj_emb, generator, rate)
+            h = layer.forward_train(h, memory, t, traj_emb, generator, rate, rows)
         return _lin(self.final_layer, h).float()
 
     def forward(self, x, cond, times, keep_mask=None, trj_dist=None, *,

@@ -30,9 +30,13 @@ Training, beside them:
     the dataset's batches, read by the native prefetcher where the data
     are files; a non-finite loss writes a rescue checkpoint and raises;
     every `save_interval` epochs the metrics (with `StepTimer`'s rates) are
-    logged, a checkpoint written and the caller's `on_save` run. The JAX
-    package's `scan_steps` (TPU dispatch machinery) and its host-0 gating
-    are not here.
+    logged, a checkpoint written and the caller's `on_save` run. Under
+    data parallelism (`mesh`) every rank walks the same seeded batch
+    order and keeps its rows (`parallel.mesh.shard_batch`), the halt is
+    decided on the loss averaged over the ranks, and only rank 0 logs,
+    writes checkpoints and runs `on_save` (the JAX package's host-0
+    gating). The JAX package's `scan_steps` (TPU dispatch machinery) is
+    not here.
 
 And the `TCDiff` class (`:131-970`) over them, the five modes of
 `cli.train`: `train_loop` (with the render and the metrics at every save
@@ -42,8 +46,18 @@ writing the FK pkls through `viz/postprocess.py`. It differs from the JAX
 package's class in one deliberate way: in training, only the drawing and
 the writing of the render are caught; the sampling, the FK and the
 metrics run outside the catch, so that a failed kernel launch ends the
-run. Data-parallel sampling is not ported: `cli.args` refuses --dp and
---tp above one card.
+run.
+
+Data parallelism: `TCDiff` builds the mesh of `cfg.train.dp`
+(`parallel.mesh.make_mesh`; one process a rank, launched by torchrun,
+`cli.train` joins the group). The train step all-reduces the gradients;
+normal-mode sampling of a batch the ranks divide gives each rank its rows
+(the draws made at the global batch) and gathers them (`_sample`); the
+other sampler modes run whole on every rank. Only rank 0 logs, writes
+checkpoints, renders and evaluates during training, and there it samples
+alone (no collective, which the other ranks would never join); in the
+other modes every rank runs the loop and only rank 0 writes the files.
+Tensor parallelism is not ported (`make_mesh` raises for tp > 1).
 """
 
 from __future__ import annotations
@@ -73,6 +87,8 @@ from tcdiff_torch.eval.metrics import evaluate
 from tcdiff_torch.interop.from_jax import load_reference_traj
 from tcdiff_torch.models.dance_decoder import DanceDecoder
 from tcdiff_torch.optim.adan import Adan
+from tcdiff_torch.parallel.comm import all_gather_rows
+from tcdiff_torch.parallel.mesh import Mesh, make_mesh, shard_batch
 from tcdiff_torch.trajdecoder.kalman import kalman_smooth_batch
 from tcdiff_torch.trajdecoder.model import TrajDecoder
 from tcdiff_torch.trajdecoder.rollout import autoregressive_rollout
@@ -399,7 +415,7 @@ def load_datasets(opt, dancer_num: int = 3, seq_len: int = 150, seed: int = 0, d
 
 def train_loop(state: TrainState, train_step: Callable, train_ds, run_dir: str, *, epochs: int,
                batch_size: int, save_interval: int, seed: int = 0, profile_dir: Optional[str] = None,
-               on_save: Optional[Callable[[int], Optional[dict]]] = None) -> dict:
+               on_save: Optional[Callable[[int], Optional[dict]]] = None, mesh: Optional[Mesh] = None) -> dict:
     """Train `state` in place for `epochs` epochs of `train_ds`.
 
     train_step: `make_train_step`'s function for the state's model and
@@ -415,6 +431,10 @@ def train_loop(state: TrainState, train_step: Callable, train_ds, run_dir: str, 
     `on_save(epoch)`, where given, runs after each of those checkpoints;
     the metrics it returns (a dict, or None) are logged at the same step.
 
+    `mesh`: data parallelism, with `train_step` built on the same mesh;
+    `batch_size` is the global batch, each rank steps on its rows of it;
+    the files, the log and `on_save` are rank 0's alone.
+
     Returns {"steps", "loader" ("native" or "numpy"), "checkpoints",
     "metrics" (the last means logged)}."""
     device = next(state.model.parameters()).device
@@ -422,7 +442,8 @@ def train_loop(state: TrainState, train_step: Callable, train_ds, run_dir: str, 
     normalizer = train_ds.normalizer
     run_dir = Path(run_dir)
     ckpt_dir = str(run_dir / "checkpoints")
-    metrics = MetricLogger(str(run_dir), config={"batch": batch_size, "epochs": epochs})
+    host0 = mesh is None or mesh.rank == 0
+    metrics = MetricLogger(str(run_dir), config={"batch": batch_size, "epochs": epochs}) if host0 else None
     data_rng = np.random.default_rng(seed)
     timer = StepTimer()
     motion_s = batch_size * train_ds.poses.shape[2] / DATA_FPS
@@ -436,28 +457,33 @@ def train_loop(state: TrainState, train_step: Callable, train_ds, run_dir: str, 
         for epoch in range(1, epochs + 1):
             batches = (PrefetchingBatches(train_ds, batch_size, rng=data_rng, item_shape=item_shape) if use_native
                        else train_ds.batches(batch_size, rng=data_rng))
-            with trace(profile_dir if epoch == 2 else None):
+            with trace(profile_dir if epoch == 2 and host0 else None):
                 for batch in batches:
+                    if mesh is not None:
+                        batch = shard_batch(batch, mesh)
                     x = torch.as_tensor(batch["x"], dtype=torch.float32).to(device, non_blocking=True)
                     cond = torch.as_tensor(batch["cond"], dtype=torch.float32).to(device, non_blocking=True)
                     timer.tick()
                     state, m = train_step(state, x, cond, generator)
-                    total = m["total"].item()  # waits for the card
+                    total = m["total"].item()  # waits for the card; the mean over the ranks
                     timer.tock()
                     out["steps"] += 1
                     if not np.isfinite(total):
                         # failure detection the reference lacks: halt with a
-                        # rescue checkpoint instead of training on NaNs
-                        path = save_checkpoint(ckpt_dir, state.step, state, normalizer)
-                        out["checkpoints"].append(path)
-                        log.error("non-finite loss %s at step %d; rescue checkpoint at %s", total, state.step, path)
+                        # rescue checkpoint instead of training on NaNs (every
+                        # rank sees the same mean, so every rank halts)
+                        if host0:
+                            path = save_checkpoint(ckpt_dir, state.step, state, normalizer)
+                            out["checkpoints"].append(path)
+                            log.error("non-finite loss %s at step %d; rescue checkpoint at %s", total, state.step,
+                                      path)
                         raise FloatingPointError(f"non-finite loss at step {state.step}")
                     for k, v in m.items():
                         running[k] = running.get(k, 0.0) + float(v)
                     n_batches += 1
             if isinstance(batches, PrefetchingBatches) and batches.loader is not None:
                 out["loader"] = batches.loader
-            if epoch % save_interval == 0 and n_batches:
+            if epoch % save_interval == 0 and n_batches and host0:
                 means = {k: v / n_batches for k, v in running.items()}
                 means.update(timer.metrics(motion_seconds_per_step=motion_s))
                 means["epoch"] = epoch
@@ -471,7 +497,8 @@ def train_loop(state: TrainState, train_step: Callable, train_ds, run_dir: str, 
                 if extra:
                     metrics.log(extra, step=state.step)
     finally:
-        metrics.close()
+        if metrics is not None:
+            metrics.close()
     return out
 
 
@@ -531,7 +558,10 @@ class TCDiff:
     `save_interval`) and the data paths from `cfg.data`; `opt`, the parsed
     flags of `cli.args.build_parser`, gives the rest (outputs, the sampler
     mode, the DBN checkpoint, the synthetic data). The val and test loops
-    render `cfg.train.epochs` rounds, as the reference's `opt.epochs`."""
+    render `cfg.train.epochs` rounds, as the reference's `opt.epochs`.
+
+    `cfg.train.dp`: the data-parallel size (-1 or the world size of the
+    process group the caller joined; see the module's docstring)."""
 
     def __init__(self, cfg: TCDiffConfig, checkpoint_path: Optional[str] = None, use_ema_for_eval: bool = True,
                  device="cuda"):
@@ -545,6 +575,8 @@ class TCDiff:
         self.optimizer = Adan(self.model.parameters(), lr=tr.learning_rate, betas=tr.adan_betas, eps=tr.adan_eps,
                               weight_decay=tr.weight_decay)
         self.state = create_train_state(self.model, self.optimizer)
+        self.mesh = make_mesh(tr.dp, tr.tp, device=self.device)
+        self._solo = False  # within `alone()`: sampling calls no collective
         self.logger = get_logger()
         self.normalizer: Optional[Normalizer] = None
         self.use_ema_for_eval = use_ema_for_eval
@@ -627,6 +659,30 @@ class TCDiff:
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(int(seed))
 
+    @property
+    def host0(self) -> bool:
+        """Whether this rank writes the files (rank 0)."""
+        return self.mesh.rank == 0
+
+    @contextlib.contextmanager
+    def alone(self):
+        """Within: `_sample` runs whole on this rank and calls no collective
+        (what rank 0 does during training, where the others do not
+        follow)."""
+        was, self._solo = self._solo, True
+        try:
+            yield
+        finally:
+            self._solo = was
+
+    def _render(self, samples, epoch, render_dir: str, **kw) -> np.ndarray:
+        """`render_sample` on rank 0; on the others the post-processing
+        only, and no file (every rank holds the same samples)."""
+        if self.host0:
+            return render_sample(samples, self.normalizer, epoch, render_dir, self.cfg.model.dancer_num, **kw)
+        samples = torch.as_tensor(samples, dtype=torch.float32, device=self.normalizer.device)
+        return postprocess_sample(samples, self.normalizer, self.cfg.model.dancer_num, kw.get("mode", "normal")).poses
+
     # ------------------------------------------------------------------- data
     def load_datasets(self, opt):
         """(train_ds, test_ds): synthetic with --synthetic, else the AIOZ
@@ -650,24 +706,31 @@ class TCDiff:
         if train_ds is None:
             train_ds, test_ds = self.load_datasets(opt)
         self.normalizer = train_ds.normalizer
-        step_fn = make_train_step(self.diffusion, self.optimizer, tr.ema_beta, tr.ema_interval, device=self.device)
+        step_fn = make_train_step(self.diffusion, self.optimizer, tr.ema_beta, tr.ema_interval, device=self.device,
+                                  mesh=self.mesh)
 
-        def on_save(epoch: int) -> dict:
+        def on_save(epoch: int) -> dict:  # rank 0 only, so it samples alone
             if test_ds is None:
                 return {}
-            self.render_eval_samples(test_ds, epoch, opt.render_dir, render=opt.render)
-            return _flat_metrics(self.evaluate_loop(opt, test_ds=test_ds)) if opt.eval_during_train else {}
+            with self.alone():
+                self.render_eval_samples(test_ds, epoch, opt.render_dir, render=opt.render)
+                return _flat_metrics(self.evaluate_loop(opt, test_ds=test_ds)) if opt.eval_during_train else {}
 
         # the module-level train_loop, not this method
         return train_loop(self.state, step_fn, train_ds, str(Path(opt.project) / opt.exp_name), epochs=tr.epochs,
                           batch_size=tr.batch_size, save_interval=tr.save_interval, seed=tr.seed,
-                          profile_dir=opt.profile_dir, on_save=on_save)
+                          profile_dir=opt.profile_dir, on_save=on_save, mesh=self.mesh)
 
     # -------------------------------------------------------------- sampling
     def _sample(self, cond, x_0, generator: Optional[torch.Generator], mode: str = "normal", full_ref=None):
         """mode: normal (DDIM), long (sliced DDIM, neighbouring slices
         coupled), footwork (the leg channels follow `full_ref`), ddpm (the
-        ancestral loop). Returns (b, seq*dn, nfeats) normalized samples."""
+        ancestral loop). Returns (b, seq*dn, nfeats) normalized samples.
+
+        Normal mode over a data-parallel mesh whose ranks divide b (and
+        outside `alone()`): each rank samples its rows, every draw made at
+        the global batch, and the rows are gathered, so every rank returns
+        what one process would (the JAX package's sharded `_sample`)."""
         m = self.cfg.model
         cond = torch.as_tensor(np.asarray(cond) if not torch.is_tensor(cond) else cond, dtype=torch.float32,
                                device=self.device)
@@ -685,6 +748,11 @@ class TCDiff:
                 return self.diffusion.p_sample_loop(shape, cond, generator)
             if mode != "normal":
                 raise ValueError(f"unknown sample mode {mode!r}")
+            if self.mesh.world > 1 and shape[0] % self.mesh.world == 0 and not self._solo:
+                rows = self.mesh.rows(shape[0])
+                local = self.diffusion.ddim_sample(shape, rows.take(cond), generator,
+                                                   x_0=None if x_0 is None else rows.take(x_0), rows=rows)
+                return all_gather_rows(local, self.mesh)
             return self.diffusion.ddim_sample(shape, cond, generator, x_0=x_0)
 
     def render_eval_samples(self, ds, epoch, render_dir, count=2, mode="normal", fk_out=None, render=True):
@@ -732,8 +800,8 @@ class TCDiff:
                         else None)
             samples = self._sample(batch["cond"], gt_traj_x0(batch["x"], self.device), self._generator(epoch), mode,
                                    full_ref=full_ref)
-            render_sample(samples, self.normalizer, epoch, render_dir, self.cfg.model.dancer_num,
-                          fk_out=opt.vis_fk_out, name=batch["wav"], sound=False, mode=mode, render=opt.render)
+            self._render(samples, epoch, render_dir, fk_out=opt.vis_fk_out, name=batch["wav"], sound=False, mode=mode,
+                         render=opt.render)
             self.logger.info("[VAL-RENDER SAVED at Epoch %d]", epoch)
 
     # ----------------------------------------------------------- metric eval
@@ -785,10 +853,11 @@ class TCDiff:
                 report["dbn_traj"] = dbn_set
         report["traj_source"] = traj_source
         self.logger.info("eval metrics: %s", report)
-        out = Path(opt.project) / opt.exp_name
-        out.mkdir(parents=True, exist_ok=True)
-        with open(out / "eval.json", "w") as f:
-            json.dump(report, f, indent=2)
+        if self.host0:
+            out = Path(opt.project) / opt.exp_name
+            out.mkdir(parents=True, exist_ok=True)
+            with open(out / "eval.json", "w") as f:
+                json.dump(report, f, indent=2)
         return report
 
     # ------------------------------------------------ DBN trajectory stage
@@ -838,8 +907,8 @@ class TCDiff:
         for epoch in range(1, self.cfg.train.epochs + 1):
             batch = next(iter(test_ds.batches(render_count, rng=rng)))
             samples = self._sample(batch["cond"], dbn_traj(batch["x"], batch["cond"]), self._generator(epoch))
-            render_sample(samples, self.normalizer, epoch, render_dir, self.cfg.model.dancer_num,
-                          fk_out=opt.vis_fk_out, name=batch["wav"], sound=False, render=opt.render)
+            self._render(samples, epoch, render_dir, fk_out=opt.vis_fk_out, name=batch["wav"], sound=False,
+                         render=opt.render)
             self.logger.info("[TEST-RENDER SAVED at Epoch %d]", epoch)
 
     # ------------------------------------------------- wav -> dance serving
@@ -858,9 +927,8 @@ class TCDiff:
             samples = generate(wav_path, self.diffusion, traj_model, self.normalizer,
                                generator=self._generator(self.cfg.train.seed))
         n = samples.shape[0]
-        return render_sample(samples, self.normalizer, "gen", self._render_dir(opt, wav_path),
-                             self.cfg.model.dancer_num, fk_out=opt.vis_fk_out, name=[wav_path] * n, sound=False,
-                             mode="long" if n > 1 else "normal", render=opt.render)
+        return self._render(samples, "gen", self._render_dir(opt, wav_path), fk_out=opt.vis_fk_out,
+                            name=[wav_path] * n, sound=False, mode="long" if n > 1 else "normal", render=opt.render)
 
     def generate_streaming(self, wav_path: str, opt, on_slice=None, resume_from: int = 0,
                            resume_tail=None) -> np.ndarray:
@@ -875,7 +943,6 @@ class TCDiff:
             full = generate_streaming(wav_path, self.diffusion, traj_model, self.normalizer,
                                       generator=self._generator(self.cfg.train.seed), on_slice=on_slice,
                                       resume_from=resume_from, resume_tail=resume_tail)
-        render_sample(full.reshape(1, -1, self.cfg.model.nfeats), self.normalizer, "stream",
-                      self._render_dir(opt, wav_path), self.cfg.model.dancer_num,
-                      fk_out=opt.vis_fk_out, name=[wav_path], sound=False, render=opt.render)
+        self._render(full.reshape(1, -1, self.cfg.model.nfeats), "stream", self._render_dir(opt, wav_path),
+                     fk_out=opt.vis_fk_out, name=[wav_path], sound=False, render=opt.render)
         return full.cpu().numpy()

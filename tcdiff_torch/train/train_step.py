@@ -5,6 +5,17 @@ updated every `ema_interval` steps from the parameters after the optimizer
 step. Metrics are device scalars (no host sync): the four weighted loss
 terms, their total and the global L2 norm of the gradients (a parameter
 without a gradient counts as zeros, as in the JAX gradient tree).
+
+With a data-parallel mesh (`parallel.mesh`) each rank computes the loss
+on its rows of the global batch, every draw made at the global batch from
+a generator seeded alike on every rank (what the JAX package's replicated
+key over a sharded batch gives); after the backward the gradients go
+through one flat all-reduce (their mean over the ranks), so that the
+optimizer sees the global batch's gradient and every rank's parameters,
+Adan moments and EMA stay bit-identical. The gradient norm is taken after
+the all-reduce and the metrics are their means over the ranks. An explicit
+all-reduce, not `DistributedDataParallel`: the loss calls the model's
+`forward_train`, and DDP prepares its reducer only in `forward`.
 """
 
 from __future__ import annotations
@@ -15,11 +26,14 @@ import torch
 
 from tcdiff_torch.diffusion.gaussian import GaussianDiffusion
 from tcdiff_torch.optim.ema import ema_update
+from tcdiff_torch.parallel.comm import all_reduce_grads_, all_reduce_mean
+from tcdiff_torch.parallel.mesh import Mesh
 from tcdiff_torch.train.state import TrainState
 
 
 def make_train_step(diffusion: GaussianDiffusion, optimizer: torch.optim.Optimizer,
-                    ema_beta: float = 0.9999, ema_interval: int = 1, device="cuda") -> Callable:
+                    ema_beta: float = 0.9999, ema_interval: int = 1, device="cuda",
+                    mesh: Optional[Mesh] = None) -> Callable:
     """Returns train_step(state, x, cond, generator, *, t=None, noise=None,
     keep_mask=None) -> (state, metrics), which updates `state` in place.
 
@@ -28,7 +42,9 @@ def make_train_step(diffusion: GaussianDiffusion, optimizer: torch.optim.Optimiz
     noise, keep_mask and dropout), on `device`. t, noise and keep_mask may
     be injected instead, as `GaussianDiffusion.p_losses` takes them.
     `device` (the GPU unless the caller asks for the CPU) must be the
-    diffusion's."""
+    diffusion's. With `mesh`, x and cond are this rank's rows of the global
+    batch, and t, noise and keep_mask, drawn or injected, the global
+    batch's."""
     device = torch.empty(0, device=device).device  # raises where the device does not exist
     if device != diffusion.device:
         raise ValueError(f"the train step runs on {device}, the diffusion on {diffusion.device}")
@@ -41,9 +57,14 @@ def make_train_step(diffusion: GaussianDiffusion, optimizer: torch.optim.Optimiz
         if state.model is not model or state.optimizer is not optimizer:
             raise ValueError("the state holds another model or optimizer than this train step")
         optimizer.zero_grad(set_to_none=True)
-        total, parts = diffusion.loss(x, cond, generator, t=t, noise=noise, keep_mask=keep_mask)
+        rows = None if mesh is None else mesh.rows(x.shape[0] * mesh.world)
+        total, parts = diffusion.loss(x, cond, generator, t=t, noise=noise, keep_mask=keep_mask, rows=rows)
         total.backward()
         grads = [p.grad for p in params if p.grad is not None]
+        if mesh is not None:
+            all_reduce_grads_(grads, mesh)
+            parts = all_reduce_mean({**parts, "total": total}, mesh)
+            total = parts.pop("total")
         grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         optimizer.step()
         if state.step % ema_interval == 0:

@@ -53,6 +53,8 @@ from torch import nn
 
 from tcdiff_torch.config import TrajDecoderConfig
 from tcdiff_torch.models.dance_decoder import _identity, dropout_fn
+from tcdiff_torch.parallel.comm import all_gather_rows
+from tcdiff_torch.parallel.mesh import Mesh, Rows
 
 
 def positional_encoding(length: int, dim: int) -> np.ndarray:
@@ -203,19 +205,34 @@ class TrajDecoder(nn.Module):
             return self._forward(x.float(), music_feat.float())
 
     def forward_train(self, x: torch.Tensor, music_feat: torch.Tensor,
-                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                      generator: Optional[torch.Generator] = None, mesh: Optional[Mesh] = None) -> torch.Tensor:
         """The forward with gradients and the config's dropout, its masks
         drawn from `generator` (needed where the rate is above 0; at rate 0
-        the dropout is the identity). The caller runs the backward under
-        `f32_math()` too where its TF32 flags are on."""
-        drop = dropout_fn(self.cfg.dropout, generator)
-        with f32_math():
-            return self._forward(x.float(), music_feat.float(), drop)
+        the dropout is the identity), in the parameters' dtype. The caller
+        runs the backward under `f32_math()` too where its TF32 flags are
+        on.
 
-    def _forward(self, x: torch.Tensor, m: torch.Tensor, drop=_identity) -> torch.Tensor:
+        With a data-parallel `mesh`, x and music_feat are this rank's rows
+        of the global batch: the dropout masks are drawn at the global
+        batch and these rows kept, and since the LSTM recurs over the batch
+        axis, its input is gathered from every rank and the recurrence run
+        over the whole global batch (these rows' outputs kept), so that the
+        function is the single process's."""
+        rows = None if mesh is None else mesh.rows(x.shape[0] * mesh.world)
+        drop = dropout_fn(self.cfg.dropout, generator, rows)
+        dt = self.Decoder[0].weight.dtype  # float32, unless the caller converted the network
+        with f32_math():
+            return self._forward(x.to(dt), music_feat.to(dt), drop, mesh, rows)
+
+    def _forward(self, x: torch.Tensor, m: torch.Tensor, drop=_identity, mesh: Optional[Mesh] = None,
+                 rows: Optional[Rows] = None) -> torch.Tensor:
         cfg = self.cfg
         b, dn, seq, c = x.shape
-        h = _lstm(self.lstm, x.reshape(b, dn * seq, c))  # recurrence over the batch axis
+        tokens = x.reshape(b, dn * seq, c)
+        if rows is None:
+            h = _lstm(self.lstm, tokens)  # recurrence over the batch axis
+        else:
+            h = rows.take(_lstm(self.lstm, all_gather_rows(tokens, mesh)))
 
         if m.shape[1] % 2 == 1:
             m = m[:, :-1]

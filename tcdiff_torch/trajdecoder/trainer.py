@@ -16,6 +16,13 @@ needs matplotlib) and every sample's trajectory written as a pkl.
 
 The step computes in float32 under `f32_math`, forward and backward, as
 the network's serving forward does.
+
+Data parallelism (`dp`, over torch.distributed as `parallel.mesh` sets it
+up): every rank walks the same seeded batch order and keeps its rows, every
+draw (the window start, the dropout masks) is made at the global batch
+from a generator seeded alike on every rank, the gradients go through one
+flat all-reduce, and only rank 0 logs, writes checkpoints and runs the
+eval rollout and its renders.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ import numpy as np
 import torch
 
 from tcdiff_torch.config import TrajDecoderConfig
+from tcdiff_torch.parallel.comm import all_reduce_grads_, all_reduce_mean
+from tcdiff_torch.parallel.mesh import Mesh, make_mesh, shard_batch
 from tcdiff_torch.trajdecoder.kalman import kalman_smooth_batch
 from tcdiff_torch.trajdecoder.model import TrajDecoder, f32_math
 from tcdiff_torch.trajdecoder.rollout import autoregressive_rollout
@@ -70,7 +79,7 @@ def window_start(seq_len: int, cfg: TrajDecoderConfig, generator: torch.Generato
 
 
 def make_traj_train_step(model: TrajDecoder, optimizer: torch.optim.Optimizer, scheduler,
-                         cfg: TrajDecoderConfig) -> Callable:
+                         cfg: TrajDecoderConfig, mesh: Optional[Mesh] = None) -> Callable:
     """Returns train_step(x, cond, generator, start=None) -> metrics, which
     updates the model, the optimizer and the schedule in place.
 
@@ -80,7 +89,10 @@ def make_traj_train_step(model: TrajDecoder, optimizer: torch.optim.Optimizer, s
     from `generator`. The condition window is XY[start, start + w), the
     target the same shifted by `step`, the music cond[2 start, 2 (start + w
     + step)). A parameter without a gradient (the dead `traj_emb`) gets a
-    zero one, so that AdamW decays it as optax does."""
+    zero one, so that AdamW decays it as optax does. With `mesh`, x and
+    cond are this rank's rows of the global batch; the gradients are
+    averaged over the ranks before the update and the metrics are means
+    over the ranks."""
     w, shift = cfg.window_size, cfg.step
     params = list(model.parameters())
 
@@ -93,12 +105,16 @@ def make_traj_train_step(model: TrajDecoder, optimizer: torch.optim.Optimizer, s
         music = cond[:, 2 * start:2 * (start + w + shift)]
         optimizer.zero_grad(set_to_none=True)
         with f32_math():
-            pred = model.forward_train(x_cond, music, generator)
+            pred = model.forward_train(x_cond, music, generator, mesh)
             total, parts = traj_losses(pred, x_target.float())
             total.backward()
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if mesh is not None:
+            all_reduce_grads_([p.grad for p in params], mesh)
+            parts = all_reduce_mean({**parts, "total": total}, mesh)
+            total = parts.pop("total")
         optimizer.step()
         scheduler.step()
         return {**{k: v.detach() for k, v in parts.items()}, "total": total.detach()}
@@ -107,16 +123,19 @@ def make_traj_train_step(model: TrajDecoder, optimizer: torch.optim.Optimizer, s
 
 
 class TrajTrainer:
-    """Iteration-based DBN training on one device (the card unless the
-    caller asks for the CPU). The weights are drawn from cfg.seed, and so is
-    every draw of the steps (windows and dropout masks, from one generator
-    on the device) and the order of the batches (numpy)."""
+    """Iteration-based DBN training on one device a rank (the card unless
+    the caller asks for the CPU). The weights are drawn from cfg.seed, and
+    so is every draw of the steps (windows and dropout masks, from one
+    generator on the device) and the order of the batches (numpy). `dp`:
+    the data-parallel size, -1 or the world size of the process group
+    (`parallel.mesh.make_mesh`); the batch size is the global one."""
 
-    def __init__(self, cfg: TrajDecoderConfig, dancer_num: int = 3, device="cuda"):
+    def __init__(self, cfg: TrajDecoderConfig, dancer_num: int = 3, device="cuda", dp: int = -1):
         self.cfg = cfg
         self.dancer_num = dancer_num
         self.model = TrajDecoder(cfg, device=device).init_random(torch.Generator().manual_seed(cfg.seed))
         self.device = self.model.device
+        self.mesh = make_mesh(dp, 1, device=self.device)
         self.optimizer, self.scheduler = make_traj_optimizer(self.model, cfg)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self.step = 0
@@ -126,7 +145,7 @@ class TrajTrainer:
         self.step_seconds: list = []  # every step's wall time, the card waited for
         self.last_eval: Optional[np.ndarray] = None
         self.renders: list = []  # the files the eval renders wrote (render=True)
-        self._step_fn = make_traj_train_step(self.model, self.optimizer, self.scheduler, cfg)
+        self._step_fn = make_traj_train_step(self.model, self.optimizer, self.scheduler, cfg, self.mesh)
         n_params = sum(p.numel() for p in self.model.parameters())
         self.logger.info("TrajDecoder parameters: %.2fM", n_params / 1e6)
 
@@ -160,7 +179,8 @@ class TrajTrainer:
             self.logger.warning("batch %d > dataset %d; clamping", bs, len(train_ds))
             bs = len(train_ds)
         out = Path(out_dir)
-        metrics = MetricLogger(str(out), config={"lr": cfg.lr, "batch": bs})
+        host0 = self.mesh.rank == 0  # only rank 0 logs and writes files
+        metrics = MetricLogger(str(out), config={"lr": cfg.lr, "batch": bs}) if host0 else None
         data_rng = np.random.default_rng(cfg.seed)
         timer = StepTimer()
 
@@ -172,7 +192,7 @@ class TrajTrainer:
         running, n = {}, 0
         try:
             while self.step < total:
-                batch = next(it)
+                batch = shard_batch(next(it), self.mesh)
                 x = torch.as_tensor(batch["x"], dtype=torch.float32, device=self.device)
                 cond = torch.as_tensor(batch["cond"], dtype=torch.float32, device=self.device)
                 timer.tick()
@@ -183,7 +203,7 @@ class TrajTrainer:
                 for k, v in m.items():
                     running[k] = running.get(k, 0.0) + v
                 n += 1
-                if self.step % cfg.print_iter == 0:
+                if self.step % cfg.print_iter == 0 and host0:
                     means = {k: v / n for k, v in running.items()}
                     means.update(timer.metrics())
                     metrics.log(means, step=self.step)
@@ -201,5 +221,6 @@ class TrajTrainer:
                                                                epoch=self.step, names=eval_batch["wav"],
                                                                pkl_out=str(out / "traj_pkl"))
         finally:
-            metrics.close()
+            if metrics is not None:
+                metrics.close()
         return self

@@ -15,7 +15,9 @@ The port of `tcdiff_tpu/utils/checkpoint.py`, without orbax:
 
 The normalizer is stored as plain float32 arrays (`scale`, `offset`), not
 as the reference's pickled object. A file is written under a temporary
-name and renamed, so a reader never sees half of one. Checkpoints are
+name and renamed, so a reader never sees half of one. Under data
+parallelism only rank 0 writes (every rank holds the same state); every
+rank reads. Checkpoints are
 unpickled (`weights_only=False`: the arrays are numpy); load only files
 this program wrote.
 """
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from tcdiff_torch.data.normalizer import Normalizer
+from tcdiff_torch.parallel.mesh import is_host0
 
 
 def _normalizer_arrays(normalizer: Optional[Normalizer]) -> Optional[dict]:
@@ -37,6 +40,10 @@ def _normalizer_arrays(normalizer: Optional[Normalizer]) -> Optional[dict]:
 
 
 def _save(payload: dict, path: Path) -> str:
+    """Write `payload` to `path` on rank 0 (`parallel.mesh.is_host0`);
+    return the path on every rank."""
+    if not is_host0():
+        return str(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
     torch.save(payload, tmp)

@@ -21,6 +21,8 @@ from tcdiff_tpu.cli import args as jargs  # noqa: E402
 from tcdiff_torch.cli import args, train  # noqa: E402
 from tcdiff_torch.data.audio import save_wav  # noqa: E402
 from tcdiff_torch.data.features import SR  # noqa: E402
+from tcdiff_torch.parallel.mesh import Rows, make_mesh  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 
 def test_flags_and_defaults_match_jax():
@@ -44,9 +46,26 @@ def test_config_from_opt_matches_jax():
     assert ours.train.compute_dtype == "bfloat16" and ours.train.epochs == 7 and ours.train.save_interval == 2
 
 
-@pytest.mark.parametrize("argv, item", [(["--dp", "2"], "item 7"), (["--tp", "2"], "item 7"),
+@pytest.mark.parametrize("argv, item", [(["--dp", "2"], None), (["--tp", "2"], "item 9"),
                                         (["--scan_steps", "4"], "item 6"), (["--remat"], "item 8")])
-def test_flags_that_raise(argv, item):
+def test_flags_that_raise(argv, item, monkeypatch):
+    """--dp is accepted and must equal the world size: --dp 2 builds its
+    mesh in a world of 2 (the group's size read from torch.distributed)
+    and raises in a lone process; --tp 2 and the knobs not ported raise
+    NotImplementedError naming their ROADMAP item."""
+    if item is None:
+        opt = args.parse_train_opt(argv)
+        assert args.config_from_opt(opt).train.dp == 2
+        with pytest.raises(ValueError, match="dp=2 but the world has 1"):
+            make_mesh(opt.dp, opt.tp, device="cpu")
+        monkeypatch.setattr(dist, "is_initialized", lambda: True)
+        monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
+        monkeypatch.setattr(dist, "get_rank", lambda group=None: 1)
+        mesh = make_mesh(opt.dp, opt.tp, device="cpu")
+        assert (mesh.rank, mesh.world, mesh.rows(4)) == (1, 2, Rows(2, 4, 4))
+        with pytest.raises(ValueError, match="dp=3 but the world has 2"):
+            make_mesh(3, 1, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=item):
         args.parse_train_opt(argv)
     args.parse_train_opt(["--dp", "1"])  # one card is what -1 means here

@@ -1378,3 +1378,24 @@ def test_stitch_long_matches_cpu(dev):
     assert dq.device.type == "cuda" and dp.shape == fp.shape == (450, 3, 3)
     assert (dp.cpu() - fp).abs().max().item() <= 1e-5 * fp.abs().max().item()
     assert (dq.cpu() - fq).abs().max().item() <= 1e-5 * fq.abs().max().item()
+
+
+def test_sharded_long_sampler_two_gloo_ranks_on_one_card(dev, tmp_path):
+    """`long_ddim_sample_sharded` over two gloo ranks on this one card (NCCL
+    refuses two ranks on one device), so that the neighbour exchange goes
+    through the host copy of `parallel.comm`: 4 and 2 slices against
+    `long_ddim_sample` in one process on the same card, through K1/K2 in
+    f32, within 1e-5 (the same kernels at another batch); the generator
+    case too."""
+    import _torch_parallel as tp
+    from tcdiff_torch.ops import _build
+
+    _build.build_all(["sa_block", "ff_tail"])  # once, before the ranks load them
+    model = dict(tp.LONG_MODEL, latent_dim=128, ff_size=256, head_dim=64)
+    payload = tp.long_payload(None, model=model)
+    ranks = tp.run_ranks("long_sampler", tmp_path, payload, device="cuda:0")
+    ref = tp.long_sampler_plain(payload, device=dev)
+    for key in (4, 2, "generator"):
+        for r, res in enumerate(ranks):
+            got = res[key] if key == "generator" else res[key]["full"]
+            assert (got - ref[key]).abs().max().item() <= 1e-5, (key, r)

@@ -14,8 +14,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from _torch_tcdiff import build_stack, loop_opt, orch  # noqa: E402
-from tcdiff_torch.cli.args import parse_train_opt  # noqa: E402
+from _torch_tcdiff import build_stack, cfgs, loop_opt, orch  # noqa: E402
+from tcdiff_torch.cli.args import config_from_opt, parse_train_opt  # noqa: E402
 from tcdiff_torch.config import TrainConfig  # noqa: E402
 from tcdiff_torch.trajdecoder.model import TrajDecoder  # noqa: E402
 from tcdiff_torch.utils.checkpoint import save_traj_checkpoint  # noqa: E402
@@ -73,9 +73,16 @@ def test_traj_checkpoints(tmp_path, stack, caplog):
 
 
 def test_multi_gpu_settings_raise():
-    """The multi-GPU settings are refused where they enter, the flags of
-    cli.train; the config tree that TCDiff reads has no field for them."""
-    for argv in (["--dp", "2"], ["--tp", "2"], ["--dp", "4", "--tp", "2"]):
-        with pytest.raises(NotImplementedError, match="item 7"):
+    """The multi-GPU settings enter through the flags of cli.train: --tp
+    above 1 is refused there (tensor parallelism, ROADMAP queue 1 item 9);
+    --dp goes into cfg.train.dp and must equal the world size when TCDiff
+    builds its mesh, so in a lone process --dp 2 raises."""
+    for argv in (["--tp", "2"], ["--dp", "4", "--tp", "2"]):
+        with pytest.raises(NotImplementedError, match="item 9"):
             parse_train_opt(argv)
-    assert not {"dp", "tp"} & {f.name for f in dataclasses.fields(TrainConfig)}
+    cfg = config_from_opt(parse_train_opt(["--dp", "2"]))
+    assert (cfg.train.dp, cfg.train.tp) == (2, 1) and TrainConfig().dp == -1
+    small = cfgs()[1]
+    with pytest.raises(ValueError, match="dp=2 but the world has 1"):
+        orch.TCDiff(dataclasses.replace(small, train=dataclasses.replace(small.train, dp=2)), device="cpu")
+    assert orch.TCDiff(small, device="cpu").mesh.world == 1
