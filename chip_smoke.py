@@ -194,6 +194,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 
@@ -2433,6 +2434,11 @@ DP_BATCH, DP_F32_BATCH = 64, 8  # global train batches: 32 and 4 a rank
 DP_SLICES, DP_CLIPS = 8, 8  # the sharded long sampler's slices, normal-mode sampling's clips
 DP_DBN_ITEMS, DP_DBN_ITERS = 32, 2  # the DBN's synthetic set (one global batch of 32) and its iterations
 DP_SEED = 21
+# the f32 DBN's gradients against float64's, each within this share of its
+# tensor's largest value: twice the spread one f32 process showed (the music
+# projection's first weight gradient 7.0e-3 from float64; NVIDIA H100 80GB
+# HBM3, 700.00 W), which f32's summation order sets whatever the ranks
+DP_DBN_F32_GRAD_TOL = 2 * 7.0e-3
 
 
 def dp_inputs(cfg):
@@ -2455,16 +2461,18 @@ def dp_tcdiff(device):
     return orchestrator.TCDiff(cfg, use_ema_for_eval=False, device=device)
 
 
-def dp_dbn(device, dp: int):
-    """The DBN trainer (its config's sizes, its network in float64) and
-    its synthetic set. In float32 on the card the music projection's
-    first weight gradient cancels heavily: one process's lies 7.0e-3 of its
+def dp_dbn(device, dp: int, dtype):
+    """The DBN trainer (its config's sizes, its network in `dtype`) and its
+    synthetic set. In float32 on the card the music projection's first
+    weight gradient cancels heavily: one process's lies 7.0e-3 of its
     largest value from the float64 one (an NVIDIA H100 80GB HBM3), so f32
     runs of one function in two summation orders differ past the 1e-4
-    rule of `dbn_step_card_vs_cpu`; in float64 that rule holds the dp logic
-    itself (the draws, the gathered LSTM input, the all-reduce)."""
+    rule of `dbn_step_card_vs_cpu`. In float64 that rule holds the dp logic
+    itself (the draws, the gathered LSTM input, the all-reduce); the f32
+    network, the one users train, is held against float64 at
+    DP_DBN_F32_GRAD_TOL."""
     trainer = TrajTrainer(TrajDecoderConfig(), dancer_num=3, device=device, dp=dp)
-    trainer.model.double()  # the optimizer keeps the same parameters, now float64
+    trainer.model.to(dtype)  # the optimizer keeps the same parameters, now in dtype
     return trainer, SyntheticTrajDataset(DP_DBN_ITEMS, 3, 150, seed=DP_SEED, device=trainer.device)
 
 
@@ -2522,15 +2530,42 @@ def dp_work(mesh, work: str) -> dict:
     del runner
     torch.cuda.empty_cache()
 
-    # the DBN: one iteration (its gradients, from the same weights), then
-    # the next (`train` starts its batch order anew: the same batch again)
-    trainer, ds = dp_dbn(dev, -1 if mesh is None else mesh.world)
-    run_dir = os.path.join(work, f"dp_dbn_{mesh is None}")
-    trainer.train(ds, total_iter=1, out_dir=run_dir, batch_size=DP_DBN_ITEMS)
-    grads = host((n, p.grad) for n, p in trainer.model.named_parameters())
-    trainer.train(ds, total_iter=DP_DBN_ITERS, out_dir=run_dir, batch_size=DP_DBN_ITEMS)
-    out["dbn"] = {"losses": trainer.losses, "params": host(trainer.model.named_parameters()), "grads": grads}
+    # the DBN in float64 and in float32: one iteration (its gradients, from
+    # the same weights), then the next (`train` starts its batch order anew:
+    # the same batch again)
+    for key, dtype in (("dbn", torch.float64), ("dbn_f32", torch.float32)):
+        trainer, ds = dp_dbn(dev, -1 if mesh is None else mesh.world, dtype)
+        run_dir = os.path.join(work, f"dp_{key}_{mesh is None}")
+        trainer.train(ds, total_iter=1, out_dir=run_dir, batch_size=DP_DBN_ITEMS)
+        grads = host((n, p.grad) for n, p in trainer.model.named_parameters())
+        trainer.train(ds, total_iter=DP_DBN_ITERS, out_dir=run_dir, batch_size=DP_DBN_ITEMS)
+        out[key] = {"losses": trainer.losses, "params": host(trainer.model.named_parameters()), "grads": grads}
     return out
+
+
+def dbn_errs(d: dict, rd: dict, grad_rule: float) -> dict:
+    """A DBN run `d` against the reference `rd` (`dp_work`'s "dbn" entries),
+    `dbn_step_card_vs_cpu`'s rule with its gradient share `grad_rule`: the
+    losses relative (shares of DATA_TOL), each gradient of the first
+    iteration as a share of grad_rule x its largest value, but the
+    attention's key biases: a key bias shifts every logit of a softmax row
+    alike, so the loss does not depend on it and its gradient is rounding
+    in both runs; reported as a share of the network's largest gradient,
+    not compared (AdamW moves it by about lr x the sign of that rounding).
+    The parameters after the iterations: each tensor's share of elements
+    more than lr/10 apart."""
+    key_bias = lambda n: n.endswith("attn.key.bias")
+    largest = max(t.abs().max().item() for t in rd["grads"].values())
+    return {
+        "loss": max(abs(a - b) / abs(b) for a, b in zip(d["losses"], rd["losses"])) / DATA_TOL,
+        "grads": _worst({n: (d["grads"][n] - t).abs().max().item() / (grad_rule * max(t.abs().max().item(), 1e-30))
+                         for n, t in rd["grads"].items() if not key_bias(n)}),
+        "key_bias_grad": max(max(d["grads"][n].abs().max().item(), t.abs().max().item()) / largest
+                             for n, t in rd["grads"].items() if key_bias(n)),
+        "params_off": _worst({n: ((d["params"][n].double() - t.double()).abs() > 0.1 * TrajDecoderConfig().lr)
+                              .float().mean().item() for n, t in rd["params"].items() if not key_bias(n)}),
+        "digest": _digest(d["params"]),
+    }
 
 
 def _worst(shares: dict) -> tuple:
@@ -2584,26 +2619,11 @@ def _dp_rank(rank: int, store: str, work: str) -> None:
             tol = F32_PATH_TOL if dtype == torch.float32 else tolerance(dtype, want)
             errs[f"long_{dtype}"] = (song - want).abs().max().item() / tol
         errs["sample"] = (got["sample"] - ref["sample"]).abs().max().item() / tolerance(torch.bfloat16, ref["sample"])
-        # the DBN (float64, its config's dropout 0.1), `dbn_step_card_vs_cpu`'s rule: the
-        # losses within 1e-5 relative, each gradient of the first iteration
-        # within 1e-4 of its largest value, but the attention's key biases:
-        # a key bias shifts every logit of a softmax row alike, so the loss
-        # does not depend on it and its gradient is rounding in both runs;
-        # reported as a share of the network's largest gradient, not
-        # compared (AdamW moves it by about lr x the sign of that rounding)
-        d, rd = got["dbn"], ref["dbn"]
-        key_bias = lambda n: n.endswith("attn.key.bias")
-        largest = max(t.abs().max().item() for t in rd["grads"].values())
-        errs["dbn"] = {
-            "loss": max(abs(a - b) / abs(b) for a, b in zip(d["losses"], rd["losses"])) / DATA_TOL,
-            "grads": _worst({n: (d["grads"][n] - t).abs().max().item() / (1e-4 * max(t.abs().max().item(), 1e-30))
-                             for n, t in rd["grads"].items() if not key_bias(n)}),
-            "key_bias_grad": max(max(d["grads"][n].abs().max().item(), t.abs().max().item()) / largest
-                                 for n, t in rd["grads"].items() if key_bias(n)),
-            "params_off": _worst({n: ((d["params"][n] - t).abs() > 0.1 * TrajDecoderConfig().lr).float().mean()
-                                  .item() for n, t in rd["params"].items() if not key_bias(n)}),
-            "digest": _digest(d["params"]),
-        }
+        # the DBN (its config's dropout 0.1): in float64 against float64 at
+        # `dbn_step_card_vs_cpu`'s 1e-4; in float32 against float64 at
+        # DP_DBN_F32_GRAD_TOL
+        errs["dbn"] = dbn_errs(got["dbn"], ref["dbn"], 1e-4)
+        errs["dbn_f32"] = dbn_errs(got["dbn_f32"], ref["dbn"], DP_DBN_F32_GRAD_TOL)
         print(f"dp rank {rank}: launches {got['launches']}", flush=True)
         torch.save({"errs": errs, "launches": got["launches"], "sample_dp": got["sample_dp"]},
                    os.path.join(work, f"dp_rank{rank}.pt"))
@@ -2615,24 +2635,31 @@ def nccl_world1_start(work: str, data: dict) -> tuple:
     """Start `python -m torch.distributed.run --standalone --nproc_per_node
     1 -m tcdiff_torch.cli.train --mode train --dp 1` on the data phase's
     tree, with the CLI phase's train flags: NCCL at world size 1 (an
-    all-reduce over one rank, divided by 1). `nccl_world1_check` waits."""
+    all-reduce over one rank, divided by 1). A thread waits for it and
+    notes its wall time when it exits; `nccl_world1_check` joins it."""
     argv = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
             "-m", "tcdiff_torch.cli.train", "--dp", "1", *cli_train_flags(work, data, os.path.join(work, "nccl_runs"))]
     log = open(os.path.join(work, "nccl_world1.log"), "w")
-    return subprocess.Popen(argv, stdout=log, stderr=subprocess.STDOUT), log, time.perf_counter()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, stdout=log, stderr=subprocess.STDOUT)
+    wall = []
+    waiter = threading.Thread(target=lambda: (proc.wait(), wall.append(time.perf_counter() - t0)), daemon=True)
+    waiter.start()
+    return proc, log, waiter, wall
 
 
 def nccl_world1_check(card: str, work: str, started: tuple) -> None:
     """Wait for `nccl_world1_start`'s run: its checkpoint must equal the CLI
     phase's non-distributed one bit for bit (parameters, EMA, Adan)."""
-    proc, log, t0 = started
+    proc, log, waiter, wall = started
     try:
-        rc = proc.wait(timeout=600)
+        waiter.join(timeout=600)
+        check(not waiter.is_alive(), "torchrun cli.train --dp 1 did not exit within 600 s")
     finally:
         if proc.poll() is None:
             proc.kill()
         log.close()
-    seconds = time.perf_counter() - t0
+    rc, seconds = proc.returncode, wall[0]
     with open(log.name) as f:
         out = f.read()
     check(rc == 0, f"torchrun cli.train --dp 1 exited {rc}:\n{out[-3000:]}")
@@ -2649,7 +2676,8 @@ def nccl_world1_check(card: str, work: str, started: tuple) -> None:
                   if torch.is_tensor(t) and not torch.equal(mine["optimizer_state_dict"]["state"][i][k], t)]
     print(f"dp: torchrun --nproc_per_node 1 cli.train --dp 1 over NCCL on {card}: step {mine['step']}, "
           f"{len(ref['model_state_dict'])} parameters, EMA and Adan moments against the non-distributed CLI "
-          f"run's checkpoint: {len(diffs)} differ (tol: bit for bit); {seconds:.1f} s wall, beside the gloo ranks")
+          f"run's checkpoint: {len(diffs)} differ (tol: bit for bit); {seconds:.1f} s wall from its start to "
+          f"its exit, beside the gloo ranks")
     check(mine["step"] == ref["step"] == 1 and not diffs, f"NCCL world-1 step differs from the plain one: {diffs[:5]}")
 
 
@@ -2664,8 +2692,9 @@ def check_dp_ranks(results: list, t_ranks: float) -> None:
               f"{ {k: v for k, v in e['train_torch.bfloat16'].items() if k != 'digest'} }, f32 batch "
               f"{DP_F32_BATCH} { {k: v for k, v in e['train_torch.float32'].items() if k != 'digest'} }; "
               f"long {DP_SLICES} slices bf16 {e['long_torch.bfloat16']:.3e}, f32 {e['long_torch.float32']:.3e}; "
-              f"_sample of {DP_CLIPS} over dp={res['sample_dp']} {e['sample']:.3e}; DBN "
-              f"{ {k: v for k, v in e['dbn'].items() if k != 'digest'} }")
+              f"_sample of {DP_CLIPS} over dp={res['sample_dp']} {e['sample']:.3e}; DBN f64 "
+              f"{ {k: v for k, v in e['dbn'].items() if k != 'digest'} }, DBN f32 against f64 "
+              f"{ {k: v for k, v in e['dbn_f32'].items() if k != 'digest'} }")
         check(res["sample_dp"] == DP_RANKS, f"rank {r}: TCDiff's mesh has dp={res['sample_dp']}")
         for dtype in ("torch.bfloat16", "torch.float32"):
             t = e[f"train_{dtype}"]
@@ -2676,6 +2705,9 @@ def check_dp_ranks(results: list, t_ranks: float) -> None:
         d = e["dbn"]
         check(d["loss"] <= 1 and d["grads"][0] <= 1 and d["params_off"][0] <= 5e-2,
               f"rank {r}: the dp DBN disagrees: {d}")
+        d = e["dbn_f32"]
+        check(d["loss"] <= 1 and d["grads"][0] <= 1 and d["params_off"][0] <= 5e-2,
+              f"rank {r}: the f32 dp DBN disagrees with float64: {d}")
         for label, counts in res["launches"].items():
             if label.startswith("train"):
                 check(all(f == b == want_train for f, b in counts.values()),
@@ -2684,10 +2716,10 @@ def check_dp_ranks(results: list, t_ranks: float) -> None:
                 check(counts["sa_block"] == counts["ff_tail"] == want_serving
                       and sum(counts.values()) == 2 * want_serving,
                       f"rank {r} {label}: serving launches {counts}, expected K1/K2 {want_serving} each")
-    for key in ("train_torch.bfloat16", "train_torch.float32", "dbn"):
+    for key in ("train_torch.bfloat16", "train_torch.float32", "dbn", "dbn_f32"):
         digests = {res["errs"][key]["digest"] for res in results}
         check(len(digests) == 1, f"{key}: the ranks' parameters differ")
-    print(f"dp: every rank's parameters and EMA bit-identical (sha256) after the bf16, f32 and DBN steps; "
+    print(f"dp: every rank's parameters and EMA bit-identical (sha256) after the bf16, f32 and DBN f64/f32 steps; "
           f"K1/K2 {want_serving} launches a sampling call a rank, K3-K5 {want_train} each way for two steps a "
           f"rank; ranks {t_ranks:.1f} s wall", flush=True)
 
@@ -2711,6 +2743,9 @@ def dp_phase(card: str, work: str, data: dict) -> dict:
         nccl = nccl_world1_start(work, data)
         ref = dp_work(None, work)
         ref.pop("launches")
+        e = dbn_errs(ref.pop("dbn_f32"), ref["dbn"], DP_DBN_F32_GRAD_TOL)
+        print(f"dp: one process's f32 DBN against float64 (the spread f32 rounding alone gives; shares of "
+              f"the f32 rules) { {k: v for k, v in e.items() if k != 'digest'} }", flush=True)
         tmp = os.path.join(work, "dp_ref.pt.tmp")
         torch.save(ref, tmp)
         os.replace(tmp, os.path.join(work, "dp_ref.pt"))  # the ranks wait for this name

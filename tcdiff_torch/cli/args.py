@@ -123,6 +123,6 @@ def config_from_opt(opt) -> TCDiffConfig:
         train=dataclasses.replace(cfg.train, batch_size=opt.batch_size, learning_rate=opt.learning_rate,
                                   epochs=opt.epochs, save_interval=opt.save_interval,
                                   ema_interval=opt.ema_interval, seed=opt.seed, compute_dtype=opt.compute_dtype,
-                                  dp=opt.dp, tp=opt.tp),
+                                  dp=opt.dp),
         data=dataclasses.replace(cfg.data, data_path=opt.data_path, processed_data_dir=opt.processed_data_dir),
     )

@@ -153,8 +153,8 @@ class TrajDecoderConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Diffusion trainer: the fields the train step and `TCDiff`'s loops
-    read, and the mesh's sizes (dp=-1: the world size of the process group;
-    tp > 1 is not ported). The JAX package's remat and scan knobs have no
+    read, and the mesh's data-parallel size (dp=-1: the world size of the
+    process group). The JAX package's tp, remat and scan knobs have no
     counterpart here; their flags raise in `cli.args.check_ported`."""
 
     batch_size: int = 37
@@ -169,7 +169,6 @@ class TrainConfig:
     adan_eps: float = 1e-8
     compute_dtype: str = "float32"  # the network's forward: "float32" or "bfloat16"
     dp: int = -1
-    tp: int = 1
 
 
 @dataclasses.dataclass(frozen=True)

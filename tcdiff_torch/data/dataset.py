@@ -44,6 +44,7 @@ from tcdiff_torch.geometry.rotations import (
     axis_angle_to_quaternion, ax_to_6v, quat_multiply, quaternion_to_axis_angle,
 )
 from tcdiff_torch.geometry.skeleton import smpl_fk
+from tcdiff_torch.parallel.mesh import Rows
 
 # 90 degrees about +X as a wxyz quaternion: rotates Y-up into Z-up
 # (reference `group_dataset.py:186-198`)
@@ -230,8 +231,11 @@ class AIOZDataset:
         return (self.poses[idx], self._load_feature(self.feature_files[idx]), self.feature_files[idx],
                 self.wav_files[idx])
 
-    def batches(self, batch_size: int, rng: Optional[np.random.Generator] = None, drop_last: bool = True):
-        """Shuffled epoch iterator over host numpy batches."""
+    def batches(self, batch_size: int, rng: Optional[np.random.Generator] = None, drop_last: bool = True,
+                rows: Optional[Rows] = None):
+        """Shuffled epoch iterator over host numpy batches; with `rows` (a
+        data-parallel rank's share of each global batch of `batch_size`)
+        only those rows' files are read."""
         order = np.arange(len(self))
         if rng is not None:
             rng.shuffle(order)
@@ -240,6 +244,8 @@ class AIOZDataset:
             idx = order[i:i + batch_size]
             if drop_last and len(idx) < batch_size:
                 return
+            if rows is not None:
+                idx = rows.take(idx)
             yield {
                 "x": self.poses[idx],
                 "cond": np.stack([self._load_feature(self.feature_files[j]) for j in idx]),

@@ -27,6 +27,8 @@ from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
+from tcdiff_torch.parallel.mesh import Rows
+
 _SRC = Path(__file__).resolve().parent.parent.parent / "native" / "prefetch.cc"
 _BUILD = Path(__file__).resolve().parent.parent / "build"
 _lib = None
@@ -137,14 +139,17 @@ class PrefetchingBatches:
     Keeps `depth` batches in flight in the native pool: while the device
     runs step N, the pool parses the features of steps N+1..N+depth. Falls
     back to the dataset's synchronous `batches()` without a toolchain.
-    `loader` is "native" or "numpy" once iteration has begun.
+    `loader` is "native" or "numpy" once iteration has begun. With `rows`
+    (a data-parallel rank's share of each global batch of `batch_size`)
+    every rank walks the same order and reads only its rows' files.
     """
 
     def __init__(self, dataset, batch_size: int, rng=None, depth: int = 2, n_threads: int = 8,
-                 item_shape=(301, 438)):
+                 item_shape=(301, 438), rows: Optional[Rows] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.rng = rng
+        self.rows = rows
         self.depth = depth
         self.n_threads = n_threads
         self.item_shape = item_shape
@@ -153,7 +158,7 @@ class PrefetchingBatches:
     def __iter__(self) -> Iterator[dict]:
         if not native_available():
             self.loader = "numpy"
-            yield from self.dataset.batches(self.batch_size, rng=self.rng)
+            yield from self.dataset.batches(self.batch_size, rng=self.rng, rows=self.rows)
             return
         self.loader = "native"
         order = np.arange(len(self.dataset))
@@ -166,6 +171,8 @@ class PrefetchingBatches:
         pf = NativePrefetcher(self.dataset.feature_files, self.item_shape, self.n_threads)
         try:
             chunks = [order[s:s + self.batch_size] for s in starts]
+            if self.rows is not None:
+                chunks = [self.rows.take(c) for c in chunks]
             for c in chunks[:self.depth]:
                 pf.submit(c)
             for i, idx in enumerate(chunks):

@@ -343,13 +343,9 @@ class GaussianDiffusion:
         after every step but the last, each slice's first half-window
         becomes the previous slice's second half. Guidance ramps from 0 to
         the config's weight over the first half of the steps. One slice is
-        plain `ddim_sample`, without the trajectory (as the JAX package)."""
-        if shape[0] == 1:
-            return self.ddim_sample(shape, cond, generator, x_0=None, noise=noise)
-        s, gw = self.cfg.sampling_timesteps, self.cfg.guidance_weight
-        weights = np.clip(np.linspace(0, gw * 2, s), None, gw).astype(np.float32)
-        x = self._start(shape, cond.device, generator, noise)
-        return self._ddim_loop(x, cond, weights, generator=generator, noise=noise, x_0=x_0, long_mode=True)
+        plain `ddim_sample`, without the trajectory (as the JAX package).
+        `long_ddim_sample_sharded` over a one-process mesh."""
+        return self.long_ddim_sample_sharded(shape, cond, Mesh(0, 1, cond.device), generator, x_0, noise)
 
     @torch.no_grad()
     def long_ddim_sample_sharded(self, shape, cond, mesh: Mesh, generator=None, x_0=None, noise=None):
@@ -361,9 +357,8 @@ class GaussianDiffusion:
         (noise["init"] sliced on axis 0, noise["steps"] on axis 1; noise
         drawn from `generator` is drawn at the global shape), so the
         result does not depend on N. Every rank calls it; returns this
-        rank's slices (`comm.all_gather_rows` gives the whole song). One
-        slice in all is plain `ddim_sample` without the trajectory, as in
-        `long_ddim_sample`: decided on the global count, so that a rank
+        rank's slices (`comm.all_gather_rows` gives the whole song). The
+        one-slice rule is decided on the global count, so that a rank
         holding one slice of several keeps x_0."""
         rows = mesh.rows(shape[0])
         if shape[0] == 1:

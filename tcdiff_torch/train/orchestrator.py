@@ -32,7 +32,7 @@ Training, beside them:
     every `save_interval` epochs the metrics (with `StepTimer`'s rates) are
     logged, a checkpoint written and the caller's `on_save` run. Under
     data parallelism (`mesh`) every rank walks the same seeded batch
-    order and keeps its rows (`parallel.mesh.shard_batch`), the halt is
+    order and reads only its rows of each batch (`Rows`), the halt is
     decided on the loss averaged over the ranks, and only rank 0 logs,
     writes checkpoints and runs `on_save` (the JAX package's host-0
     gating). The JAX package's `scan_steps` (TPU dispatch machinery) is
@@ -88,7 +88,7 @@ from tcdiff_torch.interop.from_jax import load_reference_traj
 from tcdiff_torch.models.dance_decoder import DanceDecoder
 from tcdiff_torch.optim.adan import Adan
 from tcdiff_torch.parallel.comm import all_gather_rows
-from tcdiff_torch.parallel.mesh import Mesh, make_mesh, shard_batch
+from tcdiff_torch.parallel.mesh import Mesh, Rows, make_mesh
 from tcdiff_torch.trajdecoder.kalman import kalman_smooth_batch
 from tcdiff_torch.trajdecoder.model import TrajDecoder
 from tcdiff_torch.trajdecoder.rollout import autoregressive_rollout
@@ -364,7 +364,7 @@ class _SyntheticDataset:
     def get(self, idx):
         return self.poses[idx], self.music[idx], self.feature_files[idx], self.wav_files[idx]
 
-    def batches(self, batch_size, rng=None, drop_last=True):
+    def batches(self, batch_size, rng=None, drop_last=True, rows: Optional[Rows] = None):
         order = np.arange(len(self))
         if rng is not None:
             rng.shuffle(order)
@@ -372,6 +372,8 @@ class _SyntheticDataset:
             idx = order[i:i + batch_size]
             if drop_last and len(idx) < batch_size:
                 return
+            if rows is not None:
+                idx = rows.take(idx)
             yield {"x": self.poses[idx], "cond": self.music[idx],
                    "filename": [self.feature_files[j] for j in idx], "wav": [self.wav_files[j] for j in idx]}
 
@@ -446,6 +448,7 @@ def train_loop(state: TrainState, train_step: Callable, train_ds, run_dir: str, 
     metrics = MetricLogger(str(run_dir), config={"batch": batch_size, "epochs": epochs}) if host0 else None
     data_rng = np.random.default_rng(seed)
     timer = StepTimer()
+    rows = None if mesh is None else mesh.rows(batch_size)
     motion_s = batch_size * train_ds.poses.shape[2] / DATA_FPS
     use_native = native_available() and not isinstance(train_ds, _SyntheticDataset)
     # the prefetcher reads a fixed number of floats a file (and pads a
@@ -455,12 +458,10 @@ def train_loop(state: TrainState, train_step: Callable, train_ds, run_dir: str, 
     running, n_batches = {}, 0
     try:
         for epoch in range(1, epochs + 1):
-            batches = (PrefetchingBatches(train_ds, batch_size, rng=data_rng, item_shape=item_shape) if use_native
-                       else train_ds.batches(batch_size, rng=data_rng))
+            batches = (PrefetchingBatches(train_ds, batch_size, rng=data_rng, item_shape=item_shape, rows=rows)
+                       if use_native else train_ds.batches(batch_size, rng=data_rng, rows=rows))
             with trace(profile_dir if epoch == 2 and host0 else None):
                 for batch in batches:
-                    if mesh is not None:
-                        batch = shard_batch(batch, mesh)
                     x = torch.as_tensor(batch["x"], dtype=torch.float32).to(device, non_blocking=True)
                     cond = torch.as_tensor(batch["cond"], dtype=torch.float32).to(device, non_blocking=True)
                     timer.tick()
@@ -575,7 +576,7 @@ class TCDiff:
         self.optimizer = Adan(self.model.parameters(), lr=tr.learning_rate, betas=tr.adan_betas, eps=tr.adan_eps,
                               weight_decay=tr.weight_decay)
         self.state = create_train_state(self.model, self.optimizer)
-        self.mesh = make_mesh(tr.dp, tr.tp, device=self.device)
+        self.mesh = make_mesh(tr.dp, device=self.device)
         self._solo = False  # within `alone()`: sampling calls no collective
         self.logger = get_logger()
         self.normalizer: Optional[Normalizer] = None

@@ -19,6 +19,7 @@ import torch
 
 from tcdiff_torch.data.dataset import _load_slices, _per_sample_normalize, rotate_points_x90
 from tcdiff_torch.data.normalizer import Normalizer
+from tcdiff_torch.parallel.mesh import Rows
 
 
 def _normalize_roots(roots: torch.Tensor, normalizer: Optional[Normalizer], per_sample: bool):
@@ -33,7 +34,10 @@ def _normalize_roots(roots: torch.Tensor, normalizer: Optional[Normalizer], per_
     return normalized.cpu().numpy(), normalizer
 
 
-def _batches(ds, batch_size: int, rng: Optional[np.random.Generator], drop_last: bool, cond):
+def _batches(ds, batch_size: int, rng: Optional[np.random.Generator], drop_last: bool, cond,
+             rows: Optional[Rows] = None):
+    """Shuffled epoch batches; with `rows` (a data-parallel rank's share of
+    each global batch) only those rows are read."""
     order = np.arange(len(ds))
     if rng is not None:
         rng.shuffle(order)
@@ -41,6 +45,8 @@ def _batches(ds, batch_size: int, rng: Optional[np.random.Generator], drop_last:
         idx = order[i:i + batch_size]
         if drop_last and len(idx) < batch_size:
             return
+        if rows is not None:
+            idx = rows.take(idx)
         yield {
             "x": ds.roots[idx],
             "cond": cond(idx),
@@ -81,9 +87,10 @@ class TrajDataset:
         return self.roots[idx], self._load_feature(self.feature_files[idx]), self.feature_files[idx], \
             self.wav_files[idx]
 
-    def batches(self, batch_size: int, rng: Optional[np.random.Generator] = None, drop_last: bool = True):
+    def batches(self, batch_size: int, rng: Optional[np.random.Generator] = None, drop_last: bool = True,
+                rows: Optional[Rows] = None):
         return _batches(self, batch_size, rng, drop_last,
-                        lambda idx: np.stack([self._load_feature(self.feature_files[j]) for j in idx]))
+                        lambda idx: np.stack([self._load_feature(self.feature_files[j]) for j in idx]), rows)
 
 
 class SyntheticTrajDataset:
@@ -107,5 +114,6 @@ class SyntheticTrajDataset:
     def get(self, idx: int):
         return self.roots[idx], self.music[idx], self.feature_files[idx], self.wav_files[idx]
 
-    def batches(self, batch_size: int, rng: Optional[np.random.Generator] = None, drop_last: bool = True):
-        return _batches(self, batch_size, rng, drop_last, lambda idx: self.music[idx])
+    def batches(self, batch_size: int, rng: Optional[np.random.Generator] = None, drop_last: bool = True,
+                rows: Optional[Rows] = None):
+        return _batches(self, batch_size, rng, drop_last, lambda idx: self.music[idx], rows)

@@ -18,7 +18,7 @@ The step computes in float32 under `f32_math`, forward and backward, as
 the network's serving forward does.
 
 Data parallelism (`dp`, over torch.distributed as `parallel.mesh` sets it
-up): every rank walks the same seeded batch order and keeps its rows, every
+up): every rank walks the same seeded batch order and reads only its rows, every
 draw (the window start, the dropout masks) is made at the global batch
 from a generator seeded alike on every rank, the gradients go through one
 flat all-reduce, and only rank 0 logs, writes checkpoints and runs the
@@ -35,7 +35,7 @@ import torch
 
 from tcdiff_torch.config import TrajDecoderConfig
 from tcdiff_torch.parallel.comm import all_reduce_grads_, all_reduce_mean
-from tcdiff_torch.parallel.mesh import Mesh, make_mesh, shard_batch
+from tcdiff_torch.parallel.mesh import Mesh, make_mesh
 from tcdiff_torch.trajdecoder.kalman import kalman_smooth_batch
 from tcdiff_torch.trajdecoder.model import TrajDecoder, f32_math
 from tcdiff_torch.trajdecoder.rollout import autoregressive_rollout
@@ -184,15 +184,17 @@ class TrajTrainer:
         data_rng = np.random.default_rng(cfg.seed)
         timer = StepTimer()
 
+        rows = self.mesh.rows(bs)
+
         def cycle():
             while True:
-                yield from train_ds.batches(bs, rng=data_rng)
+                yield from train_ds.batches(bs, rng=data_rng, rows=rows)
 
         it = cycle()
         running, n = {}, 0
         try:
             while self.step < total:
-                batch = shard_batch(next(it), self.mesh)
+                batch = next(it)
                 x = torch.as_tensor(batch["x"], dtype=torch.float32, device=self.device)
                 cond = torch.as_tensor(batch["cond"], dtype=torch.float32, device=self.device)
                 timer.tick()

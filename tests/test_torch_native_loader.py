@@ -7,6 +7,8 @@ import numpy as np
 import pytest
 
 from tcdiff_torch.data import native_loader  # noqa: E402
+from tcdiff_torch.data.dataset import AIOZDataset
+from tcdiff_torch.parallel.mesh import Rows
 from tcdiff_torch.data.native_loader import (
     NativePrefetcher,
     PrefetchingBatches,
@@ -77,7 +79,7 @@ class _FakeDataset:
     def __len__(self):
         return len(self.feature_files)
 
-    def batches(self, batch_size, rng=None):
+    def batches(self, batch_size, rng=None, rows=None):
         raise AssertionError("fallback path should not be used when native exists")
 
 
@@ -123,7 +125,7 @@ def test_prefetching_batches_falls_back_without_a_toolchain(tmp_path, monkeypatc
     files, arrays = _write_files(tmp_path, n=4)
 
     class _Synchronous(_FakeDataset):
-        def batches(self, batch_size, rng=None):
+        def batches(self, batch_size, rng=None, rows=None):
             for i in range(0, len(self) - len(self) % batch_size, batch_size):
                 yield {"x": self.poses[i:i + batch_size], "cond": np.stack(arrays[i:i + batch_size])}
 
@@ -132,3 +134,53 @@ def test_prefetching_batches_falls_back_without_a_toolchain(tmp_path, monkeypatc
     out = list(it)
     assert it.loader == "numpy" and len(out) == 2
     np.testing.assert_array_equal(out[1]["cond"], np.stack(arrays[2:4]))
+
+
+def _other_ranks_unreadable(files, rows: Rows):
+    """Overwrite the files of every row but `rows`' in each global batch, so
+    that reading one raises."""
+    for i, f in enumerate(files):
+        if not rows.start <= i % rows.total < rows.stop:
+            with open(f, "wb") as fh:
+                fh.write(b"another rank's file")
+
+
+def test_prefetching_batches_read_only_their_rows(tmp_path):
+    """A data-parallel rank's prefetcher walks the global order and reads
+    only its rows' files: rank 1 of 2, global batches of 2, gets rows 1, 3
+    and 5, and never opens the others."""
+    files, arrays = _write_files(tmp_path, n=6)
+    rows = Rows(1, 2, 2)
+    _other_ranks_unreadable(files, rows)
+    out = list(PrefetchingBatches(_FakeDataset(files, 6, (7, 5)), batch_size=2, item_shape=(7, 5), rows=rows))
+    assert len(out) == 3
+    for k, b in enumerate(out):
+        np.testing.assert_array_equal(b["cond"], arrays[2 * k + 1][None])
+        assert b["filename"] == [files[2 * k + 1]]
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_dataset_batches_read_only_their_rows(tmp_path, monkeypatch, native):
+    """AIOZDataset's batches (the numpy fallback too) under a shuffled
+    order: each rank's rows are its share of the global batch one process
+    reads, and the other ranks' files are not read."""
+    files, arrays = _write_files(tmp_path, n=8)
+    ds = AIOZDataset.__new__(AIOZDataset)
+    ds.poses = np.arange(8 * 3, dtype=np.float32).reshape(8, 3)
+    ds.feature_files, ds.wav_files, ds._feature_cache = files, [f + ".wav" for f in files], {}
+    whole = list(ds.batches(4, rng=np.random.default_rng(3)))
+    ds._feature_cache = {}
+    order = [files.index(f) for b in whole for f in b["filename"]]
+    rows = Rows(2, 4, 4)
+    for pos, i in enumerate(order):  # break the files of rows 0 and 1 of each global batch
+        if pos % 4 < 2:
+            with open(files[i], "wb") as fh:
+                fh.write(b"another rank's file")
+    if not native:
+        monkeypatch.setattr(native_loader, "native_available", lambda: False)
+    out = list(PrefetchingBatches(ds, 4, rng=np.random.default_rng(3), item_shape=(7, 5), rows=rows))
+    assert len(out) == len(whole) == 2
+    for b, w in zip(out, whole):
+        assert b["filename"] == w["filename"][2:4]
+        np.testing.assert_array_equal(b["cond"], w["cond"][2:4])
+        np.testing.assert_array_equal(b["x"], w["x"][2:4])

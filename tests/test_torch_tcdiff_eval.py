@@ -75,13 +75,15 @@ def test_traj_checkpoints(tmp_path, stack, caplog):
 def test_multi_gpu_settings_raise():
     """The multi-GPU settings enter through the flags of cli.train: --tp
     above 1 is refused there (tensor parallelism, ROADMAP queue 1 item 9);
-    --dp goes into cfg.train.dp and must equal the world size when TCDiff
-    builds its mesh, so in a lone process --dp 2 raises."""
+    --dp goes into cfg.train.dp (the config tree has no tp field) and must
+    equal the world size when TCDiff builds its mesh, so in a lone process
+    --dp 2 raises."""
     for argv in (["--tp", "2"], ["--dp", "4", "--tp", "2"]):
         with pytest.raises(NotImplementedError, match="item 9"):
             parse_train_opt(argv)
     cfg = config_from_opt(parse_train_opt(["--dp", "2"]))
-    assert (cfg.train.dp, cfg.train.tp) == (2, 1) and TrainConfig().dp == -1
+    assert cfg.train.dp == 2 and TrainConfig().dp == -1
+    assert "tp" not in {f.name for f in dataclasses.fields(TrainConfig)}
     small = cfgs()[1]
     with pytest.raises(ValueError, match="dp=2 but the world has 1"):
         orch.TCDiff(dataclasses.replace(small, train=dataclasses.replace(small.train, dp=2)), device="cpu")
