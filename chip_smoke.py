@@ -121,6 +121,21 @@ last line:
      body, gemm_kernel); then two f32 steps at batch 4 through the kernels
      and two through the plain versions on the same weights and draws: each step's
      loss and gradients, and the parameters after the second Adan step;
+ 12b. the JAX package's opt-in configurations: two bf16 train steps at
+     batch 64 without and with remat from one state and generator seed
+     (losses and parameters bit for bit, else within grad_tolerance and
+     the f32 check's parameter rule; peak memory and step times of both;
+     K3-K5's forward launched twice a layer and step under remat); one f32
+     loss and backward at batch 8 with a trj_dist (TRPE: the
+     self-attention block in plain math, K4/K5 on the card) against the
+     port on the CPU, at test_torch_train.py's whole-step 3e-4 rule; the int8 product
+     (torch._int_mm) at 3600x512 -> 512 and -> 1024 against the plain
+     int32 product, equal; one bf16 request each of the default,
+     ServingKernels(int8=True) (relative error against the default in
+     (0, 0.05), 3200 int8 products, no block kernel) and ln_bf16 (its
+     largest difference, and one LayerNorm site against the CPU within
+     2^-5 of its largest output), on one injected noise, with their wall
+     times;
  13. data: training from the data on disk. A seeded raw AIOZ-GDance tree
      (3 dancers, four 20 s train songs and one 10 s test song, Y-up motion
      at 30 fps, wavs at the feature rate) in a temporary directory, through
@@ -172,8 +187,9 @@ last line:
      tcdiff_torch.cli.train --dp 1` with the CLI phase's train flags over
      NCCL, whose checkpoint must equal the CLI phase's bit for bit;
  16. a line of JSON with every kernel's figures (K1/K2's launches count
-     the CLI phase's and both dp ranks', K3-K5's the train phase's, the
-     train loop's, the CLI's and both dp ranks'), the card's line, and the
+     the CLI phase's, both dp ranks' and the opt-in phase's, K3-K5's the
+     train phase's, the opt-in phase's, the train loop's, the CLI's and
+     both dp ranks'), the card's line, and the
      last line: {"ok": true, "device": {...}}.
 """
 
@@ -220,10 +236,10 @@ from tcdiff_torch.eval import geometric as eval_geometric
 from tcdiff_torch.eval import metrics as eval_metrics
 from tcdiff_torch.export.bvh import pkl_to_bvh
 from tcdiff_torch.export.split_pkl import split_pkl_file
-from tcdiff_torch.models.dance_decoder import DanceDecoder
+from tcdiff_torch.models.dance_decoder import DanceDecoder, _ln
 from tcdiff_torch.models.rotary import angle_table, apply_rotary
 from tcdiff_torch.ops import (
-    _build, attention, ca_block, ca_block_train, ff_block, ff_block_train, gemm, layer, layernorm, ln_matmul,
+    _build, attention, ca_block, ca_block_train, ff_block, ff_block_train, gemm, int8, layer, layernorm, ln_matmul,
     ln_rotary_matmul, sa_block, sa_block_train,
 )
 from tcdiff_torch.ops.plain import plain_blocks
@@ -251,6 +267,14 @@ DBN_WINDOW_TOL = 1e-5  # one DBN window, card vs CPU, share of its largest outpu
 DBN_ROLLOUT_TOL = 1e-4  # the rollout and the Kalman filter, card vs CPU, share of the largest value
 TRAIN_BATCH, TRAIN_STEPS = 64, 3  # bench.py's train default; + 1 warm-up step
 F32_STEP_BATCH = 4
+REMAT_STEPS = 2  # the opt-in phase: bf16 train steps at TRAIN_BATCH with and without remat
+TRPE_BATCH = 8  # the opt-in phase's f32 TRPE loss and backward, card vs CPU
+# tests/test_torch_train.py's whole-step f32 rule. Its 3e-5 for one small
+# layer does not hold at full width: the card's and the CPU's f32 sums in
+# other orders put cond_projection.0's gradient (a sum over 1200 music
+# tokens of 876-wide rows) 4.1e-5 of its scale apart
+TRAIN_F32_TOL = 3e-4
+INT8_REL_BOUND = 0.05  # tests/test_int8.py's model-level bound on int8 against exact
 # the data phase: a raw AIOZ tree of 3 dancers, 4 train songs of 20 s and
 # one test song of 10 s (31 slices a train song, 11 test)
 DATA_TRAIN_S, DATA_TEST_S, DATA_TRAIN_SONGS = 20.0, 10.0, 4
@@ -1918,11 +1942,12 @@ def reset_train_launches() -> None:
         getattr(mod, name).launches = getattr(mod, name).bwd_launches = 0
 
 
-def make_trainer(cfg, dtype, mesh=None):
+def make_trainer(cfg, dtype, mesh=None, remat: bool = False):
     """A full-width model with seeded random weights and its train step,
-    with TrainConfig's Adan and EMA settings (over `mesh`, where given)."""
+    with TrainConfig's Adan and EMA settings (over `mesh`, where given;
+    each decoder layer recomputed in the backward with `remat`)."""
     tcfg = TrainConfig()
-    model = DanceDecoder(cfg, dtype=dtype).init_random(torch.Generator().manual_seed(0))
+    model = DanceDecoder(cfg, dtype=dtype, remat=remat).init_random(torch.Generator().manual_seed(0))
     opt = Adan(model.parameters(), lr=tcfg.learning_rate, betas=tcfg.adan_betas, eps=tcfg.adan_eps,
                weight_decay=tcfg.weight_decay)
     step = make_train_step(GaussianDiffusion(model, DiffusionConfig()), opt, ema_beta=tcfg.ema_beta,
@@ -2029,6 +2054,231 @@ def train(card: str) -> dict:
           f"{max_diff / lr:.3e} x lr; largest move from the start {moved / lr:.3e} x lr")
     check(worst <= 5e-2, f"f32 parameters after two Adan steps disagree: {worst_name} {worst}")
     return launches
+
+
+def remat_runs(card: str) -> dict:
+    """The opt-in phase's remat part: REMAT_STEPS bf16 train steps at batch
+    TRAIN_BATCH without remat, then with it, from the same weights, data
+    and generator seed, one model on the card at a time. Returns the K3-K5
+    launches of both runs."""
+    cfg = DanceDecoderConfig(dancer_num=3)
+    x, cond = train_inputs(cfg, TRAIN_BATCH, 1)
+    runs, counts = {}, {}
+    for remat in (False, True):
+        model, state, step = make_trainer(cfg, torch.bfloat16, remat=remat)
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_train_launches()
+        losses, times = [], []
+        for _ in range(REMAT_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, x, cond, gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(m["total"].detach().cpu())
+        counts[remat] = train_launches()
+        runs[remat] = dict(losses=losses, times=times, peak=torch.cuda.max_memory_allocated() / 2**30,
+                           params={n: p.detach().cpu() for n, p in model.named_parameters()})
+        del model, state, step
+        torch.cuda.empty_cache()
+    for remat, r in runs.items():
+        print(f"remat {'on' if remat else 'off'} on {card}: bf16 batch {TRAIN_BATCH}, {REMAT_STEPS} steps "
+              f"{', '.join(f'{1e3 * s:.1f}' for s in r['times'])} ms ({1 / r['times'][-1]:.3f} steps/s at the "
+              f"last); peak memory {r['peak']:.2f} GiB; losses {[round(v.item(), 6) for v in r['losses']]}; "
+              f"K3-K5 launches (forward, backward) {counts[remat]}")
+    off, on = runs[False], runs[True]
+    layers = cfg.num_layers * REMAT_STEPS
+    for name, (fwd, bwd) in counts[True].items():
+        check((fwd, bwd) == (2 * layers, layers), f"remat: {name} launched ({fwd}, {bwd}), expected "
+                                                  f"({2 * layers}, {layers}): each layer's forward twice a step")
+    for name, (fwd, bwd) in counts[False].items():
+        check((fwd, bwd) == (layers, layers), f"no remat: {name} launched ({fwd}, {bwd}), expected {layers} each")
+    same = all(torch.equal(a, b) for a, b in zip(on["losses"], off["losses"])) and all(
+        torch.equal(on["params"][n], t) for n, t in off["params"].items())
+    if same:
+        print(f"remat on {card}: losses and parameters after {REMAT_STEPS} steps equal those without remat bit for "
+              f"bit (K3-K5 recompute their forward on the same seeds; their reductions run in a fixed order)")
+    else:
+        # the fallback the check allows: the losses to grad_tolerance, the
+        # parameters to the f32 train check's rule after Adan's second step
+        loss_share = max(abs(a - b).item() / grad_tolerance(torch.bfloat16, b) for a, b in zip(on["losses"],
+                                                                                                 off["losses"]))
+        lr = TrainConfig().learning_rate
+        off_share = max(((on["params"][n] - t).abs() > 0.1 * lr).float().mean().item()
+                        for n, t in off["params"].items())
+        print(f"remat on {card}: not bit for bit; losses {loss_share:.3f} of grad_tolerance, the largest share of "
+              f"a tensor's elements more than lr/10 apart {off_share:.3e} (tol 5e-2)")
+        check(loss_share <= 1 and off_share <= 5e-2, "remat disagrees with the run without it")
+    print(f"remat on {card}: peak memory {on['peak']:.2f} GiB against {off['peak']:.2f} GiB without "
+          f"({on['peak'] / off['peak']:.3f}x); last step {1e3 * on['times'][-1]:.1f} against "
+          f"{1e3 * off['times'][-1]:.1f} ms ({on['times'][-1] / off['times'][-1]:.3f}x)")
+    return {name: tuple(a + b for a, b in zip(counts[False][name], counts[True][name])) for name in counts[True]}
+
+
+def trpe_step(card: str) -> dict:
+    """The opt-in phase's TRPE part: one f32 loss and backward at batch
+    TRPE_BATCH with a trj_dist (the self-attention block in plain math,
+    K4 and K5 on the card), against the port on the CPU on the same
+    weights and injected t (< 64), noise and keep mask, dropout 0 (the
+    card's and the CPU's generators draw differently). Returns K3-K5's
+    launches on the card."""
+    cfg = DanceDecoderConfig(dancer_num=3, dropout=0.0)
+    rng = np.random.default_rng(7)
+    b = TRPE_BATCH
+    host = dict(
+        x=(0.3 * rng.normal(size=(b, cfg.dancer_num, cfg.seq_len, cfg.nfeats))).astype(np.float32),
+        cond=rng.normal(size=(b, 2 * cfg.seq_len + 1, cfg.cond_feature_dim)).astype(np.float32),
+        t=rng.integers(0, 64, size=b), keep_mask=rng.uniform(size=b) < 0.75,
+        noise=rng.normal(size=(b, cfg.seq_len, cfg.dancer_num, cfg.nfeats)).astype(np.float32),
+        trj_dist=rng.integers(0, cfg.max_dancers, size=(b, cfg.tokens, cfg.tokens)),
+    )
+    card_model = DanceDecoder(cfg).init_random(torch.Generator().manual_seed(0))
+    cpu_model = DanceDecoder(cfg, device="cpu")
+    cpu_model.load_state_dict(card_model.state_dict())
+    out, launches = {}, None
+    for dev, model in (("cuda", card_model), ("cpu", cpu_model)):
+        a = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        reset_train_launches()
+        t0 = time.perf_counter()
+        total, parts = GaussianDiffusion(model, DiffusionConfig(), device=dev).p_losses(
+            a["x"], a["cond"], a["t"], noise=a["noise"], keep_mask=a["keep_mask"], trj_dist=a["trj_dist"])
+        total.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = train_launches()
+        parts = {k: v.item() for k, v in {**parts, "total": total}.items()}
+        out[dev] = (parts, {n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.grad is not None},
+                    time.perf_counter() - t0)
+    (pk, gk, sk), (pp, gp, sp) = out["cuda"], out["cpu"]
+    loss_share = max(abs(pk[k] - pp[k]) / (TRAIN_F32_TOL * (1 + abs(pp[k]))) for k in pp)
+    check(set(gk) == set(gp), "TRPE: the card and the CPU give gradients to other parameters")
+    shares = {n: ((gk[n] - g).abs() / (TRAIN_F32_TOL * (max(1.0, g.abs().max().item()) + g.abs()))).max().item()
+              for n, g in gp.items()}
+    worst = max(shares, key=shares.get)
+    print(f"TRPE train on {card}: f32 batch {b}, loss and backward {1e3 * sk:.1f} ms (the CPU {1e3 * sp:.1f} ms); "
+          f"loss {pk['total']:.6f} against the CPU's {pp['total']:.6f}; loss terms {loss_share:.3f} and the "
+          f"largest gradient difference {shares[worst]:.3f} ({worst}) of test_torch_train.py's f32 rule "
+          f"({TRAIN_F32_TOL:.0e} abs/rel); TRPE table gradient {gp['embeddings_table.weight'].abs().max().item():.3e}; "
+          f"K3-K5 launches (forward, backward) {launches}")
+    check(loss_share <= 1 and shares[worst] <= 1, "TRPE train step: the card disagrees with the CPU")
+    check(gp["embeddings_table.weight"].abs().max().item() > 0, "TRPE: no gradient reached the table")
+    check(launches["sa_block_train"] == (0, 0), "TRPE: K3 ran where the block is plain math")
+    for name in ("ca_block_train", "ff_tail_train"):
+        check(launches[name] == (cfg.num_layers, cfg.num_layers), f"TRPE: {name} launched {launches[name]}")
+    del card_model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def int8_products(card: str, gen: torch.Generator) -> None:
+    """The int8 product alone at the serving shapes of the FF's projections
+    (3600 x 512 -> 512 and -> 1024): torch._int_mm on the card against the
+    plain int32 product on the CPU (equal), the whole int8_dense likewise,
+    timed beside the bf16 product of the same shape."""
+    for n in (D, FF):
+        x = torch.randn((B * L, D), generator=gen, device="cuda").to(torch.bfloat16)
+        w = torch.randn((n, D), generator=gen, device="cuda") / D**0.5
+        xq, _ = int8.quantize_act(x)
+        wq, sw = int8.quantize_weight(w)
+        equal_mm = torch.equal(int8.int_mm(xq, wq).cpu(), int8.int_mm_plain(xq.cpu(), wq.cpu()))
+        equal_dense = torch.equal(int8.int8_dense(x, wq, sw).cpu(), int8.int8_dense(x.cpu(), wq.cpu(), sw.cpu()))
+        wb = w.to(torch.bfloat16)
+        mm_ms = device_ms(lambda: int8.int_mm(xq, wq))
+        dense_ms = device_ms(lambda: int8.int8_dense(x, wq, sw))
+        bf16_ms = device_ms(lambda: F.linear(x, wb))
+        flops = 2 * B * L * D * n
+        print(f"int8 product {B * L}x{D} -> {n} on {card}: int32 sums equal the plain version's: {equal_mm}; "
+              f"int8_dense equal: {equal_dense}; torch._int_mm {1e3 * mm_ms:.1f} us ({flops / mm_ms / 1e9:.1f} TOP/s), "
+              f"int8_dense with its quantization {1e3 * dense_ms:.1f} us, bf16 F.linear {1e3 * bf16_ms:.1f} us")
+        check(equal_mm and equal_dense, f"int8 product {n}: the card's differs from the plain version")
+
+
+def serving_options(card: str, gen: torch.Generator) -> dict:
+    """The opt-in phase's serving part: full-width bf16 requests (batch
+    REQ_BATCH, CFG-doubled, 50-step DDIM, w = 2) on one injected noise:
+    the default; ServingKernels(int8=True) (its relative error against the
+    default in (0, INT8_REL_BOUND)); ln_bf16 on (its largest difference
+    from the default), with one LayerNorm site held against the CPU.
+    Returns K1's and K2's launches over these requests."""
+    cfg = DanceDecoderConfig(dancer_num=3)
+    dcfg = DiffusionConfig()
+    model = DanceDecoder(cfg, dtype=torch.bfloat16).init_random(torch.Generator().manual_seed(0))
+    diff = GaussianDiffusion(model, dcfg)
+    shape = (REQ_BATCH, cfg.tokens, cfg.nfeats)
+    cond = torch.randn((REQ_BATCH, 2 * cfg.seq_len + 1, cfg.cond_feature_dim), generator=gen, device="cuda")
+    x_0 = 0.1 * torch.randn((REQ_BATCH, cfg.tokens, 3), generator=gen, device="cuda")
+    noise = {"init": torch.randn(shape, generator=gen, device="cuda"),
+             "steps": torch.randn((dcfg.sampling_timesteps,) + shape, generator=gen, device="cuda")}
+
+    def request(kernels: ServingKernels, ln_bf16: bool = False):
+        model.kernels, model.ln_bf16 = kernels, ln_bf16
+        reset_serving_launches()
+        int8.int_mm.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = diff.ddim_sample(shape, cond, x_0=x_0, noise=noise)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check_output(out, x_0, shape)
+        return out, seconds, {k: n for k, n in serving_launches().items() if n}, int8.int_mm.launches
+
+    request(ServingKernels(int8=True))  # warm-up: quantizes the weights once
+    ref, ref_s, ref_counts, _ = request(ServingKernels())
+    q, q_s, q_counts, q_mm = request(ServingKernels(int8=True))
+    ln, ln_s, ln_counts, _ = request(ServingKernels(), ln_bf16=True)
+    model.kernels, model.ln_bf16 = ServingKernels(), False
+    steps = cfg.num_layers * dcfg.sampling_timesteps
+    rel = ((q - ref).norm() / ref.norm()).item()
+    # one CFG forward, int8 against the default: the model-level error the bound is for
+    x = torch.randn(shape, generator=gen, device="cuda")
+    t_vec = torch.full((REQ_BATCH,), 500, device="cuda", dtype=torch.int32)
+    fwd = {}
+    for kernels in (ServingKernels(), ServingKernels(int8=True)):
+        model.kernels = kernels
+        with torch.no_grad():
+            fwd[kernels.int8] = diff.guided(x, cond, t_vec, 2.0, cond_cache=diff.encode_cond_cfg(cond))
+    model.kernels = ServingKernels()
+    fwd_rel = ((fwd[True] - fwd[False]).norm() / fwd[False].norm()).item()
+    print(f"int8 request on {card}: bf16, batch {REQ_BATCH}, 50 steps: {q_s:.3f} s against the default's "
+          f"{ref_s:.3f} s; relative error against the default {rel:.4f} (bound {INT8_REL_BOUND}; one CFG forward "
+          f"{fwd_rel:.4f}); int8 products {q_mm} (expected {8 * steps}: self-attention q, k, v, fc, "
+          f"cross-attention fc and FF linear1-3 a layer and step); block kernel launches {q_counts or 'none'}")
+    check(0 < rel < INT8_REL_BOUND, f"int8 request: relative error {rel} outside (0, {INT8_REL_BOUND})")
+    check(q_mm == 8 * steps and not q_counts, f"int8 request: {q_mm} int8 products, kernels {q_counts}")
+    want = {"sa_block": steps, "ff_tail": steps}
+    check(ref_counts == want and ln_counts == want, f"default/ln_bf16 launches {ref_counts} {ln_counts}")
+
+    diff_max = (ln - ref).abs().max().item()
+    xs = (3.0 + torch.randn((B, L, D), generator=gen, device="cuda")).to(torch.bfloat16)
+    norm = model.layers[0].norm3
+    norm_cpu = copy.deepcopy(norm).cpu()
+    norm.ln_bf16 = norm_cpu.ln_bf16 = True
+    with torch.no_grad():
+        site, site_cpu = _ln(norm, xs, 1e-5).float().cpu(), _ln(norm_cpu, xs.cpu(), 1e-5).float()
+    norm.ln_bf16 = False
+    site_err, site_tol = (site - site_cpu).abs().max().item(), 2.0**-5 * site_cpu.abs().max().item()
+    print(f"LN-bf16 request on {card}: {ln_s:.3f} s against the default's {ref_s:.3f} s; largest difference from "
+          f"the default {diff_max:.4e} (outputs in [-1, 1]); K1/K2 launches {ln_counts}; one LayerNorm site "
+          f"({B}x{L}x{D} bf16, norm3) card against the CPU: max_abs_diff {site_err:.3e} (tol {site_tol:.3e})")
+    check(site_err <= site_tol, f"LN-bf16 site: the card disagrees with the CPU ({site_err} > {site_tol})")
+    check(diff_max > 0, "LN-bf16 changed nothing in a bf16 request")
+    del model, diff
+    torch.cuda.empty_cache()
+    return {k: ref_counts.get(k, 0) + ln_counts.get(k, 0) for k in want}
+
+
+def opt_in_phase(card: str, gen: torch.Generator) -> dict:
+    """Phase 12b: the JAX package's opt-in configurations. Returns the
+    block kernels' launches ({"serving": K1/K2, "train": K3-K5 (fwd, bwd)})."""
+    t0 = time.perf_counter()
+    train = remat_runs(card)
+    for name, (fwd, bwd) in trpe_step(card).items():
+        train[name] = (train[name][0] + fwd, train[name][1] + bwd)
+    int8_products(card, gen)
+    serving = serving_options(card, gen)
+    print(f"opt-in phase on {card}: {time.perf_counter() - t0:.1f} s")
+    return {"serving": serving, "train": train}
 
 
 def write_raw_tree(root: str) -> None:
@@ -2832,6 +3082,7 @@ def main() -> int:
         t0 = time.perf_counter()
         train_counts = train(card)
         print(f"train phase took {time.perf_counter() - t0:.1f} s")
+        opt_in = opt_in_phase(card, gen)
         work = tempfile.mkdtemp(prefix="tcdiff_data_")
         try:
             loop_counts, data = data_phase(card, work)
@@ -2844,11 +3095,11 @@ def main() -> int:
         return 1
 
     for name, n in cli_serving.items():
-        launches[name] += n + dp_counts["serving"][name]
+        launches[name] += n + dp_counts["serving"][name] + opt_in["serving"].get(name, 0)
     launches.update({name: fwd + loop_counts[name][0] + cli_counts[name][0] + dp_counts["train"][name][0]
-                     for name, (fwd, _) in train_counts.items()})
-    bwd = {name: {"bwd_launches": b + loop_counts[name][1] + cli_counts[name][1] + dp_counts["train"][name][1]}
-           for name, (_, b) in train_counts.items()}
+                     + opt_in["train"][name][0] for name, (fwd, _) in train_counts.items()})
+    bwd = {name: {"bwd_launches": b + loop_counts[name][1] + cli_counts[name][1] + dp_counts["train"][name][1]
+                  + opt_in["train"][name][1]} for name, (_, b) in train_counts.items()}
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s, the kernels' build included")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"tcdiff_torch/csrc/{name}.cu",

@@ -10,10 +10,9 @@ Differences from the JAX package's flags:
     group (one process a rank, launched by `torchrun --nproc_per_node N
     -m tcdiff_torch.cli.train --dp N ...`); another value raises
     ValueError when `TCDiff` builds its mesh;
-  * `--tp` other than 1 (tensor parallelism, ROADMAP queue 1 item 9),
+  * `--tp` other than 1 (tensor parallelism, ROADMAP queue 1 item 9) and
     `--scan_steps` above 1 (TPU dispatch machinery, which the port does
-    not need) and `--remat` (an opt-in knob, item 8) raise
-    NotImplementedError instead of being ignored.
+    not need) raise NotImplementedError instead of being ignored.
 """
 
 from __future__ import annotations
@@ -83,7 +82,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--tp", type=int, default=1, help="tensor-parallel size (only 1 here)")
     parser.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"])
     parser.add_argument("--remat", action="store_true", default=False,
-                        help="rematerialize decoder layers (not ported)")
+                        help="recompute each decoder layer's forward in the backward (less memory)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="record a torch.profiler trace of the second epoch here")
@@ -101,9 +100,6 @@ def check_ported(opt) -> None:
         raise NotImplementedError(f"--scan_steps {opt.scan_steps}: several train steps a dispatch is the JAX "
                                   f"package's TPU dispatch machinery, which the port does not carry "
                                   f"(ROADMAP queue 1 item 6)")
-    if opt.remat:
-        raise NotImplementedError("--remat: rematerialized decoder layers are an opt-in knob not ported yet "
-                                  "(ROADMAP queue 1 item 8)")
 
 
 def parse_train_opt(argv=None):
@@ -123,6 +119,6 @@ def config_from_opt(opt) -> TCDiffConfig:
         train=dataclasses.replace(cfg.train, batch_size=opt.batch_size, learning_rate=opt.learning_rate,
                                   epochs=opt.epochs, save_interval=opt.save_interval,
                                   ema_interval=opt.ema_interval, seed=opt.seed, compute_dtype=opt.compute_dtype,
-                                  dp=opt.dp),
+                                  dp=opt.dp, remat=opt.remat),
         data=dataclasses.replace(cfg.data, data_path=opt.data_path, processed_data_dir=opt.processed_data_dir),
     )

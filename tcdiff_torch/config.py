@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Tuple
+import warnings
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +42,10 @@ def _env_flag(environ, name: str, default: bool) -> bool:
     return default if v is None else v == "1"
 
 
+# the block flags a TCDIFF_INT8 serving run found set to 1 (warned once each)
+_WARNED_INT8_SHADOW = set()
+
+
 @dataclasses.dataclass(frozen=True)
 class ServingKernels:
     """Which kernels the deterministic (serving) forward runs: one field
@@ -51,14 +56,22 @@ class ServingKernels:
     off runs as plain PyTorch math, the counterpart of the JAX package's
     XLA code there.
 
+    `int8` (TCDIFF_INT8) runs the decoder layers' projections on the plain
+    sites through `ops.int8.int8_dense` (per-channel int8 weights,
+    per-token int8 activations, int32 sums). With it on, `sa_block`,
+    `ff_block` and `ff_tail` default to off, as the JAX package's
+    `_flag_default_on_tpu` turns them off, so that the int8 projections
+    are not shadowed by the bf16 block kernels; one set to True
+    explicitly still wins, with a one-time warning.
+
     Every combination runs: the port has each kernel a combination selects.
     The rule stays that a combination whose kernel were missing would raise,
     never fall back to another path; none is left.
     """
 
-    sa_block: bool = True  # TCDIFF_PALLAS_SAB: K1
-    ff_block: bool = True  # TCDIFF_PALLAS_FFB: K2 with ff_tail, K2b without
-    ff_tail: bool = True  # TCDIFF_PALLAS_FFT
+    sa_block: Optional[bool] = None  # TCDIFF_PALLAS_SAB: K1 (None: on, off under int8)
+    ff_block: Optional[bool] = None  # TCDIFF_PALLAS_FFB: K2 with ff_tail, K2b without (None: as sa_block)
+    ff_tail: Optional[bool] = None  # TCDIFF_PALLAS_FFT (None: as sa_block)
     fuse_film: bool = False  # TCDIFF_FUSE_FILM: the FiLM residual inside K1, K2b and K7
     layernorm: bool = False  # TCDIFF_PALLAS_LN: K10, the SBI-MSA post-LayerNorms
     ln_matmul: bool = False  # TCDIFF_PALLAS_LNMM: K9, norm3->linear1 and norm4->linear3
@@ -68,10 +81,20 @@ class ServingKernels:
     layer_fuse: bool = False  # TCDIFF_LAYER_FUSE: K6, where the k/v are hoisted and no trj_dist is given
     layer_fuse_ff: bool = True  # TCDIFF_LAYER_FUSE_FF: K6 through the FF tail; off, K2 finishes the layer
     ca_block: bool = False  # TCDIFF_PALLAS_XAB: K7 (shadowed by the k/v cache)
+    int8: bool = False  # TCDIFF_INT8: int8 projections on the plain sites
 
     def __post_init__(self):
         if self.attention not in (0, 1, 2):
             raise ValueError(f"attention must be 0, 1 or 2, got {self.attention}")
+        for name, flag in (("sa_block", "TCDIFF_PALLAS_SAB"), ("ff_block", "TCDIFF_PALLAS_FFB"),
+                           ("ff_tail", "TCDIFF_PALLAS_FFT")):
+            value = getattr(self, name)
+            if value is None:
+                object.__setattr__(self, name, not self.int8)
+            elif value and self.int8 and flag not in _WARNED_INT8_SHADOW:
+                _WARNED_INT8_SHADOW.add(flag)
+                warnings.warn(f"TCDIFF_INT8=1 with {flag}=1: the bf16 block kernel takes this site, so int8 "
+                              f"only reaches the remaining projections.", stacklevel=3)
 
     @classmethod
     def per_op(cls, attention: int = 1, kv_cache: bool = True) -> "ServingKernels":
@@ -84,10 +107,11 @@ class ServingKernels:
         """Read the JAX package's flags (TCDIFF_PALLAS_SAB=1, ...) from
         `environ` (os.environ by default); an unset flag keeps its default."""
         env = os.environ if environ is None else environ
+        block = lambda name: None if env.get(name) is None else env[name] == "1"
         return cls(
-            sa_block=_env_flag(env, "TCDIFF_PALLAS_SAB", True),
-            ff_block=_env_flag(env, "TCDIFF_PALLAS_FFB", True),
-            ff_tail=_env_flag(env, "TCDIFF_PALLAS_FFT", True),
+            sa_block=block("TCDIFF_PALLAS_SAB"),
+            ff_block=block("TCDIFF_PALLAS_FFB"),
+            ff_tail=block("TCDIFF_PALLAS_FFT"),
             fuse_film=_env_flag(env, "TCDIFF_FUSE_FILM", False),
             layernorm=_env_flag(env, "TCDIFF_PALLAS_LN", False),
             ln_matmul=_env_flag(env, "TCDIFF_PALLAS_LNMM", False),
@@ -97,6 +121,7 @@ class ServingKernels:
             layer_fuse=_env_flag(env, "TCDIFF_LAYER_FUSE", False),
             layer_fuse_ff=_env_flag(env, "TCDIFF_LAYER_FUSE_FF", True),
             ca_block=_env_flag(env, "TCDIFF_PALLAS_XAB", False),
+            int8=_env_flag(env, "TCDIFF_INT8", False),
         )
 
 
@@ -153,9 +178,11 @@ class TrajDecoderConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Diffusion trainer: the fields the train step and `TCDiff`'s loops
-    read, and the mesh's data-parallel size (dp=-1: the world size of the
-    process group). The JAX package's tp, remat and scan knobs have no
-    counterpart here; their flags raise in `cli.args.check_ported`."""
+    read, the mesh's data-parallel size (dp=-1: the world size of the
+    process group) and `remat` (recompute each decoder layer's forward in
+    the backward instead of keeping its activations). The JAX package's tp
+    and scan knobs have no counterpart here; their flags raise in
+    `cli.args.check_ported`."""
 
     batch_size: int = 37
     learning_rate: float = 5e-5
@@ -169,6 +196,7 @@ class TrainConfig:
     adan_eps: float = 1e-8
     compute_dtype: str = "float32"  # the network's forward: "float32" or "bfloat16"
     dp: int = -1
+    remat: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

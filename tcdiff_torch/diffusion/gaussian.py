@@ -18,8 +18,9 @@ PyTorch counterpart of `tcdiff_tpu/diffusion/gaussian.py`:
   - the DDPM family: `p_sample_loop` (normal, inpaint, long) and
     `partial_denoise`;
 - training: `q_sample`, `p_losses` (predict-x0 with p2 weights: the
-  reconstruction, velocity, root-relative FK and foot-skate terms) and
-  `loss` (t drawn uniformly, then `p_losses`).
+  reconstruction, velocity, root-relative FK and foot-skate terms; an
+  optional `trj_dist` for the TRPE bias, as the JAX package's) and `loss`
+  (t drawn uniformly, then `p_losses`).
 
 Data parallelism (`parallel.mesh.Rows`): a rank passes its rows of the
 global batch, and every draw (x_T and each step's noise, t, noise,
@@ -97,16 +98,19 @@ class GaussianDiffusion:
         shape = (-1,) + (1,) * (x_start.dim() - 1)
         return self._sqrt_ac[t].reshape(shape) * x_start + self._sqrt_1m_ac[t].reshape(shape) * noise
 
-    def p_losses(self, x_start, cond, t, generator=None, noise=None, keep_mask=None, rows: Optional[Rows] = None):
+    def p_losses(self, x_start, cond, t, generator=None, noise=None, keep_mask=None, rows: Optional[Rows] = None,
+                 trj_dist=None):
         """The 4-term training loss. x_start (bs, dn, sq, c) as the dataset
-        yields it; cond (bs, 301, cond_dim); t (bs,). noise, in the permuted
-        (bs, sq, dn, c) layout, and keep_mask (bs,) bool are drawn from
-        `generator` unless given; the model's dropout always draws from it.
-        With `rows` (data parallelism) x_start, cond and t are this rank's
-        rows of the global batch, and noise, keep_mask and the dropout are
-        drawn, or injected, at the global batch and these rows kept.
-        Returns (total, dict of the four weighted terms), scalars: the
-        means over these rows."""
+        yields it; cond (bs, 301, cond_dim); t (bs,); trj_dist (bs, sq*dn,
+        sq*dn) TRPE buckets or None (the model's self-attention then runs
+        with the TRPE bias). noise, in the permuted (bs, sq, dn, c) layout,
+        and keep_mask (bs,) bool are drawn from `generator` unless given;
+        the model's dropout always draws from it. With `rows` (data
+        parallelism) x_start, cond, t and trj_dist are this rank's rows of
+        the global batch, and noise, keep_mask and the dropout are drawn,
+        or injected, at the global batch and these rows kept. Returns
+        (total, dict of the four weighted terms), scalars: the means over
+        these rows."""
         cfg = self.cfg
         bs, dn, sq, c = x_start.shape
         dev = x_start.device
@@ -123,7 +127,8 @@ class GaussianDiffusion:
                 1.0 - cfg.cond_drop_prob)
         elif rows is not None:
             keep_mask = rows.take(keep_mask)
-        out = self.model.forward_train(x_noisy.reshape(bs, sq * dn, c), cond, t, keep_mask, generator, rows)
+        out = self.model.forward_train(x_noisy.reshape(bs, sq * dn, c), cond, t, keep_mask, generator, rows,
+                                       trj_dist=trj_dist)
 
         target = x_start  # predict-x0
         out = out.reshape(bs, sq, dn, c)
@@ -155,15 +160,17 @@ class GaussianDiffusion:
         }
         return sum(losses.values()), losses
 
-    def loss(self, x, cond, generator=None, t=None, noise=None, keep_mask=None, rows: Optional[Rows] = None):
+    def loss(self, x, cond, generator=None, t=None, noise=None, keep_mask=None, rows: Optional[Rows] = None,
+             trj_dist=None):
         """t ~ U[0, T) from `generator` unless given, then `p_losses`; with
-        `rows`, t too is drawn, or injected, at the global batch."""
+        `rows`, t too is drawn, or injected, at the global batch (trj_dist,
+        like x, holds this rank's rows)."""
         if t is None:
             t = draw(lambda s: torch.randint(0, self.cfg.n_timestep, s, generator=generator, device=x.device),
                      (x.shape[0],), rows)
         elif rows is not None:
             t = rows.take(t)
-        return self.p_losses(x, cond, t, generator, noise, keep_mask, rows)
+        return self.p_losses(x, cond, t, generator, noise, keep_mask, rows, trj_dist)
 
     def encode_cond_cfg(self, cond: torch.Tensor) -> CondCache:
         """Encode the condition once for the doubled (uncond | cond) batch."""

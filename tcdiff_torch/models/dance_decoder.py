@@ -16,7 +16,10 @@ package turns on by default:
 `forward_train` is the train path (the JAX package's deterministic=False):
 dropout at every reference site, drawn from an explicit torch.Generator;
 no cond cache and no CFG dedup, the cross-attention memory is
-norm_cond(cat(music tokens, time tokens)).
+norm_cond(cat(music tokens, time tokens)). Each decoder layer's randomness
+is drawn before the layer runs (`TrainDraws`), so that with `remat` (the
+JAX package's nn.remat) a layer run under `torch.utils.checkpoint`
+recomputes its forward in the backward on the same dropout.
 
 Module and parameter names follow the reference state-dict layout
 (`tcdiff_torch.interop.from_jax.params_to_state_dict` maps a flax tree onto
@@ -24,7 +27,9 @@ it), so `load_state_dict(..., strict=True)` takes a reference checkpoint.
 Parameters are float32 and live on `device` (the GPU unless the caller asks
 for the CPU); activations run in `dtype` (float32 or bfloat16), with
 weights cast per use and LayerNorm statistics in f32, as the flax modules
-do.
+do; with `ln_bf16` (TCDIFF_LN_BF16) the LayerNorm sites outside the
+kernels keep their statistics in `dtype`, as flax's
+force_float32_reductions=False (the kernels' LayerNorms stay f32).
 
 Each decoder layer's blocks run through `tcdiff_torch.ops` (CUDA kernels
 for CUDA tensors, plain versions for CPU tensors). On serving,
@@ -36,9 +41,13 @@ where the k/v are not hoisted; the whole layer (K6) over the hoisted k/v;
 in the per-op configuration LN -> rotary -> q/k/v (K8), attention (K11,
 also in the cond encoder), the post-attention LayerNorms (K10) and the
 LN -> projections of the FF chain (K9). A site whose kernel is off runs
-as plain PyTorch math, the counterpart of the JAX package's XLA code. In
-training the self-attention (K3), cross-attention (K4) and FF + tail (K5)
-blocks run, forward and backward.
+as plain PyTorch math, the counterpart of the JAX package's XLA code;
+with `kernels.int8` its decoder-layer projections run through
+`ops.int8.int8_dense`, at the sites where the JAX package's TCDIFF_INT8
+quantizes. In training the self-attention (K3), cross-attention (K4) and
+FF + tail (K5) blocks run, forward and backward; with a `trj_dist` (TRPE)
+the self-attention block runs as plain PyTorch math, as the JAX package
+sends it to XLA, and K4 and K5 still run.
 """
 
 from __future__ import annotations
@@ -49,12 +58,13 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tcdiff_torch.config import DanceDecoderConfig, ServingKernels
 from tcdiff_torch.models.rotary import RotaryEmbedding, angle_table, apply_rotary
 from tcdiff_torch.ops import (
-    attention, ca_block, ca_block_train, ff_block, ff_block_train, layernorm, ln_matmul, ln_rotary_matmul, sa_block,
-    sa_block_train,
+    attention, ca_block, ca_block_train, ff_block, ff_block_train, int8, layernorm, ln_matmul, ln_rotary_matmul,
+    sa_block, sa_block_train,
 )
 from tcdiff_torch.ops.attention import N_TRJ_BUCKETS, trpe_bias
 from tcdiff_torch.ops.layer import layer as fused_layer
@@ -78,30 +88,64 @@ def _lin(mod: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, mod.weight.to(x.dtype), b)
 
 
+def _proj(mod: nn.Linear, x: torch.Tensor, quantized: bool) -> torch.Tensor:
+    """`_lin`, or where `quantized` the int8 projection from the f32
+    weight's codes (the JAX package's `int8_dense(x, kernel, bias)`)."""
+    if quantized:
+        return int8.int8_dense(x, *int8.quantized_weight(mod.weight), mod.bias)
+    return _lin(mod, x)
+
+
 def _ln(mod: nn.LayerNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
-    """flax LayerNorm: f32 statistics, output in x's dtype."""
-    return F.layer_norm(x.float(), mod.normalized_shape, mod.weight.float(), mod.bias.float(), eps).to(x.dtype)
+    """flax LayerNorm: f32 statistics, output in x's dtype. Where the model
+    set `mod.ln_bf16` (TCDIFF_LN_BF16) and x is below f32, the statistics
+    stay in x's dtype, in flax 0.12's order (force_float32_reductions=False):
+    the mean and E[x^2] each an f32 sum rounded to the dtype, var = E[x^2]
+    - mean^2 clipped at 0 and rsqrt(var + eps) in the dtype, then the f32
+    affine."""
+    if x.dtype == torch.float32 or not getattr(mod, "ln_bf16", False):
+        return F.layer_norm(x.float(), mod.normalized_shape, mod.weight.float(), mod.bias.float(), eps).to(x.dtype)
+    dt = x.dtype
+    mu = x.float().mean(-1, keepdim=True).to(dt)
+    mu2 = (x * x).float().mean(-1, keepdim=True).to(dt)
+    var = torch.clamp_min(mu2 - mu * mu, 0.0)
+    mul = torch.rsqrt(var + eps).float() * mod.weight.float()
+    return ((x - mu).float() * mul + mod.bias.float()).to(dt)
 
 
 def _identity(t):
     return t
 
 
+def dropout_keep(generator: Optional[torch.Generator], shape, device, rate: float,
+                 rows: Optional[Rows] = None) -> Optional[torch.Tensor]:
+    """The keep mask (bool, True = kept with probability 1-rate) of one
+    dropout site of `shape`, drawn from `generator`; None at rate 0. With
+    `rows` it is drawn at the global batch and this rank's rows kept
+    (`parallel.mesh.draw`)."""
+    if rate == 0.0:
+        return None
+    if generator is None:
+        raise ValueError("dropout > 0 in training needs a torch.Generator")
+    return draw(lambda s: torch.rand(s, generator=generator, device=device), tuple(shape), rows) >= rate
+
+
+def apply_keep(t: torch.Tensor, keep: Optional[torch.Tensor], rate: float) -> torch.Tensor:
+    """flax-style dropout of t under a `dropout_keep` mask: kept values
+    scaled by 1/(1-rate), the others 0; t itself where keep is None."""
+    if keep is None:
+        return t
+    return torch.where(keep, t / (1.0 - rate), torch.zeros((), dtype=t.dtype, device=t.device))
+
+
 def dropout_fn(rate: float, generator: Optional[torch.Generator], rows: Optional[Rows] = None):
-    """flax-style dropout (keep with probability 1-rate, kept values scaled
-    by 1/(1-rate)) drawing its masks from `generator`; identity at rate 0.
-    With `rows` the masks are drawn at the global batch and this rank's
-    rows kept (`parallel.mesh.draw`)."""
+    """flax-style dropout drawing each call's mask from `generator`
+    (`dropout_keep`, `apply_keep`); identity at rate 0."""
     if rate == 0.0:
         return _identity
     if generator is None:
         raise ValueError("dropout > 0 in training needs a torch.Generator")
-
-    def drop(t):
-        keep = draw(lambda s: torch.rand(s, generator=generator, device=t.device), t.shape, rows) >= rate
-        return torch.where(keep, t / (1.0 - rate), torch.zeros((), dtype=t.dtype, device=t.device))
-
-    return drop
+    return lambda t: apply_keep(t, dropout_keep(generator, t.shape, t.device, rate, rows), rate)
 
 
 def block_seeds(generator: Optional[torch.Generator], b: int, device, rate: float,
@@ -114,6 +158,19 @@ def block_seeds(generator: Optional[torch.Generator], b: int, device, rate: floa
         return torch.zeros(b, dtype=torch.int64, device=device)
     return draw(lambda s: torch.randint(0, 2**32, s, generator=generator, device=device, dtype=torch.int64),
                 (b,), rows)
+
+
+class TrainDraws(NamedTuple):
+    """One decoder layer's randomness on the train path, drawn before the
+    layer runs, so that a forward recomputed under remat sees the same:
+    the (b,) dropout seeds of K3 (None under TRPE), K4 and K5 and, under
+    TRPE, the plain self-attention block's keep masks (attention
+    probabilities, fc output, block output; None at rate 0)."""
+
+    sa: Optional[torch.Tensor]
+    ca: torch.Tensor
+    ff: torch.Tensor
+    sa_keep: Optional[Tuple[Optional[torch.Tensor], ...]] = None
 
 
 def _heads(t: torch.Tensor, nhead: int) -> torch.Tensor:
@@ -270,20 +327,26 @@ class SBIMSA(nn.Module):
             return q, k, v
         h = _ln(norm, x, 1e-5)
         r = apply_rotary(h, angles)
-        return _lin(self.w_qs, r), _lin(self.w_ks, r), _lin(self.w_vs, h)
+        q8 = kernels.int8
+        return _proj(self.w_qs, r, q8), _proj(self.w_ks, r, q8), _proj(self.w_vs, h, q8)
 
     def cross_q(self, x, norm: nn.LayerNorm, angles, kernels: ServingKernels, fused: bool):
         """Cross-attention q from the raw residual x: rotated norm(x)
         projected; K8's rot-only form where `fused` and `kernels.ln_rotary`
-        (the JAX package fuses it only without the k/v cache)."""
+        (the JAX package fuses it only without the k/v cache). With int8,
+        q is quantized only where `fused` (over the hoisted k/v the JAX
+        package keeps it float)."""
         if fused and kernels.ln_rotary:
             return self.ln_rotary_fn(x, norm.weight, norm.bias, angles, self.w_qs.weight.to(x.dtype), None, 1e-5)
-        return _lin(self.w_qs, apply_rotary(_ln(norm, x, 1e-5), angles))
+        return _proj(self.w_qs, apply_rotary(_ln(norm, x, 1e-5), angles), fused and kernels.int8)
 
-    def attend(self, q, k, v, kernels: ServingKernels, shared_emb=None, trj_dist=None):
+    def attend(self, q, k, v, kernels: ServingKernels, shared_emb=None, trj_dist=None, drop_attn=_identity,
+               drop_fc=_identity):
         """softmax attention of (b, L, h*dk) projections [+ TRPE], fc, then
         the post-attention LayerNorm; K11 and K10 where `kernels` turns
-        them on."""
+        them on, fc in int8 with `kernels.int8`. `drop_attn` / `drop_fc`:
+        the train path's dropout of the attention probabilities and of the
+        fc output (plain math only)."""
         h, dk = self.n_head, self.head_dim
         q, k, v = _heads(q, h), _heads(k.to(q.dtype), h), _heads(v.to(q.dtype), h)
         scale = 1.0 / math.sqrt(dk)
@@ -293,8 +356,8 @@ class SBIMSA(nn.Module):
             # all-heads one (attention=2) are one kernel here
             o = self.attention_fn(q, k, v, scale, table, trj_dist)
         else:
-            o = _attend(q, k, v, scale, table, trj_dist)
-        o = _lin(self.fc, _merge(o))
+            o = _attend(q, k, v, scale, table, trj_dist, drop_attn)
+        o = drop_fc(_proj(self.fc, _merge(o), kernels.int8))
         if kernels.layernorm:
             return self.layernorm_fn(o, self.layer_norm.weight, self.layer_norm.bias, 1e-6)
         return _ln(self.layer_norm, o, 1e-6)
@@ -416,10 +479,13 @@ class FiLMTransformerDecoderLayer(nn.Module):
                 if fuse_film:
                     return self.ca_block_fn(*args, fs, fb, nhead=self.n_head)
                 return x + featurewise_affine(self.ca_block_fn(*args, nhead=self.n_head), (fs, fb))
-            k, v = _lin(ca.w_ks, rot_mem), _lin(ca.w_vs, memory)
+        q = ca.cross_q(x, self.norm2, angles, kernels, fused=kv is None)
+        if kv is None:
+            # int8 k/v where q is not K8's (the JAX package's plain SBI-MSA)
+            q8 = kernels.int8 and not kernels.ln_rotary
+            k, v = _proj(ca.w_ks, rot_mem, q8), _proj(ca.w_vs, memory, q8)
         else:
             k, v = kv
-        q = ca.cross_q(x, self.norm2, angles, kernels, fused=kv is None)
         return x + featurewise_affine(ca.attend(q, k, v, kernels), (fs, fb))
 
     def _feed_forward(self, x, t, fuse_film, kernels: ServingKernels):
@@ -444,12 +510,12 @@ class FiLMTransformerDecoderLayer(nn.Module):
                 h = self.ln_matmul_fn(x, self.norm3.weight, self.norm3.bias, w(self.linear1),
                                       self.linear1.bias, 1e-5)
             else:
-                h = _lin(self.linear1, _ln(self.norm3, x, 1e-5))
-            h = _lin(self.linear2, F.gelu(h, approximate="none"))
+                h = _proj(self.linear1, _ln(self.norm3, x, 1e-5), kernels.int8)
+            h = _proj(self.linear2, F.gelu(h, approximate="none"), kernels.int8)
             x = x + featurewise_affine(h, (fs, fb))
         if kernels.ln_matmul:
             return self.ln_matmul_fn(x, self.norm4.weight, self.norm4.bias, w(self.linear3), self.linear3.bias, 1e-5)
-        return _lin(self.linear3, _ln(self.norm4, x, 1e-5))
+        return _proj(self.linear3, _ln(self.norm4, x, 1e-5), kernels.int8)
 
     def _traj_modulation(self, x, t, traj_emb):
         if self.use_traj_modulation:
@@ -461,38 +527,65 @@ class FiLMTransformerDecoderLayer(nn.Module):
             x = self.traj_Modulation[2](ctx, out)
         return x
 
-    def forward_train(self, x, memory, t, traj_emb, generator, rate: float, rows: Optional[Rows] = None):
-        """The train path: x (b, L, d); memory (b, Lm, d); t (b, d). Each
-        block op draws its own (b,) dropout seeds from `generator`, in the
-        order self-attention, cross-attention, FF (at the global batch of
-        `rows`, where given)."""
+    def train_draws(self, generator: Optional[torch.Generator], shape, rate: float, rows: Optional[Rows] = None,
+                    trpe: bool = False) -> TrainDraws:
+        """This layer's randomness for an x of `shape` (b, L, d), drawn from
+        `generator` in the order of its sites (at the global batch of
+        `rows`, where given): the self-attention block's (K3's seeds, or
+        under `trpe` the plain block's three keep masks), then K4's and
+        K5's seeds."""
+        b, L, d = shape
+        dev = self.norm1.weight.device
+        seeds = lambda: block_seeds(generator, b, dev, rate, rows)
+        if trpe:
+            keep = lambda *s: dropout_keep(generator, s, dev, rate, rows)
+            masks = (keep(b, self.n_head, L, L), keep(b, L, d), keep(b, L, d))
+            return TrainDraws(None, seeds(), seeds(), masks)
+        return TrainDraws(seeds(), seeds(), seeds())
+
+    def forward_train(self, x, memory, t, traj_emb, draws: TrainDraws, rate: float, shared_emb=None,
+                      trj_dist=None):
+        """The train path: x (b, L, d); memory (b, Lm, d); t (b, d); `draws`
+        from `train_draws`. With `trj_dist` (b, L, L) and `shared_emb` the
+        self-attention block runs as plain math with the TRPE bias, as the
+        JAX package's XLA path; K4 and K5 run either way."""
         dt, dev = x.dtype, x.device
         b, L, d = x.shape
         w = lambda m: m.weight.to(dt)
-        seeds = lambda: block_seeds(generator, b, dev, rate, rows)
         angles = angle_table(L, d, dev)
 
         sa = self.self_attn
         fs, fb = self.film1(t)
-        x = self.sa_train_fn(
-            x, self.norm1.weight, self.norm1.bias, angles, w(sa.w_qs), w(sa.w_ks), w(sa.w_vs),
-            w(sa.fc), sa.layer_norm.weight, sa.layer_norm.bias, fs, fb, seeds(),
-            nhead=self.n_head, rate=rate,
-        )
+        if trj_dist is None:
+            x = self.sa_train_fn(
+                x, self.norm1.weight, self.norm1.bias, angles, w(sa.w_qs), w(sa.w_ks), w(sa.w_vs),
+                w(sa.fc), sa.layer_norm.weight, sa.layer_norm.bias, fs, fb, draws.sa,
+                nhead=self.n_head, rate=rate,
+            )
+        else:
+            keep_attn, keep_fc, keep_out = draws.sa_keep
+            drop = lambda keep: lambda u: apply_keep(u, keep, rate)
+            s = sa.attend(*sa.self_qkv(x, self.norm1, angles, _PLAIN), _PLAIN, shared_emb, trj_dist,
+                          drop(keep_attn), drop(keep_fc))
+            x = x + featurewise_affine(apply_keep(s, keep_out, rate), (fs, fb))
         ca = self.multihead_attn
         fs, fb = self.film2(t)
         x = self.ca_train_fn(
             x, memory, self.norm2.weight, self.norm2.bias, angles,
             angle_table(memory.shape[1], d, dev), w(ca.w_qs), w(ca.w_ks), w(ca.w_vs), w(ca.fc),
-            ca.layer_norm.weight, ca.layer_norm.bias, fs, fb, seeds(), nhead=self.n_head, rate=rate,
+            ca.layer_norm.weight, ca.layer_norm.bias, fs, fb, draws.ca, nhead=self.n_head, rate=rate,
         )
         fs, fb = self.film3(t)
         x = self.ff_train_fn(
             x, self.norm3.weight, self.norm3.bias, w(self.linear1), self.linear1.bias,
             w(self.linear2), self.linear2.bias, fs, fb, self.norm4.weight, self.norm4.bias,
-            w(self.linear3), self.linear3.bias, seeds(), rate=rate,
+            w(self.linear3), self.linear3.bias, draws.ff, rate=rate,
         )
         return self._traj_modulation(x, t, traj_emb)
+
+
+# the train path's plain sites (TRPE self-attention): no serving kernel, no int8
+_PLAIN = ServingKernels(sa_block=False, ff_block=False, kv_cache=False)
 
 
 class _DecoderStack(nn.Module):
@@ -508,16 +601,21 @@ class DanceDecoder(nn.Module):
       times: (B,) timesteps; keep_mask: (B,) bool, True = real condition.
     Returns (B, tokens, nfeats) float32. B == b, or 2b with cfg_pair.
     `kernels` (a ServingKernels; may be replaced between calls) chooses the
-    serving path's kernels.
+    serving path's kernels. `remat` (the JAX package's remat): the train
+    path runs each decoder layer under `torch.utils.checkpoint`, so that
+    its activations are recomputed in the backward instead of kept; the
+    serving path is the same with or without it. `ln_bf16`
+    (TCDIFF_LN_BF16; may be set between calls): see `_ln`.
     """
 
     def __init__(self, cfg: DanceDecoderConfig, dtype: torch.dtype = torch.float32,
                  use_traj_modulation: bool = False, device="cuda",
-                 kernels: ServingKernels = ServingKernels()):
+                 kernels: ServingKernels = ServingKernels(), remat: bool = False, ln_bf16: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
         self.kernels = kernels
+        self.remat = remat
         d, dn, cf = cfg.latent_dim, cfg.dancer_num, cfg.cond_feature_dim
         hd = cfg.num_heads * cfg.head_dim
         self.rotary = RotaryEmbedding(d)
@@ -547,10 +645,23 @@ class DanceDecoder(nn.Module):
             for _ in range(cfg.num_layers)
         ])
         self.to(device)  # raises where the device does not exist: no quiet CPU fallback
+        self.ln_bf16 = ln_bf16
 
     @property
     def layers(self):
         return self.seqTransDecoder.stack
+
+    @property
+    def ln_bf16(self) -> bool:
+        return self._ln_bf16
+
+    @ln_bf16.setter
+    def ln_bf16(self, on: bool) -> None:
+        """Set the flag on every LayerNorm the model computes through `_ln`."""
+        self._ln_bf16 = bool(on)
+        for m in self.modules():
+            if isinstance(m, nn.LayerNorm):
+                m.ln_bf16 = self._ln_bf16
 
     @torch.no_grad()
     def init_random(self, generator: torch.Generator) -> "DanceDecoder":
@@ -641,21 +752,31 @@ class DanceDecoder(nn.Module):
         return h, traj_emb, t, t_tokens
 
     def forward_train(self, x, cond, times, keep_mask=None, generator: Optional[torch.Generator] = None,
-                      rows: Optional[Rows] = None):
+                      rows: Optional[Rows] = None, trj_dist: Optional[torch.Tensor] = None):
         """The train path (the JAX package's deterministic=False), with
         dropout cfg.dropout drawn from `generator`: x (b, tokens, nfeats),
-        cond (b, 301, cond_dim), times (b,), keep_mask (b,) bool. With
-        `rows` (a data-parallel rank's rows of the global batch) every
-        dropout draw is made at the global batch and these rows kept.
-        Returns (b, tokens, nfeats) float32."""
+        cond (b, 301, cond_dim), times (b,), keep_mask (b,) bool, trj_dist
+        (b, tokens, tokens) integer TRPE buckets or None. With `rows` (a
+        data-parallel rank's rows of the global batch; trj_dist, like x,
+        holds these rows) every dropout draw is made at the global batch
+        and these rows kept. With `remat` each layer runs under
+        `torch.utils.checkpoint` on draws made before it. Returns (b,
+        tokens, nfeats) float32."""
         rate = self.cfg.dropout
         if keep_mask is None:
             keep_mask = torch.ones(times.shape[0], dtype=torch.bool, device=times.device)
         ct, cond_hidden = self.encode_cond(cond, keep_mask, dropout_fn(rate, generator, rows))
         h, traj_emb, t, t_tokens = self._embed(x, times, cond_hidden)
         memory = _ln(self.norm_cond, torch.cat([ct, t_tokens], dim=-2), 1e-6)
+        shared_emb = self.embeddings_table.weight
         for layer in self.layers:
-            h = layer.forward_train(h, memory, t, traj_emb, generator, rate, rows)
+            draws = layer.train_draws(generator, h.shape, rate, rows, trpe=trj_dist is not None)
+            args = (h, memory, t, traj_emb, draws, rate, shared_emb, trj_dist)
+            if self.remat:
+                # the layer draws nothing itself: no RNG state to stash
+                h = checkpoint(layer.forward_train, *args, use_reentrant=False, preserve_rng_state=False)
+            else:
+                h = layer.forward_train(*args)
         return _lin(self.final_layer, h).float()
 
     def forward(self, x, cond, times, keep_mask=None, trj_dist=None, *,

@@ -417,7 +417,8 @@ def load_datasets(opt, dancer_num: int = 3, seq_len: int = 150, seed: int = 0, d
 
 def train_loop(state: TrainState, train_step: Callable, train_ds, run_dir: str, *, epochs: int,
                batch_size: int, save_interval: int, seed: int = 0, profile_dir: Optional[str] = None,
-               on_save: Optional[Callable[[int], Optional[dict]]] = None, mesh: Optional[Mesh] = None) -> dict:
+               on_save: Optional[Callable[[int], Optional[dict]]] = None, mesh: Optional[Mesh] = None,
+               project: str = "tcdiff_torch") -> dict:
     """Train `state` in place for `epochs` epochs of `train_ds`.
 
     train_step: `make_train_step`'s function for the state's model and
@@ -435,7 +436,9 @@ def train_loop(state: TrainState, train_step: Callable, train_ds, run_dir: str, 
 
     `mesh`: data parallelism, with `train_step` built on the same mesh;
     `batch_size` is the global batch, each rank steps on its rows of it;
-    the files, the log and `on_save` are rank 0's alone.
+    the files, the log and `on_save` are rank 0's alone. `project`: the
+    wandb project of the log (`MetricLogger`), whose config is the JAX
+    package's {"lr": the optimizer's, "batch": batch_size}.
 
     Returns {"steps", "loader" ("native" or "numpy"), "checkpoints",
     "metrics" (the last means logged)}."""
@@ -445,7 +448,8 @@ def train_loop(state: TrainState, train_step: Callable, train_ds, run_dir: str, 
     run_dir = Path(run_dir)
     ckpt_dir = str(run_dir / "checkpoints")
     host0 = mesh is None or mesh.rank == 0
-    metrics = MetricLogger(str(run_dir), config={"batch": batch_size, "epochs": epochs}) if host0 else None
+    config = {"lr": state.optimizer.param_groups[0]["lr"], "batch": batch_size}
+    metrics = MetricLogger(str(run_dir), project=project, config=config) if host0 else None
     data_rng = np.random.default_rng(seed)
     timer = StepTimer()
     rows = None if mesh is None else mesh.rows(batch_size)
@@ -550,7 +554,10 @@ class TCDiff:
 
     The model runs in `cfg.train.compute_dtype` on `device` (the card
     unless the caller asks for the CPU) through the kernels that
-    `ServingKernels.from_env()` chooses (the JAX package's TCDIFF_* flags).
+    `ServingKernels.from_env()` chooses (the JAX package's TCDIFF_* flags,
+    TCDIFF_INT8 among them), with LayerNorm statistics in that dtype under
+    TCDIFF_LN_BF16=1 and its decoder layers recomputed in the backward
+    under `cfg.train.remat`.
     `checkpoint_path`: a reference `.pt` or a checkpoint of this program
     (a file, or the run's checkpoint directory: its latest). Sampling uses
     the EMA weights where `use_ema_for_eval`, else the trained ones.
@@ -570,7 +577,8 @@ class TCDiff:
         self.device = torch.empty(0, device=device).device  # raises where the device does not exist
         tr = cfg.train
         dtype = torch.bfloat16 if tr.compute_dtype == "bfloat16" else torch.float32
-        self.model = DanceDecoder(cfg.model, dtype=dtype, device=self.device, kernels=ServingKernels.from_env())
+        self.model = DanceDecoder(cfg.model, dtype=dtype, device=self.device, kernels=ServingKernels.from_env(),
+                                  remat=tr.remat, ln_bf16=os.environ.get("TCDIFF_LN_BF16", "0") == "1")
         self.model.init_random(torch.Generator().manual_seed(tr.seed))
         self.diffusion = GaussianDiffusion(self.model, cfg.diffusion, device=self.device)
         self.optimizer = Adan(self.model.parameters(), lr=tr.learning_rate, betas=tr.adan_betas, eps=tr.adan_eps,
@@ -611,7 +619,10 @@ class TCDiff:
         if os.path.isdir(path):
             found = latest_checkpoint(path)
             if found is None:
-                raise FileNotFoundError(f"no ckpt_*.pt under {path}")
+                raise FileNotFoundError(
+                    f"no ckpt_*.pt under {path}; a checkpoint of the JAX package (an orbax directory) converts "
+                    f"where JAX is installed with `python tools/jax_checkpoint_to_torch.py "
+                    f"{path} <out_dir>`")
             path = found
         payload = torch.load(path, map_location="cpu", weights_only=False, mmap=True)
         if "step" in payload:
@@ -720,7 +731,8 @@ class TCDiff:
         # the module-level train_loop, not this method
         return train_loop(self.state, step_fn, train_ds, str(Path(opt.project) / opt.exp_name), epochs=tr.epochs,
                           batch_size=tr.batch_size, save_interval=tr.save_interval, seed=tr.seed,
-                          profile_dir=opt.profile_dir, on_save=on_save, mesh=self.mesh)
+                          profile_dir=opt.profile_dir, on_save=on_save, mesh=self.mesh,
+                          project=opt.wandb_pj_name)
 
     # -------------------------------------------------------------- sampling
     def _sample(self, cond, x_0, generator: Optional[torch.Generator], mode: str = "normal", full_ref=None):
@@ -883,13 +895,15 @@ class TCDiff:
             found = latest_checkpoint(path)
             if found is None:
                 raise ValueError(
-                    f"no ckpt_*.pt under {path}: a DBN checkpoint of the JAX package (an orbax/flax-msgpack "
-                    f"directory) cannot be read here, where flax is not installed; convert it to a reference "
-                    f"'.pt' ({{'net': state_dict}}) or train the DBN with tcdiff_torch.cli.train_traj")
+                    f"no ckpt_*.pt under {path}: a DBN checkpoint of the JAX package (an orbax directory) "
+                    f"cannot be read here, where orbax is not installed; convert it where JAX is with "
+                    f"`python tools/jax_checkpoint_to_torch.py {path}/ckpt_<step> <out_dir>`, or "
+                    f"train the DBN with tcdiff_torch.cli.train_traj")
             path = found
         if not path.endswith((".pt", ".pth")):
-            raise ValueError(f"{path}: not a '.pt' DBN checkpoint; a flax-msgpack checkpoint cannot be read "
-                             f"here, where flax is not installed")
+            raise ValueError(f"{path}: not a '.pt' DBN checkpoint; a checkpoint of the JAX package (an orbax "
+                             f"directory) converts where JAX is installed with `python "
+                             f"tools/jax_checkpoint_to_torch.py {path} <out_dir>`")
         return load_reference_traj(traj_model, path)
 
     # --------------------------------------------------- test loop (full DBN)

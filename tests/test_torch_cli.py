@@ -51,8 +51,15 @@ def test_config_from_opt_matches_jax():
 def test_flags_that_raise(argv, item, monkeypatch):
     """--dp is accepted and must equal the world size: --dp 2 builds its
     mesh in a world of 2 (the group's size read from torch.distributed)
-    and raises in a lone process; --tp 2 and the knobs not ported raise
-    NotImplementedError naming their ROADMAP item."""
+    and raises in a lone process; --tp 2 and --scan_steps 4 raise
+    NotImplementedError naming their ROADMAP item. --remat (item 8) is
+    ported: it parses and fills cfg.train.remat, as the JAX package's."""
+    if item == "item 8":
+        opt = args.parse_train_opt(argv)
+        assert args.config_from_opt(opt).train.remat and jargs.config_from_opt(opt).train.remat
+        with pytest.raises(NotImplementedError, match="item 9"):
+            args.parse_train_opt(argv + ["--tp", "2"])
+        return
     if item is None:
         opt = args.parse_train_opt(argv)
         assert args.config_from_opt(opt).train.dp == 2
@@ -127,6 +134,16 @@ def test_train_then_every_mode_from_its_checkpoint(tmp_path, tiny):
         assert pickle.load(f)["full_pose"].shape == (2, 32, 24, 3)
     train.main(_argv(tmp_path, "generate", *ck, "--wav", wav, "--streaming"))
     assert os.path.exists(tmp_path / "fk" / "stream_0_my_song.pkl")
+
+
+def test_train_with_remat_matches_train_without(tmp_path, tiny):
+    """`--remat` runs through the CLI: the model recomputes its layers, and
+    the checkpoint equals the one without remat bit for bit."""
+    plain = train.main(_argv(tmp_path, "train"))
+    remat = train.main(_argv(tmp_path, "train", "--remat"))
+    assert remat.model.remat and not plain.model.remat and remat.state.step == plain.state.step == 2
+    for (name, p), q in zip(plain.model.named_parameters(), remat.model.parameters()):
+        assert torch.equal(p, q), name
 
 
 def test_generate_without_a_checkpoint_uses_the_synthetic_stats(tmp_path, tiny):

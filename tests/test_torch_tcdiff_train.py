@@ -11,6 +11,8 @@ import functools
 import json
 import logging
 import os
+import sys
+import types
 
 import numpy as np
 import pytest
@@ -23,6 +25,7 @@ from tcdiff_torch.config import DataConfig  # noqa: E402
 from tcdiff_torch.interop.from_jax import load_jax_params  # noqa: E402
 from tcdiff_torch.models.dance_decoder import DanceDecoder  # noqa: E402
 from tcdiff_torch.utils.checkpoint import save_checkpoint  # noqa: E402
+from tcdiff_torch.utils.logging import MetricLogger  # noqa: E402
 
 
 def _runner(checkpoint_path=None, **train):
@@ -63,6 +66,32 @@ def test_train_checkpoints_metrics_renders_and_resume(tmp_path):
         assert torch.equal(resumed.state.ema_params[name], saved["ema_state_dict"][name])
     more = resumed.train_loop(_train_opt(tmp_path, exp_name="t2", render=False, eval_during_train=False))
     assert more["steps"] == 2 and resumed.state.step == 6
+
+
+def test_train_logs_to_the_wandb_project_of_the_flag(tmp_path, monkeypatch):
+    """--wandb_pj_name reaches wandb.init as the project, with the JAX
+    package's config {"lr", "batch"}; the metrics are logged there too."""
+    runs = []
+
+    class Run:
+        def __init__(self, project, config):
+            self.project, self.config, self.logged, self.finished = project, config, [], False
+            runs.append(self)
+
+        def log(self, metrics, step):
+            self.logged.append((step, dict(metrics)))
+
+        def finish(self):
+            self.finished = True
+
+    monkeypatch.setitem(sys.modules, "wandb", types.SimpleNamespace(init=lambda project, config: Run(project, config)))
+    monkeypatch.setattr(orch, "MetricLogger", functools.partial(MetricLogger, use_tensorboard=False))
+    runner = _runner(epochs=1, save_interval=1)
+    runner.train_loop(_train_opt(tmp_path, wandb_pj_name="my_project", render=False, eval_during_train=False))
+    _, pc = cfgs()
+    assert len(runs) == 1 and runs[0].project == "my_project" and runs[0].finished
+    assert runs[0].config == {"lr": pc.train.learning_rate, "batch": pc.train.batch_size}
+    assert [step for step, _ in runs[0].logged] == [2] and np.isfinite(runs[0].logged[0][1]["total"])
 
 
 def test_train_catches_only_the_render(tmp_path, monkeypatch, caplog):
