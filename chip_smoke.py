@@ -185,11 +185,33 @@ last line:
      every rank's parameters and EMA must be bit-identical; then `python
      -m torch.distributed.run --standalone --nproc_per_node 1 -m
      tcdiff_torch.cli.train --dp 1` with the CLI phase's train flags over
-     NCCL, whose checkpoint must equal the CLI phase's bit for bit;
- 16. a line of JSON with every kernel's figures (K1/K2's launches count
-     the CLI phase's, both dp ranks' and the opt-in phase's, K3-K5's the
-     train phase's, the opt-in phase's, the train loop's, the CLI's and
-     both dp ranks'), the card's line, and the
+     NCCL, whose checkpoint must equal the CLI phase's bit for bit and
+     whose log must show its gradient all-reduce and metric mean issued
+     over NCCL;
+ 17. tensor parallelism (`tcdiff_torch.parallel.sharding_rules`): the
+     ranks of a (1, 2) and of a (2, 2) mesh spawned on the one card over
+     gloo; one process computes the references on the plain train path
+     (`plain_blocks`, the arithmetic the tp layers split) and the spread
+     of bf16 between its kernel path and that plain path; then the (1, 2)
+     ranks run two train steps at full width, dropout 0.1, in bf16 at
+     global batch 16 and in f32 at 8, and `TCDiff._sample` of 4 clips at
+     tp = 2, and decoder layer 0 with final_layer forward and backward in
+     bf16 and f32 (`tp_layer`); then the (2, 2) ranks two f32 steps at 8.
+     Each rank holds its steps against one process (in f32 the dp phase's
+     rules, the cond encoder's key biases aside at step 2; in bf16 the loss
+     and the step-1 parameters at the dp rules, the gradients read tensor
+     by tensor beside one process's own kernel-vs-plain spread), the layer's
+     output and every gradient within 2e-2 (bf16) or 1e-5 (f32) of its
+     norm, a rule that a zeroed or sign-flipped gradient must fail, its
+     parameters to exactly the JAX rule's 30,815,537 of
+     61,428,181, K3-K5 to 0 launches, the tp sample to one process's bits
+     with K1/K2 400 launches; every rank's whole state bit-identical; the
+     step wall ms of each rank beside one process's, the peak memory and
+     the phase's seconds are printed;
+ 18. a line of JSON with every kernel's figures (K1/K2's launches count
+     the CLI phase's, both dp ranks', the opt-in phase's and both tp
+     ranks' sampling, K3-K5's the train phase's, the opt-in phase's, the
+     train loop's, the CLI's and both dp ranks'), the card's line, and the
      last line: {"ok": true, "device": {...}}.
 """
 
@@ -236,7 +258,7 @@ from tcdiff_torch.eval import geometric as eval_geometric
 from tcdiff_torch.eval import metrics as eval_metrics
 from tcdiff_torch.export.bvh import pkl_to_bvh
 from tcdiff_torch.export.split_pkl import split_pkl_file
-from tcdiff_torch.models.dance_decoder import DanceDecoder, _ln
+from tcdiff_torch.models.dance_decoder import DanceDecoder, _lin, _ln
 from tcdiff_torch.models.rotary import angle_table, apply_rotary
 from tcdiff_torch.ops import (
     _build, attention, ca_block, ca_block_train, ff_block, ff_block_train, gemm, int8, layer, layernorm, ln_matmul,
@@ -248,6 +270,8 @@ from tcdiff_torch.ops._common import ln_f32, mm_f32
 from tcdiff_torch.ops.train_common import weight_splits
 from tcdiff_torch.optim.adan import Adan
 from tcdiff_torch.parallel import all_gather_rows, init_distributed, make_mesh, shard_batch
+from tcdiff_torch.parallel import comm as tp_comm
+from tcdiff_torch.parallel.sharding_rules import shard_train_state, whole_tensor
 from tcdiff_torch.train import orchestrator
 from tcdiff_torch.train.state import create_train_state
 from tcdiff_torch.train.train_step import make_train_step
@@ -1944,15 +1968,19 @@ def reset_train_launches() -> None:
 
 def make_trainer(cfg, dtype, mesh=None, remat: bool = False):
     """A full-width model with seeded random weights and its train step,
-    with TrainConfig's Adan and EMA settings (over `mesh`, where given;
-    each decoder layer recomputed in the backward with `remat`)."""
+    with TrainConfig's Adan and EMA settings (over `mesh`, where given, the
+    state split over its tp ranks; each decoder layer recomputed in the
+    backward with `remat`)."""
     tcfg = TrainConfig()
     model = DanceDecoder(cfg, dtype=dtype, remat=remat).init_random(torch.Generator().manual_seed(0))
     opt = Adan(model.parameters(), lr=tcfg.learning_rate, betas=tcfg.adan_betas, eps=tcfg.adan_eps,
                weight_decay=tcfg.weight_decay)
+    state = create_train_state(model, opt)
+    if mesh is not None:
+        shard_train_state(state, mesh)
     step = make_train_step(GaussianDiffusion(model, DiffusionConfig()), opt, ema_beta=tcfg.ema_beta,
                            ema_interval=tcfg.ema_interval, mesh=mesh)
-    return model, create_train_state(model, opt), step
+    return model, state, step
 
 
 def train_inputs(cfg, batch: int, seed: int):
@@ -2704,10 +2732,12 @@ def dp_inputs(cfg):
             "cond": r(DP_CLIPS, 2 * cfg.seq_len + 1, cfg.cond_feature_dim), "x0": r(DP_CLIPS, tokens, 3, std=0.2)}
 
 
-def dp_tcdiff(device):
-    """The full-width bf16 `TCDiff` (3 dancers), seeded weights; dp = -1."""
+def dp_tcdiff(device, tp: int = 1):
+    """The full-width bf16 `TCDiff` (3 dancers), seeded weights; dp = -1
+    (the world over tp)."""
     cfg = TCDiffConfig()
-    cfg = dataclasses.replace(cfg.with_dancers(3), train=dataclasses.replace(cfg.train, compute_dtype="bfloat16"))
+    cfg = dataclasses.replace(cfg.with_dancers(3),
+                              train=dataclasses.replace(cfg.train, compute_dtype="bfloat16", tp=tp))
     return orchestrator.TCDiff(cfg, use_ema_for_eval=False, device=device)
 
 
@@ -2824,12 +2854,85 @@ def _worst(shares: dict) -> tuple:
     return shares[name], name
 
 
+def _top(shares: dict, n: int = 4) -> list:
+    """The n largest (name, share) pairs."""
+    return sorted(shares.items(), key=lambda kv: -kv[1])[:n]
+
+
 def _digest(named: dict) -> str:
     h = hashlib.sha256()
     for name in sorted(named):
         h.update(name.encode())
         h.update(named[name].numpy().tobytes())
     return h.hexdigest()
+
+
+def _key_bias(name: str, t: torch.Tensor, keep: bool) -> torch.Tensor:
+    """The cond encoder's packed q/k/v bias without its key third (keep
+    False) or that third alone (keep True); any other tensor as it is."""
+    if not name.endswith("self_attn.in_proj_bias"):
+        return t
+    q, k, v = t.chunk(3)
+    return k if keep else torch.cat([q, v])
+
+
+def rel_errs(g: dict, r: dict) -> dict:
+    """{name: ||g - r|| / ||r||} of each gradient of r, the cond encoder's
+    key-bias third left out (`_key_bias`: its gradient is zero in exact
+    arithmetic, and rounding alone in both runs). A gradient zeroed reads
+    1, one of flipped sign 2."""
+    out = {}
+    for n, t in r.items():
+        a, b = _key_bias(n, g[n], False).double(), _key_bias(n, t, False).double()
+        out[n] = ((a - b).norm() / b.norm()).item() if b.norm() > 0 else float(a.norm() > 0)
+    return out
+
+
+def rel_summary(rel: dict) -> dict:
+    """The median, the largest and the worst tensors of `rel_errs`."""
+    return {"median": statistics.median(rel.values()), "top": _top(rel, 3)}
+
+
+def train_errs(g: dict, r: dict, dtype, key_bias: bool = False) -> dict:
+    """Two train steps `g` against one process's `r`, as shares of the
+    rules (dp_work's entries): the losses and the step-1 gradients to
+    `grad_tolerance`, the parameters after step 1 to `tolerance`, after
+    step 2 the share of each tensor's elements more than lr/10 apart; and
+    the digest of the parameters and EMA after step 2. With `key_bias`
+    (runs whose f32 sums differ in order, as tp's split products do) the
+    cond encoder's key biases are left out of the step-2 rule, as
+    `dbn_errs` leaves the DBN's out: a key bias shifts every logit of a
+    softmax row alike, so its gradient is rounding in both runs, and Adan's
+    second step, which divides by the root of that gradient's square,
+    moves it by about lr x the sign of the rounding; their step-1 gradient
+    is reported as a share of the largest gradient. Where the runs kept
+    their step-2 gradients (`tp_work`), each step's gradients are also
+    read tensor by tensor as `rel_errs` (all of them, and the four largest
+    step-2 shares of parameters off)."""
+    cut = (lambda n, t: _key_bias(n, t, False)) if key_bias else (lambda n, t: t)
+    out = {
+        "loss": [abs(a["total"] - b["total"]) / grad_tolerance(dtype, torch.tensor(b["total"]))
+                 for a, b in zip(g["metrics"], r["metrics"])],
+        "grads1": _worst({n: (g["grads1"][n] - t).abs().max().item() / grad_tolerance(dtype, t)
+                          for n, t in r["grads1"].items()}),
+        "params1": _worst({n: (g["params1"][n] - t).abs().max().item() / tolerance(dtype, t)
+                           for n, t in r["params1"].items()}),
+        "params2_off": _worst({n: ((cut(n, g["params2"][n]) - cut(n, t)).abs() > 0.1 * TrainConfig().learning_rate)
+                               .float().mean().item() for n, t in r["params2"].items()}),
+        "digest": _digest({**g["params2"], **{f"ema.{n}": t for n, t in g["ema2"].items()}}),
+    }
+    if "grads2" in r:
+        for step in ("grads1", "grads2"):
+            out[f"{step}_rel_all"] = rel_errs(g[step], r[step])
+        off = {n: ((g["params2"][n] - t).abs() > 0.1 * TrainConfig().learning_rate).float().mean().item()
+               for n, t in r["params2"].items()}
+        out["params2_off_top"] = _top(off)
+    if key_bias:
+        largest = max(t.abs().max().item() for t in r["grads1"].values())
+        out["key_bias_grad"] = max(max(_key_bias(n, g["grads1"][n], True).abs().max().item(),
+                                       _key_bias(n, t, True).abs().max().item()) / largest
+                                   for n, t in r["grads1"].items() if n.endswith("self_attn.in_proj_bias"))
+    return out
 
 
 def _dp_rank(rank: int, store: str, work: str) -> None:
@@ -2853,18 +2956,7 @@ def _dp_rank(rank: int, store: str, work: str) -> None:
         ref = torch.load(ref_path, map_location="cpu", weights_only=False, mmap=True)
         errs = {}
         for dtype in (torch.bfloat16, torch.float32):
-            g, r = got[f"train_{dtype}"], ref[f"train_{dtype}"]
-            errs[f"train_{dtype}"] = {
-                "loss": [abs(a["total"] - b["total"]) / grad_tolerance(dtype, torch.tensor(b["total"]))
-                         for a, b in zip(g["metrics"], r["metrics"])],
-                "grads1": _worst({n: (g["grads1"][n] - t).abs().max().item() / grad_tolerance(dtype, t)
-                                  for n, t in r["grads1"].items()}),
-                "params1": _worst({n: (g["params1"][n] - t).abs().max().item() / tolerance(dtype, t)
-                                   for n, t in r["params1"].items()}),
-                "params2_off": _worst({n: ((g["params2"][n] - t).abs() > 0.1 * TrainConfig().learning_rate)
-                                       .float().mean().item() for n, t in r["params2"].items()}),
-                "digest": _digest({**g["params2"], **{f"ema.{n}": t for n, t in g["ema2"].items()}}),
-            }
+            errs[f"train_{dtype}"] = train_errs(got[f"train_{dtype}"], ref[f"train_{dtype}"], dtype)
             song, want = got[f"long_{dtype}"], ref[f"long_{dtype}"]
             tol = F32_PATH_TOL if dtype == torch.float32 else tolerance(dtype, want)
             errs[f"long_{dtype}"] = (song - want).abs().max().item() / tol
@@ -2900,7 +2992,9 @@ def nccl_world1_start(work: str, data: dict) -> tuple:
 
 def nccl_world1_check(card: str, work: str, started: tuple) -> None:
     """Wait for `nccl_world1_start`'s run: its checkpoint must equal the CLI
-    phase's non-distributed one bit for bit (parameters, EMA, Adan)."""
+    phase's non-distributed one bit for bit (parameters, EMA, Adan), and its
+    log must show a gradient all-reduce a step and the metrics' mean issued
+    over NCCL (`parallel.comm.collective_counts`)."""
     proc, log, waiter, wall = started
     try:
         waiter.join(timeout=600)
@@ -2914,6 +3008,9 @@ def nccl_world1_check(card: str, work: str, started: tuple) -> None:
         out = f.read()
     check(rc == 0, f"torchrun cli.train --dp 1 exited {rc}:\n{out[-3000:]}")
     check("backend nccl" in out, "torchrun cli.train: the NCCL backend was not reported")
+    issued = re.findall(r"parallel: collectives issued (\{.*\})", out)
+    check(len(issued) == 1, "torchrun cli.train: the collectives it issued were not reported")
+    issued = json.loads(issued[0])
     runs = os.path.join(work, "nccl_runs")
     mine = torch.load(os.path.join(runs, "cli", "checkpoints", "ckpt_1.pt"), map_location="cpu", weights_only=False)
     ref = torch.load(os.path.join(work, "cli_runs", "cli", "checkpoints", "ckpt_1.pt"), map_location="cpu",
@@ -2926,9 +3023,12 @@ def nccl_world1_check(card: str, work: str, started: tuple) -> None:
                   if torch.is_tensor(t) and not torch.equal(mine["optimizer_state_dict"]["state"][i][k], t)]
     print(f"dp: torchrun --nproc_per_node 1 cli.train --dp 1 over NCCL on {card}: step {mine['step']}, "
           f"{len(ref['model_state_dict'])} parameters, EMA and Adan moments against the non-distributed CLI "
-          f"run's checkpoint: {len(diffs)} differ (tol: bit for bit); {seconds:.1f} s wall from its start to "
-          f"its exit, beside the gloo ranks")
+          f"run's checkpoint: {len(diffs)} differ (tol: bit for bit); collectives issued {issued}; "
+          f"{seconds:.1f} s wall from its start to its exit, beside the gloo ranks")
     check(mine["step"] == ref["step"] == 1 and not diffs, f"NCCL world-1 step differs from the plain one: {diffs[:5]}")
+    check(issued.get("all_reduce_grads_ nccl") == mine["step"] and issued.get("all_reduce_mean nccl", 0) >= 1,
+          f"torchrun cli.train --dp 1: expected one gradient all-reduce a step and the metrics' mean over NCCL, "
+          f"issued {issued}")
 
 
 def check_dp_ranks(results: list, t_ranks: float) -> None:
@@ -3030,6 +3130,355 @@ def dp_phase(card: str, work: str, data: dict) -> dict:
              for k in train_launches()}
     return {"serving": serving, "train": train}
 
+
+TP = 2  # tensor-parallel ranks on the one card, over gloo (NCCL refuses two ranks on one device)
+TP_BATCH, TP_F32_BATCH = 16, 8  # global train batches of the tp phase, bf16 and f32
+TP_CLIPS = 4  # TCDiff._sample's clips under tp
+TP_SEED = 23
+FULL_PARAMS, TP_HELD = 61_428_181, 30_815_537  # the full-width model's parameters; a tp = 2 rank's (the JAX rule)
+
+
+def _whole_named(model, named) -> dict:
+    """{name: tensor on the host} of tensors by parameter name, each whole:
+    gathered over the tp ranks where its parameter is split (a collective)."""
+    params = dict(model.named_parameters())
+    out = {}
+    for n, t in named:
+        shard = getattr(params[n], "tp_shard", None)
+        out[n] = (t if shard is None else whole_tensor(t, shard)).detach().to("cpu", torch.float32, copy=True)
+    return out
+
+
+def time_tp_collectives() -> dict:
+    """Wrap the port's two tp collectives (`parallel.comm.tp_sum`, which the
+    reduces and the copies' backward call, and `tp_parts`, which the
+    gathers call) in this process: each call on a tp group is counted with
+    its f32 wire bytes and its seconds, the card synchronised first (the
+    wait) and then the collective (the wire: the host copies and gloo).
+    Returns the live {name: [calls, bytes, wait s, wire s]}."""
+    stats = {}
+
+    def timed(name, fn):
+        def run(t, mesh):
+            if mesh is None or mesh.tp_group is None:
+                return fn(t, mesh)
+            t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn(t, mesh)
+            st = stats.setdefault(name, [0, 0, 0.0, 0.0])
+            st[0] += 1
+            st[1] += 4 * t.numel()
+            st[2] += t1 - t0
+            st[3] += time.perf_counter() - t1
+            return out
+        return run
+
+    for name in ("tp_sum", "tp_parts"):
+        setattr(tp_comm, name, timed(name, getattr(tp_comm, name)))
+    return stats
+
+
+def tp_work(mesh, dtypes, plain: bool = True, comm: dict | None = None) -> dict:
+    """Two train steps at each (dtype, global batch) of `dtypes` at full
+    width, dropout 0.1, on `mesh` (its state split over the tp ranks) or,
+    with mesh None, in one process through the plain versions
+    (`plain_blocks`: the arithmetic the tp layers split; through the
+    kernels with `plain` False). Returns, for each dtype, the metrics and
+    wall ms of both steps, the whole gradients of both steps, the parameters after step 1,
+    the parameters and EMA after step 2, the parameters this process holds,
+    its peak memory above what it held before (the parent holds earlier
+    phases' tensors), and K3-K5's launches; with `comm` (a reading of
+    `time_tp_collectives`), the collectives of the two steps."""
+    cfg = DanceDecoderConfig(dancer_num=3)
+    out = {}
+    for dtype, batch in dtypes:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        model, state, step = make_trainer(cfg, dtype, mesh)
+        x, cond = train_inputs(cfg, batch, TP_SEED)
+        if mesh is not None:
+            x, cond = shard_batch((x, cond), mesh)
+        gen = torch.Generator(device="cuda").manual_seed(TP_SEED)
+        reset_train_launches()
+        res = {"metrics": [], "ms": [], "held": sum(p.numel() for p in model.parameters()), "comm": {}}
+        with (plain_blocks(model) if mesh is None and plain else contextlib.nullcontext()):
+            for i in range(2):
+                torch.cuda.synchronize()
+                before = copy.deepcopy(comm or {})
+                t0 = time.perf_counter()
+                state, m = step(state, x, cond, gen)
+                res["metrics"].append({k: v.item() for k, v in m.items()})
+                res["ms"].append(1e3 * (time.perf_counter() - t0))
+                for k, v in (comm or {}).items():
+                    was = before.get(k, [0, 0, 0.0, 0.0])
+                    res["comm"][k] = [a + b - c for a, b, c in zip(res["comm"].get(k, [0, 0, 0.0, 0.0]), v, was)]
+                res[f"grads{i + 1}"] = _whole_named(model, ((n, p.grad) for n, p in model.named_parameters()
+                                                            if p.grad is not None))
+                if i == 0:
+                    res["params1"] = _whole_named(model, model.named_parameters())
+        res["params2"] = _whole_named(model, model.named_parameters())
+        res["ema2"] = _whole_named(model, state.ema_params.items())
+        res["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        res["launches"] = train_launches()
+        out[f"train_{dtype}"] = res
+        del model, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_sample(device, tp: int) -> dict:
+    """Normal-mode `TCDiff._sample` of TP_CLIPS clips from the full-width
+    bf16 TCDiff of cfg.train.tp = tp (under tp, a whole serving model of the
+    gathered weights): the sample on the host and K1/K2's launches."""
+    runner = dp_tcdiff(device, tp=tp)
+    cfg = runner.cfg.model
+    g = torch.Generator(device="cuda").manual_seed(TP_SEED)
+    cond = torch.randn((TP_CLIPS, 2 * cfg.seq_len + 1, cfg.cond_feature_dim), generator=g, device="cuda")
+    x0 = 0.2 * torch.randn((TP_CLIPS, cfg.seq_len * cfg.dancer_num, 3), generator=g, device="cuda")
+    before = serving_launches()
+    sample = runner._sample(cond, x0, torch.Generator(device="cuda").manual_seed(TP_SEED)).cpu()
+    return {"sample": sample, "launches": {k: v - before[k] for k, v in serving_launches().items()},
+            "tp": runner.mesh.tp}
+
+
+def _wait_for(path: str, what: str) -> None:
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        check(time.perf_counter() - t0 < 600, f"{what} did not come within 600 s")
+        time.sleep(0.5)
+
+
+def _tp_rank(rank: int, dp: int, store: str, work: str) -> None:
+    """One rank of the tp phase (a spawned process) on a (dp, TP) mesh over
+    gloo on card 0: wait for its turn (`work`/tp_go{dp}), run `tp_work` (the
+    bf16 and f32 steps at tp alone; f32 under dp x tp) and, at dp = 1,
+    `tp_sample`; hold each against the one-process references
+    (`work`/tp_ref.pt) and save the errors, counts and times to
+    `work`/tp{dp}_rank{rank}.pt."""
+    world = dp * TP
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+    torch.set_num_threads(max(1, 8 // world))  # the host's 8 cores over the group that runs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_distributed("cuda:0", backend="gloo", init_method=store)
+    try:
+        mesh = make_mesh(dp, TP, device=dev)
+        _wait_for(os.path.join(work, f"tp_go{dp}"), "the tp phase's turn")
+        dtypes = ((torch.bfloat16, TP_BATCH), (torch.float32, TP_F32_BATCH)) if dp == 1 else \
+            ((torch.float32, TP_F32_BATCH),)
+        got = tp_work(mesh, dtypes, comm=time_tp_collectives())
+        sample = tp_sample(dev, TP) if dp == 1 else None
+        ref = torch.load(os.path.join(work, "tp_ref.pt"), map_location="cpu", weights_only=False, mmap=True)
+        res = {"dp": mesh.world, "tp": mesh.tp, "tp_rank": mesh.tp_rank, "errs": {}, "train": {}}
+        for key, g in got.items():
+            dtype = torch.bfloat16 if "bfloat16" in key else torch.float32
+            res["errs"][key] = train_errs(g, ref[key], dtype, key_bias=True)
+            res["train"][key] = {k: g[k] for k in ("ms", "held", "peak_gib", "launches", "comm")}
+        if dp == 1:
+            res["layer"], res["control"] = {}, {}
+            for dtype in (torch.bfloat16, torch.float32):
+                lay, want = tp_layer(mesh, dtype), ref[f"layer_{dtype}"]
+                rel = rel_errs(lay, want)
+                res["layer"][str(dtype)] = {"worst": _worst(rel), "top": _top(rel)}
+                if rank == 0:
+                    res["control"][str(dtype)] = tp_layer_control(lay, want)
+        if sample is not None:
+            res["sample_equal"] = torch.equal(sample["sample"], ref["sample"]["sample"])
+            res["sample_err"] = (sample["sample"] - ref["sample"]["sample"]).abs().max().item()
+            res["sample_launches"], res["sample_tp"] = sample["launches"], sample["tp"]
+        torch.save(res, os.path.join(work, f"tp{dp}_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+TP_LAYER_BATCH = 8  # the layer check's batch
+# one decoder layer and final_layer at full width against one process's
+# plain path (`tp_layer`): each output and gradient within this of its norm
+# (`rel_errs`; the readings behind it: PERF.md, PR 17)
+TP_LAYER_REL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+# gradients a tp rank zeroes and flips in its own copy of the layer check,
+# which the rule must refuse (`tp_layer_control`)
+TP_CONTROL = ("final_layer.weight", "seqTransDecoder.stack.0.linear1.weight", "seqTransDecoder.stack.0.norm3.weight",
+              "dx")
+
+
+def tp_rule(key: str) -> dict:
+    """The largest shares a tp step may reach against one process. f32: the
+    dp phase's (loss and step-1 gradients 1, step-1 parameters 1, step-2
+    parameters off 5e-2). bf16: the loss and the step-1 parameters at the
+    dp rules. Its gradients are read (`rel_errs`) but held nowhere: two
+    correct bf16 roundings of this 8-layer step, one process's kernel path
+    and its plain path, differ on most gradients by more than half their
+    norm, so a zeroed gradient reads much as a sound one; the bf16 split is
+    held a layer at a time instead (`tp_layer`)."""
+    if "bfloat16" not in key:
+        return {"loss": 1.0, "grads1": 1.0, "params1": 1.0, "params2_off": 5e-2}
+    return {"loss": 1.0, "params1": 1.0}
+
+
+def tp_passes(e: dict, rule: dict) -> bool:
+    """Whether the errors `e` (`train_errs`) keep within `rule` (`tp_rule`)."""
+    return all((max(e[k]) if k == "loss" else e[k][0]) <= v for k, v in rule.items())
+
+
+def tp_layer(mesh, dtype) -> dict:
+    """Decoder layer 0 of the full-width model (its split linears, its three
+    blocks over this rank's heads and FF columns, dropout 0.1) and
+    final_layer (split on its input) forward and backward in `dtype`, on
+    `mesh` (the state split over its tp ranks) or, with mesh None, in one
+    process on the plain path: the output and the gradients of x, the
+    memory, t and every parameter that has one, whole, on the host. A
+    layer's bf16 roundings do not compound over depth as a whole step's
+    do, so this holds the split's bf16 arithmetic."""
+    cfg = DanceDecoderConfig(dancer_num=3)
+    model, _, _ = make_trainer(cfg, dtype, mesh)
+    layer = model.layers[0]
+    g = torch.Generator(device="cuda").manual_seed(TP_SEED)
+    rand = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+    b, d = TP_LAYER_BATCH, cfg.latent_dim
+    x, mem, t = (rand(*shape).to(dtype).requires_grad_()
+                 for shape in ((b, cfg.tokens, d), (b, 2 * cfg.seq_len + 1, d), (b, d)))
+    draws = layer.train_draws(g, x.shape, cfg.dropout)
+    with (plain_blocks(model) if mesh is None else contextlib.nullcontext()):
+        out = _lin(model.final_layer, layer.forward_train(x, mem, t, None, draws, cfg.dropout,
+                                                          mesh=model.tp_mesh)).float()
+    (out * rand(*out.shape)).sum().backward()
+    res = {"out": out.detach().cpu(), **{k: v.grad.float().cpu() for k, v in (("dx", x), ("dmem", mem), ("dt", t))}}
+    res.update(_whole_named(model, ((n, p.grad) for n, p in model.named_parameters() if p.grad is not None)))
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_layer_control(got: dict, ref: dict) -> dict:
+    """The layer rule against faults it must see: `got` with each of
+    TP_CONTROL zeroed, or of flipped sign. Returns {"name fault": the worst
+    relative error}, each of which must exceed TP_LAYER_REL."""
+    out = {}
+    for name in TP_CONTROL:
+        for fault, fn in (("zeroed", torch.zeros_like), ("flipped", torch.neg)):
+            out[f"{name} {fault}"] = _worst(rel_errs({**got, name: fn(got[name])}, ref))[0]
+    return out
+
+
+def check_tp_ranks(results: list, ref: dict, dp: int) -> None:
+    """Each rank's steps against one process (`tp_rule`) and, at dp = 1,
+    its layer (`tp_layer`, TP_LAYER_REL) with the layer rule's control
+    (rank 0: each fault refused), K3-K5's launches (none: the tp layers run
+    no train kernel), the parameters it holds, the state digests across the
+    ranks and, at dp = 1, the tp sample bit-equal to one process's with
+    K1/K2 400 launches."""
+    want_serving = DanceDecoderConfig().num_layers * DiffusionConfig().sampling_timesteps
+    for r, res in enumerate(results):
+        check((res["dp"], res["tp"]) == (dp, TP), f"tp rank {r}: mesh dp={res['dp']} tp={res['tp']}")
+        for key, e in res["errs"].items():
+            t = res["train"][key]
+            shown = {k: v for k, v in e.items() if k != "digest" and not k.endswith("_rel_all")}
+            rel = {k[:-4]: rel_summary(v) for k, v in e.items() if k.endswith("_rel_all")}
+            print(f"tp (dp {dp} x tp {TP}) rank {r} (tp index {res['tp_rank']}) {key} against one process on the "
+                  f"plain path (shares of each tolerance): {shown}; relative gradient errors {rel}; "
+                  f"step wall ms {[round(v, 1) for v in t['ms']]} (one process {[round(v, 1) for v in ref[key]['ms']]}"
+                  f"); peak {t['peak_gib']:.2f} GiB (one process {ref[key]['peak_gib']:.2f}); holds {t['held']} of "
+                  f"{ref[key]['held']} parameters; K3-K5 launches {t['launches']}; tp collectives of the two steps "
+                  f"[calls, f32 MB, s waiting for the card, s on the wire] "
+                  f"{ {k: [v[0], round(v[1] / 1e6, 1), round(v[2], 3), round(v[3], 3)] for k, v in t['comm'].items()} }",
+                  flush=True)
+            rule = tp_rule(key)
+            check(tp_passes(e, rule), f"tp rank {r}: the {key} steps disagree with one process: {e}; rule {rule}")
+            check(t["held"] == TP_HELD and ref[key]["held"] == FULL_PARAMS,
+                  f"tp rank {r}: holds {t['held']} parameters, expected {TP_HELD} of {FULL_PARAMS}")
+            check(all(f == b == 0 for f, b in t["launches"].values()),
+                  f"tp rank {r}: the train kernels ran under tp: {t['launches']}")
+        for dtype in (torch.bfloat16, torch.float32):
+            if "layer" not in res:
+                break
+            lay, lim = res["layer"][str(dtype)], TP_LAYER_REL[dtype]
+            print(f"tp rank {r}: decoder layer 0 + final_layer in {dtype} against one process's plain path, the "
+                  f"output and every gradient (relative errors, limit {lim}): worst {lay['worst']}, top "
+                  f"{lay['top']}", flush=True)
+            check(lay["worst"][0] <= lim, f"tp rank {r}: the {dtype} layer disagrees with one process: {lay}")
+            if str(dtype) in res["control"]:
+                ctl = res["control"][str(dtype)]
+                print(f"tp rank {r}: the {dtype} layer rule's control, an output or gradient zeroed or of flipped "
+                      f"sign (each must read above {lim}): {ctl}", flush=True)
+                check(all(v > lim for v in ctl.values()), f"the {dtype} layer rule passes a fault: {ctl}")
+        if dp == 1:
+            counts = res["sample_launches"]
+            print(f"tp rank {r}: TCDiff._sample of {TP_CLIPS} clips at tp={res['sample_tp']} (whole serving model, "
+                  f"gathered weights) against one process: bit-equal {res['sample_equal']} (largest difference "
+                  f"{res['sample_err']:.3e}); serving launches {counts}", flush=True)
+            check(res["sample_equal"], f"tp rank {r}: the tp sample differs from one process's")
+            check(counts["sa_block"] == counts["ff_tail"] == want_serving and sum(counts.values()) == 2 * want_serving,
+                  f"tp rank {r}: serving launches {counts}, expected K1/K2 {want_serving} each")
+    for key in results[0]["errs"]:
+        digests = {res["errs"][key]["digest"] for res in results}
+        check(len(digests) == 1, f"tp (dp {dp}) {key}: the ranks' whole parameters and EMA differ")
+
+
+def tp_phase(card: str, work: str) -> dict:
+    """Phase 17: tensor parallelism. The ranks of a (1, TP) mesh and of a
+    (2, TP) mesh are spawned on the one card over gloo at once; this
+    process computes the one-process references on the plain train path,
+    then the tp ranks run (bf16 and f32 steps, TCDiff._sample), then the dp
+    x tp ranks (f32 steps). Returns K1/K2's launches in the tp ranks'
+    sampling, summed over the ranks."""
+    t_phase = time.perf_counter()
+    print(f"tp: spawning {TP} ranks of a (1, {TP}) mesh and {2 * TP} of a (2, {TP}) mesh on card 0, backend gloo",
+          flush=True)
+    groups = {dp: torch.multiprocessing.start_processes(_tp_rank, args=(dp, "file://" + os.path.join(work, f"tp_store{dp}"),
+                                                                     work), nprocs=dp * TP, join=False,
+                                                        start_method="spawn")
+              for dp in (1, 2)}
+    times = {}
+    try:
+        t0 = time.perf_counter()
+        ref = tp_work(None, ((torch.bfloat16, TP_BATCH), (torch.float32, TP_F32_BATCH)))
+        for key in ("train_torch.bfloat16", "train_torch.float32"):
+            check(all(f == b == 0 for f, b in ref[key]["launches"].values()), "the plain reference launched a kernel")
+        key = "train_torch.bfloat16"
+        kernels = tp_work(None, ((torch.bfloat16, TP_BATCH),), plain=False)[key]
+        spread = train_errs(kernels, ref[key], torch.bfloat16, key_bias=True)
+        del kernels
+        rel = {step: rel_summary(spread.pop(f"{step}_rel_all")) for step in ("grads1", "grads2")}
+        print(f"tp: one process's bf16 spread, its kernel path against its plain path (shares of the dp rules) "
+              f"{ {k: v for k, v in spread.items() if k != 'digest'} }; relative gradient errors (`rel_errs`) {rel}",
+              flush=True)
+        for dtype in (torch.bfloat16, torch.float32):
+            ref[f"layer_{dtype}"] = tp_layer(None, dtype)
+        ref["sample"] = tp_sample(torch.device("cuda", 0), 1)
+        tmp = os.path.join(work, "tp_ref.pt.tmp")
+        torch.save(ref, tmp)
+        os.replace(tmp, os.path.join(work, "tp_ref.pt"))
+        times["references"] = time.perf_counter() - t0
+        results = {}
+        for dp, ctx in groups.items():
+            t0 = time.perf_counter()
+            open(os.path.join(work, f"tp_go{dp}"), "w").close()
+            try:
+                while not ctx.join(timeout=5):
+                    check(time.perf_counter() - t0 < 600, f"the (dp {dp}, tp {TP}) ranks did not finish within 600 s")
+            except torch.multiprocessing.ProcessRaisedException as e:
+                raise SmokeFailure(f"a tp rank failed:\n{e}") from None
+            except torch.multiprocessing.ProcessExitedException as e:
+                raise SmokeFailure(f"a tp rank exited: {e}") from None
+            times[f"ranks dp {dp}"] = time.perf_counter() - t0
+            results[dp] = [torch.load(os.path.join(work, f"tp{dp}_rank{r}.pt"), weights_only=False)
+                           for r in range(dp * TP)]
+            check_tp_ranks(results[dp], ref, dp)
+    finally:  # every process this phase started ends with it
+        for ctx in groups.values():
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+    print(f"tp phase on {card}: {time.perf_counter() - t_phase:.1f} s "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in times.items())}); K3-K5 0 launches on every tp rank, "
+          f"K1/K2 {DanceDecoderConfig().num_layers * DiffusionConfig().sampling_timesteps} a sampling call a rank",
+          flush=True)
+    return {k: sum(res["sample_launches"][k] for res in results[1]) for k in serving_launches()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -3088,6 +3537,7 @@ def main() -> int:
             loop_counts, data = data_phase(card, work)
             cli_serving, cli_counts = cli_phase(card, work, data)
             dp_counts = dp_phase(card, work, data)
+            tp_counts = tp_phase(card, work)
         finally:
             shutil.rmtree(work, ignore_errors=True)
     except SmokeFailure as e:
@@ -3095,7 +3545,7 @@ def main() -> int:
         return 1
 
     for name, n in cli_serving.items():
-        launches[name] += n + dp_counts["serving"][name] + opt_in["serving"].get(name, 0)
+        launches[name] += n + dp_counts["serving"][name] + opt_in["serving"].get(name, 0) + tp_counts.get(name, 0)
     launches.update({name: fwd + loop_counts[name][0] + cli_counts[name][0] + dp_counts["train"][name][0]
                      + opt_in["train"][name][0] for name, (fwd, _) in train_counts.items()})
     bwd = {name: {"bwd_launches": b + loop_counts[name][1] + cli_counts[name][1] + dp_counts["train"][name][1]

@@ -6,13 +6,14 @@ Differences from the JAX package's flags:
 
   * `--device {cuda,cpu}` (default cuda) chooses where the model runs; it
     takes the place of the JAX package's TCDIFF_PLATFORM variable;
-  * `--dp` is the data-parallel size: -1 or the world size of the process
-    group (one process a rank, launched by `torchrun --nproc_per_node N
-    -m tcdiff_torch.cli.train --dp N ...`); another value raises
-    ValueError when `TCDiff` builds its mesh;
-  * `--tp` other than 1 (tensor parallelism, ROADMAP queue 1 item 9) and
-    `--scan_steps` above 1 (TPU dispatch machinery, which the port does
-    not need) raise NotImplementedError instead of being ignored.
+  * `--dp` and `--tp` are the data- and tensor-parallel sizes of the
+    (dp, tp) mesh: dp x tp must be the world size of the process group
+    (one process a rank, launched by `torchrun --nproc_per_node D*T -m
+    tcdiff_torch.cli.train --dp D --tp T ...`; dp=-1: the world over tp);
+    another value, or a tp that does not divide the model's heads,
+    raises ValueError when `TCDiff` builds its mesh and splits its state;
+  * `--scan_steps` above 1 (TPU dispatch machinery, which the port does
+    not need) raises NotImplementedError instead of being ignored.
 """
 
 from __future__ import annotations
@@ -79,7 +80,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--synthetic_size", type=int, default=16)
     parser.add_argument("--dp", type=int, default=-1,
                         help="data-parallel size: -1 or the number of ranks torchrun started")
-    parser.add_argument("--tp", type=int, default=1, help="tensor-parallel size (only 1 here)")
+    parser.add_argument("--tp", type=int, default=1,
+                        help="tensor-parallel size: the train state split over tp ranks (dp x tp = the world)")
     parser.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"])
     parser.add_argument("--remat", action="store_true", default=False,
                         help="recompute each decoder layer's forward in the backward (less memory)")
@@ -93,9 +95,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def check_ported(opt) -> None:
     """Raise NotImplementedError for a flag whose path the port does not
-    have, naming the ROADMAP item that brings it."""
-    if opt.tp != 1:
-        raise NotImplementedError(f"--tp {opt.tp}: tensor parallelism is not ported yet (ROADMAP queue 1 item 9)")
+    have, naming the ROADMAP item that set it aside."""
     if opt.scan_steps > 1:
         raise NotImplementedError(f"--scan_steps {opt.scan_steps}: several train steps a dispatch is the JAX "
                                   f"package's TPU dispatch machinery, which the port does not carry "
@@ -119,6 +119,6 @@ def config_from_opt(opt) -> TCDiffConfig:
         train=dataclasses.replace(cfg.train, batch_size=opt.batch_size, learning_rate=opt.learning_rate,
                                   epochs=opt.epochs, save_interval=opt.save_interval,
                                   ema_interval=opt.ema_interval, seed=opt.seed, compute_dtype=opt.compute_dtype,
-                                  dp=opt.dp, remat=opt.remat),
+                                  dp=opt.dp, tp=opt.tp, remat=opt.remat),
         data=dataclasses.replace(cfg.data, data_path=opt.data_path, processed_data_dir=opt.processed_data_dir),
     )

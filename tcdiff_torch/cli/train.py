@@ -5,19 +5,22 @@ The port of `tcdiff_tpu/cli/train.py`, the reference's `train.py:8-25`
 dispatch over the `TCDiff` class. The model runs on the card unless
 `--device cpu` is given; without a card the first allocation raises.
 
-Data parallelism: `torchrun --nproc_per_node N -m tcdiff_torch.cli.train
---dp N ...` starts one process a rank; each joins the group first
-(`utils.paths.maybe_init_multihost`: NCCL on `cuda:{LOCAL_RANK}`, gloo
-with `--device cpu`), and rank 0 names the run directory for all.
+Data and tensor parallelism: `torchrun --nproc_per_node D*T -m
+tcdiff_torch.cli.train --dp D --tp T ...` starts one process a rank of the
+(dp, tp) mesh; each joins the group first (`utils.paths.
+maybe_init_multihost`: NCCL on `cuda:{LOCAL_RANK}`, gloo with `--device
+cpu`), and rank 0 names the run directory for all.
 """
 
 from __future__ import annotations
 
+import json
 import os
 
 import torch.distributed as dist
 
 from tcdiff_torch.cli.args import config_from_opt, parse_train_opt
+from tcdiff_torch.parallel.comm import collective_counts
 from tcdiff_torch.train.orchestrator import TCDiff
 from tcdiff_torch.utils.logging import get_logger
 from tcdiff_torch.utils.paths import increment_path, maybe_init_multihost
@@ -28,8 +31,9 @@ def main(argv=None) -> TCDiff:
     opt = parse_train_opt(argv)
     device = maybe_init_multihost(opt.device)  # joins torchrun's group, if any
     if dist.is_initialized():
-        get_logger().info("data parallel: rank %d of %d, backend %s, device %s", dist.get_rank(),
-                          dist.get_world_size(), dist.get_backend(), device)
+        get_logger().info("parallel: rank %d of %d (dp %d x tp %d), backend %s, device %s", dist.get_rank(),
+                          dist.get_world_size(), dist.get_world_size() // opt.tp, opt.tp, dist.get_backend(),
+                          device)
     cfg = config_from_opt(opt)
     if opt.mode == "train" and not opt.checkpoint:
         # run directories that never clobber, as the reference's increment_path;
@@ -42,6 +46,8 @@ def main(argv=None) -> TCDiff:
                     device=device)
     if opt.mode == "train":
         runner.train_loop(opt)  # records its own trace of epoch 2 with --profile_dir
+        if dist.is_initialized():
+            get_logger().info("parallel: collectives issued %s", json.dumps(collective_counts()))
         return runner
     with trace(opt.profile_dir):
         if opt.mode == "val_without_TrajModel":

@@ -178,11 +178,11 @@ class TrajDecoderConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Diffusion trainer: the fields the train step and `TCDiff`'s loops
-    read, the mesh's data-parallel size (dp=-1: the world size of the
-    process group) and `remat` (recompute each decoder layer's forward in
-    the backward instead of keeping its activations). The JAX package's tp
-    and scan knobs have no counterpart here; their flags raise in
-    `cli.args.check_ported`."""
+    read, the mesh's data- and tensor-parallel sizes (dp x tp the world
+    size of the process group; dp=-1: the world over tp) and `remat`
+    (recompute each decoder layer's forward in the backward instead of
+    keeping its activations). The JAX package's scan knob has no
+    counterpart here; its flag raises in `cli.args.check_ported`."""
 
     batch_size: int = 37
     learning_rate: float = 5e-5
@@ -196,6 +196,7 @@ class TrainConfig:
     adan_eps: float = 1e-8
     compute_dtype: str = "float32"  # the network's forward: "float32" or "bfloat16"
     dp: int = -1
+    tp: int = 1
     remat: bool = False
 
 

@@ -48,10 +48,21 @@ quantizes. In training the self-attention (K3), cross-attention (K4) and
 FF + tail (K5) blocks run, forward and backward; with a `trj_dist` (TRPE)
 the self-attention block runs as plain PyTorch math, as the JAX package
 sends it to XLA, and K4 and K5 still run.
+
+Tensor parallelism: once `parallel.sharding_rules.shard_train_state` has
+split the weights over a mesh's tp ranks (`tp_mesh`; each split parameter
+carries its `Shard`), the train path runs each decoder layer over this
+rank's shards through the blocks' plain versions, given the mesh (no
+train kernel, as the JAX package's default under tp; see
+`FiLMTransformerDecoderLayer.forward_train`) and every other split linear through
+`_split_linear`, so that each rank computes what one process does, its
+products split; the serving path refuses split weights (sampling runs on a
+whole model holding the gathered ones).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -66,9 +77,15 @@ from tcdiff_torch.ops import (
     attention, ca_block, ca_block_train, ff_block, ff_block_train, int8, layernorm, ln_matmul, ln_rotary_matmul,
     sa_block, sa_block_train,
 )
+from tcdiff_torch.ops._common import mm_f32
 from tcdiff_torch.ops.attention import N_TRJ_BUCKETS, trpe_bias
+from tcdiff_torch.ops.ca_block_train import ca_block_train_plain
+from tcdiff_torch.ops.ff_block_train import ff_tail_train_plain
 from tcdiff_torch.ops.layer import layer as fused_layer
-from tcdiff_torch.parallel.mesh import Rows, draw
+from tcdiff_torch.ops.sa_block_train import sa_block_train_plain
+from tcdiff_torch.ops.train_common import local_bias, local_heads, mm_whole
+from tcdiff_torch.parallel.comm import tp_gather, tp_reduce, tp_slice
+from tcdiff_torch.parallel.mesh import Mesh, Rows, draw
 
 
 class CondCache(NamedTuple):
@@ -83,9 +100,44 @@ class CondCache(NamedTuple):
 
 
 def _lin(mod: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """nn.Dense(dtype=x.dtype) on f32 params: weights cast per use."""
+    """nn.Dense(dtype=x.dtype) on f32 params: weights cast per use. A
+    weight split over the tensor-parallel ranks runs `_split_linear`."""
+    shard = getattr(mod.weight, "tp_shard", None)
+    if shard is not None:
+        return _split_linear(x, mod.weight, mod.bias, shard)
     b = None if mod.bias is None else mod.bias.to(x.dtype)
     return F.linear(x, mod.weight.to(x.dtype), b)
+
+
+def _split_linear(x, w, b, shard) -> torch.Tensor:
+    """x . w^T + b where w is this tp rank's shard of a split weight (a
+    `parallel.sharding_rules.Shard`; each packed chunk is passed alone) and
+    b whole; every rank returns the whole output, in x's dtype. Split on
+    the output (dim 0): this rank's columns, x entering whole (`mm_whole`)
+    with its bias entries, rounded and gathered. Split on the input (dim
+    1): this rank's slice of x meets its rows, the f32 partial sums are
+    reduced, the bias added and the sum rounded. Either way the products
+    are f32 sums of the operands rounded to x's dtype, as F.linear in that
+    dtype computes them, the bias rounded to it too."""
+    mesh, dt = shard.mesh, x.dtype
+    if shard.dim == 0:
+        y = mm_whole(x, w, mesh)
+        if b is not None:
+            y = y + local_bias(b, w.shape[0], mesh).to(dt).float()
+        return tp_gather(y.to(dt), mesh)
+    y = tp_reduce(mm_f32(tp_slice(x, mesh), w), mesh)
+    return (y if b is None else y + b.to(dt).float()).to(dt)
+
+
+def _table(p: torch.Tensor) -> torch.Tensor:
+    """A parameter table whole: gathered where it is split over the tp
+    ranks (on its last dim, as the rule splits the model's tables)."""
+    shard = getattr(p, "tp_shard", None)
+    if shard is None:
+        return p
+    if shard.dim != p.dim() - 1:
+        raise ValueError(f"a table split on dim {shard.dim} of {p.dim()}; only the last is gathered")
+    return tp_gather(p, shard.mesh)
 
 
 def _proj(mod: nn.Linear, x: torch.Tensor, quantized: bool) -> torch.Tensor:
@@ -256,10 +308,16 @@ class TorchMHA(nn.Module):
 
     def forward(self, q_in, k_in, v_in, drop=_identity, kernels: Optional[ServingKernels] = None):
         dt = q_in.dtype
-        w, b = self.in_proj_weight.to(dt), self.in_proj_bias.to(dt)
+        shard = getattr(self.in_proj_weight, "tp_shard", None)
+        if shard is None:
+            w, b = self.in_proj_weight.to(dt), self.in_proj_bias.to(dt)
+            proj = lambda t, wi, bi: F.linear(t, wi, bi)  # noqa: E731
+        else:  # each of q, k, v split alike, the packed chunks cut alike
+            w, b = self.in_proj_weight, self.in_proj_bias
+            proj = lambda t, wi, bi: _split_linear(t, wi, bi, shard)  # noqa: E731
         wq, wk, wv = w.chunk(3)
         bq, bk, bv = b.chunk(3)
-        q, k, v = (_heads(F.linear(t, wi, bi), self.n_head)
+        q, k, v = (_heads(proj(t, wi, bi), self.n_head)
                    for t, wi, bi in ((q_in, wq, bq), (k_in, wk, bk), (v_in, wv, bv)))
         scale = 1.0 / math.sqrt(q.shape[-1])
         if kernels is not None and kernels.attention:
@@ -316,10 +374,11 @@ class SBIMSA(nn.Module):
         self.attention_fn = attention.attention
         self.layernorm_fn = layernorm.layernorm
 
-    def self_qkv(self, x, norm: nn.LayerNorm, angles, kernels: ServingKernels):
+    def self_qkv(self, x, norm: nn.LayerNorm, angles, kernels: ServingKernels, mesh: Optional[Mesh] = None):
         """Self-attention q, k, v from the raw residual x: q/k from the
         rotated norm(x), v from norm(x); one K8 launch where
-        `kernels.ln_rotary`."""
+        `kernels.ln_rotary`. With a tp `mesh` (the train path's plain
+        math), this rank's heads' q, k, v from its shards."""
         if kernels.ln_rotary:
             w = lambda m: m.weight.to(x.dtype)
             (q, k), v = self.ln_rotary_fn(x, norm.weight, norm.bias, angles, (w(self.w_qs), w(self.w_ks)),
@@ -327,6 +386,9 @@ class SBIMSA(nn.Module):
             return q, k, v
         h = _ln(norm, x, 1e-5)
         r = apply_rotary(h, angles)
+        if mesh is not None:
+            return tuple(mm_whole(u, m.weight, mesh).to(x.dtype) for u, m in ((r, self.w_qs), (r, self.w_ks),
+                                                                             (h, self.w_vs)))
         q8 = kernels.int8
         return _proj(self.w_qs, r, q8), _proj(self.w_ks, r, q8), _proj(self.w_vs, h, q8)
 
@@ -341,13 +403,15 @@ class SBIMSA(nn.Module):
         return _proj(self.w_qs, apply_rotary(_ln(norm, x, 1e-5), angles), fused and kernels.int8)
 
     def attend(self, q, k, v, kernels: ServingKernels, shared_emb=None, trj_dist=None, drop_attn=_identity,
-               drop_fc=_identity):
+               drop_fc=_identity, mesh: Optional[Mesh] = None):
         """softmax attention of (b, L, h*dk) projections [+ TRPE], fc, then
         the post-attention LayerNorm; K11 and K10 where `kernels` turns
         them on, fc in int8 with `kernels.int8`. `drop_attn` / `drop_fc`:
         the train path's dropout of the attention probabilities and of the
-        fc output (plain math only)."""
-        h, dk = self.n_head, self.head_dim
+        fc output (plain math only). With a tp `mesh` (plain math), over
+        this rank's heads and its columns of the TRPE table, fc's f32
+        partial sums reduced."""
+        h, dk = local_heads(self.n_head, mesh)[0], self.head_dim
         q, k, v = _heads(q, h), _heads(k.to(q.dtype), h), _heads(v.to(q.dtype), h)
         scale = 1.0 / math.sqrt(dk)
         table = None if trj_dist is None else shared_emb.reshape(N_TRJ_BUCKETS, h, dk).transpose(0, 1)
@@ -357,7 +421,10 @@ class SBIMSA(nn.Module):
             o = self.attention_fn(q, k, v, scale, table, trj_dist)
         else:
             o = _attend(q, k, v, scale, table, trj_dist, drop_attn)
-        o = drop_fc(_proj(self.fc, _merge(o), kernels.int8))
+        if mesh is None:
+            o = drop_fc(_proj(self.fc, _merge(o), kernels.int8))
+        else:
+            o = drop_fc(tp_reduce(mm_f32(_merge(o), self.fc.weight), mesh).to(q.dtype))
         if kernels.layernorm:
             return self.layernorm_fn(o, self.layer_norm.weight, self.layer_norm.bias, 1e-6)
         return _ln(self.layer_norm, o, 1e-6)
@@ -544,11 +611,24 @@ class FiLMTransformerDecoderLayer(nn.Module):
         return TrainDraws(seeds(), seeds(), seeds())
 
     def forward_train(self, x, memory, t, traj_emb, draws: TrainDraws, rate: float, shared_emb=None,
-                      trj_dist=None):
+                      trj_dist=None, mesh: Optional[Mesh] = None):
         """The train path: x (b, L, d); memory (b, Lm, d); t (b, d); `draws`
         from `train_draws`. With `trj_dist` (b, L, L) and `shared_emb` the
         self-attention block runs as plain math with the TRPE bias, as the
-        JAX package's XLA path; K4 and K5 run either way."""
+        JAX package's XLA path; K4 and K5 run either way.
+
+        With a `mesh` of tp > 1 the layer's weights are this rank's shards
+        (`parallel/sharding_rules.py`) and each block runs its plain
+        version over this rank's heads or feed-forward columns, split at
+        its one all-reduce (`ops/train_common.py`): K3-K5 take whole-d
+        weights and stay off, as the JAX package's default under tp
+        (`tcdiff_tpu/models/dance_decoder.py:156-170`). The FiLM rows run
+        as split linears (`_split_linear`)."""
+        if mesh is not None and mesh.tp > 1:
+            sa_fn, ca_fn, ff_fn = (functools.partial(f, mesh=mesh) for f in (
+                sa_block_train_plain, ca_block_train_plain, ff_tail_train_plain))
+        else:
+            sa_fn, ca_fn, ff_fn, mesh = self.sa_train_fn, self.ca_train_fn, self.ff_train_fn, None
         dt, dev = x.dtype, x.device
         b, L, d = x.shape
         w = lambda m: m.weight.to(dt)
@@ -557,26 +637,29 @@ class FiLMTransformerDecoderLayer(nn.Module):
         sa = self.self_attn
         fs, fb = self.film1(t)
         if trj_dist is None:
-            x = self.sa_train_fn(
+            x = sa_fn(
                 x, self.norm1.weight, self.norm1.bias, angles, w(sa.w_qs), w(sa.w_ks), w(sa.w_vs),
                 w(sa.fc), sa.layer_norm.weight, sa.layer_norm.bias, fs, fb, draws.sa,
                 nhead=self.n_head, rate=rate,
             )
         else:
             keep_attn, keep_fc, keep_out = draws.sa_keep
+            nh, head0 = local_heads(self.n_head, mesh)
+            if keep_attn is not None:  # this rank's heads
+                keep_attn = keep_attn.narrow(1, head0, nh)
             drop = lambda keep: lambda u: apply_keep(u, keep, rate)
-            s = sa.attend(*sa.self_qkv(x, self.norm1, angles, _PLAIN), _PLAIN, shared_emb, trj_dist,
-                          drop(keep_attn), drop(keep_fc))
+            s = sa.attend(*sa.self_qkv(x, self.norm1, angles, _PLAIN, mesh), _PLAIN, shared_emb, trj_dist,
+                          drop(keep_attn), drop(keep_fc), mesh)
             x = x + featurewise_affine(apply_keep(s, keep_out, rate), (fs, fb))
         ca = self.multihead_attn
         fs, fb = self.film2(t)
-        x = self.ca_train_fn(
+        x = ca_fn(
             x, memory, self.norm2.weight, self.norm2.bias, angles,
             angle_table(memory.shape[1], d, dev), w(ca.w_qs), w(ca.w_ks), w(ca.w_vs), w(ca.fc),
             ca.layer_norm.weight, ca.layer_norm.bias, fs, fb, draws.ca, nhead=self.n_head, rate=rate,
         )
         fs, fb = self.film3(t)
-        x = self.ff_train_fn(
+        x = ff_fn(
             x, self.norm3.weight, self.norm3.bias, w(self.linear1), self.linear1.bias,
             w(self.linear2), self.linear2.bias, fs, fb, self.norm4.weight, self.norm4.bias,
             w(self.linear3), self.linear3.bias, draws.ff, rate=rate,
@@ -646,6 +729,7 @@ class DanceDecoder(nn.Module):
         ])
         self.to(device)  # raises where the device does not exist: no quiet CPU fallback
         self.ln_bf16 = ln_bf16
+        self.tp_mesh: Optional[Mesh] = None  # set where the weights are split (`shard_train_state`)
 
     @property
     def layers(self):
@@ -702,7 +786,7 @@ class DanceDecoder(nn.Module):
         na = self.non_attn_cond_projection
         ch = _ln(na[0], ct.mean(dim=-2), 1e-6)
         ch = _lin(na[3], F.silu(_lin(na[1], ch)))
-        cond_hidden = torch.where(km[:, None], ch, self.null_cond_hidden.to(dt))
+        cond_hidden = torch.where(km[:, None], ch, _table(self.null_cond_hidden).to(dt))
         return ct, cond_hidden
 
     def cond_cache(self, cond, keep_mask) -> CondCache:
@@ -710,6 +794,7 @@ class DanceDecoder(nn.Module):
         cross-attention k/v of the music rows of every layer: row-wise
         norm_cond, rotary and projections are independent of the
         timestep."""
+        self._whole("the cond cache")
         dt = self.dtype
         ct, cond_hidden = self.encode_cond(cond, keep_mask, kernels=self.kernels)
         if not self.kernels.kv_cache:
@@ -760,18 +845,20 @@ class DanceDecoder(nn.Module):
         data-parallel rank's rows of the global batch; trj_dist, like x,
         holds these rows) every dropout draw is made at the global batch
         and these rows kept. With `remat` each layer runs under
-        `torch.utils.checkpoint` on draws made before it. Returns (b,
-        tokens, nfeats) float32."""
+        `torch.utils.checkpoint` on draws made before it (under tp its
+        recompute makes the same collectives, in the same order, on every
+        rank). With weights split over tp ranks (`tp_mesh`) each layer runs
+        over this rank's shards. Returns (b, tokens, nfeats) float32."""
         rate = self.cfg.dropout
         if keep_mask is None:
             keep_mask = torch.ones(times.shape[0], dtype=torch.bool, device=times.device)
         ct, cond_hidden = self.encode_cond(cond, keep_mask, dropout_fn(rate, generator, rows))
         h, traj_emb, t, t_tokens = self._embed(x, times, cond_hidden)
         memory = _ln(self.norm_cond, torch.cat([ct, t_tokens], dim=-2), 1e-6)
-        shared_emb = self.embeddings_table.weight
+        shared_emb = self.embeddings_table.weight  # split: this rank's heads' columns, read by its heads alone
         for layer in self.layers:
             draws = layer.train_draws(generator, h.shape, rate, rows, trpe=trj_dist is not None)
-            args = (h, memory, t, traj_emb, draws, rate, shared_emb, trj_dist)
+            args = (h, memory, t, traj_emb, draws, rate, shared_emb, trj_dist, self.tp_mesh)
             if self.remat:
                 # the layer draws nothing itself: no RNG state to stash
                 h = checkpoint(layer.forward_train, *args, use_reentrant=False, preserve_rng_state=False)
@@ -779,8 +866,14 @@ class DanceDecoder(nn.Module):
                 h = layer.forward_train(*args)
         return _lin(self.final_layer, h).float()
 
+    def _whole(self, what: str) -> None:
+        if self.tp_mesh is not None:
+            raise ValueError(f"{what} runs on whole weights: this model's are split over tp ranks; sample from a "
+                             f"whole model holding the gathered ones (parallel.sharding_rules.gather_train_state)")
+
     def forward(self, x, cond, times, keep_mask=None, trj_dist=None, *,
                 cond_cache: Optional[CondCache] = None, cfg_pair: bool = False):
+        self._whole("the serving path")
         cfg, dt = self.cfg, self.dtype
         if keep_mask is None:
             keep_mask = torch.ones(times.shape[0], dtype=torch.bool, device=times.device)

@@ -16,7 +16,8 @@ layer's norm2 affine, sa_s/sa_b the block's inner LayerNorm (eps2).
 
 `ca_block_train` runs the CUDA kernels of `csrc/ca_block_train.cu` for a
 CUDA x, forward and backward, and `ca_block_train_plain`, differentiated
-by autograd, for a CPU x.
+by autograd, for a CPU x; with a tensor-parallel `mesh` the plain version
+runs over this rank's heads (see `ops/train_common.py`).
 """
 
 from __future__ import annotations
@@ -27,22 +28,26 @@ from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, launch, ln_f
 from tcdiff_torch.ops.sa_block import cached_rotary_tables, rotary_tables
 from tcdiff_torch.ops.sa_block_train import attention_plain, chain_top_plain, rot
 from tcdiff_torch.ops.train_common import (
-    RCH, as_uint32_int32, count_kernel, save_tensors, saved_tensors, threshold, weight_scratch,
+    RCH, as_uint32_int32, count_kernel, local_heads, mm_whole, save_tensors, saved_tensors, threshold,
+    weight_scratch,
 )
 
 
 def ca_block_train_plain(x, mem, s2, b2, angles_x, angles_m, wq, wk, wv, wfc, sa_s, sa_b,
                          film_scale, film_shift, seeds, *, nhead: int, rate: float,
-                         eps1: float = 1e-5, eps2: float = 1e-6):
-    """Plain PyTorch version of the block; the oracle of the kernels."""
+                         eps1: float = 1e-5, eps2: float = 1e-6, mesh=None):
+    """Plain PyTorch version of the block; the oracle of the kernels. With
+    a tp `mesh`, over this rank's heads (as `sa_block_train_plain`; the
+    memory enters whole too)."""
     dt = x.dtype
     cosx, ssinx = rotary_tables(angles_x, dt)
     cosm, ssinm = rotary_tables(angles_m, dt)
     r = rot(ln_f32(x, s2, b2, eps1), cosx, ssinx).to(dt)
     rm = rot(mem.float(), cosm, ssinm).to(dt)
-    q, k, v = mm_f32(r, wq).to(dt), mm_f32(rm, wk).to(dt), mm_f32(mem.to(dt), wv).to(dt)
-    o = attention_plain(q, k, v, seeds, nhead, rate)
-    return chain_top_plain(o, x, wfc, sa_s, sa_b, film_scale, film_shift, seeds, rate, eps2)
+    q, k, v = mm_whole(r, wq, mesh).to(dt), mm_whole(rm, wk, mesh).to(dt), mm_whole(mem.to(dt), wv, mesh).to(dt)
+    nh, head0 = local_heads(nhead, mesh)
+    o = attention_plain(q, k, v, seeds, nh, rate, head0)
+    return chain_top_plain(o, x, wfc, sa_s, sa_b, film_scale, film_shift, seeds, rate, eps2, mesh)
 
 
 # ------------------------------------------------------------------ CUDA path

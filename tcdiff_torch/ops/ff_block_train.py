@@ -16,7 +16,8 @@ the TPU kernel rounds them.
 
 `ff_tail_train` runs the CUDA kernels of `csrc/ff_tail_train.cu` for a
 CUDA x, forward and backward, and `ff_tail_train_plain`, differentiated by
-autograd, for a CPU x.
+autograd, for a CPU x; with a tensor-parallel `mesh` the plain version runs
+over this rank's feed-forward columns (see `ops/train_common.py`).
 """
 
 from __future__ import annotations
@@ -25,22 +26,30 @@ import torch
 
 from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, launch, ln_f32, mm_f32
 from tcdiff_torch.ops.train_common import (
-    FF_RCH, SALT_FF1, SALT_FF2, as_uint32_int32, count_kernel, drop, film_residual, save_tensors,
-    saved_tensors, threshold, weight_scratch,
+    FF_RCH, SALT_FF1, SALT_FF2, as_uint32_int32, count_kernel, drop, film_residual, local_bias, mm_whole,
+    save_tensors, saved_tensors, threshold, tp_split, weight_scratch,
 )
+from tcdiff_torch.parallel.comm import tp_gather, tp_reduce
 
 
 def ff_tail_train_plain(x, s3, b3, w1, bb1, w2, bb2, film_scale, film_shift, s4, b4, w3, bb3, seeds,
-                        *, rate: float, eps: float = 1e-5):
-    """Plain PyTorch version of the block; the oracle of the kernels."""
+                        *, rate: float, eps: float = 1e-5, mesh=None):
+    """Plain PyTorch version of the block; the oracle of the kernels. With
+    a tp `mesh`, w1/w2/w3 are this rank's shards (w1 and w3 split on the
+    output, w2 on the input) and the block runs over its feed-forward
+    columns, its FF1 dropout drawn at their global indices; linear3's
+    columns are gathered."""
     dt = x.dtype
+    tp, j = tp_split(mesh)
+    n = w1.shape[0]
     y = ln_f32(x, s3, b3, eps).to(dt)
-    u = mm_f32(y, w1) + bb1.float()
-    ad = drop(torch.nn.functional.gelu(u, approximate="none"), seeds, SALT_FF1, rate).to(dt)
-    zd = drop(mm_f32(ad, w2) + bb2.float(), seeds, SALT_FF2, rate)
+    u = mm_whole(y, w1, mesh) + local_bias(bb1, n, mesh).float()
+    ad = drop(torch.nn.functional.gelu(u, approximate="none"), seeds, SALT_FF1, rate, col0=j * n,
+              ncols=n * tp).to(dt)
+    zd = drop(tp_reduce(mm_f32(ad, w2), mesh) + bb2.float(), seeds, SALT_FF2, rate)
     x2 = film_residual(x, zd, film_scale, film_shift)
     y4 = ln_f32(x2, s4, b4, eps).to(dt)
-    return (mm_f32(y4, w3) + bb3.float()).to(dt)
+    return tp_gather((mm_whole(y4, w3, mesh) + local_bias(bb3, w3.shape[0], mesh).float()).to(dt), mesh)
 
 
 # ------------------------------------------------------------------ CUDA path

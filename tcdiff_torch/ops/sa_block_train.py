@@ -18,7 +18,9 @@ rounded to the compute dtype (x.dtype).
 
 `sa_block_train` runs the CUDA kernels of `csrc/sa_block_train.cu` for a
 CUDA x, forward and backward (a `torch.autograd.Function`), and
-`sa_block_train_plain`, differentiated by autograd, for a CPU x.
+`sa_block_train_plain`, differentiated by autograd, for a CPU x; with a
+tensor-parallel `mesh` the plain version runs over this rank's heads (see
+`ops/train_common.py`).
 """
 
 from __future__ import annotations
@@ -29,9 +31,10 @@ from tcdiff_torch.models.rotary import swap_pairs
 from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, launch, ln_f32, mm_f32
 from tcdiff_torch.ops.sa_block import cached_rotary_tables, rotary_tables
 from tcdiff_torch.ops.train_common import (
-    RCH, SALT_ATTN, as_uint32_int32, chain_top_fwd_plain, count_kernel, drop, save_tensors, saved_tensors,
-    threshold, weight_scratch,
+    RCH, SALT_ATTN, as_uint32_int32, chain_top_fwd_plain, count_kernel, drop, local_heads, mm_whole,
+    save_tensors, saved_tensors, threshold, weight_scratch,
 )
+from tcdiff_torch.parallel.comm import tp_reduce
 
 
 def rot(y: torch.Tensor, cos: torch.Tensor, ssin: torch.Tensor) -> torch.Tensor:
@@ -39,36 +42,43 @@ def rot(y: torch.Tensor, cos: torch.Tensor, ssin: torch.Tensor) -> torch.Tensor:
     return y * cos.float() + swap_pairs(y) * ssin.float()
 
 
-def attention_plain(q, k, v, seeds, nhead: int, rate: float):
+def attention_plain(q, k, v, seeds, nhead: int, rate: float, head0: int = 0):
     """Per-head softmax attention with dropout on the f32 probabilities:
-    q (b, Lq, h*dk), k/v (b, Lk, h*dk) in the compute dtype."""
+    q (b, Lq, h*dk), k/v (b, Lk, h*dk) in the compute dtype. `head0`: the
+    global index of the first of these heads (a tensor-parallel rank's),
+    whose dropout salts are SALT_ATTN + its global head."""
     dt = q.dtype
     b, lq, hd = q.shape
     dk = hd // nhead
     heads = lambda t: t.reshape(b, t.shape[1], nhead, dk).transpose(1, 2)
     qs = heads(q) * torch.tensor(1.0 / dk**0.5, dtype=dt)  # scaled in the compute dtype
     p = torch.softmax(torch.matmul(qs.float(), heads(k).float().transpose(-1, -2)), dim=-1)
-    salts = SALT_ATTN + torch.arange(nhead, dtype=torch.int64)
+    salts = SALT_ATTN + head0 + torch.arange(nhead, dtype=torch.int64)
     pd = drop(p, seeds, salts, rate).to(dt)
     o = torch.matmul(pd.float(), heads(v).float()).to(dt)
     return o.transpose(1, 2).reshape(b, lq, hd)
 
 
-def chain_top_plain(o, x, wfc, s2, b2, film_scale, film_shift, seeds, rate: float, eps2: float):
-    """out projection -> drop_FC -> LN(eps2) -> drop_OUT -> FiLM residual."""
-    return chain_top_fwd_plain(mm_f32(o, wfc), x, s2, b2, film_scale, film_shift, seeds, rate=rate, eps=eps2)
+def chain_top_plain(o, x, wfc, s2, b2, film_scale, film_shift, seeds, rate: float, eps2: float, mesh=None):
+    """out projection (its f32 partial sums reduced over a tp `mesh`) ->
+    drop_FC -> LN(eps2) -> drop_OUT -> FiLM residual."""
+    z = tp_reduce(mm_f32(o, wfc), mesh)
+    return chain_top_fwd_plain(z, x, s2, b2, film_scale, film_shift, seeds, rate=rate, eps=eps2)
 
 
 def sa_block_train_plain(x, s1, b1, angles, wq, wk, wv, wfc, s2, b2, film_scale, film_shift, seeds,
-                         *, nhead: int, rate: float, eps1: float = 1e-5, eps2: float = 1e-6):
-    """Plain PyTorch version of the block; the oracle of the kernels."""
+                         *, nhead: int, rate: float, eps1: float = 1e-5, eps2: float = 1e-6, mesh=None):
+    """Plain PyTorch version of the block; the oracle of the kernels. With
+    a tp `mesh`, wq/wk/wv/wfc are this rank's shards of the weights of
+    `nhead` heads, and the block runs over its heads."""
     dt = x.dtype
     cos, ssin = rotary_tables(angles, dt)
     y = ln_f32(x, s1, b1, eps1)
     rc, yc = rot(y, cos, ssin).to(dt), y.to(dt)
-    q, k, v = mm_f32(rc, wq).to(dt), mm_f32(rc, wk).to(dt), mm_f32(yc, wv).to(dt)
-    o = attention_plain(q, k, v, seeds, nhead, rate)
-    return chain_top_plain(o, x, wfc, s2, b2, film_scale, film_shift, seeds, rate, eps2)
+    q, k, v = mm_whole(rc, wq, mesh).to(dt), mm_whole(rc, wk, mesh).to(dt), mm_whole(yc, wv, mesh).to(dt)
+    nh, head0 = local_heads(nhead, mesh)
+    o = attention_plain(q, k, v, seeds, nh, rate, head0)
+    return chain_top_plain(o, x, wfc, s2, b2, film_scale, film_shift, seeds, rate, eps2, mesh)
 
 
 # ------------------------------------------------------------------ CUDA path

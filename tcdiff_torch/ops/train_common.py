@@ -1,5 +1,6 @@
 """What the three train-block ops share: the dropout hash, the dropout
-sites' salts, and the bookkeeping of their autograd Functions.
+sites' salts, the bookkeeping of their autograd Functions, and the pieces
+their plain versions take to run over a tensor-parallel rank's shards.
 
 The dropout mask is a function of (seed, salt, element index), the same
 murmur3-finalizer hash as `tcdiff_tpu/ops/fused_sa_block_train.py::
@@ -19,14 +20,28 @@ bits after every step; a product of two 32-bit values is split in 16-bit
 halves so that no int64 product overflows. Seeds are one uint32 per batch
 element, carried as an int64 (b,) tensor. Kept values are scaled by
 1/(1-rate) in f32; rate == 0 skips a site.
+
+Under tensor parallelism (a `parallel.mesh.Mesh` of tp > 1, its weights
+split the JAX package's way by `parallel.sharding_rules`) the plain
+versions run over this rank's heads or feed-forward columns, each block
+split Megatron-style at its one all-reduce: the whole input enters this
+rank's products through `mm_whole`, the out projection's f32 partial sums
+are reduced (`tp_reduce`), and the rest of the block runs whole on every
+rank. The dropout masks stay one process's: this rank's heads' salts
+(`local_heads`) and its global FF1 columns. Without a mesh each piece is
+the single-process arithmetic, bit for bit.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
 from tcdiff_torch.models.rotary import swap_pairs
 from tcdiff_torch.ops._common import DTYPE_CODE, args_struct, as_t, check_cuda, launch
+from tcdiff_torch.parallel.comm import tp_copy
+from tcdiff_torch.parallel.mesh import Mesh
 from tcdiff_torch.ops.sa_block import cached_rotary_tables, rotary_tables
 
 SALT_ATTN = 0x100  # + head index: attention probabilities
@@ -52,14 +67,18 @@ def threshold(rate: float) -> int:
     return min(int(round(rate * 2**32)), 2**32 - 1)
 
 
-def keep_mask(seeds: torch.Tensor, salt, rows: int, cols: int, rate: float, row0: int = 0) -> torch.Tensor:
+def keep_mask(seeds: torch.Tensor, salt, rows: int, cols: int, rate: float, row0: int = 0, col0: int = 0,
+              ncols: Optional[int] = None) -> torch.Tensor:
     """Boolean keep mask over (rows, cols) arrays, one per seed.
 
     seeds: int64 (b,) holding uint32 values; salt: an int, or an int64
     tensor (h,) for one mask per head. Returns (b, rows, cols), or
-    (b, h, rows, cols) for a tensor salt."""
+    (b, h, rows, cols) for a tensor salt. With `col0` and `ncols` the
+    columns are [col0, col0 + cols) of an array ncols wide (a
+    tensor-parallel rank's columns), drawn as in the whole array."""
     dev = seeds.device
-    idx = (torch.arange(rows, dtype=torch.int64, device=dev)[:, None] + row0) * cols
+    ncols = cols if ncols is None else ncols
+    idx = (torch.arange(rows, dtype=torch.int64, device=dev)[:, None] + row0) * ncols + col0
     idx = (idx + torch.arange(cols, dtype=torch.int64, device=dev)[None, :]) & _M32
     salt = torch.as_tensor(salt, dtype=torch.int64, device=dev)
     key = (seeds.to(torch.int64)[:, None] + _mul32(salt.reshape(1, -1), _GOLDEN)) & _M32  # (b, h)
@@ -71,12 +90,43 @@ def keep_mask(seeds: torch.Tensor, salt, rows: int, cols: int, rate: float, row0
     return keep if salt.dim() else keep[:, 0]
 
 
-def drop(x: torch.Tensor, seeds: torch.Tensor, salt, rate: float, row0: int = 0) -> torch.Tensor:
-    """Dropout of f32 x (b, [h,] rows, cols) with the hash mask; identity at rate 0."""
+def drop(x: torch.Tensor, seeds: torch.Tensor, salt, rate: float, row0: int = 0, col0: int = 0,
+         ncols: Optional[int] = None) -> torch.Tensor:
+    """Dropout of f32 x (b, [h,] rows, cols) with the hash mask (its
+    columns [col0, col0 + cols) of ncols, see `keep_mask`); identity at
+    rate 0."""
     if rate == 0.0:
         return x
-    keep = keep_mask(seeds, salt, x.shape[-2], x.shape[-1], rate, row0)
+    keep = keep_mask(seeds, salt, x.shape[-2], x.shape[-1], rate, row0, col0, ncols)
     return torch.where(keep, x * torch.tensor(1.0 / (1.0 - rate), dtype=x.dtype), torch.zeros((), dtype=x.dtype))
+
+
+def tp_split(mesh: Optional[Mesh]) -> Tuple[int, int]:
+    """(the tp size, this rank's tp index); (1, 0) without a mesh."""
+    return (1, 0) if mesh is None else (mesh.tp, mesh.tp_rank)
+
+
+def local_heads(nhead: int, mesh: Optional[Mesh]) -> Tuple[int, int]:
+    """(this tp rank's heads, the global index of its first one)."""
+    tp, j = tp_split(mesh)
+    return nhead // tp, j * (nhead // tp)
+
+
+def mm_whole(a: torch.Tensor, w: torch.Tensor, mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """`mm_f32(a, w)` of a whole input a (in the compute dtype) and, under a
+    tp mesh, this rank's rows of w: a enters through `tp_copy` on the f32
+    side of its cast, so that the ranks' partial input gradients are summed
+    in f32 and rounded to a's dtype once, where one process rounds its
+    whole sum. Without a mesh, `mm_f32` itself."""
+    return torch.nn.functional.linear(tp_copy(a.float(), mesh), w.to(a.dtype).float())
+
+
+def local_bias(b: torch.Tensor, n: int, mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """This tp rank's n entries of a whole bias (b itself without a tp
+    split); its gradient, nonzero on these entries alone, summed over the
+    tp ranks, so that every rank holds the whole bias's."""
+    tp, j = tp_split(mesh)
+    return b if tp == 1 else tp_copy(b, mesh).narrow(0, j * n, n)
 
 
 def film_residual(x, sa, film_scale, film_shift):

@@ -1,14 +1,17 @@
-"""Data parallelism over torch.distributed: the process group, the mesh,
-and the rows of a global batch that each rank holds.
+"""Data and tensor parallelism over torch.distributed: the process group,
+the (dp, tp) mesh, and the rows of a global batch that each rank holds.
 
 The counterpart of `tcdiff_tpu/parallel/mesh.py`. The reference's only
-parallelism is DDP over NCCL; the JAX package lays the batch over a `dp`
-mesh axis (`NamedSharding(P("dp"))`) with replicated parameters and a
-replicated key. Here each rank is one process: it holds a copy of the
-parameters, the rows [r B/N, (r+1) B/N) of each global batch of B, and a
-generator seeded as every other rank's, so that every random draw is made
-at the global batch and each rank keeps its rows (`draw`). The
-collectives are `parallel.comm`'s.
+parallelism is DDP over NCCL; the JAX package lays the devices out as a
+(dp, tp) grid (`make_mesh`: a row-major reshape), the batch over `dp`
+(`NamedSharding(P("dp"))`) and, with tp > 1, its parameters split
+Megatron-style over `tp` (`sharding_rules`). Here each rank is one
+process, and the grid is row-major as JAX's: global rank g has the
+data-parallel index g // tp and the tensor-parallel index g % tp. A rank
+holds the rows [i B/dp, (i+1) B/dp) of each global batch of B (i its dp
+index; its tp peers hold the same rows) and a generator seeded as every
+other rank's, so that every random draw is made at the global batch and
+each rank keeps its rows (`draw`). The collectives are `parallel.comm`'s.
 
 `init_distributed` joins the group torchrun describes (RANK, WORLD_SIZE,
 LOCAL_RANK); without that environment the program is one process with no
@@ -85,17 +88,32 @@ def draw(fn: Callable, shape, rows: Optional[Rows] = None) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The data-parallel layout of one rank: its rank, the world size, its
-    device and its process group (None: one process, no collectives)."""
+    """The layout of one rank. `rank`, `world` and `group` are the
+    data-parallel axis: this rank's dp index, the dp size and the group of
+    the ranks that share its tp index (None: one process, or dp = 1 beside
+    tp > 1; a joined world of one keeps its world group, as every joined
+    dp world does).
+    `tp_rank`, `tp` and `tp_group` are the tensor-parallel axis: its tp
+    index, the tp size and the group of the ranks that share its dp index
+    (None: tp = 1)."""
 
     rank: int
     world: int
     device: torch.device
     group: Optional[dist.ProcessGroup] = None
+    tp_rank: int = 0
+    tp: int = 1
+    tp_group: Optional[dist.ProcessGroup] = None
 
     @property
     def backend(self) -> Optional[str]:
-        return None if self.group is None else dist.get_backend(self.group)
+        g = self.group if self.group is not None else self.tp_group
+        return None if g is None else dist.get_backend(g)
+
+    @property
+    def host0(self) -> bool:
+        """Whether this is global rank 0, the rank that writes the files."""
+        return self.rank == 0 and self.tp_rank == 0
 
     def rows(self, n: int) -> Rows:
         """This rank's rows of a global batch of n; n must divide."""
@@ -105,18 +123,50 @@ class Mesh:
         return Rows(self.rank * per, (self.rank + 1) * per, n)
 
 
+def _groups(lists, me: int, world: int):
+    """Create a group for each rank list that is neither the whole world
+    nor one rank (every rank creates every group, in one order, as
+    `dist.new_group` requires) and return the one holding `me`: the
+    world's own group where a list is the whole world (a joined world of
+    one too, whose collectives run over its backend), None where it is
+    `me` alone in a larger world."""
+    mine = None
+    for ranks in lists:
+        if len(ranks) == world:
+            group = dist.group.WORLD
+        elif len(ranks) == 1:
+            group = None
+        else:
+            group = dist.new_group(ranks)
+        if me in ranks:
+            mine = group
+    return mine
+
+
 def make_mesh(dp: int = -1, tp: int = 1, device="cuda") -> Mesh:
-    """The mesh of this rank: dp=-1 means the world size, any other dp must
-    equal it; tp > 1 (tensor parallelism) is not ported."""
-    if tp != 1:
-        raise NotImplementedError(f"tp={tp}: tensor parallelism is not ported yet (ROADMAP queue 1 item 9)")
+    """The (dp, tp) mesh of this rank: the world as a row-major dp x tp
+    grid, as the JAX package's `make_mesh` reshapes its devices (global
+    rank g: dp index g // tp, tp index g % tp). dp=-1 means the world size
+    over tp; dp x tp must equal the world size (ValueError otherwise)."""
     joined = dist.is_initialized()
     world = dist.get_world_size() if joined else 1
-    if dp not in (-1, world):
-        raise ValueError(f"dp={dp} but the world has {world} rank(s): launch one process a data-parallel rank "
-                         f"(torchrun --nproc_per_node {dp} ...)")
-    return Mesh(dist.get_rank() if joined else 0, world, torch.device(device),
-                dist.group.WORLD if joined else None)
+    if tp < 1:
+        raise ValueError(f"tp={tp}: the tensor-parallel size must be at least 1")
+    if dp == -1:
+        if world % tp:
+            raise ValueError(f"tp={tp} does not divide the world of {world} rank(s)")
+        dp = world // tp
+    if dp * tp != world:
+        grid = f"dp={dp}" if tp == 1 else f"dp={dp} x tp={tp} = {dp * tp}"
+        raise ValueError(f"{grid} but the world has {world} rank(s): launch one process a rank "
+                         f"(torchrun --nproc_per_node {dp * tp} ...)")
+    me = dist.get_rank() if joined else 0
+    dp_group = tp_group = None
+    if joined:
+        dp_group = _groups([[i * tp + j for i in range(dp)] for j in range(tp)], me, world)
+        if tp > 1:
+            tp_group = _groups([[i * tp + j for j in range(tp)] for i in range(dp)], me, world)
+    return Mesh(me // tp, dp, torch.device(device), dp_group, me % tp, tp, tp_group)
 
 
 def shard_batch(batch, mesh: Mesh):

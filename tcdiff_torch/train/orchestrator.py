@@ -33,10 +33,11 @@ Training, beside them:
     logged, a checkpoint written and the caller's `on_save` run. Under
     data parallelism (`mesh`) every rank walks the same seeded batch
     order and reads only its rows of each batch (`Rows`), the halt is
-    decided on the loss averaged over the ranks, and only rank 0 logs,
-    writes checkpoints and runs `on_save` (the JAX package's host-0
-    gating). The JAX package's `scan_steps` (TPU dispatch machinery) is
-    not here.
+    decided on the loss averaged over the ranks, and only rank 0 logs
+    and writes checkpoints (the JAX package's host-0 gating); every rank
+    calls the checkpoint's save and `on_save`, since a state split over
+    tensor-parallel ranks is gathered first (a collective). The JAX
+    package's `scan_steps` (TPU dispatch machinery) is not here.
 
 And the `TCDiff` class (`:131-970`) over them, the five modes of
 `cli.train`: `train_loop` (with the render and the metrics at every save
@@ -57,7 +58,22 @@ other sampler modes run whole on every rank. Only rank 0 logs, writes
 checkpoints, renders and evaluates during training, and there it samples
 alone (no collective, which the other ranks would never join); in the
 other modes every rank runs the loop and only rank 0 writes the files.
-Tensor parallelism is not ported (`make_mesh` raises for tp > 1).
+
+Tensor parallelism: `TCDiff` builds the (dp, tp) mesh of `cfg.train.dp`
+and `cfg.train.tp` and, with tp > 1, splits its train state over the tp
+ranks the JAX package's way (`parallel.sharding_rules.shard_train_state`,
+after the build and after a checkpoint's load), so that the train step
+runs each layer over this rank's shards. This is the one deliberate
+difference from the JAX `TCDiff`, which places a replicated state on its
+(dp, tp) mesh, so that there tp peers repeat each other's work: the
+numbers are the same (`tests/test_tensor_parallel.py`), but here the tp
+peers split the work. Checkpoints are gathered by every rank and written
+whole by rank 0. Sampling (every mode, and the train-time render) runs on
+a whole serving `DanceDecoder` holding the gathered weights (`sync_weights`,
+a collective every rank makes, in training before rank 0 samples alone),
+through the serving kernels K1/K2, which take whole-d weights, as in the
+JAX package; it is sharded over the dp index, and tp peers repeat each
+other, as the JAX package's replicated state does.
 """
 
 from __future__ import annotations
@@ -89,6 +105,7 @@ from tcdiff_torch.models.dance_decoder import DanceDecoder
 from tcdiff_torch.optim.adan import Adan
 from tcdiff_torch.parallel.comm import all_gather_rows
 from tcdiff_torch.parallel.mesh import Mesh, Rows, make_mesh
+from tcdiff_torch.parallel.sharding_rules import gather_train_state, shard_train_state
 from tcdiff_torch.trajdecoder.kalman import kalman_smooth_batch
 from tcdiff_torch.trajdecoder.model import TrajDecoder
 from tcdiff_torch.trajdecoder.rollout import autoregressive_rollout
@@ -436,7 +453,9 @@ def train_loop(state: TrainState, train_step: Callable, train_ds, run_dir: str, 
 
     `mesh`: data parallelism, with `train_step` built on the same mesh;
     `batch_size` is the global batch, each rank steps on its rows of it;
-    the files, the log and `on_save` are rank 0's alone. `project`: the
+    the files and the log are rank 0's alone; every rank calls the
+    checkpoint's save and `on_save` (whose metrics rank 0 logs), so that
+    a state split over tp ranks can be gathered. `project`: the
     wandb project of the log (`MetricLogger`), whose config is the JAX
     package's {"lr": the optimizer's, "batch": batch_size}.
 
@@ -447,7 +466,7 @@ def train_loop(state: TrainState, train_step: Callable, train_ds, run_dir: str, 
     normalizer = train_ds.normalizer
     run_dir = Path(run_dir)
     ckpt_dir = str(run_dir / "checkpoints")
-    host0 = mesh is None or mesh.rank == 0
+    host0 = mesh is None or mesh.host0
     config = {"lr": state.optimizer.param_groups[0]["lr"], "batch": batch_size}
     metrics = MetricLogger(str(run_dir), project=project, config=config) if host0 else None
     data_rng = np.random.default_rng(seed)
@@ -477,8 +496,8 @@ def train_loop(state: TrainState, train_step: Callable, train_ds, run_dir: str, 
                         # failure detection the reference lacks: halt with a
                         # rescue checkpoint instead of training on NaNs (every
                         # rank sees the same mean, so every rank halts)
+                        path = save_checkpoint(ckpt_dir, state.step, state, normalizer)
                         if host0:
-                            path = save_checkpoint(ckpt_dir, state.step, state, normalizer)
                             out["checkpoints"].append(path)
                             log.error("non-finite loss %s at step %d; rescue checkpoint at %s", total, state.step,
                                       path)
@@ -488,18 +507,21 @@ def train_loop(state: TrainState, train_step: Callable, train_ds, run_dir: str, 
                     n_batches += 1
             if isinstance(batches, PrefetchingBatches) and batches.loader is not None:
                 out["loader"] = batches.loader
-            if epoch % save_interval == 0 and n_batches and host0:
-                means = {k: v / n_batches for k, v in running.items()}
-                means.update(timer.metrics(motion_seconds_per_step=motion_s))
-                means["epoch"] = epoch
-                metrics.log(means, step=state.step)
-                log.info("epoch %d | loss %.4f | %.2f steps/s", epoch, means["total"],
-                         means.get("steps_per_sec", float("nan")))
+            if epoch % save_interval == 0 and n_batches:
+                if host0:
+                    means = {k: v / n_batches for k, v in running.items()}
+                    means.update(timer.metrics(motion_seconds_per_step=motion_s))
+                    means["epoch"] = epoch
+                    metrics.log(means, step=state.step)
+                    log.info("epoch %d | loss %.4f | %.2f steps/s", epoch, means["total"],
+                             means.get("steps_per_sec", float("nan")))
+                    out["metrics"] = means
                 running, n_batches = {}, 0
-                out["metrics"] = means
-                out["checkpoints"].append(save_checkpoint(ckpt_dir, state.step, state, normalizer))
+                path = save_checkpoint(ckpt_dir, state.step, state, normalizer)  # every rank: a split state gathers
+                if host0:
+                    out["checkpoints"].append(path)
                 extra = on_save(epoch) if on_save is not None else None
-                if extra:
+                if extra and host0:
                     metrics.log(extra, step=state.step)
     finally:
         if metrics is not None:
@@ -568,8 +590,9 @@ class TCDiff:
     mode, the DBN checkpoint, the synthetic data). The val and test loops
     render `cfg.train.epochs` rounds, as the reference's `opt.epochs`.
 
-    `cfg.train.dp`: the data-parallel size (-1 or the world size of the
-    process group the caller joined; see the module's docstring)."""
+    `cfg.train.dp`, `cfg.train.tp`: the data- and tensor-parallel sizes
+    (dp x tp the world size of the process group the caller joined, dp=-1
+    the world over tp; see the module's docstring)."""
 
     def __init__(self, cfg: TCDiffConfig, checkpoint_path: Optional[str] = None, use_ema_for_eval: bool = True,
                  device="cuda"):
@@ -584,8 +607,10 @@ class TCDiff:
         self.optimizer = Adan(self.model.parameters(), lr=tr.learning_rate, betas=tr.adan_betas, eps=tr.adan_eps,
                               weight_decay=tr.weight_decay)
         self.state = create_train_state(self.model, self.optimizer)
-        self.mesh = make_mesh(tr.dp, device=self.device)
+        self.mesh = make_mesh(tr.dp, tr.tp, device=self.device)
         self._solo = False  # within `alone()`: sampling calls no collective
+        self._whole: Optional[GaussianDiffusion] = None  # under tp: the serving model of the gathered weights
+        self._whole_step: Optional[int] = None  # the state's step when they were gathered
         self.logger = get_logger()
         self.normalizer: Optional[Normalizer] = None
         self.use_ema_for_eval = use_ema_for_eval
@@ -593,6 +618,7 @@ class TCDiff:
         self.checkpoint_path = checkpoint_path
         if checkpoint_path:
             self._load_checkpoint(checkpoint_path)
+        shard_train_state(self.state, self.mesh)  # tp > 1: this rank's slices; tp = 1: whole
 
     # ------------------------------------------------------------------ setup
     def _check_dancer_count(self, state_dict, path: str) -> None:
@@ -674,7 +700,43 @@ class TCDiff:
     @property
     def host0(self) -> bool:
         """Whether this rank writes the files (rank 0)."""
-        return self.mesh.rank == 0
+        return self.mesh.host0
+
+    def sync_weights(self) -> None:
+        """Under tensor parallelism: gather the weights sampling uses (the
+        EMA where use_ema_for_eval, else the trained ones) into the whole
+        serving model. A collective: every rank calls it, outside
+        `alone()`. Without tp, nothing."""
+        if self.mesh.tp == 1:
+            return
+        part = "ema" if self.use_ema_for_eval else "params"
+        whole = gather_train_state(self.state, parts=(part,))[part]
+        if self._whole is None:
+            m = self.model
+            model = DanceDecoder(self.cfg.model, dtype=m.dtype, device=self.device, kernels=m.kernels,
+                                 ln_bf16=m.ln_bf16)
+            self._whole = GaussianDiffusion(model, self.cfg.diffusion, device=self.device)
+        with torch.no_grad():
+            for name, p in self._whole.model.named_parameters():
+                p.copy_(whole[name])
+        self._whole_step = self.state.step
+
+    @contextlib.contextmanager
+    def serving(self):
+        """Within: the diffusion to sample with. Without tp, this model's,
+        holding the EMA weights where use_ema_for_eval (`eval_weights`);
+        under tp, the whole serving model of the gathered weights,
+        gathered first where the state has stepped since (`sync_weights`;
+        within `alone()` they must be current)."""
+        if self.mesh.tp == 1:
+            with self.eval_weights():
+                yield self.diffusion
+            return
+        if self._whole_step != self.state.step:
+            if self._solo:
+                raise RuntimeError("the gathered weights are stale: call sync_weights on every rank before alone()")
+            self.sync_weights()
+        yield self._whole
 
     @contextlib.contextmanager
     def alone(self):
@@ -721,8 +783,11 @@ class TCDiff:
         step_fn = make_train_step(self.diffusion, self.optimizer, tr.ema_beta, tr.ema_interval, device=self.device,
                                   mesh=self.mesh)
 
-        def on_save(epoch: int) -> dict:  # rank 0 only, so it samples alone
+        def on_save(epoch: int) -> dict:  # every rank; rank 0 samples, alone
             if test_ds is None:
+                return {}
+            self.sync_weights()  # the collective of tp, made by every rank before rank 0 samples alone
+            if not self.host0:
                 return {}
             with self.alone():
                 self.render_eval_samples(test_ds, epoch, opt.render_dir, render=opt.render)
@@ -743,30 +808,31 @@ class TCDiff:
         Normal mode over a data-parallel mesh whose ranks divide b (and
         outside `alone()`): each rank samples its rows, every draw made at
         the global batch, and the rows are gathered, so every rank returns
-        what one process would (the JAX package's sharded `_sample`)."""
+        what one process would (the JAX package's sharded `_sample`); tp
+        peers sample the same rows (`serving`)."""
         m = self.cfg.model
         cond = torch.as_tensor(np.asarray(cond) if not torch.is_tensor(cond) else cond, dtype=torch.float32,
                                device=self.device)
         shape = (cond.shape[0], m.seq_len * m.dancer_num, m.nfeats)
         x_0 = None if x_0 is None else torch.as_tensor(x_0, dtype=torch.float32, device=self.device)
-        with self.eval_weights():
+        with self.serving() as diffusion:
             if mode == "long":
-                return self.diffusion.long_ddim_sample(shape, cond, generator, x_0=x_0)
+                return diffusion.long_ddim_sample(shape, cond, generator, x_0=x_0)
             if mode == "footwork":
                 if full_ref is None:
                     raise ValueError("footwork mode needs a reference motion")
                 ref = torch.as_tensor(full_ref, dtype=torch.float32, device=self.device)
-                return self.diffusion.ddim_sample_footwork(shape, cond, generator, x_0=ref)
+                return diffusion.ddim_sample_footwork(shape, cond, generator, x_0=ref)
             if mode == "ddpm":
-                return self.diffusion.p_sample_loop(shape, cond, generator)
+                return diffusion.p_sample_loop(shape, cond, generator)
             if mode != "normal":
                 raise ValueError(f"unknown sample mode {mode!r}")
             if self.mesh.world > 1 and shape[0] % self.mesh.world == 0 and not self._solo:
                 rows = self.mesh.rows(shape[0])
-                local = self.diffusion.ddim_sample(shape, rows.take(cond), generator,
-                                                   x_0=None if x_0 is None else rows.take(x_0), rows=rows)
+                local = diffusion.ddim_sample(shape, rows.take(cond), generator,
+                                              x_0=None if x_0 is None else rows.take(x_0), rows=rows)
                 return all_gather_rows(local, self.mesh)
-            return self.diffusion.ddim_sample(shape, cond, generator, x_0=x_0)
+            return diffusion.ddim_sample(shape, cond, generator, x_0=x_0)
 
     def render_eval_samples(self, ds, epoch, render_dir, count=2, mode="normal", fk_out=None, render=True):
         """Sample the first `count` clips of `ds` on their ground-truth
@@ -938,8 +1004,8 @@ class TCDiff:
         if self.normalizer is None:
             raise ValueError("generate needs a normalizer: a checkpoint, or the synthetic stats of cli.train")
         traj_model = self._traj_model(opt)
-        with self.eval_weights():
-            samples = generate(wav_path, self.diffusion, traj_model, self.normalizer,
+        with self.serving() as diffusion:
+            samples = generate(wav_path, diffusion, traj_model, self.normalizer,
                                generator=self._generator(self.cfg.train.seed))
         n = samples.shape[0]
         return self._render(samples, "gen", self._render_dir(opt, wav_path), fk_out=opt.vis_fk_out,
@@ -954,8 +1020,8 @@ class TCDiff:
         if self.normalizer is None:
             raise ValueError("generate needs a normalizer: a checkpoint, or the synthetic stats of cli.train")
         traj_model = self._traj_model(opt)
-        with self.eval_weights():
-            full = generate_streaming(wav_path, self.diffusion, traj_model, self.normalizer,
+        with self.serving() as diffusion:
+            full = generate_streaming(wav_path, diffusion, traj_model, self.normalizer,
                                       generator=self._generator(self.cfg.train.seed), on_slice=on_slice,
                                       resume_from=resume_from, resume_tail=resume_tail)
         self._render(full.reshape(1, -1, self.cfg.model.nfeats), "stream", self._render_dir(opt, wav_path),

@@ -3,7 +3,9 @@ parameters and the optimizer (whose state holds Adan's moments).
 
 PyTorch counterpart of `tcdiff_tpu/train/state.py`. Where the JAX state is
 an immutable tree, this one holds the model and the optimizer themselves
-and the train step updates them in place.
+and the train step updates them in place. Where the JAX state's arrays
+carry their sharding, here the model carries the mesh it is split over
+(`model.tp_mesh`) and each split parameter its `Shard`.
 """
 
 from __future__ import annotations

@@ -16,6 +16,14 @@ Adan moments and EMA stay bit-identical. The gradient norm is taken after
 the all-reduce and the metrics are their means over the ranks. An explicit
 all-reduce, not `DistributedDataParallel`: the loss calls the model's
 `forward_train`, and DDP prepares its reducer only in `forward`.
+
+With tensor parallelism (a state split by `parallel.sharding_rules.
+shard_train_state` over the mesh's tp ranks) the model computes each
+split layer over this rank's shards (`models/dance_decoder.py`), the
+gradients are the shards' own (the dp all-reduce runs over the ranks of
+this rank's tp index), Adan and the EMA run on the shards, and the
+gradient norm sums the squares of the split gradients over the tp ranks
+and counts the whole ones once.
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ import torch
 
 from tcdiff_torch.diffusion.gaussian import GaussianDiffusion
 from tcdiff_torch.optim.ema import ema_update
-from tcdiff_torch.parallel.comm import all_reduce_grads_, all_reduce_mean
+from tcdiff_torch.parallel.comm import all_reduce_grads_, all_reduce_mean, tp_sum
 from tcdiff_torch.parallel.mesh import Mesh
 from tcdiff_torch.train.state import TrainState
 
@@ -43,14 +51,23 @@ def make_train_step(diffusion: GaussianDiffusion, optimizer: torch.optim.Optimiz
     be injected instead, as `GaussianDiffusion.p_losses` takes them.
     `device` (the GPU unless the caller asks for the CPU) must be the
     diffusion's. With `mesh`, x and cond are this rank's rows of the global
-    batch, and t, noise and keep_mask, drawn or injected, the global
-    batch's."""
+    batch (its dp index's), and t, noise and keep_mask, drawn or injected,
+    the global batch's; a model split over the mesh's tp ranks must be
+    split before the first step."""
     device = torch.empty(0, device=device).device  # raises where the device does not exist
     if device != diffusion.device:
         raise ValueError(f"the train step runs on {device}, the diffusion on {diffusion.device}")
     model = diffusion.model
     names = [name for name, _ in model.named_parameters()]
     params = [p for _, p in model.named_parameters()]
+
+    def norm(grads, split):
+        """The global L2 norm: the split gradients' squares summed over the
+        tp ranks, the whole ones' counted once."""
+        sq = lambda gs: torch.stack(torch._foreach_norm(gs)).square().sum() if gs else grads[0].new_zeros(())
+        whole = [g for g, s in zip(grads, split) if not s]
+        parts = [g for g, s in zip(grads, split) if s]
+        return (sq(whole) + tp_sum(sq(parts), model.tp_mesh)).sqrt()
 
     def train_step(state: TrainState, x, cond, generator: Optional[torch.Generator] = None, *,
                    t=None, noise=None, keep_mask=None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -60,12 +77,16 @@ def make_train_step(diffusion: GaussianDiffusion, optimizer: torch.optim.Optimiz
         rows = None if mesh is None else mesh.rows(x.shape[0] * mesh.world)
         total, parts = diffusion.loss(x, cond, generator, t=t, noise=noise, keep_mask=keep_mask, rows=rows)
         total.backward()
-        grads = [p.grad for p in params if p.grad is not None]
+        held = [p for p in params if p.grad is not None]
+        grads = [p.grad for p in held]
         if mesh is not None:
             all_reduce_grads_(grads, mesh)
             parts = all_reduce_mean({**parts, "total": total}, mesh)
             total = parts.pop("total")
-        grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        if model.tp_mesh is None:
+            grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        else:
+            grad_norm = norm(grads, [hasattr(p, "tp_shard") for p in held])
         optimizer.step()
         if state.step % ema_interval == 0:
             ema_update([state.ema_params[n] for n in names], params, ema_beta)

@@ -17,7 +17,11 @@ The normalizer is stored as plain float32 arrays (`scale`, `offset`), not
 as the reference's pickled object. A file is written under a temporary
 name and renamed, so a reader never sees half of one. Under data
 parallelism only rank 0 writes (every rank holds the same state); every
-rank reads. Checkpoints are
+rank reads. A state split over tensor-parallel ranks is gathered by every
+rank (`parallel.sharding_rules.gather_train_state`, a collective) and
+written whole by rank 0, so a file has one layout at every tp; it is
+restored into a whole state, which `shard_train_state` then splits at any
+tp. Checkpoints are
 unpickled (`weights_only=False`: the arrays are numpy); load only files
 this program wrote.
 """
@@ -33,6 +37,7 @@ import torch
 
 from tcdiff_torch.data.normalizer import Normalizer
 from tcdiff_torch.parallel.mesh import is_host0
+from tcdiff_torch.parallel.sharding_rules import gather_train_state
 
 
 def _normalizer_arrays(normalizer: Optional[Normalizer]) -> Optional[dict]:
@@ -53,12 +58,17 @@ def _save(payload: dict, path: Path) -> str:
 
 def save_checkpoint(directory: str, step: int, state, normalizer: Optional[Normalizer] = None) -> str:
     """Write a denoiser `TrainState` to `{directory}/ckpt_{step}.pt`;
-    returns the path."""
+    returns the path. A state split over tp ranks is gathered first: every
+    rank calls this then."""
     names = [name for name, _ in state.model.named_parameters()]
+    model_sd, ema, opt_sd = state.model.state_dict(), state.ema_params, state.optimizer.state_dict()
+    if state.model.tp_mesh is not None:
+        whole = gather_train_state(state)
+        model_sd, ema, opt_sd = {**model_sd, **whole["params"]}, whole["ema"], whole["optimizer"]
     payload = {
-        "model_state_dict": state.model.state_dict(),
-        "ema_state_dict": {name: state.ema_params[name] for name in names},
-        "optimizer_state_dict": state.optimizer.state_dict(),
+        "model_state_dict": model_sd,
+        "ema_state_dict": {name: ema[name] for name in names},
+        "optimizer_state_dict": opt_sd,
         "normalizer": _normalizer_arrays(normalizer),
         "step": int(state.step),
     }
@@ -104,9 +114,12 @@ def load_checkpoint(path: str, device="cuda") -> dict:
 
 
 def restore_train_state(path: str, state):
-    """Load a denoiser checkpoint into `state` (shapes must match): the
-    parameters, the EMA, the optimizer's state and the step. Returns
-    (state, normalizer or None), the normalizer on the model's device."""
+    """Load a denoiser checkpoint into a whole `state` (shapes must match;
+    split it after, `shard_train_state`): the parameters, the EMA, the
+    optimizer's state and the step. Returns (state, normalizer or None),
+    the normalizer on the model's device."""
+    if state.model.tp_mesh is not None:
+        raise ValueError("restore a checkpoint into the whole state, then split it (shard_train_state)")
     device = next(state.model.parameters()).device
     payload = load_checkpoint(path, device=device)
     state.model.load_state_dict(payload["model_state_dict"], strict=True)

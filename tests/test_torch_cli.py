@@ -51,14 +51,32 @@ def test_config_from_opt_matches_jax():
 def test_flags_that_raise(argv, item, monkeypatch):
     """--dp is accepted and must equal the world size: --dp 2 builds its
     mesh in a world of 2 (the group's size read from torch.distributed)
-    and raises in a lone process; --tp 2 and --scan_steps 4 raise
-    NotImplementedError naming their ROADMAP item. --remat (item 8) is
-    ported: it parses and fills cfg.train.remat, as the JAX package's."""
+    and raises in a lone process; --scan_steps 4 raises
+    NotImplementedError naming its ROADMAP item. --remat (item 8) and --tp
+    (item 9) are ported: --remat fills cfg.train.remat and --tp
+    cfg.train.tp, as the JAX package's; --tp 2 with dp 1 lays a world of 2
+    out as one dp row of two tp ranks (rank 1: tp index 1), and a world
+    the grid does not fill, or a tp that does not divide it, raises
+    ValueError with the numbers."""
     if item == "item 8":
-        opt = args.parse_train_opt(argv)
+        opt = args.parse_train_opt(argv + ["--tp", "2"])
         assert args.config_from_opt(opt).train.remat and jargs.config_from_opt(opt).train.remat
-        with pytest.raises(NotImplementedError, match="item 9"):
-            args.parse_train_opt(argv + ["--tp", "2"])
+        assert args.config_from_opt(opt).train.tp == jargs.config_from_opt(opt).train.tp == 2
+        return
+    if item == "item 9":
+        opt = args.parse_train_opt(argv)
+        assert args.config_from_opt(opt).train.tp == 2
+        with pytest.raises(ValueError, match="dp=1 x tp=2 = 2 but the world has 1"):
+            make_mesh(1, opt.tp, device="cpu")
+        with pytest.raises(ValueError, match="tp=2 does not divide the world of 1"):
+            make_mesh(-1, opt.tp, device="cpu")
+        monkeypatch.setattr(dist, "is_initialized", lambda: True)
+        monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
+        monkeypatch.setattr(dist, "get_rank", lambda group=None: 1)
+        mesh = make_mesh(1, opt.tp, device="cpu")
+        assert (mesh.rank, mesh.world, mesh.tp_rank, mesh.tp, mesh.group) == (0, 1, 1, 2, None)
+        assert mesh.rows(4) == Rows(0, 4, 4) and not mesh.host0
+        assert make_mesh(-1, 2, device="cpu").tp_rank == 1
         return
     if item is None:
         opt = args.parse_train_opt(argv)

@@ -73,18 +73,18 @@ def test_traj_checkpoints(tmp_path, stack, caplog):
 
 
 def test_multi_gpu_settings_raise():
-    """The multi-GPU settings enter through the flags of cli.train: --tp
-    above 1 is refused there (tensor parallelism, ROADMAP queue 1 item 9);
-    --dp goes into cfg.train.dp (the config tree has no tp field) and must
-    equal the world size when TCDiff builds its mesh, so in a lone process
-    --dp 2 raises."""
-    for argv in (["--tp", "2"], ["--dp", "4", "--tp", "2"]):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            parse_train_opt(argv)
+    """The multi-GPU settings enter through the flags of cli.train: --dp
+    and --tp go into cfg.train.dp and cfg.train.tp (tensor parallelism,
+    ROADMAP queue 1 item 9, is ported), and dp x tp must fill the world
+    when TCDiff builds its mesh, so in a lone process --dp 2, --tp 2 and
+    --dp 4 --tp 2 raise ValueError with the numbers."""
     cfg = config_from_opt(parse_train_opt(["--dp", "2"]))
-    assert cfg.train.dp == 2 and TrainConfig().dp == -1
-    assert "tp" not in {f.name for f in dataclasses.fields(TrainConfig)}
+    assert cfg.train.dp == 2 and TrainConfig().dp == -1 and TrainConfig().tp == 1
+    assert config_from_opt(parse_train_opt(["--dp", "4", "--tp", "2"])).train.tp == 2
     small = cfgs()[1]
-    with pytest.raises(ValueError, match="dp=2 but the world has 1"):
-        orch.TCDiff(dataclasses.replace(small, train=dataclasses.replace(small.train, dp=2)), device="cpu")
+    for dp, tp, msg in ((2, 1, "dp=2 but the world has 1"), (-1, 2, "tp=2 does not divide the world of 1"),
+                        (4, 2, "dp=4 x tp=2 = 8 but the world has 1")):
+        with pytest.raises(ValueError, match=msg):
+            orch.TCDiff(dataclasses.replace(small, train=dataclasses.replace(small.train, dp=dp, tp=tp)),
+                        device="cpu")
     assert orch.TCDiff(small, device="cpu").mesh.world == 1
