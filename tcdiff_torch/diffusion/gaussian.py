@@ -27,6 +27,11 @@ global batch, and every draw (x_T and each step's noise, t, noise,
 keep_mask and dropout) is made at the global batch and these rows kept,
 so that N ranks compute what one process does.
 
+While a torch.profiler session records, each sampler's loop is the span
+`sample.request` (`utils/profiling.span`): the condition's encoding
+`sample.cond`, each step `sample.step` (attr `i`), and in it the guided
+call `sample.guided` with its CFG combine `sample.cfg`.
+
 Randomness comes from an explicit `torch.Generator`, or is injected so that
 the JAX package and this one can be fed the same numbers: the samplers take
 `noise={"init": (b, tokens, c), "steps": (S, b, tokens, c)}`, and the draws
@@ -50,6 +55,7 @@ from tcdiff_torch.geometry.skeleton import smpl_fk_from_6d
 from tcdiff_torch.models.dance_decoder import CondCache, DanceDecoder
 from tcdiff_torch.parallel.comm import from_previous
 from tcdiff_torch.parallel.mesh import Mesh, Rows, draw
+from tcdiff_torch.utils.profiling import span, traced
 
 
 def impose_traj(x: torch.Tensor, x_0: torch.Tensor) -> torch.Tensor:
@@ -175,21 +181,24 @@ class GaussianDiffusion:
     def encode_cond_cfg(self, cond: torch.Tensor) -> CondCache:
         """Encode the condition once for the doubled (uncond | cond) batch."""
         b = cond.shape[0]
-        keep = torch.arange(2 * b, device=cond.device) >= b
-        return self.model.cond_cache(torch.cat([cond, cond], dim=0), keep)
+        with span("sample.cond"):
+            keep = torch.arange(2 * b, device=cond.device) >= b
+            return self.model.cond_cache(torch.cat([cond, cond], dim=0), keep)
 
     def guided(self, x, cond, t_vec, weight, trj_dist=None, cond_cache=None):
         """unc + (cond - unc) * weight from one doubled-batch forward; x and
         trj_dist at half batch (the x-only prefix runs once)."""
         b = x.shape[0]
-        keep = torch.arange(2 * b, device=x.device) >= b
-        cc = None if cond_cache is not None else torch.cat([cond, cond], dim=0)
-        out = self.model(
-            x, cc, torch.cat([t_vec, t_vec], dim=0), keep, trj_dist,
-            cond_cache=cond_cache, cfg_pair=True,
-        )
-        unc, con = out[:b], out[b:]
-        return unc + (con - unc) * weight
+        with span("sample.guided"):
+            keep = torch.arange(2 * b, device=x.device) >= b
+            cc = None if cond_cache is not None else torch.cat([cond, cond], dim=0)
+            out = self.model(
+                x, cc, torch.cat([t_vec, t_vec], dim=0), keep, trj_dist,
+                cond_cache=cond_cache, cfg_pair=True,
+            )
+            with span("sample.cfg"):
+                unc, con = out[:b], out[b:]
+                return unc + (con - unc) * weight
 
     # ------------------------------------------------------------ sampling
     def _start(self, shape, dev, generator, noise, rows: Optional[Rows] = None):
@@ -237,6 +246,7 @@ class GaussianDiffusion:
         return torch.cat([shifted, x4[:, half:]], dim=1).reshape(x.shape)
 
     @torch.no_grad()
+    @traced("sample.request")
     def _ddim_loop(self, x, cond, weights: np.ndarray, *, generator=None, noise=None, x_0=None,
                    trj_dist=None, footwork: bool = False, long_mode: bool = False, stream_prev=None,
                    forecast_every: int = 0, rows: Optional[Rows] = None, mesh: Optional[Mesh] = None):
@@ -280,45 +290,46 @@ class GaussianDiffusion:
         one = np.float32(1.0)
         s1 = s2 = None  # the last two x0 predictions
         for i, (time, time_next) in enumerate(zip(times[:-1], times[1:])):
-            if use_model[i]:
-                t_vec = torch.full((b,), int(time), dtype=torch.int32, device=dev)
-                x_start = self.guided(x, cond, t_vec, float(weights[i]), trj_dist, cond_cache)
-            else:
-                x_start = 2.0 * s1 - s2
-            if cfg.clip_denoised:
-                x_start = x_start.clamp(-1.0, 1.0)
-            s1, s2 = x_start, s1
-            pred_noise = (float(buf.sqrt_recip_alphas_cumprod[time]) * x - x_start) / float(
-                buf.sqrt_recipm1_alphas_cumprod[time]
-            )
-            alpha, alpha_next = ac[time], ac[max(int(time_next), 0)]
-            sigma = np.float32(cfg.ddim_eta) * np.sqrt(
-                max((one - alpha / alpha_next) * (one - alpha_next) / (one - alpha), np.float32(0))
-            )
-            coef = np.sqrt(max(one - alpha_next - sigma * sigma, np.float32(0)))
-            eps = (draw(lambda s: torch.randn(s, generator=generator, device=dev), x.shape, rows) if steps is None
-                   else steps[i])
-            if time_next < 0:
-                x = x_start
-            else:
-                x = x_start * float(np.sqrt(alpha_next)) + float(coef) * pred_noise + float(sigma) * eps
-            if x_0 is not None:
-                x = impose_traj(x, x_0)
-                if footwork and time_next >= 0:  # the last step's splice is the soft blend below
-                    x = self._splice_footwork(x, x_0, hard=True)
-            if long_mode and time > 0 and time_next >= 0:
-                x = self._half_copy(x, seq_len, half, mesh)
-            if stream_prev is not None:
-                # RePaint-style: the first half-window is the previous
-                # slice's tail, re-noised to the next step's level
-                pn = (torch.randn(prev4.shape, generator=generator, device=dev) if prev_noise is None
-                      else prev_noise[i].reshape(prev4.shape))
-                tn = max(int(time_next), 0)
-                prev_t = prev4
-                if time_next > 0:
-                    prev_t = float(np.sqrt(ac[tn])) * prev4 + float(np.sqrt(one - ac[tn])) * pn
-                x4 = x.reshape(b, seq_len, -1, x.shape[-1])
-                x = torch.cat([prev_t, x4[:, half:]], dim=1).reshape(x.shape)
+            with span("sample.step", i=i):
+                if use_model[i]:
+                    t_vec = torch.full((b,), int(time), dtype=torch.int32, device=dev)
+                    x_start = self.guided(x, cond, t_vec, float(weights[i]), trj_dist, cond_cache)
+                else:
+                    x_start = 2.0 * s1 - s2
+                if cfg.clip_denoised:
+                    x_start = x_start.clamp(-1.0, 1.0)
+                s1, s2 = x_start, s1
+                pred_noise = (float(buf.sqrt_recip_alphas_cumprod[time]) * x - x_start) / float(
+                    buf.sqrt_recipm1_alphas_cumprod[time]
+                )
+                alpha, alpha_next = ac[time], ac[max(int(time_next), 0)]
+                sigma = np.float32(cfg.ddim_eta) * np.sqrt(
+                    max((one - alpha / alpha_next) * (one - alpha_next) / (one - alpha), np.float32(0))
+                )
+                coef = np.sqrt(max(one - alpha_next - sigma * sigma, np.float32(0)))
+                eps = (draw(lambda s: torch.randn(s, generator=generator, device=dev), x.shape, rows) if steps is None
+                       else steps[i])
+                if time_next < 0:
+                    x = x_start
+                else:
+                    x = x_start * float(np.sqrt(alpha_next)) + float(coef) * pred_noise + float(sigma) * eps
+                if x_0 is not None:
+                    x = impose_traj(x, x_0)
+                    if footwork and time_next >= 0:  # the last step's splice is the soft blend below
+                        x = self._splice_footwork(x, x_0, hard=True)
+                if long_mode and time > 0 and time_next >= 0:
+                    x = self._half_copy(x, seq_len, half, mesh)
+                if stream_prev is not None:
+                    # RePaint-style: the first half-window is the previous
+                    # slice's tail, re-noised to the next step's level
+                    pn = (torch.randn(prev4.shape, generator=generator, device=dev) if prev_noise is None
+                          else prev_noise[i].reshape(prev4.shape))
+                    tn = max(int(time_next), 0)
+                    prev_t = prev4
+                    if time_next > 0:
+                        prev_t = float(np.sqrt(ac[tn])) * prev4 + float(np.sqrt(one - ac[tn])) * pn
+                    x4 = x.reshape(b, seq_len, -1, x.shape[-1])
+                    x = torch.cat([prev_t, x4[:, half:]], dim=1).reshape(x.shape)
 
         if x_0 is not None:
             x = impose_traj(x, x_0)
@@ -405,6 +416,7 @@ class GaussianDiffusion:
         return w
 
     @torch.no_grad()
+    @traced("sample.request")
     def p_sample_loop(self, shape, cond, generator=None, noise=None, start_point=None, mode: str = "normal",
                       constraint=None, x_init=None):
         """Ancestral DDPM from `start_point` (default T) down to 0; mode
@@ -433,21 +445,22 @@ class GaussianDiffusion:
 
         cond_cache = self.encode_cond_cfg(cond)
         for i in range(start):
-            t = start - 1 - i
-            t_vec = torch.full((b,), t, dtype=torch.int32, device=dev)
-            x_recon = self.guided(x, cond, t_vec, float(w_tab[t]), cond_cache=cond_cache)
-            if cfg.clip_denoised:
-                x_recon = x_recon.clamp(-1.0, 1.0)
-            mean = float(pm1[t]) * x_recon + float(pm2[t]) * x
-            z = torch.randn(x.shape, generator=generator, device=dev) if steps is None else steps[i]
-            x = mean + float(np.exp(np.float32(0.5) * plv[t])) * z if t != 0 else mean
-            if mode == "inpaint":
-                vnoise = torch.randn(value.shape, generator=generator, device=dev) if values is None else values[i]
-                if t > 0:
-                    value_t = self.q_sample(value, (t_vec - 1).clamp(min=0).long(), vnoise)
-                    x = value_t * mask + (1.0 - mask) * x
-            elif mode == "long" and t > 0:
-                x = self._half_copy(x, shape[1], half)
+            with span("sample.step", i=i):
+                t = start - 1 - i
+                t_vec = torch.full((b,), t, dtype=torch.int32, device=dev)
+                x_recon = self.guided(x, cond, t_vec, float(w_tab[t]), cond_cache=cond_cache)
+                if cfg.clip_denoised:
+                    x_recon = x_recon.clamp(-1.0, 1.0)
+                mean = float(pm1[t]) * x_recon + float(pm2[t]) * x
+                z = torch.randn(x.shape, generator=generator, device=dev) if steps is None else steps[i]
+                x = mean + float(np.exp(np.float32(0.5) * plv[t])) * z if t != 0 else mean
+                if mode == "inpaint":
+                    vnoise = torch.randn(value.shape, generator=generator, device=dev) if values is None else values[i]
+                    if t > 0:
+                        value_t = self.q_sample(value, (t_vec - 1).clamp(min=0).long(), vnoise)
+                        x = value_t * mask + (1.0 - mask) * x
+                elif mode == "long" and t > 0:
+                    x = self._half_copy(x, shape[1], half)
         return x
 
     @torch.no_grad()

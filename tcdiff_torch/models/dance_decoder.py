@@ -49,6 +49,15 @@ FF + tail (K5) blocks run, forward and backward; with a `trj_dist` (TRPE)
 the self-attention block runs as plain PyTorch math, as the JAX package
 sends it to XLA, and K4 and K5 still run.
 
+While a torch.profiler session records (`utils/profiling.span`), each
+decoder layer is the span `decoder.layer` (attr `i`), the plain
+cross-attention over the hoisted k/v `ca.plain`, and each kernel's entry
+in `tcdiff_torch.ops` its own span, whichever path it takes
+(`k1.sa_block`, `k2.ff_tail`, `k2b.ff_block`, `k6.layer`, `k7.ca_block`,
+`k8.ln_rotary_matmul`, `k9.ln_matmul`, `k10.layernorm`, `k11.attention`;
+in training `k3.sa_block_train`, `k4.ca_block_train`, `k5.ff_tail_train`,
+each with a `.bwd` span over its backward).
+
 Tensor parallelism: once `parallel.sharding_rules.shard_train_state` has
 split the weights over a mesh's tp ranks (`tp_mesh`; each split parameter
 carries its `Shard`), the train path runs each decoder layer over this
@@ -86,6 +95,7 @@ from tcdiff_torch.ops.sa_block_train import sa_block_train_plain
 from tcdiff_torch.ops.train_common import local_bias, local_heads, mm_whole
 from tcdiff_torch.parallel.comm import tp_gather, tp_reduce, tp_slice
 from tcdiff_torch.parallel.mesh import Mesh, Rows, draw
+from tcdiff_torch.utils.profiling import span
 
 
 class CondCache(NamedTuple):
@@ -546,14 +556,15 @@ class FiLMTransformerDecoderLayer(nn.Module):
                 if fuse_film:
                     return self.ca_block_fn(*args, fs, fb, nhead=self.n_head)
                 return x + featurewise_affine(self.ca_block_fn(*args, nhead=self.n_head), (fs, fb))
-        q = ca.cross_q(x, self.norm2, angles, kernels, fused=kv is None)
-        if kv is None:
-            # int8 k/v where q is not K8's (the JAX package's plain SBI-MSA)
-            q8 = kernels.int8 and not kernels.ln_rotary
-            k, v = _proj(ca.w_ks, rot_mem, q8), _proj(ca.w_vs, memory, q8)
-        else:
-            k, v = kv
-        return x + featurewise_affine(ca.attend(q, k, v, kernels), (fs, fb))
+        with span("ca.plain"):
+            q = ca.cross_q(x, self.norm2, angles, kernels, fused=kv is None)
+            if kv is None:
+                # int8 k/v where q is not K8's (the JAX package's plain SBI-MSA)
+                q8 = kernels.int8 and not kernels.ln_rotary
+                k, v = _proj(ca.w_ks, rot_mem, q8), _proj(ca.w_vs, memory, q8)
+            else:
+                k, v = kv
+            return x + featurewise_affine(ca.attend(q, k, v, kernels), (fs, fb))
 
     def _feed_forward(self, x, t, fuse_film, kernels: ServingKernels):
         """The FF block + FiLM and the layer tail linear3(norm4(.)): K2 for
@@ -856,14 +867,15 @@ class DanceDecoder(nn.Module):
         h, traj_emb, t, t_tokens = self._embed(x, times, cond_hidden)
         memory = _ln(self.norm_cond, torch.cat([ct, t_tokens], dim=-2), 1e-6)
         shared_emb = self.embeddings_table.weight  # split: this rank's heads' columns, read by its heads alone
-        for layer in self.layers:
-            draws = layer.train_draws(generator, h.shape, rate, rows, trpe=trj_dist is not None)
-            args = (h, memory, t, traj_emb, draws, rate, shared_emb, trj_dist, self.tp_mesh)
-            if self.remat:
-                # the layer draws nothing itself: no RNG state to stash
-                h = checkpoint(layer.forward_train, *args, use_reentrant=False, preserve_rng_state=False)
-            else:
-                h = layer.forward_train(*args)
+        for i, layer in enumerate(self.layers):
+            with span("decoder.layer", i=i):
+                draws = layer.train_draws(generator, h.shape, rate, rows, trpe=trj_dist is not None)
+                args = (h, memory, t, traj_emb, draws, rate, shared_emb, trj_dist, self.tp_mesh)
+                if self.remat:
+                    # the layer draws nothing itself: no RNG state to stash
+                    h = checkpoint(layer.forward_train, *args, use_reentrant=False, preserve_rng_state=False)
+                else:
+                    h = layer.forward_train(*args)
         return _lin(self.final_layer, h).float()
 
     def _whole(self, what: str) -> None:
@@ -900,15 +912,16 @@ class DanceDecoder(nn.Module):
 
         shared_emb = self.embeddings_table.weight
         for i, layer in enumerate(self.layers):
-            kv = None
-            if hoisted:
-                kct, vct = cond_cache.kv[i]
-                kv = (torch.cat([kct.to(dt), kt_all[i]], dim=1), torch.cat([vct.to(dt), vt_all[i]], dim=1))
-            tile = cfg_pair and i == 0
-            h = layer(h, memory, t, traj_emb, shared_emb, trj_dist, kv=kv, tile_sa=tile, kernels=self.kernels)
-            if tile:
-                traj_emb = torch.cat([traj_emb, traj_emb], dim=0)
-                if trj_dist is not None:
-                    trj_dist = torch.cat([trj_dist, trj_dist], dim=0)
+            with span("decoder.layer", i=i):
+                kv = None
+                if hoisted:
+                    kct, vct = cond_cache.kv[i]
+                    kv = (torch.cat([kct.to(dt), kt_all[i]], dim=1), torch.cat([vct.to(dt), vt_all[i]], dim=1))
+                tile = cfg_pair and i == 0
+                h = layer(h, memory, t, traj_emb, shared_emb, trj_dist, kv=kv, tile_sa=tile, kernels=self.kernels)
+                if tile:
+                    traj_emb = torch.cat([traj_emb, traj_emb], dim=0)
+                    if trj_dist is not None:
+                        trj_dist = torch.cat([trj_dist, trj_dist], dim=0)
 
         return _lin(self.final_layer, h).float()

@@ -26,6 +26,7 @@ import torch
 
 from tcdiff_torch.ops import _build
 from tcdiff_torch.ops._common import DTYPE_CODE, as_t, raise_on, stream_ptr
+from tcdiff_torch.utils.profiling import traced
 
 N_TRJ_BUCKETS = 10  # rows of the shared TRPE embedding table
 
@@ -120,6 +121,7 @@ def _attention_cuda(q, k, v, scale, table, trj_dist):
     return out
 
 
+@traced("k11.attention")
 def attention(q, k, v, scale: float, table=None, trj_dist=None):
     """Softmax attention ±TRPE: CUDA kernel for CUDA tensors, plain version
     for CPU tensors. See the module docstring for shapes."""

@@ -32,6 +32,7 @@ from tcdiff_torch.ops.attention import attention_plain
 from tcdiff_torch.ops.sa_block import cached_rotary_tables, rotary_tables
 from tcdiff_torch.ops.sa_block_train import rot
 from tcdiff_torch.ops.train_common import film_residual
+from tcdiff_torch.utils.profiling import traced
 
 
 def cross_plain(x, s1, b1, angles, k, v, wq, wfc, s2, b2, film_scale=None, film_shift=None,
@@ -107,6 +108,7 @@ def _ca_block_cuda(x, s1, b1, angles, memory, memory_rot, wq, wk, wv, wfc, s2, b
     return ten["out"]
 
 
+@traced("k7.ca_block")
 def ca_block(x, s1, b1, angles, memory, memory_rot, wq, wk, wv, wfc, s2, b2,
              film_scale=None, film_shift=None, *, nhead: int, eps1: float = 1e-5, eps2: float = 1e-6):
     """The serving cross-attention block: CUDA kernel for a CUDA x, plain

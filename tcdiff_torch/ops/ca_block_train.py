@@ -31,6 +31,7 @@ from tcdiff_torch.ops.train_common import (
     RCH, as_uint32_int32, count_kernel, local_heads, mm_whole, save_tensors, saved_tensors, threshold,
     weight_scratch,
 )
+from tcdiff_torch.utils.profiling import traced
 
 
 def ca_block_train_plain(x, mem, s2, b2, angles_x, angles_m, wq, wk, wv, wfc, sa_s, sa_b,
@@ -136,6 +137,7 @@ class _CaBlockTrain(torch.autograd.Function):
                 None, None, None, None, None)
 
 
+@traced("k4.ca_block_train", backward=True)
 def ca_block_train(x, mem, s2, b2, angles_x, angles_m, wq, wk, wv, wfc, sa_s, sa_b,
                    film_scale, film_shift, seeds, *, nhead: int, rate: float,
                    eps1: float = 1e-5, eps2: float = 1e-6):

@@ -27,6 +27,7 @@ from tcdiff_torch.ops import _build
 from tcdiff_torch.ops._common import (
     as_t, check_cuda, check_ln_fold, ln_f32, mm_f32, ptr, raise_on, scratch, stream_ptr,
 )
+from tcdiff_torch.utils.profiling import traced
 
 
 def _gelu(h):
@@ -115,6 +116,7 @@ def _ff_block_cuda(x, scale, bias, w1, b1, w2, b2, film_scale, film_shift, eps):
     return out
 
 
+@traced("k2b.ff_block")
 def ff_block(x, scale, bias, w1, b1, w2, b2, film_scale=None, film_shift=None, eps: float = 1e-5):
     """The FF block without the tail: CUDA kernel for a CUDA x, plain
     version for a CPU x. See the module docstring for shapes."""
@@ -152,6 +154,7 @@ def _ff_tail_cuda(x, scale, bias, w1, b1, w2, b2, film_scale, film_shift, s4, b4
     return out
 
 
+@traced("k2.ff_tail")
 def ff_tail(x, scale, bias, w1, b1, w2, b2, film_scale, film_shift, s4, b4, w3, b3,
             eps: float = 1e-5):
     """The FF block + layer tail: CUDA kernel for a CUDA x, plain version

@@ -30,6 +30,7 @@ from tcdiff_torch.ops.train_common import (
     save_tensors, saved_tensors, threshold, tp_split, weight_scratch,
 )
 from tcdiff_torch.parallel.comm import tp_gather, tp_reduce
+from tcdiff_torch.utils.profiling import traced
 
 
 def ff_tail_train_plain(x, s3, b3, w1, bb1, w2, bb2, film_scale, film_shift, s4, b4, w3, bb3, seeds,
@@ -129,6 +130,7 @@ class _FfTailTrain(torch.autograd.Function):
                 None, None, None)
 
 
+@traced("k5.ff_tail_train", backward=True)
 def ff_tail_train(x, s3, b3, w1, bb1, w2, bb2, film_scale, film_shift, s4, b4, w3, bb3, seeds,
                   *, rate: float, eps: float = 1e-5):
     """The train FF block + layer tail: CUDA kernels (forward and backward)

@@ -29,6 +29,7 @@ from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, check_ln_fol
 from tcdiff_torch.ops.ca_block import cross_plain
 from tcdiff_torch.ops.ff_block import ff_tail_plain
 from tcdiff_torch.ops.sa_block import cached_rotary_tables, sa_block_plain
+from tcdiff_torch.utils.profiling import traced
 
 _WEIGHTS = ("wq", "wk", "wv", "wfc", "cwq", "cfc", "kcat", "vcat", "w1", "w2", "w3")
 _FF_ARGS = ("s3", "b3", "w1", "bb1", "w2", "bb2", "f3s", "f3b", "s4", "b4", "w3", "bb3")
@@ -100,6 +101,7 @@ def _layer_cuda(x, angles, s1, b1, wq, wk, wv, wfc, sa_s2, sa_b2, f1s, f1b,
     return ten["out"]
 
 
+@traced("k6.layer")
 def layer(x, angles, s1, b1, wq, wk, wv, wfc, sa_s2, sa_b2, f1s, f1b,
           n2s, n2b, cwq, cfc, ca_s2, ca_b2, kcat, vcat, f2s, f2b,
           s3=None, b3=None, w1=None, bb1=None, w2=None, bb2=None, f3s=None, f3b=None,

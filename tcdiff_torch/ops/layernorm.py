@@ -23,6 +23,7 @@ from tcdiff_torch.ops import _build
 from tcdiff_torch.models.rotary import swap_pairs
 from tcdiff_torch.ops._common import DTYPE_CODE, check_cuda, ln_f32, ptr, raise_on, stream_ptr
 from tcdiff_torch.ops.sa_block import rotary_tables
+from tcdiff_torch.utils.profiling import traced
 
 
 def layernorm_plain(x, scale, bias, eps: float = 1e-6):
@@ -54,6 +55,7 @@ def _layernorm_cuda(x, scale, bias, eps):
     return out
 
 
+@traced("k10.layernorm")
 def layernorm(x, scale, bias, eps: float = 1e-6):
     """Row LayerNorm: CUDA kernel for a CUDA x, plain version for a CPU x.
     x (..., d); scale, bias (d,)."""

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, launch, ln_f32, mm_f32, scratch
+from tcdiff_torch.utils.profiling import traced
 
 
 def ln_matmul_plain(x, scale, bias, w, b, eps: float = 1e-5):
@@ -55,6 +56,7 @@ def _ln_matmul_cuda(x, scale, bias, w, b, eps):
     return ten["out"]
 
 
+@traced("k9.ln_matmul")
 def ln_matmul(x, scale, bias, w, b, eps: float = 1e-5):
     """LN -> projection + bias: CUDA kernel for a CUDA x, plain version for
     a CPU x. See the module docstring for shapes."""

@@ -28,6 +28,7 @@ import torch
 from tcdiff_torch.models.rotary import swap_pairs
 from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, launch, ln_f32, mm_f32, scratch
 from tcdiff_torch.ops.sa_block import cached_rotary_tables, rotary_tables
+from tcdiff_torch.utils.profiling import traced
 
 
 def _weights(w_rot):
@@ -95,6 +96,7 @@ def _ln_rotary_matmul_cuda(x, scale, bias, angles, w_rot, w_plain, eps):
     return rot if wp is None else (rot, ten["ov"])
 
 
+@traced("k8.ln_rotary_matmul")
 def ln_rotary_matmul(x, scale, bias, angles, w_rot, w_plain=None, eps: float = 1e-5):
     """LN -> rotary -> projection(s): CUDA kernel for a CUDA x, plain
     version for a CPU x. Returns (rotated, v), or the rotated output(s)

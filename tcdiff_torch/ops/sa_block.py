@@ -28,6 +28,7 @@ from tcdiff_torch.ops._common import (
     as_t, check_cuda, check_ln_fold, ln_f32, mm_f32, ptr, raise_on, stream_ptr,
 )
 from tcdiff_torch.ops.attention import N_TRJ_BUCKETS, trpe_bias
+from tcdiff_torch.utils.profiling import traced
 
 
 def rotary_tables(angles: torch.Tensor, dtype: torch.dtype):
@@ -136,6 +137,7 @@ def _sa_block_cuda(
     return out
 
 
+@traced("k1.sa_block")
 def sa_block(
     x, s1, b1, angles, wq, wk, wv, wfc, s2, b2,
     table=None, trj_dist=None, film_scale=None, film_shift=None,

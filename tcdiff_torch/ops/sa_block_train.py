@@ -35,6 +35,7 @@ from tcdiff_torch.ops.train_common import (
     save_tensors, saved_tensors, threshold, weight_scratch,
 )
 from tcdiff_torch.parallel.comm import tp_reduce
+from tcdiff_torch.utils.profiling import traced
 
 
 def rot(y: torch.Tensor, cos: torch.Tensor, ssin: torch.Tensor) -> torch.Tensor:
@@ -162,6 +163,7 @@ class _SaBlockTrain(torch.autograd.Function):
                 None, None, None, None, None)
 
 
+@traced("k3.sa_block_train", backward=True)
 def sa_block_train(x, s1, b1, angles, wq, wk, wv, wfc, s2, b2, film_scale, film_shift, seeds,
                    *, nhead: int, rate: float, eps1: float = 1e-5, eps2: float = 1e-6):
     """The train self-attention block: CUDA kernels (forward and backward)

@@ -24,6 +24,11 @@ gradients are the shards' own (the dp all-reduce runs over the ranks of
 this rank's tp index), Adan and the EMA run on the shards, and the
 gradient norm sums the squares of the split gradients over the tp ranks
 and counts the whole ones once.
+
+While a torch.profiler session records, a step is the span `train.step`
+(`utils/profiling.span`) and its phases `train.loss`, `train.backward`,
+`train.allreduce` (with a mesh), `train.grad_norm`, `train.adan` and
+`train.ema`, in that order.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from tcdiff_torch.optim.ema import ema_update
 from tcdiff_torch.parallel.comm import all_reduce_grads_, all_reduce_mean, tp_sum
 from tcdiff_torch.parallel.mesh import Mesh
 from tcdiff_torch.train.state import TrainState
+from tcdiff_torch.utils.profiling import span, traced
 
 
 def make_train_step(diffusion: GaussianDiffusion, optimizer: torch.optim.Optimizer,
@@ -69,27 +75,34 @@ def make_train_step(diffusion: GaussianDiffusion, optimizer: torch.optim.Optimiz
         parts = [g for g, s in zip(grads, split) if s]
         return (sq(whole) + tp_sum(sq(parts), model.tp_mesh)).sqrt()
 
+    @traced("train.step")
     def train_step(state: TrainState, x, cond, generator: Optional[torch.Generator] = None, *,
                    t=None, noise=None, keep_mask=None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         if state.model is not model or state.optimizer is not optimizer:
             raise ValueError("the state holds another model or optimizer than this train step")
         optimizer.zero_grad(set_to_none=True)
         rows = None if mesh is None else mesh.rows(x.shape[0] * mesh.world)
-        total, parts = diffusion.loss(x, cond, generator, t=t, noise=noise, keep_mask=keep_mask, rows=rows)
-        total.backward()
+        with span("train.loss"):
+            total, parts = diffusion.loss(x, cond, generator, t=t, noise=noise, keep_mask=keep_mask, rows=rows)
+        with span("train.backward", adopt=True):  # the autograd engine's thread opens the kernels' .bwd spans
+            total.backward()
         held = [p for p in params if p.grad is not None]
         grads = [p.grad for p in held]
         if mesh is not None:
-            all_reduce_grads_(grads, mesh)
-            parts = all_reduce_mean({**parts, "total": total}, mesh)
-            total = parts.pop("total")
-        if model.tp_mesh is None:
-            grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        else:
-            grad_norm = norm(grads, [hasattr(p, "tp_shard") for p in held])
-        optimizer.step()
+            with span("train.allreduce"):
+                all_reduce_grads_(grads, mesh)
+                parts = all_reduce_mean({**parts, "total": total}, mesh)
+                total = parts.pop("total")
+        with span("train.grad_norm"):
+            if model.tp_mesh is None:
+                grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            else:
+                grad_norm = norm(grads, [hasattr(p, "tp_shard") for p in held])
+        with span("train.adan"):
+            optimizer.step()
         if state.step % ema_interval == 0:
-            ema_update([state.ema_params[n] for n in names], params, ema_beta)
+            with span("train.ema"):
+                ema_update([state.ema_params[n] for n in names], params, ema_beta)
         state.step += 1
         metrics = {k: v.detach() for k, v in parts.items()}
         metrics.update(total=total.detach(), grad_norm=grad_norm)

@@ -16,7 +16,8 @@ at dropout 0.1, the DBN's step, and the CLI's rank-0 files),
 `tp_cases` (the tp train step against JAX's and against one process at
 dropout 0.1, with remat and with TRPE, one layer in bf16 and f32, the
 checkpoint, `TCDiff._sample` and the CLI under tp) and `dp_tp_cases` (a dp x tp step against one
-process), and `world_collectives` (the dp collectives on a mesh).
+process), `world_collectives` (the dp collectives on a mesh) and
+`traced_train_steps` (each dp step's phase spans under a profiler).
 Parameters, gradients and EMA entries come back whole, gathered
 over the tp ranks where the state is split.
 """
@@ -462,3 +463,25 @@ def tp_cases(mesh, p: dict) -> dict:
 
 def dp_tp_cases(mesh, p: dict) -> dict:
     return {"dropout": train_step_dropout(mesh, p["dropout"])}
+
+
+# ------------------------------------------------------------------- tracing
+def traced_train_steps(mesh, p: dict) -> dict:
+    """p["steps"] dp train steps at dropout 0.1 under a CPU torch.profiler
+    session: the names of each step's phase spans, in order."""
+    from tcdiff_torch.config import DanceDecoderConfig, DiffusionConfig
+    from tcdiff_torch.models.dance_decoder import DanceDecoder
+    from tcdiff_torch.utils.profiling import TRACER
+
+    model = DanceDecoder(DanceDecoderConfig(**{**TRAIN_MODEL, "dropout": 0.1}), device=_device(mesh)).init_random(
+        torch.Generator().manual_seed(0))
+    state, step = _diffusion_step(model, mesh, DiffusionConfig(cond_drop_prob=0.25), 1e-3)
+    rng = np.random.default_rng(5)
+    x, cond = _rows(((rng.normal(size=(4, 2, 12, 151)) * 0.3).astype(np.float32),
+                     rng.normal(size=(4, 25, 16)).astype(np.float32)), mesh)
+    gen = torch.Generator().manual_seed(7)
+    TRACER.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for _ in range(p["steps"]):
+            state, _ = step(state, x, cond, gen)
+    return {"phases": [[s.name for s in r.spans if s.parent == r.record.id] for r in TRACER.roots("train.step")]}
