@@ -45,6 +45,12 @@ last line:
      version, its device time, one call's device kernels by name (K8 and
      K9: 2, K2b: 3, no mma.sync and no PyTorch kernel), and the host us a
      call spends on tensor maps;
+  5b. K7 over the hoisted k/v (ops/ca_block.ca_kv, the default's
+     cross-attention site) at b = 8 and at the benchmark's 256 rows (L =
+     450, 150 music + 2 time rows read apart, d = 512) against its plain
+     version in bf16 and f32; in bf16 its device time beside its bound,
+     the plain site's (PyTorch's kernels over the joined k/v) and K7 over a
+     152-row memory's, and one call's 3 device kernels, none named attn_*;
   6. hold each train kernel (K3, K4, K5) against its plain version at the
      main path's train shapes (b=64, L=450, Lm=152, d=512), in bf16 and
      f32, dropout 0.1 with the same seeds: the output and every gradient
@@ -90,12 +96,12 @@ last line:
      partial_denoise (the DDPM loop) from t=100;
  10. generate: wav to dance through tcdiff_torch.train.orchestrator.generate
      on a seeded 20 s song (clicks on a 120 BPM grid over noise) at full
-     width: the bf16 denoiser in the default configuration (K1/K2), the
+     width: the bf16 denoiser in the default configuration (K1/K7/K2), the
      DBN (TrajDecoder) and a normalizer fit on seeded data, all with seeded
      random weights; 7 slices, 20 DBN windows, a 600-frame trajectory. Each
      stage's time (features, DBN rollout, Kalman, sampling) and s-motion/s;
-     the output checked, K1 and K2 each launched 8 x 50 times and no other
-     serving kernel; the request from its features once more under
+     the output checked, K1, K7 over the hoisted k/v and K2 each launched
+     8 x 50 times and no other serving kernel; the request from its features once more under
      torch.profiler; the DBN on the card against the same DBN on the CPU
      with the TF32 flags at PyTorch's defaults (one window, then the rollout
      and the Kalman filter, the error printed window by window), and one
@@ -130,9 +136,10 @@ last line:
      self-attention block in plain math, K4/K5 on the card) against the
      port on the CPU, at test_torch_train.py's whole-step 3e-4 rule; the int8 product
      (torch._int_mm) at 3600x512 -> 512 and -> 1024 against the plain
-     int32 product, equal; one bf16 request each of the default,
-     ServingKernels(int8=True) (relative error against the default in
-     (0, 0.05), 3200 int8 products, no block kernel) and ln_bf16 (its
+     int32 product, equal; one bf16 request each of the default, the
+     default with ca_block off, ServingKernels(int8=True) (relative error
+     against the default with ca_block off in (0, 0.05), 3200 int8
+     products, no block kernel) and ln_bf16 (its
      largest difference, and one LayerNorm site against the CPU within
      2^-5 of its largest output), on one injected noise, with their wall
      times;
@@ -166,8 +173,9 @@ last line:
      --vis_fk_out (11 FK pkls; one split into per-dancer pkls and
      exported to BVH, their shapes checked), `--mode
      val_without_TrajModel --sample_mode long` (the 11 slices stitched on
-     the card), `--mode generate` on a seeded 10 s song (3 slices); K1
-     and K2 400 launches a sampling call and no other serving kernel,
+     the card), `--mode generate` on a seeded 10 s song (3 slices); K1,
+     K7 over the hoisted k/v and K2 400 launches a sampling call and no
+     other serving kernel,
      K3/K4/K5 8 each way in the train step; the test clips' metrics
      (`evaluate`) and stitch card vs CPU; each mode's wall time;
  15. data parallelism (`tcdiff_torch.parallel`): the one-process
@@ -181,7 +189,7 @@ last line:
      gradients to `grad_tolerance`, the parameters after step 1 to
      `tolerance`, after step 2 the two-step rule; the samples to
      `tolerance` in bf16 and F32_PATH_TOL in f32; the DBN to the data
-     phase's DBN rule), prints its launch counts (K1/K2 400 a sampling call), and
+     phase's DBN rule), prints its launch counts (K1/K7/K2 400 a sampling call), and
      every rank's parameters and EMA must be bit-identical; then `python
      -m torch.distributed.run --standalone --nproc_per_node 1 -m
      tcdiff_torch.cli.train --dp 1` with the CLI phase's train flags over
@@ -205,10 +213,10 @@ last line:
      norm, a rule that a zeroed or sign-flipped gradient must fail, its
      parameters to exactly the JAX rule's 30,815,537 of
      61,428,181, K3-K5 to 0 launches, the tp sample to one process's bits
-     with K1/K2 400 launches; every rank's whole state bit-identical; the
+     with K1/K7/K2 400 launches; every rank's whole state bit-identical; the
      step wall ms of each rank beside one process's, the peak memory and
      the phase's seconds are printed;
- 18. a line of JSON with every kernel's figures (K1/K2's launches count
+ 18. a line of JSON with every kernel's figures (K1/K7/K2's launches count
      the CLI phase's, both dp ranks', the opt-in phase's and both tp
      ranks' sampling, K3-K5's the train phase's, the opt-in phase's, the
      train loop's, the CLI's and both dp ranks'), the card's line, and the
@@ -285,6 +293,9 @@ B, L, D, H, FF = 8, 450, 512, 8, 1024  # serving shapes: CFG-doubled batch of 4
 HD = H * 64
 LM = 152  # cross-attention memory: 150 music rows + 2 time tokens
 REQUESTS, REQ_BATCH, CLIP_S = 3, 4, 5.0
+# the serving kernels of the default configuration, each 8 layers x 50
+# steps a sampling call: K1, K7 over the hoisted k/v (counted as K7) and K2
+DEFAULT_SITES = ("sa_block", "ca_block", "ff_tail")
 F32_PATH_TOL = 1e-3  # f32 whole 50-step path, kernels vs plain (sums in another order)
 SONG_S, SONG_SLICES, SONG_WINDOWS, SONG_FRAMES = 20.0, 7, 20, 600  # the generate phase's song
 DBN_WINDOW_TOL = 1e-5  # one DBN window, card vs CPU, share of its largest output
@@ -1020,6 +1031,86 @@ def compare_block_kernels(gen: torch.Generator) -> dict:
     return figures
 
 
+@torch.no_grad()
+def compare_ca_kv(gen: torch.Generator) -> dict:
+    """Phase 5b: K7 over the hoisted k/v (`ca_block.ca_kv`, the default's
+    cross-attention site) at the serving shape (b = 8) and at the
+    benchmark's 256 rows (128 clips under CFG): L = 450, 150 music rows and
+    2 time rows (a strided view of all layers' projections, as the
+    decoder's hoist makes them), d = 512, 8 x 64 heads. In bf16 and f32
+    against its plain version; in bf16 its device time beside its bound
+    (q and fc 4 M d hd, the attention 4 rows L Lk hd; x, the k/v, the
+    weights and the output once), the plain site's (the decoder layer's
+    cross-attention with ca_block off: PyTorch's kernels over the joined
+    k/v, FiLM outside) and K7 over a memory of the same 152 rows (its k/v
+    projections included), both bf16 paths' distance to the plain version
+    in f32 (the kernel's no wider than the site's or its bf16 tolerance);
+    and one call's device kernels by name: 3, every one hand-written, none
+    named attn_* (the self-attention's name, which attn_roofline.sample
+    counts). Returns {rows: figures}."""
+    from tcdiff_torch.models.dance_decoder import FiLMTransformerDecoderLayer, _joined, featurewise_affine
+
+    dev, lm = "cuda", LM - 2
+    rnd = lambda *shape, std=1.0: torch.randn(shape, generator=gen, device=dev) * std
+    torch.manual_seed(0)
+    site = FiLMTransformerDecoderLayer(D, H, FF).to(dev).eval()
+    ca, norm, plain = site.multihead_attn, site.norm2, ServingKernels(ca_block=False)
+    angles = angle_table(L, D, dev)
+    out = {}
+    for rows in (B, 256):
+        for dtype in (torch.bfloat16, torch.float32):
+            w = lambda m: m.weight.to(dtype)
+            x, t = rnd(rows, L, D).to(dtype), rnd(rows, D).to(dtype)
+            fs, fb = site.film2(t)
+            hoist = lambda: torch.einsum("btd,lhd->lbth", rnd(rows, 2, D).to(dtype),
+                                         rnd(LAYERS, HD, D, std=D**-0.5).to(dtype))[3]
+            kv = (rnd(rows, lm, HD).to(dtype), rnd(rows, lm, HD).to(dtype), hoist(), hoist())
+            args = (x, norm.weight, norm.bias, angles, *kv, w(ca.w_qs), w(ca.fc), ca.layer_norm.weight,
+                    ca.layer_norm.bias, fs.float(), fb.float())
+            kernel = lambda args=args: ca_block.ca_kv(*args, nhead=H)
+            M, Lk = rows * L, LM
+            flops = 4 * M * D * HD + 4 * rows * L * Lk * HD
+            io = 2 * nbytes(x) + nbytes(*kv, args[8], args[9]) + 2 * L * D * x.element_size()
+            label = f"{rows} rows"
+            measure(out, label, "ca_kv", dtype, kernel, lambda args=args: ca_block.ca_kv_plain(*args, nhead=H),
+                    flops, io, main=True)
+            if dtype != torch.bfloat16:
+                continue
+
+            def site_plain(x=x, kv=kv, fs=fs, fb=fb):
+                q = ca.cross_q(x, norm, angles, plain, fused=False)
+                return x + featurewise_affine(ca.attend(q, *_joined(kv), plain), (fs, fb))
+
+            mem = rnd(rows, LM, D).to(dtype)
+            k7 = (x, norm.weight, norm.bias, angles, mem, apply_rotary(mem, angle_table(LM, D, dev)), w(ca.w_qs),
+                  w(ca.w_ks), w(ca.w_vs), w(ca.fc), ca.layer_norm.weight, ca.layer_norm.bias, fs.float(), fb.float())
+            # both bf16 paths against the plain version in f32 on the same (rounded) operands: the site
+            # rounds at more points (its fc output before the LayerNorm, its logits, its FiLM residual)
+            ref32 = ca_block.ca_kv_plain(*(a.float() if torch.is_tensor(a) else a for a in args), nhead=H)
+            err, site_err = ((f().float() - ref32).abs().max().item() for f in (kernel, site_plain))
+            site_ms = device_ms(site_plain, reps=10)
+            k7_ms = device_ms(lambda: ca_block.ca_block(*k7, nhead=H), reps=10)
+            _, kernels = device_kernels(kernel, accept=lambda ks: len(ks) == 3, attempts=10)
+            names = [re.sub(r"<.*$", "", n).split("::")[-1] for n, _, _ in kernels]
+            fig = out[label]
+            print(f"K7 over the hoisted k/v, {label} bf16: device {fig['device_ms']:.4f} ms (bound "
+                  f"{fig['bound_ms']:.4f} ms, {fig['bound_by']}; {100 * fig['bound_ms'] / fig['device_ms']:.1f}% of "
+                  f"it); the plain site {site_ms:.4f} ms ({site_ms / fig['device_ms']:.2f}x); max_abs_diff to f32 "
+                  f"{err:.3e}, the plain site's {site_err:.3e}; K7 over a memory of {LM} rows {k7_ms:.4f} ms; "
+                  f"device kernels a call: "
+                  + ", ".join(f"{n} {e - s0:.1f} us" for n, (_, s0, e) in zip(names, kernels)))
+            check(len(kernels) == 3 and all("tcd::" in n for n, _, _ in kernels),
+                  f"K7 over the hoisted k/v ran {len(kernels)} device kernels, not 3 hand-written ones: {names}")
+            check(not any(n.startswith("attn_") for n in names), f"K7 over the hoisted k/v launched {names}")
+            check(err <= max(site_err, tolerance(dtype, ref32)), f"K7 over the hoisted k/v, {label}: {err} off f32, "
+                  f"the plain site {site_err}")
+            fig.update(plain_site_device_ms=site_ms, k7_memory_device_ms=k7_ms, device_kernels=names,
+                       err_to_f32=err, plain_site_err_to_f32=site_err)
+    del site
+    torch.cuda.empty_cache()
+    return out
+
+
 def layer_launches(args, include_ff: bool, flops: float) -> dict:
     """K6 in bf16: its device time (calls queued back to back) beside the
     per-call time `measure` took, and one call under torch.profiler (FiLM
@@ -1045,19 +1136,21 @@ def layer_launches(args, include_ff: bool, flops: float) -> dict:
 
 # The block kernels' configurations: (label, ServingKernels, the expected
 # launches of one 50-step request over 8 layers). K6 runs on every layer but
-# the CFG-dedup layer 0, which keeps K1 and K2; K2b and K7 run on every
-# layer, K7 only where the k/v cache is off.
+# the CFG-dedup layer 0, which keeps K1, K7 over the hoisted k/v and K2;
+# K2b and K7 run on every layer, K7 over the memory where the k/v cache is
+# off (`ca_block` counts both forms).
 STEPS, LAYERS = DiffusionConfig().sampling_timesteps, DanceDecoderConfig().num_layers
 BLOCK_CONFIGS = (
     ("layer_fuse", ServingKernels(layer_fuse=True),
-     dict(layer=(LAYERS - 1) * STEPS, sa_block=STEPS, ff_tail=STEPS)),
+     dict(layer=(LAYERS - 1) * STEPS, sa_block=STEPS, ca_block=STEPS, ff_tail=STEPS)),
     ("layer_fuse, layer_fuse_ff off", ServingKernels(layer_fuse=True, layer_fuse_ff=False),
-     dict(layer=(LAYERS - 1) * STEPS, sa_block=STEPS, ff_tail=LAYERS * STEPS)),
-    ("ff_tail off", ServingKernels(ff_tail=False), dict(sa_block=LAYERS * STEPS, ff_block=LAYERS * STEPS)),
+     dict(layer=(LAYERS - 1) * STEPS, sa_block=STEPS, ca_block=STEPS, ff_tail=LAYERS * STEPS)),
+    ("ff_tail off", ServingKernels(ff_tail=False),
+     dict(sa_block=LAYERS * STEPS, ca_block=LAYERS * STEPS, ff_block=LAYERS * STEPS)),
     ("ff_tail off, fuse_film", ServingKernels(ff_tail=False, fuse_film=True),
-     dict(sa_block=LAYERS * STEPS, ff_block=LAYERS * STEPS)),
+     dict(sa_block=LAYERS * STEPS, ca_block=LAYERS * STEPS, ff_block=LAYERS * STEPS)),
     ("ff_tail off, ln_matmul", ServingKernels(ff_tail=False, ln_matmul=True),
-     dict(sa_block=LAYERS * STEPS, ff_block=LAYERS * STEPS, ln_matmul=LAYERS * STEPS)),
+     dict(sa_block=LAYERS * STEPS, ca_block=LAYERS * STEPS, ff_block=LAYERS * STEPS, ln_matmul=LAYERS * STEPS)),
     ("ca_block, k/v cache off", ServingKernels(ca_block=True, kv_cache=False),
      dict(sa_block=LAYERS * STEPS, ff_tail=LAYERS * STEPS, ca_block=LAYERS * STEPS)),
 )
@@ -1613,15 +1706,15 @@ def serve(gen: torch.Generator) -> dict:
     outs = [diff.ddim_sample(shape, cond, generator=gen, x_0=x_0) for cond, x_0 in reqs]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"sa_block": sa_block.sa_block.launches, "ff_tail": ff_block.ff_tail.launches}
+    launches = {name: n for name, n in serving_launches().items() if n}
 
     for out, (_, x_0) in zip(outs, reqs):
         check_output(out, x_0, shape)
     want = cfg.num_layers * dcfg.sampling_timesteps * REQUESTS
     print(f"main path: {REQUESTS} requests of batch {REQ_BATCH}, bf16: launches {launches} "
-          f"(expected {want} each)")
-    for name, n in launches.items():
-        check(n == want, f"{name} launched {n} times, expected {want}")
+          f"(expected {want} each of {', '.join(DEFAULT_SITES)})")
+    check(launches == dict.fromkeys(DEFAULT_SITES, want), f"main path launches {launches}, expected {want} each of "
+          f"{DEFAULT_SITES}")
     per_req = seconds / REQUESTS
     motion = REQUESTS * REQ_BATCH * CLIP_S
     print(f"main path: {per_req:.3f} s per request, {motion / seconds:.2f} s-motion/s (bf16, kernels)")
@@ -1901,7 +1994,7 @@ def serve_generate(gen: torch.Generator, card: str) -> dict:
               f"generate: {n} slices, {report['windows']} windows, {traj.shape[1]} frames, expected "
               f"{SONG_SLICES}, {SONG_WINDOWS}, {SONG_FRAMES}")
         check_output(out, report["x_0"], (n, cfg.tokens, cfg.nfeats))
-        want = dict.fromkeys(("sa_block", "ff_tail"), cfg.num_layers * dcfg.sampling_timesteps)
+        want = dict.fromkeys(DEFAULT_SITES, cfg.num_layers * dcfg.sampling_timesteps)
         print(f"generate: launches {counts} (expected {want})")
         check(counts == want, f"generate: launches {counts}, expected {want}")
         print_profile("generate request from its features (the DBN, Kalman and the sampling)",
@@ -2225,10 +2318,14 @@ def int8_products(card: str, gen: torch.Generator) -> None:
 def serving_options(card: str, gen: torch.Generator) -> dict:
     """The opt-in phase's serving part: full-width bf16 requests (batch
     REQ_BATCH, CFG-doubled, 50-step DDIM, w = 2) on one injected noise:
-    the default; ServingKernels(int8=True) (its relative error against the
-    default in (0, INT8_REL_BOUND)); ln_bf16 on (its largest difference
-    from the default), with one LayerNorm site held against the CPU.
-    Returns K1's and K2's launches over these requests."""
+    the default; ServingKernels(int8=True) (its relative error in (0,
+    INT8_REL_BOUND) against the default with the plain cross-attention,
+    ca_block off: the int8 path runs that site plain, its fc in int8, so
+    the pair differs by int8 alone at that site; against the default
+    itself, K7 over the hoisted k/v, printed too); ln_bf16 on (its largest
+    difference from the default), with one LayerNorm site held against
+    the CPU. Returns K1's, K7's and K2's launches over the default's and
+    ln_bf16's requests."""
     cfg = DanceDecoderConfig(dancer_num=3)
     dcfg = DiffusionConfig()
     model = DanceDecoder(cfg, dtype=torch.bfloat16).init_random(torch.Generator().manual_seed(0))
@@ -2253,28 +2350,30 @@ def serving_options(card: str, gen: torch.Generator) -> dict:
 
     request(ServingKernels(int8=True))  # warm-up: quantizes the weights once
     ref, ref_s, ref_counts, _ = request(ServingKernels())
+    base = request(ServingKernels(ca_block=False))[0]
     q, q_s, q_counts, q_mm = request(ServingKernels(int8=True))
     ln, ln_s, ln_counts, _ = request(ServingKernels(), ln_bf16=True)
     model.kernels, model.ln_bf16 = ServingKernels(), False
     steps = cfg.num_layers * dcfg.sampling_timesteps
-    rel = ((q - ref).norm() / ref.norm()).item()
-    # one CFG forward, int8 against the default: the model-level error the bound is for
+    rel, rel_k7 = (((q - r).norm() / r.norm()).item() for r in (base, ref))
+    # one CFG forward, int8 against the default with ca_block off: the model-level error the bound is for
     x = torch.randn(shape, generator=gen, device="cuda")
     t_vec = torch.full((REQ_BATCH,), 500, device="cuda", dtype=torch.int32)
     fwd = {}
-    for kernels in (ServingKernels(), ServingKernels(int8=True)):
+    for kernels in (ServingKernels(ca_block=False), ServingKernels(int8=True)):
         model.kernels = kernels
         with torch.no_grad():
             fwd[kernels.int8] = diff.guided(x, cond, t_vec, 2.0, cond_cache=diff.encode_cond_cfg(cond))
     model.kernels = ServingKernels()
     fwd_rel = ((fwd[True] - fwd[False]).norm() / fwd[False].norm()).item()
     print(f"int8 request on {card}: bf16, batch {REQ_BATCH}, 50 steps: {q_s:.3f} s against the default's "
-          f"{ref_s:.3f} s; relative error against the default {rel:.4f} (bound {INT8_REL_BOUND}; one CFG forward "
-          f"{fwd_rel:.4f}); int8 products {q_mm} (expected {8 * steps}: self-attention q, k, v, fc, "
-          f"cross-attention fc and FF linear1-3 a layer and step); block kernel launches {q_counts or 'none'}")
+          f"{ref_s:.3f} s; relative error against the default with ca_block off {rel:.4f} (bound {INT8_REL_BOUND}; "
+          f"one CFG forward {fwd_rel:.4f}), against the default {rel_k7:.4f}; int8 products {q_mm} (expected "
+          f"{8 * steps}: self-attention q, k, v, fc, cross-attention fc and FF linear1-3 a layer and step); block "
+          f"kernel launches {q_counts or 'none'}")
     check(0 < rel < INT8_REL_BOUND, f"int8 request: relative error {rel} outside (0, {INT8_REL_BOUND})")
     check(q_mm == 8 * steps and not q_counts, f"int8 request: {q_mm} int8 products, kernels {q_counts}")
-    want = {"sa_block": steps, "ff_tail": steps}
+    want = dict.fromkeys(DEFAULT_SITES, steps)
     check(ref_counts == want and ln_counts == want, f"default/ln_bf16 launches {ref_counts} {ln_counts}")
 
     diff_max = (ln - ref).abs().max().item()
@@ -2287,7 +2386,7 @@ def serving_options(card: str, gen: torch.Generator) -> dict:
     norm.ln_bf16 = False
     site_err, site_tol = (site - site_cpu).abs().max().item(), 2.0**-5 * site_cpu.abs().max().item()
     print(f"LN-bf16 request on {card}: {ln_s:.3f} s against the default's {ref_s:.3f} s; largest difference from "
-          f"the default {diff_max:.4e} (outputs in [-1, 1]); K1/K2 launches {ln_counts}; one LayerNorm site "
+          f"the default {diff_max:.4e} (outputs in [-1, 1]); K1/K7/K2 launches {ln_counts}; one LayerNorm site "
           f"({B}x{L}x{D} bf16, norm3) card against the CPU: max_abs_diff {site_err:.3e} (tol {site_tol:.3e})")
     check(site_err <= site_tol, f"LN-bf16 site: the card disagrees with the CPU ({site_err} > {site_tol})")
     check(diff_max > 0, "LN-bf16 changed nothing in a bf16 request")
@@ -2298,7 +2397,7 @@ def serving_options(card: str, gen: torch.Generator) -> dict:
 
 def opt_in_phase(card: str, gen: torch.Generator) -> dict:
     """Phase 12b: the JAX package's opt-in configurations. Returns the
-    block kernels' launches ({"serving": K1/K2, "train": K3-K5 (fwd, bwd)})."""
+    block kernels' launches ({"serving": K1/K7/K2, "train": K3-K5 (fwd, bwd)})."""
     t0 = time.perf_counter()
     train = remat_runs(card)
     for name, (fwd, bwd) in trpe_step(card).items():
@@ -2529,15 +2628,18 @@ def data_phase(card: str, work: str):
 
 
 def cli_launches(before: dict, label: str, calls: int) -> dict:
-    """The serving kernels' launches since `before`: K1 and K2 each 8 layers
-    x 50 DDIM steps a sampling call, no other serving kernel."""
+    """The serving kernels' launches since `before`: K1, K7 over the hoisted
+    k/v and K2 each 8 layers x 50 DDIM steps a sampling call, no other
+    serving kernel."""
     now = serving_launches()
     got = {name: now[name] - before[name] for name in now}
     want = DanceDecoderConfig().num_layers * DiffusionConfig().sampling_timesteps * calls
-    print(f"cli {label}: K1/K2 launches {got['sa_block']}/{got['ff_tail']} (expected {want} each: {calls} "
-          f"sampling call(s)); other serving kernels {sum(got.values()) - got['sa_block'] - got['ff_tail']}")
-    check(got["sa_block"] == got["ff_tail"] == want, f"cli {label}: K1/K2 launched {got}, expected {want} each")
-    check(sum(got.values()) == 2 * want, f"cli {label}: another serving kernel ran: {got}")
+    mine = sum(got[name] for name in DEFAULT_SITES)
+    print(f"cli {label}: K1/K7/K2 launches {'/'.join(str(got[n]) for n in DEFAULT_SITES)} (expected {want} each: "
+          f"{calls} sampling call(s)); other serving kernels {sum(got.values()) - mine}")
+    check(all(got[name] == want for name in DEFAULT_SITES), f"cli {label}: K1/K7/K2 launched {got}, expected {want} "
+          f"each")
+    check(sum(got.values()) == mine, f"cli {label}: another serving kernel ran: {got}")
     return got
 
 
@@ -3063,14 +3165,14 @@ def check_dp_ranks(results: list, t_ranks: float) -> None:
                 check(all(f == b == want_train for f, b in counts.values()),
                       f"rank {r} {label}: K3-K5 launched {counts}, expected {want_train} each way")
             else:
-                check(counts["sa_block"] == counts["ff_tail"] == want_serving
-                      and sum(counts.values()) == 2 * want_serving,
-                      f"rank {r} {label}: serving launches {counts}, expected K1/K2 {want_serving} each")
+                check(all(counts[n] == want_serving for n in DEFAULT_SITES)
+                      and sum(counts.values()) == len(DEFAULT_SITES) * want_serving,
+                      f"rank {r} {label}: serving launches {counts}, expected K1/K7/K2 {want_serving} each")
     for key in ("train_torch.bfloat16", "train_torch.float32", "dbn", "dbn_f32"):
         digests = {res["errs"][key]["digest"] for res in results}
         check(len(digests) == 1, f"{key}: the ranks' parameters differ")
     print(f"dp: every rank's parameters and EMA bit-identical (sha256) after the bf16, f32 and DBN f64/f32 steps; "
-          f"K1/K2 {want_serving} launches a sampling call a rank, K3-K5 {want_train} each way for two steps a "
+          f"K1/K7/K2 {want_serving} launches a sampling call a rank, K3-K5 {want_train} each way for two steps a "
           f"rank; ranks {t_ranks:.1f} s wall", flush=True)
 
 
@@ -3231,7 +3333,7 @@ def tp_work(mesh, dtypes, plain: bool = True, comm: dict | None = None) -> dict:
 def tp_sample(device, tp: int) -> dict:
     """Normal-mode `TCDiff._sample` of TP_CLIPS clips from the full-width
     bf16 TCDiff of cfg.train.tp = tp (under tp, a whole serving model of the
-    gathered weights): the sample on the host and K1/K2's launches."""
+    gathered weights): the sample on the host and K1/K7/K2's launches."""
     runner = dp_tcdiff(device, tp=tp)
     cfg = runner.cfg.model
     g = torch.Generator(device="cuda").manual_seed(TP_SEED)
@@ -3369,7 +3471,7 @@ def check_tp_ranks(results: list, ref: dict, dp: int) -> None:
     (rank 0: each fault refused), K3-K5's launches (none: the tp layers run
     no train kernel), the parameters it holds, the state digests across the
     ranks and, at dp = 1, the tp sample bit-equal to one process's with
-    K1/K2 400 launches."""
+    K1/K7/K2 400 launches."""
     want_serving = DanceDecoderConfig().num_layers * DiffusionConfig().sampling_timesteps
     for r, res in enumerate(results):
         check((res["dp"], res["tp"]) == (dp, TP), f"tp rank {r}: mesh dp={res['dp']} tp={res['tp']}")
@@ -3410,8 +3512,9 @@ def check_tp_ranks(results: list, ref: dict, dp: int) -> None:
                   f"gathered weights) against one process: bit-equal {res['sample_equal']} (largest difference "
                   f"{res['sample_err']:.3e}); serving launches {counts}", flush=True)
             check(res["sample_equal"], f"tp rank {r}: the tp sample differs from one process's")
-            check(counts["sa_block"] == counts["ff_tail"] == want_serving and sum(counts.values()) == 2 * want_serving,
-                  f"tp rank {r}: serving launches {counts}, expected K1/K2 {want_serving} each")
+            check(all(counts[n] == want_serving for n in DEFAULT_SITES)
+                  and sum(counts.values()) == len(DEFAULT_SITES) * want_serving,
+                  f"tp rank {r}: serving launches {counts}, expected K1/K7/K2 {want_serving} each")
     for key in results[0]["errs"]:
         digests = {res["errs"][key]["digest"] for res in results}
         check(len(digests) == 1, f"tp (dp {dp}) {key}: the ranks' whole parameters and EMA differ")
@@ -3422,7 +3525,7 @@ def tp_phase(card: str, work: str) -> dict:
     (2, TP) mesh are spawned on the one card over gloo at once; this
     process computes the one-process references on the plain train path,
     then the tp ranks run (bf16 and f32 steps, TCDiff._sample), then the dp
-    x tp ranks (f32 steps). Returns K1/K2's launches in the tp ranks'
+    x tp ranks (f32 steps). Returns K1/K7/K2's launches in the tp ranks'
     sampling, summed over the ranks."""
     t_phase = time.perf_counter()
     print(f"tp: spawning {TP} ranks of a (1, {TP}) mesh and {2 * TP} of a (2, {TP}) mesh on card 0, backend gloo",
@@ -3474,7 +3577,7 @@ def tp_phase(card: str, work: str) -> dict:
                     proc.kill()
     print(f"tp phase on {card}: {time.perf_counter() - t_phase:.1f} s "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in times.items())}); K3-K5 0 launches on every tp rank, "
-          f"K1/K2 {DanceDecoderConfig().num_layers * DiffusionConfig().sampling_timesteps} a sampling call a rank",
+          f"K1/K7/K2 {DanceDecoderConfig().num_layers * DiffusionConfig().sampling_timesteps} a sampling call a rank",
           flush=True)
     return {k: sum(res["sample_launches"][k] for res in results[1]) for k in serving_launches()}
 
@@ -3505,6 +3608,7 @@ def main() -> int:
         figures.update(compare_serving_ops(gen))
         figures["layernorm"].update(compare_ln_rows(gen))
         figures.update(compare_block_kernels(gen))
+        figures["ca_block"]["over_cache"] = compare_ca_kv(gen)
         for name, extra in compare_wgmma_kernels(gen).items():
             figures[name].update(extra, wgmma_products=wgmma_products[name])
         figures.update(compare_train_kernels(gen))
@@ -3526,7 +3630,8 @@ def main() -> int:
             launches[name] += n
         print(f"generate phase took {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        launches.update(serve_block_configs(gen, card))
+        for name, n in serve_block_configs(gen, card).items():
+            launches[name] = launches.get(name, 0) + n
         print(f"block-kernel configurations took {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         train_counts = train(card)

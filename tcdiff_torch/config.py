@@ -56,13 +56,23 @@ class ServingKernels:
     off runs as plain PyTorch math, the counterpart of the JAX package's
     XLA code there.
 
+    `ca_block` (TCDIFF_PALLAS_XAB) is K7 at the cross-attention site, in
+    the form the site takes: over the hoisted k/v (`ops.ca_block.ca_kv`,
+    the FiLM residual inside) or, with the k/v cache off, over the memory
+    (`ops.ca_block.ca_block`). Unset, it is on unless the plain site is
+    the configuration's point: off under `int8` (the plain site's fc is
+    int8) and in the per-op configuration (`ln_rotary`, `attention` or
+    `layernorm` on: K8, K11 and K10 take that site's pieces). So, unlike
+    the JAX package, whose XLA code runs the site over the hoisted k/v,
+    the default runs K7 there.
+
     `int8` (TCDIFF_INT8) runs the decoder layers' projections on the plain
     sites through `ops.int8.int8_dense` (per-channel int8 weights,
     per-token int8 activations, int32 sums). With it on, `sa_block`,
-    `ff_block` and `ff_tail` default to off, as the JAX package's
-    `_flag_default_on_tpu` turns them off, so that the int8 projections
-    are not shadowed by the bf16 block kernels; one set to True
-    explicitly still wins, with a one-time warning.
+    `ff_block`, `ff_tail` and `ca_block` default to off, as the JAX
+    package's `_flag_default_on_tpu` turns them off, so that the int8
+    projections are not shadowed by the bf16 block kernels; one set to
+    True explicitly still wins, with a one-time warning.
 
     Every combination runs: the port has each kernel a combination selects.
     The rule stays that a combination whose kernel were missing would raise,
@@ -80,17 +90,18 @@ class ServingKernels:
     kv_cache: bool = True  # TCDIFF_KV_CACHE: the hoisted cross-attention k/v
     layer_fuse: bool = False  # TCDIFF_LAYER_FUSE: K6, where the k/v are hoisted and no trj_dist is given
     layer_fuse_ff: bool = True  # TCDIFF_LAYER_FUSE_FF: K6 through the FF tail; off, K2 finishes the layer
-    ca_block: bool = False  # TCDIFF_PALLAS_XAB: K7 (shadowed by the k/v cache)
+    ca_block: Optional[bool] = None  # TCDIFF_PALLAS_XAB: K7 (None: on, off under int8 and per-op)
     int8: bool = False  # TCDIFF_INT8: int8 projections on the plain sites
 
     def __post_init__(self):
         if self.attention not in (0, 1, 2):
             raise ValueError(f"attention must be 0, 1 or 2, got {self.attention}")
+        per_op = self.ln_rotary or self.layernorm or bool(self.attention)
         for name, flag in (("sa_block", "TCDIFF_PALLAS_SAB"), ("ff_block", "TCDIFF_PALLAS_FFB"),
-                           ("ff_tail", "TCDIFF_PALLAS_FFT")):
+                           ("ff_tail", "TCDIFF_PALLAS_FFT"), ("ca_block", "TCDIFF_PALLAS_XAB")):
             value = getattr(self, name)
             if value is None:
-                object.__setattr__(self, name, not self.int8)
+                object.__setattr__(self, name, not (self.int8 or (name == "ca_block" and per_op)))
             elif value and self.int8 and flag not in _WARNED_INT8_SHADOW:
                 _WARNED_INT8_SHADOW.add(flag)
                 warnings.warn(f"TCDIFF_INT8=1 with {flag}=1: the bf16 block kernel takes this site, so int8 "
@@ -120,7 +131,7 @@ class ServingKernels:
             kv_cache=_env_flag(env, "TCDIFF_KV_CACHE", True),
             layer_fuse=_env_flag(env, "TCDIFF_LAYER_FUSE", False),
             layer_fuse_ff=_env_flag(env, "TCDIFF_LAYER_FUSE_FF", True),
-            ca_block=_env_flag(env, "TCDIFF_PALLAS_XAB", False),
+            ca_block=block("TCDIFF_PALLAS_XAB"),
             int8=_env_flag(env, "TCDIFF_INT8", False),
         )
 

@@ -1,7 +1,7 @@
 // Launch sequences of the serving blocks, shared by the block kernels
-// (sa_block.cu K1, ff_tail.cu K2, ff_block.cu K2b, ca_block.cu K7) and the
-// whole decoder layer (layer.cu K6), which runs K1's, the cross-attention's
-// and K2's steps back to back on one stream.
+// (sa_block.cu K1, ff_tail.cu K2, ff_block.cu K2b, ca_block.cu K7 in both
+// its forms) and the whole decoder layer (layer.cu K6), which runs K1's,
+// the cross-attention's and K2's steps back to back on one stream.
 //
 // Each sequence is a few hand-written launches on the stream it is given:
 // LayerNorm row kernels (ln_rows of common.cuh, f32 statistics),
@@ -106,24 +106,32 @@ void cross_attend(const T* r, const T* k, const T* v, int Lm, const T* wq, int B
   heads_attention<T>(q, k, v, o, B, L, Lm, hd, nhead, nullptr, nullptr, st);
 }
 
+// The cross-attention's q from the raw residual: q = T(rot(LN(x; eps1))).Wq
+// over M rows. bf16: one launch with the LayerNorm and the rotary in its
+// prologue (gemm_lnrot; r unused); f32: r = rot(LN(x)) by the row kernel,
+// then the product: 2 launches.
+template <typename T>
+void cross_q(const T* x, const float* s1, const float* b1, float eps1, const T* cos_t, const T* ssin_t,
+             const T* wq, int M, int L, int d, int hd, T* r, T* q, cudaStream_t st) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    gemm_lnrot<T>(x, s1, b1, eps1, cos_t, ssin_t, L, wq, M, hd, d, q, st);
+  } else {
+    ln_rows<T, T>(x, s1, b1, eps1, M, d, L, cos_t, ssin_t, nullptr, nullptr, nullptr, nullptr, r, st);
+    gemm<T, EPI_STORE>(r, wq, M, hd, d, epi(q), st);
+  }
+}
+
 // The query side of cross-attention against projected k, v (B, Lm, hd):
-// q = rot(LN(x; eps1)).Wq; the attention; fc; LN(eps2) [+ FiLM residual].
-// K7 after its k/v projections. bf16: q in one launch with the LayerNorm
-// and the rotary in its prologue (gemm_lnrot; r unused), 3 launches in
-// all; f32: r = rot(LN(x)) by the row kernel, then cross_attend, 5.
+// cross_q; the attention; fc; LN(eps2) [+ FiLM residual]. K7 after its
+// k/v projections: 3 launches in bf16, 5 in f32.
 template <typename T>
 void cross_attention(const T* x, const float* s1, const float* b1, const T* cos_t,
                      const T* ssin_t, const T* k, const T* v, int Lm, const T* wq, const T* wfc,
                      const float* s2, const float* b2, const float* fs, const float* fb, int B,
                      int L, int d, int hd, int nhead, float eps1, float eps2, T* r, T* q, T* o,
                      float* z, T* out, cudaStream_t st) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    gemm_lnrot<T>(x, s1, b1, eps1, cos_t, ssin_t, L, wq, B * L, hd, d, q, st);
-    heads_attention<T>(q, k, v, o, B, L, Lm, hd, nhead, nullptr, nullptr, st);
-  } else {
-    ln_rows<T, T>(x, s1, b1, eps1, B * L, d, L, cos_t, ssin_t, nullptr, nullptr, nullptr, nullptr, r, st);
-    cross_attend<T>(r, k, v, Lm, wq, B, L, d, hd, nhead, q, o, st);
-  }
+  cross_q<T>(x, s1, b1, eps1, cos_t, ssin_t, wq, B * L, L, d, hd, r, q, st);
+  heads_attention<T>(q, k, v, o, B, L, Lm, hd, nhead, nullptr, nullptr, st);
   fc_post_ln<T>(o, wfc, s2, b2, x, fs, fb, B, L, d, hd, eps2, z, out, st);
 }
 

@@ -34,9 +34,10 @@ force_float32_reductions=False (the kernels' LayerNorms stay f32).
 Each decoder layer's blocks run through `tcdiff_torch.ops` (CUDA kernels
 for CUDA tensors, plain versions for CPU tensors). On serving,
 `ServingKernels` (the model's `kernels`) chooses per site, as the JAX
-package's flags do: by default the self-attention block (K1) and the FF
-block + tail (K2), with cross-attention plain tensor math over the hoisted
-k/v; the FF block without its tail (K2b); the cross-attention block (K7)
+package's flags do: by default the self-attention block (K1), the
+cross-attention block (K7) over the hoisted k/v (`ca_kv`: the music rows'
+and the time rows' k/v read apart, the FiLM residual inside) and the FF
+block + tail (K2); the FF block without its tail (K2b); K7 over the memory
 where the k/v are not hoisted; the whole layer (K6) over the hoisted k/v;
 in the per-op configuration LN -> rotary -> q/k/v (K8), attention (K11,
 also in the cond encoder), the post-attention LayerNorms (K10) and the
@@ -51,7 +52,7 @@ sends it to XLA, and K4 and K5 still run.
 
 While a torch.profiler session records (`utils/profiling.span`), each
 decoder layer is the span `decoder.layer` (attr `i`), the plain
-cross-attention over the hoisted k/v `ca.plain`, and each kernel's entry
+cross-attention (int8, per-op, TCDIFF_PALLAS_XAB=0) `ca.plain`, and each kernel's entry
 in `tcdiff_torch.ops` its own span, whichever path it takes
 (`k1.sa_block`, `k2.ff_tail`, `k2b.ff_block`, `k6.layer`, `k7.ca_block`,
 `k8.ln_rotary_matmul`, `k9.ln_matmul`, `k10.layernorm`, `k11.attention`;
@@ -233,6 +234,13 @@ class TrainDraws(NamedTuple):
     ca: torch.Tensor
     ff: torch.Tensor
     sa_keep: Optional[Tuple[Optional[torch.Tensor], ...]] = None
+
+
+def _joined(kv):
+    """(k, v) over the music rows, then the time rows, of a layer's hoisted
+    kv = (k_mem, v_mem, k_time, v_time)."""
+    k_mem, v_mem, k_time, v_time = kv
+    return torch.cat([k_mem, k_time], dim=1), torch.cat([v_mem, v_time], dim=1)
 
 
 def _heads(t: torch.Tensor, nhead: int) -> torch.Tensor:
@@ -445,7 +453,7 @@ class FiLMTransformerDecoderLayer(nn.Module):
     `forward_train`.
 
     `sa_block_fn` / `ff_tail_fn` / `ff_block_fn` / `ca_block_fn` /
-    `layer_fn` / `ln_matmul_fn` (serving) and
+    `ca_kv_fn` / `layer_fn` / `ln_matmul_fn` (serving) and
     `sa_train_fn` / `ca_train_fn` / `ff_train_fn` (training) are the kernel
     functions this layer calls; they default to the dispatching wrappers of
     `tcdiff_torch.ops`.
@@ -475,6 +483,7 @@ class FiLMTransformerDecoderLayer(nn.Module):
         self.ff_tail_fn = ff_block.ff_tail
         self.ff_block_fn = ff_block.ff_block
         self.ca_block_fn = ca_block.ca_block
+        self.ca_kv_fn = ca_block.ca_kv
         self.layer_fn = fused_layer
         self.ln_matmul_fn = ln_matmul.ln_matmul
         self.sa_train_fn = sa_block_train.sa_block_train
@@ -483,8 +492,9 @@ class FiLMTransformerDecoderLayer(nn.Module):
 
     def forward(self, x, memory, t, traj_emb, shared_emb, trj_dist=None, *,
                 kv=None, tile_sa=False, kernels: ServingKernels = ServingKernels()):
-        """x (b, L, d); t (B, d); memory (B, Lm, d) or None with kv = (k, v)
-        per-layer cross-attention projections (B, Lm, h*dk). tile_sa: x,
+        """x (b, L, d); t (B, d); memory (B, Lm, d) or None with kv = (k of
+        the music rows, their v, k of the time rows, their v), the layer's
+        cross-attention projections (B, rows, h*dk). tile_sa: x,
         traj_emb and trj_dist arrive at half batch (CFG dedup). `kernels`
         chooses the kernel or the plain math at each site, as the JAX
         package's layer does (`tcdiff_tpu/models/dance_decoder.py:715-1062`)."""
@@ -510,7 +520,7 @@ class FiLMTransformerDecoderLayer(nn.Module):
         head = (x, angles, self.norm1.weight, self.norm1.bias, w(sa.w_qs), w(sa.w_ks), w(sa.w_vs), w(sa.fc),
                 sa.layer_norm.weight, sa.layer_norm.bias, *self.film1(t),
                 self.norm2.weight, self.norm2.bias, w(ca.w_qs), w(ca.fc), ca.layer_norm.weight,
-                ca.layer_norm.bias, *kv, *self.film2(t))
+                ca.layer_norm.bias, *_joined(kv), *self.film2(t))
         ff = (self.norm3.weight, self.norm3.bias, w(self.linear1), self.linear1.bias, w(self.linear2),
               self.linear2.bias, *self.film3(t), self.norm4.weight, self.norm4.bias, w(self.linear3),
               self.linear3.bias)
@@ -542,15 +552,19 @@ class FiLMTransformerDecoderLayer(nn.Module):
         return x + featurewise_affine(s, (fs, fb)), traj_emb
 
     def _cross_attention(self, x, memory, t, kv, angles, fuse_film, kernels: ServingKernels):
-        """x + FiLM(cross-attention to the music/time tokens): over the
-        hoisted k/v where given, else K7 where `kernels.ca_block`, else the
-        plain math with K8's rot-only query where `kernels.ln_rotary`."""
+        """x + FiLM(cross-attention to the music/time tokens): K7 where
+        `kernels.ca_block`, over the hoisted k/v where given (FiLM inside)
+        or else over the memory; else the plain math, with K8's rot-only
+        query where `kernels.ln_rotary` and no k/v are given."""
         ca = self.multihead_attn
         fs, fb = self.film2(t)
+        w = lambda m: m.weight.to(x.dtype)
+        if kv is not None and kernels.ca_block:
+            return self.ca_kv_fn(x, self.norm2.weight, self.norm2.bias, angles, *kv, w(ca.w_qs), w(ca.fc),
+                                 ca.layer_norm.weight, ca.layer_norm.bias, fs, fb, nhead=self.n_head)
         if kv is None:
             rot_mem = apply_rotary(memory, angle_table(memory.shape[-2], memory.shape[-1], x.device))
             if kernels.ca_block:
-                w = lambda m: m.weight.to(x.dtype)
                 args = (x, self.norm2.weight, self.norm2.bias, angles, memory, rot_mem,
                         w(ca.w_qs), w(ca.w_ks), w(ca.w_vs), w(ca.fc), ca.layer_norm.weight, ca.layer_norm.bias)
                 if fuse_film:
@@ -563,7 +577,7 @@ class FiLMTransformerDecoderLayer(nn.Module):
                 q8 = kernels.int8 and not kernels.ln_rotary
                 k, v = _proj(ca.w_ks, rot_mem, q8), _proj(ca.w_vs, memory, q8)
             else:
-                k, v = kv
+                k, v = _joined(kv)
             return x + featurewise_affine(ca.attend(q, k, v, kernels), (fs, fb))
 
     def _feed_forward(self, x, t, fuse_film, kernels: ServingKernels):
@@ -679,7 +693,7 @@ class FiLMTransformerDecoderLayer(nn.Module):
 
 
 # the train path's plain sites (TRPE self-attention): no serving kernel, no int8
-_PLAIN = ServingKernels(sa_block=False, ff_block=False, kv_cache=False)
+_PLAIN = ServingKernels(sa_block=False, ff_block=False, kv_cache=False, ca_block=False)
 
 
 class _DecoderStack(nn.Module):
@@ -916,7 +930,7 @@ class DanceDecoder(nn.Module):
                 kv = None
                 if hoisted:
                     kct, vct = cond_cache.kv[i]
-                    kv = (torch.cat([kct.to(dt), kt_all[i]], dim=1), torch.cat([vct.to(dt), vt_all[i]], dim=1))
+                    kv = (kct.to(dt), vct.to(dt), kt_all[i], vt_all[i])
                 tile = cfg_pair and i == 0
                 h = layer(h, memory, t, traj_emb, shared_emb, trj_dist, kv=kv, tile_sa=tile, kernels=self.kernels)
                 if tile:

@@ -13,7 +13,7 @@ from __future__ import annotations
 import contextlib
 
 from tcdiff_torch.ops.attention import attention_plain
-from tcdiff_torch.ops.ca_block import ca_block_plain
+from tcdiff_torch.ops.ca_block import ca_block_plain, ca_kv_plain
 from tcdiff_torch.ops.ca_block_train import ca_block_train_plain
 from tcdiff_torch.ops.ff_block import ff_block_plain, ff_tail_plain
 from tcdiff_torch.ops.ff_block_train import ff_tail_train_plain
@@ -29,6 +29,7 @@ _PLAIN = {
     "ff_tail_fn": ff_tail_plain,
     "ff_block_fn": ff_block_plain,
     "ca_block_fn": ca_block_plain,
+    "ca_kv_fn": ca_kv_plain,
     "layer_fn": layer_plain,
     "ln_matmul_fn": ln_matmul_plain,
     "ln_rotary_fn": ln_rotary_matmul_plain,

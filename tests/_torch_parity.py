@@ -6,10 +6,12 @@ A small config (2 layers, d=64, 4 heads x 16, 16 frames x 3 dancers), f32;
 tolerance 3e-5 abs/rel (the paths differ only in the order of f32 sums);
 timesteps below 64 (see tests/test_torch_dance_decoder.py). Each case is
 one set of the JAX package's serving flags over `BASE` (K1 and K2 on, as
-on the TPU); the JAX Pallas kernels run in interpret mode, and the flags
-are read while the JAX code traces, so a test sets them before each call.
-The port runs `ServingKernels.from_env` of the same flags on CPU tensors,
-which take the kernels' plain versions.
+on the TPU; TCDIFF_PALLAS_XAB unset, so that each package runs its own
+default there: the JAX package XLA's code over the hoisted k/v, the port
+K7 over them); the JAX Pallas kernels run in interpret mode, and the
+flags are read while the JAX code traces, so a test sets them before each
+call. The port runs `ServingKernels.from_env` of the same flags on CPU
+tensors, which take the kernels' plain versions.
 """
 
 import numpy as np
@@ -35,7 +37,7 @@ TOL = dict(atol=3e-5, rtol=3e-5)
 BASE = {"TCDIFF_PALLAS_SAB": "1", "TCDIFF_PALLAS_FFB": "1", "TCDIFF_PALLAS_FFT": "1", "TCDIFF_FUSE_FILM": "0",
         "TCDIFF_PALLAS_LN": "0", "TCDIFF_PALLAS_LNMM": "0", "TCDIFF_PALLAS_LNROT": "0",
         "TCDIFF_PALLAS_ATTENTION": "0", "TCDIFF_KV_CACHE": "1", "TCDIFF_LAYER_FUSE": "0",
-        "TCDIFF_LAYER_FUSE_FF": "1", "TCDIFF_PALLAS_XAB": "0"}
+        "TCDIFF_LAYER_FUSE_FF": "1"}
 
 
 def use_flags(mp, flags: dict) -> ServingKernels:

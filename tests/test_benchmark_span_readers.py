@@ -73,7 +73,7 @@ def test_a_profiled_tiny_request_splits_its_steps_on_the_host_clock():
     root = TRACER.roots("sample.request")[-1]
     steps = [s for s in root.spans if s.name == "sample.step"]
     kernel = [s for s in root.spans if spans.KERNEL.match(s.name)]
-    assert len(kernel) == STEPS * CFG["num_layers"] * 2  # K1 and K2 a layer; nothing nested in them
+    assert len(kernel) == STEPS * CFG["num_layers"] * 3  # K1, K7 and K2 a layer; nothing nested in them
     step_ms = sum(s.host_ms for s in steps) / STEPS
     kernel_ms = sum(s.host_ms for s in kernel) / STEPS
     assert got["sampler_ms.sample"] + got["glue_ms.sample"] + kernel_ms == pytest.approx(step_ms, rel=1e-9)

@@ -8,6 +8,7 @@ largest output (q/k/v, attention weights and outputs are rounded to bf16).
 """
 
 import copy
+import time
 
 import pytest
 
@@ -650,12 +651,13 @@ def _serving_inputs(gen, dev, dtype):
     return r, w, ln, film
 
 
-def _check_serving(fn, plain, args, kw, dtype):
-    before = fn.launches
+def _check_serving(fn, plain, args, kw, dtype, counter=None):
+    counter = counter or fn  # the wrapper whose `launches` counts fn's launches
+    before = counter.launches
     out = fn(*args, **kw)
     ref = plain(*args, **kw)
     torch.cuda.synchronize()
-    assert fn.launches == before + 1
+    assert counter.launches == before + 1
     assert out.dtype == dtype and out.shape == ref.shape
     assert torch.isfinite(out).all().item()
     assert (out.float() - ref.float()).abs().max().item() <= _tol(dtype, ref)
@@ -730,6 +732,68 @@ def test_serving_block_kernels_refuse_what_they_do_not_take(dev):
         layer(*head(x, kv), nhead=4)
     with pytest.raises(TypeError):
         layer(*head(x.half(), kv), nhead=4, include_ff=False)
+
+
+# K7 over the hoisted k/v (ca_kv): the music rows' and the time rows' k/v
+# read apart, the FiLM residual inside. At the benchmark's shape (256 rows,
+# 128 clips under CFG: L = 450, 150 + 2 keys, d = 512, 8 x 64 heads), at
+# b = 8 (the serving shape of chip_smoke.py) and at lengths off the tiles
+# (37 queries, 38 + 2 and 250 + 6 keys, dk = 16); the time rows a strided
+# view of all layers' projections, as the decoder's hoist makes them.
+def _ca_kv_args(g, dev, dtype, b, l, lm, d=D, hd=128, nl=8, layer=3):
+    r = lambda *s, std=1.0: _rnd(g, dev, *s, std=std)
+    w = lambda o, i: r(o, i, std=i**-0.5).to(dtype)
+    ln = lambda: (1 + r(d, std=0.1), r(d, std=0.1))
+    time_rows = lambda: torch.einsum("btd,lhd->lbth", r(b, 2, d).to(dtype), r(nl, hd, d, std=d**-0.5).to(dtype))[layer]
+    return (r(b, l, d).to(dtype), *ln(), angle_table(l, d, dev), r(b, lm, hd).to(dtype), r(b, lm, hd).to(dtype),
+            time_rows(), time_rows(), w(hd, d), w(d, hd), *ln(), r(b, d, std=0.1), r(b, d, std=0.1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b, l, lm, d, hd, nhead", [(256, 450, 150, 512, 512, 8), (8, 450, 150, 512, 512, 8),
+                                                    (2, 37, 38, D, 128, H), (3, 100, 250, D, 64, 4)])
+def test_ca_kv_kernel_matches_plain(dev, dtype, b, l, lm, d, hd, nhead):
+    from tcdiff_torch.ops import ca_block as m
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    args = _ca_kv_args(g, dev, dtype, b, l, lm, d, hd)
+    if lm == 250:  # 256 keys, all a block holds: six time rows
+        args = args[:6] + tuple(torch.cat([t] * 3, dim=1) for t in args[6:8]) + args[8:]
+    _check_serving(m.ca_kv, m.ca_kv_plain, args, dict(nhead=nhead), dtype, counter=m.ca_block)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ca_kv_launches_no_attention_kernel(dev, dtype):
+    """One call: bf16 3 device kernels (q with its LayerNorm prologue, the
+    short-memory attention, fc with its LayerNorm and FiLM fold), f32 5,
+    every one hand-written and none named attn_*, the name that counts the
+    self-attention's calls; and no copy of the k/v rows."""
+    from tcdiff_torch.ops import ca_block as m
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    args = _ca_kv_args(g, dev, dtype, 16, 450, 150, 512, 512)
+    want = 3 if dtype == torch.bfloat16 else 5
+    full = _device_names(lambda: m.ca_kv(*args, nhead=8), want)
+    names = [n.split("(")[0].split("<")[0].split("::")[-1] for n in full]  # no namespace, template or arguments
+    assert len(names) == want and all("tcd::" in n for n in full), full
+    assert {"xattn_short_kernel", "xattn_short_fma_kernel"} & set(names), names
+    assert not any(n.startswith("attn_") for n in names), names
+
+
+def test_ca_kv_refuses_what_it_does_not_take(dev):
+    from tcdiff_torch.ops import ca_block as m
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    args = _ca_kv_args(g, dev, torch.bfloat16, 2, 8, 255, 256, 128)
+    with pytest.raises(ValueError):  # 255 + 2 keys: more than a block holds
+        m.ca_kv(*args, nhead=2)
+    args = _ca_kv_args(g, dev, torch.bfloat16, 2, 8, 5, 256, 256)
+    with pytest.raises(ValueError):  # dk = 128 > 64
+        m.ca_kv(*args, nhead=2)
+    with pytest.raises(ValueError):  # time rows of another batch
+        m.ca_kv(*args[:6], args[6][:1], args[7][:1], *args[8:], nhead=4)
+    with pytest.raises(ValueError):  # film rows of another batch
+        m.ca_kv(*args[:12], args[12][:1], args[13][:1], nhead=4)
 
 
 # K6 at the widths whose bf16 LayerNorm folds run in clusters of 1, 2 and 4
@@ -955,19 +1019,7 @@ def test_ca_block_bf16_makes_four_launches(dev):
             angle_table(SL, D, dev), mem, apply_rotary(mem, angle_table(SLM, D, dev)), w(128, D), w(128, D),
             w(128, D), w(D, 128), 1 + _rnd(g, dev, D, std=0.1), _rnd(g, dev, D, std=0.1),
             _rnd(g, dev, 2, D, std=0.1), _rnd(g, dev, 2, D, std=0.1))
-    m.ca_block(*args, nhead=H)  # the tables' first call builds them
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):  # the profiler drops an event now and then: a reading of 4 is the one to judge
-        with torch.profiler.profile(activities=acts) as prof:
-            torch.cuda._sleep(1000)  # a session's first event is the one it drops
-            m.ca_block(*args, nhead=H)
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                 and not getattr(e, "is_user_annotation", False) and "#" not in e.name
-                 and "spin_kernel" not in e.name]
-        if len(names) == 4:
-            break
+    names = _device_names(lambda: m.ca_block(*args, nhead=H), 4)  # its first call builds the tables
     assert len(names) == 4 and all("tcd::" in n for n in names), names
 
 
@@ -1224,14 +1276,20 @@ def test_ln_matmul_off_the_rule_runs_on_mma(dev, case):
 
 
 def _device_names(fn, want):
-    """The device kernels of one fn() under torch.profiler (read again,
-    three times at most, while the profiler drops an event)."""
+    """The device kernels of one fn() under torch.profiler, read again
+    (three times at most, after a growing pause) while a reading holds
+    other than `want`. A session drops its first device events, several
+    in each session late in a long process (chip_smoke.device_kernels), so
+    each starts with a pause and 32 short spin kernels that take the loss
+    and are left out of the reading."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):
+    for attempt in range(3):
         with torch.profiler.profile(activities=acts) as prof:
-            torch.cuda._sleep(1000)  # a session's first event is the one it drops
+            time.sleep(0.01)
+            for _ in range(32):
+                torch.cuda._sleep(10_000)
             fn()
             torch.cuda.synchronize()
         names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
@@ -1239,6 +1297,7 @@ def _device_names(fn, want):
                  and "spin_kernel" not in e.name]
         if len(names) == want:
             break
+        time.sleep(0.1 * 2**attempt)
     return names
 
 

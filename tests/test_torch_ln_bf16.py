@@ -35,7 +35,7 @@ from tcdiff_torch.diffusion.gaussian import GaussianDiffusion  # noqa: E402
 from tcdiff_torch.interop.from_jax import load_jax_params  # noqa: E402
 from tcdiff_torch.models.dance_decoder import DanceDecoder, _ln  # noqa: E402
 
-PLAIN = ServingKernels(sa_block=False, ff_block=False)
+PLAIN = ServingKernels(sa_block=False, ff_block=False, ca_block=False)
 BF16_TOL = 2.0**-5
 
 

@@ -120,27 +120,32 @@ def test_unported_combinations_raise(models, kw, item):
 
 
 def test_xab_with_the_cache_on_raises_where_k7_would_run(models):
-    """With the k/v cache on, the cross-attention block kernel is shadowed
-    on the cached path, and the uncached forward, which once raised there,
-    runs it on every layer."""
+    """With the k/v cache on, the cross-attention block kernel takes its
+    form over the hoisted k/v on the cached path (ca_kv, never the memory
+    form), and the uncached forward, which once raised there, runs the
+    memory form on every layer; both agree with the plain site."""
     _, _, tmodel = models
     x, cond, t, _ = _inputs(1, 1)
-    kernels = ServingKernels(ca_block=True)
+    kernels, plain = ServingKernels(ca_block=True), ServingKernels(ca_block=False)
     calls, restore = _counted(tmodel, "ca_block_fn")
+    kv_calls, restore_kv = _counted(tmodel, "ca_kv_fn")
     try:
-        _guided(tmodel, kernels, x, cond, t)
-        assert not calls
+        cached = _guided(tmodel, kernels, x, cond, t)
+        assert not calls and len(kv_calls) == CFG.num_layers
+        cached_ref = _guided(tmodel, plain, x, cond, t)
         tmodel.kernels = kernels
         with torch.no_grad():
             out = tmodel(torch.from_numpy(x), torch.from_numpy(cond), torch.from_numpy(t))
-        tmodel.kernels = ServingKernels()
+        tmodel.kernels = plain
         with torch.no_grad():
             ref = tmodel(torch.from_numpy(x), torch.from_numpy(cond), torch.from_numpy(t))
     finally:
         restore()
+        restore_kv()
         tmodel.kernels = ServingKernels()
-    assert len(calls) == CFG.num_layers
+    assert len(calls) == CFG.num_layers and len(kv_calls) == CFG.num_layers
     np.testing.assert_allclose(out.numpy(), ref.numpy(), **TOL)
+    np.testing.assert_allclose(cached.numpy(), cached_ref.numpy(), **TOL)
 
 
 @pytest.mark.parametrize("attention", [1, 2])

@@ -93,8 +93,8 @@ def test_a_sampling_request_is_one_root_of_steps_guided_calls_and_layers():
         assert guided.name == "sample.guided"
         layers = [c for c in _children(root, guided) if c.name == "decoder.layer"]
         assert [c.attrs["i"] for c in layers] == list(range(CFG["num_layers"]))
-        for layer in layers:  # the default serving kernels: K1, the plain cross-attention, K2
-            assert [c.name for c in _children(root, layer)] == ["k1.sa_block", "ca.plain", "k2.ff_tail"]
+        for layer in layers:  # the default serving kernels: K1, K7 over the hoisted k/v, K2
+            assert [c.name for c in _children(root, layer)] == ["k1.sa_block", "k7.ca_block", "k2.ff_tail"]
         assert [c.name for c in _children(root, guided)][-1] == "sample.cfg"
     for s in root.spans:
         assert s.start_ns <= s.end_ns and s.events is None  # no card: host times only

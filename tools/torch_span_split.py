@@ -9,9 +9,10 @@ window's units and prints on stderr, and writes as JSON to
 `DIR/<cell>.<seed>.json` (default `chiprun_out/span_split`):
 
   * sampling (`sample.request`): device ms a DDIM step of the step, the
-    guided call, K1, K2, the plain cross-attention (`ca.plain`), the CFG
-    combine, the rest of the decoder layers, the rest of the guided call
-    and the sampler's own work; the cond encoding once a request; 50 x the
+    guided call, K1, K2, K7 (`k7.ca_block`), the plain cross-attention
+    (`ca.plain`), the CFG combine, the rest of the decoder layers, the rest
+    of the guided call and the sampler's own work, and the K7 and
+    `ca.plain` spans a request; the cond encoding once a request; 50 x the
     mean step against the request and the profiled window;
   * training (`train.step`): device ms a step of each phase, K3-K5
     forward and their backward spans, the rest of the loss and of the
@@ -21,7 +22,11 @@ window's units and prints on stderr, and writes as JSON to
     the window's index kernels by name (the sampling harness's recorder
     copies are `index_select`'s) and the breakdown's idle gaps; with
     `--ab N`, N pairs of profiled windows with the spans switched off and
-    on in this process first (each window's seconds a unit).
+    on in this process first (each window's seconds a unit); with `--ops
+    SPAN` (a span's name, as `ca.plain`), one more profiled window after
+    the run's own, and the device kernels that overlap that span's ranges
+    on the card's timeline, by name: calls and ms a unit, beside the
+    ranges' own ms.
 
 On a tree whose port has no spans (a parent commit) it prints the same
 numbers without the split.
@@ -80,11 +85,14 @@ def sample_split(root, window_s: float) -> dict:
         "sampler_ms": mean(lambda s: s.ms - g(s).ms),
         "k1_ms": mean(lambda s: _under(kids, g(s), "k1.sa_block")),
         "k2_ms": mean(lambda s: _under(kids, g(s), "k2.ff_tail")),
+        "k7_ms": mean(lambda s: _under(kids, g(s), "k7.ca_block")),
         "ca_plain_ms": mean(lambda s: _under(kids, g(s), "ca.plain")),
+        "k7_spans": sum(s.name == "k7.ca_block" for s in root.spans),
+        "ca_plain_spans": sum(s.name == "ca.plain" for s in root.spans),
         "cfg_ms": mean(lambda s: _under(kids, g(s), "sample.cfg")),
         "layers_ms": mean(lambda s: _under(kids, g(s), "decoder.layer")),
     }
-    out["layer_rest_ms"] = out["layers_ms"] - out["k1_ms"] - out["k2_ms"] - out["ca_plain_ms"]
+    out["layer_rest_ms"] = out["layers_ms"] - out["k1_ms"] - out["k2_ms"] - out["k7_ms"] - out["ca_plain_ms"]
     out["guided_rest_ms"] = out["guided_ms"] - out["layers_ms"] - out["cfg_ms"]
     out["steps_x_mean_over_request"] = n * out["step_ms"] / out["request_ms"]
     out["steps_x_mean_over_window"] = n * out["step_ms"] / (1e3 * window_s)
@@ -117,17 +125,47 @@ def train_split(roots) -> dict:
     return out
 
 
+def op_split(fn, units: int, name: str) -> dict:
+    """fn() (`units` units) under torch.profiler once more: the device-side
+    ranges of the span `name` (the profiler's user annotation of
+    `tcd.<name>` on the card's timeline), their ms a unit, and {kernel base
+    name: [calls, ms]} a unit of the device kernels that overlap one, each
+    counted whole."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.events() if e.device_type == cuda]
+    ranges = sorted((e.time_range.start, e.time_range.end) for e in events
+                    if getattr(e, "is_user_annotation", False) and e.name == "tcd." + name)
+    out = collections.defaultdict(lambda: [0, 0.0])
+    for e in events:
+        if getattr(e, "is_user_annotation", False) or "spin_kernel" in e.name:
+            continue
+        s, t = e.time_range.start, e.time_range.end
+        if any(s < b and a < t for a, b in ranges):
+            k = out[devmod.kernel_base(e.name)]
+            k[0] += 1 / units
+            k[1] += (t - s) / 1e3 / units
+    return {"ranges_a_unit": len(ranges) / units, "ranges_ms_a_unit": sum(b - a for a, b in ranges) / 1e3 / units,
+            "kernels": dict(sorted(out.items(), key=lambda kv: -kv[1][1]))}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, default=10.0)
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "span_split"))
+    ap.add_argument("--ops", default=None, help="a span's name: its device kernels by name, from one more window")
     ap.add_argument("--ab", type=int, default=0,
                     help="before the run's own profiled window, this many pairs of windows with the spans off "
                          "and on (the on cost a unit, in one process)")
     args = ap.parse_args()
-    traces, ab = [], []
+    traces, ab, ops = [], [], {}
     capture = devmod.capture
 
     def captured(fn, units):
@@ -143,6 +181,8 @@ def main() -> int:
                     finally:
                         prof._profiler_on = on
         traces.append(capture(fn, units))
+        if args.ops and not ops:
+            ops.update(op_split(fn, units, args.ops))
         return traces[-1]
 
     devmod.capture = captured
@@ -166,7 +206,7 @@ def main() -> int:
             index[devmod.kernel_base(n)][1] += 1e3 * (e - s)
     split.update(window_s=trace.window_s, busy_s=trace.busy_s, units=trace.units, kernels=len(trace.kernels),
                  index_kernels=dict(index), idle_gaps=trace.idle_gaps(), windows_s=[t.window_s for t in traces],
-                 ab_window_s_a_unit=ab)
+                 ab_window_s_a_unit=ab, ops={args.ops: ops} if args.ops else {})
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, f"{args.workload}.{args.seed}.json"), "w") as f:
         json.dump(split, f, indent=1)
