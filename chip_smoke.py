@@ -567,8 +567,9 @@ def compare_kernels(gen: torch.Generator) -> dict:
                     print(f"K1 sa_block bf16 film=True: device {dev_ms:.4f} ms a call (calls queued back to "
                           f"back), {flops / dev_ms / 1e9:.1f} TFLOP/s; {n_launch} launches a call: {ours}")
                     check(n_launch == 4, f"K1 made {n_launch} launches, expected 4")
-                    check(calls(ours, "gemm_mma_kernel") == 1 and calls(ours, "gemm_ln_kernel") == 1,
-                          "K1's projections are not the grouped q/k/v launch and fc with its LayerNorm fold")
+                    check(calls(ours, "gemm_wg_kernel") == 1 and calls(ours, "gemm_wg_ln_kernel") == 1,
+                          "K1's projections are not the grouped q/k/v launch and fc with its LayerNorm fold, "
+                          "both on the wgmma body")
                     check(calls(ours, "ln_rows_kernel") == 1, "K1 launches a row kernel after its fc")
                     figures["sa_block"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                                **bound(flops, nbytes(*args, out)), library_ms=None,
@@ -596,62 +597,90 @@ def compare_kernels(gen: torch.Generator) -> dict:
             ours = our_kernels(lambda: ff_block.ff_tail(*args), 4)
             print(f"K2 ff_tail bf16: device {dev_ms:.4f} ms a call (calls queued back to back), "
                   f"{flops / dev_ms / 1e9:.1f} TFLOP/s; {sum(ours.values())} launches a call: {ours}")
-            check(sum(ours.values()) == 4 and calls(ours, "gemm_ln_kernel") == 1,
-                  "K2 is not LN3, W1, W2 with its LayerNorm fold and W3")
+            check(sum(ours.values()) == 4 and calls(ours, "gemm_wg_ln_kernel") == 1
+                  and calls(ours, "gemm_wg_kernel") == 2,
+                  "K2 is not LN3, W1, W2 with its LayerNorm fold and W3, on the wgmma body")
             check(calls(ours, "ln_rows_kernel") == 1, "K2 launches a row kernel after its W2")
             figures["ff_tail"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                       **bound(flops, nbytes(*args, out)), library_ms=None, device_ms=dev_ms)
     return figures
 
 
+CELL_ROWS = 256 * L  # the benchmark cell sample.g3.b128: 128 clips under CFG, 450 tokens each
+
+
 def compare_gemms(gen: torch.Generator) -> dict:
-    """Phase 3b: K1's and K2's products alone at the serving shapes (M = b L
-    = 3600 rows, d=512, ff=1024), bf16, through the projection's entry point
-    (ops/gemm.py, the code K1 and K2 run): each held against its plain
-    version, its device time (calls queued back to back, operands warm in
-    L2 as on the path) and TFLOP/s beside its bound and torch.matmul's
-    time on the same operands (a yardstick only). Returns {kernel:
-    {product: figures}}."""
-    dev, M = "cuda", B * L
+    """Phase 3b: K1's and K2's products alone at the rows of the benchmark
+    cell sample.g3.b128 (M = 256 x 450 = 115,200, d=512, ff=1024), bf16,
+    each on the body the blocks run it on (ops/gemm.gemm_wg and, for the
+    LayerNorm folds, gemm_ln_wg: the wgmma body by its rule) and on the
+    mma.sync body it replaced (ops/gemm.gemm, gemm_ln): each held against
+    its plain version; the body the per-body counts show; its device time
+    (calls queued back to back) and TFLOP/s beside mma.sync's, its bound
+    and torch.matmul's time on the same operands (the product alone, a
+    yardstick only). Returns {kernel: {product: figures}}."""
+    dev, M = "cuda", CELL_ROWS
     bf16 = torch.bfloat16
     rnd = lambda *shape, std=1.0: torch.randn(shape, generator=gen, device=dev) * std
     w = lambda o, i: rnd(o, i, std=i**-0.5).to(bf16)
     r, y, o, y3, y4 = (rnd(M, D).to(bf16) for _ in range(5))
     h = rnd(M, FF).to(bf16)
     x = rnd(M, D).to(bf16)
-    fs, fb = rnd(B, D, std=0.1), rnd(B, D, std=0.1)
+    fs, fb = rnd(M // L, D, std=0.1), rnd(M // L, D, std=0.1)
+    s2, b2n, s4, b4 = 1 + rnd(D, std=0.1), rnd(D, std=0.1), 1 + rnd(D, std=0.1), rnd(D, std=0.1)
     wq, wk, wv, wfc, w1, w2, w3 = w(HD, D), w(HD, D), w(HD, D), w(D, HD), w(FF, D), w(D, FF), w(D, D)
     b1, b2, b3 = rnd(FF, std=0.1), rnd(D, std=0.1), rnd(D, std=0.1)
     rry, wqkv = torch.stack((r, r, y)), torch.stack((wq, wk, wv)).transpose(1, 2)  # the library's operands
-    f32, bf = 4, 2  # output bytes per element
-    # (kernel, product, args of gemm, N, K, bytes of the inputs read once, output bytes per element,
-    #  the library's call: the product alone, bf16 out)
+    fc_kw = dict(eps=1e-6, resid=x, film_scale=fs, film_shift=fb, L=L)
+    w2_kw = dict(eps=1e-5, form="film_pre", prod_bias=b2, resid=x, film_scale=fs, film_shift=fb, L=L)
+    # (kernel, product, the path's call, mma.sync's, the plain version, N, K, bytes of the inputs read once
+    #  and of the output, the library's call: the product alone, bf16 out)
     cases = (
-        ("sa_block", "q/k/v grouped", ([r, r, y], [wq, wk, wv]), 3 * HD, D, nbytes(r, y, wq, wk, wv), bf,
-         lambda: torch.matmul(rry, wqkv)),
-        ("sa_block", "fc", (o, wfc, "store_f32"), D, HD, nbytes(o, wfc), f32, lambda: torch.matmul(o, wfc.t())),
-        ("ff_tail", "W1 bias+GELU", (y3, w1, "bias_gelu", b1), FF, D, nbytes(y3, w1, b1), bf,
-         lambda: torch.matmul(y3, w1.t())),
-        ("ff_tail", "W2 bias+FiLM", (h, w2, "bias_film", b2, x, fs, fb, L), D, FF, nbytes(h, w2, b2, x, fs, fb),
-         f32, lambda: torch.matmul(h, w2.t())),
-        ("ff_tail", "W3 bias", (y4, w3, "bias", b3), D, D, nbytes(y4, w3, b3), bf, lambda: torch.matmul(y4, w3.t())),
+        ("sa_block", "q/k/v grouped", lambda: gemm.gemm_wg([r, r, y], [wq, wk, wv]),
+         lambda: gemm.gemm([r, r, y], [wq, wk, wv]), lambda: gemm.gemm_plain([r, r, y], [wq, wk, wv]), 3 * HD, D,
+         nbytes(r, y, wq, wk, wv) + 2 * M * 3 * HD, lambda: torch.matmul(rry, wqkv)),
+        ("sa_block", "fc + post-LN + FiLM", lambda: gemm.gemm_ln_wg(o, wfc, s2, b2n, **fc_kw),
+         lambda: gemm.gemm_ln(o, wfc, s2, b2n, **fc_kw), lambda: gemm.gemm_ln_plain(o, wfc, s2, b2n, **fc_kw), D, HD,
+         nbytes(o, wfc, s2, b2n, x, fs, fb) + 2 * M * D, lambda: torch.matmul(o, wfc.t())),
+        ("ff_tail", "W1 bias+GELU", lambda: gemm.gemm_wg(y3, w1, "bias_gelu", b1),
+         lambda: gemm.gemm(y3, w1, "bias_gelu", b1), lambda: gemm.gemm_plain(y3, w1, "bias_gelu", b1), FF, D,
+         nbytes(y3, w1, b1) + 2 * M * FF, lambda: torch.matmul(y3, w1.t())),
+        ("ff_tail", "W2 bias+FiLM+LN4", lambda: gemm.gemm_ln_wg(h, w2, s4, b4, **w2_kw),
+         lambda: gemm.gemm_ln(h, w2, s4, b4, **w2_kw), lambda: gemm.gemm_ln_plain(h, w2, s4, b4, **w2_kw), D, FF,
+         nbytes(h, w2, b2, x, fs, fb, s4, b4) + 2 * M * D, lambda: torch.matmul(h, w2.t())),
+        ("ff_tail", "W3 bias", lambda: gemm.gemm_wg(y4, w3, "bias", b3), lambda: gemm.gemm(y4, w3, "bias", b3),
+         lambda: gemm.gemm_plain(y4, w3, "bias", b3), D, D, nbytes(y4, w3, b3) + 2 * M * D,
+         lambda: torch.matmul(y4, w3.t())),
     )
     figures = collections.defaultdict(dict)
-    for kernel, label, args, N, K, in_bytes, out_el, library in cases:
-        out, ref = gemm.gemm(*args), gemm.gemm_plain(*args)
+    for kernel, label, call, mma_call, plain, N, K, io_bytes, library in cases:
+        ref = plain()
+        before = gemm.body_launches("gemm")
+        out = call()
         torch.cuda.synchronize()
+        after = gemm.body_launches("gemm")
+        body = [k for k in after if after[k] != before[k]]
         outs, refs = (out, ref) if isinstance(out, list) else ([out], [ref])
         err = max((a.float() - b.float()).abs().max().item() for a, b in zip(outs, refs))
         tol = min(tolerance(bf16, b.float()) for b in refs)
         check(all(torch.isfinite(a).all().item() for a in outs), f"GEMM {label} output not finite")
         check(err <= tol, f"GEMM {label} disagrees: {err} > {tol}")
+        check(body == ["wgmma"] and after["wgmma"] - before["wgmma"] == 1,
+              f"GEMM {label}: not one launch of the wgmma body ({before} -> {after})")
+        mma_out = mma_call()
+        mma_err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(mma_out if isinstance(mma_out, list) else [mma_out], refs))
+        check(mma_err <= tol, f"GEMM {label} on mma.sync disagrees: {mma_err} > {tol}")
+        del out, mma_out
         flops = 2 * M * N * K
-        ms, lib_ms = device_ms(lambda: gemm.gemm(*args)), device_ms(library)
-        b = bound(flops, in_bytes + M * N * out_el)
-        print(f"GEMM {label} {M}x{N}x{K} bf16: max_abs_err {err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms "
-              f"({flops / ms / 1e9:.1f} TFLOP/s), bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
+        ms, mma_ms, lib_ms = device_ms(call, reps=10), device_ms(mma_call, reps=10), device_ms(library, reps=10)
+        b = bound(flops, io_bytes)
+        print(f"GEMM {label} {M}x{N}x{K} bf16 on {body[0]}: max_abs_err {err:.3e} (tol {tol:.3e}) kernel "
+              f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s); mma.sync {mma_ms:.4f} ms "
+              f"({flops / mma_ms / 1e9:.1f} TFLOP/s); bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
               f"torch.matmul {lib_ms:.4f} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s)")
-        figures[kernel][label] = dict(shape=[M, N, K], max_abs_err=err, ms=ms, tflops=flops / ms / 1e9,
+        figures[kernel][label] = dict(shape=[M, N, K], body=body[0], max_abs_err=err, ms=ms,
+                                      tflops=flops / ms / 1e9, mma_ms=mma_ms, mma_tflops=flops / mma_ms / 1e9,
                                       library_ms=lib_ms, **b)
     return figures
 
@@ -1117,7 +1146,7 @@ def layer_launches(args, include_ff: bool, flops: float) -> dict:
     rows in f32, as the kernel takes them, so that the wrapper launches no
     cast): with its FF section it must run 10 device kernels, exactly one
     of them a LayerNorm row kernel and three the LayerNorm folds
-    (gemm_ln_kernel); without, 7, one row kernel and two folds."""
+    (gemm_wg_ln_kernel); without, 7, one row kernel and two folds."""
     args = tuple(a.float() if a.dim() == 2 and a.shape[0] == B else a for a in args)  # the FiLM rows
     fn = lambda: layer.layer(*args, nhead=H, include_ff=include_ff)
     dev_ms = device_ms(fn)
@@ -1128,8 +1157,8 @@ def layer_launches(args, include_ff: bool, flops: float) -> dict:
           f"{flops / dev_ms / 1e9:.1f} TFLOP/s; {len(kernels)} device kernels a call: {dict(names)}")
     check(len(kernels) == want, f"K6 include_ff={include_ff} ran {len(kernels)} device kernels, expected {want}")
     check(calls(names, "ln_rows_kernel") == 1, f"K6 ran {calls(names, 'ln_rows_kernel')} row kernels, expected 1")
-    check(calls(names, "gemm_ln_kernel") == folds, f"K6 ran {calls(names, 'gemm_ln_kernel')} LayerNorm folds, "
-          f"expected {folds}")
+    check(calls(names, "gemm_wg_ln_kernel") == folds, f"K6 ran {calls(names, 'gemm_wg_ln_kernel')} LayerNorm "
+          f"folds on the wgmma body, expected {folds}")
     key = "" if include_ff else "_no_ff"
     return {f"device_ms{key}": dev_ms, f"device_kernels{key}": len(kernels)}
 
@@ -1720,7 +1749,10 @@ def serve(gen: torch.Generator) -> dict:
     print(f"main path: {per_req:.3f} s per request, {motion / seconds:.2f} s-motion/s (bf16, kernels)")
     table = print_profile("default path, one request",
                           lambda: diff.ddim_sample(shape, reqs[0][0], generator=gen, x_0=reqs[0][1]))
-    check(any("gemm_mma_kernel" in name for name, _, _ in table), "no tensor-core projection in the request")
+    check(any("gemm_wg_kernel" in name for name, _, _ in table), "no wgmma projection in the request")
+    check(any("gemm_wg_ln_kernel" in name for name, _, _ in table), "no wgmma LayerNorm fold in the request")
+    old = [name for name, _, _ in table if "gemm_mma_kernel" in name or "gemm_ln_kernel" in name]
+    check(not old, f"the default request ran the mma.sync body: {old}")
     fma_nt = [name for name, _, _ in table if "gemm_kernel<bf16, false, true" in name]
     check(not fma_nt, f"bf16 projections ran on the FMA body: {fma_nt}")
 

@@ -5,22 +5,44 @@
 //
 // Each sequence is a few hand-written launches on the stream it is given:
 // LayerNorm row kernels (ln_rows of common.cuh, f32 statistics),
-// projections with fused epilogues (gemm_mma.cuh) and heads_attention
-// (attention.cuh), both on the tensor cores in bf16 and on the FMA units in
-// f32. Buffers are row-major (B * L rows); projections are (rows, h*dk)
-// with head h in columns [h*dk, (h+1)*dk); weights in nn.Linear layout
-// (out, in). Intermediates land in T where the TPU kernels round them to
-// the compute dtype. In bf16 a LayerNorm that follows a product (the post-
-// attention LN after fc, LN4 after W2, and K6's next block's LN) runs in
-// the product's epilogue (gemm_ln: a cluster along N holds whole rows), so
-// the product's f32 value never leaves the SMs; in f32 the product lands
-// in an f32 scratch and a row kernel reads it back.
+// projections with fused epilogues and heads_attention (attention.cuh). In
+// bf16 the projections run on the wgmma + TMA body (gemm_wgmma.cuh: proj,
+// proj_group; mma.sync, gemm_mma.cuh, where its rule sends a product) and
+// the attention on mma.sync; in f32 both run on the FMA units. Buffers are
+// row-major (B * L rows); projections are (rows, h*dk) with head h in
+// columns [h*dk, (h+1)*dk); weights in nn.Linear layout (out, in).
+// Intermediates land in T where the TPU kernels round them to the compute
+// dtype. In bf16 a LayerNorm that follows a product (the post-attention LN
+// after fc, LN4 after W2, and K6's next block's LN) runs in the product's
+// epilogue (gemm_ln_wg: a cluster along N holds whole rows), so the
+// product's f32 value never leaves the SMs; in f32 the product lands in an
+// f32 scratch and a row kernel reads it back.
 #pragma once
 
 #include "attention.cuh"
-#include "gemm_mma.cuh"
+#include "gemm_wgmma.cuh"
 
 namespace tcd {
+
+// C[g] = A[g] . W[g]^T for g < G (<= 3) with the epilogue EPI, the
+// products sharing N and the epilogue's other operands: bf16 on the wgmma
+// body (one launch of gemm_wg, by its rule), f32 on the FMA tiles.
+template <typename T, int EPI>
+inline void proj_group(int G, const T* const* A, const T* const* W, void* const* C, int M, int N, int K,
+                       EpiArgs ep, cudaStream_t st) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    const int ns[WGROUP] = {N, N, N};
+    gemm_wg<EPI>(G, A, W, C, ns, M, K, ep, st);
+  } else {
+    gemm_group<T, EPI>(G, A, W, C, M, N, K, ep, st);
+  }
+}
+
+// C = A . W^T with the epilogue EPI into ep.c, as proj_group.
+template <typename T, int EPI>
+inline void proj(const T* A, const T* W, int M, int N, int K, EpiArgs ep, cudaStream_t st) {
+  proj_group<T, EPI>(1, &A, &W, &ep.c, M, N, K, ep, st);
+}
 
 // A second LayerNorm on fc_post_ln's output (K6's): out = T(rot(LN(x)))
 // with the rotary tables, T(LN(x)) without; s == nullptr: none.
@@ -35,8 +57,9 @@ struct NextLn {
 // The attention blocks' last two steps: z = o . Wfc^T in f32, then
 // out = T(LN(z; eps2)), or T(resid + (fs+1) * LN(z) + fb) with FiLM rows;
 // then `next` on out. bf16: one cluster launch with both LayerNorms in its
-// epilogue (z unused); f32: the product into z and a row kernel for each
-// LayerNorm. LN2 must name next's form (LN2_NONE without one).
+// epilogue (gemm_ln_wg; z unused); f32: the product into z and a row
+// kernel for each LayerNorm. LN2 must name next's form (LN2_NONE without
+// one).
 template <typename T, int LN2 = LN2_NONE>
 inline void fc_post_ln(const T* o, const T* wfc, const float* s2, const float* b2, const T* resid,
                        const float* fs, const float* fb, int B, int L, int d, int hd, float eps2,
@@ -58,7 +81,7 @@ inline void fc_post_ln(const T* o, const T* wfc, const float* s2, const float* b
     f.cos = next.cos;
     f.ssin = next.ssin;
     f.out2 = next.out;
-    gemm_ln<LN_POST, LN2>(o, wfc, M, d, hd, f, st);
+    gemm_ln_wg<LN_POST, LN2>(o, wfc, M, d, hd, f, st);
   } else {
     gemm<T, EPI_STORE_F32>(o, wfc, M, d, hd, epi(z), st);
     ln_rows<float, T>(z, s2, b2, eps2, M, d, L, nullptr, nullptr, fs ? resid : nullptr, fs, fb, out,
@@ -80,7 +103,7 @@ void sa_attend(const T* x, const float* s1, const float* b1, const T* cos_t, con
   const T* as[3] = {r, r, y};
   const T* ws[3] = {wq, wk, wv};
   void* cs[3] = {q, k, v};
-  gemm_group<T, EPI_STORE>(3, as, ws, cs, M, hd, d, epi(nullptr), st);
+  proj_group<T, EPI_STORE>(3, as, ws, cs, M, hd, d, epi(nullptr), st);
   heads_attention<T>(q, k, v, o, B, L, L, hd, nhead, table, dist, st);
 }
 
@@ -102,7 +125,7 @@ void sa_block(const T* x, const float* s1, const float* b1, const T* cos_t, cons
 template <typename T>
 void cross_attend(const T* r, const T* k, const T* v, int Lm, const T* wq, int B, int L, int d, int hd,
                   int nhead, T* q, T* o, cudaStream_t st) {
-  gemm<T, EPI_STORE>(r, wq, B * L, hd, d, epi(q), st);
+  proj<T, EPI_STORE>(r, wq, B * L, hd, d, epi(q), st);
   heads_attention<T>(q, k, v, o, B, L, Lm, hd, nhead, nullptr, nullptr, st);
 }
 
@@ -141,13 +164,13 @@ inline void ff_hidden(const T* x, const float* s3, const float* b3, const T* w1,
                       const float* bb1, int M, int L, int d, int ff, float eps, T* y, T* h,
                       cudaStream_t st) {
   ln_rows<T, T>(x, s3, b3, eps, M, d, L, nullptr, nullptr, nullptr, nullptr, nullptr, y, nullptr, st);
-  gemm<T, EPI_BIAS_GELU>(y, w1, M, ff, d, epi(h, bb1), st);
+  proj<T, EPI_BIAS_GELU>(y, w1, M, ff, d, epi(h, bb1), st);
 }
 
 // K2 after its hidden activation h: x' = x + (fs+1) * (h.W2^T + b2) + fb in
 // f32, z = T(LN4(x')), out = z.W3^T + b3. bf16: LN4 in W2's epilogue (one
-// cluster launch; x' never leaves the SMs); f32: x' through o32 and a row
-// kernel.
+// cluster launch of gemm_ln_wg; x' never leaves the SMs); f32: x' through
+// o32 and a row kernel.
 template <typename T>
 inline void ff_out(const T* x, const T* h, const T* w2, const float* bb2, const float* fs, const float* fb,
                    const float* s4, const float* b4, const T* w3, const float* bb3, int M, int L, int d, int ff,
@@ -163,12 +186,12 @@ inline void ff_out(const T* x, const T* h, const T* w2, const float* bb2, const 
     f.fs = fs;
     f.fb = fb;
     f.L = L;
-    gemm_ln<LN_FILM_PRE, LN2_NONE>(h, w2, M, d, ff, f, st);
+    gemm_ln_wg<LN_FILM_PRE, LN2_NONE>(h, w2, M, d, ff, f, st);
   } else {
     gemm<T, EPI_BIAS_FILM>(h, w2, M, d, ff, epi(o32, bb2, x, fs, fb, L), st);
     ln_rows<float, T>(o32, s4, b4, eps, M, d, L, nullptr, nullptr, nullptr, nullptr, nullptr, z, nullptr, st);
   }
-  gemm<T, EPI_BIAS>(z, w3, M, d, d, epi(out, bb3), st);
+  proj<T, EPI_BIAS>(z, w3, M, d, d, epi(out, bb3), st);
 }
 
 // K2, the FF block and the layer tail: ff_hidden, then ff_out: 4 launches

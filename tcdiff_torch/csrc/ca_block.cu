@@ -28,12 +28,13 @@
 // cluster, each normalising a share of the tile's rows into every block's
 // shared memory, so rot(LN(x)) never goes to device memory); the flash
 // attention of attention.cuh with Lq != Lk (as K11 runs it); the fc GEMM
-// with the post-LN and the FiLM residual in its epilogue (gemm_ln: a
-// cluster along N holds whole rows). f32, 6 launches, keeps the unfused
-// sequence: the LN + rotary row kernel into r, q, the attention, fc into
-// an f32 scratch and a row kernel. The projections and the attention run on the tensor
-// cores in bf16, on the FMA units in f32. K6 (layer.cu) runs the same
-// attention and fc steps against the cached k/v.
+// with the post-LN and the FiLM residual in its epilogue (gemm_ln_wg of
+// gemm_wgmma.cuh on the wgmma body: a cluster along N holds whole rows).
+// f32, 6 launches, keeps the unfused sequence: the LN + rotary row kernel
+// into r, q, the attention, fc into an f32 scratch and a row kernel. The
+// projections and the attention run on the tensor cores in bf16, on the
+// FMA units in f32. K6 (layer.cu) runs the same attention and fc steps
+// against the cached k/v.
 //
 // tcd_ca_kv is the same block over k/v projected beforehand, the serving
 // default where the k/v are hoisted (the cond cache's music rows of the
@@ -48,8 +49,8 @@
 // 60.4 GFLOP each and the attention 35.8 against ~0.4 GB a layer:
 // operations, ~0.16 ms a layer at the bf16 peak. Design, 3 launches: q by
 // cross_q (gemm_lnrot in bf16), the attention by xattn_short_kernel below,
-// fc by fc_post_ln (gemm_ln with the post-LN and the FiLM rows in f32 in
-// its epilogue). No k/v row is copied: the attention reads the two sources
+// fc by fc_post_ln (gemm_ln_wg with the post-LN and the FiLM rows in f32
+// in its epilogue). No k/v row is copied: the attention reads the two sources
 // where they lie.
 //
 // xattn_short_kernel (bf16): the memory is short (Lk <= 256), so a block

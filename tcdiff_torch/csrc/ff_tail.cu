@@ -17,12 +17,12 @@
 // large intermediate.
 //
 // Design: hand-written launches on one stream. LN3 is a row kernel (f32
-// stats, one warp a row, result in T); the three projections
-// (gemm_mma.cuh: mma.sync on the tensor cores in bf16, FMA tiles in f32)
-// apply bias+GELU, bias+FiLM residual and bias to their sums in
-// registers. In bf16 LN4 runs in W2's epilogue: W2 launches as clusters of
-// d/128 blocks along N, which hold whole rows and reduce their statistics
-// through distributed shared memory (gemm_ln), so the f32 FiLM residual
+// stats, one warp a row, result in T); the three projections (the wgmma
+// + TMA body of gemm_wgmma.cuh in bf16, FMA tiles in f32) apply
+// bias+GELU, bias+FiLM residual and bias to their sums. In bf16 LN4 runs
+// in W2's epilogue: W2 launches as clusters of d/128 blocks along N, which
+// hold whole rows and reduce their statistics through distributed shared
+// memory (gemm_ln_wg), so the f32 FiLM residual
 // the TPU kernel feeds LN4 never leaves the SMs: four launches. In f32 it
 // lands in an f32 scratch that a row kernel reads back: five. The sequence
 // is tcd::ff_tail of blocks.cuh, whose steps K6 (layer.cu) reuses.

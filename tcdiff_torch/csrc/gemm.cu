@@ -7,8 +7,10 @@
 // (K4's dWk and dWv). Then, bf16 only, K4's memory cotangent
 // (gemm_nn_rot) and K7's q projection with the LayerNorm and rotary in its
 // prologue (gemm_lnrot); and the forward projection on the wgmma + TMA
-// body (gemm_wg of gemm_wgmma.cuh: up to 3 products with their own N),
-// with the counts of each body's launches and the tensor maps' host time.
+// body (gemm_wg of gemm_wgmma.cuh: up to 3 products with their own N), the
+// LayerNorm fold on both bodies (gemm_ln, gemm_ln_wg), the two bodies'
+// dispatch rules alone (tcd_wg_plan, tcd_ln_wg_plan), with the counts of
+// each body's launches and the tensor maps' host time.
 // No path of the model calls it;
 // the kernels reach the same code through blocks.cuh, train_common.cuh and
 // gemm_wgmma.cuh.
@@ -159,4 +161,90 @@ extern "C" int tcd_gemm_wg(int dtype, const GemmWgArgs* a, void* stream) {
     default: return -1;
   }
   return tcd::launch_status();
+}
+
+// The LayerNorm fold alone, bf16 (ops/gemm.py gemm_ln, gemm_ln_wg): the
+// layout of the ctypes mirror there. out = T(LN(a . w^T)) [FiLM] or
+// T(LN(resid + (fs+1) * (a . w^T + bias) + fb)) (lne, tcd::LnEpi); ln2
+// (tcd::Ln2) a second LayerNorm on out into out2, rotated by the tables
+// (L, N) at row m % L for LN2_ROT.
+struct GemmLnArgs {
+  const void *a, *w, *resid, *cos, *ssin;
+  const float *s, *b, *bias, *fs, *fb, *s2, *b2;
+  void *out, *out2;
+  int M, N, K, L, lne, ln2;
+  float eps, eps2;
+};
+
+namespace tcd {
+
+inline LnFold ln_fold(const GemmLnArgs& a) {
+  LnFold f{};
+  f.out = (bf16*)a.out;
+  f.s = a.s;
+  f.b = a.b;
+  f.eps = a.eps;
+  f.bias = a.bias;
+  f.resid = (const bf16*)a.resid;
+  f.fs = a.fs;
+  f.fb = a.fb;
+  f.L = a.L;
+  f.s2 = a.s2;
+  f.b2 = a.b2;
+  f.eps2 = a.eps2;
+  f.cos = (const bf16*)a.cos;
+  f.ssin = (const bf16*)a.ssin;
+  f.out2 = (bf16*)a.out2;
+  return f;
+}
+
+// wg: the dispatching fold (gemm_ln_wg), else gemm_ln (mma.sync). The forms
+// the blocks launch: LN_POST with LN2_NONE, LN2_PLAIN or LN2_ROT;
+// LN_FILM_PRE with LN2_NONE.
+template <int LNE, int LN2>
+void gemm_ln_entry(const GemmLnArgs& a, bool wg, cudaStream_t st) {
+  const bf16 *A = (const bf16*)a.a, *W = (const bf16*)a.w;
+  if (wg)
+    gemm_ln_wg<LNE, LN2>(A, W, a.M, a.N, a.K, ln_fold(a), st);
+  else
+    gemm_ln<LNE, LN2>(A, W, a.M, a.N, a.K, ln_fold(a), st);
+}
+
+inline int gemm_ln_form(int dtype, const GemmLnArgs& a, bool wg, cudaStream_t st) {
+  if (dtype != 1) return -1;
+  if (a.lne == LN_POST && a.ln2 == LN2_NONE) gemm_ln_entry<LN_POST, LN2_NONE>(a, wg, st);
+  else if (a.lne == LN_POST && a.ln2 == LN2_PLAIN) gemm_ln_entry<LN_POST, LN2_PLAIN>(a, wg, st);
+  else if (a.lne == LN_POST && a.ln2 == LN2_ROT) gemm_ln_entry<LN_POST, LN2_ROT>(a, wg, st);
+  else if (a.lne == LN_FILM_PRE && a.ln2 == LN2_NONE) gemm_ln_entry<LN_FILM_PRE, LN2_NONE>(a, wg, st);
+  else return -1;
+  return launch_status();
+}
+
+}  // namespace tcd
+
+// dtype 1 (bfloat16) only. Returns the launch's status (launch_status), -1
+// for what it does not take.
+extern "C" int tcd_gemm_ln(int dtype, const GemmLnArgs* a, void* stream) {
+  return tcd::gemm_ln_form(dtype, *a, false, static_cast<cudaStream_t>(stream));
+}
+extern "C" int tcd_gemm_ln_wg(int dtype, const GemmLnArgs* a, void* stream) {
+  return tcd::gemm_ln_form(dtype, *a, true, static_cast<cudaStream_t>(stream));
+}
+
+// The dispatch rules alone, the one place the body of a bf16 product is
+// decided (ops/gemm.gemm_plan states it in Python; a card test holds the
+// two together): 1 where the wgmma body takes the products (wg_ok) or the
+// fold (ln_wg_ok), 0 where mma.sync runs them. The pointers are compared
+// with alignments only, never read. -1 for more products than a launch
+// takes.
+extern "C" int tcd_wg_plan(const GemmWgArgs* a) {
+  if (a->groups < 1 || a->groups > tcd::WGROUP) return -1;
+  const tcd::bf16* as[3] = {(const tcd::bf16*)a->a0, (const tcd::bf16*)a->a1, (const tcd::bf16*)a->a2};
+  const tcd::bf16* ws[3] = {(const tcd::bf16*)a->w0, (const tcd::bf16*)a->w1, (const tcd::bf16*)a->w2};
+  void* cs[3] = {a->c0, a->c1, a->c2};
+  const int ns[3] = {a->n0, a->n1, a->n2};
+  return tcd::wg_ok(a->groups, as, ws, cs, ns, a->K, tcd::epi(nullptr, a->bias, a->resid, a->fs, a->fb, a->L));
+}
+extern "C" int tcd_ln_wg_plan(const GemmLnArgs* a) {
+  return tcd::ln_wg_ok((const tcd::bf16*)a->a, (const tcd::bf16*)a->w, a->N, a->K, tcd::ln_fold(*a));
 }

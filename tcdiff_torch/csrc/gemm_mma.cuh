@@ -644,6 +644,7 @@ inline void gemm_ln(const bf16* A, const bf16* W, int M, int N, int K, const LnF
                   aligned(f.b, 8) && aligned(f.s2, 8) && aligned(f.b2, 8) && aligned(f.bias, 8) &&
                   aligned(f.fs, 8) && aligned(f.fb, 8);
   if (!ok) return refuse();
+  ++body_launches()[BODY_MMA];
   ProjGroup p{};
   p.a[0] = A;
   p.w[0] = W;

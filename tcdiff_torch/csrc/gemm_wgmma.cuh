@@ -1,8 +1,13 @@
 // The bf16 forward projection on Hopper's warpgroup MMA (wgmma), its
-// operands brought by the Tensor Memory Accelerator (TMA): K2b's, K8's and
-// K9's products.
+// operands brought by the Tensor Memory Accelerator (TMA): the serving
+// blocks' products (K1's q/k/v and fc, K2's W1, W2 and W3, K7's fc, K6's
+// products but its cross-attention q) and K2b's, K8's and K9's.
 //
-// Replaces, in bf16, gemm_mma_kernel (gemm_mma.cuh) in the products of K2b
+// Replaces, in bf16, gemm_mma_kernel and gemm_ln_kernel (gemm_mma.cuh) in
+// the products of K1 (tcdiff_tpu/ops/fused_sa_block.py::fused_sa_block:
+// q, k, v, then fc with the post-LN), K2
+// (tcdiff_tpu/ops/fused_ff_block.py::fused_ff_tail: W1 with GELU, W2 with
+// the FiLM residual and LN4, W3), K2b
 // (tcdiff_tpu/ops/fused_ff_block.py::fused_ff_block, _ff_kernel: h =
 // gelu(LN3(x).W1^T + b1), then h.W2^T + b2 with or without the FiLM
 // residual), K8 (tcdiff_tpu/ops/fused_ln_rotary_matmul.py, _kernel and
@@ -38,7 +43,8 @@
 //   that has landed, keeps that step's group in flight while it waits for
 //   the one before (wait_group 1) and then frees the earlier stage.
 // - setmaxnreg moves registers from the producer (40) to the consumers
-//   (232); the roles split once and never meet again.
+//   (232); the roles split once and never share code again (the fold's
+//   producer only passes the cluster's barriers on its own path).
 // - The epilogue: wgmma's m64nN accumulator gives each warp 16 rows, laid
 //   out per 8 columns as mma.sync's C fragment (rows g and g + 8, columns
 //   2t and 2t + 1). Each warpgroup writes its 64 rows of f32 sums into the
@@ -46,15 +52,20 @@
 //   loads and stores along the rows, with epi_math's arithmetic and
 //   rounding points (wg_math).
 // - Grouped form: up to WGROUP products in one launch, each with its own
-//   A, W, N and output (K8's q, k and v in one launch without a joined
-//   weight).
+//   A, W, N and output (K1's and K8's q, k and v in one launch without a
+//   joined weight).
+// - The LayerNorm fold (gemm_ln_wg, gemm_wg_ln_kernel): gemm_ln's epilogue
+//   on this body, the column tiles of a row tile one cluster; described
+//   where it is defined.
 // - Dispatch (gemm_wg): the body runs a product where TMA can read its
 //   operands (every A and W 16-byte aligned, K % 8 == 0: rows a multiple
 //   of 16 bytes apart) and its epilogue moves in 16-byte pieces (every N %
 //   8 == 0; the outputs, bias, residual and FiLM rows 16-byte aligned);
 //   else gemm_mma_kernel runs it, by that rule alone (ops/gemm.gemm_plan
-//   states it). A launch or a tensor-map encode that fails is refused
-//   (launch_status) and raises; it never reruns on the old body.
+//   states it; tcd_wg_plan exports this decision). The fold's rule
+//   (ln_wg_ok, exported by tcd_ln_wg_plan) adds a row a cluster holds;
+//   else gemm_ln runs it. A launch or a tensor-map encode that fails is
+//   refused (launch_status) and raises; it never reruns on the old body.
 // - Tensor maps are encoded on the host with cuTensorMapEncodeTiled,
 //   obtained through cudaGetDriverEntryPoint (the library links no
 //   libcuda), passed as __grid_constant__ kernel parameters and cached by
@@ -142,9 +153,9 @@ __device__ __forceinline__ void wg_fence_acc(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (64 x 128 f32, the warpgroup's accumulator) += A (64 x 16) . B (16 x 128),
-// both K-major bf16 in shared memory.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+// d (64 x 128 f32, the warpgroup's accumulator) = A (64 x 16) . B (16 x 128)
+// + (scale_d ? d : 0), both K-major bf16 in shared memory.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -162,7 +173,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // ----------------------------------------------------------- epilogue
@@ -211,101 +222,134 @@ struct WgGroups {
   int tile0[WGROUP + 1];  // first column tile of each group; tile0[g] = the grid's x for g >= G
 };
 
+// The ring of a launch in dynamic shared memory (1024-byte aligned, as the
+// 128-byte swizzle wants): the A and W stages, their full and empty
+// barriers.
+struct WgRing {
+  unsigned char *a, *b;
+  uint64_t *full, *empty;
+};
+__device__ __forceinline__ WgRing wg_ring(unsigned char* smem) {
+  unsigned char* base = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
+  WgRing r;
+  r.a = base;
+  r.b = base + WG_STAGES * WG_A_BYTES;
+  r.full = reinterpret_cast<uint64_t*>(r.b + WG_STAGES * WG_B_BYTES);
+  r.empty = r.full + WG_STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(r.full + s, 1);
+      mbar_init(r.empty + s, 8);  // lane 0 of every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return r;
+}
+
+// The producer warpgroup's part of a tile's K loop: registers to the
+// consumers; its first thread keeps K step kt of A's rows m0.. and W's rows
+// n0.. in ring stage kt % WG_STAGES, once the consumers have freed it.
+__device__ __forceinline__ void wg_produce(const WgRing& r, const CUtensorMap* amap, const CUtensorMap* wmap,
+                                           int nk, int m0, int n0) {
+  constexpr int S = WG_STAGES;
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(WG_PRODUCER_REGS));
+  if (threadIdx.x == 256)
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % S;
+      if (kt >= S) mbar_wait(r.empty + s, (kt / S - 1) & 1);
+      mbar_expect_tx(r.full + s, WG_A_BYTES + WG_B_BYTES);
+      tma_load(r.b + s * WG_B_BYTES, wmap, kt * WBK, n0, r.full + s);
+      tma_load(r.a + s * WG_A_BYTES, amap, kt * WBK, m0, r.full + s);
+    }
+}
+
+// A consumer warpgroup's part: d = its 64 rows (warpgroup wg) of the tile's
+// sums over nk >= 1 K steps, in wgmma's accumulator layout; on return
+// every stage this warpgroup reads has been multiplied. The first wgmma
+// starts the sums (scale-d 0), and nothing but the wgmmas touches d until
+// the last group is done: a zero fill before the loop, or a compiler fence
+// on d between the groups in flight, makes ptxas serialise the wgmmas
+// (its warning C7515; PERF.md: 350 -> 377 TFLOP/s at K1's q/k/v without).
+__device__ __forceinline__ void wg_consume(const WgRing& r, int nk, int wg, float (&d)[64]) {
+  constexpr int S = WG_STAGES;
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WG_CONSUMER_REGS));
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % S;
+    mbar_wait(r.full + s, (kt / S) & 1);
+    const uint64_t da = wg_desc(smem_addr(r.a + s * WG_A_BYTES + wg * 64 * 128));
+    const uint64_t db = wg_desc(smem_addr(r.b + s * WG_B_BYTES));
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WBK / 16; ++kk) wgmma_m64n128k16(d, da + 2 * kk, db + 2 * kk, kt > 0 || kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // step kt - 1 is done: its stage is free
+    if (kt > 0 && (threadIdx.x & 31) == 0) mbar_arrive(r.empty + (kt - 1) % S);
+  }
+  wgmma_wait<0>();
+  wg_fence_acc(d);
+}
+
+// A staged f32 row of the tile, bytes: padded, so that a fragment's 8 rows
+// use 8 bank quads.
+constexpr int WG_FROW = WBN * 4 + 16;
+static_assert(WBM * WG_FROW <= WG_STAGES * (WG_A_BYTES + WG_B_BYTES), "the staged rows fit in the ring");
+
+// Each consumer warpgroup writes its 64 rows of sums d into the ring (free
+// once both warpgroups are past the K loop) as the fragments hold them:
+// rows wr and wr + 8, columns 8 j + 2t, 2t + 1. Returns the warpgroup's
+// staged rows, complete for all its threads.
+__device__ __forceinline__ unsigned char* wg_stage(const WgRing& r, int wg, const float (&d)[64]) {
+  const int lane = threadIdx.x & 31, gr = lane >> 2, t = lane & 3, wr = ((threadIdx.x >> 5) & 3) * 16 + gr;
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");  // both warpgroups are past the ring
+  unsigned char* stage = r.a + wg * 64 * WG_FROW;    // this warpgroup's rows
+#pragma unroll
+  for (int j = 0; j < WBN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(stage + (wr + 8 * h) * WG_FROW + (8 * j + 2 * t) * 4) =
+          make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");  // this warpgroup's rows are staged
+  return stage;
+}
+
 // C[g] = A[g] . W[g]^T with the epilogue EPI, bf16 operands, f32 sums. Grid
 // (tile0[G], cdiv(M, WBM)); block x belongs to group g (tile0[g] <= x <
 // tile0[g + 1]), columns (x - tile0[g]) WBN onwards.
 template <int EPI>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 gemm_wg_kernel(const __grid_constant__ WgMaps maps, WgGroups gp, EpiArgs ep, int M, int K) {
-  constexpr int S = WG_STAGES;
   extern __shared__ __align__(16) unsigned char tcd_smem[];
-  unsigned char* base = tcd_smem + ((1024 - (smem_addr(tcd_smem) & 1023)) & 1023);
+  const WgRing ring = wg_ring(tcd_smem);
   const int nk = (K + WBK - 1) / WBK;
-  unsigned char* a_tiles = base;  // the ring's A stages
-  unsigned char* b_tiles = base + S * WG_A_BYTES;
-  uint64_t* full = reinterpret_cast<uint64_t*>(b_tiles + S * WG_B_BYTES);
-  uint64_t* empty = full + S;
-
   const int bx = blockIdx.x, g = bx >= gp.tile0[2] ? 2 : bx >= gp.tile0[1] ? 1 : 0;
   const int t0 = g == 0 ? 0 : g == 1 ? gp.tile0[1] : gp.tile0[2];
   const int n0 = (bx - t0) * WBN, m0 = blockIdx.y * WBM, N = pick(gp.n, g);
   const CUtensorMap* wmap = g == 0 ? &maps.w[0] : g == 1 ? &maps.w[1] : &maps.w[2];
   const CUtensorMap* amap = g == 0 ? &maps.a[0] : g == 1 ? &maps.a[1] : &maps.a[2];
 
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < S; ++s) {
-      mbar_init(full + s, 1);
-      mbar_init(empty + s, 8);  // lane 0 of every consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
   if (threadIdx.x >= 256) {
-    // the producer: registers to the consumers; its first thread keeps K
-    // step kt in ring stage kt % S, once the consumers have freed it
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(WG_PRODUCER_REGS));
-    if (threadIdx.x == 256)
-      for (int kt = 0; kt < nk; ++kt) {
-        const int s = kt % S;
-        if (kt >= S) mbar_wait(empty + s, (kt / S - 1) & 1);
-        mbar_expect_tx(full + s, WG_A_BYTES + WG_B_BYTES);
-        tma_load(b_tiles + s * WG_B_BYTES, wmap, kt * WBK, n0, full + s);
-        tma_load(a_tiles + s * WG_A_BYTES, amap, kt * WBK, m0, full + s);
-      }
+    wg_produce(ring, amap, wmap, nk, m0, n0);
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WG_CONSUMER_REGS));
     const int wg = threadIdx.x >> 7;
     using TO = EpiOut<bf16, EPI>;
-    constexpr int FROW = WBN * 4 + 16;  // a staged f32 row, bytes: padded, so a fragment's 8 rows use 8 bank quads
-    static_assert(2 * 64 * FROW <= S * (WG_A_BYTES + WG_B_BYTES), "the staged rows fit in the ring");
-    const int lane = threadIdx.x & 31, gr = lane >> 2, t = lane & 3, wr = ((threadIdx.x >> 5) & 3) * 16 + gr;
     TO* const c = static_cast<TO*>(pick(gp.c, g));
-
     float d[64];
-#pragma unroll
-    for (int i = 0; i < 64; ++i) d[i] = 0.f;
-    for (int kt = 0; kt < nk; ++kt) {
-      const int s = kt % S;
-      mbar_wait(full + s, (kt / S) & 1);
-      const uint64_t da = wg_desc(smem_addr(a_tiles + s * WG_A_BYTES + wg * 64 * 128));
-      const uint64_t db = wg_desc(smem_addr(b_tiles + s * WG_B_BYTES));
-      wg_fence_acc(d);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < WBK / 16; ++kk) wgmma_m64n128k16(d, da + 2 * kk, db + 2 * kk);
-      wgmma_commit();
-      wg_fence_acc(d);
-      wgmma_wait<1>();  // step kt - 1 is done: its stage is free
-      if (kt > 0 && (threadIdx.x & 31) == 0) mbar_arrive(empty + (kt - 1) % S);
-    }
-    wgmma_wait<0>();
-    wg_fence_acc(d);
+    wg_consume(ring, nk, wg, d);
 
-    // Epilogue: each warpgroup writes its 64 rows of f32 sums into the
-    // ring, free once both warpgroups are past the K loop (pass 1, as the
-    // fragments hold them: rows wr and wr + 8, columns 8 j + 2t, 2t + 1);
-    // then its threads walk the rows' 8-column pieces (pass 2, a loop kept
-    // rolled, so that its code stays small: unrolled over the 64 sums, the
-    // bias+GELU and FiLM epilogues took 4-5 us more a block than the plain
-    // store), each piece's operands and output in 16-byte loads and stores
-    // along the row.
-    asm volatile("bar.sync 1, 256;\n" ::: "memory");  // both warpgroups are past the ring
-    unsigned char* stage = a_tiles + wg * 64 * FROW;   // this warpgroup's rows
-#pragma unroll
-    for (int j = 0; j < WBN / 8; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<float2*>(stage + (wr + 8 * h) * FROW + (8 * j + 2 * t) * 4) =
-            make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
-    asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");  // this warpgroup's rows are staged
-    constexpr int PPR = WBN / 8;                                    // pieces a row
+    // Epilogue: the sums staged as rows (wg_stage); then the warpgroup's
+    // threads walk the rows' 8-column pieces (a loop kept rolled, so that
+    // its code stays small: unrolled over the 64 sums, the bias+GELU and
+    // FiLM epilogues took 4-5 us more a block than the plain store), each
+    // piece's operands and output in 16-byte loads and stores along the row.
+    const unsigned char* stage = wg_stage(ring, wg, d);
+    constexpr int PPR = WBN / 8;  // pieces a row
 #pragma unroll 1
     for (int i = threadIdx.x & 127; i < 64 * PPR; i += 128) {
       const int rr = i / PPR, m = m0 + wg * 64 + rr, n = n0 + 8 * (i % PPR);
       if (m >= M || n >= N) continue;
       float v[8], o[8];
-      ld_vec<8>(reinterpret_cast<const float*>(stage + rr * FROW) + 8 * (i % PPR), v);
+      ld_vec<8>(reinterpret_cast<const float*>(stage + rr * WG_FROW) + 8 * (i % PPR), v);
       EpiIn in[8];
       wg_load8<EPI>(ep, N, m, n, in);
 #pragma unroll
@@ -313,6 +357,228 @@ gemm_wg_kernel(const __grid_constant__ WgMaps maps, WgGroups gp, EpiArgs ep, int
       st_vec<8>(c + (size_t)m * N + n, o);
     }
   }
+}
+
+// ------------------------------------------ the LayerNorm fold on wgmma
+// gemm_ln's LayerNorm fold (gemm_mma.cuh: LN_POST with or without FiLM
+// rows, LN_FILM_PRE; LN2_PLAIN and LN2_ROT after it) on this body: the
+// cdiv(N, WBN) <= LN_CLUSTER column tiles of a 128-row tile launch as one
+// cluster along x, so the cluster holds whole rows. Each block, after its
+// K loop:
+//   1. stages its sums as rows (wg_stage) and reads them back as 8-column
+//      pieces: thread i of a warpgroup holds piece i % 16 of its rows
+//      i / 16 + 8 k (k < 8), 64 values, in registers; LN_FILM_PRE turns
+//      them into the f32 FiLM residual there;
+//   2. adds each row's (x, x^2) over its 16 pieces by shuffles among the
+//      16 lanes that hold them, in a fixed order, into shared memory;
+//   3. cluster.sync(); each warpgroup's first 64 threads add the cluster's
+//      partials of their rows, read through distributed shared memory in
+//      rank order, so every block of the cluster gets the same statistics
+//      and a run repeats bit for bit;
+//   4. applies the LayerNorm (ln_y, as ln_rows) and the FiLM residual to
+//      its pieces and stores them in bf16 in 16-byte pieces;
+//   5. LN2: repeats 2-4 on the rounded output (the rotary pairs lie in a
+//      piece), then a last cluster.sync() (no block leaves while a peer
+//      reads its partials).
+// The rounding points are gemm_ln's: the product (and FiLM before the
+// LayerNorm) in f32, bf16 after it, LN2 on the rounded output. Rows past M
+// and columns past N hold zeros (TMA's fill), which add nothing to a row's
+// sums; nothing past them is loaded or stored.
+
+// 8 bf16 values packed in 16 bytes, widened to f32.
+__device__ __forceinline__ void unpack8(const uint4& u, float (&r)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {  // element 2e in the low half of word e
+    r[2 * e] = __uint_as_float(w[e] << 16);
+    r[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+  }
+}
+
+struct LnSmem {
+  float2 *own, *stat;  // the block's partial of each of its WBM rows; the rows' statistics
+};
+
+// The partial (x, x^2) sums of this thread's 8 rows of v over the block's
+// columns into own (the block's partial of each of its WBM rows).
+__device__ __forceinline__ void wg_ln_partials(const float (&v)[8][8], float2* own, int wg) {
+  const int i = threadIdx.x & 127;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    float s = 0.f, ss = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) ln_add(v[k][e], s, ss);
+#pragma unroll
+    for (int o = 1; o < 16; o <<= 1) {  // the 16 lanes of the row
+      s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
+      ss = __fadd_rn(ss, __shfl_xor_sync(0xffffffffu, ss, o));
+    }
+    if ((i & 15) == 0) own[wg * 64 + i / 16 + 8 * k] = make_float2(s, ss);
+  }
+}
+
+// After the cluster's barrier: (mu, rsqrt(E[x^2] - mu^2 + eps)) of this
+// warpgroup's rows into stat, from the cluster's partials added in rank
+// order.
+__device__ __forceinline__ void wg_ln_stats(float2* own, float2* stat, int wg, int N, float eps) {
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int i = threadIdx.x & 127;
+  if (i < 64) {
+    const int row = wg * 64 + i;
+    const unsigned nb = cluster.num_blocks();
+    float2 q[LN_CLUSTER];
+#pragma unroll
+    for (unsigned r = 0; r < LN_CLUSTER; ++r)  // the loads in flight together
+      if (r < nb) q[r] = *cluster.map_shared_rank(own + row, r);
+    float s = 0.f, ss = 0.f;
+#pragma unroll
+    for (unsigned r = 0; r < LN_CLUSTER; ++r)  // the sums in rank order
+      if (r < nb) {
+        s = __fadd_rn(s, q[r].x);
+        ss = __fadd_rn(ss, q[r].y);
+      }
+    const float mu = __fdiv_rn(s, (float)N);
+    stat[row] = make_float2(mu, rsqrtf(__fadd_rn(__fsub_rn(__fdiv_rn(ss, (float)N), __fmul_rn(mu, mu)), eps)));
+  }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");  // the warpgroup's statistics are in place
+}
+
+// out (and out2) = the LayerNorm fold of A . W^T, W (N, K) in nn.Linear
+// layout; grid (cdiv(N, WBN), cdiv(M, WBM)) in clusters of cdiv(N, WBN)
+// along x; N % 8 == 0 and every operand 16-byte aligned (ln_wg_ok).
+template <int LNE, int LN2>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+gemm_wg_ln_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap wmap, LnFold f,
+                  int M, int N, int K) {
+  extern __shared__ __align__(16) unsigned char tcd_smem[];
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const WgRing ring = wg_ring(tcd_smem);
+  const int nk = (K + WBK - 1) / WBK, n0 = blockIdx.x * WBN, m0 = blockIdx.y * WBM;
+  // the statistics after the staged rows; LN2's apart from LN's, which a
+  // peer may still read
+  float2* red = reinterpret_cast<float2*>(ring.a + WBM * WG_FROW);
+  const LnSmem ln1{red, red + WBM}, ln2{red + 2 * WBM, red + 3 * WBM};
+
+  if (threadIdx.x >= 256) {  // the producer: its K loop, then the cluster's barriers, apart from the consumers'
+    wg_produce(ring, &amap, &wmap, nk, m0, n0);
+    cluster.sync();
+    if constexpr (LN2 != LN2_NONE) cluster.sync();
+    cluster.sync();
+    return;
+  }
+  const int wg = threadIdx.x >> 7, i = threadIdx.x & 127;
+  const int n = n0 + 8 * (i & 15), rr0 = wg * 64 + i / 16;  // this thread's columns; its first row in the tile
+  const bool ncol = n < N;
+  auto row = [&](int k) { return m0 + rr0 + 8 * k; };
+
+  float v[8][8];  // this thread's pieces: rows rr0 + 8 k, columns n .. n + 7
+  {
+    float d[64];
+    wg_consume(ring, nk, wg, d);
+    const unsigned char* stage = wg_stage(ring, wg, d);
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      ld_vec<8>(reinterpret_cast<const float*>(stage + (i / 16 + 8 * k) * WG_FROW) + 8 * (i & 15), v[k]);
+  }
+  // The FiLM residual of the pieces, all 8 rows' loads in flight at once
+  // (a row of it is read once, from HBM; loaded a row at a time beside the
+  // stores, a block waited out 8 round trips); the FiLM rows (a few rows
+  // a tile, in L1) as they are used.
+  const bool film = f.fs != nullptr;
+  uint4 rp[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    rp[k] = film && ncol && row(k) < M ? __ldg(reinterpret_cast<const uint4*>(f.resid + (size_t)row(k) * N + n))
+                                       : make_uint4(0u, 0u, 0u, 0u);
+  if constexpr (LNE == LN_FILM_PRE) {
+    float bb[8] = {};
+    if (ncol) ld_vec<8>(f.bias + n, bb);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int m = row(k);
+      float r[8], s[8] = {}, b[8] = {};
+      const bool in = ncol && m < M;
+      unpack8(rp[k], r);
+      if (in) {
+        const size_t fr = (size_t)(m / f.L) * N + n;
+        ld_vec<8>(f.fs + fr, s);
+        ld_vec<8>(f.fb + fr, b);
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[k][e] = in ? r[e] + (s[e] + 1.f) * (v[k][e] + bb[e]) + b[e] : 0.f;
+    }
+  }
+  wg_ln_partials(v, ln1.own, wg);
+  cluster.sync();  // every block's partials are in place
+
+  // LN [+ FiLM residual], stored in bf16; v becomes the rounded output,
+  // zero past N (LN2's input)
+  wg_ln_stats(ln1.own, ln1.stat, wg, N, f.eps);
+  {
+    const bool post_film = LNE == LN_POST && film;
+    float sc[8] = {}, bi[8] = {};
+    if (ncol) {
+      ld_vec<8>(f.s + n, sc);
+      ld_vec<8>(f.b + n, bi);
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int m = row(k);
+      const float2 ms = ln1.stat[rr0 + 8 * k];
+      const LnStat st{ms.x, ms.y};
+      const bool in = ncol && m < M;
+      float y[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) y[e] = ln_y(v[k][e], st, sc[e], bi[e]);
+      if (post_film && in) {
+        const size_t fr = (size_t)(m / f.L) * N + n;
+        float r[8], s[8], b[8];
+        unpack8(rp[k], r);
+        ld_vec<8>(f.fs + fr, s);
+        ld_vec<8>(f.fb + fr, b);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) y[e] = r[e] + (s[e] + 1.f) * y[e] + b[e];
+      }
+      if (in) st_vec<8>(f.out + (size_t)m * N + n, y);
+      if constexpr (LN2 != LN2_NONE) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[k][e] = ncol ? round_t<bf16>(y[e]) : 0.f;
+      }
+    }
+  }
+
+  if constexpr (LN2 != LN2_NONE) {
+    wg_ln_partials(v, ln2.own, wg);
+    cluster.sync();  // every block's LN2 partials are in place
+    wg_ln_stats(ln2.own, ln2.stat, wg, N, f.eps2);
+    float sc[8] = {}, bi[8] = {};
+    if (ncol) {
+      ld_vec<8>(f.s2 + n, sc);
+      ld_vec<8>(f.b2 + n, bi);
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int m = row(k);
+      if (!ncol || m >= M) continue;
+      const float2 ms = ln2.stat[rr0 + 8 * k];
+      const LnStat st{ms.x, ms.y};
+      float y[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) y[e] = ln_y(v[k][e], st, sc[e], bi[e]);
+      if constexpr (LN2 == LN2_ROT) {
+        const size_t tr = (size_t)(m % f.L) * N + n;
+        float cs[8], sn[8], o[8];
+        ld_vec<8>(f.cos + tr, cs);
+        ld_vec<8>(f.ssin + tr, sn);
+#pragma unroll
+        for (int e = 0; e < 8; e += 2) rot_pair(y[e], y[e + 1], cs[e], cs[e + 1], sn[e], sn[e + 1], o[e], o[e + 1]);
+        st_vec<8>(f.out2 + (size_t)m * N + n, o);
+      } else {
+        st_vec<8>(f.out2 + (size_t)m * N + n, y);
+      }
+    }
+  }
+  cluster.sync();  // no block leaves while a peer reads its partials
 }
 
 // ---------------------------------------------------------------- host
@@ -439,6 +705,31 @@ inline void gemm_wg(int G, const bf16* const* A, const bf16* const* W, void* con
     if (!tma_map(&maps.a[g], A[g], M, K, K, WBM) || !tma_map(&maps.w[g], W[g], N[g], K, K, WBN)) return refuse();
   ++body_launches()[BODY_WGMMA];
   launch_mma(gemm_wg_kernel<EPI>, dim3(gp.tile0[WGROUP], cdiv(M, WBM)), WG_THREADS, WG_SMEM, st, maps, gp, ep, M, K);
+}
+
+// Whether the wgmma body takes a LayerNorm fold (the fold's dispatch rule):
+// TMA reads A and W (tma_ok), a cluster holds the rows (cdiv(N, WBN) <=
+// LN_CLUSTER), the epilogue moves in 16-byte pieces (N % 8 == 0, every
+// operand 16-byte aligned; a null operand is).
+inline bool ln_wg_ok(const bf16* A, const bf16* W, int N, int K, const LnFold& f) {
+  return tma_ok(A, K) && tma_ok(W, K) && N > 0 && N % 8 == 0 && cdiv(N, WBN) <= LN_CLUSTER && al16(f.out) &&
+         al16(f.out2) && al16(f.resid) && al16(f.cos) && al16(f.ssin) && al16(f.s) && al16(f.b) && al16(f.s2) &&
+         al16(f.b2) && al16(f.bias) && al16(f.fs) && al16(f.fb);
+}
+
+// The LayerNorm fold of out = A . W^T (A (M, K), W (N, K), bf16): one
+// cluster launch of the wgmma body where ln_wg_ok holds, else gemm_ln's
+// (mma.sync, which refuses an odd N or one above LN_CLUSTER * PBN). A
+// launch or a map encode that fails is refused and raises.
+template <int LNE, int LN2>
+inline void gemm_ln_wg(const bf16* A, const bf16* W, int M, int N, int K, const LnFold& f, cudaStream_t st) {
+  if (!ln_wg_ok(A, W, N, K, f)) return gemm_ln<LNE, LN2>(A, W, M, N, K, f, st);
+  CUtensorMap amap, wmap;
+  if (!tma_map(&amap, A, M, K, K, WBM) || !tma_map(&wmap, W, N, K, K, WBN)) return refuse();
+  ++body_launches()[BODY_WGMMA];
+  const int ntn = cdiv(N, WBN);
+  launch_mma_cluster(gemm_wg_ln_kernel<LNE, LN2>, dim3(ntn, cdiv(M, WBM)), ntn, WG_THREADS, WG_SMEM, st, amap, wmap,
+                     f, M, N, K);
 }
 
 }  // namespace tcd

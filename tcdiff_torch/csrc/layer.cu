@@ -29,7 +29,7 @@
 // SA fc with its fold, the CA q projection, the attention, the CA fc with
 // its fold, W1 with GELU, W2 with its fold, W3. A fold is the product
 // launched as a cluster of d/128 blocks along N whose epilogue holds whole
-// rows (gemm_ln of gemm_mma.cuh):
+// rows (gemm_ln_wg of gemm_wgmma.cuh):
 //   SA fc: x1 = T(x + (f1s+1) * LN(z; eps2) + f1b), then r = T(rot(LN(x1;
 //          eps1))) on the rounded x1: the cross-attention's query input;
 //   CA fc: x2 = T(x1 + (f2s+1) * LN(zc; eps2) + f2b), then y = T(LN3(x2));
@@ -39,9 +39,9 @@
 // cross-attention's and K2's sequences shrink to one. x1 and x2 make one
 // round trip each through device memory, in T, so the roundings are those
 // of the TPU kernel. In f32 the same steps run unfused (15 launches: the
-// products on the FMA tiles, each LayerNorm a row kernel). The
-// projections (gemm_mma.cuh) and the flash attention (attention.cuh) run
-// on the tensor cores in bf16.
+// products on the FMA tiles, each LayerNorm a row kernel). In bf16 the
+// projections run on the wgmma + TMA body (gemm_wgmma.cuh, its folds
+// too) and the flash attention (attention.cuh) on mma.sync.
 #include "blocks.cuh"
 
 // Pointers, then the ints, then the floats: the layout of the ctypes
@@ -102,7 +102,7 @@ void layer(const LayerArgs& a, cudaStream_t st) {
   fc_post_ln<T, LN2_PLAIN>(o, (const T*)a.cfc, a.ca_s2, a.ca_b2, x1, a.f2s, a.f2b, a.B, a.L, a.d, a.hd, a.eps2,
                            a.z, x2, st, ln3);
   const int M = a.B * a.L;
-  gemm<T, EPI_BIAS_GELU>(y, (const T*)a.w1, M, a.ff, a.d, epi(a.h, a.bb1), st);
+  proj<T, EPI_BIAS_GELU>(y, (const T*)a.w1, M, a.ff, a.d, epi(a.h, a.bb1), st);
   ff_out<T>(x2, (const T*)a.h, (const T*)a.w2, a.bb2, a.f3s, a.f3b, a.s4, a.b4, (const T*)a.w3, a.bb3, M, a.L, a.d,
             a.ff, a.eps1, a.z, r, (T*)a.out, st);
 }

@@ -20,7 +20,8 @@
 // Design: a short pipeline of hand-written launches on one stream.
 //   1. ln_rows (common.cuh): LN + rotary per row (f32 stats), one warp a
 //      row, y and r stored in T;
-//   2. q, k and v in one grouped launch of the projection (gemm_mma.cuh);
+//   2. q, k and v in one grouped launch of the projection (gemm_wg of
+//      gemm_wgmma.cuh: wgmma fed by TMA, three products of one launch);
 //   3. heads_attention (attention.cuh, shared with K11): flash attention,
 //      one block per (64 queries, head, batch), streaming key tiles with an
 //      online softmax, so no logit row ever leaves the block; in bf16 on
@@ -28,12 +29,14 @@
 //   4. the out projection with the post-attention LN and the FiLM residual
 //      in its epilogue: in bf16 one cluster of d/128 blocks along N holds
 //      whole rows and reduces their statistics through distributed shared
-//      memory (gemm_ln), so the f32 product never leaves the SMs; in f32
-//      the product goes to an f32 scratch and a row kernel reads it back.
+//      memory (gemm_ln_wg, on the wgmma body), so the f32 product never
+//      leaves the SMs; in f32 the product goes to an f32 scratch and a row
+//      kernel reads it back.
 // Four launches in bf16, five in f32. The projections run on the tensor
-// cores in bf16 (mma.sync, a cp.async ring; gemm_mma.cuh says why that
-// design), on the FMA units in f32. The sequence is tcd::sa_block of
-// blocks.cuh, whose steps K6 (layer.cu) reuses.
+// cores in bf16 (wgmma fed by TMA, gemm_wgmma.cuh; mma.sync, gemm_mma.cuh,
+// where the body's rule sends a product), on the FMA units in f32. The
+// sequence is tcd::sa_block of blocks.cuh, whose steps K6 (layer.cu)
+// reuses.
 #include "blocks.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16. table/dist and fs/fb may be null.

@@ -44,7 +44,8 @@ def check_cuda(x: torch.Tensor, **tensors) -> int:
 
 
 # The widest row a bf16 LayerNorm in a product's epilogue holds: a cluster
-# of at most 8 blocks of 128 columns (csrc/gemm_mma.cuh, gemm_ln).
+# of at most 8 blocks of 128 columns (csrc/gemm_wgmma.cuh gemm_ln_wg,
+# csrc/gemm_mma.cuh gemm_ln).
 LN_FOLD_MAX_D = 1024
 
 

@@ -44,15 +44,21 @@ rot^T(g) = g*cos + swap_pairs(g*ssin) and rot(y) = y*cos + swap_pairs(y)*ssin
 with the tables of an angle table (L, N or d) at row m % L.
 
 The forward projection on the wgmma + TMA body (`csrc/gemm_wgmma.cuh`),
-bf16 only, which K2b's, K8's and K9's products run:
+bf16 only, which K1's, K2's, K2b's, K8's and K9's products run, and the
+LayerNorm after a product in its epilogue (K1's and K7's fc, K2's W2):
 
     gemm_wg      C[g] = A[g] . W[g]^T, up to three products of one launch,
                  each with its own N (and A), the epilogues above and
                  bias_film_t = T(bias_film)
+    gemm_ln_wg   out = T(LN(A . W^T)) [+ FiLM residual], or
+    gemm_ln      T(LN(resid + (fs+1) * (A . W^T + bias) + fb)); optionally
+                 a second LayerNorm on out (K6's): gemm_ln_wg on the wgmma
+                 body by its rule, gemm_ln always on mma.sync
 
-`gemm_plan` is the dispatch rule written out (which body a product runs,
-its grid and waves), `body_launches` the per-body launch counts of a
-library and `tma_stats` the host time its tensor maps took.
+`gemm_plan` is the dispatch rule written out (which body a product or a
+fold runs, its grid and waves), `c_body` the rule as the C code decides it
+(`tcd_wg_plan`, `tcd_ln_wg_plan`), `body_launches` the per-body launch
+counts of a library and `tma_stats` the host time its tensor maps took.
 """
 
 from __future__ import annotations
@@ -64,7 +70,8 @@ import torch.nn.functional as F
 
 from tcdiff_torch.models.rotary import swap_pairs
 from tcdiff_torch.ops import _build
-from tcdiff_torch.ops._common import args_struct, as_t, check_cuda, check_ln_fold, launch, ln_f32, mm_f32
+from tcdiff_torch.ops._common import (LN_FOLD_MAX_D, args_struct, as_t, check_cuda, check_ln_fold, launch, ln_f32,
+                                      mm_f32)
 from tcdiff_torch.ops.sa_block import cached_rotary_tables, rotary_tables
 from tcdiff_torch.ops.train_common import weight_splits
 
@@ -390,23 +397,31 @@ def tma_ok(t: torch.Tensor | None) -> bool:
     return t is None or (aligned16(t) and t.stride(-2 if t.dim() > 1 else 0) % 8 == 0 and t.stride(-1) == 1)
 
 
-def gemm_plan(M: int, ns, K: int, tma: bool = True, epilogue_aligned: bool = True) -> dict:
+def gemm_plan(M: int, ns, K: int, tma: bool = True, epilogue_aligned: bool = True, ln_fold: bool = False) -> dict:
     """The dispatch rule of the bf16 forward projection, as csrc/gemm_wgmma.cuh
     applies it (gemm_wg, wg_ok), for C[g] = A[g] . W[g]^T with N = ns[g]:
     "wgmma", one launch of 128 x 128 tiles, where TMA takes every A and W
     (tma: 16-byte aligned bases; and K % 8 == 0) and the epilogue moves in
     16-byte pieces (every N % 8 == 0; epilogue_aligned: the outputs, bias,
     residual and FiLM rows 16-byte aligned); else "mma.sync", one launch
-    per product. The wrappers do not call it: the C code dispatches.
+    per product. ln_fold: one product with the LayerNorm in its epilogue
+    (gemm_ln_wg, ln_wg_ok), whose row a cluster of LN_FOLD_MAX_D / 128
+    blocks must hold besides: "wgmma" where N <= LN_FOLD_MAX_D too, else
+    "mma.sync" (gemm_ln, which refuses an odd N or one past
+    LN_FOLD_MAX_D); one launch either way. The wrappers do not call it:
+    the C code dispatches (`c_body` asks it).
 
     Returns dict(body, launches, tile (BM, BN), grid (x, y), blocks,
     waves): waves are blocks over the blocks the SMs hold at once (one an
     SM for wgmma, two for mma.sync)."""
     ns = list(ns)
-    if tma and K > 0 and K % 8 == 0 and epilogue_aligned and all(n % 8 == 0 for n in ns):
+    if ln_fold and len(ns) != 1:
+        raise ValueError(f"a LayerNorm fold is one product, got N = {ns}")
+    rows_fit = not ln_fold or 0 < ns[0] <= LN_FOLD_MAX_D
+    if tma and K > 0 and K % 8 == 0 and epilogue_aligned and all(n % 8 == 0 for n in ns) and rows_fit:
         body, launches, per_sm = "wgmma", 1, 1
     else:
-        body, launches, per_sm = "mma.sync", len(ns), 2
+        body, launches, per_sm = "mma.sync", 1 if ln_fold else len(ns), 2
     grid = (sum(_cdiv(n, WG_BN) for n in ns), _cdiv(M, WG_BM))
     blocks = grid[0] * grid[1]
     return dict(body=body, launches=launches, tile=(WG_BM, WG_BN), grid=grid, blocks=blocks,
@@ -480,10 +495,161 @@ def gemm_wg(a, w, epilogue: str = "store", bias=None, resid=None, film_scale=Non
 gemm_wg.launches = 0
 
 
+# ------------------------------------------- the LayerNorm fold (bf16)
+LN_FORMS = {"post": 0, "film_pre": 1}     # tcd::LnEpi: LN_POST, LN_FILM_PRE
+LN2_FORMS = {None: 0, "plain": 1, "rot": 2}  # tcd::Ln2
+
+
+def gemm_ln_plain(a, w, scale, bias, eps: float = 1e-5, form: str = "post", prod_bias=None, resid=None,
+                  film_scale=None, film_shift=None, L: int = 1, next_ln=None):
+    """Plain version of the LayerNorm fold (gemm_ln, gemm_ln_wg): the product
+    in f32 (mm_f32), LN_FILM_PRE's FiLM residual in f32, ln_f32, LN_POST's
+    FiLM residual in f32, rounded to a's dtype; next_ln = (scale2, bias2,
+    eps2, angles or None): ln_f32 of the rounded output, rotated by the
+    angle table's rows m % len(angles) where given, rounded. Returns out,
+    or (out, out2) with next_ln."""
+    dt = a.dtype
+    rows = lambda t: t.float().repeat_interleave(L, dim=0)
+    acc = mm_f32(a, w)
+    if form == "film_pre":
+        acc = resid.float() + (rows(film_scale) + 1.0) * (acc + prod_bias.float()) + rows(film_shift)
+    y = ln_f32(acc, scale, bias, eps)
+    if form == "post" and film_scale is not None:
+        y = resid.float() + (rows(film_scale) + 1.0) * y + rows(film_shift)
+    out = y.to(dt)
+    if next_ln is None:
+        return out
+    s2, b2, eps2, angles = next_ln
+    y2 = ln_f32(out, s2, b2, eps2)
+    if angles is not None:
+        cos, ssin = rotary_tables(angles, dt)
+        r = torch.arange(a.shape[0], device=a.device) % angles.shape[0]
+        y2 = y2 * cos.float()[r] + swap_pairs(y2) * ssin.float()[r]
+    return out, y2.to(dt)
+
+
+_LnArgs = args_struct(  # GemmLnArgs in csrc/gemm.cu
+    "GemmLnArgs", ("a", "w", "resid", "cos", "ssin", "s", "b", "bias", "fs", "fb", "s2", "b2", "out", "out2"),
+    ("M", "N", "K", "L", "lne", "ln2"), ("eps", "eps2"))
+
+
+def _gemm_ln_cuda(fn_name, a, w, scale, bias, eps, form, prod_bias, resid, film_scale, film_shift, L, next_ln):
+    _bf16_only(a, fn_name)
+    check_cuda(a, w=w, scale=scale, bias=bias, prod_bias=prod_bias, resid=resid, film_scale=film_scale,
+               film_shift=film_shift)
+    if form not in LN_FORMS:
+        raise ValueError(f"unknown form {form!r}; one of {sorted(LN_FORMS)}")
+    if a.dim() != 2 or w.dim() != 2 or w.shape[1] != a.shape[1]:
+        raise ValueError(f"a (M, K) and w (N, K), got {tuple(a.shape)} and {tuple(w.shape)}")
+    M, K = a.shape
+    N = w.shape[0]
+    if N % 2:
+        raise ValueError(f"N={N} must be even")
+    check_ln_fold(N, a.dtype)
+    film = film_scale is not None
+    if form == "film_pre" and (prod_bias is None or not film):
+        raise ValueError("film_pre needs the product's bias and the FiLM rows")
+    for name, t, shape in (("scale", scale, (N,)), ("bias", bias, (N,)), ("prod_bias", prod_bias, (N,)),
+                           ("resid", resid if film else None, (M, N)), ("film_scale", film_scale, (M // L, N)),
+                           ("film_shift", film_shift, (M // L, N))):
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if film and (resid is None or film_shift is None or M % L):
+        raise ValueError(f"FiLM rows need resid (M, N), both rows and L dividing M = {M}")
+    f32 = lambda t: None if t is None else as_t(t, torch.float32)
+    dt = a.dtype
+    out = torch.empty((M, N), dtype=dt, device=a.device)
+    ten = dict(a=a, w=as_t(w, dt), s=f32(scale), b=f32(bias), bias=f32(prod_bias), out=out)
+    if film:
+        ten.update(resid=as_t(resid, dt), fs=f32(film_scale), fb=f32(film_shift))
+    ln2, eps2 = None, 0.0
+    if next_ln is not None:
+        s2, b2, eps2, angles = next_ln
+        ln2 = "plain" if angles is None else "rot"
+        out2 = torch.empty_like(out)
+        ten.update(s2=f32(s2), b2=f32(b2), out2=out2)
+        if angles is not None:
+            if angles.dim() != 2 or angles.shape[1] != N or (film and angles.shape[0] != L):
+                raise ValueError(f"angles must be (L, N) = ({L if film else 'L'}, {N}), got {tuple(angles.shape)}")
+            ten["cos"], ten["ssin"] = cached_rotary_tables(angles, dt)
+            L = angles.shape[0]
+    ten = {k: t for k, t in ten.items() if t is not None}
+    dims = dict(M=M, N=N, K=K, L=L, lne=LN_FORMS[form], ln2=LN2_FORMS[ln2], eps=eps, eps2=eps2)
+    launch("gemm", f"tcd_{fn_name}", _LnArgs, ten, dims, a, fn_name)
+    return out if next_ln is None else (out, out2)
+
+
+def _ln_fold(fn_name, a, w, scale, bias, eps, form, prod_bias, resid, film_scale, film_shift, L, next_ln):
+    if a.device.type == "cpu":
+        return gemm_ln_plain(a, w, scale, bias, eps, form, prod_bias, resid, film_scale, film_shift, L, next_ln)
+    if a.device.type != "cuda":
+        raise ValueError(f"{fn_name} runs on CPU or CUDA tensors, got {a.device}")
+    return _gemm_ln_cuda(fn_name, a, w, scale, bias, eps, form, prod_bias, resid, film_scale, film_shift, L,
+                         next_ln)
+
+
+def gemm_ln_wg(a, w, scale, bias, eps: float = 1e-5, form: str = "post", prod_bias=None, resid=None,
+               film_scale=None, film_shift=None, L: int = 1, next_ln=None):
+    """The LayerNorm fold of a (M, K) . w^T (w (N, K)) as the blocks launch
+    it (gemm_ln_wg of csrc/gemm_wgmma.cuh: the wgmma body by gemm_plan's
+    rule with ln_fold, else mma.sync): the CUDA kernel (bf16) for a CUDA a,
+    gemm_ln_plain for a CPU a. form "post": out = T(LN(acc)), with
+    film_scale/film_shift (M / L, N) T(resid + (fs+1) * LN(acc) + fb);
+    "film_pre": T(LN(resid + (fs+1) * (acc + prod_bias) + fb)). next_ln as
+    gemm_ln_plain's (its angles (L, N) set L)."""
+    r = _ln_fold("gemm_ln_wg", a, w, scale, bias, eps, form, prod_bias, resid, film_scale, film_shift, L, next_ln)
+    if a.device.type == "cuda":
+        gemm_ln_wg.launches += 1
+    return r
+
+
+gemm_ln_wg.launches = 0
+
+
+def gemm_ln(a, w, scale, bias, eps: float = 1e-5, form: str = "post", prod_bias=None, resid=None,
+            film_scale=None, film_shift=None, L: int = 1, next_ln=None):
+    """The LayerNorm fold on the mma.sync body alone (gemm_ln of
+    csrc/gemm_mma.cuh), the body gemm_ln_wg replaces: for measurement and
+    tests. Arguments as gemm_ln_wg's."""
+    r = _ln_fold("gemm_ln", a, w, scale, bias, eps, form, prod_bias, resid, film_scale, film_shift, L, next_ln)
+    if a.device.type == "cuda":
+        gemm_ln.launches += 1
+    return r
+
+
+gemm_ln.launches = 0
+
+
+def c_body(ns, K: int, addrs: dict, L: int = 1, ln_fold: bool = False) -> str:
+    """The body the C code picks (csrc/gemm.cu tcd_wg_plan, tcd_ln_wg_plan,
+    the rule of csrc/gemm_wgmma.cuh) for products of N = ns[g] over K at
+    the given addresses (ints, compared with alignments only, never read):
+    addrs names a0.., w0.., c0.. and bias, resid, fs, fb (the products),
+    or a, w, out, out2, resid, cos, ssin, s, b, s2, b2, bias, fs, fb (a
+    fold, ln_fold with one N); a name left out is null. "wgmma" or
+    "mma.sync". Needs the card's build of csrc/gemm.cu."""
+    lib = _build.load("gemm")
+    ns = list(ns)
+    if ln_fold:
+        fn, args = lib.tcd_ln_wg_plan, _LnArgs(M=1, N=ns[0], K=K, L=L, **addrs)
+        fn.argtypes = [ctypes.POINTER(_LnArgs)]
+    else:
+        fn, args = lib.tcd_wg_plan, _WgArgs(M=1, K=K, L=L, groups=len(ns), **{f"n{i}": n for i, n in enumerate(ns)},
+                                            **addrs)
+        fn.argtypes = [ctypes.POINTER(_WgArgs)]
+    fn.restype = ctypes.c_int
+    rc = fn(ctypes.byref(args))
+    if rc < 0:
+        raise ValueError(f"the C rule does not take {len(ns)} products")
+    return "wgmma" if rc == 1 else "mma.sync"
+
+
 def body_launches(lib: str = "gemm") -> dict:
     """{"mma.sync": n, "wgmma": n}: the launches of each product body that
-    csrc/<lib>.cu (gemm, ff_block, ln_rotary_matmul or ln_matmul) has enqueued since
-    it was loaded, counted by the C code where it launches."""
+    csrc/<lib>.cu (gemm, sa_block, ff_tail, ff_block, ca_block, layer,
+    ln_rotary_matmul or ln_matmul) has enqueued since it was loaded,
+    counted by the C code where it launches (a LayerNorm fold counts as
+    one)."""
     fn = _build.load(lib).tcd_body_launches
     out = (ctypes.c_longlong * 2)()
     fn(out)

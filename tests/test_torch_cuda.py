@@ -1349,6 +1349,171 @@ def test_wgmma_body_refuses_what_it_does_not_take(dev):
         m.gemm_wg(a, torch.zeros(32, 48, device=dev, dtype=bf16))
 
 
+# ---------------------------------------- K1 and K2 on the wgmma body
+# K1's and K2's products on the wgmma + TMA body at the cells' widths (d
+# 512, 8 x 64 heads, ff 1024) over 3 x 450 rows, which no 128-row tile
+# divides: every product of a call on wgmma (q/k/v one launch, the fc and
+# W2 LayerNorm folds one cluster launch each, W1, W3), none on mma.sync;
+# then the fold alone (gemm_ln_wg) in each form against a plain f32
+# product and LayerNorm with the same rounding points (gemm_ln_plain:
+# mm_f32, ln_f32), bit for bit across two runs; then gemm_plan against the
+# C rule (tcd_wg_plan, tcd_ln_wg_plan) over shapes and alignments.
+CELL_D, CELL_H, CELL_FF = 512, 8, 1024
+
+
+@pytest.mark.parametrize("film", [False, True])
+@pytest.mark.parametrize("trpe", [False, True])
+def test_sa_block_products_on_wgmma_at_the_cell_widths(dev, film, trpe):
+    g = torch.Generator(device=dev).manual_seed(60)
+    bf16, b, l, d = torch.bfloat16, 3, 450, CELL_D
+    r = lambda *s, std=1.0: _rnd(g, dev, *s, std=std)
+    ws = [r(o, i, std=i**-0.5).to(bf16) for o, i in ((d, d), (d, d), (d, d), (d, d))]
+    args = (r(b, l, d).to(bf16), 1 + r(d, std=0.1), r(d, std=0.1), angle_table(l, d, dev), *ws,
+            1 + r(d, std=0.1), r(d, std=0.1),
+            r(10, d).to(bf16) if trpe else None,
+            torch.randint(0, 12, (b, l, l), generator=g, device=dev) if trpe else None,
+            r(b, d, std=0.1) if film else None, r(b, d, std=0.1) if film else None)
+    bodies = _bodies("sa_block")
+    out = sa_block.sa_block(*args, nhead=CELL_H)
+    ref = sa_block.sa_block_plain(*args, nhead=CELL_H)
+    torch.cuda.synchronize()
+    after = _bodies("sa_block")
+    assert {k: after[k] - bodies[k] for k in after} == {"wgmma": 2, "mma.sync": 0}
+    assert out.dtype == bf16 and out.shape == args[0].shape
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(bf16, ref)
+
+
+def test_ff_tail_products_on_wgmma_at_the_cell_widths(dev):
+    g = torch.Generator(device=dev).manual_seed(61)
+    bf16, b, l, d, ff = torch.bfloat16, 3, 450, CELL_D, CELL_FF
+    r = lambda *s, std=1.0: _rnd(g, dev, *s, std=std)
+    args = (r(b, l, d).to(bf16), 1 + r(d, std=0.1), r(d, std=0.1), r(ff, d, std=d**-0.5).to(bf16), r(ff, std=0.1),
+            r(d, ff, std=ff**-0.5).to(bf16), r(d, std=0.1), r(b, d, std=0.1), r(b, d, std=0.1),
+            1 + r(d, std=0.1), r(d, std=0.1), r(d, d, std=d**-0.5).to(bf16), r(d, std=0.1))
+    bodies = _bodies("ff_tail")
+    out = ff_block.ff_tail(*args)
+    ref = ff_block.ff_tail_plain(*args)
+    torch.cuda.synchronize()
+    after = _bodies("ff_tail")
+    assert {k: after[k] - bodies[k] for k in after} == {"wgmma": 3, "mma.sync": 0}
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(bf16, ref)
+
+
+LN_FOLD_FORMS = ["post", "post with FiLM", "film_pre", "post then LN2", "post with FiLM then LN2 and rotary"]
+
+
+def _ln_fold_case(g, dev, form, M, N, K, L):
+    bf16 = torch.bfloat16
+    r = lambda *s, std=1.0: _rnd(g, dev, *s, std=std)
+    a, w = r(M, K).to(bf16), r(N, K, std=K**-0.5).to(bf16)
+    film = form != "post" and form != "post then LN2"
+    kw = dict(eps=1e-6, form="film_pre" if form == "film_pre" else "post", L=L,
+              prod_bias=r(N, std=0.1) if form == "film_pre" else None,
+              resid=r(M, N).to(bf16) if film else None,
+              film_scale=r(M // L, N, std=0.1) if film else None, film_shift=r(M // L, N, std=0.1) if film else None)
+    if "LN2" in form:
+        kw["next_ln"] = (1 + r(N, std=0.1), r(N, std=0.1), 1e-5, angle_table(L, N, dev) if "rotary" in form else None)
+    return (a, w, 1 + r(N, std=0.1), r(N, std=0.1)), kw
+
+
+@pytest.mark.parametrize("form", LN_FOLD_FORMS)
+@pytest.mark.parametrize("M, L", [(1, 1), (1350, 450), (3600, 450)])
+@pytest.mark.parametrize("N, K", [(512, 512), (512, 1024), (128, 64), (1024, 512), (96, 200)])
+def test_ln_fold_wg_matches_plain(dev, form, M, L, N, K):
+    """The fold on wgmma (one cluster launch, no mma.sync) against
+    gemm_ln_plain; mma.sync's gemm_ln within the same bound; wgmma bit for
+    bit across two runs."""
+    from tcdiff_torch.ops import gemm as m
+
+    g = torch.Generator(device=dev).manual_seed(62)
+    args, kw = _ln_fold_case(g, dev, form, M, N, K, L)
+    bodies = _bodies("gemm")
+    out = m.gemm_ln_wg(*args, **kw)
+    torch.cuda.synchronize()
+    after = _bodies("gemm")
+    assert {k: after[k] - bodies[k] for k in after} == {"wgmma": 1, "mma.sync": 0}
+    again = m.gemm_ln_wg(*args, **kw)
+    old = m.gemm_ln(*args, **kw)
+    ref = m.gemm_ln_plain(*args, **kw)
+    outs, agains, olds, refs = (list(t) if isinstance(t, tuple) else [t] for t in (out, again, old, ref))
+    assert len(outs) == len(refs) == (2 if "LN2" in form else 1)
+    for o, a2, o2, r in zip(outs, agains, olds, refs):
+        assert o.dtype == torch.bfloat16 and o.shape == (M, N) and torch.isfinite(o).all().item()
+        assert torch.equal(o, a2)
+        assert (o.float() - r.float()).abs().max().item() <= _tol(torch.bfloat16, r)
+        assert (o2.float() - r.float()).abs().max().item() <= _tol(torch.bfloat16, r)
+
+
+@pytest.mark.parametrize("case", ["N % 8 != 0", "a 2 bytes off", "resid 4 bytes off"])
+def test_ln_fold_off_the_rule_runs_on_mma(dev, case):
+    """A fold the wgmma body does not take runs on gemm_ln (mma.sync, which
+    takes a residual 4-byte aligned), as gemm_plan says, and agrees with
+    the plain version."""
+    from tcdiff_torch.ops import gemm as m
+
+    g = torch.Generator(device=dev).manual_seed(63)
+    M, L, K = 900, 450, 128
+    N = 100 if case == "N % 8 != 0" else 128
+    args, kw = _ln_fold_case(g, dev, "post with FiLM", M, N, K, L)
+    a = args[0]
+    if case == "a 2 bytes off":
+        a = torch.empty(M * K + 1, device=dev, dtype=a.dtype)[1:].view(M, K).copy_(a)
+    if case == "resid 4 bytes off":
+        kw["resid"] = torch.empty(M * N + 2, device=dev, dtype=a.dtype)[2:].view(M, N).copy_(kw["resid"])
+    plan = m.gemm_plan(M, [N], K, tma=m.tma_ok(a), epilogue_aligned=m.aligned16(kw["resid"]), ln_fold=True)
+    assert plan["body"] == "mma.sync"
+    bodies = _bodies("gemm")
+    out = m.gemm_ln_wg(a, *args[1:], **kw)
+    torch.cuda.synchronize()
+    after = _bodies("gemm")
+    assert {k: after[k] - bodies[k] for k in after} == {"wgmma": 0, "mma.sync": 1}
+    ref = m.gemm_ln_plain(a, *args[1:], **kw)
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(torch.bfloat16, ref)
+
+
+PLAN_NS = [[512], [512, 512, 512], [1024, 512], [40], [50], [512, 49], [8, 96, 200]]
+FOLD_NS = [128, 512, 1024, 1032, 1152, 100, 40]
+
+
+@pytest.mark.parametrize("K", [64, 100, 512, 1024])
+def test_gemm_plan_is_the_c_rule(dev, K):
+    """ops/gemm.gemm_plan and the C code's decision (tcd_wg_plan,
+    tcd_ln_wg_plan) agree at every shape and alignment of the grid: A or W
+    2 or 8 bytes off 16, an output, the bias, the residual or a FiLM row 4
+    bytes off, N and K off their multiples of 8, a fold's row past a
+    cluster."""
+    from tcdiff_torch.ops import gemm as m
+
+    base = 1 << 20
+    offsets = [0, 2, 4, 8]
+    checked = 0
+    for ns in PLAN_NS:
+        for oa in offsets:
+            for ow in offsets:
+                for name in (None, "c0", "bias", "resid", "fs", "fb"):
+                    addrs = {f"a{i}": base * (1 + i) + oa for i in range(len(ns))}
+                    addrs.update({f"w{i}": base * (5 + i) + ow for i in range(len(ns))})
+                    addrs.update({f"c{i}": base * (9 + i) for i in range(len(ns))})
+                    addrs.update(bias=base * 13, resid=base * 14, fs=base * 15, fb=base * 16)
+                    if name:
+                        addrs[name] += 4
+                    plan = m.gemm_plan(128, ns, K, tma=oa % 16 == 0 and ow % 16 == 0, epilogue_aligned=name is None)
+                    assert m.c_body(ns, K, addrs) == plan["body"], (ns, K, oa, ow, name)
+                    checked += 1
+    for n in FOLD_NS:
+        for oa in offsets:
+            for name in (None, "out", "out2", "resid", "cos", "s", "b2", "bias", "fs"):
+                names = ("w", "out", "out2", "resid", "cos", "ssin", "s", "b", "s2", "b2", "bias", "fs", "fb")
+                addrs = {k: base * (2 + i) for i, k in enumerate(names)}
+                addrs["a"] = base + oa
+                if name:
+                    addrs[name] += 4
+                plan = m.gemm_plan(128, [n], K, tma=oa % 16 == 0, epilogue_aligned=name is None, ln_fold=True)
+                assert m.c_body([n], K, addrs, ln_fold=True) == plan["body"], (n, K, oa, name)
+                checked += 1
+    assert checked == len(PLAN_NS) * len(offsets) ** 2 * 6 + len(FOLD_NS) * len(offsets) * 9
+
+
 def test_dbn_window_matches_cpu(dev):
     """One full-width DBN window on the card against the same weights on
     the CPU, f32, at b = 3 (its LSTM recurs over the batch), within 1e-5 of

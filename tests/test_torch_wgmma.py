@@ -81,18 +81,81 @@ PLANS = [
     ((3600, [512, 50], 512, True, True), ("mma.sync", 2, (5, 29))),
     ((3600, [512], 512, True, False), ("mma.sync", 1, (4, 29))),
     ((3600, [1024], 512, True, False), ("mma.sync", 1, (8, 29))),
+    # every K1/K2 product of the cell sample.g3.b128 (256 rows x 450 tokens
+    # = 115,200, d 512, 8 x 64 heads, ff 1024): K1's q/k/v (one launch) and
+    # fc with its post-LN (a fold; K7's fc the same), K2's W1, W2 with LN4
+    # (a fold) and W3
+    ((115200, [512, 512, 512], 512, True, True), ("wgmma", 1, (12, 900))),
+    ((115200, [512], 512, True, True, True), ("wgmma", 1, (4, 900))),
+    ((115200, [1024], 512, True, True), ("wgmma", 1, (8, 900))),
+    ((115200, [512], 1024, True, True, True), ("wgmma", 1, (4, 900))),
+    ((115200, [512], 512, True, True), ("wgmma", 1, (4, 900))),
+    # folds the wgmma body does not take (gemm_ln's, one launch): a row
+    # past a cluster, an operand off its alignment, N % 8 != 0
+    ((3600, [1152], 512, True, True, True), ("mma.sync", 1, (9, 29))),
+    ((3600, [512], 512, False, True, True), ("mma.sync", 1, (4, 29))),
+    ((3600, [512], 512, True, False, True), ("mma.sync", 1, (4, 29))),
+    ((3600, [500], 512, True, True, True), ("mma.sync", 1, (4, 29))),
 ]
 
 
 @pytest.mark.parametrize("args, want", PLANS)
 def test_gemm_plan(args, want):
-    """Which body runs a bf16 projection, in how many launches, and its
-    grid: the rule csrc/gemm_wgmma.cuh applies (gemm_wg, wg_ok)."""
-    M, ns, K, tma, epi_aligned = args
-    p = g.gemm_plan(M, ns, K, tma=tma, epilogue_aligned=epi_aligned)
+    """Which body runs a bf16 projection or LayerNorm fold (a sixth arg of
+    True), in how many launches, and its grid: the rule csrc/gemm_wgmma.cuh
+    applies (gemm_wg, wg_ok; gemm_ln_wg, ln_wg_ok)."""
+    M, ns, K, tma, epi_aligned, *fold = args
+    p = g.gemm_plan(M, ns, K, tma=tma, epilogue_aligned=epi_aligned, ln_fold=bool(fold))
     assert (p["body"], p["launches"], p["grid"]) == want
     assert p["tile"] == (128, 128) and p["blocks"] == p["grid"][0] * p["grid"][1]
     assert p["waves"] == pytest.approx(p["blocks"] / (g.SMS * (1 if p["body"] == "wgmma" else 2)))
+
+
+def test_gemm_plan_takes_one_product_a_fold():
+    with pytest.raises(ValueError):
+        g.gemm_plan(3600, [512, 512], 512, ln_fold=True)
+
+
+@pytest.mark.parametrize("form", ["post", "post with FiLM", "film_pre", "post then LN2",
+                                  "post with FiLM then LN2 and rotary"])
+def test_gemm_ln_plain_is_the_unfused_sequence(form):
+    """gemm_ln_plain, the oracle of the bf16 fold, is the f32 blocks' unfused
+    sequence (fc_post_ln, ff_out of csrc/blocks.cuh) written with its parts'
+    plain versions: the product in f32 (gemm_plain store_f32, or bias_film
+    for LN4's input), the row body (ln_rows_plain) with the FiLM rows, and
+    the next LayerNorm (and rotary) on the rounded output; bit for bit in
+    bf16."""
+    from tcdiff_torch.models.rotary import angle_table
+    from tcdiff_torch.ops.layernorm import ln_rows_plain
+
+    bf = torch.bfloat16
+    rng = lambda seed, *s, sc=1.0: torch.from_numpy(_normal(seed, *s, scale=sc))
+    B, L, N, K = 3, 4, 16, 24
+    M = B * L
+    a, w = rng(0, M, K).to(bf), rng(1, N, K, sc=K**-0.5).to(bf)
+    s, b, pb = 1 + rng(2, N, sc=0.1), rng(3, N, sc=0.1), rng(4, N, sc=0.1)
+    resid, fs, fb = rng(5, M, N).to(bf), rng(6, B, N, sc=0.1), rng(7, B, N, sc=0.1)
+    film = "FiLM" in form or form == "film_pre"
+    if form == "film_pre":
+        z = g.gemm_plain(a, w, "bias_film", pb, resid, fs, fb, L)
+        out = g.gemm_ln_plain(a, w, s, b, 1e-5, "film_pre", pb, resid, fs, fb, L)
+        want, _ = ln_rows_plain(z.view(B, L, N), s, b, 1e-5, dtype=bf)
+    else:
+        z = g.gemm_plain(a, w, "store_f32")
+        kw = dict(film_scale=fs, film_shift=fb, resid=resid.view(B, L, N)) if film else {}
+        want, _ = ln_rows_plain(z.view(B, L, N), s, b, 1e-6, dtype=bf, **kw)
+        nxt = None
+        if "LN2" in form:
+            ang = angle_table(L, N, "cpu") if "rotary" in form else None
+            nxt = (1 + rng(8, N, sc=0.1), rng(9, N, sc=0.1), 1e-5, ang)
+            n_out, n_rot = ln_rows_plain(want, *nxt[:3], angles=ang, normed=ang is None)
+            want = (want, n_out if ang is None else n_rot)
+        out = g.gemm_ln_plain(a, w, s, b, 1e-6, "post", None, resid if film else None, fs if film else None,
+                              fb if film else None, L, nxt)
+    outs, wants = (out, want) if isinstance(out, tuple) else ((out,), (want,))
+    assert len(outs) == len(wants)
+    for o, ww in zip(outs, wants):
+        assert torch.equal(o, ww.reshape(M, N))
 
 
 @pytest.mark.parametrize("offset", [0, 1, 4, 8])

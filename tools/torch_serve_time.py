@@ -12,8 +12,9 @@ batch 4 in the default configuration (K1/K2), or with `--config per_op`
 busy time, idle share, chip_smoke.device_profile), then one warm-up and
 `--train-steps` timed batch-64 bf16 train steps (none with 0). Prints one
 JSON line, with the card's name and power limit and, for each timed
-per-op request, the tensor maps K8's and K9's libraries looked up and
-encoded and the host us they took (null for a library without them).
+request, the tensor maps the libraries of its wgmma products (default:
+K1's, K2's and K7's; per-op: K8's and K9's) looked up and encoded and the
+host us they took (null for a library without them).
 """
 
 from __future__ import annotations
@@ -62,7 +63,7 @@ def main() -> int:
     request = lambda: sample(shape, cond, generator=gen, x_0=x_0)
     request()
     torch.cuda.synchronize()
-    libs = ("ln_rotary_matmul", "ln_matmul") if args.config == "per_op" else ()  # K8's and K9's
+    libs = ("ln_rotary_matmul", "ln_matmul") if args.config == "per_op" else ("sa_block", "ff_tail", "ca_block")
     times, maps = [], {lib: [] for lib in libs}
     for _ in range(args.requests):
         before = {lib: tma_stats(lib) for lib in libs}

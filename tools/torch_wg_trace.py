@@ -41,16 +41,16 @@ __device__ __forceinline__ unsigned long long tcd_now() {
   return t;
 }
 '''
-PATCHES = (  # (text of gemm_wgmma.cuh, the same with a record added)
-    ("  unsigned char* base = tcd_smem + ((1024",
+PATCHES = (  # (text of gemm_wgmma.cuh's gemm_wg_kernel, the same with a record added)
+    ("  const WgRing ring = wg_ring(tcd_smem);\n  const int nk = (K + WBK - 1) / WBK;\n",
      "  const unsigned long long t_start = tcd_now();\n  const int bid = blockIdx.y * gridDim.x + blockIdx.x;\n"
-     "  unsigned char* base = tcd_smem + ((1024"),
+     "  const WgRing ring = wg_ring(tcd_smem);\n  const int nk = (K + WBK - 1) / WBK;\n"),
     ("  if (threadIdx.x >= 256) {\n",
      "  if (threadIdx.x == 0) {\n    unsigned sm;\n    asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(sm));\n"
      "    tcd_trace[bid][0] = t_start;\n    tcd_trace[bid][1] = tcd_now();\n    tcd_trace[bid][4] = sm;\n  }\n"
      "  if (threadIdx.x >= 256) {\n"),
-    ("    wgmma_wait<0>();\n    wg_fence_acc(d);\n",
-     "    wgmma_wait<0>();\n    wg_fence_acc(d);\n    if (threadIdx.x == 0) tcd_trace[bid][2] = tcd_now();\n"),
+    ("    wg_consume(ring, nk, wg, d);\n\n",
+     "    wg_consume(ring, nk, wg, d);\n    if (threadIdx.x == 0) tcd_trace[bid][2] = tcd_now();\n\n"),
     ("      st_vec<8>(c + (size_t)m * N + n, o);\n    }\n",
      "      st_vec<8>(c + (size_t)m * N + n, o);\n    }\n    if (threadIdx.x == 0) tcd_trace[bid][3] = tcd_now();\n"),
 )
