@@ -34,6 +34,13 @@ last line:
      K10's row body alone at 3600x512 in bf16, with an f32 input, and at
      the train's 28800 rows: device time beside F.layer_norm's, GB/s and
      the share of the bound, and the body templated on d=512 by name;
+     then (4c) the attention's two bf16 bodies at the main path's calls:
+     K1's at 256 and 128 rows x 8 heads at 450x450, the train forward at
+     256 rows, 600x600 and 600x152, dropout 0.1 and 0, each on the body
+     the rule picks and on mma.sync (q one element off a 16-byte
+     boundary), each held against the plain version (the train forward's
+     lse too, and its dropout mask bit for bit), device ms beside the
+     bound, each call's launches on the body attention_plan names;
   5. the same for the block kernels K2b and K7 (each with and without the
      FiLM rows) and K6 (with and without its FF section), Lm=152; K6's
      bf16 device time, and one call under torch.profiler: 10 device
@@ -956,6 +963,124 @@ def compare_serving_ops(gen: torch.Generator) -> dict:
     return figures
 
 
+def off16(t: torch.Tensor) -> torch.Tensor:
+    """t's values one element past a 16-byte boundary, the same strides: a
+    view TMA cannot address, which the attention runs on mma.sync."""
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def attn_call(call: str, lib: str, fn, hold, aligned: bool, rows: int, lq: int, lk: int) -> dict:
+    """One bf16 attention call of 8 x 64 heads: fn() once, its launches of
+    each body by `lib`'s count against the body attention_plan names,
+    hold(out) (which checks the output and returns its errors), then its
+    device time beside the bound (the operations at PEAK_BF16, q, k, v and
+    o once at HBM_RATE). Prints and returns the row."""
+    before = attention.attn_body_launches(lib)
+    out = fn()
+    torch.cuda.synchronize()
+    after = attention.attn_body_launches(lib)
+    ran = {k: after[k] - before[k] for k in after}
+    plan = attention.attention_plan(torch.bfloat16, 64, False, aligned, lq, rows, H)["body"]
+    check(ran == {b: int(b == plan) for b in ("mma.sync", "wgmma")},
+          f"attention {call}: launched {ran}, the rule names {plan}")
+    errors = hold(out)
+    ms = device_ms(fn, reps=20)
+    flops = 4.0 * rows * H * lq * lk * 64
+    b = 1e3 * max(flops / PEAK_BF16, 2.0 * rows * (2 * lq + 2 * lk) * HD / HBM_RATE)
+    row = dict(call=call, device_ms=round(ms, 5), bound_ms=round(b, 5), share=round(b / ms, 4),
+               tflops=round(flops / ms / 1e9, 1), bodies=ran, plan=plan, **errors)
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def held(what: str, dtype, out: torch.Tensor, ref: torch.Tensor) -> float:
+    """out's largest error against ref, checked within tolerance(dtype)."""
+    err, tol = (out.float() - ref.float()).abs().max().item(), tolerance(dtype, ref.float())
+    check(err <= tol, f"{what} disagrees with the plain version: {err} > {tol}")
+    return err
+
+
+def compare_attention_bodies(gen: torch.Generator) -> list:
+    """Phase 4c: the attention's two bf16 bodies at the main path's calls,
+    8 x 64 heads on (b, L, h*dk) views: K1's self-attention at the serving
+    cell's 256 rows (CFG) and 128 (layer 0's dedup) at 450 x 450; the train
+    forward of K3 (600 x 600) and K4 (600 x 152) at the train cell's 256
+    rows, dropout 0.1 and 0. Each call on the body the rule picks and on
+    mma.sync (q one element off a 16-byte boundary, "off16"), through
+    attn_call, held against the plain version: K1's output against
+    attention_plain; the train forward's output against sa_block_train's
+    plain chain and its lse (f32) against the log-sum-exp of the same
+    logits, and at rate 0.1 its dropout mask, read from q = 0 against v
+    one-hot over each 64 keys, bit for bit against train_common.keep_mask.
+    Returns the rows."""
+    dev, dk, bf = torch.device("cuda"), 64, torch.bfloat16
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(bf)
+    rows_out = []
+    for rows in (256, 128):
+        x = [rnd(rows, L, HD) for _ in range(3)]
+        heads = lambda t: t.view(rows, L, H, dk).transpose(1, 2)
+        q, k, v = (heads(t) for t in x)
+        ref = attention.attention_plain(q, k, v, dk**-0.5)
+        for label, qq in (("", q), (" off16", heads(off16(x[0])))):
+            call = f"k1 {rows} rows {L}x{L}{label}"
+            rows_out.append(attn_call(call, "attention", lambda qq=qq: attention.attention(qq, k, v, dk**-0.5),
+                                      lambda out, call=call: dict(max_abs_err=held(call, bf, out, ref)),
+                                      attention.tma_aligned(qq, k, v), rows, L, L))
+        del x, q, k, v, ref
+
+    rows, lq, chunk = 256, 600, 32
+    seeds = torch.randint(0, 2**32, (rows,), generator=gen, device=dev, dtype=torch.int64)
+    salts = train_common.SALT_ATTN + torch.arange(H, dtype=torch.int64)
+    heads = lambda t: t.view(t.shape[0], t.shape[1], H, dk).transpose(1, 2)
+    fwd = lambda q, k, v, rate: sa_block_train.attention_train_fwd(q, k, v, seeds, nhead=H, rate=rate)
+
+    def kept(q0, k, lk: int, rate: float) -> torch.Tensor:
+        """The forward's dropout mask (rows, H, lq, lk) with q = q0 (zeros):
+        every probability 1 / lk before dropout, so o[i, c] against v
+        one-hot over keys 64 blk.. is nonzero iff key 64 blk + c is kept."""
+        mask = torch.empty(rows, H, lq, lk, dtype=torch.bool, device=dev)
+        for blk in range(-(-lk // 64)):
+            keys = torch.arange(64 * blk, min(64 * blk + 64, lk), device=dev)
+            onehot = torch.zeros(lk, dk, device=dev)
+            onehot[keys, keys - 64 * blk] = 1.0
+            vb = onehot.repeat(1, H)[None].expand(rows, lk, HD).to(bf).contiguous()
+            o = fwd(q0, k, vb, rate)[0].view(rows, lq, H, dk)[..., :keys.numel()]
+            mask[..., 64 * blk:64 * blk + keys.numel()] = (o != 0).transpose(1, 2)
+        return mask
+
+    for lk in (600, 152):
+        q, k, v = rnd(rows, lq, HD), rnd(rows, lk, HD), rnd(rows, lk, HD)
+        scale_t = torch.tensor(1.0 / dk**0.5, dtype=bf)
+        lse = torch.cat([torch.logsumexp(torch.matmul((heads(q[c:c + chunk]) * scale_t).float(),
+                                                      heads(k[c:c + chunk]).float().transpose(-1, -2)), dim=-1)
+                         for c in range(0, rows, chunk)])
+        for rate in (0.1, 0.0):
+            ref = torch.cat([sa_block_train.attention_plain(q[c:c + chunk], k[c:c + chunk], v[c:c + chunk],
+                                                            seeds[c:c + chunk], H, rate)
+                             for c in range(0, rows, chunk)])
+            keep = None if rate == 0 else torch.cat([train_common.keep_mask(seeds[c:c + chunk], salts, lq, lk, rate)
+                                                     for c in range(0, rows, chunk)])
+            for label, qq, q0 in (("", q, torch.zeros_like(q)), (" off16", off16(q), off16(torch.zeros_like(q)))):
+                call = f"train fwd {lq}x{lk} rate {rate}{label}"
+
+                def hold(out, call=call, q0=q0, rate=rate, keep=keep):
+                    errors = dict(max_abs_err=held(call, bf, out[0], ref), lse_err=held(call + " lse",
+                                                                                      torch.float32, out[1], lse))
+                    if keep is not None:
+                        check(torch.equal(kept(q0, k, lk, rate), keep), f"{call}: the dropout mask differs")
+                        errors["mask"] = "bit for bit"
+                    return errors
+
+                rows_out.append(attn_call(call, "sa_block_train", lambda qq=qq, rate=rate: fwd(qq, k, v, rate), hold,
+                                          attention.tma_aligned(heads(qq), heads(k), heads(v)), rows, lq, lk))
+            del ref, keep
+        del q, k, v, lse
+    return rows_out
+
+
 def compare_ln_rows(gen: torch.Generator) -> dict:
     """Phase 4b: K10's row body (the LayerNorm stage of every kernel) at the
     rows the paths give it, d=512: 3600 rows in bf16 (K10 itself), 3600
@@ -1731,11 +1856,13 @@ def serve(gen: torch.Generator) -> dict:
     torch.cuda.synchronize()
 
     reset_serving_launches()
+    attn = attention.attn_body_launches("sa_block")
     t0 = time.perf_counter()
     outs = [diff.ddim_sample(shape, cond, generator=gen, x_0=x_0) for cond, x_0 in reqs]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {name: n for name, n in serving_launches().items() if n}
+    attn = {k: n - attn[k] for k, n in attention.attn_body_launches("sa_block").items()}
 
     for out, (_, x_0) in zip(outs, reqs):
         check_output(out, x_0, shape)
@@ -1744,6 +1871,8 @@ def serve(gen: torch.Generator) -> dict:
           f"(expected {want} each of {', '.join(DEFAULT_SITES)})")
     check(launches == dict.fromkeys(DEFAULT_SITES, want), f"main path launches {launches}, expected {want} each of "
           f"{DEFAULT_SITES}")
+    print(f"main path: K1's attention by body {attn} (expected all {want} on wgmma)")
+    check(attn == {"mma.sync": 0, "wgmma": want}, f"main path: K1's attention ran on {attn}")
     per_req = seconds / REQUESTS
     motion = REQUESTS * REQ_BATCH * CLIP_S
     print(f"main path: {per_req:.3f} s per request, {motion / seconds:.2f} s-motion/s (bf16, kernels)")
@@ -3638,6 +3767,7 @@ def main() -> int:
             figures[name]["products"] = products
         wgmma_products = compare_wgmma(gen)
         figures.update(compare_serving_ops(gen))
+        figures["attention"]["bodies"] = compare_attention_bodies(gen)
         figures["layernorm"].update(compare_ln_rows(gen))
         figures.update(compare_block_kernels(gen))
         figures["ca_block"]["over_cache"] = compare_ca_kv(gen)

@@ -16,17 +16,21 @@
 // cores; on the FMA units the products alone would take ~50 us at 450 x
 // 450, so they have to run on the tensor cores.
 //
-// Design: attention.cuh's tensor-core kernel for bf16 (FlashAttention-2 on
-// mma.sync: 64 queries per block of 4 warps, q in registers, 64-key tiles
-// of k and v double-buffered by cp.async, S and the online softmax in
-// registers, p repacked into A fragments for p.v); f32 keeps the FMA body,
-// since the tensor cores would take it only as TF32. The all-heads grid
-// of the TPU is only a launch granularity, which a Hopper grid covers
-// with the same blocks.
+// Design: attention.cuh's bf16 bodies: at head width 64 without TRPE,
+// wherever TMA can address the views, the wgmma body (a persistent grid of
+// 128-query tiles, a TMA producer warpgroup feeding a ring of k/v stages,
+// two consumer warpgroups on wgmma with the online softmax in registers);
+// otherwise FlashAttention-2 on mma.sync (64 queries per block of 4 warps,
+// q in registers, 64-key tiles of k and v double-buffered by cp.async, S
+// and the online softmax in registers, p repacked into A fragments for
+// p.v); f32 keeps the FMA body, since the tensor cores would take it only
+// as TF32. The all-heads grid of the TPU is only a launch granularity,
+// which a Hopper grid covers with the same blocks.
 #include "attention.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16; a->dk <= 64 and a multiple of 4.
-// Returns cudaGetLastError() after the launch.
+// Returns the launch's status (launch_status): a tensor map that
+// cuTensorMapEncodeTiled does not encode is refused.
 extern "C" int tcd_attention(int dtype, const tcd::AttnArgs* a, int B, int H, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
@@ -36,5 +40,5 @@ extern "C" int tcd_attention(int dtype, const tcd::AttnArgs* a, int B, int H, vo
   } else {
     return -1;
   }
-  return (int)cudaGetLastError();
+  return tcd::launch_status();
 }

@@ -8,7 +8,8 @@
 // projections with fused epilogues and heads_attention (attention.cuh). In
 // bf16 the projections run on the wgmma + TMA body (gemm_wgmma.cuh: proj,
 // proj_group; mma.sync, gemm_mma.cuh, where its rule sends a product) and
-// the attention on mma.sync; in f32 both run on the FMA units. Buffers are
+// the attention on its wgmma + TMA body (mma.sync where its rule sends a
+// call); in f32 both run on the FMA units. Buffers are
 // row-major (B * L rows); projections are (rows, h*dk) with head h in
 // columns [h*dk, (h+1)*dk); weights in nn.Linear layout (out, in).
 // Intermediates land in T where the TPU kernels round them to the compute

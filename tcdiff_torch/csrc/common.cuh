@@ -350,16 +350,25 @@ ln_rows_kernel(const TI* __restrict__ in, const float* __restrict__ scale, const
   }
 }
 
+// The SMs of the device this process runs on, read once.
+inline int device_sms() {
+  static const int sms = [] {
+    int dev = 0, n = 1;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  return sms;
+}
+
 // One launch of ln_rows_kernel<TI, T, EPL, NORM>: min(rows / LN_WARPS, the
 // blocks the card holds at once) blocks, found once per instance.
 template <typename TI, typename T, int EPL, bool NORM, typename... Args>
 inline void launch_ln_rows(int M, cudaStream_t st, Args... args) {
   static const int resident = [] {
-    int dev = 0, sms = 1, per = 1;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    int per = 1;
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, ln_rows_kernel<TI, T, EPL, NORM>, 32 * LN_WARPS, 0);
-    return sms * (per > 0 ? per : 1);
+    return device_sms() * (per > 0 ? per : 1);
   }();
   const int blocks = std::max(1, std::min(cdiv(M, LN_WARPS), resident));
   ln_rows_kernel<TI, T, EPL, NORM><<<blocks, 32 * LN_WARPS, 0, st>>>(args...);

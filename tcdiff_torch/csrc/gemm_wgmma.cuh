@@ -74,6 +74,7 @@
 
 #include <cuda.h>
 
+#include <array>
 #include <chrono>
 #include <map>
 #include <mutex>
@@ -132,6 +133,39 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int 
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0), "r"(smem_addr(bar))
       : "memory");
 }
+
+// A box of a 4-D tensor map at coordinates (c0, c1, c2, c3), as tma_load.
+__device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map, int c0, int c1, int c2, int c3,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], "
+      "[%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_addr(bar))
+      : "memory");
+}
+// A box of shared memory at src to a 4-D tensor map at (c0, c1, c2, c3);
+// the parts of the box past the tensor's edges are not written. The
+// caller commits (bulk_commit) and waits for the read (bulk_wait_read)
+// before it writes src again.
+__device__ __forceinline__ void tma_store4(const CUtensorMap* map, const void* src, int c0, int c1, int c2, int c3) {
+  asm volatile("cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// Wait until at most N of this thread's bulk stores still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Wait until at most N of this thread's bulk stores are still in flight.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Order this thread's generic shared-memory writes before a later TMA read of them.
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 
 // The wgmma descriptor of a K-major bf16 tile with the 128-byte swizzle at
 // a 1024-byte aligned shared address: 8-row groups 1024 bytes apart. The
@@ -616,27 +650,35 @@ inline EncodeTiled encode_tiled() {
 // a 16-byte aligned base and rows a multiple of 16 bytes apart.
 inline bool tma_ok(const void* p, int ld) { return al16(p) && ld > 0 && ld % 8 == 0; }
 
-// The map of a row-major (rows, cols) bf16 operand of row stride ld, read
-// in boxes of WBK columns by box_rows rows with the 128-byte swizzle and
-// zeros past its edges; false where the driver refuses it.
-static inline bool tma_map(CUtensorMap* out, const void* p, int rows, int cols, int ld, int box_rows) {
-  using Key = std::tuple<const void*, int, int, int, int>;
+// The map of a bf16 tensor of rank <= 5 dimensions (dims[0] contiguous,
+// strides[i] the byte stride of dimension i + 1), read or written in boxes
+// of box[i] elements with the 128-byte swizzle and zeros past its edges;
+// false where cuTensorMapEncodeTiled does not encode it. Cached by
+// (pointer, dims, strides, box): a map is a function of those alone.
+static inline bool tma_map_nd(CUtensorMap* out, const void* p, int rank, const cuuint64_t* dims,
+                              const cuuint64_t* strides, const cuuint32_t* box) {
+  using Key = std::tuple<const void*, int, std::array<cuuint64_t, 5>, std::array<cuuint64_t, 4>,
+                         std::array<cuuint32_t, 5>>;
   static std::mutex mu;
   static std::map<Key, CUtensorMap> cache;
   const auto t0 = std::chrono::steady_clock::now();
   std::lock_guard<std::mutex> lock(mu);
   TmaStats& stats = tma_stats();
   ++stats.lookups;
-  const Key key{p, rows, cols, ld, box_rows};
+  Key key{p, rank, {}, {}, {}};
+  for (int i = 0; i < rank; ++i) {
+    std::get<2>(key)[i] = dims[i];
+    std::get<4>(key)[i] = box[i];
+    if (i > 0) std::get<3>(key)[i - 1] = strides[i - 1];
+  }
   const auto it = cache.find(key);
   bool ok = true;
   if (it != cache.end()) {
     *out = it->second;
   } else {
     const EncodeTiled fn = encode_tiled();
-    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows}, strides[1] = {(cuuint64_t)ld * sizeof(bf16)};
-    const cuuint32_t box[2] = {WBK, (cuuint32_t)box_rows}, estr[2] = {1, 1};
-    ok = fn && fn(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims, strides, box, estr,
+    const cuuint32_t estr[5] = {1, 1, 1, 1, 1};
+    ok = fn && fn(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(p), dims, strides, box, estr,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
     if (ok) {
@@ -647,6 +689,14 @@ static inline bool tma_map(CUtensorMap* out, const void* p, int rows, int cols, 
   }
   stats.us += std::chrono::duration<double, std::micro>(std::chrono::steady_clock::now() - t0).count();
   return ok;
+}
+
+// The map of a row-major (rows, cols) bf16 operand of row stride ld, read
+// in boxes of WBK columns by box_rows rows (tma_map_nd).
+static inline bool tma_map(CUtensorMap* out, const void* p, int rows, int cols, int ld, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows}, strides[1] = {(cuuint64_t)ld * sizeof(bf16)};
+  const cuuint32_t box[2] = {WBK, (cuuint32_t)box_rows};
+  return tma_map_nd(out, p, 2, dims, strides, box);
 }
 
 // The groups' column tiles (tile0) and the grid's x; false past WGROUP.

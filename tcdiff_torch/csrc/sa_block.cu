@@ -23,9 +23,11 @@
 //   2. q, k and v in one grouped launch of the projection (gemm_wg of
 //      gemm_wgmma.cuh: wgmma fed by TMA, three products of one launch);
 //   3. heads_attention (attention.cuh, shared with K11): flash attention,
-//      one block per (64 queries, head, batch), streaming key tiles with an
-//      online softmax, so no logit row ever leaves the block; in bf16 on
-//      the tensor cores (mma.sync), in f32 on the FMA units;
+//      streaming key tiles with an online softmax, so no logit row ever
+//      leaves the block; in bf16 on the tensor cores (at head width 64
+//      without TRPE the wgmma + TMA body, a persistent grid of 128-query
+//      tiles; else mma.sync, a block for each 64 queries of a head and
+//      row), in f32 on the FMA units;
 //   4. the out projection with the post-attention LN and the FiLM residual
 //      in its epilogue: in bf16 one cluster of d/128 blocks along N holds
 //      whole rows and reduces their statistics through distributed shared

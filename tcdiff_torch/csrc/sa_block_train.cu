@@ -123,7 +123,7 @@ template <typename T>
 int attn_train_fwd(const AttnTrainArgs& a, cudaStream_t st) {
   attention_fwd<T>((const T*)a.q, (const T*)a.k, (const T*)a.v, a.B, a.nhead, a.Lq, a.Lk, a.hd,
                    make_drop(a.seeds, a.thresh, a.dscale, a.drop_on), (T*)a.o, a.lse, st);
-  return (int)cudaGetLastError();
+  return launch_status();
 }
 
 template <typename T>

@@ -16,6 +16,11 @@ which those outside [0, 10) add nothing. The logits and softmax run in
 f32; the probabilities are rounded to T before the product with v, as the
 TPU kernel does. A CUDA tensor takes the kernel, a CPU tensor the plain
 version.
+
+The kernel has three bodies (`csrc/attention.cuh`), chosen in C by what a
+call holds: `attention_plan` writes that rule out (no wrapper calls it;
+`c_plan` asks the C code, `attn_body_launches` reads a library's count of
+launches of each bf16 body).
 """
 
 from __future__ import annotations
@@ -51,6 +56,75 @@ def attention_plain(q, k, v, scale: float, table=None, trj_dist=None):
         logits = logits + trpe_bias(indexed, trj_dist)
     p = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.matmul(p.float(), v.float()).to(dt)
+
+
+# The bodies' tiles (csrc/attention.cuh): the FMA body's FQ queries a block
+# and FK keys a tile, the mma.sync body's MQ and MK, the wgmma body's AWQ
+# and AWK.
+BODY_TILES = {"fma": (64, 32), "mma.sync": (64, 64), "wgmma": (128, 128)}
+BODIES = ("fma", "mma.sync", "wgmma")  # tcd::AttnBody
+SMS = 132  # the H100 SXM's SMs
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def attention_plan(dtype, dk: int, has_table: bool, aligned: bool, Lq: int, rows: int, heads: int,
+                   sms: int = SMS) -> dict:
+    """The dispatch rule of the attention kernel, as csrc/attention.cuh's
+    attn_plan applies it to a call of `rows` batch rows and `heads` heads
+    of width dk, Lq queries (against any number of keys): "fma" for
+    float32; "wgmma" for bfloat16 at dk = 64 without a TRPE table where
+    TMA can address q, k, v and o (aligned: 16-byte aligned, every stride
+    a positive multiple of 16 bytes, `tma_aligned`), one persistent launch
+    of min(tiles, sms) blocks over tiles of 128 queries; else "mma.sync",
+    a block for each 64 queries of a head and row. One launch whatever
+    the body.
+
+    Returns dict(body, q_block (queries a block or tile), k_tile (keys a
+    tile), grid (x, y, z))."""
+    if dtype == torch.float32:
+        body = "fma"
+    elif dtype == torch.bfloat16:
+        body = "wgmma" if dk == 64 and not has_table and aligned else "mma.sync"
+    else:
+        raise TypeError(f"unsupported dtype {dtype}: the kernel takes float32 or bfloat16")
+    q_block, k_tile = BODY_TILES[body]
+    if body == "wgmma":
+        grid = (min(_cdiv(Lq, q_block) * heads * rows, sms), 1, 1)
+    else:
+        grid = (_cdiv(Lq, q_block), heads, rows)
+    return dict(body=body, q_block=q_block, k_tile=k_tile, grid=grid)
+
+
+def tma_aligned(*views) -> bool:
+    """Whether TMA can address each (b, h, L, dk) view (attention_plan's
+    `aligned`): a 16-byte aligned start and its batch, head and row
+    strides positive multiples of 16 bytes."""
+    return all(t.data_ptr() % 16 == 0 and all(st > 0 and (st * t.element_size()) % 16 == 0 for st in t.stride()[:3])
+               for t in views)
+
+
+def c_plan(dtype, dk: int, has_table: bool, aligned: bool, Lq: int, rows: int, heads: int, sms: int = SMS) -> dict:
+    """attention_plan as the C code computes it (tcd_attn_plan of
+    csrc/attention.cu). Needs the card's build."""
+    fn = _build.load("attention").tcd_attn_plan
+    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = None
+    out = (ctypes.c_int * 6)()
+    fn(DTYPE_CODE[dtype], dk, int(has_table), int(aligned), Lq, rows, heads, sms, out)
+    return dict(body=BODIES[out[0]], q_block=out[1], k_tile=out[2], grid=(out[3], out[4], out[5]))
+
+
+def attn_body_launches(lib: str = "attention") -> dict:
+    """{"mma.sync": n, "wgmma": n}: the launches of each bf16 attention body
+    that csrc/<lib>.cu (attention, sa_block, layer, ca_block,
+    sa_block_train or ca_block_train) has enqueued since it was loaded,
+    counted by the C code where it launches."""
+    out = (ctypes.c_longlong * 2)()
+    _build.load(lib).tcd_attn_body_launches(out)
+    return {"mma.sync": out[0], "wgmma": out[1]}
 
 
 class _Strides(ctypes.Structure):

@@ -189,25 +189,32 @@ _AttnArgs = args_struct(  # AttnTrainArgs in csrc/sa_block_train.cu
 )
 
 
+def _attention_fwd(q, k, v, seeds, nhead: int, rate: float):
+    """The train attention's forward launch: its tensors (o and the lse
+    among them) and dimensions."""
+    check_cuda(q, k=k, v=v, seeds=seeds)
+    b, lq, hd = q.shape
+    lk = k.shape[1]
+    if hd % nhead or hd // nhead > 64 or (hd // nhead) % 8:
+        raise ValueError(f"unsupported widths h*dk={hd}, nhead={nhead}")
+    for name, t in (("k", k), ("v", v)):
+        if tuple(t.shape) != (b, lk, hd) or t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype} {tuple(t.shape)}; expected {q.dtype} {(b, lk, hd)}")
+    if tuple(seeds.shape) != (b,):
+        raise ValueError(f"seeds has shape {tuple(seeds.shape)}, expected {(b,)}")
+    ten = dict(q=q, k=k.contiguous(), v=v.contiguous(), seeds=as_uint32_int32(seeds), o=torch.empty_like(q),
+               lse=torch.empty((b, nhead, lq), dtype=torch.float32, device=q.device))
+    dims = dict(B=b, Lq=lq, Lk=lk, hd=hd, nhead=nhead, drop_on=int(rate > 0), dscale=1.0 / (1.0 - rate),
+                thresh=threshold(rate))
+    launch("sa_block_train", "tcd_attn_train_fwd", _AttnArgs, ten, dims, q, "attention_train")
+    attention_train.launches += 1
+    return ten, dims
+
+
 class _AttentionTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, seeds, nhead, rate):
-        check_cuda(q, k=k, v=v, seeds=seeds)
-        b, lq, hd = q.shape
-        lk = k.shape[1]
-        if hd % nhead or hd // nhead > 64 or (hd // nhead) % 8:
-            raise ValueError(f"unsupported widths h*dk={hd}, nhead={nhead}")
-        for name, t in (("k", k), ("v", v)):
-            if tuple(t.shape) != (b, lk, hd) or t.dtype != q.dtype:
-                raise ValueError(f"{name} is {t.dtype} {tuple(t.shape)}; expected {q.dtype} {(b, lk, hd)}")
-        if tuple(seeds.shape) != (b,):
-            raise ValueError(f"seeds has shape {tuple(seeds.shape)}, expected {(b,)}")
-        ten = dict(q=q, k=k.contiguous(), v=v.contiguous(), seeds=as_uint32_int32(seeds), o=torch.empty_like(q),
-                   lse=torch.empty((b, nhead, lq), dtype=torch.float32, device=q.device))
-        dims = dict(B=b, Lq=lq, Lk=lk, hd=hd, nhead=nhead, drop_on=int(rate > 0), dscale=1.0 / (1.0 - rate),
-                    thresh=threshold(rate))
-        launch("sa_block_train", "tcd_attn_train_fwd", _AttnArgs, ten, dims, q, "attention_train")
-        attention_train.launches += 1
+        ten, dims = _attention_fwd(q, k, v, seeds, nhead, rate)
         save_tensors(ctx, ten)
         ctx.dims = dims
         return ten["o"]
@@ -234,6 +241,15 @@ def attention_train(q, k, v, seeds, *, nhead: int, rate: float):
     if q.device.type != "cuda":
         raise ValueError(f"attention_train runs on CPU or CUDA tensors, got {q.device}")
     return _AttentionTrain.apply(q, k, v, seeds, nhead, rate)
+
+
+def attention_train_fwd(q, k, v, seeds, *, nhead: int, rate: float):
+    """The train attention's forward alone on CUDA tensors, as
+    attention_train runs it: (o, lse), lse (b, h, Lq) in f32 (each row's
+    log softmax normaliser, which the backward recomputes from). For tests
+    and measurement."""
+    ten, _ = _attention_fwd(q, k, v, seeds, nhead, rate)
+    return ten["o"], ten["lse"]
 
 
 count_kernel(attention_train)

@@ -97,3 +97,33 @@ def test_profiled_tiny_train_steps_read_their_phases():
     # more units than the profile holds roots: nothing read
     more = _reading(cell, dataclasses.replace(r.trace, units=3))
     assert not set(TRAIN) & set(harness.read_per_layer(cell, more))
+
+
+WG_ATTN = ("void tcd::attn_mma_kernel<64, true>(tcd::AttnMaps, tcd::AttnArgs, tcd::AttnTrain, unsigned int, int, "
+           "int)")
+
+
+@pytest.mark.parametrize("extra", [0, -1, 1])
+def test_the_wgmma_attention_counts_as_the_forward_calls(extra):
+    """The wgmma body's instantiation, with its second template argument,
+    reads as attn_mma_kernel; a request of exactly num_layers x steps of
+    its launches is read whole by attn_roofline.sample, one more or one
+    fewer is not read."""
+    from benchmark import flops, readers
+
+    assert device.kernel_base(WG_ATTN) == "attn_mma_kernel"
+    assert readers.is_attention(WG_ATTN)
+    cell = spec.load("sample.g3.b128")
+    model = cell.config["model"]
+    calls = model["num_layers"] * cell.config["diffusion"]["sampling_timesteps"] + extra
+    assert calls - extra == 400
+    kernels = [(WG_ATTN, 1e-3 * i, 1e-3 * i + 5e-4) for i in range(calls)]
+    trace = device.Trace(kernels, [("aten::mm", 0.0, 1.0)], 1.0, 1)
+    peaks = {"bf16_flops": 989e12, "hbm_bytes_per_s": 3.35e12}
+    r = harness.Reading(cell, model, cell.traffic, trace, 1, 1.0, 0, peaks)
+    got = readers.attention_roofline(r, train=False)
+    if extra:
+        assert got is None
+    else:
+        bound = flops.attention_bound_s(model, cell.traffic["batch"], 50, 989e12, 3.35e12, False)
+        assert got == pytest.approx(100.0 * bound / (calls * 5e-4))

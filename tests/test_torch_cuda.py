@@ -53,10 +53,11 @@ def test_sa_block_kernel_matches_plain(dev, dtype, film, trpe):
             r(10, 128).to(dtype) if trpe else None,
             torch.randint(0, 12, (B, L, L), generator=g, device=dev) if trpe else None,
             r(B, D, std=0.1) if film else None, r(B, D, std=0.1) if film else None)
-    before = sa_block.sa_block.launches
+    before, bodies = sa_block.sa_block.launches, _attn_bodies("sa_block")
     out = sa_block.sa_block(*args, nhead=H)
     ref = sa_block.sa_block_plain(*args, nhead=H)
     assert sa_block.sa_block.launches == before + 1
+    assert _bodies_since(bodies, "sa_block") == _ran(dtype, 128 // H, trpe, 1)
     assert out.dtype == dtype and out.shape == x.shape
     assert (out.float() - ref.float()).abs().max().item() <= _tol(dtype, ref)
 
@@ -426,9 +427,35 @@ def test_ln_rotary_matmul_kernel_matches_plain(dev, dtype, d, rot_only):
         assert (o.float() - r.float()).abs().max().item() <= _tol(dtype, r)
 
 
+def _attn_bodies(lib: str) -> dict:
+    from tcdiff_torch.ops.attention import attn_body_launches
+
+    return attn_body_launches(lib)
+
+
+def _bodies_since(before: dict, lib: str) -> dict:
+    from tcdiff_torch.ops.attention import attn_body_launches
+
+    now = attn_body_launches(lib)
+    return {k: now[k] - before[k] for k in now}
+
+
+def _ran(dtype, dk: int, trpe: bool, calls: int) -> dict:
+    """The per-body launch counts `calls` calls of attention_plan's body make
+    (f32 counts under neither bf16 body)."""
+    from tcdiff_torch.ops.attention import attention_plan
+
+    body = attention_plan(dtype, dk, trpe, True, 1, 1, 1)["body"]
+    return {b: calls if b == body else 0 for b in ("mma.sync", "wgmma")}
+
+
+# Lq and Lk of 1, 65, 66, 129, 152, 450 and 600: the wgmma body's 128-query
+# tiles, 64-key halves and 128-key stages, each one past or short of an edge.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("lq, lk, dk", [(100, 100, 64), (100, 38, 64), (37, 70, 16), (150, 150, 64),
-                                       (450, 450, 64), (450, 152, 64), (37, 53, 32), (1, 70, 64), (53, 37, 20)])
+                                       (450, 450, 64), (450, 152, 64), (37, 53, 32), (1, 70, 64), (53, 37, 20),
+                                       (1, 1, 64), (65, 66, 64), (66, 65, 64), (129, 152, 64), (152, 129, 64),
+                                       (600, 600, 64), (600, 152, 64), (1, 600, 64), (450, 1, 64)])
 @pytest.mark.parametrize("trpe", [False, True])
 def test_attention_kernel_matches_plain(dev, dtype, lq, lk, dk, trpe):
     from tcdiff_torch.ops import attention as m
@@ -441,7 +468,7 @@ def test_attention_kernel_matches_plain(dev, dtype, lq, lk, dk, trpe):
     table = _rnd(g, dev, h, 10, dk) if trpe else None
     dist = torch.randint(-1, 12, (B, lq, lk), generator=g, device=dev) if trpe else None
     scale = dk**-0.5
-    before = m.attention.launches
+    before, bodies = m.attention.launches, m.attn_body_launches()
     out = m.attention(q, k, v, scale, table, dist)
     ref = m.attention_plain(q, k, v, scale, table, dist)
     assert m.attention.launches == before + 1 and out.dtype == dtype and out.shape == (B, h, lq, dk)
@@ -449,6 +476,56 @@ def test_attention_kernel_matches_plain(dev, dtype, lq, lk, dk, trpe):
     # contiguous (b, h, L, dk) inputs give the same result
     again = m.attention(q.contiguous(), k.contiguous(), v.contiguous(), scale, table, dist)
     assert torch.equal(again, out)
+    assert _bodies_since(bodies, "attention") == _ran(dtype, dk, trpe, 2)
+
+
+def _off16(t: torch.Tensor) -> torch.Tensor:
+    """t's values in a view one element past a 16-byte boundary (the same
+    strides), which TMA cannot address: the mma.sync body's call."""
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def test_attention_bodies_at_the_cells_call(dev):
+    """The serving cell's call, 256 rows x 8 heads at 450 x 450 (dk 64,
+    bf16, (b, L, h*dk) views): the wgmma body against the plain version,
+    and against the mma.sync body (q one element off a 16-byte boundary)
+    within bf16 rounding."""
+    from tcdiff_torch.ops import attention as m
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    rows, h, n, dk = 256, 8, 450, 64
+    heads = lambda x: x.view(rows, n, h, dk).transpose(1, 2)
+    q, k, v = (heads(_rnd(g, dev, rows, n, h * dk).to(torch.bfloat16)) for _ in range(3))
+    bodies = m.attn_body_launches()
+    out = m.attention(q, k, v, dk**-0.5)
+    assert _bodies_since(bodies, "attention") == {"mma.sync": 0, "wgmma": 1}
+    ref = m.attention_plain(q, k, v, dk**-0.5)
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(torch.bfloat16, ref)
+    bodies = m.attn_body_launches()
+    sync = m.attention(heads(_off16(q.transpose(1, 2).reshape(rows, n, h * dk))), k, v, dk**-0.5)
+    assert _bodies_since(bodies, "attention") == {"mma.sync": 1, "wgmma": 0}
+    assert (out.float() - sync.float()).abs().max().item() <= _tol(torch.bfloat16, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dk, trpe, offset", [(64, False, False), (64, True, False), (64, False, True),
+                                              (32, False, False), (20, False, False)])
+@pytest.mark.parametrize("lq, rows, heads", [(450, 256, 8), (450, 128, 8), (600, 256, 8), (1, 1, 1)])
+def test_attention_plan_is_the_c_rule(dev, dtype, dk, trpe, offset, lq, rows, heads):
+    """ops/attention.attention_plan gives what the C code's tcd_attn_plan
+    gives, and `tma_aligned` reads a view one element off a 16-byte
+    boundary as not aligned."""
+    from tcdiff_torch.ops import attention as m
+
+    view = torch.zeros(2, 3, 5, 64, dtype=torch.bfloat16, device=dev)
+    aligned = m.tma_aligned(_off16(view) if offset else view)
+    assert aligned == (not offset)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    args = (dtype, dk, trpe, aligned, lq, rows, heads, sms)
+    assert m.c_plan(*args) == m.attention_plan(*args)
 
 
 def test_per_op_kernels_refuse_what_they_do_not_take(dev):
@@ -580,7 +657,9 @@ def test_ff_tail_train_kernels_match_plain(dev, dtype, rate, ff, b, l):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("lq, lk, dk", [(450, 450, 64), (450, 152, 64), (150, 150, 64), (37, 53, 32), (1, 70, 16)])
+@pytest.mark.parametrize("lq, lk, dk", [(450, 450, 64), (450, 152, 64), (150, 150, 64), (37, 53, 32), (1, 70, 16),
+                                       (1, 66, 64), (65, 66, 64), (129, 152, 64), (600, 600, 64), (600, 152, 64),
+                                       (66, 450, 64)])
 def test_attention_train_kernels_match_plain(dev, dtype, rate, lq, lk, dk):
     """The train attention alone (K3's and K4's) against the plain chain:
     the output and the gradients of q, k and v, each within 2^-5 (bf16) or
@@ -595,7 +674,9 @@ def test_attention_train_kernels_match_plain(dev, dtype, rate, lq, lk, dk):
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     leaves_p = [t.clone().requires_grad_() for t in (q, k, v)]
     before, before_b = m.attention_train.launches, m.attention_train.bwd_launches
+    bodies = _attn_bodies("sa_block_train")
     out = m.attention_train(*leaves, seeds, nhead=h, rate=rate)
+    assert _bodies_since(bodies, "sa_block_train") == _ran(dtype, dk, False, 1)
     ref = m.attention_plain(*leaves_p, seeds, h, rate)
     cot = _rnd(g, dev, *out.shape).to(dtype)
     grads = torch.autograd.grad(out, leaves, cot, retain_graph=True)
@@ -611,6 +692,39 @@ def test_attention_train_kernels_match_plain(dev, dtype, rate, lq, lk, dk):
         err = (gk.float() - gp.float()).abs().max().item()
         assert err <= tol(gp), (name, err, tol(gp))
         assert torch.equal(gk, ga), f"d{name} differs between two backward runs"
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("lq, lk", [(450, 450), (600, 152), (65, 129)])
+def test_attention_train_bodies_agree_bit_for_bit(dev, rate, lq, lk):
+    """The train forward on its two bf16 bodies (wgmma; mma.sync for q one
+    element off a 16-byte boundary) on the same seeds: the lse bit for bit,
+    the output within bf16 rounding, and the dropout mask bit for bit,
+    read from q = 0 (every probability 1 before dropout) against v one-hot
+    over a 64-key block of the keys: o[i, c] != 0 iff key 64 blk + c of
+    row i is kept."""
+    from tcdiff_torch.ops import sa_block_train as m
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    h, dk, bf = 3, 64, torch.bfloat16
+    q, k, v = (_rnd(g, dev, TB, n, h * dk).to(bf) for n in (lq, lk, lk))
+    seeds = torch.randint(0, 2**32, (TB,), generator=g, device=dev, dtype=torch.int64)
+    bodies = _attn_bodies("sa_block_train")
+    o_wg, lse_wg = m.attention_train_fwd(q, k, v, seeds, nhead=h, rate=rate)
+    o_mma, lse_mma = m.attention_train_fwd(_off16(q), k, v, seeds, nhead=h, rate=rate)
+    assert _bodies_since(bodies, "sa_block_train") == {"mma.sync": 1, "wgmma": 1}
+    assert torch.equal(lse_wg, lse_mma)
+    assert (o_wg.float() - o_mma.float()).abs().max().item() <= _tol(bf, o_mma)
+    zero = torch.zeros_like(q)
+    for blk in range(-(-lk // 64)):
+        onehot = torch.zeros(lk, dk, device=dev)
+        keys = torch.arange(64 * blk, min(64 * blk + 64, lk), device=dev)
+        onehot[keys, keys - 64 * blk] = 1.0
+        vb = onehot.repeat(1, h)[None].expand(TB, lk, h * dk).to(bf).contiguous()
+        masks = [m.attention_train_fwd(qq, k, vb, seeds, nhead=h, rate=rate)[0] != 0 for qq in (zero, _off16(zero))]
+        assert torch.equal(masks[0], masks[1]), f"keys {64 * blk}..: the dropout masks differ"
+        kept = masks[0].view(TB, lq, h, dk)[..., : keys.numel()].float().mean().item()
+        assert (kept == 1.0) if rate == 0 else (0.8 < kept < 0.98)
 
 
 def test_train_kernels_refuse_what_they_do_not_take(dev):
@@ -698,8 +812,11 @@ def test_layer_kernel_matches_plain(dev, dtype, include_ff):
             *ln(), *fl(), *ln(), w(128, D), w(D, 128), *ln(), r(B, SLM, 128).to(dtype), r(B, SLM, 128).to(dtype),
             *fl())
     ff = (*ln(), w(FF, D), r(FF, std=0.1), w(D, FF), r(D, std=0.1), *fl(), *ln(), w(D, D), r(D, std=0.1))
+    bodies = _attn_bodies("layer")
     _check_serving(m.layer, m.layer_plain, head + (ff if include_ff else ()), dict(nhead=H, include_ff=include_ff),
                    dtype)
+    # the self-attention and the cross-attention over the given k/v
+    assert _bodies_since(bodies, "layer") == _ran(dtype, 128 // H, False, 2)
 
 
 def test_serving_block_kernels_refuse_what_they_do_not_take(dev):
@@ -1373,12 +1490,13 @@ def test_sa_block_products_on_wgmma_at_the_cell_widths(dev, film, trpe):
             r(10, d).to(bf16) if trpe else None,
             torch.randint(0, 12, (b, l, l), generator=g, device=dev) if trpe else None,
             r(b, d, std=0.1) if film else None, r(b, d, std=0.1) if film else None)
-    bodies = _bodies("sa_block")
+    bodies, attn = _bodies("sa_block"), _attn_bodies("sa_block")
     out = sa_block.sa_block(*args, nhead=CELL_H)
     ref = sa_block.sa_block_plain(*args, nhead=CELL_H)
     torch.cuda.synchronize()
     after = _bodies("sa_block")
     assert {k: after[k] - bodies[k] for k in after} == {"wgmma": 2, "mma.sync": 0}
+    assert _bodies_since(attn, "sa_block") == _ran(bf16, d // CELL_H, trpe, 1)
     assert out.dtype == bf16 and out.shape == args[0].shape
     assert (out.float() - ref.float()).abs().max().item() <= _tol(bf16, ref)
 

@@ -172,6 +172,47 @@ def test_tma_ok_by_offset_and_row_stride(offset, K):
     assert g.gemm_plan(16, [64], K, tma=g.tma_ok(a))["body"] == ("wgmma" if want else "mma.sync")
 
 
+BF, F32 = torch.bfloat16, torch.float32
+# (dtype, dk, TRPE table, view offset in elements, Lq, rows, heads) ->
+# (body, queries a block, keys a tile, grid); the plan does not depend on
+# the keys
+ATTN_PLANS = [
+    # the serving cell's calls: 256 rows (CFG) and 128 (layer 0's dedup) at 450 x 450
+    ((BF, 64, False, 0, 450, 256, 8), ("wgmma", 128, 128, (132, 1, 1))),
+    ((BF, 64, False, 0, 450, 128, 8), ("wgmma", 128, 128, (132, 1, 1))),
+    # the train forward of K3 and K4 (600 x 600 and 600 x 152) at the train cell's 600 tokens
+    ((BF, 64, False, 0, 600, 256, 8), ("wgmma", 128, 128, (132, 1, 1))),
+    # one query a row: a tile for each (row, head)
+    ((BF, 64, False, 0, 1, 2, 8), ("wgmma", 128, 128, (16, 1, 1))),
+    # fewer tiles than SMs: a block a tile
+    ((BF, 64, False, 0, 450, 2, 3), ("wgmma", 128, 128, (24, 1, 1))),
+    # the mma.sync body's: the TRPE bias, other head widths, a view one element off
+    ((BF, 64, True, 0, 450, 8, 8), ("mma.sync", 64, 64, (8, 8, 8))),
+    ((BF, 20, False, 0, 450, 8, 8), ("mma.sync", 64, 64, (8, 8, 8))),
+    ((BF, 32, False, 0, 450, 8, 8), ("mma.sync", 64, 64, (8, 8, 8))),
+    ((BF, 64, False, 1, 450, 8, 8), ("mma.sync", 64, 64, (8, 8, 8))),
+    # f32: the FMA body
+    ((F32, 64, False, 0, 450, 8, 8), ("fma", 64, 32, (8, 8, 8))),
+]
+
+
+@pytest.mark.parametrize("args, want", ATTN_PLANS)
+def test_attention_plan(args, want):
+    """Which body runs an attention call, its tiles and grid: the rule of
+    csrc/attention.cuh (attn_plan) written out in ops/attention, with the
+    alignment read from a (b, h, L, dk) view of (b, L, h*dk) projections
+    `offset` elements past a 16-byte boundary."""
+    from tcdiff_torch.ops import attention as m
+
+    dtype, dk, trpe, offset, lq, rows, heads = args
+    buf = torch.zeros(2 * 5 * 3 * dk + 8, dtype=dtype)
+    view = buf[offset:offset + 2 * 5 * 3 * dk].view(2, 5, 3, dk).transpose(1, 2)
+    aligned = m.tma_aligned(view)
+    assert aligned == (offset == 0 and dk % 8 == 0)
+    p = m.attention_plan(dtype, dk, trpe, aligned, lq, rows, heads)
+    assert (p["body"], p["q_block"], p["k_tile"], p["grid"]) == want
+
+
 def _jax_ref(a, w, epilogue, bias, resid, fs, fb, L, jd):
     """The Pallas kernels' product and epilogue: a . w^T in f32 sums."""
     acc = jnp.dot(jnp.asarray(a).astype(jd), jnp.asarray(w).astype(jd).T, preferred_element_type=jnp.float32)
